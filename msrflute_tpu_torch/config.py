@@ -1,0 +1,472 @@
+"""Typed configuration tree — the port's own copy of ``msrflute_tpu/config.py``.
+
+FLUTE's six top-level sections and key vocabulary are kept, so the same
+YAML drives both packages:
+
+    model_config, dp_config, privacy_metrics_config, strategy,
+    server_config, client_config
+
+Trimmed to what the ported slice reads (FedAvg over the LR and
+CNN_FEMNIST tasks).  :func:`validate` replaces the JAX package's
+``schema.py`` for that slice: a key the port runs is accepted, a key that
+only tunes how the TPU program is dispatched (and changes no result) is
+accepted and ignored, and every other key fails loudly — an unknown key
+with ``ValueError``, a feature the port does not have yet with
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import os
+from collections.abc import MutableMapping
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+import yaml
+
+NOT_PORTED = "not yet ported; see ROADMAP.md"
+
+
+class Config(MutableMapping):
+    """Dict-compatible config base: sections behave both as attributes and
+    as mapping items; unknown keys live in ``extra``."""
+
+    def _field_names(self) -> List[str]:
+        return [f.name for f in dataclasses.fields(self)]  # type: ignore[arg-type]
+
+    def __getitem__(self, key: str) -> Any:
+        if key in self._field_names():
+            return getattr(self, key)
+        extra = getattr(self, "extra", None)
+        if extra is not None and key in extra:
+            return extra[key]
+        raise KeyError(key)
+
+    def __setitem__(self, key: str, value: Any) -> None:
+        if key in self._field_names():
+            setattr(self, key, value)
+        else:
+            getattr(self, "extra")[key] = value
+
+    def __delitem__(self, key: str) -> None:
+        if key in self._field_names():
+            setattr(self, key, None)
+        else:
+            del getattr(self, "extra")[key]
+
+    def __iter__(self):
+        for name in self._field_names():
+            if name != "extra" and getattr(self, name) is not None:
+                yield name
+        for key in getattr(self, "extra", {}):
+            yield key
+
+    def __len__(self) -> int:
+        return sum(1 for _ in self)
+
+    def get(self, key: str, default: Any = None) -> Any:
+        try:
+            value = self[key]
+        except KeyError:
+            return default
+        return default if value is None else value
+
+
+def _take(raw: Dict[str, Any], known: List[str]) -> Dict[str, Any]:
+    kwargs = {k: raw[k] for k in known if k in raw}
+    kwargs["extra"] = {k: copy.deepcopy(v) for k, v in raw.items()
+                       if k not in known}
+    return kwargs
+
+
+@dataclass
+class OptimizerConfig(Config):
+    type: str = "sgd"
+    lr: float = 0.01
+    momentum: float = 0.0
+    nesterov: bool = False
+    weight_decay: float = 0.0
+    extra: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, raw: Optional[Dict[str, Any]]) -> "OptimizerConfig":
+        if raw is None:
+            return cls()
+        return cls(**_take(dict(raw), ["type", "lr", "momentum", "nesterov",
+                                       "weight_decay"]))
+
+
+@dataclass
+class AnnealingConfig(Config):
+    type: str = "step_lr"
+    step_interval: str = "epoch"
+    step_size: int = 1
+    gamma: float = 1.0
+    milestones: Optional[List[int]] = None
+    patience: int = 10
+    factor: float = 0.1
+    extra: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, raw: Optional[Dict[str, Any]]) -> "AnnealingConfig":
+        if raw is None:
+            return cls()
+        return cls(**_take(dict(raw), [
+            "type", "step_interval", "step_size", "gamma", "milestones",
+            "patience", "factor"]))
+
+
+@dataclass
+class DatasetConfig(Config):
+    batch_size: int = 32
+    list_of_train_data: Optional[str] = None
+    test_data: Optional[str] = None
+    val_data: Optional[str] = None
+    train_data: Optional[str] = None
+    desired_max_samples: Optional[int] = None
+    extra: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, raw: Optional[Dict[str, Any]]) -> "DatasetConfig":
+        if raw is None:
+            return cls()
+        return cls(**_take(dict(raw), [
+            "batch_size", "list_of_train_data", "test_data", "val_data",
+            "train_data", "desired_max_samples"]))
+
+
+@dataclass
+class DataConfig(Config):
+    train: DatasetConfig = field(default_factory=DatasetConfig)
+    val: DatasetConfig = field(default_factory=DatasetConfig)
+    test: DatasetConfig = field(default_factory=DatasetConfig)
+    extra: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, raw: Optional[Dict[str, Any]]) -> "DataConfig":
+        raw = dict(raw or {})
+        return cls(train=DatasetConfig.from_dict(raw.pop("train", None)),
+                   val=DatasetConfig.from_dict(raw.pop("val", None)),
+                   test=DatasetConfig.from_dict(raw.pop("test", None)),
+                   extra=raw)
+
+
+@dataclass
+class ModelConfig(Config):
+    model_type: str = "LR"
+    extra: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, raw: Optional[Dict[str, Any]]) -> "ModelConfig":
+        if raw is None:
+            return cls()
+        return cls(**_take(dict(raw), ["model_type"]))
+
+
+@dataclass
+class ServerConfig(Config):
+    type: str = "optimization"
+    max_iteration: int = 100
+    num_clients_per_iteration: Any = 10   # int or "lo:hi"
+    initial_lr_client: float = 0.01
+    lr_decay_factor: float = 1.0
+    val_freq: int = 20
+    rec_freq: int = 20
+    initial_val: bool = True
+    initial_rec: bool = False
+    best_model_criterion: str = "loss"
+    fall_back_to_best_model: bool = False
+    model_backup_freq: int = 100
+    resume_from_checkpoint: bool = False
+    max_grad_norm: Optional[float] = None
+    rounds_per_step: int = 1
+    megakernel: Optional[Dict[str, Any]] = None
+    data_config: DataConfig = field(default_factory=DataConfig)
+    optimizer_config: OptimizerConfig = field(default_factory=OptimizerConfig)
+    annealing_config: AnnealingConfig = field(default_factory=AnnealingConfig)
+    extra: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, raw: Optional[Dict[str, Any]]) -> "ServerConfig":
+        raw = dict(raw or {})
+        data = DataConfig.from_dict(raw.pop("data_config", None))
+        opt = OptimizerConfig.from_dict(raw.pop("optimizer_config", None))
+        ann = AnnealingConfig.from_dict(raw.pop("annealing_config", None))
+        out = cls(**_take(raw, [
+            "type", "max_iteration", "num_clients_per_iteration",
+            "initial_lr_client", "lr_decay_factor", "val_freq", "rec_freq",
+            "initial_val", "initial_rec", "best_model_criterion",
+            "fall_back_to_best_model", "model_backup_freq",
+            "resume_from_checkpoint", "max_grad_norm", "rounds_per_step",
+            "megakernel"]))
+        out.data_config = data
+        out.optimizer_config = opt
+        out.annealing_config = ann
+        return out
+
+
+@dataclass
+class ClientConfig(Config):
+    type: str = "optimization"
+    desired_max_samples: Optional[int] = None
+    max_grad_norm: Optional[float] = None
+    fedprox_mu: float = 0.0
+    num_epochs: int = 1
+    step_bucketing: bool = True
+    data_config: DataConfig = field(default_factory=DataConfig)
+    optimizer_config: OptimizerConfig = field(default_factory=OptimizerConfig)
+    extra: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, raw: Optional[Dict[str, Any]]) -> "ClientConfig":
+        raw = dict(raw or {})
+        data = DataConfig.from_dict(raw.pop("data_config", None))
+        opt = OptimizerConfig.from_dict(raw.pop("optimizer_config", None))
+        out = cls(**_take(raw, [
+            "type", "desired_max_samples", "max_grad_norm", "fedprox_mu",
+            "num_epochs", "step_bucketing"]))
+        out.data_config = data
+        out.optimizer_config = opt
+        return out
+
+
+@dataclass
+class FLUTEConfig(Config):
+    model_config: ModelConfig = field(default_factory=ModelConfig)
+    strategy: str = "fedavg"
+    server_config: ServerConfig = field(default_factory=ServerConfig)
+    client_config: ClientConfig = field(default_factory=ClientConfig)
+    task: Optional[str] = None
+    data_path: Optional[str] = None
+    output_path: Optional[str] = None
+    extra: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, raw: Dict[str, Any]) -> "FLUTEConfig":
+        raw = copy.deepcopy(raw)
+        validate(raw)
+        for key in ("dp_config", "privacy_metrics_config", "mesh_config",
+                    "experiment"):
+            raw.pop(key, None)   # validate() proved them inert
+        return cls(
+            model_config=ModelConfig.from_dict(raw.pop("model_config", None)),
+            strategy=raw.pop("strategy", "fedavg"),
+            server_config=ServerConfig.from_dict(raw.pop("server_config",
+                                                         None)),
+            client_config=ClientConfig.from_dict(raw.pop("client_config",
+                                                         None)),
+            task=raw.pop("task", None),
+            data_path=raw.pop("data_path", None),
+            output_path=raw.pop("output_path", None),
+            extra=raw)
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "FLUTEConfig":
+        with open(path, "r") as fh:
+            return cls.from_dict(yaml.safe_load(fh))
+
+    def validate(self, data_path: Optional[str] = None) -> "FLUTEConfig":
+        """Join ``data_path`` onto the per-split file names (reference
+        ``core/config.py:736-760``)."""
+        data_path = data_path or self.data_path
+        if data_path:
+            for section in (self.server_config.data_config,
+                            self.client_config.data_config):
+                for split in (section.train, section.val, section.test):
+                    for attr in ("list_of_train_data", "test_data",
+                                 "val_data", "train_data"):
+                        val = getattr(split, attr)
+                        if val and not os.path.isabs(val):
+                            setattr(split, attr, os.path.join(data_path, val))
+        return self
+
+
+def parse_clients_per_round(spec: Any, rng) -> int:
+    """``num_clients_per_iteration``: an int, or ``"lo:hi"`` meaning a
+    per-round uniform random count (reference ``core/server.py:284-291``)."""
+    if isinstance(spec, int):
+        return spec
+    if isinstance(spec, str) and ":" in spec:
+        lo, hi = (int(x) for x in spec.split(":"))
+        return int(rng.integers(lo, hi + 1))
+    return int(spec)
+
+
+# ----------------------------------------------------------------------
+# validation of the ported slice
+# ----------------------------------------------------------------------
+#: keys each section runs in the port
+_TOP = {"model_config", "strategy", "server_config", "client_config", "task",
+        "data_path", "output_path"}
+_SERVER = {"type", "max_iteration", "num_clients_per_iteration",
+           "initial_lr_client", "lr_decay_factor", "val_freq", "rec_freq",
+           "initial_val", "initial_rec", "best_model_criterion",
+           "fall_back_to_best_model", "model_backup_freq",
+           "resume_from_checkpoint", "max_grad_norm", "rounds_per_step",
+           "megakernel", "data_config", "optimizer_config",
+           "annealing_config"}
+_CLIENT = {"type", "desired_max_samples", "max_grad_norm", "fedprox_mu",
+           "num_epochs", "step_bucketing", "data_config", "optimizer_config"}
+_DATASET = {"batch_size", "list_of_train_data", "test_data", "val_data",
+            "train_data", "desired_max_samples"}
+_OPTIMIZER = {"type", "lr", "momentum", "nesterov", "weight_decay"}
+_ANNEALING = {"type", "step_interval", "step_size", "gamma", "milestones",
+              "patience", "factor"}
+_MEGAKERNEL = {"enable", "fused_epochs", "pallas_apply"}
+
+#: keys that tune how the JAX package dispatches its TPU program and change
+#: no result; the port runs one round after another and ignores them
+_DISPATCH_ONLY = {
+    "server_config": {"pipeline_depth", "compilation_cache_dir",
+                      "input_staging", "checkpoint_async"},
+    "dataset": {"loader_type", "pin_memory", "num_workers",
+                "prefetch_factor", "length_bucketing", "device_resident"},
+    "client_config": {"do_profiling"},
+}
+
+#: every other key the JAX package's schema knows (``msrflute_tpu/schema.py``
+#: ``SERVER_KEYS``, ``CLIENT_KEYS``, ``DATASET_KEYS``, ``OPTIMIZER_KEYS``,
+#: ``ANNEALING_KEYS``, ``TOP_KEYS``): a feature the port does not have yet.
+#: It may appear with its "off" value (False, 0, None, empty, a block with
+#: ``enable: false``); any other value raises ``NotImplementedError``
+_OFF_OK = {
+    "server_config": {
+        "send_dicts", "do_profiling", "wantRL", "aggregate_median",
+        "softmax_beta", "initial_lr", "weight_train_loss", "stale_prob",
+        "num_skip_decoding", "server_replay_config", "RL",
+        "nbest_task_scheduler", "best_model_metric", "fused_carry",
+        "clients_per_chunk", "checkpoint_backend", "secure_agg", "fedbuff",
+        "dump_norm_stats", "scaffold_device_controls", "scaffold_flush_freq",
+        "ef_device_residuals", "ef_flush_freq", "chaos", "checkpoint_retry",
+        "traffic", "telemetry", "robust", "cohort_bucketing", "megabatch",
+        "fleet", "precision", "semisupervision", "updatable_names",
+        "fedac_eta", "fedac_gamma", "fedac_alpha", "fedac_beta", "qffl_q",
+        "personalization_init", "personalization_interp"},
+    "client_config": {
+        "meta_learning", "copying_train_data", "ignore_subtask",
+        "num_skip_decoding", "freeze_layer", "annealing_config",
+        "convex_model_interp", "meta_optimizer_config", "ss_config",
+        "quant_thresh", "quant_threshold", "quant_bits", "quant_approx",
+        "quant_anneal", "updatable_layers", "semisupervision"},
+    "dataset": {
+        "train_data_server", "vocab_dict", "max_batch_size", "max_num_words",
+        "max_seq_length", "min_words_per_utt", "num_frames",
+        "max_samples_per_user", "max_grad_norm", "utterance_mvn",
+        "unsorted_batch", "lazy", "lazy_cache_users", "augment",
+        "wantLogits", "step_bucketing", "per_user_stats"},
+    "optimizer": {"amsgrad", "eps", "betas", "dampening"},
+    "annealing": {"peak_lr", "floor_lr", "rampup_steps", "hold_steps",
+                  "decay_steps"},
+    "top": {"dp_config", "privacy_metrics_config", "mesh_config",
+            "experiment"},
+}
+
+_STRATEGIES_PORTED = {"fedavg", "fedprox"}
+_MODELS_PORTED = {"LR", "CNN", "CNN_FEMNIST"}
+
+
+def _off(key: str, value: Any) -> bool:
+    """Whether a JAX-feature key carries a value that leaves the feature
+    off (the port's behavior)."""
+    if key == "checkpoint_backend":
+        return value in (None, "msgpack")
+    if key == "meta_learning":
+        return value in (None, "basic")
+    if key == "dp_config" and isinstance(value, dict):
+        return not (value.get("enable_local_dp") or
+                    value.get("enable_global_dp"))
+    if key == "privacy_metrics_config" and isinstance(value, dict):
+        return not value.get("apply_metrics")
+    if key == "mesh_config" and isinstance(value, dict):
+        return int(value.get("model_axis_size", 1) or 1) == 1
+    if key == "experiment":
+        return True   # free-form run metadata
+    if isinstance(value, dict) and "enable" in value:
+        return not value["enable"]
+    return not value
+
+
+def _check_keys(raw: Any, path: str, known: set, off_ok: set = frozenset(),
+                ignored: set = frozenset()) -> None:
+    if raw is None:
+        return
+    if not isinstance(raw, dict):
+        raise ValueError(f"{path} must be a mapping, got {type(raw).__name__}")
+    for key, value in raw.items():
+        if key in known or key in ignored:
+            continue
+        if key in off_ok:
+            if _off(key, value):
+                continue
+            raise NotImplementedError(f"{path}.{key}={value!r} is {NOT_PORTED}")
+        raise ValueError(f"unknown config key {path}.{key}")
+
+
+def validate(raw: Dict[str, Any]) -> None:
+    """Refuse any config the ported slice cannot run as the JAX package
+    would (see the module docstring)."""
+    if not isinstance(raw, dict):
+        raise ValueError("config must be a mapping")
+    _check_keys(raw, "config", _TOP, off_ok=_OFF_OK["top"])
+    strategy = str(raw.get("strategy", "fedavg")).lower()
+    if strategy not in _STRATEGIES_PORTED:
+        raise NotImplementedError(f"strategy {strategy!r} is {NOT_PORTED}")
+    model = dict(raw.get("model_config") or {})
+    mtype = model.get("model_type", "LR")
+    if mtype not in _MODELS_PORTED:
+        raise NotImplementedError(f"model_type {mtype!r} is {NOT_PORTED}")
+    for key in ("model_folder", "pretrained_model_path"):
+        if model.get(key):
+            raise NotImplementedError(f"model_config.{key} is {NOT_PORTED}")
+    if str(model.get("dtype", "float32") or "float32").lower() not in (
+            "float32", "f32"):
+        raise NotImplementedError(
+            f"model_config.dtype={model['dtype']!r} is {NOT_PORTED}")
+
+    sc = raw.get("server_config") or {}
+    _check_keys(sc, "server_config", _SERVER,
+                off_ok=_OFF_OK["server_config"],
+                ignored=_DISPATCH_ONLY["server_config"])
+    if str(sc.get("type", "optimization")) not in ("optimization",
+                                                    "model_optimization"):
+        raise NotImplementedError(
+            f"server_config.type={sc.get('type')!r} is {NOT_PORTED}")
+    mk = sc.get("megakernel") or {}
+    _check_keys(mk, "server_config.megakernel", _MEGAKERNEL)
+    cc = raw.get("client_config") or {}
+    _check_keys(cc, "client_config", _CLIENT,
+                off_ok=_OFF_OK["client_config"],
+                ignored=_DISPATCH_ONLY["client_config"])
+    if str(cc.get("type", "optimization")) != "optimization":
+        raise NotImplementedError(
+            f"client_config.type={cc.get('type')!r} is {NOT_PORTED}")
+    for path, section in (("server_config", sc), ("client_config", cc)):
+        dc = section.get("data_config") or {}
+        _check_keys(dc, f"{path}.data_config", {"train", "val", "test"})
+        for split in ("train", "val", "test"):
+            _check_keys(dc.get(split), f"{path}.data_config.{split}",
+                        _DATASET, off_ok=_OFF_OK["dataset"],
+                        ignored=_DISPATCH_ONLY["dataset"])
+        _check_optimizer(section.get("optimizer_config"),
+                         f"{path}.optimizer_config")
+    ann = sc.get("annealing_config")
+    _check_keys(ann, "server_config.annealing_config", _ANNEALING,
+                off_ok=_OFF_OK["annealing"])
+    if ann and ann.get("type", "step_lr") not in (
+            "step_lr", "multi_step_lr", "val_loss", "constant"):
+        raise NotImplementedError(
+            f"annealing type {ann.get('type')!r} is {NOT_PORTED}")
+
+
+def _check_optimizer(raw: Any, path: str) -> None:
+    _check_keys(raw, path, _OPTIMIZER, off_ok=_OFF_OK["optimizer"])
+    if not raw:
+        return
+    if str(raw.get("type", "sgd")).lower() != "sgd":
+        raise NotImplementedError(
+            f"{path}.type={raw.get('type')!r} is {NOT_PORTED}")
+    if raw.get("nesterov") or raw.get("weight_decay"):
+        raise NotImplementedError(
+            f"{path}: nesterov / weight_decay are {NOT_PORTED}")

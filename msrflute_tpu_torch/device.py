@@ -1,0 +1,37 @@
+"""Device resolution for the port's entry points.
+
+Every entry point runs on ``cuda`` unless its caller asks for the CPU
+(``device="cpu"``, CLI ``-device cpu``).  A default of ``cuda`` on a host
+without a usable card raises: the port never falls back to the CPU on its
+own, so a number measured by it always names the device it ran on.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` means ``cuda``.  Raises when CUDA is asked for (or
+    defaulted to) and ``torch.cuda.is_available()`` is false."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' (CLI: -device cpu) to "
+            "run the port on the CPU")
+    # The JAX reference computes in full float32.  cuBLAS matmuls already
+    # default to f32 here, but cuDNN convolutions default to TF32 (about
+    # three decimal digits), so both are pinned off for the whole process.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # The JAX package replays a run bit for bit (a resumed run equals an
+    # uninterrupted one).  cuDNN otherwise picks convolution algorithms
+    # that sum with atomics, and two runs of one config then differ.
+    torch.backends.cudnn.deterministic = True
+    return dev

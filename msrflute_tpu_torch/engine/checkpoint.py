@@ -1,0 +1,130 @@
+"""Checkpoint / resume — the port's counterpart of
+``msrflute_tpu/engine/checkpoint.py`` (msgpack backend, synchronous).
+
+Files under the model directory, named as the JAX package names them with
+``.pt`` for ``.msgpack``:
+
+- ``latest_model.pt`` every round chunk, ``epoch<N>.pt`` and
+  ``best_val_<metric>_model_epoch<N>.pt`` copies every
+  ``model_backup_freq`` rounds, ``best_val_<metric>_model.pt`` on each
+  improvement;
+- ``status_log.json``: round ``i``, client-LR ``weight``, the numpy
+  sampling state ``np_rng_state``, ``best_val_*`` and ``plateau``.
+
+Each checkpoint is ``torch.save`` of ``{"params": {name: tensor},
+"opt_state": {...}, "round": int}`` (CPU tensors), written to a temporary
+file and renamed into place, with a crc32 sidecar verified at load.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import logging
+import os
+import shutil
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..resilience.integrity import (CheckpointCorruptionError, blob_checksum,
+                                    verify_blob, write_sidecar)
+from .round import ServerState
+
+LATEST = "latest_model.pt"
+STATUS_LOG = "status_log.json"
+
+_LOGGER = logging.getLogger("msrflute_tpu_torch")
+
+
+def update_json_log(path: str, update: Dict[str, Any]) -> Dict[str, Any]:
+    """Merge ``update`` into a JSON file, written atomically."""
+    data: Dict[str, Any] = {}
+    if os.path.exists(path):
+        try:
+            with open(path) as fh:
+                data = json.load(fh)
+        except (json.JSONDecodeError, OSError):
+            data = {}
+    data.update(update)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as fh:
+        json.dump(data, fh, indent=2)
+    os.replace(tmp, path)
+    return data
+
+
+class CheckpointManager:
+    def __init__(self, model_dir: str, layout, backup_freq: int = 100):
+        self.model_dir = model_dir
+        self.layout = layout
+        self.backup_freq = max(int(backup_freq), 1)
+        os.makedirs(model_dir, exist_ok=True)
+
+    def _path(self, name: str) -> str:
+        return os.path.join(self.model_dir, name)
+
+    def _write(self, name: str, state: ServerState) -> None:
+        payload = {
+            "params": {k: v.detach().cpu().clone() for k, v in
+                       self.layout.views(state.params).items()},
+            "opt_state": {k: v.detach().cpu() for k, v in
+                          state.opt_state.items()},
+            "round": int(state.round),
+        }
+        buf = io.BytesIO()
+        torch.save(payload, buf)
+        blob = buf.getvalue()
+        path = self._path(name)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as fh:
+            fh.write(blob)
+        os.replace(tmp, path)
+        write_sidecar(path, blob_checksum(blob), len(blob))
+
+    def save_latest(self, state: ServerState) -> None:
+        self._write(LATEST, state)
+
+    def save_best(self, state: ServerState, metric_name: str) -> None:
+        self._write(f"best_val_{metric_name}_model.pt", state)
+
+    def backup(self, round_no: int, best_names: Tuple[str, ...] = ()) -> None:
+        """Every ``backup_freq`` rounds: ``epoch<N>.pt`` plus snapshots of
+        the best-model files."""
+        if round_no % self.backup_freq:
+            return
+        pairs = [(LATEST, f"epoch{round_no}.pt")] + [
+            (f"best_val_{n}_model.pt", f"best_val_{n}_model_epoch{round_no}.pt")
+            for n in best_names]
+        for src, dst in pairs:
+            if os.path.exists(self._path(src)):
+                shutil.copyfile(self._path(src), self._path(dst))
+
+    def load(self, device: torch.device,
+             name: str = LATEST) -> Optional[ServerState]:
+        path = self._path(name)
+        if not os.path.exists(path):
+            return None
+        with open(path, "rb") as fh:
+            blob = fh.read()
+        try:
+            verify_blob(path, blob)
+        except CheckpointCorruptionError as exc:
+            _LOGGER.warning("checkpoint %s failed its integrity check: %s",
+                            path, exc)
+            return None
+        payload = torch.load(io.BytesIO(blob), map_location="cpu",
+                             weights_only=True)
+        params = self.layout.flatten(payload["params"]).to(device)
+        opt_state = {k: v.to(device) for k, v in payload["opt_state"].items()}
+        return ServerState(params, opt_state, int(payload["round"]))
+
+    def update_status(self, update: Dict[str, Any]) -> Dict[str, Any]:
+        return update_json_log(self._path(STATUS_LOG), update)
+
+    def read_status(self) -> Dict[str, Any]:
+        path = self._path(STATUS_LOG)
+        if not os.path.exists(path):
+            return {}
+        with open(path) as fh:
+            return json.load(fh)

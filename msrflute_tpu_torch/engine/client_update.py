@@ -1,0 +1,123 @@
+"""Local training of K clients at once — the port's counterpart of
+``msrflute_tpu/engine/client_update.py::build_client_update``.
+
+Semantics kept from the JAX package (and the reference FLUTE trainer):
+
+- every client starts from the server's params with a fresh optimizer;
+- masked local SGD over the ``[S, B]`` grid, ``num_epochs`` times, step
+  ``t`` reading batch ``t % S`` (the fused-epoch indexing);
+- per step: loss -> grad -> ``combine_grad_terms`` (FedProx, clip) ->
+  stats -> optimizer step, with an all-padding step (``has_data`` 0) a
+  no-op for params and momentum;
+- pseudo-gradient ``w_server - w_trained``; stats on it, including the
+  reference's degenerate ``var`` (identically 0) and ``var_corrected``;
+- ``mean_sample_loss`` and ``num_samples`` as in the JAX package.
+
+Layout: the K clients' params are ONE flat ``[K, P]`` float32 buffer with
+per-leaf views into it.  Gradients come from ``torch.func.vmap`` of
+``grad_and_value`` over ``functional_call`` (the analogue of the JAX
+``vmap``) and are flattened into a ``[K, P]`` grad buffer.  The optimizer
+tail is then one pass over ``[K, P]``: with ``pallas_apply`` (the JAX
+config key ``server_config.megakernel.pallas_apply``) one launch of kernel
+B1 (:mod:`..ops.fused_sgd`), else the plain ``fused_apply`` ops.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+from torch.func import grad_and_value, vmap
+
+from ..models.base import BaseTask
+from ..ops.fused_sgd import fused_sgd_apply
+from ..optim import combine_grad_terms, fused_apply, make_optimizer
+
+
+@dataclass(frozen=True)
+class ClientHParams:
+    max_grad_norm: Optional[float] = None
+    fedprox_mu: float = 0.0
+    num_epochs: int = 1
+    #: the optimizer tail runs as kernel B1, one launch per local step
+    pallas_apply: bool = False
+
+
+def _suff_stats_of(flat: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-row ``sum``, ``sum of squares`` and element count of ``[K, P]``."""
+    n = torch.full((flat.shape[0],), float(flat.shape[1]),
+                   dtype=flat.dtype, device=flat.device)
+    return flat.sum(-1), (flat * flat).sum(-1), n
+
+
+def _derive_stats(s, s2, n) -> Dict[str, torch.Tensor]:
+    n = torch.clamp(n, min=1.0)
+    mean = s / n
+    mag = torch.sqrt(s2 / n)
+    return {"sum": s, "sq_sum": s2, "n": n, "mean": mean, "mag": mag,
+            "var": s2 / n - mag ** 2,             # reference formula (== 0)
+            "var_corrected": s2 / n - mean ** 2,  # meaningful variance
+            "norm": torch.sqrt(s2)}
+
+
+def build_client_update(task: BaseTask, client_opt_cfg,
+                        hparams: ClientHParams) -> Callable:
+    """Returns ``client_update(global_flat, arrays, sample_mask, lr, gens)``
+    -> ``(pseudo_grad [K, P], train_loss [K], num_samples [K], stats)``.
+
+    ``arrays``: dict of ``[K, S, B, ...]`` tensors; ``sample_mask``:
+    ``[K, S, B]``; ``gens``: one ``torch.Generator`` per client for the
+    dropout stream (``None`` when the task draws no random numbers).
+    The only ported client optimizer, momentum SGD, is the one kernel B1
+    implements, so ``pallas_apply`` needs no further check."""
+    opt = make_optimizer(client_opt_cfg)
+    layout = task.layout()
+    mu = opt.momentum
+    epochs = max(int(hparams.num_epochs), 1)
+    grad_fn = vmap(grad_and_value(task.loss_masked))
+
+    def client_update(global_flat: torch.Tensor,
+                      arrays: Dict[str, torch.Tensor],
+                      sample_mask: torch.Tensor, lr: float,
+                      gens: Optional[List[torch.Generator]] = None):
+        K, S, B = sample_mask.shape
+        params = global_flat.expand(K, -1).contiguous()
+        trace = (torch.zeros_like(params)
+                 if hparams.pallas_apply or mu else None)
+        views = layout.views(params)
+        zero = torch.zeros((K,), dtype=torch.float32,
+                           device=sample_mask.device)
+        loss_sum = wloss_acc = ns_acc = zero
+        for t in range(epochs * S):
+            step = t % S
+            mask = sample_mask[:, step]
+            batch = {k: a[:, step] for k, a in arrays.items()}
+            batch["sample_mask"] = mask
+            masks = (task.draw_masks(gens, B, mask.device)
+                     if gens is not None else ())
+            grads, loss = grad_fn(views, batch, masks)
+            grads = combine_grad_terms(
+                layout.flatten(grads, batch_dims=1),
+                prox_mu=hparams.fedprox_mu, params=params,
+                global_params=global_flat, max_norm=hparams.max_grad_norm)
+            rows = mask.sum(-1)
+            has_data = (rows > 0).to(torch.float32)
+            loss_sum = loss_sum + has_data * loss
+            # sample-weighted loss sum (loss is the batch's masked MEAN)
+            wloss_acc = wloss_acc + loss * rows
+            ns_acc = ns_acc + has_data * rows
+            if hparams.pallas_apply:
+                fused_sgd_apply(params, grads, trace, lr, mu, has_data)
+            else:
+                fused_apply(params, grads, trace, lr, mu, has_data)
+
+        pseudo_grad = global_flat - params
+        stats = _derive_stats(*_suff_stats_of(pseudo_grad))
+        rows_total = sample_mask.sum(dim=(1, 2))
+        stats["mean_sample_loss"] = wloss_acc / torch.clamp(
+            rows_total * epochs, min=1.0)
+        return pseudo_grad, loss_sum, ns_acc / epochs, stats
+
+    return client_update

@@ -1,0 +1,70 @@
+"""Weight carry-across between the JAX package and the port.
+
+The JAX package's parameters are a nested dict of arrays in flax layout:
+``Conv_*/kernel`` is HWIO ``[kh, kw, in, out]`` and ``Dense_*/kernel`` is
+``[in, out]``.  The port names the same leaves ``Conv_*.weight`` (OIHW, as
+``torch.nn.Conv2d`` holds it) and ``Dense_*.weight`` (``[out, in]``, as
+``torch.nn.Linear`` holds it).  Because the port's CNN flattens NHWC before
+``Dense_0`` (see :mod:`.cv`), no input-axis permutation of ``Dense_0`` is
+needed: the only layout rule is the per-kernel transpose.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .base import BaseTask
+
+_TORCH_NAME = {"kernel": "weight", "bias": "bias"}
+_FLAX_NAME = {v: k for k, v in _TORCH_NAME.items()}
+
+
+def _to_torch_layout(kernel: np.ndarray) -> np.ndarray:
+    if kernel.ndim == 4:          # HWIO -> OIHW
+        return kernel.transpose(3, 2, 0, 1)
+    if kernel.ndim == 2:          # [in, out] -> [out, in]
+        return kernel.T
+    raise ValueError(f"unsupported kernel rank {kernel.ndim}")
+
+
+def _to_flax_layout(weight: np.ndarray) -> np.ndarray:
+    if weight.ndim == 4:          # OIHW -> HWIO
+        return weight.transpose(2, 3, 1, 0)
+    if weight.ndim == 2:
+        return weight.T
+    raise ValueError(f"unsupported weight rank {weight.ndim}")
+
+
+def from_jax_params(task: BaseTask, params_np: Dict[str, Any]
+                    ) -> Dict[str, torch.Tensor]:
+    """flax params (nested dict of numpy arrays) -> the port's
+    ``{name: float32 CPU tensor}``, checked against the task's shapes."""
+    out = {}
+    for layer, leaves in params_np.items():
+        for leaf, value in leaves.items():
+            arr = np.asarray(value, dtype=np.float32)
+            if leaf == "kernel":
+                arr = _to_torch_layout(arr)
+            out[f"{layer}.{_TORCH_NAME[leaf]}"] = torch.from_numpy(
+                np.array(arr, order="C"))   # a writable copy
+    want = dict(task.param_spec())
+    got = {k: tuple(v.shape) for k, v in out.items()}
+    if got != want:
+        raise ValueError(f"parameter shapes {got} do not match task {want}")
+    return {name: out[name] for name in want}
+
+
+def to_jax_params(params: Dict[str, torch.Tensor]) -> Dict[str, Dict[str, np.ndarray]]:
+    """Inverse of :func:`from_jax_params`: the port's tensors -> flax's
+    nested dict of numpy arrays."""
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    for name, tensor in params.items():
+        layer, leaf = name.rsplit(".", 1)
+        arr = tensor.detach().cpu().numpy()
+        if leaf == "weight":
+            arr = np.ascontiguousarray(_to_flax_layout(arr))
+        out.setdefault(layer, {})[_FLAX_NAME[leaf]] = arr
+    return out

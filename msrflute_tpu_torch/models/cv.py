@@ -1,0 +1,152 @@
+"""Computer-vision tasks — the port's counterpart of ``msrflute_tpu/models/cv.py``:
+LR (MNIST) and CNN_FEMNIST.  CIFAR_CNN is not ported yet (ROADMAP.md).
+
+Layouts follow the JAX package at the public boundary: images are NHWC
+``[N, 28, 28, 1]``; the CNN permutes to NCHW for ``conv2d`` and back to
+NHWC before the flatten, so ``Dense_0``'s 9216 inputs are in flax order and
+weights carry across 1:1 (:mod:`.convert`).  Parameter names are the flax
+module names: ``Conv_0.weight``, ``Dense_1.bias``, ...
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..data.dataset import ArraysDataset
+from ..data.featurize import to_image
+from ..data.user_blob import UserBlob
+from .base import (BaseTask, Batch, Params, dropout, lecun_normal_,
+                   masked_mean, softmax_xent, to_float_image)
+
+
+class LRModule(nn.Module):
+    """Logistic regression (reference ``experiments/cv_lr_mnist/model.py``).
+    ``sigmoid_output=True`` reproduces the reference's quirk of feeding
+    sigmoid activations, not logits, into the cross entropy."""
+
+    def __init__(self, num_classes: int = 10, input_dim: int = 784,
+                 sigmoid_output: bool = False):
+        super().__init__()
+        self.Dense_0 = nn.Linear(input_dim, num_classes)
+        self.sigmoid_output = sigmoid_output
+
+    def forward(self, x, masks: Tuple[torch.Tensor, ...] = ()):
+        out = self.Dense_0(to_float_image(x).reshape(x.shape[0], -1))
+        return torch.sigmoid(out) if self.sigmoid_output else out
+
+
+class CNNFEMNISTModule(nn.Module):
+    """The FEMNIST benchmark CNN (reference
+    ``experiments/cv_cnn_femnist/model.py``, FedML ``CNN_DropOut``):
+    conv3x3x32 VALID -> relu -> conv3x3x64 VALID -> relu -> maxpool2 ->
+    dropout(.25) -> flatten(9216) -> fc128 -> relu -> dropout(.5) -> fc62."""
+
+    def __init__(self, num_classes: int = 62, drop1: float = 0.25,
+                 drop2: float = 0.5):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(1, 32, 3)
+        self.Conv_1 = nn.Conv2d(32, 64, 3)
+        self.Dense_0 = nn.Linear(9216, 128)
+        self.Dense_1 = nn.Linear(128, num_classes)
+        self.drop1, self.drop2 = drop1, drop2
+
+    def forward(self, x, masks: Tuple[torch.Tensor, ...] = ()):
+        if x.ndim == 3:
+            x = x[..., None]
+        x = to_float_image(x).permute(0, 3, 1, 2)          # NHWC -> NCHW
+        x = F.relu(self.Conv_0(x))
+        x = F.relu(self.Conv_1(x))
+        x = F.max_pool2d(x, 2).permute(0, 2, 3, 1)         # back to NHWC
+        live = iter(masks)
+        if masks and self.drop1 > 0:
+            x = dropout(x, next(live), self.drop1)
+        x = F.relu(self.Dense_0(x.reshape(x.shape[0], -1)))
+        if masks and self.drop2 > 0:
+            x = dropout(x, next(live), self.drop2)
+        return self.Dense_1(x)
+
+
+class ClassificationTask(BaseTask):
+    """Masked classification over an ``nn.Module``."""
+
+    def __init__(self, module: nn.Module, example_shape: Tuple[int, ...],
+                 name: str, num_classes: int,
+                 dropout_sites: Sequence[Tuple[float, Tuple[int, ...]]] = ()):
+        self.module = module
+        self.example_shape = tuple(example_shape)
+        self.name = name
+        self.num_classes = num_classes
+        self.dropout_sites = tuple(dropout_sites)
+
+    def init_params(self, seed: int) -> Params:
+        """flax's defaults: lecun-normal kernels, zero biases; drawn on the
+        CPU so every device starts from the same bits."""
+        gen = torch.Generator().manual_seed(int(seed))
+        out = {}
+        for name, shape in self.param_spec():
+            t = torch.zeros(shape, dtype=torch.float32)
+            if name.endswith(".weight"):
+                lecun_normal_(t, int(np.prod(shape[1:])), gen)
+            out[name] = t
+        return out
+
+    def loss_masked(self, params: Params, batch: Batch,
+                    masks: Sequence[torch.Tensor] = ()) -> torch.Tensor:
+        logits = self.apply(params, batch["x"], masks)
+        return masked_mean(softmax_xent(logits, batch["y"]),
+                           batch["sample_mask"])
+
+    def eval_stats(self, params: Params, batch: Batch) -> Dict[str, torch.Tensor]:
+        logits = self.apply(params, batch["x"])
+        labels = batch["y"].long()
+        mask = batch["sample_mask"]
+        per_sample = softmax_xent(logits, labels)
+        correct = (torch.argmax(logits, dim=-1) == labels).to(torch.float32)
+        return {"loss_sum": torch.sum(per_sample * mask),
+                "correct_sum": torch.sum(correct * mask),
+                "sample_count": torch.sum(mask)}
+
+    def make_dataset(self, blob: UserBlob) -> ArraysDataset:
+        """Featurize an image/vector user blob into ``{"x", "y"}`` arrays
+        (``x`` reshaped to the example shape; uint8 pixels stay uint8)."""
+        per_user = []
+        for i in range(len(blob)):
+            data = blob.user_data[i]
+            raw_x = data["x"] if isinstance(data, dict) else data
+            x = to_image(np.asarray(raw_x), self.example_shape)
+            label = (blob.user_labels[i] if blob.user_labels is not None
+                     else None)
+            y = (np.asarray(label).astype(np.int32) if label is not None
+                 else np.zeros((len(x),), np.int32))
+            per_user.append({"x": x, "y": y})
+        return ArraysDataset(blob.user_list, per_user, blob.num_samples)
+
+
+def make_lr_task(model_config) -> ClassificationTask:
+    num_classes = int(model_config.get("num_classes", 10))
+    input_dim = int(model_config.get("input_dim", 784))
+    return ClassificationTask(
+        LRModule(num_classes, input_dim,
+                 bool(model_config.get("sigmoid_output", False))),
+        example_shape=(input_dim,), name="cv_lr_mnist",
+        num_classes=num_classes)
+
+
+def make_cnn_femnist_task(model_config) -> ClassificationTask:
+    num_classes = int(model_config.get("num_classes", 62))
+    side = int(model_config.get("image_size", 28))
+    if side != 28:
+        raise ValueError("CNN_FEMNIST needs image_size 28 (Dense_0 takes "
+                         f"12*12*64 inputs), got {side}")
+    drop1 = float(model_config.get("dropout1", 0.25))
+    drop2 = float(model_config.get("dropout2", 0.5))
+    return ClassificationTask(
+        CNNFEMNISTModule(num_classes, drop1, drop2),
+        example_shape=(side, side, 1), name="cv_cnn_femnist",
+        num_classes=num_classes,
+        dropout_sites=((drop1, (12, 12, 64)), (drop2, (128,))))

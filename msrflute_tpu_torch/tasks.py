@@ -1,0 +1,32 @@
+"""Task dataset assembly — the port's counterpart of ``msrflute_tpu/tasks.py``:
+the split files named in the config are read by the user-blob reader and
+featurized by the task into :class:`~.data.dataset.ArraysDataset`."""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+from .config import FLUTEConfig
+from .data import ArraysDataset, load_user_blob, scrub_empty_clients
+from .models.base import BaseTask
+
+
+def build_task_datasets(cfg: FLUTEConfig, task: BaseTask) -> Tuple[
+        ArraysDataset, Optional[ArraysDataset], Optional[ArraysDataset]]:
+    """(train, val, test): client train data from
+    ``client_config.data_config.train``, evals from
+    ``server_config.data_config.{val,test}``."""
+    cc_train = cfg.client_config.data_config.train
+    train_path = cc_train.get("list_of_train_data") or \
+        cc_train.get("train_data")
+    if not train_path:
+        raise ValueError("client_config.data_config.train needs "
+                         "list_of_train_data or train_data")
+    train = scrub_empty_clients(task.make_dataset(load_user_blob(train_path)))
+
+    def _load(split_cfg, key):
+        path = split_cfg.get(key)
+        return task.make_dataset(load_user_blob(path)) if path else None
+
+    dc = cfg.server_config.data_config
+    return train, _load(dc.val, "val_data"), _load(dc.test, "test_data")

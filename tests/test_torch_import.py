@@ -1,0 +1,60 @@
+"""The PyTorch port stands alone: importing ``msrflute_tpu_torch`` and every
+one of its submodules pulls neither JAX (nor flax/optax) nor anything of
+``msrflute_tpu`` into ``sys.modules``, and no source file of the port or
+``chip_smoke.py`` imports them."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msrflute_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _port_sources():
+    root = os.path.join(REPO, "msrflute_tpu_torch")
+    for base, _, files in os.walk(root):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(base, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import msrflute_tpu_torch\n"
+        "for m in pkgutil.walk_packages(msrflute_tpu_torch.__path__,\n"
+        "                               'msrflute_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if any(\n"
+        f"    n == f or n.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-2000:]
+
+
+@pytest.mark.parametrize("path", list(_port_sources()),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_source_imports_jax(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path}:{node.lineno} imports {bad}"
