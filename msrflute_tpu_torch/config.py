@@ -6,8 +6,9 @@ YAML drives both packages:
     model_config, dp_config, privacy_metrics_config, strategy,
     server_config, client_config
 
-Trimmed to what the ported slice reads (FedAvg over the LR and
-CNN_FEMNIST tasks).  :func:`validate` replaces the JAX package's
+Trimmed to what the ported slices read: FedAvg over the LR and
+CNN_FEMNIST tasks, and DGA (softmax weights, local and global DP,
+quantization, staleness) over the nlg_gru GRU word LM.  :func:`validate` replaces the JAX package's
 ``schema.py`` for that slice: a key the port runs is accepted, a key that
 only tunes how the TPU program is dispatched (and changes no result) is
 accepted and ignored, and every other key fails loudly — an unknown key
@@ -236,6 +237,8 @@ class ClientConfig(Config):
 class FLUTEConfig(Config):
     model_config: ModelConfig = field(default_factory=ModelConfig)
     strategy: str = "fedavg"
+    #: ``dp_config`` as written (``strategy: dga`` only; see :func:`validate`)
+    dp_config: Optional[Dict[str, Any]] = None
     server_config: ServerConfig = field(default_factory=ServerConfig)
     client_config: ClientConfig = field(default_factory=ClientConfig)
     task: Optional[str] = None
@@ -247,12 +250,12 @@ class FLUTEConfig(Config):
     def from_dict(cls, raw: Dict[str, Any]) -> "FLUTEConfig":
         raw = copy.deepcopy(raw)
         validate(raw)
-        for key in ("dp_config", "privacy_metrics_config", "mesh_config",
-                    "experiment"):
+        for key in ("privacy_metrics_config", "mesh_config", "experiment"):
             raw.pop(key, None)   # validate() proved them inert
         return cls(
             model_config=ModelConfig.from_dict(raw.pop("model_config", None)),
             strategy=raw.pop("strategy", "fedavg"),
+            dp_config=raw.pop("dp_config", None),
             server_config=ServerConfig.from_dict(raw.pop("server_config",
                                                          None)),
             client_config=ClientConfig.from_dict(raw.pop("client_config",
@@ -280,6 +283,13 @@ class FLUTEConfig(Config):
                         val = getattr(split, attr)
                         if val and not os.path.isabs(val):
                             setattr(split, attr, os.path.join(data_path, val))
+                    vocab = split.get("vocab_dict")
+                    if vocab and not os.path.isabs(vocab):
+                        split["vocab_dict"] = os.path.join(data_path, vocab)
+            vocab = self.model_config.get("vocab_dict")
+            if vocab and not os.path.isabs(vocab):
+                self.model_config["vocab_dict"] = os.path.join(data_path,
+                                                               vocab)
         return self
 
 
@@ -295,7 +305,7 @@ def parse_clients_per_round(spec: Any, rng) -> int:
 
 
 # ----------------------------------------------------------------------
-# validation of the ported slice
+# validation of the ported slices
 # ----------------------------------------------------------------------
 #: keys each section runs in the port
 _TOP = {"model_config", "strategy", "server_config", "client_config", "task",
@@ -309,32 +319,47 @@ _SERVER = {"type", "max_iteration", "num_clients_per_iteration",
            "annealing_config"}
 _CLIENT = {"type", "desired_max_samples", "max_grad_norm", "fedprox_mu",
            "num_epochs", "step_bucketing", "data_config", "optimizer_config"}
+#: ``max_num_words`` of a data split is inert: the sequence length comes
+#: from ``model_config.max_num_words``, as in the JAX package
 _DATASET = {"batch_size", "list_of_train_data", "test_data", "val_data",
-            "train_data", "desired_max_samples"}
+            "train_data", "desired_max_samples", "vocab_dict",
+            "max_num_words"}
 _OPTIMIZER = {"type", "lr", "momentum", "nesterov", "weight_decay"}
+#: adam's keys; ``amsgrad`` is accepted and not applied, as the JAX
+#: package builds ``optax.adam`` whatever it says
+_ADAM = {"type", "lr", "eps", "betas", "amsgrad"}
 _ANNEALING = {"type", "step_interval", "step_size", "gamma", "milestones",
               "patience", "factor"}
 _MEGAKERNEL = {"enable", "fused_epochs", "pallas_apply"}
+#: ``strategy: dga`` runs these besides the keys above
+_DGA_SERVER = {"aggregate_median", "softmax_beta", "weight_train_loss",
+               "stale_prob"}
+_DGA_CLIENT = {"quant_thresh", "quant_threshold", "quant_bits",
+               "quant_approx", "quant_anneal"}
+_DP = {"enable_local_dp", "enable_global_dp", "eps", "delta", "max_grad",
+       "max_weight", "min_weight", "weight_scaler", "global_sigma"}
 
 #: keys that tune how the JAX package dispatches its TPU program and change
-#: no result; the port runs one round after another and ignores them
+#: no result; the port runs one round after another and ignores them.
+#: (``client_config.annealing_config`` is here because the JAX package
+#: reads no client schedule at all.)
 _DISPATCH_ONLY = {
     "server_config": {"pipeline_depth", "compilation_cache_dir",
                       "input_staging", "checkpoint_async"},
     "dataset": {"loader_type", "pin_memory", "num_workers",
                 "prefetch_factor", "length_bucketing", "device_resident"},
-    "client_config": {"do_profiling"},
+    "client_config": {"do_profiling", "annealing_config"},
 }
 
 #: every other key the JAX package's schema knows (``msrflute_tpu/schema.py``
 #: ``SERVER_KEYS``, ``CLIENT_KEYS``, ``DATASET_KEYS``, ``OPTIMIZER_KEYS``,
-#: ``ANNEALING_KEYS``, ``TOP_KEYS``): a feature the port does not have yet.
-#: It may appear with its "off" value (False, 0, None, empty, a block with
-#: ``enable: false``); any other value raises ``NotImplementedError``
+#: ``ANNEALING_KEYS``, ``DP_KEYS``, ``TOP_KEYS``): a feature the port does
+#: not have yet.  It may appear with its "off" value (False, 0, None, empty,
+#: a block with ``enable: false``); any other value raises
+#: ``NotImplementedError``
 _OFF_OK = {
     "server_config": {
-        "send_dicts", "do_profiling", "wantRL", "aggregate_median",
-        "softmax_beta", "initial_lr", "weight_train_loss", "stale_prob",
+        "send_dicts", "do_profiling", "wantRL", "initial_lr",
         "num_skip_decoding", "server_replay_config", "RL",
         "nbest_task_scheduler", "best_model_metric", "fused_carry",
         "clients_per_chunk", "checkpoint_backend", "secure_agg", "fedbuff",
@@ -343,15 +368,14 @@ _OFF_OK = {
         "traffic", "telemetry", "robust", "cohort_bucketing", "megabatch",
         "fleet", "precision", "semisupervision", "updatable_names",
         "fedac_eta", "fedac_gamma", "fedac_alpha", "fedac_beta", "qffl_q",
-        "personalization_init", "personalization_interp"},
+        "personalization_init", "personalization_interp"} | _DGA_SERVER,
     "client_config": {
         "meta_learning", "copying_train_data", "ignore_subtask",
-        "num_skip_decoding", "freeze_layer", "annealing_config",
+        "num_skip_decoding", "freeze_layer",
         "convex_model_interp", "meta_optimizer_config", "ss_config",
-        "quant_thresh", "quant_threshold", "quant_bits", "quant_approx",
-        "quant_anneal", "updatable_layers", "semisupervision"},
+        "updatable_layers", "semisupervision"} | _DGA_CLIENT,
     "dataset": {
-        "train_data_server", "vocab_dict", "max_batch_size", "max_num_words",
+        "train_data_server", "max_batch_size",
         "max_seq_length", "min_words_per_utt", "num_frames",
         "max_samples_per_user", "max_grad_norm", "utterance_mvn",
         "unsorted_batch", "lazy", "lazy_cache_users", "augment",
@@ -359,12 +383,13 @@ _OFF_OK = {
     "optimizer": {"amsgrad", "eps", "betas", "dampening"},
     "annealing": {"peak_lr", "floor_lr", "rampup_steps", "hold_steps",
                   "decay_steps"},
+    "dp": {"enable_prod", "max_bound", "min_bound", "adaptive_clipping"},
     "top": {"dp_config", "privacy_metrics_config", "mesh_config",
             "experiment"},
 }
 
-_STRATEGIES_PORTED = {"fedavg", "fedprox"}
-_MODELS_PORTED = {"LR", "CNN", "CNN_FEMNIST"}
+_STRATEGIES_PORTED = {"fedavg", "fedprox", "dga"}
+_MODELS_PORTED = {"LR", "CNN", "CNN_FEMNIST", "GRU"}
 
 
 def _off(key: str, value: Any) -> bool:
@@ -374,6 +399,8 @@ def _off(key: str, value: Any) -> bool:
         return value in (None, "msgpack")
     if key == "meta_learning":
         return value in (None, "basic")
+    if key == "aggregate_median":
+        return value in (None, "softmax")   # FedAvg never reads it
     if key == "dp_config" and isinstance(value, dict):
         return not (value.get("enable_local_dp") or
                     value.get("enable_global_dp"))
@@ -405,14 +432,22 @@ def _check_keys(raw: Any, path: str, known: set, off_ok: set = frozenset(),
 
 
 def validate(raw: Dict[str, Any]) -> None:
-    """Refuse any config the ported slice cannot run as the JAX package
+    """Refuse any config the ported slices cannot run as the JAX package
     would (see the module docstring)."""
     if not isinstance(raw, dict):
         raise ValueError("config must be a mapping")
-    _check_keys(raw, "config", _TOP, off_ok=_OFF_OK["top"])
     strategy = str(raw.get("strategy", "fedavg")).lower()
     if strategy not in _STRATEGIES_PORTED:
         raise NotImplementedError(f"strategy {strategy!r} is {NOT_PORTED}")
+    dga = strategy == "dga"
+    # DP and quantization are ported inside DGA only; under FedAvg they
+    # keep raising unless off
+    top_off = _OFF_OK["top"] - ({"dp_config"} if dga else set())
+    _check_keys(raw, "config", _TOP | ({"dp_config"} if dga else set()),
+                off_ok=top_off)
+    if dga:
+        _check_keys(raw.get("dp_config"), "dp_config", _DP,
+                    off_ok=_OFF_OK["dp"])
     model = dict(raw.get("model_config") or {})
     mtype = model.get("model_type", "LR")
     if mtype not in _MODELS_PORTED:
@@ -424,9 +459,16 @@ def validate(raw: Dict[str, Any]) -> None:
             "float32", "f32"):
         raise NotImplementedError(
             f"model_config.dtype={model['dtype']!r} is {NOT_PORTED}")
+    if not dga:
+        for key in ("quant_threshold", "quant_bits"):
+            if model.get(key) is not None:
+                raise NotImplementedError(
+                    f"model_config.{key} outside strategy dga is "
+                    f"{NOT_PORTED}")
 
     sc = raw.get("server_config") or {}
-    _check_keys(sc, "server_config", _SERVER,
+    _check_keys(sc, "server_config",
+                _SERVER | (_DGA_SERVER if dga else set()),
                 off_ok=_OFF_OK["server_config"],
                 ignored=_DISPATCH_ONLY["server_config"])
     if str(sc.get("type", "optimization")) not in ("optimization",
@@ -436,7 +478,8 @@ def validate(raw: Dict[str, Any]) -> None:
     mk = sc.get("megakernel") or {}
     _check_keys(mk, "server_config.megakernel", _MEGAKERNEL)
     cc = raw.get("client_config") or {}
-    _check_keys(cc, "client_config", _CLIENT,
+    _check_keys(cc, "client_config",
+                _CLIENT | (_DGA_CLIENT if dga else set()),
                 off_ok=_OFF_OK["client_config"],
                 ignored=_DISPATCH_ONLY["client_config"])
     if str(cc.get("type", "optimization")) != "optimization":
@@ -450,7 +493,8 @@ def validate(raw: Dict[str, Any]) -> None:
                         _DATASET, off_ok=_OFF_OK["dataset"],
                         ignored=_DISPATCH_ONLY["dataset"])
         _check_optimizer(section.get("optimizer_config"),
-                         f"{path}.optimizer_config")
+                         f"{path}.optimizer_config",
+                         allow_adam=path == "server_config")
     ann = sc.get("annealing_config")
     _check_keys(ann, "server_config.annealing_config", _ANNEALING,
                 off_ok=_OFF_OK["annealing"])
@@ -460,11 +504,15 @@ def validate(raw: Dict[str, Any]) -> None:
             f"annealing type {ann.get('type')!r} is {NOT_PORTED}")
 
 
-def _check_optimizer(raw: Any, path: str) -> None:
-    _check_keys(raw, path, _OPTIMIZER, off_ok=_OFF_OK["optimizer"])
-    if not raw:
+def _check_optimizer(raw: Any, path: str, allow_adam: bool) -> None:
+    """SGD anywhere; adam as the server optimizer only (the client update
+    runs the SGD tail that kernel B1 implements)."""
+    kind = str((raw or {}).get("type", "sgd")).lower()
+    if kind == "adam" and allow_adam:
+        _check_keys(raw, path, _ADAM, off_ok=_OFF_OK["optimizer"])
         return
-    if str(raw.get("type", "sgd")).lower() != "sgd":
+    _check_keys(raw, path, _OPTIMIZER, off_ok=_OFF_OK["optimizer"])
+    if kind != "sgd":
         raise NotImplementedError(
             f"{path}.type={raw.get('type')!r} is {NOT_PORTED}")
     if raw.get("nesterov") or raw.get("weight_decay"):

@@ -1,9 +1,11 @@
-"""Featurization — the port's own copy of ``to_image`` from
+"""Featurization — the port's own copy of ``to_image``, ``load_vocab``,
+``encode_words`` and ``pad_token_matrix`` from
 ``msrflute_tpu/data/featurize.py``."""
 
 from __future__ import annotations
 
-from typing import Sequence
+import json
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -33,3 +35,50 @@ def to_image(x: np.ndarray, example_shape: Sequence[int]) -> np.ndarray:
     if int(np.prod(x.shape[1:])) == int(np.prod(target)):
         return x.reshape((n,) + target)
     raise ValueError(f"cannot reshape samples {x.shape} to {target}")
+
+
+def load_vocab(path: str) -> Dict[str, int]:
+    """Word vocab from a json dict / json list / newline list (reference
+    ``experiments/nlg_gru/utils/utility.py:19-33``)."""
+    with open(path) as fh:
+        if path.endswith(".json"):
+            raw = json.load(fh)
+            if isinstance(raw, dict):
+                if "vocab" in raw and isinstance(raw["vocab"], dict):
+                    raw = raw["vocab"]
+                return {str(w): int(i) for w, i in raw.items()}
+            return {str(w): i for i, w in enumerate(raw)}
+        return {line.strip(): i for i, line in enumerate(fh) if line.strip()}
+
+
+def encode_words(text_or_tokens, vocab: Dict[str, int], seq_len: int,
+                 unk_id: int = 0) -> np.ndarray:
+    """Case-backoff word encoding: the word, else its lowercase, else the
+    unk id 0, which is a real token and not padding (reference
+    ``experiments/nlg_gru/dataloaders/dataset.py:37-47``)."""
+    tokens = (text_or_tokens.split() if isinstance(text_or_tokens, str)
+              else list(text_or_tokens))
+    ids = []
+    for tok in tokens[:seq_len]:
+        tok = str(tok)
+        if tok in vocab:
+            ids.append(vocab[tok])
+        elif tok.lower() in vocab:
+            ids.append(vocab[tok.lower()])
+        else:
+            ids.append(unk_id)
+    return np.asarray(ids, np.int64)
+
+
+def pad_token_matrix(seqs: List[np.ndarray], seq_len: int):
+    """``(ids [n, L] int32, tok_mask [n, L] float32)``: negative ids mark
+    padding (reference ``nlg_gru/model.py:88-91``) and map to 0 with mask
+    0, while a real unk id 0 keeps mask 1."""
+    out = np.zeros((len(seqs), seq_len), np.int32)
+    mask = np.zeros((len(seqs), seq_len), np.float32)
+    for i, s in enumerate(seqs):
+        s = np.asarray(s, np.int64).reshape(-1)[:seq_len]
+        real = s >= 0
+        out[i, :len(s)] = np.where(real, s, 0)
+        mask[i, :len(s)] = real.astype(np.float32)
+    return out, mask

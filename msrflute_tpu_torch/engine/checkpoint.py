@@ -9,11 +9,15 @@ Files under the model directory, named as the JAX package names them with
   ``model_backup_freq`` rounds, ``best_val_<metric>_model.pt`` on each
   improvement;
 - ``status_log.json``: round ``i``, client-LR ``weight``, the numpy
-  sampling state ``np_rng_state``, ``best_val_*`` and ``plateau``.
+  sampling state ``np_rng_state``, ``best_val_*``, ``plateau`` and the
+  annealed quantization threshold ``quant_thresh``.
 
 Each checkpoint is ``torch.save`` of ``{"params": {name: tensor},
-"opt_state": {...}, "round": int}`` (CPU tensors), written to a temporary
-file and renamed into place, with a crc32 sidecar verified at load.
+"opt_state": {...}, "strategy_state": {...}, "round": int}`` (CPU
+tensors: the server optimizer's state, Adam's moments and count included,
+and the strategy's cross-round state, DGA's staleness sums), written to a
+temporary file and renamed into place, with a crc32 sidecar verified at
+load.
 """
 
 from __future__ import annotations
@@ -70,6 +74,8 @@ class CheckpointManager:
                        self.layout.views(state.params).items()},
             "opt_state": {k: v.detach().cpu() for k, v in
                           state.opt_state.items()},
+            "strategy_state": {k: v.detach().cpu() for k, v in
+                               state.strategy_state.items()},
             "round": int(state.round),
         }
         buf = io.BytesIO()
@@ -117,7 +123,10 @@ class CheckpointManager:
                              weights_only=True)
         params = self.layout.flatten(payload["params"]).to(device)
         opt_state = {k: v.to(device) for k, v in payload["opt_state"].items()}
-        return ServerState(params, opt_state, int(payload["round"]))
+        strategy_state = {k: v.to(device) for k, v in
+                          payload.get("strategy_state", {}).items()}
+        return ServerState(params, opt_state, int(payload["round"]),
+                           strategy_state)
 
     def update_status(self, update: Dict[str, Any]) -> Dict[str, Any]:
         return update_json_log(self._path(STATUS_LOG), update)

@@ -11,7 +11,9 @@ Semantics kept from the JAX package (and the reference FLUTE trainer):
   no-op for params and momentum;
 - pseudo-gradient ``w_server - w_trained``; stats on it, including the
   reference's degenerate ``var`` (identically 0) and ``var_corrected``;
-- ``mean_sample_loss`` and ``num_samples`` as in the JAX package.
+- ``mean_sample_loss`` and ``num_samples`` as in the JAX package:
+  ``num_samples`` counts the task's unit, ``aux["train_sample_count"]``
+  of its loss where it returns one (the GRU LM counts words), else rows.
 
 Layout: the K clients' params are ONE flat ``[K, P]`` float32 buffer with
 per-leaf views into it.  Gradients come from ``torch.func.vmap`` of
@@ -30,9 +32,10 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 from torch.func import grad_and_value, vmap
 
+from ..config import NOT_PORTED
 from ..models.base import BaseTask
 from ..ops.fused_sgd import fused_sgd_apply
-from ..optim import combine_grad_terms, fused_apply, make_optimizer
+from ..optim import SGD, combine_grad_terms, fused_apply, make_optimizer
 
 
 @dataclass(frozen=True)
@@ -73,10 +76,14 @@ def build_client_update(task: BaseTask, client_opt_cfg,
     The only ported client optimizer, momentum SGD, is the one kernel B1
     implements, so ``pallas_apply`` needs no further check."""
     opt = make_optimizer(client_opt_cfg)
+    if not isinstance(opt, SGD):
+        raise NotImplementedError(
+            f"client optimizer {client_opt_cfg.get('type')!r} is "
+            f"{NOT_PORTED}")
     layout = task.layout()
     mu = opt.momentum
     epochs = max(int(hparams.num_epochs), 1)
-    grad_fn = vmap(grad_and_value(task.loss_masked))
+    grad_fn = vmap(grad_and_value(task.loss_and_aux, has_aux=True))
 
     def client_update(global_flat: torch.Tensor,
                       arrays: Dict[str, torch.Tensor],
@@ -97,7 +104,7 @@ def build_client_update(task: BaseTask, client_opt_cfg,
             batch["sample_mask"] = mask
             masks = (task.draw_masks(gens, B, mask.device)
                      if gens is not None else ())
-            grads, loss = grad_fn(views, batch, masks)
+            grads, (loss, aux) = grad_fn(views, batch, masks)
             grads = combine_grad_terms(
                 layout.flatten(grads, batch_dims=1),
                 prox_mu=hparams.fedprox_mu, params=params,
@@ -107,7 +114,7 @@ def build_client_update(task: BaseTask, client_opt_cfg,
             loss_sum = loss_sum + has_data * loss
             # sample-weighted loss sum (loss is the batch's masked MEAN)
             wloss_acc = wloss_acc + loss * rows
-            ns_acc = ns_acc + has_data * rows
+            ns_acc = ns_acc + has_data * aux.get("train_sample_count", rows)
             if hparams.pallas_apply:
                 fused_sgd_apply(params, grads, trace, lr, mu, has_data)
             else:

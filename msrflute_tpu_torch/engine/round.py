@@ -2,21 +2,28 @@
 path of ``msrflute_tpu/engine/round.py::RoundEngine._build_round_step``.
 
 Per round: the K clients train at once (:mod:`.client_update`), the
-strategy weighs each client (FedAvg: its sample count), the client mask
+strategy weighs and transforms each client's payload (FedAvg: its sample
+count; DGA: softmax weight, local DP, quantization), the client mask
 zeroes padding clients' weights, loss and sample counts, the weighted sums
-go through ``strategy.combine_parts``, and the server optimizer steps on
-the aggregate pseudo-gradient as ``p + (-lr * agg)`` (optax's association).
+go through ``strategy.combine_parts`` (with the staleness split when the
+strategy defers clients, ``round.py:917-922, 988-1019``), and the server
+optimizer steps on the aggregate pseudo-gradient.
 
-Randomness: client k of round r draws its dropout masks from a
-``torch.Generator`` seeded by ``np.random.SeedSequence([seed, r, k])`` —
-the analogue of ``fold_in(rng, client_id)`` at ``round.py:851``.  A
-resumed run therefore needs only the round number and the numpy sampling
-state to replay every stream.
+Randomness, all from ``np.random.SeedSequence`` entropy, so a resumed run
+needs only the round number and the numpy sampling state to replay every
+stream:
+
+- ``[seed, r, k]``: client k's dropout masks in round r (the analogue of
+  ``fold_in(rng, client_id)`` at ``round.py:851``);
+- ``[seed, r, k, 2]``: client k's local-DP noise (``fold_in(rng_c, 2)``);
+- ``[seed, r, k, 3]``: client k's staleness coin (``fold_in(rng_c, 3)``);
+- ``[seed, r, 2**32 - 1, 4]``: the round's server stream, global DP's
+  kernel seed (no dataset index reaches client slot ``2**32 - 1``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -29,13 +36,26 @@ from ..strategies.base import BaseStrategy
 from .client_update import ClientHParams, build_client_update
 
 
+#: stream tags (the fourth entropy word) and the server's client slot
+DP_NOISE_TAG, STALE_COIN_TAG, SERVER_TAG = 2, 3, 4
+PAD_CLIENT, SERVER_SLOT = 2**32, 2**32 - 1
+
+
+def stream_seed(*entropy: int) -> int:
+    """A 63-bit seed from ``SeedSequence(entropy)``."""
+    return int(np.random.SeedSequence(list(entropy)).generate_state(
+        1, dtype=np.uint64)[0] >> np.uint64(1))
+
+
 @dataclass
 class ServerState:
-    """Global model (flat ``[P]``), server optimizer state and round."""
+    """Global model (flat ``[P]``), server optimizer state, round, and the
+    strategy's cross-round state (DGA's staleness sums)."""
 
     params: torch.Tensor
     opt_state: Dict[str, torch.Tensor]
     round: int = 0
+    strategy_state: Dict[str, torch.Tensor] = field(default_factory=dict)
 
 
 def pallas_apply_flag(server_config) -> bool:
@@ -56,6 +76,8 @@ class RoundEngine:
         self.device = device
         self.seed = int(seed)
         self.layout = task.layout()
+        #: the leaves' offsets in the flat vector, then its length
+        self.bounds = list(self.layout.offsets) + [self.layout.numel]
         cc, sc = config.client_config, config.server_config
         self.hparams = ClientHParams(
             max_grad_norm=cc.get("max_grad_norm"),
@@ -74,41 +96,80 @@ class RoundEngine:
 
     def init_state(self, params: Params) -> ServerState:
         flat = self.layout.flatten(params).to(self.device, torch.float32)
-        return ServerState(flat, self.server_opt.init(flat), 0)
+        return ServerState(flat, self.server_opt.init(flat), 0,
+                           self.strategy.init_state(flat))
 
     def params_dict(self, state: ServerState) -> Params:
         return self.layout.views(state.params)
 
-    def client_generators(self, round_idx: int, client_ids
-                          ) -> Optional[List[torch.Generator]]:
-        if not self.random:
-            return None
+    def client_generators(self, round_idx: int, client_ids,
+                          tag: Optional[int] = None) -> List[torch.Generator]:
+        """One generator per client on the engine's device: the dropout
+        stream (no tag) or a tagged one."""
         gens = []
         for cid in np.asarray(client_ids).tolist():
-            entropy = [self.seed, int(round_idx), cid if cid >= 0 else 2**32]
-            seed = int(np.random.SeedSequence(entropy).generate_state(
-                1, dtype=np.uint64)[0] >> np.uint64(1))
-            gens.append(torch.Generator(device=self.device).manual_seed(seed))
+            entropy = [self.seed, int(round_idx),
+                       cid if cid >= 0 else PAD_CLIENT]
+            if tag is not None:
+                entropy.append(tag)
+            gens.append(torch.Generator(device=self.device).manual_seed(
+                stream_seed(*entropy)))
         return gens
 
+    def stale_coins(self, round_idx: int, client_ids) -> np.ndarray:
+        """Client k is deferred when its ``[seed, r, k, 3]`` uniform falls
+        below ``stale_prob`` (``jax.random.bernoulli``'s rule)."""
+        p = self.strategy.stale_prob
+        return np.asarray([
+            np.random.default_rng(stream_seed(
+                self.seed, int(round_idx), cid if cid >= 0 else PAD_CLIENT,
+                STALE_COIN_TAG)).random() < p
+            for cid in np.asarray(client_ids).tolist()], np.float32)
+
+    def server_seed(self, round_idx: int) -> int:
+        return stream_seed(self.seed, int(round_idx), SERVER_SLOT,
+                           SERVER_TAG)
+
     def run_round(self, state: ServerState, batch: RoundBatch,
-                  client_lr: float, server_lr: float
+                  client_lr: float, server_lr: float,
+                  quant_threshold: Optional[float] = None
                   ) -> Tuple[ServerState, Dict[str, float]]:
         dev = self.device
+        r = state.round
         arrays = {k: torch.from_numpy(v).to(dev)
                   for k, v in batch.arrays.items()}
         sample_mask = torch.from_numpy(batch.sample_mask).to(dev)
         cm = torch.from_numpy(batch.client_mask).to(dev)
-        gens = self.client_generators(state.round, batch.client_ids)
+        gens = (self.client_generators(r, batch.client_ids)
+                if self.random else None)
         self.local_steps += self.hparams.num_epochs * sample_mask.shape[1]
         parts, tl, ns, stats = self.strategy.client_step(
             self.client_update, state.params, arrays, sample_mask,
-            client_lr, gens)
+            client_lr, gens, quant_threshold=quant_threshold,
+            client_rngs=lambda tag: self.client_generators(
+                r, batch.client_ids, tag), bounds=self.bounds)
+        stale = None
+        if self.strategy.stale_prob > 0.0:
+            stale = torch.from_numpy(
+                self.stale_coins(r, batch.client_ids)).to(dev) * cm
         part_sums = {}
         for name, (pg, w) in parts.items():
             w = w * cm
-            part_sums[name] = {"grad_sum": w @ pg, "weight_sum": w.sum()}
-        agg = self.strategy.combine_parts(part_sums)
+            if stale is None:
+                part_sums[name] = {"grad_sum": w @ pg, "weight_sum": w.sum()}
+                continue
+            w_now, w_def = w * (1.0 - stale), w * stale
+            part_sums[name] = {"grad_sum": w_now @ pg,
+                               "weight_sum": w_now.sum(),
+                               "grad_sum_def": w_def @ pg,
+                               "weight_sum_def": w_def.sum()}
+        deferred = None
+        if stale is not None:
+            deferred = {"grad_sum": part_sums["default"]["grad_sum_def"],
+                        "weight_sum": part_sums["default"]["weight_sum_def"]}
+        agg, strategy_state = self.strategy.combine_parts(
+            part_sums, deferred, state.strategy_state, self.server_seed(r),
+            float(batch.client_mask.sum()))
         if self.server_max_grad_norm is not None:
             norm = torch.linalg.vector_norm(agg)
             agg = agg * torch.clamp(float(self.server_max_grad_norm)
@@ -130,5 +191,5 @@ class RoundEngine:
         }
         # one device->host transfer for the whole stats dict
         host = torch.stack(list(round_stats.values())).cpu().tolist()
-        return (ServerState(new_params, opt_state, state.round + 1),
+        return (ServerState(new_params, opt_state, r + 1, strategy_state),
                 dict(zip(round_stats, host)))

@@ -1,6 +1,7 @@
 """The federated round loop — the port's counterpart of
 ``msrflute_tpu/engine/server.py::OptimizationServer`` on its plain serial
-path: ``_sample`` (the numpy cohort draw), the round, and
+path: ``_sample`` (the numpy cohort draw), the annealed quantization
+threshold (``server.py:649-650, 1444-1453``), the round, and
 ``_round_housekeeping`` (val/test cadence, best model, client-LR decay,
 plateau LR, fall-back-to-best, checkpoint, ``status_log.json``), with
 ``resume_from_checkpoint``.
@@ -70,6 +71,11 @@ class OptimizationServer:
         self.best_val: Dict[str, Metric] = {}
         self._last_val: Dict[str, Metric] = {}
 
+        # quantization threshold annealing (reference core/server.py:294-298)
+        self.quant_thresh = cc.get("quant_thresh") or \
+            config.model_config.get("quant_threshold")
+        self.quant_anneal = float(cc.get("quant_anneal", 1.0) or 1.0)
+
         # static round geometry
         self.batch_size = int(cc.data_config.train.get("batch_size", 32))
         self.desired_max_samples = cc.get("desired_max_samples") or \
@@ -103,6 +109,12 @@ class OptimizationServer:
                        f"the checkpoint at {restored.round}; the sampling "
                        "trail will not replay exactly", logging.WARNING)
         self.lr_weight = float(status.get("weight", 1.0))
+        if self.quant_thresh is not None:
+            # the running threshold; a status log without it fast-forwards
+            # the geometric schedule, as the JAX package does
+            self.quant_thresh = float(status.get(
+                "quant_thresh",
+                float(self.quant_thresh) * self.quant_anneal ** restored.round))
         if "np_rng_state" in status:
             self._np_rng.bit_generator.state = status["np_rng_state"]
         if self.plateau is not None and "plateau" in status:
@@ -170,6 +182,16 @@ class OptimizationServer:
                 rng=self._np_rng,
                 desired_max_samples=self.desired_max_samples)
                 for sampled in samples]
+            thresholds = [None] * R
+            if self.quant_thresh is not None:
+                # multiplied by quant_anneal BEFORE its first use, each
+                # logged at its own round
+                for j in range(R):
+                    self.quant_thresh = float(self.quant_thresh) * \
+                        self.quant_anneal
+                    thresholds[j] = self.quant_thresh
+                    self.metrics.log("Quantization Thresh.",
+                                     self.quant_thresh, step=round_no + j)
             for j, batch in enumerate(batches):
                 r = round_no + j
                 server_lr = (self.plateau.lr if self.plateau is not None
@@ -178,7 +200,8 @@ class OptimizationServer:
                 # run_round ends in its stats fetch, so this wall time
                 # covers the round's device work
                 self.state, stats = self.engine.run_round(
-                    self.state, batch, client_lr, server_lr)
+                    self.state, batch, client_lr, server_lr,
+                    quant_threshold=thresholds[j])
                 self.run_stats["secsPerRound"].append(time.time() - tic)
                 n_clients = max(stats["client_count"], 1.0)
                 self.metrics.log("Training loss",
@@ -221,6 +244,8 @@ class OptimizationServer:
         if self.best_val:
             status["best_val_hib"] = {k: bool(m.higher_is_better)
                                       for k, m in self.best_val.items()}
+        if self.quant_thresh is not None:
+            status["quant_thresh"] = float(self.quant_thresh)
         if self.plateau is not None:
             status["plateau"] = {"lr": self.plateau.lr,
                                  "best": self.plateau.best,

@@ -8,6 +8,9 @@ K clients at once:
 - ``init_params(seed)``                      -> ``{name: tensor}`` on the CPU
 - ``loss(params, batch, gen, train)``        -> ``(masked mean, aux)``
 - ``loss_masked(params, batch, masks)``      -> masked mean, dropout masks given
+- ``loss_and_aux(params, batch, masks)``     -> ``(masked mean, aux)``; a task
+  that counts its samples in another unit than rows (the GRU LM counts
+  words) returns the count as ``aux["train_sample_count"]``
 - ``eval_stats(params, batch)``              -> dict of scalar SUMS
 - ``finalize_metrics(sums)``                 -> ``{name: Metric}``
 
@@ -144,6 +147,11 @@ class BaseTask:
                     masks: Sequence[torch.Tensor] = ()) -> torch.Tensor:
         raise NotImplementedError
 
+    def loss_and_aux(self, params: Params, batch: Batch,
+                     masks: Sequence[torch.Tensor] = ()
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        return self.loss_masked(params, batch, masks), {}
+
     def loss(self, params: Params, batch: Batch,
              gen: Optional[torch.Generator] = None,
              train: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -157,8 +165,8 @@ class BaseTask:
             B = batch["sample_mask"].shape[0]
             masks = tuple(m[0] for m in self.draw_masks(
                 [gen], B, batch["sample_mask"].device))
-        loss = self.loss_masked(params, batch, masks)
-        return loss, {"sample_count": torch.sum(batch["sample_mask"])}
+        loss, aux = self.loss_and_aux(params, batch, masks)
+        return loss, {"sample_count": torch.sum(batch["sample_mask"]), **aux}
 
     def eval_stats(self, params: Params, batch: Batch) -> Dict[str, torch.Tensor]:
         raise NotImplementedError

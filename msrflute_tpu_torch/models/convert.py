@@ -7,6 +7,10 @@ The JAX package's parameters are a nested dict of arrays in flax layout:
 ``torch.nn.Linear`` holds it).  Because the port's CNN flattens NHWC before
 ``Dense_0`` (see :mod:`.cv`), no input-axis permutation of ``Dense_0`` is
 needed: the only layout rule is the per-kernel transpose.
+
+The GRU LM (:mod:`.nlp`) keeps flax's own names and layouts (``kernel
+[in, out]``, nested ``Scan_ConvexGRUCell_0.w_hh.kernel``): a flax path
+that the task names as it is carries across unchanged.
 """
 
 from __future__ import annotations
@@ -38,33 +42,46 @@ def _to_flax_layout(weight: np.ndarray) -> np.ndarray:
     raise ValueError(f"unsupported weight rank {weight.ndim}")
 
 
+def _flatten(tree: Dict[str, Any], prefix: str = ""):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flatten(value, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", value
+
+
 def from_jax_params(task: BaseTask, params_np: Dict[str, Any]
                     ) -> Dict[str, torch.Tensor]:
     """flax params (nested dict of numpy arrays) -> the port's
     ``{name: float32 CPU tensor}``, checked against the task's shapes."""
+    want = dict(task.param_spec())
     out = {}
-    for layer, leaves in params_np.items():
-        for leaf, value in leaves.items():
-            arr = np.asarray(value, dtype=np.float32)
+    for path, value in _flatten(params_np):
+        arr = np.asarray(value, dtype=np.float32)
+        name = path
+        if path not in want:
+            layer, leaf = path.rsplit(".", 1)
+            name = f"{layer}.{_TORCH_NAME[leaf]}"
             if leaf == "kernel":
                 arr = _to_torch_layout(arr)
-            out[f"{layer}.{_TORCH_NAME[leaf]}"] = torch.from_numpy(
-                np.array(arr, order="C"))   # a writable copy
-    want = dict(task.param_spec())
+        out[name] = torch.from_numpy(np.array(arr, order="C"))  # a copy
     got = {k: tuple(v.shape) for k, v in out.items()}
     if got != want:
         raise ValueError(f"parameter shapes {got} do not match task {want}")
     return {name: out[name] for name in want}
 
 
-def to_jax_params(params: Dict[str, torch.Tensor]) -> Dict[str, Dict[str, np.ndarray]]:
+def to_jax_params(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """Inverse of :func:`from_jax_params`: the port's tensors -> flax's
     nested dict of numpy arrays."""
-    out: Dict[str, Dict[str, np.ndarray]] = {}
+    out: Dict[str, Any] = {}
     for name, tensor in params.items():
-        layer, leaf = name.rsplit(".", 1)
+        *path, leaf = name.split(".")
         arr = tensor.detach().cpu().numpy()
         if leaf == "weight":
             arr = np.ascontiguousarray(_to_flax_layout(arr))
-        out.setdefault(layer, {})[_FLAX_NAME[leaf]] = arr
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node[_FLAX_NAME.get(leaf, leaf)] = arr
     return out

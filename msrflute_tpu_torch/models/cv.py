@@ -111,7 +111,7 @@ class ClassificationTask(BaseTask):
                 "correct_sum": torch.sum(correct * mask),
                 "sample_count": torch.sum(mask)}
 
-    def make_dataset(self, blob: UserBlob) -> ArraysDataset:
+    def make_dataset(self, blob: UserBlob, data_config=None) -> ArraysDataset:
         """Featurize an image/vector user blob into ``{"x", "y"}`` arrays
         (``x`` reshaped to the example shape; uint8 pixels stay uint8)."""
         per_user = []

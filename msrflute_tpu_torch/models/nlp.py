@@ -1,0 +1,230 @@
+"""NLP tasks — the port's counterpart of ``msrflute_tpu/models/nlp.py``,
+trimmed to the Reddit GRU word LM of ``experiments/nlg_gru`` (the
+Shakespeare LSTM is not ported yet, ROADMAP.md).
+
+The model (reference ``experiments/nlg_gru/model.py:11-133``): a tied
+embedding table, a convex-combination GRU cell (``hy = n + i * (h - n)``,
+gates split in r, i, n order), the zero initial state's prediction
+concatenated in front, a bias-free ``squeeze`` projection back to the
+embedding width, and ``logits = squeezed @ table.T + bias``.
+
+Parameters keep flax's names and layouts (Dense kernels ``[in, out]``),
+and :meth:`GRUWordTask.param_spec` lists them in the JAX package's
+``ravel_pytree`` order (keys sorted at every level), so the port's flat
+``[P]`` vector is element for element the JAX package's.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..data import featurize
+from ..data.dataset import ArraysDataset
+from ..data.user_blob import UserBlob
+from .base import BaseTask, Batch, Params, lecun_normal_, softmax_xent
+
+
+class _Dense(nn.Module):
+    """flax ``nn.Dense``: ``x @ kernel + bias`` with ``kernel [in, out]``."""
+
+    def __init__(self, d_in: int, d_out: int, use_bias: bool = True):
+        super().__init__()
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(d_out))
+        else:
+            self.bias = None
+        self.kernel = nn.Parameter(torch.zeros(d_in, d_out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x @ self.kernel
+        return y if self.bias is None else y + self.bias
+
+
+class _ConvexGRUCell(nn.Module):
+    """The reference's GRU2 cell (``nlg_gru/model.py:11-28``)."""
+
+    def __init__(self, embed_dim: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        self.w_hh = _Dense(hidden, 3 * hidden)
+        self.w_ih = _Dense(embed_dim, 3 * hidden)
+
+    def step(self, gi: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """One time step, ``gi = w_ih(x_t)`` precomputed for all steps."""
+        gh = self.w_hh(h)
+        i_r, i_i, i_n = gi.split(self.hidden, dim=-1)
+        h_r, h_i, h_n = gh.split(self.hidden, dim=-1)
+        reset = torch.sigmoid(i_r + h_r)
+        inp = torch.sigmoid(i_i + h_i)
+        new = torch.tanh(i_n + reset * h_n)
+        return new + inp * (h - new)
+
+
+class GRUWordLMModule(nn.Module):
+    """Tied-embedding GRU LM (``nlg_gru/model.py:39-83``); the attribute
+    names are flax's module names."""
+
+    def __init__(self, vocab_size: int = 10000, embed_dim: int = 160,
+                 hidden_dim: int = 512):
+        super().__init__()
+        self.Scan_ConvexGRUCell_0 = _ConvexGRUCell(embed_dim, hidden_dim)
+        self.embedding = nn.Parameter(torch.zeros(vocab_size, embed_dim))
+        self.squeeze = _Dense(hidden_dim, embed_dim, use_bias=False)
+        self.unembedding_bias = nn.Parameter(torch.zeros(vocab_size))
+
+    def forward(self, x: torch.Tensor,
+                masks: Tuple[torch.Tensor, ...] = ()) -> torch.Tensor:
+        """``x [B, T]`` ids (non-negative) -> logits ``[B, T + 1, V]``.
+
+        The ``T`` time steps are a Python loop; the input projection of
+        every step is one product up front."""
+        cell = self.Scan_ConvexGRUCell_0
+        table = self.embedding
+        gi = cell.w_ih(F.embedding(x, table))            # [B, T, 3H]
+        h = torch.zeros((x.shape[0], cell.hidden), dtype=gi.dtype,
+                        device=gi.device)
+        # the zero INITIAL state's prediction is part of the output and of
+        # the loss (``nlg_gru/model.py:31-36, 92-100``)
+        hiddens = [h]
+        for t in range(x.shape[1]):
+            h = cell.step(gi[:, t], h)
+            hiddens.append(h)
+        squeezed = self.squeeze(torch.stack(hiddens, dim=1))
+        return squeezed @ table.T + self.unembedding_bias
+
+
+class GRUWordTask(BaseTask):
+    """The masked sequence LM task over :class:`GRUWordLMModule`
+    (the JAX package's ``SequenceLMTask`` with ``ref_initial_prediction``
+    and ``count_frames`` on, ``GRUWordTask``).
+
+    ``batch['x']``: ``[B, L]`` ids, ``batch['tok_mask']``: ``[B, L]`` real
+    positions (an unk id 0 is real), ``sample_mask``: ``[B]``.  The module
+    reads ``x[:, :-1]`` and emits ``L`` positions; the targets are the full
+    ``x`` (position 0 is predicted from the zero initial state).  The
+    trainer counts WORDS (``train_sample_count``, reference
+    ``total_frames``), not rows.
+    """
+
+    def __init__(self, module: GRUWordLMModule, seq_len: int, name: str,
+                 vocab_path: Optional[str] = None, oov_reject: bool = True):
+        self.module = module
+        self.seq_len = int(seq_len)
+        self.name = name
+        self.vocab_path = vocab_path
+        self.oov_reject = oov_reject
+
+    def param_spec(self) -> List[Tuple[str, Tuple[int, ...]]]:
+        return sorted(super().param_spec())
+
+    def init_params(self, seed: int) -> Params:
+        """flax's initializers: the embedding uniform in
+        ``+-sqrt(3 / embed_dim)``, Dense kernels lecun-normal, biases 0;
+        drawn on the CPU so every device starts from the same bits."""
+        gen = torch.Generator().manual_seed(int(seed))
+        out = {}
+        for name, shape in self.param_spec():
+            t = torch.zeros(shape, dtype=torch.float32)
+            if name == "embedding":
+                bound = math.sqrt(3.0 / shape[1])
+                t.uniform_(-bound, bound, generator=gen)
+            elif name.endswith(".kernel"):
+                lecun_normal_(t, shape[0], gen)
+            out[name] = t
+        return out
+
+    def _logits_targets(self, params: Params, batch: Batch):
+        x = batch["x"].long()
+        targets = batch["y"].long() if "y" in batch else x
+        tok_mask = batch.get("tok_mask")
+        tok_mask = (tok_mask.to(torch.float32) if tok_mask is not None
+                    else (targets != 0).to(torch.float32))
+        logits = self.apply(params, x[:, :-1])
+        return logits, targets, tok_mask * batch["sample_mask"][:, None]
+
+    def loss_and_aux(self, params: Params, batch: Batch,
+                     masks: Sequence[torch.Tensor] = ()
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        logits, targets, tok_mask = self._logits_targets(params, batch)
+        per_tok = softmax_xent(logits, targets)
+        total = torch.sum(per_tok * tok_mask)
+        count = torch.clamp(torch.sum(tok_mask), min=1.0)
+        # reference total_frames: the real INPUT positions of the live rows
+        inp = batch.get("tok_mask")
+        inp = (inp.to(torch.float32) if inp is not None
+               else (batch["x"] != 0).to(torch.float32))
+        frames = torch.sum(inp * batch["sample_mask"][:, None])
+        return total / count, {"train_sample_count": frames}
+
+    def loss_masked(self, params: Params, batch: Batch,
+                    masks: Sequence[torch.Tensor] = ()) -> torch.Tensor:
+        return self.loss_and_aux(params, batch, masks)[0]
+
+    def eval_stats(self, params: Params, batch: Batch
+                   ) -> Dict[str, torch.Tensor]:
+        logits, targets, tok_mask = self._logits_targets(params, batch)
+        per_tok = softmax_xent(logits, targets)
+        pred = torch.argmax(logits, dim=-1)
+        correct = (pred == targets).to(torch.float32)
+        if self.oov_reject:
+            # a prediction of the unk id counts as wrong
+            # (``nlg_gru/model.py:118-121``)
+            correct = correct * (pred != 0)
+        return {"loss_sum": torch.sum(per_tok * tok_mask),
+                "correct_sum": torch.sum(correct * tok_mask),
+                "sample_count": torch.sum(tok_mask),
+                "seq_count": torch.sum(batch["sample_mask"])}
+
+    def make_dataset(self, blob: UserBlob, data_config=None) -> ArraysDataset:
+        """Raw strings or token lists are encoded with the vocab
+        (``model_config.vocab_dict``, else the split's ``vocab_dict``);
+        int sequences pass through.  Rows are 0-padded to ``seq_len`` with
+        a ``tok_mask``; explicit label sequences become ``y``."""
+        vocab_path = self.vocab_path or (data_config.get("vocab_dict")
+                                         if data_config else None)
+        vocab = featurize.load_vocab(vocab_path) if vocab_path else None
+        L = self.seq_len
+
+        def encode_rows(samples):
+            rows = []
+            for s in samples:
+                words = isinstance(s, str) or (
+                    isinstance(s, (list, tuple)) and s and
+                    isinstance(s[0], str))
+                if words:
+                    if vocab is None:
+                        raise ValueError(f"{self.name}: raw words need "
+                                         "a vocab_dict")
+                    rows.append(featurize.encode_words(s, vocab, L))
+                else:
+                    rows.append(np.asarray(s))
+            return featurize.pad_token_matrix(rows, L)
+
+        per_user = []
+        for i in range(len(blob)):
+            x, tok_mask = encode_rows(blob.user_data[i])
+            entry = {"x": x, "tok_mask": tok_mask}
+            if blob.user_labels is not None and \
+                    blob.user_labels[i] is not None:
+                entry["y"], entry["tok_mask"] = encode_rows(
+                    blob.user_labels[i])
+            per_user.append(entry)
+        return ArraysDataset(blob.user_list, per_user,
+                             [len(u["x"]) for u in per_user])
+
+
+def make_gru_lm_task(model_config) -> GRUWordTask:
+    module = GRUWordLMModule(
+        vocab_size=int(model_config.get("vocab_size", 10000)),
+        embed_dim=int(model_config.get("embed_dim", 160)),
+        hidden_dim=int(model_config.get("hidden_dim", 512)))
+    return GRUWordTask(module, seq_len=int(model_config.get("max_num_words",
+                                                            25)),
+                       name="nlg_gru",
+                       vocab_path=model_config.get("vocab_dict"))

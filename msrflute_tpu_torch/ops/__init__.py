@@ -4,5 +4,10 @@
 counter (see ``chip_smoke.py``)."""
 
 from .fused_sgd import fused_sgd_apply, fused_sgd_plain  # noqa: F401
+from .gaussian_noise import (fused_gaussian_noise,  # noqa: F401
+                             gaussian_noise_plain)
+from .quant_bin import quant_bin_plain, quant_bin_sparsify  # noqa: F401
 
-KERNELS = {"fused_sgd_apply": fused_sgd_apply}
+KERNELS = {"fused_sgd_apply": fused_sgd_apply,
+           "fused_gaussian_noise": fused_gaussian_noise,
+           "quant_bin_sparsify": quant_bin_sparsify}

@@ -1,3 +1,3 @@
-from .factory import SGD, make_optimizer  # noqa: F401
+from .factory import SGD, Adam, make_optimizer  # noqa: F401
 from .fused import combine_grad_terms, fused_apply  # noqa: F401
 from .schedulers import PlateauTracker, make_lr_schedule  # noqa: F401

@@ -1,21 +1,26 @@
 """Optimizer factory — the port's counterpart of ``msrflute_tpu/optim/factory.py``.
 
-Only ``sgd`` (with optional momentum) is ported; every other type raises.
-Optimizers are functional over flat ``[..., P]`` float32 buffers, with a
-fresh state for each client each round (the client update calls
-:meth:`SGD.init` per round, as ``build_client_update`` calls ``tx.init``).
-The arithmetic follows ``optax.sgd`` op for op: the trace is
+``sgd`` (with optional momentum) and ``adam`` are ported; every other
+type raises.  Optimizers are functional over flat ``[..., P]`` float32
+buffers.  A client gets a fresh state each round (the client update calls
+:meth:`SGD.init` per round, as ``build_client_update`` calls ``tx.init``);
+the server's state lives in ``ServerState.opt_state`` and is checkpointed.
+
+The arithmetic follows optax op for op.  ``optax.sgd``: the trace is
 ``t' = g + mu * t`` and the applied update ``p + (-lr) * t'``.
+``optax.adam`` (``eps_root`` 0): see :class:`Adam`.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Tuple, Union
 
 import torch
 
 from ..config import NOT_PORTED
+from ..utils.logging import print_rank
 
 
 @dataclass(frozen=True)
@@ -38,8 +43,54 @@ class SGD:
         return params + (-lr) * t, state
 
 
-def make_optimizer(cfg) -> SGD:
+@dataclass(frozen=True)
+class Adam:
+    """``optax.adam(lr, b1, b2, eps)`` with ``eps_root`` 0::
+
+        mu' = (1 - b1) * g + b1 * mu        nu' = (1 - b2) * (g * g) + b2 * nu
+        c' = c + 1
+        u = (mu' / (1 - b1 ** c')) / (sqrt(nu' / (1 - b2 ** c')) + eps)
+        p' = p + (-lr) * u
+
+    ``eps`` is outside the square root.  The bias corrections are float32
+    powers on the device, as optax takes them (its ``b ** count`` may
+    differ from torch's ``pow`` in the last place)."""
+
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+    def init(self, params: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {"mu": torch.zeros_like(params),
+                "nu": torch.zeros_like(params),
+                "count": torch.zeros((), dtype=torch.int32,
+                                     device=params.device)}
+
+    def step(self, params: torch.Tensor, grads: torch.Tensor,
+             state: Dict[str, torch.Tensor], lr: float
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        mu = (1 - self.b1) * grads + self.b1 * state["mu"]
+        nu = (1 - self.b2) * (grads * grads) + self.b2 * state["nu"]
+        count = state["count"] + 1
+        t = count.to(torch.float32)
+        bc1 = 1 - torch.pow(torch.full_like(t, self.b1), t)
+        bc2 = 1 - torch.pow(torch.full_like(t, self.b2), t)
+        update = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+        return (params + (-lr) * update,
+                {"mu": mu, "nu": nu, "count": count})
+
+
+def make_optimizer(cfg) -> Union[SGD, Adam]:
     kind = str(cfg.get("type", "sgd")).lower()
+    if kind == "adam":
+        if cfg.get("amsgrad"):
+            # the JAX package builds optax.adam whatever amsgrad says
+            # (msrflute_tpu/optim/factory.py); so does the port
+            print_rank("optimizer amsgrad: true is accepted and not applied "
+                       "(plain adam, as in the JAX package)", logging.WARNING)
+        betas = cfg.get("betas") or [0.9, 0.999]
+        return Adam(b1=float(betas[0]), b2=float(betas[1]),
+                    eps=float(cfg.get("eps", 1e-8)))
     if kind != "sgd" or cfg.get("nesterov") or cfg.get("weight_decay"):
         raise NotImplementedError(f"optimizer {dict(cfg)!r} is {NOT_PORTED}")
     return SGD(momentum=float(cfg.get("momentum", 0.0) or 0.0))

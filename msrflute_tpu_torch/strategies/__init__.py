@@ -1,9 +1,13 @@
 from ..config import NOT_PORTED
 from .base import BaseStrategy, filter_weight  # noqa: F401
+from .dga import DGA
 from .fedavg import FedAvg
 
 
 def select_strategy(name: str) -> type:
-    if str(name).lower() in ("fedavg", "fedprox"):
+    key = str(name).lower()
+    if key == "dga":
+        return DGA
+    if key in ("fedavg", "fedprox"):
         return FedAvg
     raise NotImplementedError(f"strategy {name!r} is {NOT_PORTED}")

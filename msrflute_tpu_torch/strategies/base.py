@@ -2,20 +2,37 @@
 trimmed to the single ``"default"`` payload part.
 
 A strategy contributes functions over the round's ``[K, ...]`` client
-stacks: :meth:`client_step` (local work -> weighted payload parts),
-:meth:`client_weight`, :meth:`transform_payload` and :meth:`combine`
-(weighted sums -> aggregate pseudo-gradient).
+stacks (``msrflute_tpu/strategies/base.py:153-181, 300-330``):
+
+- :meth:`client_step` — local work -> weighted payload parts; it hands
+  :meth:`transform_payload` the round's quantization threshold, the
+  clients' random streams and the leaf bounds of the flat parameter
+  vector;
+- :meth:`client_weight`, :meth:`transform_payload` (local DP,
+  quantization);
+- :meth:`init_state` / :meth:`combine` — weighted sums -> aggregate
+  pseudo-gradient, with cross-round state (DGA's staleness buffer) passed
+  in and returned: ``combine(weighted_grad_sum, weight_sum, deferred,
+  state, seed, num_clients) -> (agg, new_state)``.
+
+Random streams: ``client_rngs(tag)`` gives one ``torch.Generator`` per
+client (``SeedSequence([seed, round, client, tag])``, the analogue of the
+JAX package's ``fold_in`` tags), and ``seed`` is the round's server-side
+stream (global DP's kernel seed).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from ..config import NOT_PORTED
 
 MAX_WEIGHT = 100.0  # reference core/strategies/utils.py:11-19
+
+ClientRngs = Callable[[int], List[torch.Generator]]
+State = Dict[str, torch.Tensor]
 
 
 def filter_weight(weight: torch.Tensor) -> torch.Tensor:
@@ -25,18 +42,29 @@ def filter_weight(weight: torch.Tensor) -> torch.Tensor:
 
 
 class BaseStrategy:
+    #: probability that a client's payload is deferred one round (DGA
+    #: staleness); the engine draws the per-client coin and hands
+    #: :meth:`combine` separate now and deferred sums
+    stale_prob: float = 0.0
+
     def __init__(self, config):
         self.config = config
+        self.dp_config = getattr(config, "dp_config", None) or {}
 
     def client_step(self, client_update, global_flat, arrays, sample_mask,
-                    client_lr, gens=None):
+                    client_lr, gens=None, quant_threshold=None,
+                    client_rngs: Optional[ClientRngs] = None,
+                    bounds: Optional[List[int]] = None):
         """Run the K clients' local work; returns ``(parts, train_loss,
         num_samples, stats)`` with ``parts = {"default": (pg [K, P],
-        w [K])}``."""
+        w [K])}``.  ``bounds`` are the parameter leaves' offsets in the
+        flat vector followed by its length (per-leaf work such as
+        quantization reads them)."""
         pg, tl, ns, stats = client_update(global_flat, arrays, sample_mask,
                                           client_lr, gens)
         w = self.client_weight(num_samples=ns, train_loss=tl, stats=stats)
-        pg, w = self.transform_payload(pg, w)
+        pg, w = self.transform_payload(pg, w, quant_threshold=quant_threshold,
+                                       client_rngs=client_rngs, bounds=bounds)
         return {"default": (pg, w)}, tl, ns, stats
 
     def client_weight(self, *, num_samples: torch.Tensor,
@@ -45,18 +73,30 @@ class BaseStrategy:
         raise NotImplementedError
 
     def transform_payload(self, pseudo_grad: torch.Tensor,
-                          weight: torch.Tensor
+                          weight: torch.Tensor, quant_threshold=None,
+                          client_rngs: Optional[ClientRngs] = None,
+                          bounds: Optional[List[int]] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
         return pseudo_grad, weight
 
+    def init_state(self, params: torch.Tensor) -> State:
+        return {}
+
     def combine(self, weighted_grad_sum: torch.Tensor,
-                weight_sum: torch.Tensor) -> torch.Tensor:
-        return weighted_grad_sum / torch.clamp(weight_sum, min=1e-12)
+                weight_sum: torch.Tensor, deferred: Optional[State],
+                state: State, seed: int, num_clients: float
+                ) -> Tuple[torch.Tensor, State]:
+        """``(aggregate pseudo-gradient, new state)``.  ``deferred`` holds
+        ``{"grad_sum", "weight_sum"}`` of the clients deferred to the next
+        round when the engine runs with ``stale_prob > 0``."""
+        return weighted_grad_sum / torch.clamp(weight_sum, min=1e-12), state
 
     def combine_parts(self, part_sums: Dict[str, Dict[str, torch.Tensor]],
-                      deferred: Optional[dict] = None) -> torch.Tensor:
-        if set(part_sums) != {"default"} or deferred is not None:
+                      deferred: Optional[State], state: State, seed: int,
+                      num_clients: float) -> Tuple[torch.Tensor, State]:
+        if set(part_sums) != {"default"}:
             raise NotImplementedError(
                 f"payload parts {sorted(part_sums)} are {NOT_PORTED}")
         return self.combine(part_sums["default"]["grad_sum"],
-                            part_sums["default"]["weight_sum"])
+                            part_sums["default"]["weight_sum"], deferred,
+                            state, seed, num_clients)

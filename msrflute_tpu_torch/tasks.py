@@ -22,11 +22,13 @@ def build_task_datasets(cfg: FLUTEConfig, task: BaseTask) -> Tuple[
     if not train_path:
         raise ValueError("client_config.data_config.train needs "
                          "list_of_train_data or train_data")
-    train = scrub_empty_clients(task.make_dataset(load_user_blob(train_path)))
+    train = scrub_empty_clients(task.make_dataset(load_user_blob(train_path),
+                                                  data_config=cc_train))
 
     def _load(split_cfg, key):
         path = split_cfg.get(key)
-        return task.make_dataset(load_user_blob(path)) if path else None
+        return (task.make_dataset(load_user_blob(path), data_config=split_cfg)
+                if path else None)
 
     dc = cfg.server_config.data_config
     return train, _load(dc.val, "val_data"), _load(dc.test, "test_data")

@@ -32,6 +32,66 @@ def test_published_configs_parse(name):
     assert cfg.client_config.data_config.train.batch_size in (10, 20)
 
 
+def _nlg_gru():
+    with open(os.path.join(REPO, "experiments", "nlg_gru",
+                           "config.yaml")) as fh:
+        return yaml.safe_load(fh)
+
+
+def test_nlg_gru_config_with_dp_and_quantization_parses():
+    raw = _nlg_gru()
+    raw["dp_config"] = {"enable_local_dp": True, "eps": 100.0,
+                        "delta": 1e-7, "max_grad": 1.0,
+                        "max_weight": 10000.0, "min_weight": 0.0,
+                        "weight_scaler": 0.0001, "enable_global_dp": True,
+                        "global_sigma": 1.0}
+    raw["model_config"].update(quant_threshold=0.7, quant_bits=10)
+    raw["client_config"].update(quant_anneal=0.99, quant_approx=False)
+    raw["server_config"]["megakernel"] = {"pallas_apply": True}
+    cfg = FLUTEConfig.from_dict(raw)
+    assert cfg.strategy == "dga"
+    assert cfg.dp_config["enable_global_dp"] is True
+    assert cfg.server_config.optimizer_config.get("amsgrad") is True
+    cfg.validate("/data")
+    assert cfg.model_config["vocab_dict"] == \
+        "/data/mockup/vocab_reddit.vocab"
+    assert cfg.client_config.data_config.train["vocab_dict"] == \
+        "/data/mockup/vocab_reddit.vocab"
+
+
+@pytest.mark.parametrize("path,value", [
+    ("dp_config.adaptive_clipping", {"target_quantile": 0.5}),
+    ("privacy_metrics_config.apply_metrics", True),
+    ("strategy", "scaffold"),
+    ("strategy", "fedbuff"),
+    ("model_config.model_type", "RNN"),
+    ("server_config.wantRL", True),
+])
+def test_keys_outside_the_dga_slice_still_raise(path, value):
+    raw = _nlg_gru()
+    node = raw
+    keys = path.split(".")
+    for k in keys[:-1]:
+        node = node.setdefault(k, {})
+    node[keys[-1]] = value
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        FLUTEConfig.from_dict(raw)
+
+
+@pytest.mark.parametrize("path,value", [
+    ("dp_config", {"enable_global_dp": True, "global_sigma": 1.0}),
+    ("client_config.quant_thresh", 0.5),
+    ("model_config.quant_threshold", 0.7),
+    ("server_config.stale_prob", 0.3),
+    ("client_config.optimizer_config.type", "adam"),
+])
+def test_dga_features_refused_under_fedavg(path, value):
+    """DP, quantization and staleness run inside DGA only; a FedAvg config
+    that asks for them raises instead of running without them."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        FLUTEConfig.from_dict(_with(path, value))
+
+
 def _with(path, value):
     raw = copy.deepcopy(BASE)
     node = raw
@@ -43,7 +103,7 @@ def _with(path, value):
 
 
 @pytest.mark.parametrize("path,value", [
-    ("strategy", "dga"),
+    ("strategy", "fedac"),
     ("strategy", "scaffold"),
     ("model_config.model_type", "CIFAR_CNN"),
     ("model_config.dtype", "bfloat16"),
