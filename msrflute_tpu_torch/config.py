@@ -6,14 +6,14 @@ YAML drives both packages:
     model_config, dp_config, privacy_metrics_config, strategy,
     server_config, client_config
 
-Trimmed to what the ported slices read: FedAvg over the LR and
-CNN_FEMNIST tasks, and DGA (softmax weights, local and global DP,
-quantization, staleness) over the nlg_gru GRU word LM.  :func:`validate` replaces the JAX package's
-``schema.py`` for that slice: a key the port runs is accepted, a key that
-only tunes how the TPU program is dispatched (and changes no result) is
-accepted and ignored, and every other key fails loudly — an unknown key
-with ``ValueError``, a feature the port does not have yet with
-``NotImplementedError``.
+Trimmed to what the ported slices read: FedAvg over the LR, CNN_FEMNIST
+and RingLM (local attention) tasks, and DGA (softmax weights, local and
+global DP, quantization, staleness) over the nlg_gru GRU word LM.
+:func:`validate` replaces the JAX package's ``schema.py`` for those
+slices: a key the port runs is accepted, a key that only tunes how the TPU
+program is dispatched (and changes no result) is accepted and ignored, and
+every other key fails loudly — an unknown key with ``ValueError``, a
+feature the port does not have yet with ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -389,7 +389,7 @@ _OFF_OK = {
 }
 
 _STRATEGIES_PORTED = {"fedavg", "fedprox", "dga"}
-_MODELS_PORTED = {"LR", "CNN", "CNN_FEMNIST", "GRU"}
+_MODELS_PORTED = {"LR", "CNN", "CNN_FEMNIST", "GRU", "RINGLM"}
 
 
 def _off(key: str, value: Any) -> bool:
@@ -459,6 +459,8 @@ def validate(raw: Dict[str, Any]) -> None:
             "float32", "f32"):
         raise NotImplementedError(
             f"model_config.dtype={model['dtype']!r} is {NOT_PORTED}")
+    if mtype == "RINGLM":
+        check_ringlm_model(model)
     if not dga:
         for key in ("quant_threshold", "quant_bits"):
             if model.get(key) is not None:
@@ -502,6 +504,23 @@ def validate(raw: Dict[str, Any]) -> None:
             "step_lr", "multi_step_lr", "val_loss", "constant"):
         raise NotImplementedError(
             f"annealing type {ann.get('type')!r} is {NOT_PORTED}")
+
+
+def check_ringlm_model(model: Dict[str, Any]) -> None:
+    """RingLM's local mode is ported with ``flash_attention`` a bool; the
+    TPU tile knobs ``flash_block_q``/``flash_block_k`` change no result and
+    are ignored."""
+    flash = model.get("flash_attention", False)
+    if isinstance(flash, str):
+        if flash.lower() == "auto":
+            raise NotImplementedError(
+                f"model_config.flash_attention='auto' is {NOT_PORTED}")
+        raise ValueError("model_config.flash_attention must be bool or "
+                         f"'auto', got {flash!r}")
+    for key in ("remat", "moe_experts"):
+        if model.get(key):
+            raise NotImplementedError(
+                f"model_config.{key}={model[key]!r} is {NOT_PORTED}")
 
 
 def _check_optimizer(raw: Any, path: str, allow_adam: bool) -> None:

@@ -1,6 +1,6 @@
-"""Featurization — the port's own copy of ``to_image``, ``load_vocab``,
-``encode_words`` and ``pad_token_matrix`` from
-``msrflute_tpu/data/featurize.py``."""
+"""Featurization — the port's own copy of ``to_image``, the Shakespeare char
+table with ``encode_chars``, ``load_vocab``, ``encode_words`` and
+``pad_token_matrix`` from ``msrflute_tpu/data/featurize.py``."""
 
 from __future__ import annotations
 
@@ -35,6 +35,21 @@ def to_image(x: np.ndarray, example_shape: Sequence[int]) -> np.ndarray:
     if int(np.prod(x.shape[1:])) == int(np.prod(target)):
         return x.reshape((n,) + target)
     raise ValueError(f"cannot reshape samples {x.shape} to {target}")
+
+
+# FedML/LEAF Shakespeare symbol table: pad=0, then letters; OOV maps to the
+# last id.  86 printable symbols -> vocab 90 with room for specials.
+SHAKESPEARE_LETTERS = (
+    "\n !\"&'(),-.0123456789:;>?ABCDEFGHIJKLMNOPQRSTUVWXYZ"
+    "[]abcdefghijklmnopqrstuvwxyz}"
+)
+_CHAR_TO_ID = {c: i + 1 for i, c in enumerate(SHAKESPEARE_LETTERS)}
+
+
+def encode_chars(text: str, seq_len: int, oov_id: int = 87) -> np.ndarray:
+    """Unpadded char ids (pad to a matrix with :func:`pad_token_matrix`)."""
+    return np.asarray([_CHAR_TO_ID.get(c, oov_id) for c in text[:seq_len]],
+                      np.int64)
 
 
 def load_vocab(path: str) -> Dict[str, int]:

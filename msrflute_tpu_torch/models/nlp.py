@@ -1,6 +1,8 @@
-"""NLP tasks — the port's counterpart of ``msrflute_tpu/models/nlp.py``,
-trimmed to the Reddit GRU word LM of ``experiments/nlg_gru`` (the
-Shakespeare LSTM is not ported yet, ROADMAP.md).
+"""NLP tasks — the port's counterpart of ``msrflute_tpu/models/nlp.py``:
+the masked sequence-LM task base (:class:`SequenceLMTask`, which the RingLM
+task of :mod:`.ringlm` shares) and the Reddit GRU word LM of
+``experiments/nlg_gru`` (the Shakespeare LSTM is not ported yet,
+ROADMAP.md).
 
 The model (reference ``experiments/nlg_gru/model.py:11-133``): a tied
 embedding table, a convex-combination GRU cell (``hy = n + i * (h - n)``,
@@ -9,7 +11,7 @@ concatenated in front, a bias-free ``squeeze`` projection back to the
 embedding width, and ``logits = squeezed @ table.T + bias``.
 
 Parameters keep flax's names and layouts (Dense kernels ``[in, out]``),
-and :meth:`GRUWordTask.param_spec` lists them in the JAX package's
+and :meth:`SequenceLMTask.param_spec` lists them in the JAX package's
 ``ravel_pytree`` order (keys sorted at every level), so the port's flat
 ``[P]`` vector is element for element the JAX package's.
 """
@@ -99,21 +101,32 @@ class GRUWordLMModule(nn.Module):
         return squeezed @ table.T + self.unembedding_bias
 
 
-class GRUWordTask(BaseTask):
-    """The masked sequence LM task over :class:`GRUWordLMModule`
-    (the JAX package's ``SequenceLMTask`` with ``ref_initial_prediction``
-    and ``count_frames`` on, ``GRUWordTask``).
+class SequenceLMTask(BaseTask):
+    """The masked sequence LM task (the JAX package's ``SequenceLMTask``
+    with ``_TokenDatasetMixin``).
 
     ``batch['x']``: ``[B, L]`` ids, ``batch['tok_mask']``: ``[B, L]`` real
-    positions (an unk id 0 is real), ``sample_mask``: ``[B]``.  The module
-    reads ``x[:, :-1]`` and emits ``L`` positions; the targets are the full
-    ``x`` (position 0 is predicted from the zero initial state).  The
-    trainer counts WORDS (``train_sample_count``, reference
-    ``total_frames``), not rows.
+    positions (an unk id 0 is real), ``sample_mask``: ``[B]``; explicit
+    per-position targets ride as ``y``.  Two alignments:
+
+    - ``ref_initial_prediction`` (the reference GRU): the module reads
+      ``x[:, :-1]`` and emits ``L`` positions, and the targets are the full
+      ``x`` (position 0 is predicted from the zero initial state);
+    - otherwise the plain shift: inputs ``x[:, :-1]``, targets ``x[:, 1:]``
+      with ``tok_mask[:, 1:]``.
+
+    With ``count_frames`` the trainer counts real INPUT positions
+    (``train_sample_count``, reference ``total_frames``), else rows.
+    ``tokenizer`` says how raw strings are encoded: ``"words"`` through the
+    vocab, ``"chars"`` through the Shakespeare char table.
     """
 
-    def __init__(self, module: GRUWordLMModule, seq_len: int, name: str,
-                 vocab_path: Optional[str] = None, oov_reject: bool = True):
+    ref_initial_prediction: bool = False
+    count_frames: bool = False
+    tokenizer: str = "words"
+
+    def __init__(self, module: nn.Module, seq_len: int, name: str,
+                 vocab_path: Optional[str] = None, oov_reject: bool = False):
         self.module = module
         self.seq_len = int(seq_len)
         self.name = name
@@ -121,31 +134,26 @@ class GRUWordTask(BaseTask):
         self.oov_reject = oov_reject
 
     def param_spec(self) -> List[Tuple[str, Tuple[int, ...]]]:
-        return sorted(super().param_spec())
-
-    def init_params(self, seed: int) -> Params:
-        """flax's initializers: the embedding uniform in
-        ``+-sqrt(3 / embed_dim)``, Dense kernels lecun-normal, biases 0;
-        drawn on the CPU so every device starts from the same bits."""
-        gen = torch.Generator().manual_seed(int(seed))
-        out = {}
-        for name, shape in self.param_spec():
-            t = torch.zeros(shape, dtype=torch.float32)
-            if name == "embedding":
-                bound = math.sqrt(3.0 / shape[1])
-                t.uniform_(-bound, bound, generator=gen)
-            elif name.endswith(".kernel"):
-                lecun_normal_(t, shape[0], gen)
-            out[name] = t
-        return out
+        """Leaves in ``ravel_pytree`` order: keys sorted at every level."""
+        return sorted(super().param_spec(), key=lambda s: s[0].split("."))
 
     def _logits_targets(self, params: Params, batch: Batch):
         x = batch["x"].long()
-        targets = batch["y"].long() if "y" in batch else x
         tok_mask = batch.get("tok_mask")
+        if "y" in batch and batch["y"].ndim == x.ndim:
+            inputs = x[:, :-1] if self.ref_initial_prediction else x
+            targets = batch["y"].long()
+        elif self.ref_initial_prediction:
+            inputs, targets = x[:, :-1], x
+        else:
+            inputs, targets = x[:, :-1], x[:, 1:]
+            if tok_mask is not None:
+                # a target is real iff its position was real (keeps the
+                # unk id 0 in the denominator)
+                tok_mask = tok_mask[:, 1:]
         tok_mask = (tok_mask.to(torch.float32) if tok_mask is not None
                     else (targets != 0).to(torch.float32))
-        logits = self.apply(params, x[:, :-1])
+        logits = self.apply(params, inputs)
         return logits, targets, tok_mask * batch["sample_mask"][:, None]
 
     def loss_and_aux(self, params: Params, batch: Batch,
@@ -155,6 +163,8 @@ class GRUWordTask(BaseTask):
         per_tok = softmax_xent(logits, targets)
         total = torch.sum(per_tok * tok_mask)
         count = torch.clamp(torch.sum(tok_mask), min=1.0)
+        if not self.count_frames:
+            return total / count, {}
         # reference total_frames: the real INPUT positions of the live rows
         inp = batch.get("tok_mask")
         inp = (inp.to(torch.float32) if inp is not None
@@ -182,26 +192,32 @@ class GRUWordTask(BaseTask):
                 "seq_count": torch.sum(batch["sample_mask"])}
 
     def make_dataset(self, blob: UserBlob, data_config=None) -> ArraysDataset:
-        """Raw strings or token lists are encoded with the vocab
-        (``model_config.vocab_dict``, else the split's ``vocab_dict``);
-        int sequences pass through.  Rows are 0-padded to ``seq_len`` with
-        a ``tok_mask``; explicit label sequences become ``y``."""
-        vocab_path = self.vocab_path or (data_config.get("vocab_dict")
-                                         if data_config else None)
-        vocab = featurize.load_vocab(vocab_path) if vocab_path else None
+        """Raw strings are encoded by ``tokenizer`` (words through the vocab
+        of ``model_config.vocab_dict``, else the split's ``vocab_dict``);
+        token lists through the vocab; int sequences pass through.  Rows
+        are 0-padded to ``seq_len`` with a ``tok_mask``; explicit label
+        sequences become ``y``."""
+        vocab = None
+        if self.tokenizer == "words":
+            vocab_path = self.vocab_path or (
+                data_config.get("vocab_dict") if data_config else None)
+            vocab = featurize.load_vocab(vocab_path) if vocab_path else None
         L = self.seq_len
+
+        def words(s):
+            if vocab is None:
+                raise ValueError(f"{self.name}: raw words need a vocab_dict")
+            return featurize.encode_words(s, vocab, L)
 
         def encode_rows(samples):
             rows = []
             for s in samples:
-                words = isinstance(s, str) or (
-                    isinstance(s, (list, tuple)) and s and
-                    isinstance(s[0], str))
-                if words:
-                    if vocab is None:
-                        raise ValueError(f"{self.name}: raw words need "
-                                         "a vocab_dict")
-                    rows.append(featurize.encode_words(s, vocab, L))
+                if isinstance(s, str):
+                    rows.append(featurize.encode_chars(s, L)
+                                if self.tokenizer == "chars" else words(s))
+                elif isinstance(s, (list, tuple)) and s and \
+                        isinstance(s[0], str):
+                    rows.append(words(s))
                 else:
                     rows.append(np.asarray(s))
             return featurize.pad_token_matrix(rows, L)
@@ -219,6 +235,31 @@ class GRUWordTask(BaseTask):
                              [len(u["x"]) for u in per_user])
 
 
+class GRUWordTask(SequenceLMTask):
+    """:class:`SequenceLMTask` over :class:`GRUWordLMModule` with the
+    reference GRU's alignment (``ref_initial_prediction``), word counting
+    (``count_frames``) and OOV-rejecting accuracy."""
+
+    ref_initial_prediction = True
+    count_frames = True
+
+    def init_params(self, seed: int) -> Params:
+        """flax's initializers: the embedding uniform in
+        ``+-sqrt(3 / embed_dim)``, Dense kernels lecun-normal, biases 0;
+        drawn on the CPU so every device starts from the same bits."""
+        gen = torch.Generator().manual_seed(int(seed))
+        out = {}
+        for name, shape in self.param_spec():
+            t = torch.zeros(shape, dtype=torch.float32)
+            if name == "embedding":
+                bound = math.sqrt(3.0 / shape[1])
+                t.uniform_(-bound, bound, generator=gen)
+            elif name.endswith(".kernel"):
+                lecun_normal_(t, shape[0], gen)
+            out[name] = t
+        return out
+
+
 def make_gru_lm_task(model_config) -> GRUWordTask:
     module = GRUWordLMModule(
         vocab_size=int(model_config.get("vocab_size", 10000)),
@@ -227,4 +268,5 @@ def make_gru_lm_task(model_config) -> GRUWordTask:
     return GRUWordTask(module, seq_len=int(model_config.get("max_num_words",
                                                             25)),
                        name="nlg_gru",
-                       vocab_path=model_config.get("vocab_dict"))
+                       vocab_path=model_config.get("vocab_dict"),
+                       oov_reject=True)

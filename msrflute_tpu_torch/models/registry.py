@@ -7,12 +7,14 @@ from ..config import NOT_PORTED
 from .base import BaseTask
 from .cv import make_cnn_femnist_task, make_lr_task
 from .nlp import make_gru_lm_task
+from .ringlm import make_ringlm_task
 
 TASK_REGISTRY = {
     "LR": make_lr_task,
     "CNN": make_cnn_femnist_task,
     "CNN_FEMNIST": make_cnn_femnist_task,
     "GRU": make_gru_lm_task,
+    "RINGLM": make_ringlm_task,
 }
 
 

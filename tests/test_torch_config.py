@@ -153,3 +153,46 @@ def test_clients_per_round_range():
     draws = {parse_clients_per_round("3:5", rng) for _ in range(50)}
     assert draws == {3, 4, 5}
     assert parse_clients_per_round(7, rng) == 7
+
+
+def _ringlm():
+    with open(os.path.join(REPO, "experiments", "ringlm",
+                           "config.yaml")) as fh:
+        return yaml.safe_load(fh)
+
+
+def test_ringlm_config_parses_and_ignores_the_tile_knobs():
+    from msrflute_tpu_torch.models import make_task
+    raw = _ringlm()
+    raw["model_config"].update(flash_attention=True)
+    raw["server_config"]["megakernel"] = {"pallas_apply": True}
+    plain = make_task(FLUTEConfig.from_dict(raw).model_config)
+    raw["model_config"].update(flash_block_q=256, flash_block_k=512)
+    cfg = FLUTEConfig.from_dict(raw)
+    assert cfg.model_config.model_type == "RINGLM"
+    task = make_task(cfg.model_config)
+    assert task.param_spec() == plain.param_spec()
+    assert task.module.block_0._MHA_0.use_flash
+
+
+@pytest.mark.parametrize("key,value", [
+    ("flash_attention", "auto"),
+    ("remat", True),
+    ("moe_experts", 2),
+    ("dtype", "bfloat16"),
+])
+def test_ringlm_features_outside_the_slice_raise(key, value):
+    raw = _ringlm()
+    raw["model_config"][key] = value
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        FLUTEConfig.from_dict(raw)
+
+
+def test_ringlm_task_refuses_what_the_config_refuses():
+    from msrflute_tpu_torch.models import make_task
+    mc = dict(_ringlm()["model_config"], remat=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make_task(mc)
+    with pytest.raises(ValueError, match="bool or 'auto'"):
+        FLUTEConfig.from_dict(dict(_ringlm(), model_config=dict(
+            _ringlm()["model_config"], flash_attention="sometimes")))

@@ -73,17 +73,32 @@ def test_slice_two_modules_import_without_building(module):
     assert mod.__name__ == module
 
 
+@pytest.mark.parametrize("module", [
+    "msrflute_tpu_torch.ops.flash_attention",
+    "msrflute_tpu_torch.models.ringlm",
+])
+def test_slice_three_modules_import_without_building(module):
+    """The RingLM slice's modules import without building kernels B4-B6."""
+    import importlib
+    mod = importlib.import_module(module)
+    assert mod.__name__ == module
+    from msrflute_tpu_torch.ops import _build
+    assert "flash_attention" not in _build._loaded
+
+
 def test_every_cuda_source_has_its_notes():
     """Each kernel source says which TPU kernel it replaces (or what it
     checks) and what bounds it on the card."""
     csrc = os.path.join(REPO, "msrflute_tpu_torch", "csrc")
     sources = sorted(f for f in os.listdir(csrc) if f.endswith(".cu"))
-    assert {"fused_sgd.cu", "gaussian_noise.cu", "quant_bin.cu"} <= \
-        set(sources)
+    assert {"fused_sgd.cu", "gaussian_noise.cu", "quant_bin.cu",
+            "flash_attention.cu"} <= set(sources)
     for f in sources:
         with open(os.path.join(csrc, f)) as fh:
             text = fh.read()
         assert "Bound" in text, f
         if f != "philox_check.cu":
             assert "Replaces the TPU kernel" in text, f
-            assert "pallas_call" in text and "pallas_kernels.py:" in text, f
+            assert "pallas_call" in text and (
+                "pallas_kernels.py:" in text or
+                "pallas_attention.py:" in text), f
