@@ -28,10 +28,14 @@ and prints no result):
    - B4, B5, B6 (flash attention forward, dq, dk/dv): at the RingLM
      path's ``[40, 1023, 4, 32]`` causal and at L = 1, 17 and 1000,
      Lq != Lk with offsets (rows whose keys are all masked must give exact
-     zeros and ``lse == -1e30``), non-causal, D = 8, 64 and 128, a nonzero
-     lse cotangent: within ``FLASH_FWD_TOL`` / ``FLASH_BWD_TOL``, two
-     launches bitwise equal; the causal f32 SDPA forward and backward are
-     the yardstick.
+     zeros and ``lse == -1e30``), a last tile ragged on both axes with the
+     diagonal through it, non-causal, D = 4, 5, 8, 20, 64 and 128 (16-byte
+     and 4-byte copies), one head of one batch, a nonzero lse cotangent:
+     within ``FLASH_FWD_TOL`` / ``FLASH_BWD_TOL``, two launches bitwise
+     equal at the path's shape and at an offset case; the causal f32 SDPA
+     forward and backward are the yardstick; B4 is also timed at the eval
+     step's ``[16, 1023, 4, 32]``; B5's and B6's D = 32 instances must not
+     spill and must fit two blocks an SM (``ptxas`` and the CUDA runtime).
 3. ``main``   — the FedAvg CNN_FEMNIST path through the port's CLI
    (``msrflute_tpu_torch.e2e_trainer``, in process) on ``cuda``, at the
    published ``cv_cnn_femnist`` widths (10 clients a round, batch 20,
@@ -175,17 +179,47 @@ def phase_env(torch):
     return card
 
 
+#: each source's compiler output, kept by :func:`phase_build` for the phases
+#: that report ``ptxas`` figures ("cached" where the library was built
+#: before)
+BUILD_LOGS = {}
+
+
+def ptxas_reports(log):
+    """What ``ptxas -v`` says of each entry function of a build log:
+    ``{name: {"registers", "spill_store_bytes", "spill_load_bytes"}}``.  A
+    template instantiation is named as in the source
+    (``flash_dq_kernel<32>``), any other entry by its mangled name."""
+    import re
+    reports, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if entry:
+            inst = re.search(r"\d([a-z_]+)ILi(\d+)EE", entry.group(1))
+            name = (f"{inst.group(1)}<{inst.group(2)}>" if inst
+                    else entry.group(1))
+            reports[name] = {}
+        elif name and spill and "spill_store_bytes" not in reports[name]:
+            reports[name].update(spill_store_bytes=int(spill.group(1)),
+                                 spill_load_bytes=int(spill.group(2)))
+        elif name and regs:
+            reports[name]["registers"] = int(regs.group(1))
+    return reports
+
+
 def phase_build():
     from msrflute_tpu_torch.ops import _build
     sources = sorted(f[:-3] for f in os.listdir(_build.CSRC_DIR)
                      if f.endswith(".cu"))
     tic = time.time()
     logs = _build.build(sources)
+    BUILD_LOGS.update(logs)
     emit({"phase": "build", "ok": True, "kernels": sources,
           "seconds": round(time.time() - tic, 3),
-          "ptxas": {k: [line for line in v.splitlines()
-                        if "registers" in line or "spill" in line]
-                    for k, v in logs.items()}})
+          "ptxas": {k: ptxas_reports(v) for k, v in logs.items()}})
 
 
 def _sgd_inputs(torch, K, P, gate, seed):
@@ -207,6 +241,38 @@ def _time_ms(torch, fn, iters=50, warmup=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _under_load(torch, fn, seconds=3.0):
+    """The card's SM clock and power draw while ``fn`` runs back to back:
+    the lowest clock and the highest draw among ``nvidia-smi``'s samples of
+    the window's second half (the draw takes a second to rise)."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        tic = time.time()
+        while time.time() - tic < seconds:
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=60)
+    rows = []
+    for line in out.splitlines():
+        try:
+            clock, power = (float(x) for x in line.split(","))
+        except ValueError:
+            continue
+        rows.append((clock, power))
+    rows = rows[len(rows) // 2:]
+    if not rows:
+        return None
+    return {"sm_clock_mhz_min": min(r[0] for r in rows),
+            "power_draw_w_max": max(r[1] for r in rows),
+            "samples": len(rows)}
 
 
 def phase_kernel(torch):
@@ -543,6 +609,9 @@ def phase_kernel_quant(torch):
 #: the RingLM path's attention shape: K = 10 clients x batch 4 folded into
 #: B = 40, L = seq_len - 1 = 1023 inputs, 4 heads of 32, causal
 FLASH_MAIN = (40, 1023, 1023, 4, 32, True, 0, 0)
+#: the same path's eval step: val and test batch 16
+#: (experiments/ringlm/config.yaml), 532 of B4's 652 launches
+FLASH_EVAL_B = 16
 #: tolerances: max |kernel - plain| over max |plain|.  Both sum in float32
 #: in other orders (the kernels over 64-wide tiles with an online softmax,
 #: cuBLAS over its own splits), so they differ by a few ulp of the largest
@@ -556,6 +625,15 @@ FLASH_BWD_TOL = 1e-4
 #: H100 SXM TF32 tensor-core peak (dense), beside the f32 bound: the
 #: kernels run on CUDA cores, a tensor-core kernel would be bound by this
 PEAK_TF32_FLOPS = 495e12
+
+
+def _flash_entry(key, D):
+    """Pass ``key``'s entry function at head width D, as
+    :func:`ptxas_reports` names it: B4's template argument counts the d
+    values a thread owns, B5's and B6's is D padded to 8, 16, 32, 64 or
+    128."""
+    width = next(w for w in (8, 16, 32, 64, 128) if D <= w)
+    return f"flash_{key}_kernel<{width // 4 if key == 'fwd' else width}>"
 
 
 def _flash_case(torch, B, Lq, Lk, H, D, seed):
@@ -587,7 +665,6 @@ def phase_kernel_flash(torch):
     and B6 take the plain forward's out and lse), at the RingLM path's
     shape and at odd shapes; two launches bitwise equal; then timed with
     the causal f32 SDPA call as the yardstick."""
-    from msrflute_tpu_torch.ops import _build
     from msrflute_tpu_torch.ops import flash_attention as fa
     torch.backends.cuda.matmul.allow_tf32 = False
     cases = [
@@ -602,8 +679,18 @@ def phase_kernel_flash(torch):
         ("D8", (2, 65, 65, 2, 8, True, 0, 0)),
         ("D64", (2, 200, 200, 2, 64, True, 0, 0)),
         ("D128", (2, 129, 129, 2, 128, True, 0, 0)),
+        # the last tile ragged on both axes, under offsets that put the
+        # diagonal through it: a diagonal tile that is also an edge tile
+        ("ragged_diag_edge", (2, 150, 170, 2, 32, True, 37, 11)),
+        # 16-byte copies at a width under the padded one; 4-byte copies
+        ("D4", (2, 70, 70, 2, 4, True, 0, 0)),
+        ("D20", (2, 100, 90, 2, 20, True, 5, 0)),
+        ("D5", (1, 70, 80, 2, 5, True, 10, 0)),
+        ("non_causal_ragged", (1, 200, 300, 3, 32, False, 0, 0)),
+        # fewer blocks than the card has SMs
+        ("BH1", (1, 1023, 1023, 1, 32, True, 0, 0)),
     ]
-    errs, masked_rows = {}, 0
+    errs, masked_rows, repeated = {}, 0, []
     for seed, (name, (B, Lq, Lk, H, D, causal, qo, ko)) in enumerate(cases):
         q, k, v, g, g_lse = _flash_case(torch, B, Lq, Lk, H, D, seed)
         out, lse = fa.flash_fwd(q, k, v, causal, qo, ko)
@@ -638,6 +725,7 @@ def phase_kernel_flash(torch):
                        "dq": float((dq - p_dq).abs().max()),
                        "dk": float((dk - p_dk).abs().max()),
                        "dv": float((dv - p_dv).abs().max())}
+        if name in ("main", "ragged_diag_edge"):
             again = (fa.flash_fwd(q, k, v, causal, qo, ko),
                      fa.flash_dq(*bwd_args), fa.flash_dkv(*bwd_args))
             torch.cuda.synchronize()
@@ -646,8 +734,11 @@ def phase_kernel_flash(torch):
                   torch.equal(again[1], dq) and
                   torch.equal(again[2][0], dk) and
                   torch.equal(again[2][1], dv),
-                  "flash: two launches differ")
+                  f"flash {name}: two launches differ")
+            repeated.append(name)
     check(masked_rows > 0, "no case had fully masked rows")
+    check(repeated == ["main", "ragged_diag_edge"],
+          f"bitwise repeat ran on {repeated}")
 
     # timing at the path's shape
     B, Lq, Lk, H, D, causal, qo, ko = FLASH_MAIN
@@ -680,6 +771,8 @@ def phase_kernel_flash(torch):
         lib_out, (qt, kt, vt), gt, retain_graph=True), iters=20)
     t_again = _time_ms(torch, lambda: fa.flash_fwd(q, k, v, causal, qo, ko),
                        iters=20)
+    bwd_under_load = _under_load(
+        torch, lambda: (fa.flash_dq(*bwd_args), fa.flash_dkv(*bwd_args)))
     pairs = _visible_pairs(torch, B, Lq, Lk, H, causal, qo, ko)
     qbytes = 4 * B * Lq * H * D
     kbytes = 4 * B * Lk * H * D
@@ -690,9 +783,26 @@ def phase_kernel_flash(torch):
                + qbytes),
         "dkv": (4 * 2 * D * pairs, 2 * qbytes + 2 * kbytes + 3 * sbytes
                 + 2 * kbytes)}
-    lib = _build.load("flash_attention")
-    lib.flash_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.flash_smem_bytes.restype = ctypes.c_longlong
+    # B4 at the eval step's shape (val and test batch 16): most of its
+    # launches on the RingLM path
+    Be = FLASH_EVAL_B
+    qe, ke, ve, _, _ = _flash_case(torch, Be, Lq, Lk, H, D, 98)
+    qet, ket, vet = (x.transpose(1, 2).contiguous() for x in (qe, ke, ve))
+    eval_pairs = _visible_pairs(torch, Be, Lq, Lk, H, causal, qo, ko)
+    eval_flops = 2 * 2 * D * eval_pairs
+    eval_bytes = (qbytes + 2 * kbytes + qbytes + sbytes) * Be // B
+    with torch.no_grad():
+        eval_sdpa = _time_ms(torch, lambda: sdpa(qet, ket, vet,
+                                                 is_causal=True), iters=20)
+    fwd_eval = {
+        "shape": [Be, Lq, H, D],
+        "ms": _time_ms(torch, lambda: fa.flash_fwd(qe, ke, ve, causal, qo,
+                                                   ko), iters=20),
+        "bound_ms": max(eval_flops / PEAK_F32_FLOPS,
+                        eval_bytes / PEAK_BYTES_PER_S) * 1e3,
+        "bound_by": "operations", "sdpa_fwd_ms": eval_sdpa}
+    check(eval_flops / PEAK_F32_FLOPS >= eval_bytes / PEAK_BYTES_PER_S,
+          "B4 at the eval shape is not bound by operations")
     max_err = {"fwd": max(max_abs["out"], max_abs["lse"]),
                "dq": max_abs["dq"], "dkv": max(max_abs["dk"], max_abs["dv"])}
     rows, detail = [], {}
@@ -715,11 +825,18 @@ def phase_kernel_flash(torch):
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": lib_ms, "library_note": note})
+        info = fa.kernel_info(which, D)
         detail[key] = {"flops": flops, "bytes": nbytes,
                        "bound_ms_tf32": flops / PEAK_TF32_FLOPS * 1e3,
                        "achieved_tflop_s": flops / (t[key] * 1e-3) / 1e12,
-                       "smem_bytes_per_block_d32": int(
-                           lib.flash_smem_bytes(which, D))}
+                       "share_of_bound": max(ops_ms, bytes_ms) / t[key],
+                       "smem_bytes_per_block_d32": info["smem_bytes"],
+                       "registers_d32": info["registers"],
+                       "local_bytes_d32": info["local_bytes"],
+                       "blocks_per_sm_d32": info["blocks_per_sm"],
+                       "ptxas_d32": ptxas_reports(
+                           BUILD_LOGS.get("flash_attention", "")).get(
+                               _flash_entry(key, D))}
     emit({"phase": "kernel", "ok": True,
           "name": "flash_attention (B4, B5, B6)", "shape": list(FLASH_MAIN),
           "cases": len(cases), "fully_masked_rows_checked": masked_rows,
@@ -728,8 +845,17 @@ def phase_kernel_flash(torch):
           "bitwise_repeat": True, "visible_pairs": pairs,
           "ms": t, "fwd_ms_repeat": t_again, "plain_ms": plain,
           "sdpa_fwd_ms": lib_fwd, "sdpa_bwd_ms": lib_bwd,
+          "dq_plus_dkv_ms": t["dq"] + t["dkv"], "fwd_at_eval_shape": fwd_eval,
+          "card_under_dq_and_dkv": bwd_under_load,
           "bound_ms": {r["name"]: r["bound_ms"] for r in rows},
           "detail": detail})
+    for key in ("dq", "dkv"):   # the backward's path instances do not spill
+        d = detail[key]
+        spills = d["ptxas_d32"] or {"spill_store_bytes": 0,
+                                    "spill_load_bytes": 0}
+        check(d["local_bytes_d32"] == 0 and d["blocks_per_sm_d32"] >= 2 and
+              spills["spill_store_bytes"] == spills["spill_load_bytes"] == 0,
+              f"flash {key} at D = {D} spills or fits one block an SM: {d}")
     return rows
 
 

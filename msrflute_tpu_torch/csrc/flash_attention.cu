@@ -28,28 +28,89 @@
 // pass reads a few tens of MB and does 1.1e10 (B4), 1.6e10 (B5) and
 // 2.1e10 (B6) flops a layer, so all three are bound by operations: about
 // 0.16, 0.24 and 0.32 ms at the 67 TFLOP/s f32 CUDA-core rate (0.02-0.04 ms
-// at the 495 TFLOP/s TF32 tensor-core rate, which these kernels do not use).
+// at the 495 TFLOP/s TF32 tensor-core rate, which these kernels do not use:
+// one TF32 pass cannot hold the port's f32 tolerances).
 //
-// Design, simple and right first (tensor cores, TMA and a producer warp are
-// later work):
+// Common to the three kernels:
 // - the TPU kernels' sequential grid axis and its VMEM carry become a loop
 //   inside one block: a block of 256 threads owns one (b*h, 64-row query
 //   tile) in B4 and B5 and one (b*h, 64-row key tile) in B6, and streams
 //   64-row tiles of the other axis through shared memory;
-// - 4 threads share a tile row; a thread keeps 16 scores of its row and
-//   its quarter of the output row (d = quad + 4j) in registers; row max and
-//   row sum are reduced over the 4 lanes with shuffles;
-// - shared rows are padded to D + 1 floats (and score tiles to 65) so the
-//   warp's reads fall in distinct banks;
 // - no atomics: B5 alone writes its dq rows and B6 alone its dk/dv rows,
 //   and every sum runs in a fixed order, so two launches are bitwise equal;
 // - heavy tiles are scheduled first under the causal mask (the last query
 //   tile in B4/B5, the first key tile in B6);
-// - shared memory a block: B4 4 * (3 * 64 * (D + 1) + 64 * 65) bytes
-//   (41,984 at D = 32; 115,712 at D = 128), B5 4 * (4 * 64 * (D + 1) +
-//   64 * 65) (50,432; 148,736), B6 4 * (4 * 64 * (D + 1) + 2 * 64 * 65 +
-//   3 * 64) (67,840; 166,144): above 48 KB it is opted in with
-//   cudaFuncSetAttribute.  D <= 128; any L (the ragged last tile is masked).
+// - D <= 128; any L (the ragged last tile is masked).
+//
+// B4, simple and right first:
+// - 4 threads share a tile row; a thread keeps 16 scores of its row and
+//   its quarter of the output row (d = quad + 4j) in registers; row max and
+//   row sum are reduced over the 4 lanes with shuffles;
+// - shared rows are padded to D + 1 floats (and the score tile to 65) so the
+//   warp's reads fall in distinct banks;
+// - shared memory a block 4 * (3 * 64 * (D + 1) + 64 * 65) bytes (41,984 at
+//   D = 32; 115,712 at D = 128).
+//
+// B5 and B6, designed for this card.  An SM starts one instruction a clock
+// from each of its four schedulers and a warp-wide FMA is one of them, so
+// every load, store and index computation takes an FMA's slot; and its
+// shared memory serves a 16-byte load one quarter warp at a time, in about
+// 2.5 clocks a warp when each quarter's 8 lanes touch 64 bytes or fewer and
+// 3.7 otherwise, broadcast or not (csrc/probes/lds_throughput.cu).  A
+// backward that reads one shared scalar for each FMA, as the first version
+// did, leaves the FMA pipes a quarter busy.  What the design does about it:
+// - register tiles.  Warp w owns rows 8w .. 8w + 7 of the block's own tile
+//   (Q, dO in B5; K, V in B6).  For the two 64 x 64 products S = Q K^T and
+//   dP = dO V^T a thread owns a 4 x 4 block of each (own rows o + 2x
+//   against streamed rows t + 16y) and reads 4 values along d of each of
+//   its 8 rows with 16-byte loads: 8 loads feed 64 FMAs.  For the
+//   accumulations (dq += dS K; dv += P^T dO; dk += dS^T Q) a lane owns 4
+//   rows x 4 columns of the warp's [8][D] piece of the output and reads p
+//   or ds as 16-byte vectors along the axis it sums over: again 8 loads
+//   for 64 FMAs.  In B5 the two halves of a warp each sum over 32 of the
+//   tile's 64 keys and add up once, by shuffle, when the block ends; in B6
+//   one half sums dv and the other dk.  Per 64 x 64 tile pair at D = 32 a
+//   thread makes 192 (B5) or 256 (B6) 16-byte loads for 1,536 or 2,048
+//   FMAs, where the first version made one scalar load for each;
+// - quarter warps and banks.  Tiles stay row-major [64][DT + 4] (DT = D
+//   padded to 8, 16, 32, 64 or 128, the columns at or past D zero), the
+//   layout cp.async delivers.  The lanes are placed so that a quarter warp
+//   covers 2 own rows x 4 streamed rows (or 2 rows x 4 column groups of an
+//   output): each 16-byte load touches at most 4 distinct pieces a quarter,
+//   and with a row stride of DT + 4 floats (4 mod 32) consecutive rows fall
+//   in distinct groups of 4 banks.  p and ds tiles are [own][streamed] with
+//   a row stride of 80 floats (16 mod 32): a warp's scalar stores (2 rows x
+//   16 columns) hit 32 distinct banks;
+// - barriers.  The p and ds rows a warp writes are the rows its own
+//   accumulation reads, so between the two only the warp synchronises; the
+//   block meets once a tile, when the next streamed tile has landed;
+// - masking.  The tile loop tells tiles that the mask cannot touch (wholly
+//   below the diagonal, away from the ragged edges) from diagonal and edge
+//   tiles; only the latter run the body that tests every element.  The
+//   skip conditions are the TPU kernels';
+// - copies.  Tiles arrive by cp.async, 16 bytes a copy where D % 4 == 0
+//   and the tensors are 16-byte aligned (4 bytes a copy otherwise), rows
+//   past L zero-filled by the copy itself; the two tensors that travel
+//   together (Q and dO, K and V) share one address.  The streamed tiles
+//   (K, V in B5; Q, dO and the three row statistics in B6) are
+//   double-buffered up to D = 64: tile j + 1 is in flight while tile j is
+//   computed.  Above, one stage (two would not fit);
+// - the element-wise part.  p = 2^(s * scale * log2(e) - lse * log2(e))
+//   with ex2.approx, 2 instructions a score instead of expf's dozen
+//   (relative error about 1e-6 from the rounding of the two products at
+//   |lse| <= 20); ds is kept as p * (dp + (glse - delta)) and the scale
+//   multiplies dq and dk once, when the block ends;
+// - registers.  __launch_bounds__(256, 2) up to D = 32: at most 128
+//   registers a thread, two blocks (16 warps) an SM, no spill;
+// - shared memory a block at DT = 32 / 128, in bytes: B5 4 * ((2 + 2 *
+//   stages) * 64 * (DT + 4) + 64 * 80 + 3 * 64) = 76,544 / 156,416, B6
+//   4 * ((2 + 2 * stages) * 64 * (DT + 4) + 2 * 64 * 80 + stages * 3 * 64)
+//   = 97,792 / 176,896: above 48 KB it is opted in with
+//   cudaFuncSetAttribute.
+// What still holds them (PERF.md has the numbers): with the loads taken
+// out of the products the kernels run no faster, so it is the rate at
+// which 16 warps an SM get their FMAs started, with the element-wise part,
+// the copies' index arithmetic and the loop taking a fifth of the slots.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -203,197 +264,510 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------
-// B5: dq
+// B5 and B6: the backward, register-tiled (see the header)
 // ---------------------------------------------------------------------
-template <int NJ>
-__global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ dout,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta,
-                const float* __restrict__ glse, float* __restrict__ dq,
-                Dims p) {
-  extern __shared__ float smem[];
-  const int Dp = p.D + 1;
-  float* Qs = smem;
-  float* Gs = Qs + kTile * Dp;   // dO
-  float* Ks = Gs + kTile * Dp;
-  float* Vs = Ks + kTile * Dp;
-  float* Ss = Vs + kTile * Dp;   // ds, [64][65]
+constexpr int kBwdScore = kTile + 16;  // row stride of a p or ds tile
+constexpr int kWarpRows = kTile / (kThreads / 32);  // own rows of a warp: 8
+constexpr float kLog2e = 1.4426950408889634f;
 
-  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
-  const int qi = gridDim.y - 1 - blockIdx.y;
-  const int q0 = qi * kTile;
-  const int r = threadIdx.x >> 2, quad = threadIdx.x & 3;
-  const int row = q0 + r;
-  const int nk = (p.Lk + kTile - 1) / kTile;
+// The backward at head width DT: D padded to 8, 16, 32, 64 or 128.
+template <int DT>
+struct Bwd {
+  static constexpr int kStride = DT + 4;  // row stride of a tile, floats
+  static constexpr int kTileFloats = kTile * kStride;
+  static constexpr int kStages = DT <= 64 ? 2 : 1;
+  static constexpr int kMinBlocks = DT <= 32 ? 2 : 1;
+  // the accumulations: 16 lanes cover a warp's [8][DT] piece of an output,
+  // a lane kRows rows x kCols groups of 4 columns
+  static constexpr int kColLanes = DT / 4 < 16 ? DT / 4 : 16;
+  static constexpr int kRowLanes = 16 / kColLanes;
+  static constexpr int kRows = kWarpRows / kRowLanes;
+  static constexpr int kCols = DT / 4 / kColLanes;
+};
 
-  load_tile(Qs, q, b, h, q0, p.Lq, p);
-  load_tile(Gs, dout, b, h, q0, p.Lq, p);
-  float row_lse = 0.0f, row_delta = 0.0f, row_glse = 0.0f;
-  if (row < p.Lq) {
-    const int64_t i = stat(p, b, h, row);
-    row_lse = lse[i];
-    row_delta = delta[i];
-    row_glse = glse[i];
+// kBytes (4 or 16) from global to shared memory, asynchronously; zeros
+// when the source row is padding
+template <int kBytes>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool real) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = real ? kBytes : 0;
+  if (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(src), "r"(n)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// 2^x: one MUFU instruction (2 ulp)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// rows [row0, row0 + 64) of one head of two tensors of one shape (the head
+// starts `head` floats into each, rows are `row_stride` floats apart) into
+// two consecutive [64][kStride] shared tiles, `per_row` copies of kBytes a
+// row; rows at or past L arrive as zeros.  One address serves both.
+template <int kStride, int kBytes>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src_a,
+                                          const float* src_b, int64_t head,
+                                          int64_t row_stride, int row0,
+                                          int L, int per_row) {
+  for (int i = threadIdx.x; i < kTile * per_row; i += kThreads) {
+    const int rr = i / per_row, c = (i - rr * per_row) * (kBytes / 4);
+    const bool real = row0 + rr < L;
+    const int64_t from = head + (real ? (row0 + rr) * row_stride : 0) + c;
+    cp_async<kBytes>(dst + rr * kStride + c, src_a + from, real);
+    cp_async<kBytes>(dst + kTile * kStride + rr * kStride + c, src_b + from,
+                     real);
   }
-  float acc[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) acc[j] = 0.0f;
+}
 
-  for (int kj = 0; kj < nk; ++kj) {
-    // pallas_attention.py:201
-    if (p.causal && !(static_cast<int64_t>(p.k_off) + kj * kTile <=
-                      static_cast<int64_t>(p.q_off) + q0 + kTile - 1))
-      continue;
-    __syncthreads();
-    load_tile(Ks, k, b, h, kj * kTile, p.Lk, p);
-    load_tile(Vs, v, b, h, kj * kTile, p.Lk, p);
-    __syncthreads();
+// the asynchronous load_tile of the backward, for the two tensors that
+// always travel together (Q and dO, K and V): 16-byte copies when `vec`
+template <int DT>
+__device__ __forceinline__ void load_pair_async(float* dst, const float* src_a,
+                                                const float* src_b, int b,
+                                                int h, int row0, int L,
+                                                const Dims& p, bool vec) {
+  constexpr int kStride = Bwd<DT>::kStride;
+  const int64_t head = elem(p, b, L, 0, h, 0);
+  const int64_t row_stride = static_cast<int64_t>(p.H) * p.D;
+  if (vec && p.D == DT)  // the division by a constant folds
+    copy_rows<kStride, 16>(dst, src_a, src_b, head, row_stride, row0, L,
+                           DT / 4);
+  else if (vec)
+    copy_rows<kStride, 16>(dst, src_a, src_b, head, row_stride, row0, L,
+                           p.D / 4);
+  else
+    copy_rows<kStride, 4>(dst, src_a, src_b, head, row_stride, row0, L, p.D);
+}
 
-    float s[kPerThread], dp[kPerThread];
+// lse, delta and glse of query rows [row0, row0 + 64) into dst[3][64]
+__device__ __forceinline__ void load_stats_async(float* dst, const float* lse,
+                                                 const float* delta,
+                                                 const float* glse, int b,
+                                                 int h, int row0,
+                                                 const Dims& p) {
+  if (threadIdx.x >= 3 * kTile) return;
+  const int which = threadIdx.x / kTile, row = row0 + threadIdx.x % kTile;
+  const bool real = row < p.Lq;
+  const float* src = which == 0 ? lse : which == 1 ? delta : glse;
+  cp_async<4>(dst + threadIdx.x, src + (real ? stat(p, b, h, row) : 0), real);
+}
+
+// zero the columns at or past D of `tiles` consecutive shared tiles: no
+// copy writes them and the products run over all DT columns
+template <int DT>
+__device__ __forceinline__ void zero_pad_columns(float* tiles_base, int tiles,
+                                                 int D) {
+  const int extra = DT - D;
+  for (int i = threadIdx.x; i < tiles * kTile * extra; i += kThreads) {
+    const int row = i / extra;
+    tiles_base[row * Bwd<DT>::kStride + D + (i - row * extra)] = 0.0f;
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// A thread's place in the two 64 x 64 score products.  Warp w owns rows
+// 8w .. 8w + 7 of the block's own tile against all 64 rows of the streamed
+// tile; a thread owns the 4 x 4 block of own rows `own + 2x` and streamed
+// rows `streamed + 16y`.  The card serves a 16-byte shared load one quarter
+// warp at a time, at about 2.5 clocks when the quarter's 8 lanes touch 64
+// bytes or fewer and 3.7 otherwise: a quarter warp covers 2 own rows and 4
+// streamed rows.
+struct Place {
+  int own, streamed;
+  __device__ Place() {
+    const int lane = threadIdx.x & 31;
+    own = kWarpRows * (threadIdx.x >> 5) + ((lane >> 2) & 1);
+    streamed = (lane & 3) | ((lane >> 3) << 2);
+  }
+};
+
+// s[x][y] += sum over d of A[2 x][d] * B[16 y][d]: A and B point at the
+// thread's first row of two [64][DT + 4] shared tiles
+template <int DT>
+__device__ __forceinline__ void tile_product(float (&s)[4][4], const float* A,
+                                             const float* B) {
+  constexpr int kStride = Bwd<DT>::kStride;
+#pragma unroll 8
+  for (int d = 0; d < DT; d += 4) {
+    float4 a[4], b[4];
 #pragma unroll
-    for (int j = 0; j < kPerThread; ++j) s[j] = dp[j] = 0.0f;
-    for (int d = 0; d < p.D; ++d) {
-      const float qd = Qs[r * Dp + d], gd = Gs[r * Dp + d];
+    for (int x = 0; x < 4; ++x) {
+      a[x] = ld4(A + 2 * x * kStride + d);
+      b[x] = ld4(B + 16 * x * kStride + d);
+    }
+    // one d at a time over all 16 sums: neighbouring FMAs are independent
 #pragma unroll
-      for (int j = 0; j < kPerThread; ++j) {
-        const int c = (quad + 4 * j) * Dp + d;
-        s[j] += qd * Ks[c];
-        dp[j] += gd * Vs[c];
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int y = 0; y < 4; ++y) s[x][y] = fmaf(a[x].x, b[y].x, s[x][y]);
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int y = 0; y < 4; ++y) s[x][y] = fmaf(a[x].y, b[y].y, s[x][y]);
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int y = 0; y < 4; ++y) s[x][y] = fmaf(a[x].z, b[y].z, s[x][y]);
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int y = 0; y < 4; ++y) s[x][y] = fmaf(a[x].w, b[y].w, s[x][y]);
+  }
+}
+
+// A lane's place in an accumulation.  The p and ds rows a warp wrote are
+// the rows it sums over, so only the warp synchronises between the two.
+// Each half of the warp (16 lanes) covers the warp's [8][DT] piece of an
+// output: lane rows `row + kRowLanes i`, columns `col + 4 kColLanes j`
+// .. + 3.  At DT = 32 a quarter warp covers 2 rows x 4 column groups.
+template <int DT>
+struct Owned {
+  int half, row, col;
+  __device__ Owned() {
+    using T = Bwd<DT>;
+    const int u = threadIdx.x & 15;
+    half = (threadIdx.x >> 4) & 1;
+    const int cg = T::kColLanes == 8 ? (u & 3) | ((u >> 1) & 4)
+                                     : u % T::kColLanes;
+    const int rg = T::kColLanes == 8 ? (u >> 2) & 1 : u / T::kColLanes;
+    row = kWarpRows * (threadIdx.x >> 5) + rg;
+    col = 4 * cg;
+  }
+};
+
+// acc[i][j] += sum over c in [c0, c1) of W[kRowLanes i][c] *
+// X[c][4 kColLanes j .. + 3]: W points at the lane's first row of a
+// [64][80] p or ds tile, X at its first column of row 0 of a [64][DT + 4]
+// tile
+template <int DT>
+__device__ __forceinline__ void accumulate(
+    float4 (&acc)[Bwd<DT>::kRows][Bwd<DT>::kCols], const float* W,
+    const float* X, int c0, int c1) {
+  using T = Bwd<DT>;
+#pragma unroll 4
+  for (int c = c0; c < c1; c += 4) {
+    float w[T::kRows][4];
+#pragma unroll
+    for (int i = 0; i < T::kRows; ++i) {
+      const float4 wi = ld4(W + i * T::kRowLanes * kBwdScore + c);
+      w[i][0] = wi.x, w[i][1] = wi.y, w[i][2] = wi.z, w[i][3] = wi.w;
+    }
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+#pragma unroll
+      for (int j = 0; j < T::kCols; ++j) {
+        const float4 x = ld4(X + (c + cc) * T::kStride + 4 * T::kColLanes * j);
+#pragma unroll
+        for (int i = 0; i < T::kRows; ++i) {
+          acc[i][j].x = fmaf(w[i][cc], x.x, acc[i][j].x);
+          acc[i][j].y = fmaf(w[i][cc], x.y, acc[i][j].y);
+          acc[i][j].z = fmaf(w[i][cc], x.z, acc[i][j].z);
+          acc[i][j].w = fmaf(w[i][cc], x.w, acc[i][j].w);
+        }
       }
     }
+  }
+}
+
+// the lane's piece of a [64][DT] result into rows [row0, row0 + 64) of head
+// h of a [B, L, H, D] tensor
+template <int DT>
+__device__ __forceinline__ void store_rows(
+    float* dst, const float4 (&acc)[Bwd<DT>::kRows][Bwd<DT>::kCols],
+    const Owned<DT>& own, int b, int h, int row0, int L, const Dims& p,
+    bool vec) {
+  using T = Bwd<DT>;
 #pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const bool ok = visible(p, row, kj * kTile + quad + 4 * j);
-      const float pj = ok ? expf(s[j] * p.scale - row_lse) : 0.0f;
-      // d lse / d s = p: the lse cotangent adds straight into ds
-      Ss[r * kScoreStride + quad + 4 * j] =
-          pj * (dp[j] - row_delta + row_glse) * p.scale;
-    }
-    __syncthreads();
-    for (int c = 0; c < kTile; ++c) {
-      const float dsc = Ss[r * kScoreStride + c];
+  for (int i = 0; i < T::kRows; ++i) {
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int d = quad + 4 * j;
-        if (d < p.D) acc[j] += dsc * Ks[c * Dp + d];
+    for (int j = 0; j < T::kCols; ++j) {
+      const int row = row0 + own.row + i * T::kRowLanes;
+      const int col = own.col + 4 * T::kColLanes * j;
+      if (row >= L || col >= p.D) continue;
+      float* o = dst + elem(p, b, L, row, h, col);
+      if (vec) {
+        *reinterpret_cast<float4*>(o) = acc[i][j];
+      } else {
+        const float a[4] = {acc[i][j].x, acc[i][j].y, acc[i][j].z,
+                            acc[i][j].w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (col + c < p.D) o[c] = a[c];
       }
     }
   }
+}
 
-  if (row < p.Lq) {
+// One 64 x 64 tile pair's p and ds / scale = p * (dp - delta + glse),
+// [own][streamed], into the warp's rows of Ps (B6 only; B5 passes nullptr)
+// and Ss: the scale multiplies the sums of ds once, at the end.  A and Ad
+// are the own tile of the scores and of dp (B5: Q, dO; B6: K, V), B and Bd
+// the streamed one (B5: K, V; B6: Q, dO), all at the thread's first row.
+// `stats` is [3][64] lse, delta, glse of the query rows, which are the own
+// rows in B5 (kQueryOwn) and the streamed rows in B6; it points at the
+// thread's first query.  q_first and k_first are the thread's first local
+// positions.
+template <int DT, bool kMasked, bool kQueryOwn>
+__device__ __forceinline__ void scores(const float* A, const float* Ad,
+                                       const float* B, const float* Bd,
+                                       float* Ps, float* Ss,
+                                       const float* stats, const Dims& p,
+                                       int q_first, int k_first) {
+  float s[4][4] = {}, dp[4][4] = {};
+  tile_product<DT>(s, A, B);
+  tile_product<DT>(dp, Ad, Bd);
+  const float scale2 = p.scale * kLog2e;
+  constexpr int kQueryStep = kQueryOwn ? 2 : 16;
+  constexpr int kKeyStep = kQueryOwn ? 16 : 2;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = quad + 4 * j;
-      if (d < p.D) dq[elem(p, b, p.Lq, row, h, d)] = acc[j];
+  for (int iq = 0; iq < 4; ++iq) {
+    const float lse2 = stats[kQueryStep * iq] * kLog2e;
+    // d lse / d s = p: the lse cotangent adds straight into ds
+    const float shift = stats[2 * kTile + kQueryStep * iq] -
+                        stats[kTile + kQueryStep * iq];  // glse - delta
+    const int q_loc = q_first + kQueryStep * iq;
+#pragma unroll
+    for (int ik = 0; ik < 4; ++ik) {
+      const int x = kQueryOwn ? iq : ik, y = kQueryOwn ? ik : iq;
+      float pr = fast_exp2(fmaf(s[x][y], scale2, -lse2));
+      // padded query rows carry no lse: mask them too
+      if (kMasked &&
+          !(q_loc < p.Lq && visible(p, q_loc, k_first + kKeyStep * ik)))
+        pr = 0.0f;
+      if (!kQueryOwn) Ps[2 * x * kBwdScore + 16 * y] = pr;
+      Ss[2 * x * kBwdScore + 16 * y] = pr * (dp[x][y] + shift);
     }
   }
 }
 
 // ---------------------------------------------------------------------
+// B5: dq
+// ---------------------------------------------------------------------
+template <int DT>
+__global__ void __launch_bounds__(kThreads, Bwd<DT>::kMinBlocks)
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta,
+                const float* __restrict__ glse, float* __restrict__ dq,
+                Dims p, int vec) {
+  using T = Bwd<DT>;
+  extern __shared__ float4 bwd_smem[];
+  float* Qs = reinterpret_cast<float*>(bwd_smem);
+  float* Gs = Qs + T::kTileFloats;                     // dO
+  float* KVs = Gs + T::kTileFloats;                    // a stage: K, then V
+  float* Ss = KVs + T::kStages * 2 * T::kTileFloats;   // ds [query][key]
+  float* stats = Ss + kTile * kBwdScore;               // lse, delta, glse
+
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // heavy tiles first
+  // pallas_attention.py:201: key tile kj adds nothing unless
+  // k_off + 64 kj <= q_off + q0 + 63, so tiles 0 .. n - 1 are visited
+  int n = (p.Lk + kTile - 1) / kTile;
+  if (p.causal) {
+    const int64_t last = static_cast<int64_t>(p.q_off) + q0 + kTile - 1 -
+                         static_cast<int64_t>(p.k_off);
+    if (last < 0) n = 0;
+    else if (last / kTile + 1 < n) n = static_cast<int>(last / kTile) + 1;
+  }
+
+  if (p.D < DT) zero_pad_columns<DT>(Qs, 2 + 2 * T::kStages, p.D);
+  if (n > 0) {
+    load_pair_async<DT>(Qs, q, dout, b, h, q0, p.Lq, p, vec);
+    load_stats_async(stats, lse, delta, glse, b, h, q0, p);
+    load_pair_async<DT>(KVs, k, v, b, h, 0, p.Lk, p, vec);
+    cp_async_commit();
+  }
+  const Place at;
+  // dq += dS K: each half of a warp sums over 32 of the tile's 64 keys
+  const Owned<DT> own;
+  float4 acc[T::kRows][T::kCols];
+#pragma unroll
+  for (int i = 0; i < T::kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < T::kCols; ++j) acc[i][j] = make_float4(0, 0, 0, 0);
+
+  for (int kj = 0; kj < n; ++kj) {
+    const int stage = T::kStages == 2 ? kj & 1 : 0;
+    float* Ks = KVs + stage * 2 * T::kTileFloats;
+    float* Vs = Ks + T::kTileFloats;
+    cp_async_wait_all();
+    __syncthreads();  // tile kj is here; tile kj - 1's readers are done
+    if (T::kStages == 2 && kj + 1 < n) {
+      load_pair_async<DT>(KVs + (stage ^ 1) * 2 * T::kTileFloats, k, v, b, h,
+                          (kj + 1) * kTile, p.Lk, p, vec);
+      cp_async_commit();
+    }
+    const int k0 = kj * kTile;
+    // the mask can touch this tile: it holds padded keys, or its last key
+    // lies past its first query
+    const bool edge =
+        k0 + kTile > p.Lk ||
+        (p.causal && static_cast<int64_t>(p.k_off) + k0 + kTile - 1 >
+                         static_cast<int64_t>(p.q_off) + q0);
+    const float* Qt = Qs + at.own * T::kStride;
+    const float* Gt = Gs + at.own * T::kStride;
+    const float* Kt = Ks + at.streamed * T::kStride;
+    const float* Vt = Vs + at.streamed * T::kStride;
+    float* St = Ss + at.own * kBwdScore + at.streamed;
+    if (edge)
+      scores<DT, true, true>(Qt, Gt, Kt, Vt, nullptr, St, stats + at.own, p,
+                             q0 + at.own, k0 + at.streamed);
+    else
+      scores<DT, false, true>(Qt, Gt, Kt, Vt, nullptr, St, stats + at.own, p,
+                              q0 + at.own, k0 + at.streamed);
+    __syncwarp();  // the warp reads only the ds rows it wrote
+    accumulate<DT>(acc, Ss + own.row * kBwdScore, Ks + own.col,
+                   32 * own.half, 32 * own.half + 32);
+    if (T::kStages == 1 && kj + 1 < n) {
+      __syncthreads();
+      load_pair_async<DT>(Ks, k, v, b, h, (kj + 1) * kTile, p.Lk, p, vec);
+      cp_async_commit();
+    }
+  }
+  // the two halves' sums meet in the lower half, in a fixed order, and take
+  // the scale that ds left out
+#pragma unroll
+  for (int i = 0; i < T::kRows; ++i) {
+#pragma unroll
+    for (int j = 0; j < T::kCols; ++j) {
+      float4& a = acc[i][j];
+      a.x = (a.x + __shfl_down_sync(0xffffffffu, a.x, 16)) * p.scale;
+      a.y = (a.y + __shfl_down_sync(0xffffffffu, a.y, 16)) * p.scale;
+      a.z = (a.z + __shfl_down_sync(0xffffffffu, a.z, 16)) * p.scale;
+      a.w = (a.w + __shfl_down_sync(0xffffffffu, a.w, 16)) * p.scale;
+    }
+  }
+  if (own.half == 0) store_rows<DT>(dq, acc, own, b, h, q0, p.Lq, p, vec);
+}
+
+// ---------------------------------------------------------------------
 // B6: dk, dv
 // ---------------------------------------------------------------------
-template <int NJ>
-__global__ void __launch_bounds__(kThreads)
+template <int DT>
+__global__ void __launch_bounds__(kThreads, Bwd<DT>::kMinBlocks)
 flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta,
                  const float* __restrict__ glse, float* __restrict__ dk,
-                 float* __restrict__ dv, Dims p) {
-  extern __shared__ float smem[];
-  const int Dp = p.D + 1;
-  float* Ks = smem;
-  float* Vs = Ks + kTile * Dp;
-  float* Qs = Vs + kTile * Dp;
-  float* Gs = Qs + kTile * Dp;              // dO
-  float* Ps = Gs + kTile * Dp;              // p, [key][query], 64 x 65
-  float* Ss = Ps + kTile * kScoreStride;    // ds, [key][query]
-  float* lse_s = Ss + kTile * kScoreStride;
-  float* delta_s = lse_s + kTile;
-  float* glse_s = delta_s + kTile;
+                 float* __restrict__ dv, Dims p, int vec) {
+  using T = Bwd<DT>;
+  extern __shared__ float4 bwd_smem[];
+  float* Ks = reinterpret_cast<float*>(bwd_smem);
+  float* Vs = Ks + T::kTileFloats;
+  float* QGs = Vs + T::kTileFloats;                    // a stage: Q, then dO
+  float* Ps = QGs + T::kStages * 2 * T::kTileFloats;   // p [key][query]
+  float* Ss = Ps + kTile * kBwdScore;                  // ds [key][query]
+  float* stats = Ss + kTile * kBwdScore;  // a stage: lse, delta, glse
 
   const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
-  const int ki = blockIdx.y;  // key tile 0 sees the most query tiles
-  const int k0 = ki * kTile;
-  const int c = threadIdx.x >> 2, quad = threadIdx.x & 3;  // key row c
+  const int k0 = blockIdx.y * kTile;  // key tile 0 sees the most query tiles
+  // pallas_attention.py:260: query tile qj sees nothing unless
+  // q_off + 64 (qj + 1) - 1 >= k_off + k0, so tiles first .. nq - 1 are
+  // visited
   const int nq = (p.Lq + kTile - 1) / kTile;
+  int first = 0;
+  if (p.causal) {
+    const int64_t need = static_cast<int64_t>(p.k_off) + k0 + 1 -
+                         static_cast<int64_t>(p.q_off);
+    if (need > 0) {
+      const int64_t f = (need + kTile - 1) / kTile - 1;
+      first = f < nq ? static_cast<int>(f) : nq;
+    }
+  }
 
-  load_tile(Ks, k, b, h, k0, p.Lk, p);
-  load_tile(Vs, v, b, h, k0, p.Lk, p);
-  float acc_k[NJ], acc_v[NJ];
+  // tile qj's Q, dO and row statistics into `stage`
+  auto load_stage = [&](int stage, int qj) {
+    load_pair_async<DT>(QGs + stage * 2 * T::kTileFloats, q, dout, b, h,
+                        qj * kTile, p.Lq, p, vec);
+    load_stats_async(stats + stage * 3 * kTile, lse, delta, glse, b, h,
+                     qj * kTile, p);
+  };
+
+  if (p.D < DT) zero_pad_columns<DT>(Ks, 2 + 2 * T::kStages, p.D);
+  if (first < nq) {
+    load_pair_async<DT>(Ks, k, v, b, h, k0, p.Lk, p, vec);
+    load_stage(0, first);
+    cp_async_commit();
+  }
+  const Place at;
+  // one half of a warp sums dv += P^T dO, the other dk += dS^T Q
+  const Owned<DT> own;
+  const float* W = (own.half == 0 ? Ps : Ss) + own.row * kBwdScore;
+  float4 acc[T::kRows][T::kCols];
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) acc_k[j] = acc_v[j] = 0.0f;
+  for (int i = 0; i < T::kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < T::kCols; ++j) acc[i][j] = make_float4(0, 0, 0, 0);
 
-  for (int qj = 0; qj < nq; ++qj) {
-    // pallas_attention.py:260: query tiles wholly above this key tile's
-    // diagonal start see nothing
-    if (p.causal && !(static_cast<int64_t>(p.q_off) + (qj + 1) * kTile - 1 >=
-                      static_cast<int64_t>(p.k_off) + k0))
-      continue;
+  for (int qj = first; qj < nq; ++qj) {
+    const int stage = T::kStages == 2 ? (qj - first) & 1 : 0;
+    float* Qs = QGs + stage * 2 * T::kTileFloats;
+    float* Gs = Qs + T::kTileFloats;
+    cp_async_wait_all();
+    __syncthreads();  // tile qj is here; tile qj - 1's readers are done
+    if (T::kStages == 2 && qj + 1 < nq) {
+      load_stage(stage ^ 1, qj + 1);
+      cp_async_commit();
+    }
     const int q0 = qj * kTile;
-    __syncthreads();
-    load_tile(Qs, q, b, h, q0, p.Lq, p);
-    load_tile(Gs, dout, b, h, q0, p.Lq, p);
-    if (threadIdx.x < kTile) {
-      const int row = q0 + threadIdx.x;
-      const bool real = row < p.Lq;
-      const int64_t i = real ? stat(p, b, h, row) : 0;
-      lse_s[threadIdx.x] = real ? lse[i] : 0.0f;
-      delta_s[threadIdx.x] = real ? delta[i] : 0.0f;
-      glse_s[threadIdx.x] = real ? glse[i] : 0.0f;
-    }
-    __syncthreads();
-
-    float s[kPerThread], dp[kPerThread];
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) s[i] = dp[i] = 0.0f;
-    for (int d = 0; d < p.D; ++d) {
-      const float kd = Ks[c * Dp + d], vd = Vs[c * Dp + d];
-#pragma unroll
-      for (int i = 0; i < kPerThread; ++i) {
-        const int qr = (quad + 4 * i) * Dp + d;
-        s[i] += Qs[qr] * kd;
-        dp[i] += Gs[qr] * vd;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      const int rr = quad + 4 * i, q_loc = q0 + rr;
-      // padded query rows carry no lse: mask them too
-      const bool ok = q_loc < p.Lq && visible(p, q_loc, k0 + c);
-      const float pi = ok ? expf(s[i] * p.scale - lse_s[rr]) : 0.0f;
-      Ps[c * kScoreStride + rr] = pi;
-      Ss[c * kScoreStride + rr] =
-          pi * (dp[i] - delta_s[rr] + glse_s[rr]) * p.scale;
-    }
-    __syncthreads();
-    for (int rr = 0; rr < kTile; ++rr) {
-      const float pr = Ps[c * kScoreStride + rr];
-      const float sr = Ss[c * kScoreStride + rr];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int d = quad + 4 * j;
-        if (d < p.D) {
-          acc_v[j] += pr * Gs[rr * Dp + d];
-          acc_k[j] += sr * Qs[rr * Dp + d];
-        }
-      }
+    // the mask can touch this tile: it holds padded keys or padded
+    // queries, or its last key lies past its first query
+    const bool edge =
+        k0 + kTile > p.Lk || q0 + kTile > p.Lq ||
+        (p.causal && static_cast<int64_t>(p.k_off) + k0 + kTile - 1 >
+                         static_cast<int64_t>(p.q_off) + q0);
+    const float* Kt = Ks + at.own * T::kStride;
+    const float* Vt = Vs + at.own * T::kStride;
+    const float* Qt = Qs + at.streamed * T::kStride;
+    const float* Gt = Gs + at.streamed * T::kStride;
+    const int place = at.own * kBwdScore + at.streamed;
+    const float* st = stats + stage * 3 * kTile + at.streamed;
+    if (edge)
+      scores<DT, true, false>(Kt, Vt, Qt, Gt, Ps + place, Ss + place, st, p,
+                              q0 + at.streamed, k0 + at.own);
+    else
+      scores<DT, false, false>(Kt, Vt, Qt, Gt, Ps + place, Ss + place, st, p,
+                               q0 + at.streamed, k0 + at.own);
+    __syncwarp();  // the warp reads only the p and ds rows it wrote
+    accumulate<DT>(acc, W, (own.half == 0 ? Gs : Qs) + own.col, 0, kTile);
+    if (T::kStages == 1 && qj + 1 < nq) {
+      __syncthreads();
+      load_stage(0, qj + 1);
+      cp_async_commit();
     }
   }
-
-  const int row = k0 + c;
-  if (row < p.Lk) {
+  if (own.half == 1) {  // dk takes the scale that ds left out
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = quad + 4 * j;
-      if (d < p.D) {
-        dk[elem(p, b, p.Lk, row, h, d)] = acc_k[j];
-        dv[elem(p, b, p.Lk, row, h, d)] = acc_v[j];
+    for (int i = 0; i < T::kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < T::kCols; ++j) {
+        float4& a = acc[i][j];
+        a.x *= p.scale, a.y *= p.scale, a.z *= p.scale, a.w *= p.scale;
       }
-    }
   }
+  store_rows<DT>(own.half == 0 ? dv : dk, acc, own, b, h, k0, p.Lk, p, vec);
 }
 
 // ---------------------------------------------------------------------
@@ -401,14 +775,21 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
+// D padded to the width its kernels are instantiated at
+int padded_width(int D) {
+  return D <= 8 ? 8 : D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
+}
+
 size_t smem_bytes(int which, int D) {
-  const size_t tile = static_cast<size_t>(kTile) * (D + 1);
-  const size_t scores = static_cast<size_t>(kTile) * kScoreStride;
-  switch (which) {
-    case kFwd: return 4 * (3 * tile + scores);
-    case kDq: return 4 * (4 * tile + scores);
-    default: return 4 * (4 * tile + 2 * scores + 3 * kTile);
-  }
+  if (which == kFwd)
+    return 4 * (3 * static_cast<size_t>(kTile) * (D + 1) +
+                static_cast<size_t>(kTile) * kScoreStride);
+  const int DT = padded_width(D), stages = DT <= 64 ? 2 : 1;
+  const size_t tiles =
+      static_cast<size_t>(2 + 2 * stages) * kTile * (DT + 4);
+  const size_t scores = static_cast<size_t>(kTile) * kBwdScore;
+  return which == kDq ? 4 * (tiles + scores + 3 * kTile)
+                      : 4 * (tiles + 2 * scores + stages * 3 * kTile);
 }
 
 // opt a kernel in to more than 48 KB of dynamic shared memory, once for
@@ -421,6 +802,14 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* granted) {
       static_cast<int>(bytes));
   if (e == cudaSuccess) *granted = bytes;
   return e;
+}
+
+// 16-byte copies and stores need D % 4 == 0 and every tensor aligned
+bool vector_path(const void* const* ptr, int n, int D) {
+  if (D % 4 != 0) return false;
+  for (int i = 0; i < n; ++i)
+    if (reinterpret_cast<uintptr_t>(ptr[i]) % 16 != 0) return false;
+  return true;
 }
 
 template <int NJ>
@@ -443,22 +832,58 @@ cudaError_t launch(int which, const void* const* ptr, const Dims& p,
           const_cast<float*>(f[4]), p);
       break;
     case kDq:
-      e = allow_smem(flash_dq_kernel<NJ>, bytes, &granted[kDq]);
+      e = allow_smem(flash_dq_kernel<4 * NJ>, bytes, &granted[kDq]);
       if (e != cudaSuccess) return e;
-      flash_dq_kernel<NJ><<<grid, kThreads, bytes, stream>>>(
+      flash_dq_kernel<4 * NJ><<<grid, kThreads, bytes, stream>>>(
           f[0], f[1], f[2], f[3], f[4], f[5], f[6],
-          const_cast<float*>(f[7]), p);
+          const_cast<float*>(f[7]), p, vector_path(ptr, 8, p.D));
       break;
     default:
-      e = allow_smem(flash_dkv_kernel<NJ>, bytes, &granted[kDkv]);
+      e = allow_smem(flash_dkv_kernel<4 * NJ>, bytes, &granted[kDkv]);
       if (e != cudaSuccess) return e;
-      flash_dkv_kernel<NJ><<<grid, kThreads, bytes, stream>>>(
+      flash_dkv_kernel<4 * NJ><<<grid, kThreads, bytes, stream>>>(
           f[0], f[1], f[2], f[3], f[4], f[5], f[6],
-          const_cast<float*>(f[7]), const_cast<float*>(f[8]), p);
+          const_cast<float*>(f[7]), const_cast<float*>(f[8]), p,
+          vector_path(ptr, 9, p.D));
       break;
   }
   return cudaGetLastError();
 }
+
+// what the compiler and the card give pass `which` at this width:
+// registers a thread, local memory a thread (stack and spills) and the
+// blocks an SM holds at the pass's shared memory
+template <int NJ>
+cudaError_t info(int which, int D, int* regs, int* local_bytes,
+                 int* blocks_per_sm) {
+  const void* kernel =
+      which == kFwd ? reinterpret_cast<const void*>(flash_fwd_kernel<NJ>)
+      : which == kDq
+          ? reinterpret_cast<const void*>(flash_dq_kernel<4 * NJ>)
+          : reinterpret_cast<const void*>(flash_dkv_kernel<4 * NJ>);
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  const size_t bytes = smem_bytes(which, D);
+  if (bytes > 48 * 1024) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+    if (e != cudaSuccess) return e;
+  }
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                       kThreads, bytes);
+}
+
+// call fn<NJ> at the instantiation that serves head width D
+#define FLASH_BY_WIDTH(D, fn, ...)                \
+  ((D) <= 8    ? fn<2>(__VA_ARGS__)               \
+   : (D) <= 16 ? fn<4>(__VA_ARGS__)               \
+   : (D) <= 32 ? fn<8>(__VA_ARGS__)               \
+   : (D) <= 64 ? fn<16>(__VA_ARGS__)              \
+               : fn<32>(__VA_ARGS__))
 
 int dispatch(int which, const void* const* ptr, int B, int Lq, int Lk,
              int H, int D, int causal, int q_off, int k_off, float scale,
@@ -471,13 +896,7 @@ int dispatch(int which, const void* const* ptr, int B, int Lq, int Lk,
   if (B == 0 || H == 0 || tiles == 0) return 0;
   const Dims p{B, Lq, Lk, H, D, causal != 0, q_off, k_off, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (D <= 8) e = launch<2>(which, ptr, p, s);
-  else if (D <= 16) e = launch<4>(which, ptr, p, s);
-  else if (D <= 32) e = launch<8>(which, ptr, p, s);
-  else if (D <= 64) e = launch<16>(which, ptr, p, s);
-  else e = launch<32>(which, ptr, p, s);
-  return static_cast<int>(e);
+  return static_cast<int>(FLASH_BY_WIDTH(D, launch, which, ptr, p, s));
 }
 
 }  // namespace
@@ -519,6 +938,16 @@ extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v,
 // shared memory a block of pass `which` (0 B4, 1 B5, 2 B6) uses at D
 extern "C" long long flash_smem_bytes(int which, int D) {
   return static_cast<long long>(smem_bytes(which, D));
+}
+
+// registers a thread, local memory a thread in bytes (0 means no spill)
+// and resident blocks an SM of pass `which` at D; returns a CUDA error code
+extern "C" int flash_kernel_info(int which, int D, int* regs,
+                                 int* local_bytes, int* blocks_per_sm) {
+  if (which < kFwd || which > kDkv || D < 1 || D > 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      FLASH_BY_WIDTH(D, info, which, D, regs, local_bytes, blocks_per_sm));
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -4,7 +4,14 @@ Port of ``msrflute_tpu/ops/pallas_attention.py``: B4 replaces ``_fwd``
 (``pallas_call`` at ``pallas_attention.py:336``, body ``_fwd_kernel``), B5
 the dq pass of ``_bwd`` (``:385``, ``_dq_kernel``), B6 its dk/dv pass
 (``:411``, ``_dkv_kernel``).  All three are hand-written CUDA C++ in
-``csrc/flash_attention.cu``.
+``csrc/flash_attention.cu``, float32 on CUDA cores, bound by operations on
+the H100.  B4 keeps one score row a thread.  B5 and B6 are register-tiled:
+a thread owns a 4 x 4 block of each 64 x 64 score product and rows x 4
+columns of each accumulated output and feeds them with 16-byte shared
+loads (about one load for 6-8 FMAs, not one for one), tiles that the mask
+cannot touch skip the per-element test, and the streamed tiles arrive by
+double-buffered ``cp.async`` copies; the source's header has the bank
+layout, the shared memory a block and what bounds the kernels.
 
 Public functions keep the JAX layout and signature: ``q [B, Lq, H, D]``,
 ``k``/``v`` ``[B, Lk, H, D]``, scale ``1/sqrt(D)``, the causal mask at
@@ -25,7 +32,9 @@ launches the kernel on CUDA tensors (anything else raises); ``launches``
 counts kernel launches.  The plain versions: :func:`attention_lse_plain`
 (the JAX package's ``_dense_lse``), :func:`attention_dq_plain` and
 :func:`attention_dkv_plain` (the backward in the kernels' math), and
-:func:`attention_bwd_plain`, which runs both.
+:func:`attention_bwd_plain`, which runs both.  :func:`kernel_info` reports
+what the compiler and the card give a kernel (registers, spills, blocks an
+SM, shared memory a block).
 
 Not ported (ROADMAP.md): the JAX package's dispatch gate
 (``plan_attention``, ``attention_fallback_dense``), its tile knobs, bf16.
@@ -162,10 +171,47 @@ def _check(name: str, tensors, Lq: int, Lk: int, B: int, H: int,
                              f"Lq={Lq} Lk={Lk} H={H} D={D}")
 
 
+_INT_P = ctypes.POINTER(ctypes.c_int)
+#: the entry points of ``csrc/flash_attention.cu`` beside the launchers:
+#: ``(restype, argtypes)``
+ENTRY_POINTS = {
+    "flash_smem_bytes": (ctypes.c_longlong, [ctypes.c_int, ctypes.c_int]),
+    "flash_kernel_info": (ctypes.c_int, [ctypes.c_int, ctypes.c_int, _INT_P,
+                                         _INT_P, _INT_P]),
+    "flash_attention_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+
+
+def _entry_point(name: str):
+    fn = getattr(_build.load("flash_attention"), name)
+    fn.restype, fn.argtypes = ENTRY_POINTS[name]
+    return fn
+
+
+def kernel_info(which: int, D: int) -> dict:
+    """What the compiler and the card give pass ``which`` (0 B4, 1 B5, 2 B6)
+    at head width ``D``: registers a thread, local memory a thread in bytes
+    (stack and spills; 0 means no spill), the blocks an SM holds and the
+    shared memory a block.  Builds the library, so it needs the card."""
+    regs, local, blocks = (ctypes.c_int() for _ in range(3))
+    code = _entry_point("flash_kernel_info")(
+        which, D, ctypes.byref(regs), ctypes.byref(local),
+        ctypes.byref(blocks))
+    if code != 0:
+        err = _entry_point("flash_attention_error_string")(code).decode()
+        raise RuntimeError(f"flash_kernel_info failed: {err} ({code})")
+    return {"registers": regs.value, "local_bytes": local.value,
+            "blocks_per_sm": blocks.value,
+            "smem_bytes": int(_entry_point("flash_smem_bytes")(which, D))}
+
+
 class _FlashKernel:
     """A kernel of ``csrc/flash_attention.cu`` with a plain-integer launch
     counter.  Every launcher takes its tensors' pointers, then
     ``B, Lq, Lk, H, D, causal, q_offset, k_offset, scale, stream``."""
+
+    #: what follows the ``n_ptr`` pointers of a launcher
+    TAIL = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 
     def __init__(self, symbol: str, n_ptr: int) -> None:
         self.symbol = symbol
@@ -175,16 +221,10 @@ class _FlashKernel:
 
     def _kernel(self):
         if self._fn is None:
-            lib = _build.load("flash_attention")
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = ([ctypes.c_void_p] * self.n_ptr
-                           + [ctypes.c_int] * 8
-                           + [ctypes.c_float, ctypes.c_void_p])
+            fn = getattr(_build.load("flash_attention"), self.symbol)
+            fn.argtypes = [ctypes.c_void_p] * self.n_ptr + self.TAIL
             fn.restype = ctypes.c_int
-            err = lib.flash_attention_error_string
-            err.argtypes = [ctypes.c_int]
-            err.restype = ctypes.c_char_p
-            self._fn = (fn, err)
+            self._fn = (fn, _entry_point("flash_attention_error_string"))
         return self._fn
 
     def _launch(self, tensors, q, k, causal, q_offset, k_offset) -> None:

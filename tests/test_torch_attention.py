@@ -15,8 +15,16 @@ made with numpy from a seed:
   ``rtol = atol = 1e-5`` (the same float32 ops in another order);
 - ``vmap(grad_and_value)`` over K clients through the two
   ``autograd.Function``s against a loop over the clients, to ``1e-6``, with
-  one forward and one backward call for all K.
+  one forward and one backward call for all K;
+- the C interface of ``csrc/flash_attention.cu`` read from the source
+  against what the wrappers declare to ``ctypes`` (no compiler is needed),
+  and the compiler-report parser of ``chip_smoke.py`` on a sample log.
 """
+
+import ctypes
+import os
+import re
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +47,14 @@ CASES = {
     "masked_tile": (1, 40, 24, 1, 8, True, 0, 20),
     "d8": (1, 37, 37, 3, 8, True, 0, 0),
     "d32": (1, 50, 50, 2, 32, True, 0, 0),
+    # the shapes of the chip smoke test's cases for the kernels' copy paths
+    # and edge tiles, at lengths the 16-row interpret-mode blocks keep small
+    "d4": (2, 38, 38, 2, 4, True, 0, 0),
+    "d5": (1, 38, 44, 2, 5, True, 10, 0),
+    "d20": (2, 52, 46, 2, 20, True, 5, 0),
+    "ragged_diag_edge": (2, 54, 58, 2, 32, True, 37, 11),
+    "full_ragged": (1, 50, 75, 3, 32, False, 0, 0),
+    "one_head": (1, 70, 70, 1, 32, True, 0, 0),
 }
 
 
@@ -185,3 +201,103 @@ def test_refusals():
         fa.flash_fwd(meta, meta, meta)
     assert fa.flash_fwd.launches == fa.flash_dq.launches == \
         fa.flash_dkv.launches == 0          # the CPU runs no kernel
+
+
+# ----------------------------------------------------------------------
+# the C interface, read from the source
+# ----------------------------------------------------------------------
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CU = os.path.join(REPO, "msrflute_tpu_torch", "csrc", "flash_attention.cu")
+
+#: how each ctypes type the wrappers declare is spelled in the source
+C_SPELLING = {ctypes.c_void_p: {"const void*", "void*"},
+              ctypes.c_int: {"int"}, ctypes.c_float: {"float"},
+              ctypes.c_longlong: {"long long"},
+              ctypes.c_char_p: {"const char*"},
+              ctypes.POINTER(ctypes.c_int): {"int*"}}
+
+
+def _c_entry_points():
+    """``{name: (return type, [argument types])}`` of every ``extern "C"``
+    function of the source."""
+    with open(CU) as fh:
+        src = fh.read()
+    found = {}
+    for ret, name, args in re.findall(
+            r'extern "C"\s+([\w\s]+?[\w*])\s*(\w+)\(([^)]*)\)\s*{', src):
+        types = []
+        for arg in args.split(","):
+            words = arg.split()
+            types.append(" ".join(words[:-1]) if words else "")
+        found[name] = (" ".join(ret.split()), types)
+    return found
+
+
+def _declared():
+    """``{name: (restype, argtypes)}`` as the wrappers bind them."""
+    out = {k.symbol: (ctypes.c_int, [ctypes.c_void_p] * k.n_ptr + k.TAIL)
+           for k in (fa.flash_fwd, fa.flash_dq, fa.flash_dkv)}
+    out.update({name: (res, list(args))
+                for name, (res, args) in fa.ENTRY_POINTS.items()})
+    return out
+
+
+@pytest.mark.parametrize("name", [
+    "flash_fwd_launch", "flash_dq_launch", "flash_dkv_launch",
+    "flash_smem_bytes", "flash_kernel_info", "flash_attention_error_string"])
+def test_c_entry_point_matches_its_ctypes_declaration(name):
+    source, declared = _c_entry_points(), _declared()
+    assert set(source) == set(declared)     # nothing unbound, nothing missing
+    ret, args = source[name]
+    restype, argtypes = declared[name]
+    assert ret in C_SPELLING[restype], (name, ret)
+    assert len(args) == len(argtypes), (name, args)
+    for i, (arg, want) in enumerate(zip(args, argtypes)):
+        assert arg in C_SPELLING[want], (name, i, arg)
+
+
+def test_launchers_take_their_pointers_then_eight_ints_float_stream():
+    source = _c_entry_points()
+    for kernel, n_ptr in ((fa.flash_fwd, 5), (fa.flash_dq, 8),
+                          (fa.flash_dkv, 9)):
+        assert kernel.n_ptr == n_ptr
+        args = source[kernel.symbol][1]
+        assert all(a.endswith("void*") for a in args[:n_ptr])
+        assert args[n_ptr:] == ["int"] * 8 + ["float", "void*"]
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN57_GLOBAL__N__c9e4e474_18_flash_attention_cu_5326155215flash_dq_kernelILi32EEEvPKfS2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN57_GLOBAL__N__c9e4e474_18_flash_attention_cu_5326155215flash_dq_kernelILi32EEEvPKfS2_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 416 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN57_GLOBAL__N__c9e4e474_18_flash_attention_cu_5326155216flash_dkv_kernelILi8EEEvPKfS2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN57_GLOBAL__N__c9e4e474_18_flash_attention_cu_5326155216flash_dkv_kernelILi8EEEvPKfS2_
+    8 bytes stack frame, 8 bytes spill stores, 128 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function 'fused_sgd_kernel' for 'sm_90a'
+ptxas info    : Function properties for fused_sgd_kernel
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 24 registers, used 0 barriers, 416 bytes cmem[0]
+"""
+
+
+def test_chip_smoke_reads_the_compiler_report_by_entry_function():
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    reports = chip_smoke.ptxas_reports(PTXAS_LOG)
+    assert reports == {
+        "flash_dq_kernel<32>": {"registers": 128, "spill_store_bytes": 0,
+                                "spill_load_bytes": 0},
+        "flash_dkv_kernel<8>": {"registers": 64, "spill_store_bytes": 8,
+                                "spill_load_bytes": 128},
+        "fused_sgd_kernel": {"registers": 24, "spill_store_bytes": 0,
+                             "spill_load_bytes": 0}}
+    assert chip_smoke.ptxas_reports("cached") == {}
+    assert chip_smoke._flash_entry("dq", 32) == "flash_dq_kernel<32>"
+    assert chip_smoke._flash_entry("dkv", 20) == "flash_dkv_kernel<32>"
+    assert chip_smoke._flash_entry("fwd", 32) == "flash_fwd_kernel<8>"
