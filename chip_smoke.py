@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels]
 
 Run from the root of a checkout; needs one CUDA card, ``nvcc`` and no
-network.  Phases, each printing one JSON line (any failure exits non-zero
-and prints no result):
+network.  ``--kernels`` runs phases 1 and 2 alone and ends with the
+``kernels`` table (a quick check and timing of the kernels after an edit,
+or of two trees in one call); without it every phase runs.  Phases, each
+printing one JSON line (any failure exits non-zero and prints no
+result):
 
 1. ``env``    — the card's name and power limit (``nvidia-smi``), the torch
    and CUDA versions; then ``build``: every kernel of the port compiled
@@ -15,8 +18,13 @@ and prints no result):
    at its paths' shapes and at odd shapes, then kernel, plain and library
    (or yardstick) times beside the least time the card could take
    (``bound_ms``):
-   - B1 ``fused_sgd_apply``: mixed per-row gates, bitwise; timed at the
-     CNN shape ``[10, 1,206,590]`` and the DGA shape ``[10, 2,727,184]``;
+   - B1 ``fused_sgd_apply``: mixed per-row gates (a NaN gate among them) at
+     the three paths' shapes, rows at every residue mod 4, base pointers
+     off a 16-byte boundary (for all three tensors, and for one alone),
+     rows shorter than one vector: bitwise, with gated rows and the floats
+     around each tensor untouched; timed at the CNN shape
+     ``[10, 1,206,590]`` and the DGA shape ``[10, 2,727,184]`` beside
+     ``torch._fused_sgd_``, with the card's clock and draw under it;
    - B2 ``fused_gaussian_noise``: the plain PyTorch Philox against
      cuRAND's ``curand_Philox4x32_10`` (Random123's known answers and
      random counters and keys), bitwise; the kernel's normals against the
@@ -34,8 +42,9 @@ and prints no result):
      within ``FLASH_FWD_TOL`` / ``FLASH_BWD_TOL``, two launches bitwise
      equal at the path's shape and at an offset case; the causal f32 SDPA
      forward and backward are the yardstick; B4 is also timed at the eval
-     step's ``[16, 1023, 4, 32]``; B5's and B6's D = 32 instances must not
-     spill and must fit two blocks an SM (``ptxas`` and the CUDA runtime).
+     step's ``[16, 1023, 4, 32]``, with the card's clock and draw under it;
+     the D = 32 instances of all three must not spill and must fit two
+     blocks an SM (``ptxas`` and the CUDA runtime).
 3. ``main``   — the FedAvg CNN_FEMNIST path through the port's CLI
    (``msrflute_tpu_torch.e2e_trainer``, in process) on ``cuda``, at the
    published ``cv_cnn_femnist`` widths (10 clients a round, batch 20,
@@ -116,6 +125,8 @@ PEAK_INT32_OPS = PEAK_F32_FLOPS / 4
 MAIN_K, MAIN_P = 10, 1_206_590
 #: the DGA path's: K = 10 clients x P = the nlg_gru GRU LM's params
 DGA_K, DGA_P = 10, 2_727_184
+#: the RingLM path's: K = 10 clients x P = RingLM's params
+RINGLM_P = 945_370
 #: B2's int32 work per element: half a Philox-4x32-10 call (10 rounds of
 #: two mul.lo, two mul.hi and four xors).  The round keys depend on the
 #: seed alone, the same for every element, so they are not counted.
@@ -222,11 +233,43 @@ def phase_build():
           "ptxas": {k: ptxas_reports(v) for k, v in logs.items()}})
 
 
-def _sgd_inputs(torch, K, P, gate, seed):
+#: B1's cases: (K, P, per-row gate, offsets).  Each of p, g and m is a
+#: contiguous [K, P] view that starts offsets[i] floats into a buffer of its
+#: own with a guard float past its end, so row k of a tensor starts
+#: offsets[i] + k * P floats (mod 4) past a 16-byte boundary
+SGD_CASES = [
+    # the paths' shapes, mixed gates (a NaN gate pins too) and all live
+    (MAIN_K, MAIN_P, [1, 0, 1, -1, 1, 1, 0, 1, 1, 1], (0, 0, 0)),
+    (MAIN_K, MAIN_P, [1] * MAIN_K, (0, 0, 0)),
+    (DGA_K, DGA_P, [1, 1, 0, 1, 1, 1, 1, -1, 1, 1], (0, 0, 0)),
+    (MAIN_K, RINGLM_P, [1, 1, 1, 0, 1, float("nan"), 1, 1, 0, 1],
+     (0, 0, 0)),
+    # odd P: rows at all four residues mod 4, also under an offset base
+    (4, 127, [0, 1, -2, 1], (0, 0, 0)),
+    (4, 1_000_003, [1, 1, 1, 1], (1, 1, 1)),
+    (5, 1000, [1, 1, 0, 1, 1], (0, 0, 0)),
+    (2, 1_048_579, [1, 0], (0, 0, 0)),
+    # one tensor off the others' residue: those rows run scalar
+    (6, 4_099, [1, 1, 0, 1, 1, 1], (1, 0, 0)),
+    (5, 4_097, [1, 1, 1, 1, 0], (0, 3, 0)),
+    (4, 2_001, [1, 1, 1, 1], (0, 0, 2)),
+    # rows shorter than one vector
+    (3, 1, [1, 0, 1], (0, 0, 0)),
+    (4, 3, [1, 1, 1, 1], (1, 1, 1)),
+    (5, 2, [1, 0, 1, 1, 1], (2, 2, 2)),
+]
+
+
+def _sgd_inputs(torch, K, P, gate, seed, offsets=(0, 0, 0)):
+    """p, g, m as views ``offsets`` floats into buffers one guard float
+    longer than they need, the buffers, and the gate."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    p, g, m = (torch.randn((K, P), generator=gen, device="cuda")
-               for _ in range(3))
-    return p, g, m, torch.tensor(gate, dtype=torch.float32, device="cuda")
+    bufs = [torch.randn(K * P + off + 1, generator=gen, device="cuda")
+            for off in offsets]
+    p, g, m = (b[off:off + K * P].view(K, P)
+               for b, off in zip(bufs, offsets))
+    return p, g, m, torch.tensor(gate, dtype=torch.float32,
+                                 device="cuda"), bufs
 
 
 def _time_ms(torch, fn, iters=50, warmup=5):
@@ -280,37 +323,41 @@ def phase_kernel(torch):
     from msrflute_tpu_torch.ops.fused_sgd import (fused_sgd_apply,
                                                   fused_sgd_plain)
     lr = 0.1
-    cases = [(MAIN_K, MAIN_P, [1, 0, 1, -1, 1, 1, 0, 1, 1, 1]),
-             (MAIN_K, MAIN_P, [1] * MAIN_K),
-             (DGA_K, DGA_P, [1, 1, 0, 1, 1, 1, 1, -1, 1, 1]),
-             (3, 1, [1, 0, 1]), (4, 127, [0, 1, -2, 1]),
-             (5, 1000, [1, 1, 0, 1, 1]), (2, 1_048_579, [1, 0])]
     max_err = 0.0
-    for K, P, gate in cases:
+    for K, P, gate, offsets in SGD_CASES:
         for mu in (0.0, 0.9):
-            p, g, m, gt = _sgd_inputs(torch, K, P, gate, seed=K * 7 + P)
-            kp, km = p.clone(), m.clone()
+            p, g, m, gt, bufs = _sgd_inputs(torch, K, P, gate, K * 7 + P,
+                                            offsets)
+            before = [b.clone() for b in bufs]
             pp, pm = p.clone(), m.clone()
-            fused_sgd_apply(kp, g, km, lr, mu, gt)
             fused_sgd_plain(pp, g, pm, lr, mu, gt)
+            fused_sgd_apply(p, g, m, lr, mu, gt)
             torch.cuda.synchronize()
-            err = max(float((kp - pp).abs().max()),
-                      float((km - pm).abs().max()))
+            err = max(float((p - pp).abs().max()),
+                      float((m - pm).abs().max()))
             if (K, P) in ((MAIN_K, MAIN_P), (DGA_K, DGA_P)):
                 max_err = max(max_err, err)
-            check(torch.equal(kp, pp) and torch.equal(km, pm),
-                  f"fused_sgd [{K}, {P}] mu={mu}: kernel != plain "
-                  f"(max abs err {err})")
-            dead = [k for k, v in enumerate(gate) if v <= 0]
-            check(all(torch.equal(kp[k], p[k]) and torch.equal(km[k], m[k])
-                      for k in dead), "gated rows were written")
+            what = f"fused_sgd [{K}, {P}] offsets {offsets} mu={mu}"
+            check(torch.equal(p, pp) and torch.equal(m, pm),
+                  f"{what}: kernel != plain (max abs err {err})")
+            p0, m0 = (before[i][off:off + K * P].view(K, P)
+                      for i, off in ((0, offsets[0]), (2, offsets[2])))
+            dead = [k for k, v in enumerate(gate) if not v > 0]
+            check(all(torch.equal(p[k], p0[k]) and torch.equal(m[k], m0[k])
+                      for k in dead), f"{what}: gated rows were written")
+            # the floats around each view, and all of g, are untouched
+            for b, b0, off in zip(bufs, before, offsets):
+                check(torch.equal(b[:off], b0[:off]) and
+                      torch.equal(b[off + K * P:], b0[off + K * P:]),
+                      f"{what}: a write outside the view")
+            check(torch.equal(bufs[1], before[1]), f"{what}: g was written")
 
     # timing at each path's shape, every row live (the library call has
     # no per-row gate)
     mu = 0.9
     timed = {}
     for path, K, P in (("cnn", MAIN_K, MAIN_P), ("dga", DGA_K, DGA_P)):
-        p, g, m, gt = _sgd_inputs(torch, K, P, [1] * K, seed=1)
+        p, g, m, gt, _ = _sgd_inputs(torch, K, P, [1] * K, seed=1)
         kernel_ms = _time_ms(torch, lambda: fused_sgd_apply(p, g, m, lr, mu,
                                                             gt))
         plain_ms = _time_ms(torch, lambda: fused_sgd_plain(p, g, m, lr, mu,
@@ -323,13 +370,17 @@ def phase_kernel(torch):
                                                               mu, gt))
         n = K * P
         nbytes = 20 * n + 4 * K           # read p, g, m, gate; write p, m
+        bound_ms = max(nbytes / PEAK_BYTES_PER_S,
+                       4 * n / PEAK_F32_FLOPS) * 1e3
         timed[path] = {
             "shape": [K, P], "ms": kernel_ms, "ms_repeat": kernel_ms_2,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(nbytes / PEAK_BYTES_PER_S,
-                            4 * n / PEAK_F32_FLOPS) * 1e3,
-            "bytes": nbytes,
-            "achieved_gb_s": nbytes / (kernel_ms * 1e-3) / 1e9}
+            "bound_ms": bound_ms, "bytes": nbytes,
+            "share_of_bound": bound_ms / kernel_ms,
+            "achieved_gb_s": nbytes / (kernel_ms * 1e-3) / 1e9,
+            "library_gb_s": nbytes / (library_ms * 1e-3) / 1e9,
+            "card_under_kernel": _under_load(
+                torch, lambda: fused_sgd_apply(p, g, m, lr, mu, gt))}
         del p, g, m
     cnn = timed["cnn"]
     row = {"name": "fused_sgd_apply", "route": "cuda",
@@ -343,7 +394,7 @@ def phase_kernel(torch):
                             ("shape", "ms", "plain_ms", "bound_ms",
                              "library_ms")}}
     emit({"phase": "kernel", "ok": True, "name": "fused_sgd_apply",
-          "cases": len(cases) * 2, "bitwise": True, **timed})
+          "cases": len(SGD_CASES) * 2, "bitwise": True, **timed})
     return row
 
 
@@ -629,11 +680,10 @@ PEAK_TF32_FLOPS = 495e12
 
 def _flash_entry(key, D):
     """Pass ``key``'s entry function at head width D, as
-    :func:`ptxas_reports` names it: B4's template argument counts the d
-    values a thread owns, B5's and B6's is D padded to 8, 16, 32, 64 or
-    128."""
+    :func:`ptxas_reports` names it: the template argument is D padded to
+    8, 16, 32, 64 or 128."""
     width = next(w for w in (8, 16, 32, 64, 128) if D <= w)
-    return f"flash_{key}_kernel<{width // 4 if key == 'fwd' else width}>"
+    return f"flash_{key}_kernel<{width}>"
 
 
 def _flash_case(torch, B, Lq, Lk, H, D, seed):
@@ -773,6 +823,8 @@ def phase_kernel_flash(torch):
                        iters=20)
     bwd_under_load = _under_load(
         torch, lambda: (fa.flash_dq(*bwd_args), fa.flash_dkv(*bwd_args)))
+    fwd_under_load = _under_load(
+        torch, lambda: fa.flash_fwd(q, k, v, causal, qo, ko))
     pairs = _visible_pairs(torch, B, Lq, Lk, H, causal, qo, ko)
     qbytes = 4 * B * Lq * H * D
     kbytes = 4 * B * Lk * H * D
@@ -801,6 +853,8 @@ def phase_kernel_flash(torch):
         "bound_ms": max(eval_flops / PEAK_F32_FLOPS,
                         eval_bytes / PEAK_BYTES_PER_S) * 1e3,
         "bound_by": "operations", "sdpa_fwd_ms": eval_sdpa}
+    fwd_eval["share_of_bound"] = fwd_eval["bound_ms"] / fwd_eval["ms"]
+    fwd_eval["sdpa_over_kernel"] = eval_sdpa / fwd_eval["ms"]
     check(eval_flops / PEAK_F32_FLOPS >= eval_bytes / PEAK_BYTES_PER_S,
           "B4 at the eval shape is not bound by operations")
     max_err = {"fwd": max(max_abs["out"], max_abs["lse"]),
@@ -845,11 +899,14 @@ def phase_kernel_flash(torch):
           "bitwise_repeat": True, "visible_pairs": pairs,
           "ms": t, "fwd_ms_repeat": t_again, "plain_ms": plain,
           "sdpa_fwd_ms": lib_fwd, "sdpa_bwd_ms": lib_bwd,
-          "dq_plus_dkv_ms": t["dq"] + t["dkv"], "fwd_at_eval_shape": fwd_eval,
+          "dq_plus_dkv_ms": t["dq"] + t["dkv"],
+          "sdpa_fwd_over_fwd": lib_fwd / t["fwd"],
+          "fwd_at_eval_shape": fwd_eval,
           "card_under_dq_and_dkv": bwd_under_load,
+          "card_under_fwd": fwd_under_load,
           "bound_ms": {r["name"]: r["bound_ms"] for r in rows},
           "detail": detail})
-    for key in ("dq", "dkv"):   # the backward's path instances do not spill
+    for key in ("fwd", "dq", "dkv"):   # the path's instances do not spill
         d = detail[key]
         spills = d["ptxas_d32"] or {"spill_store_bytes": 0,
                                     "spill_load_bytes": 0}
@@ -1361,7 +1418,7 @@ def phase_ringlm(torch, work, kernel_rows):
 
     check(server.state.params.is_cuda, "server params are not on cuda")
     P = server.engine.layout.numel
-    check(P == 945_370, f"RingLM has {P} params")
+    check(P == RINGLM_P, f"RingLM has {P} params")
     layers = server.task.module.num_layers
     steps = server.engine.local_steps
     eval_steps = sum(server._eval_batches[h["split"]]["sample_mask"].shape[0]
@@ -1478,6 +1535,10 @@ def phase_cross_device_ringlm(torch, work):
 
 # ----------------------------------------------------------------------
 def main() -> int:
+    argv = sys.argv[1:]
+    if argv not in ([], ["--kernels"]):
+        print("usage: chip_smoke.py [--kernels]", file=sys.stderr)
+        return 2
     if not os.path.isdir(os.path.join(HERE, "msrflute_tpu_torch")):
         print("chip_smoke.py: run it from a checkout of the repository "
               "(msrflute_tpu_torch/ not found beside it)", file=sys.stderr)
@@ -1496,6 +1557,9 @@ def main() -> int:
         phase = "kernel"
         rows = [phase_kernel(torch), phase_kernel_noise(torch),
                 phase_kernel_quant(torch), *phase_kernel_flash(torch)]
+        if argv == ["--kernels"]:
+            emit({"kernels": rows})
+            return 0
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
             phase = "main"
             server = phase_main(torch, work, rows)

@@ -36,42 +36,36 @@
 //   inside one block: a block of 256 threads owns one (b*h, 64-row query
 //   tile) in B4 and B5 and one (b*h, 64-row key tile) in B6, and streams
 //   64-row tiles of the other axis through shared memory;
-// - no atomics: B5 alone writes its dq rows and B6 alone its dk/dv rows,
-//   and every sum runs in a fixed order, so two launches are bitwise equal;
+// - no atomics: B4 alone writes its out and lse rows, B5 its dq rows and B6
+//   its dk/dv rows, and every sum runs in a fixed order, so two launches
+//   are bitwise equal;
 // - heavy tiles are scheduled first under the causal mask (the last query
 //   tile in B4/B5, the first key tile in B6);
 // - D <= 128; any L (the ragged last tile is masked).
 //
-// B4, simple and right first:
-// - 4 threads share a tile row; a thread keeps 16 scores of its row and
-//   its quarter of the output row (d = quad + 4j) in registers; row max and
-//   row sum are reduced over the 4 lanes with shuffles;
-// - shared rows are padded to D + 1 floats (and the score tile to 65) so the
-//   warp's reads fall in distinct banks;
-// - shared memory a block 4 * (3 * 64 * (D + 1) + 64 * 65) bytes (41,984 at
-//   D = 32; 115,712 at D = 128).
-//
-// B5 and B6, designed for this card.  An SM starts one instruction a clock
-// from each of its four schedulers and a warp-wide FMA is one of them, so
-// every load, store and index computation takes an FMA's slot; and its
-// shared memory serves a 16-byte load one quarter warp at a time, in about
-// 2.5 clocks a warp when each quarter's 8 lanes touch 64 bytes or fewer and
+// Designed for this card.  An SM starts one instruction a clock from each
+// of its four schedulers and a warp-wide FMA is one of them, so every
+// load, store and index computation takes an FMA's slot; and its shared
+// memory serves a 16-byte load one quarter warp at a time, in about 2.5
+// clocks a warp when each quarter's 8 lanes touch 64 bytes or fewer and
 // 3.7 otherwise, broadcast or not (csrc/probes/lds_throughput.cu).  A
-// backward that reads one shared scalar for each FMA, as the first version
-// did, leaves the FMA pipes a quarter busy.  What the design does about it:
+// kernel that reads one shared scalar for each FMA, as the first versions
+// of all three did, leaves the FMA pipes a quarter busy.  What the design
+// does about it:
 // - register tiles.  Warp w owns rows 8w .. 8w + 7 of the block's own tile
-//   (Q, dO in B5; K, V in B6).  For the two 64 x 64 products S = Q K^T and
-//   dP = dO V^T a thread owns a 4 x 4 block of each (own rows o + 2x
-//   against streamed rows t + 16y) and reads 4 values along d of each of
-//   its 8 rows with 16-byte loads: 8 loads feed 64 FMAs.  For the
-//   accumulations (dq += dS K; dv += P^T dO; dk += dS^T Q) a lane owns 4
-//   rows x 4 columns of the warp's [8][D] piece of the output and reads p
-//   or ds as 16-byte vectors along the axis it sums over: again 8 loads
-//   for 64 FMAs.  In B5 the two halves of a warp each sum over 32 of the
-//   tile's 64 keys and add up once, by shuffle, when the block ends; in B6
-//   one half sums dv and the other dk.  Per 64 x 64 tile pair at D = 32 a
-//   thread makes 192 (B5) or 256 (B6) 16-byte loads for 1,536 or 2,048
-//   FMAs, where the first version made one scalar load for each;
+//   (Q in B4; Q, dO in B5; K, V in B6).  For each 64 x 64 score product
+//   (S = Q K^T in all three, dP = dO V^T in B5 and B6) a thread owns a
+//   4 x 4 block (own rows o + 2x against streamed rows t + 16y) and reads
+//   4 values along d of each of its 8 rows with 16-byte loads: 8 loads
+//   feed 64 FMAs.  For the accumulations (out += P V; dq += dS K;
+//   dv += P^T dO; dk += dS^T Q) a lane owns 4 rows x 4 columns of the
+//   warp's [8][D] piece of the output and reads p or ds as 16-byte vectors
+//   along the axis it sums over: again 8 loads for 64 FMAs.  In B4 and B5
+//   the two halves of a warp each sum over 32 of the tile's 64 keys and
+//   add up once, by shuffle, when the block ends; in B6 one half sums dv
+//   and the other dk.  Per 64 x 64 tile pair at D = 32 a thread makes 128
+//   (B4), 192 (B5) or 256 (B6) 16-byte loads for 1,024, 1,536 or 2,048
+//   FMAs, where the first versions made one scalar load for each;
 // - quarter warps and banks.  Tiles stay row-major [64][DT + 4] (DT = D
 //   padded to 8, 16, 32, 64 or 128, the columns at or past D zero), the
 //   layout cp.async delivers.  The lanes are placed so that a quarter warp
@@ -91,26 +85,46 @@
 // - copies.  Tiles arrive by cp.async, 16 bytes a copy where D % 4 == 0
 //   and the tensors are 16-byte aligned (4 bytes a copy otherwise), rows
 //   past L zero-filled by the copy itself; the two tensors that travel
-//   together (Q and dO, K and V) share one address.  The streamed tiles
-//   (K, V in B5; Q, dO and the three row statistics in B6) are
+//   together (K and V, Q and dO) share one address.  The streamed tiles
+//   (K, V in B4 and B5; Q, dO and the three row statistics in B6) are
 //   double-buffered up to D = 64: tile j + 1 is in flight while tile j is
-//   computed.  Above, one stage (two would not fit);
-// - the element-wise part.  p = 2^(s * scale * log2(e) - lse * log2(e))
-//   with ex2.approx, 2 instructions a score instead of expf's dozen
-//   (relative error about 1e-6 from the rounding of the two products at
-//   |lse| <= 20); ds is kept as p * (dp + (glse - delta)) and the scale
-//   multiplies dq and dk once, when the block ends;
+//   computed.  Above, one stage (two would not fit B5 and B6);
+// - the element-wise part.  2^x by ex2.approx, 2 instructions a score
+//   instead of expf's dozen.  B4's online softmax runs in the log2 domain:
+//   the row max m2 is kept pre-scaled by scale * log2(e), a tile's max of
+//   the raw scores is taken over the 16 lanes that share a row with four
+//   shuffles, p = 2^(s * scale * log2(e) - m2) is one FMA and one ex2, and
+//   each lane keeps its own partial row sum, rescaled by
+//   corr = 2^(m2_old - m2_new) each tile and added across the 16 lanes once,
+//   when the block ends.  The backward recomputes p = 2^(s * scale *
+//   log2(e) - lse * log2(e)) (relative error about 1e-6 from the rounding
+//   of the two products at |lse| <= 20); ds is kept as p * (dp + (glse -
+//   delta)) and the scale multiplies dq and dk once, when the block ends;
+// - B4's row statistics.  A row's corr goes from the lane that computed it
+//   to the lanes that own the row's output through a per-warp shared slot,
+//   again between the warp's own lanes, with __syncwarp; the final row sum
+//   goes the same way.  While a row has seen no visible key its max is
+//   still about -1e30 and corr is 2^0 or 2^(-huge); masked entries are set
+//   to 0 explicitly, so a fully masked row keeps acc = l = 0 and gives
+//   out = 0 and lse = -1e30 exactly;
 // - registers.  __launch_bounds__(256, 2) up to D = 32: at most 128
 //   registers a thread, two blocks (16 warps) an SM, no spill;
-// - shared memory a block at DT = 32 / 128, in bytes: B5 4 * ((2 + 2 *
-//   stages) * 64 * (DT + 4) + 64 * 80 + 3 * 64) = 76,544 / 156,416, B6
-//   4 * ((2 + 2 * stages) * 64 * (DT + 4) + 2 * 64 * 80 + stages * 3 * 64)
-//   = 97,792 / 176,896: above 48 KB it is opted in with
+// - shared memory a block at DT = 32 / 128, in bytes: B4 4 * ((1 + 2 *
+//   stages) * 64 * (DT + 4) + 64 * 80 + 64) = 66,816 / 122,112; B5 4 *
+//   ((2 + 2 * stages) * 64 * (DT + 4) + 64 * 80 + 3 * 64) = 76,544 /
+//   156,416; B6 4 * ((2 + 2 * stages) * 64 * (DT + 4) + 2 * 64 * 80 +
+//   stages * 3 * 64) = 97,792 / 176,896: above 48 KB it is opted in with
 //   cudaFuncSetAttribute.
-// What still holds them (PERF.md has the numbers): with the loads taken
-// out of the products the kernels run no faster, so it is the rate at
-// which 16 warps an SM get their FMAs started, with the element-wise part,
-// the copies' index arithmetic and the loop taking a fifth of the slots.
+// What still holds them (PERF.md has the numbers, from an NVIDIA H100
+// 80GB HBM3 at 700 W): with the loads taken out of the products B5 and B6
+// run no faster, so it is the rate at which 16 warps an SM get their FMAs
+// started, with the element-wise part, the copies' index arithmetic and
+// the loop taking a fifth of the slots; they reach 48-49 % of their f32
+// bound.  B4 reaches 41 %: next to its two products the online softmax,
+// the rescale and the copies take a larger share of the slots than B5's
+// element-wise part does next to three.  Three blocks an SM (80 registers)
+// spill and run slower, and rescaling only when a row max grows by 2^8
+// gains nothing (csrc/probes/fwd_variants.py).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -119,9 +133,7 @@
 namespace {
 
 constexpr int kTile = 64;        // rows of a tile, both axes
-constexpr int kThreads = 256;    // 4 threads per tile row
-constexpr int kPerThread = kTile / 4;  // scores a thread keeps
-constexpr int kScoreStride = kTile + 1;
+constexpr int kThreads = 256;    // 8 warps, 8 rows of the own tile each
 constexpr float kNeg = -1e30f;   // the TPU kernels' "minus infinity"
 
 struct Dims {
@@ -135,32 +147,9 @@ __device__ __forceinline__ int64_t elem(const Dims& p, int b, int L, int row,
   return ((static_cast<int64_t>(b) * L + row) * p.H + h) * p.D + d;
 }
 
-// rows [row0, row0 + 64) of head h of batch b of a [B, L, H, D] tensor into
-// a [64][D + 1] shared tile; rows at or past L are zero (never garbage: a
-// masked score multiplies them by 0, and 0 * NaN would poison the sums)
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int b, int h, int row0, int L,
-                                          const Dims& p) {
-  const int Dp = p.D + 1;
-  for (int i = threadIdx.x; i < kTile * p.D; i += kThreads) {
-    const int rr = i / p.D, d = i - rr * p.D, row = row0 + rr;
-    dst[rr * Dp + d] = row < L ? src[elem(p, b, L, row, h, d)] : 0.0f;
-  }
-}
-
 __device__ __forceinline__ int64_t stat(const Dims& p, int b, int h,
                                         int row) {
   return (static_cast<int64_t>(b) * p.H + h) * p.Lq + row;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // the causal mask at global positions, with padded keys masked
@@ -172,107 +161,16 @@ __device__ __forceinline__ bool visible(const Dims& p, int q_loc,
 }
 
 // ---------------------------------------------------------------------
-// B4: forward
+// the register tiles, copies and lane places of the three kernels (see
+// the header)
 // ---------------------------------------------------------------------
-template <int NJ>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out,
-                 float* __restrict__ lse, Dims p) {
-  extern __shared__ float smem[];
-  const int Dp = p.D + 1;
-  float* Qs = smem;
-  float* Ks = Qs + kTile * Dp;
-  float* Vs = Ks + kTile * Dp;
-  float* Ps = Vs + kTile * Dp;  // [64][65]
-
-  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
-  const int qi = gridDim.y - 1 - blockIdx.y;  // heavy causal tiles first
-  const int q0 = qi * kTile;
-  const int r = threadIdx.x >> 2, quad = threadIdx.x & 3;
-  const int nk = (p.Lk + kTile - 1) / kTile;
-
-  load_tile(Qs, q, b, h, q0, p.Lq, p);
-  float m = kNeg, l = 0.0f, acc[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) acc[j] = 0.0f;
-
-  for (int kj = 0; kj < nk; ++kj) {
-    // pallas_attention.py:139: whole key tiles above the diagonal add
-    // nothing (block-uniform, so the barriers below stay uniform)
-    if (p.causal && !(static_cast<int64_t>(p.k_off) + kj * kTile <=
-                      static_cast<int64_t>(p.q_off) + q0 + kTile - 1))
-      continue;
-    __syncthreads();  // the last tile's readers are done
-    load_tile(Ks, k, b, h, kj * kTile, p.Lk, p);
-    load_tile(Vs, v, b, h, kj * kTile, p.Lk, p);
-    __syncthreads();
-
-    float s[kPerThread];
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) s[j] = 0.0f;
-    for (int d = 0; d < p.D; ++d) {
-      const float qd = Qs[r * Dp + d];
-#pragma unroll
-      for (int j = 0; j < kPerThread; ++j)
-        s[j] += qd * Ks[(quad + 4 * j) * Dp + d];
-    }
-    float mt = kNeg;
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      const bool ok = visible(p, q0 + r, kj * kTile + quad + 4 * j);
-      s[j] = ok ? s[j] * p.scale : kNeg;
-      mt = fmaxf(mt, s[j]);
-    }
-    const float m_new = fmaxf(m, quad_max(mt));
-    float st = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kPerThread; ++j) {
-      // masked entries are zeroed explicitly: in a fully masked row
-      // s == m_new == -1e30 and exp(0) would resurrect them
-      const bool ok = visible(p, q0 + r, kj * kTile + quad + 4 * j);
-      const float pj = ok ? expf(s[j] - m_new) : 0.0f;
-      Ps[r * kScoreStride + quad + 4 * j] = pj;
-      st += pj;
-    }
-    const float corr = expf(m - m_new);
-    l = l * corr + quad_sum(st);
-    m = m_new;
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[j] *= corr;
-    for (int c = 0; c < kTile; ++c) {
-      const float pc = Ps[r * kScoreStride + c];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int d = quad + 4 * j;
-        if (d < p.D) acc[j] += pc * Vs[c * Dp + d];
-      }
-    }
-  }
-
-  const int row = q0 + r;
-  if (row < p.Lq) {
-    const float lc = fmaxf(l, 1e-30f);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = quad + 4 * j;
-      if (d < p.D) out[elem(p, b, p.Lq, row, h, d)] = acc[j] / lc;
-    }
-    if (quad == 0) lse[stat(p, b, h, row)] = l > 0.0f ? m + logf(lc) : kNeg;
-  }
-}
-
-// ---------------------------------------------------------------------
-// B5 and B6: the backward, register-tiled (see the header)
-// ---------------------------------------------------------------------
-constexpr int kBwdScore = kTile + 16;  // row stride of a p or ds tile
+constexpr int kScoreStride = kTile + 16;  // row stride of a p or ds tile
 constexpr int kWarpRows = kTile / (kThreads / 32);  // own rows of a warp: 8
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The backward at head width DT: D padded to 8, 16, 32, 64 or 128.
+// The tiles at head width DT: D padded to 8, 16, 32, 64 or 128.
 template <int DT>
-struct Bwd {
+struct Layout {
   static constexpr int kStride = DT + 4;  // row stride of a tile, floats
   static constexpr int kTileFloats = kTile * kStride;
   static constexpr int kStages = DT <= 64 ? 2 : 1;
@@ -317,11 +215,12 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// rows [row0, row0 + 64) of one head of two tensors of one shape (the head
-// starts `head` floats into each, rows are `row_stride` floats apart) into
-// two consecutive [64][kStride] shared tiles, `per_row` copies of kBytes a
-// row; rows at or past L arrive as zeros.  One address serves both.
-template <int kStride, int kBytes>
+// rows [row0, row0 + 64) of one head of kTensors (1 or 2) tensors of one
+// shape (the head starts `head` floats into each, rows are `row_stride`
+// floats apart) into consecutive [64][kStride] shared tiles, `per_row`
+// copies of kBytes a row; rows at or past L arrive as zeros.  One address
+// serves both.
+template <int kStride, int kBytes, int kTensors>
 __device__ __forceinline__ void copy_rows(float* dst, const float* src_a,
                                           const float* src_b, int64_t head,
                                           int64_t row_stride, int row0,
@@ -331,29 +230,32 @@ __device__ __forceinline__ void copy_rows(float* dst, const float* src_a,
     const bool real = row0 + rr < L;
     const int64_t from = head + (real ? (row0 + rr) * row_stride : 0) + c;
     cp_async<kBytes>(dst + rr * kStride + c, src_a + from, real);
-    cp_async<kBytes>(dst + kTile * kStride + rr * kStride + c, src_b + from,
-                     real);
+    if (kTensors == 2)
+      cp_async<kBytes>(dst + kTile * kStride + rr * kStride + c, src_b + from,
+                       real);
   }
 }
 
-// the asynchronous load_tile of the backward, for the two tensors that
-// always travel together (Q and dO, K and V): 16-byte copies when `vec`
-template <int DT>
+// the asynchronous tile load, for the two tensors that always travel
+// together (K and V, Q and dO; kTensors 2) or for Q alone (B4; kTensors 1,
+// src_b unused): 16-byte copies when `vec`
+template <int DT, int kTensors = 2>
 __device__ __forceinline__ void load_pair_async(float* dst, const float* src_a,
                                                 const float* src_b, int b,
                                                 int h, int row0, int L,
                                                 const Dims& p, bool vec) {
-  constexpr int kStride = Bwd<DT>::kStride;
+  constexpr int kStride = Layout<DT>::kStride;
   const int64_t head = elem(p, b, L, 0, h, 0);
   const int64_t row_stride = static_cast<int64_t>(p.H) * p.D;
   if (vec && p.D == DT)  // the division by a constant folds
-    copy_rows<kStride, 16>(dst, src_a, src_b, head, row_stride, row0, L,
-                           DT / 4);
+    copy_rows<kStride, 16, kTensors>(dst, src_a, src_b, head, row_stride,
+                                     row0, L, DT / 4);
   else if (vec)
-    copy_rows<kStride, 16>(dst, src_a, src_b, head, row_stride, row0, L,
-                           p.D / 4);
+    copy_rows<kStride, 16, kTensors>(dst, src_a, src_b, head, row_stride,
+                                     row0, L, p.D / 4);
   else
-    copy_rows<kStride, 4>(dst, src_a, src_b, head, row_stride, row0, L, p.D);
+    copy_rows<kStride, 4, kTensors>(dst, src_a, src_b, head, row_stride,
+                                    row0, L, p.D);
 }
 
 // lse, delta and glse of query rows [row0, row0 + 64) into dst[3][64]
@@ -377,7 +279,7 @@ __device__ __forceinline__ void zero_pad_columns(float* tiles_base, int tiles,
   const int extra = DT - D;
   for (int i = threadIdx.x; i < tiles * kTile * extra; i += kThreads) {
     const int row = i / extra;
-    tiles_base[row * Bwd<DT>::kStride + D + (i - row * extra)] = 0.0f;
+    tiles_base[row * Layout<DT>::kStride + D + (i - row * extra)] = 0.0f;
   }
 }
 
@@ -406,7 +308,7 @@ struct Place {
 template <int DT>
 __device__ __forceinline__ void tile_product(float (&s)[4][4], const float* A,
                                              const float* B) {
-  constexpr int kStride = Bwd<DT>::kStride;
+  constexpr int kStride = Layout<DT>::kStride;
 #pragma unroll 8
   for (int d = 0; d < DT; d += 4) {
     float4 a[4], b[4];
@@ -444,7 +346,7 @@ template <int DT>
 struct Owned {
   int half, row, col;
   __device__ Owned() {
-    using T = Bwd<DT>;
+    using T = Layout<DT>;
     const int u = threadIdx.x & 15;
     half = (threadIdx.x >> 4) & 1;
     const int cg = T::kColLanes == 8 ? (u & 3) | ((u >> 1) & 4)
@@ -461,15 +363,15 @@ struct Owned {
 // tile
 template <int DT>
 __device__ __forceinline__ void accumulate(
-    float4 (&acc)[Bwd<DT>::kRows][Bwd<DT>::kCols], const float* W,
+    float4 (&acc)[Layout<DT>::kRows][Layout<DT>::kCols], const float* W,
     const float* X, int c0, int c1) {
-  using T = Bwd<DT>;
+  using T = Layout<DT>;
 #pragma unroll 4
   for (int c = c0; c < c1; c += 4) {
     float w[T::kRows][4];
 #pragma unroll
     for (int i = 0; i < T::kRows; ++i) {
-      const float4 wi = ld4(W + i * T::kRowLanes * kBwdScore + c);
+      const float4 wi = ld4(W + i * T::kRowLanes * kScoreStride + c);
       w[i][0] = wi.x, w[i][1] = wi.y, w[i][2] = wi.z, w[i][3] = wi.w;
     }
 #pragma unroll
@@ -493,10 +395,10 @@ __device__ __forceinline__ void accumulate(
 // h of a [B, L, H, D] tensor
 template <int DT>
 __device__ __forceinline__ void store_rows(
-    float* dst, const float4 (&acc)[Bwd<DT>::kRows][Bwd<DT>::kCols],
+    float* dst, const float4 (&acc)[Layout<DT>::kRows][Layout<DT>::kCols],
     const Owned<DT>& own, int b, int h, int row0, int L, const Dims& p,
     bool vec) {
-  using T = Bwd<DT>;
+  using T = Layout<DT>;
 #pragma unroll
   for (int i = 0; i < T::kRows; ++i) {
 #pragma unroll
@@ -554,35 +456,16 @@ __device__ __forceinline__ void scores(const float* A, const float* Ad,
       if (kMasked &&
           !(q_loc < p.Lq && visible(p, q_loc, k_first + kKeyStep * ik)))
         pr = 0.0f;
-      if (!kQueryOwn) Ps[2 * x * kBwdScore + 16 * y] = pr;
-      Ss[2 * x * kBwdScore + 16 * y] = pr * (dp[x][y] + shift);
+      if (!kQueryOwn) Ps[2 * x * kScoreStride + 16 * y] = pr;
+      Ss[2 * x * kScoreStride + 16 * y] = pr * (dp[x][y] + shift);
     }
   }
 }
 
-// ---------------------------------------------------------------------
-// B5: dq
-// ---------------------------------------------------------------------
-template <int DT>
-__global__ void __launch_bounds__(kThreads, Bwd<DT>::kMinBlocks)
-flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ dout,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta,
-                const float* __restrict__ glse, float* __restrict__ dq,
-                Dims p, int vec) {
-  using T = Bwd<DT>;
-  extern __shared__ float4 bwd_smem[];
-  float* Qs = reinterpret_cast<float*>(bwd_smem);
-  float* Gs = Qs + T::kTileFloats;                     // dO
-  float* KVs = Gs + T::kTileFloats;                    // a stage: K, then V
-  float* Ss = KVs + T::kStages * 2 * T::kTileFloats;   // ds [query][key]
-  float* stats = Ss + kTile * kBwdScore;               // lse, delta, glse
-
-  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // heavy tiles first
-  // pallas_attention.py:201: key tile kj adds nothing unless
-  // k_off + 64 kj <= q_off + q0 + 63, so tiles 0 .. n - 1 are visited
+// query tile q0's key tiles: pallas_attention.py:139 and :201, key tile kj
+// adds nothing unless k_off + 64 kj <= q_off + q0 + 63, so tiles 0 .. n - 1
+// are visited
+__device__ __forceinline__ int key_tiles(const Dims& p, int q0) {
   int n = (p.Lk + kTile - 1) / kTile;
   if (p.causal) {
     const int64_t last = static_cast<int64_t>(p.q_off) + q0 + kTile - 1 -
@@ -590,6 +473,218 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (last < 0) n = 0;
     else if (last / kTile + 1 < n) n = static_cast<int>(last / kTile) + 1;
   }
+  return n;
+}
+
+// the mask can touch the tile of queries q0.. and keys k0..: it holds
+// padded keys, or its last key lies past its first query
+__device__ __forceinline__ bool key_edge(const Dims& p, int q0, int k0) {
+  return k0 + kTile > p.Lk ||
+         (p.causal && static_cast<int64_t>(p.k_off) + k0 + kTile - 1 >
+                          static_cast<int64_t>(p.q_off) + q0);
+}
+
+// the lanes of a warp that hold streamed rows 16y (lanes 0 and 4): they
+// hand each own row's statistics to the lanes that own its output
+__device__ __forceinline__ bool row_writer() {
+  return (threadIdx.x & 0x1b) == 0;
+}
+
+// ---------------------------------------------------------------------
+// B4: forward
+// ---------------------------------------------------------------------
+// One 64 x 64 tile of the online softmax in the log2 domain: s[x][y] are
+// the raw scores of own row `q_first + 2x` against key `k_first + 16y`; m2
+// and l are the thread's 4 rows' running max (times scale * log2 e) and its
+// own partial row sums; p goes to P [query][key] at the thread's first
+// place and each row's corr to slot[2x] (the row writers only).
+template <bool kMasked>
+__device__ __forceinline__ void online_softmax(float (&s)[4][4],
+                                               float (&m2)[4], float (&l)[4],
+                                               float* P, float* slot,
+                                               const Dims& p, float scale2,
+                                               int q_first, int k_first) {
+  const bool writer = row_writer();
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    unsigned seen = 0xfu;
+    float mt = kNeg;
+#pragma unroll
+    for (int y = 0; y < 4; ++y) {
+      if (kMasked && !visible(p, q_first + 2 * x, k_first + 16 * y)) {
+        s[x][y] = kNeg;
+        seen &= ~(1u << y);
+      }
+      mt = fmaxf(mt, s[x][y]);
+    }
+    // the 16 lanes that share the row differ in lane bits 0, 1, 3 and 4
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 8));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 16));
+    const float m_new = fmaxf(m2[x], mt * scale2);
+    const float corr = fast_exp2(m2[x] - m_new);
+    m2[x] = m_new;
+    float sum = 0.0f;
+#pragma unroll
+    for (int y = 0; y < 4; ++y) {
+      float pr = fast_exp2(fmaf(s[x][y], scale2, -m_new));
+      // masked entries are zeroed explicitly: in a row that has seen no
+      // visible key s * scale2 == m2 and 2^0 would resurrect them
+      if (kMasked && !((seen >> y) & 1u)) pr = 0.0f;
+      P[2 * x * kScoreStride + 16 * y] = pr;
+      sum += pr;
+    }
+    l[x] = fmaf(l[x], corr, sum);
+    if (writer) slot[2 * x] = corr;
+  }
+}
+
+template <int DT>
+__global__ void __launch_bounds__(kThreads, Layout<DT>::kMinBlocks)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse, Dims p, int vec) {
+  using T = Layout<DT>;
+  extern __shared__ float4 smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* KVs = Qs + T::kTileFloats;                   // a stage: K, then V
+  float* Ps = KVs + T::kStages * 2 * T::kTileFloats;  // p [query][key]
+  float* slot = Ps + kTile * kScoreStride;            // a value a query row
+
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // heavy tiles first
+  const int n = key_tiles(p, q0);
+
+  if (p.D < DT) zero_pad_columns<DT>(Qs, 1 + 2 * T::kStages, p.D);
+  if (n > 0) {
+    load_pair_async<DT, 1>(Qs, q, nullptr, b, h, q0, p.Lq, p, vec);
+    load_pair_async<DT>(KVs, k, v, b, h, 0, p.Lk, p, vec);
+    cp_async_commit();
+  }
+  const Place at;
+  // out += P V: each half of a warp sums over 32 of the tile's 64 keys
+  const Owned<DT> own;
+  const float scale2 = p.scale * kLog2e;
+  float m2[4], l[4];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) m2[x] = kNeg, l[x] = 0.0f;
+  float4 acc[T::kRows][T::kCols];
+#pragma unroll
+  for (int i = 0; i < T::kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < T::kCols; ++j) acc[i][j] = make_float4(0, 0, 0, 0);
+
+  for (int kj = 0; kj < n; ++kj) {
+    const int stage = T::kStages == 2 ? kj & 1 : 0;
+    float* Ks = KVs + stage * 2 * T::kTileFloats;
+    float* Vs = Ks + T::kTileFloats;
+    cp_async_wait_all();
+    __syncthreads();  // tile kj is here; tile kj - 1's readers are done
+    if (T::kStages == 2 && kj + 1 < n) {
+      load_pair_async<DT>(KVs + (stage ^ 1) * 2 * T::kTileFloats, k, v, b, h,
+                          (kj + 1) * kTile, p.Lk, p, vec);
+      cp_async_commit();
+    }
+    const int k0 = kj * kTile;
+    float s[4][4] = {};
+    tile_product<DT>(s, Qs + at.own * T::kStride,
+                     Ks + at.streamed * T::kStride);
+    float* Pt = Ps + at.own * kScoreStride + at.streamed;
+    if (key_edge(p, q0, k0))
+      online_softmax<true>(s, m2, l, Pt, slot + at.own, p, scale2,
+                           q0 + at.own, k0 + at.streamed);
+    else
+      online_softmax<false>(s, m2, l, Pt, slot + at.own, p, scale2,
+                            q0 + at.own, k0 + at.streamed);
+    __syncwarp();  // the warp reads only the p rows and corr it wrote
+#pragma unroll
+    for (int i = 0; i < T::kRows; ++i) {
+      const float c = slot[own.row + i * T::kRowLanes];
+#pragma unroll
+      for (int j = 0; j < T::kCols; ++j) {
+        float4& a = acc[i][j];
+        a.x *= c, a.y *= c, a.z *= c, a.w *= c;
+      }
+    }
+    accumulate<DT>(acc, Ps + own.row * kScoreStride, Vs + own.col,
+                   32 * own.half, 32 * own.half + 32);
+    if (T::kStages == 1 && kj + 1 < n) {
+      __syncthreads();
+      load_pair_async<DT>(Ks, k, v, b, h, (kj + 1) * kTile, p.Lk, p, vec);
+      cp_async_commit();
+    }
+  }
+  // each row's sum over its 16 lanes (a butterfly: every lane gets the same
+  // bits), and the two halves' outputs meet in the lower half, in a fixed
+  // order
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    l[x] += __shfl_xor_sync(0xffffffffu, l[x], 1);
+    l[x] += __shfl_xor_sync(0xffffffffu, l[x], 2);
+    l[x] += __shfl_xor_sync(0xffffffffu, l[x], 8);
+    l[x] += __shfl_xor_sync(0xffffffffu, l[x], 16);
+  }
+#pragma unroll
+  for (int i = 0; i < T::kRows; ++i) {
+#pragma unroll
+    for (int j = 0; j < T::kCols; ++j) {
+      float4& a = acc[i][j];
+      a.x += __shfl_down_sync(0xffffffffu, a.x, 16);
+      a.y += __shfl_down_sync(0xffffffffu, a.y, 16);
+      a.z += __shfl_down_sync(0xffffffffu, a.z, 16);
+      a.w += __shfl_down_sync(0xffffffffu, a.w, 16);
+    }
+  }
+  __syncwarp();  // the last tile's corr is read
+  if (row_writer()) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const float lc = fmaxf(l[x], 1e-30f);
+      slot[at.own + 2 * x] = lc;
+      const int row = q0 + at.own + 2 * x;
+      if (row < p.Lq)
+        lse[stat(p, b, h, row)] =
+            l[x] > 0.0f ? m2[x] * 0.6931471805599453f + logf(lc) : kNeg;
+    }
+  }
+  __syncwarp();
+  if (own.half == 0) {
+#pragma unroll
+    for (int i = 0; i < T::kRows; ++i) {
+      const float lc = slot[own.row + i * T::kRowLanes];
+#pragma unroll
+      for (int j = 0; j < T::kCols; ++j) {
+        float4& a = acc[i][j];
+        a.x /= lc, a.y /= lc, a.z /= lc, a.w /= lc;
+      }
+    }
+    store_rows<DT>(out, acc, own, b, h, q0, p.Lq, p, vec);
+  }
+}
+
+// ---------------------------------------------------------------------
+// B5: dq
+// ---------------------------------------------------------------------
+template <int DT>
+__global__ void __launch_bounds__(kThreads, Layout<DT>::kMinBlocks)
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta,
+                const float* __restrict__ glse, float* __restrict__ dq,
+                Dims p, int vec) {
+  using T = Layout<DT>;
+  extern __shared__ float4 smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Gs = Qs + T::kTileFloats;                     // dO
+  float* KVs = Gs + T::kTileFloats;                    // a stage: K, then V
+  float* Ss = KVs + T::kStages * 2 * T::kTileFloats;   // ds [query][key]
+  float* stats = Ss + kTile * kScoreStride;            // lse, delta, glse
+
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // heavy tiles first
+  const int n = key_tiles(p, q0);
 
   if (p.D < DT) zero_pad_columns<DT>(Qs, 2 + 2 * T::kStages, p.D);
   if (n > 0) {
@@ -619,17 +714,12 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       cp_async_commit();
     }
     const int k0 = kj * kTile;
-    // the mask can touch this tile: it holds padded keys, or its last key
-    // lies past its first query
-    const bool edge =
-        k0 + kTile > p.Lk ||
-        (p.causal && static_cast<int64_t>(p.k_off) + k0 + kTile - 1 >
-                         static_cast<int64_t>(p.q_off) + q0);
+    const bool edge = key_edge(p, q0, k0);
     const float* Qt = Qs + at.own * T::kStride;
     const float* Gt = Gs + at.own * T::kStride;
     const float* Kt = Ks + at.streamed * T::kStride;
     const float* Vt = Vs + at.streamed * T::kStride;
-    float* St = Ss + at.own * kBwdScore + at.streamed;
+    float* St = Ss + at.own * kScoreStride + at.streamed;
     if (edge)
       scores<DT, true, true>(Qt, Gt, Kt, Vt, nullptr, St, stats + at.own, p,
                              q0 + at.own, k0 + at.streamed);
@@ -637,7 +727,7 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       scores<DT, false, true>(Qt, Gt, Kt, Vt, nullptr, St, stats + at.own, p,
                               q0 + at.own, k0 + at.streamed);
     __syncwarp();  // the warp reads only the ds rows it wrote
-    accumulate<DT>(acc, Ss + own.row * kBwdScore, Ks + own.col,
+    accumulate<DT>(acc, Ss + own.row * kScoreStride, Ks + own.col,
                    32 * own.half, 32 * own.half + 32);
     if (T::kStages == 1 && kj + 1 < n) {
       __syncthreads();
@@ -665,21 +755,21 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // B6: dk, dv
 // ---------------------------------------------------------------------
 template <int DT>
-__global__ void __launch_bounds__(kThreads, Bwd<DT>::kMinBlocks)
+__global__ void __launch_bounds__(kThreads, Layout<DT>::kMinBlocks)
 flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta,
                  const float* __restrict__ glse, float* __restrict__ dk,
                  float* __restrict__ dv, Dims p, int vec) {
-  using T = Bwd<DT>;
-  extern __shared__ float4 bwd_smem[];
-  float* Ks = reinterpret_cast<float*>(bwd_smem);
+  using T = Layout<DT>;
+  extern __shared__ float4 smem[];
+  float* Ks = reinterpret_cast<float*>(smem);
   float* Vs = Ks + T::kTileFloats;
   float* QGs = Vs + T::kTileFloats;                    // a stage: Q, then dO
   float* Ps = QGs + T::kStages * 2 * T::kTileFloats;   // p [key][query]
-  float* Ss = Ps + kTile * kBwdScore;                  // ds [key][query]
-  float* stats = Ss + kTile * kBwdScore;  // a stage: lse, delta, glse
+  float* Ss = Ps + kTile * kScoreStride;               // ds [key][query]
+  float* stats = Ss + kTile * kScoreStride;  // a stage: lse, delta, glse
 
   const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
   const int k0 = blockIdx.y * kTile;  // key tile 0 sees the most query tiles
@@ -714,7 +804,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const Place at;
   // one half of a warp sums dv += P^T dO, the other dk += dS^T Q
   const Owned<DT> own;
-  const float* W = (own.half == 0 ? Ps : Ss) + own.row * kBwdScore;
+  const float* W = (own.half == 0 ? Ps : Ss) + own.row * kScoreStride;
   float4 acc[T::kRows][T::kCols];
 #pragma unroll
   for (int i = 0; i < T::kRows; ++i)
@@ -742,7 +832,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* Vt = Vs + at.own * T::kStride;
     const float* Qt = Qs + at.streamed * T::kStride;
     const float* Gt = Gs + at.streamed * T::kStride;
-    const int place = at.own * kBwdScore + at.streamed;
+    const int place = at.own * kScoreStride + at.streamed;
     const float* st = stats + stage * 3 * kTile + at.streamed;
     if (edge)
       scores<DT, true, false>(Kt, Vt, Qt, Gt, Ps + place, Ss + place, st, p,
@@ -781,13 +871,12 @@ int padded_width(int D) {
 }
 
 size_t smem_bytes(int which, int D) {
-  if (which == kFwd)
-    return 4 * (3 * static_cast<size_t>(kTile) * (D + 1) +
-                static_cast<size_t>(kTile) * kScoreStride);
   const int DT = padded_width(D), stages = DT <= 64 ? 2 : 1;
-  const size_t tiles =
-      static_cast<size_t>(2 + 2 * stages) * kTile * (DT + 4);
-  const size_t scores = static_cast<size_t>(kTile) * kBwdScore;
+  // own tiles: Q in B4; Q, dO in B5; K, V in B6
+  const size_t tiles = static_cast<size_t>((which == kFwd ? 1 : 2) +
+                                           2 * stages) * kTile * (DT + 4);
+  const size_t scores = static_cast<size_t>(kTile) * kScoreStride;
+  if (which == kFwd) return 4 * (tiles + scores + kTile);
   return which == kDq ? 4 * (tiles + scores + 3 * kTile)
                       : 4 * (tiles + 2 * scores + stages * 3 * kTile);
 }
@@ -812,7 +901,7 @@ bool vector_path(const void* const* ptr, int n, int D) {
   return true;
 }
 
-template <int NJ>
+template <int DT>
 cudaError_t launch(int which, const void* const* ptr, const Dims& p,
                    cudaStream_t stream) {
   static size_t granted[3] = {0, 0, 0};
@@ -825,23 +914,23 @@ cudaError_t launch(int which, const void* const* ptr, const Dims& p,
   cudaError_t e;
   switch (which) {
     case kFwd:
-      e = allow_smem(flash_fwd_kernel<NJ>, bytes, &granted[kFwd]);
+      e = allow_smem(flash_fwd_kernel<DT>, bytes, &granted[kFwd]);
       if (e != cudaSuccess) return e;
-      flash_fwd_kernel<NJ><<<grid, kThreads, bytes, stream>>>(
+      flash_fwd_kernel<DT><<<grid, kThreads, bytes, stream>>>(
           f[0], f[1], f[2], const_cast<float*>(f[3]),
-          const_cast<float*>(f[4]), p);
+          const_cast<float*>(f[4]), p, vector_path(ptr, 4, p.D));
       break;
     case kDq:
-      e = allow_smem(flash_dq_kernel<4 * NJ>, bytes, &granted[kDq]);
+      e = allow_smem(flash_dq_kernel<DT>, bytes, &granted[kDq]);
       if (e != cudaSuccess) return e;
-      flash_dq_kernel<4 * NJ><<<grid, kThreads, bytes, stream>>>(
+      flash_dq_kernel<DT><<<grid, kThreads, bytes, stream>>>(
           f[0], f[1], f[2], f[3], f[4], f[5], f[6],
           const_cast<float*>(f[7]), p, vector_path(ptr, 8, p.D));
       break;
     default:
-      e = allow_smem(flash_dkv_kernel<4 * NJ>, bytes, &granted[kDkv]);
+      e = allow_smem(flash_dkv_kernel<DT>, bytes, &granted[kDkv]);
       if (e != cudaSuccess) return e;
-      flash_dkv_kernel<4 * NJ><<<grid, kThreads, bytes, stream>>>(
+      flash_dkv_kernel<DT><<<grid, kThreads, bytes, stream>>>(
           f[0], f[1], f[2], f[3], f[4], f[5], f[6],
           const_cast<float*>(f[7]), const_cast<float*>(f[8]), p,
           vector_path(ptr, 9, p.D));
@@ -853,14 +942,13 @@ cudaError_t launch(int which, const void* const* ptr, const Dims& p,
 // what the compiler and the card give pass `which` at this width:
 // registers a thread, local memory a thread (stack and spills) and the
 // blocks an SM holds at the pass's shared memory
-template <int NJ>
+template <int DT>
 cudaError_t info(int which, int D, int* regs, int* local_bytes,
                  int* blocks_per_sm) {
   const void* kernel =
-      which == kFwd ? reinterpret_cast<const void*>(flash_fwd_kernel<NJ>)
-      : which == kDq
-          ? reinterpret_cast<const void*>(flash_dq_kernel<4 * NJ>)
-          : reinterpret_cast<const void*>(flash_dkv_kernel<4 * NJ>);
+      which == kFwd ? reinterpret_cast<const void*>(flash_fwd_kernel<DT>)
+      : which == kDq ? reinterpret_cast<const void*>(flash_dq_kernel<DT>)
+                     : reinterpret_cast<const void*>(flash_dkv_kernel<DT>);
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
   if (e != cudaSuccess) return e;
@@ -877,13 +965,14 @@ cudaError_t info(int which, int D, int* regs, int* local_bytes,
                                                        kThreads, bytes);
 }
 
-// call fn<NJ> at the instantiation that serves head width D
+// call fn<DT> at the instantiation that serves head width D (DT is
+// padded_width(D))
 #define FLASH_BY_WIDTH(D, fn, ...)                \
-  ((D) <= 8    ? fn<2>(__VA_ARGS__)               \
-   : (D) <= 16 ? fn<4>(__VA_ARGS__)               \
-   : (D) <= 32 ? fn<8>(__VA_ARGS__)               \
-   : (D) <= 64 ? fn<16>(__VA_ARGS__)              \
-               : fn<32>(__VA_ARGS__))
+  ((D) <= 8    ? fn<8>(__VA_ARGS__)               \
+   : (D) <= 16 ? fn<16>(__VA_ARGS__)              \
+   : (D) <= 32 ? fn<32>(__VA_ARGS__)              \
+   : (D) <= 64 ? fn<64>(__VA_ARGS__)              \
+               : fn<128>(__VA_ARGS__))
 
 int dispatch(int which, const void* const* ptr, int B, int Lq, int Lk,
              int H, int D, int causal, int q_off, int k_off, float scale,

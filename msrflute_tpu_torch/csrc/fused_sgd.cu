@@ -19,26 +19,34 @@
 // Dense_1 128*62+62); at K = 10 clients a launch moves 241,318,000 bytes,
 // about 72 us at the H100 SXM's 3.35 TB/s.
 //
-// Design, for the card rather than the TPU:
-// - no (256, 128) block padding: a 2-D grid, blockIdx.y over client rows and
-//   a grid-stride loop over the row in x, all offsets 64-bit (K * P passes
-//   2^31 at fleet cohort sizes);
-// - one wave: the launcher asks the runtime how many blocks fit on an SM and
-//   launches no more than fit on the card at once, so no block waits for a
-//   second wave;
-// - scalar loads: P = 1,206,590 is 2 (mod 4), so float4 loads would be
-//   misaligned at every other row start.  Neighbouring threads still read
-//   neighbouring words, so every warp access is coalesced.  (On the H100
-//   this pass reaches about 55 % of the byte bound and PyTorch's vectorized
-//   torch._fused_sgd_ about 78 %, chip_smoke.py.  Vector loads need an
-//   aligned head per row or a padded row stride; unrolling the scalar loop
-//   did not close the gap.)
-// - the gate is uniform over a row, so a pinned row is skipped by the whole
-//   block with no divergence and no traffic;
+// What bounds it, and what the design does about it.  A pass at the byte
+// bound needs the card's memory busy all the time: many 16-byte requests in
+// flight on every SM, few instructions for each byte, and no SM idle at the
+// end.  Aligned rows alone are not enough: one scalar 4-byte access a
+// tensor an element reaches 65 % of the bound at P = 2,727,184 (0 mod 4,
+// every row aligned).  So:
+// - a vector body.  Each row runs a scalar head up to the first 16-byte
+//   boundary of its p row, computed from the row's actual address (the base
+//   pointer itself may be misaligned, and with P = 2 (mod 4), as for CNN
+//   and RingLM, odd rows start 8 bytes off), then float4 loads and stores,
+//   then a scalar tail of at most 3 elements.  The body needs p, g and m to
+//   share the address's residue mod 16; a row where they do not runs the
+//   scalar loop instead, in the same launch;
+// - 4 independent float4 loads a tensor a thread in flight (12 requests of
+//   16 bytes), with the streaming cache hints (__ldcs / __stcs): no byte is
+//   used twice in a launch.  Index arithmetic is done once a vector;
+// - a 2-D grid, blockIdx.y over client rows, and in x enough blocks of 256
+//   threads to cover a row's vectors with one pass of 4 each (295 blocks a
+//   row at the CNN shape); a grid-stride loop takes rows or vectors beyond
+//   the grid's limits.  The gate is uniform over a row, so a pinned row is
+//   skipped by whole blocks with no divergence and no traffic;
 // - no fused multiply-add: nvcc would contract p - lr*m' into an FMA, which
 //   rounds once where the JAX kernel and the plain PyTorch version round
 //   twice.  The __fmul_rn / __fadd_rn / __fsub_rn intrinsics are never
 //   contracted, so the kernel is bitwise equal to the plain version.
+// On an NVIDIA H100 80GB HBM3 at 700 W it moves 86-88 % of the byte bound
+// at the CNN and DGA shapes, where torch._fused_sgd_ moves 78-79 %
+// (chip_smoke.py; PERF.md has the numbers).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,41 +54,80 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kUnroll = 4;  // float4 loads a tensor a thread in flight
+constexpr int64_t kSpan = static_cast<int64_t>(kThreads) * kUnroll;
+
+__device__ __forceinline__ void sgd(float& p, float g, float& m, float lr,
+                                    float mu) {
+  m = __fadd_rn(g, __fmul_rn(mu, m));
+  p = __fsub_rn(p, __fmul_rn(lr, m));
+}
+
+__device__ __forceinline__ void sgd_at(float* p, const float* g, float* m,
+                                       int64_t i, float lr, float mu) {
+  float pi = p[i], mi = m[i];
+  sgd(pi, g[i], mi, lr, mu);
+  p[i] = pi;
+  m[i] = mi;
+}
 
 __global__ void __launch_bounds__(kThreads)
 fused_sgd_kernel(float* __restrict__ p, const float* __restrict__ g,
                  float* __restrict__ m, const float* __restrict__ gate,
                  int64_t K, int64_t P, float lr, float mu) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int t = threadIdx.x;
   for (int64_t k = blockIdx.y; k < K; k += gridDim.y) {
     if (!(gate[k] > 0.0f)) continue;  // NaN gates pin too, as in JAX
-    const int64_t row = k * P;
-    for (int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-         j < P; j += stride) {
-      const int64_t i = row + j;
-      const float m_new = __fadd_rn(g[i], __fmul_rn(mu, m[i]));
-      p[i] = __fsub_rn(p[i], __fmul_rn(lr, m_new));
-      m[i] = m_new;
+    float* pr = p + k * P;
+    const float* gr = g + k * P;
+    float* mr = m + k * P;
+    const uintptr_t a = reinterpret_cast<uintptr_t>(pr);
+    if (((a ^ reinterpret_cast<uintptr_t>(gr)) |
+         (a ^ reinterpret_cast<uintptr_t>(mr))) & 15) {
+      // the three rows cannot share 16-byte boundaries: scalar
+      for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + t;
+           i < P; i += static_cast<int64_t>(gridDim.x) * kThreads)
+        sgd_at(pr, gr, mr, i, lr, mu);
+      continue;
+    }
+    int64_t head = static_cast<int64_t>((16 - (a & 15)) & 15) / 4;
+    if (head > P) head = P;
+    const int64_t nv = (P - head) / 4;
+    const int64_t tail = head + 4 * nv;  // at most 3 elements from here
+    if (blockIdx.x == 0) {
+      if (t < head) sgd_at(pr, gr, mr, t, lr, mu);
+      else if (t >= 4 && t - 4 < P - tail) sgd_at(pr, gr, mr, tail + t - 4,
+                                                  lr, mu);
+    }
+    float4* pv = reinterpret_cast<float4*>(pr + head);
+    const float4* gv = reinterpret_cast<const float4*>(gr + head);
+    float4* mv = reinterpret_cast<float4*>(mr + head);
+    for (int64_t v = static_cast<int64_t>(blockIdx.x) * kSpan + t; v < nv;
+         v += static_cast<int64_t>(gridDim.x) * kSpan) {
+      float4 pp[kUnroll], gg[kUnroll], mm[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int64_t i = v + u * kThreads;
+        if (i < nv) {
+          pp[u] = __ldcs(pv + i);
+          gg[u] = __ldcs(gv + i);
+          mm[u] = __ldcs(mv + i);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int64_t i = v + u * kThreads;
+        if (i < nv) {
+          sgd(pp[u].x, gg[u].x, mm[u].x, lr, mu);
+          sgd(pp[u].y, gg[u].y, mm[u].y, lr, mu);
+          sgd(pp[u].z, gg[u].z, mm[u].z, lr, mu);
+          sgd(pp[u].w, gg[u].w, mm[u].w, lr, mu);
+          __stcs(pv + i, pp[u]);
+          __stcs(mv + i, mm[u]);
+        }
+      }
     }
   }
-}
-
-// Blocks of fused_sgd_kernel that the card holds at once.
-long long resident_blocks() {
-  static long long cached = 0;
-  if (cached == 0) {
-    int device = 0, sms = 0, per_sm = 0;
-    if (cudaGetDevice(&device) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                               device) != cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, fused_sgd_kernel, kThreads, 0) != cudaSuccess ||
-        sms <= 0 || per_sm <= 0) {
-      return 132;  // one block per SM of an H100 SXM; not cached
-    }
-    cached = static_cast<long long>(sms) * per_sm;
-  }
-  return cached;
 }
 
 }  // namespace
@@ -93,9 +140,9 @@ extern "C" int fused_sgd_launch(void* p, const void* g, void* m,
                                 float lr, float mu, void* stream) {
   if (K <= 0 || P <= 0) return 0;
   const long long gy = K < 65535 ? K : 65535;
-  long long gx = resident_blocks() / gy;
-  const long long need = (P + kThreads - 1) / kThreads;
-  if (gx > need) gx = need;
+  // blocks that cover a row's vectors, kUnroll each a thread
+  long long gx = (P / 4 + kSpan - 1) / kSpan;
+  if (gx > 65535) gx = 65535;
   if (gx < 1) gx = 1;
   const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
   fused_sgd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -5,13 +5,14 @@ Port of ``msrflute_tpu/ops/pallas_attention.py``: B4 replaces ``_fwd``
 the dq pass of ``_bwd`` (``:385``, ``_dq_kernel``), B6 its dk/dv pass
 (``:411``, ``_dkv_kernel``).  All three are hand-written CUDA C++ in
 ``csrc/flash_attention.cu``, float32 on CUDA cores, bound by operations on
-the H100.  B4 keeps one score row a thread.  B5 and B6 are register-tiled:
-a thread owns a 4 x 4 block of each 64 x 64 score product and rows x 4
-columns of each accumulated output and feeds them with 16-byte shared
-loads (about one load for 6-8 FMAs, not one for one), tiles that the mask
-cannot touch skip the per-element test, and the streamed tiles arrive by
-double-buffered ``cp.async`` copies; the source's header has the bank
-layout, the shared memory a block and what bounds the kernels.
+the H100.  All three are register-tiled: a thread owns a 4 x 4 block of
+each 64 x 64 score product and rows x 4 columns of each accumulated output
+and feeds them with 16-byte shared loads (about one load for 6-8 FMAs, not
+one for one), tiles that the mask cannot touch skip the per-element test,
+and the streamed tiles arrive by double-buffered ``cp.async`` copies; B4's
+online softmax runs in the log2 domain with ``ex2``.  The source's header
+has the bank layout, the shared memory a block and what bounds the
+kernels.
 
 Public functions keep the JAX layout and signature: ``q [B, Lq, H, D]``,
 ``k``/``v`` ``[B, Lk, H, D]``, scale ``1/sqrt(D)``, the causal mask at

@@ -16,6 +16,10 @@ made with numpy from a seed:
 - ``vmap(grad_and_value)`` over K clients through the two
   ``autograd.Function``s against a loop over the clients, to ``1e-6``, with
   one forward and one backward call for all K;
+- a numpy model of B4's tiled recurrence (64-key tiles, an online softmax
+  in the log2 domain with per-lane partial row sums, masks only on edge
+  tiles) against the interpret-mode kernel on every case, to ``2e-5``, and
+  against the plain version where whole tiles are skipped;
 - the C interface of ``csrc/flash_attention.cu`` read from the source
   against what the wrappers declare to ``ctypes`` (no compiler is needed),
   and the compiler-report parser of ``chip_smoke.py`` on a sample log.
@@ -116,6 +120,122 @@ def test_plain_matches_jax_interpret_kernels(name):
     for got, want, n in zip(got_g, want_g, "qkv"):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-5,
                                    atol=5e-5, err_msg=f"d{n}")
+
+
+# ----------------------------------------------------------------------
+# B4's recurrence, modelled in numpy
+# ----------------------------------------------------------------------
+TILE = 64
+
+
+def _b4_model(q, k, v, causal, q_off, k_off):
+    """The recurrence of ``csrc/flash_attention.cu::flash_fwd_kernel`` in
+    float32 numpy: 64-row query tiles, each over its visited 64-key tiles
+    (the TPU kernel's skip condition); scores pre-scaled into the log2
+    domain for the row max ``m2``; ``p = 2^(s * scale * log2 e - m2)``; the
+    16 lanes that share a row each keep a partial row sum over keys
+    ``j, j + 16, j + 32, j + 48`` of a tile, rescaled by
+    ``corr = 2^(m2_old - m2_new)`` and added across the lanes at the end;
+    the output summed by two halves over keys 0-31 and 32-63 of each tile,
+    added at the end; masked entries set to the -1e30 score and to p = 0
+    only on tiles the mask can touch (edge tiles); interior tiles take no
+    mask.  ``(out [B, Lq, H, D], lse [B, H, Lq])``."""
+    f32 = np.float32
+    B, Lq, H, D = q.shape
+    Lk = k.shape[1]
+    scale2 = f32(1.0 / np.sqrt(D)) * f32(np.log2(np.e))
+    out = np.zeros((B, Lq, H, D), f32)
+    lse = np.zeros((B, H, Lq), f32)
+    qt, kt, vt = (np.swapaxes(x, 1, 2) for x in (q, k, v))   # [B, H, L, D]
+    for q0 in range(0, Lq, TILE):
+        rows = np.zeros((B, H, TILE, D), f32)
+        rows[:, :, :min(TILE, Lq - q0)] = qt[:, :, q0:q0 + TILE]
+        n = -(-Lk // TILE)
+        if causal:
+            last = q_off + q0 + TILE - 1 - k_off
+            n = 0 if last < 0 else min(n, last // TILE + 1)
+        m2 = np.full((B, H, TILE), NEG, f32)
+        lanes = np.zeros((B, H, TILE, 16), f32)
+        halves = np.zeros((2, B, H, TILE, D), f32)
+        for kj in range(n):
+            k0 = kj * TILE
+            keys, vals = (np.zeros((B, H, TILE, D), f32) for _ in range(2))
+            keys[:, :, :min(TILE, Lk - k0)] = kt[:, :, k0:k0 + TILE]
+            vals[:, :, :min(TILE, Lk - k0)] = vt[:, :, k0:k0 + TILE]
+            s = np.einsum("bhqd,bhkd->bhqk", rows, keys).astype(f32)
+            edge = k0 + TILE > Lk or (causal and
+                                      k_off + k0 + TILE - 1 > q_off + q0)
+            if edge:
+                q_pos = q_off + q0 + np.arange(TILE)[:, None]
+                k_loc = k0 + np.arange(TILE)[None, :]
+                vis = k_loc < Lk
+                if causal:
+                    vis = vis & (q_pos >= k_off + k_loc)
+                s = np.where(vis, s, f32(NEG))
+            m_new = np.maximum(m2, s.max(axis=-1) * scale2)
+            corr = np.exp2(m2 - m_new)
+            p = np.exp2(s * scale2 - m_new[..., None]).astype(f32)
+            if edge:
+                p = np.where(vis, p, f32(0.0))
+            lanes = lanes * corr[..., None] + p.reshape(
+                B, H, TILE, 4, 16).sum(axis=3)
+            for half in range(2):
+                keys_of = slice(32 * half, 32 * half + 32)
+                halves[half] = halves[half] * corr[..., None] + np.einsum(
+                    "bhqk,bhkd->bhqd", p[..., keys_of], vals[:, :, keys_of])
+            m2 = m_new
+        l = lanes.sum(axis=-1)
+        lc = np.maximum(l, f32(1e-30))
+        o = (halves[0] + halves[1]) / lc[..., None]
+        stat = np.where(l > 0, m2 * f32(np.log(2.0)) + np.log(lc), f32(NEG))
+        m = min(TILE, Lq - q0)
+        out[:, q0:q0 + m] = np.swapaxes(o[:, :, :m], 1, 2)
+        lse[:, :, q0:q0 + m] = stat[:, :, :m]
+    return out, lse
+
+
+def _jax_fwd(case, q, k, v):
+    causal, qo, ko = case[5:]
+    out, lse = jax_lse(q, k, v, causal, q_offset=qo, k_offset=ko,
+                       block_q=16, block_k=16, interpret=True)
+    return np.asarray(out), np.asarray(lse)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_b4_recurrence_matches_jax_interpret_kernel(name):
+    case = CASES[name]
+    q, k, v, _, _ = _inputs(case, seed=len(name))
+    want_out, want_lse = _jax_fwd(case, q, k, v)
+    got_out, got_lse = _b4_model(q, k, v, *case[5:])
+    dead = want_lse == NEG
+    np.testing.assert_array_equal(got_lse == NEG, dead)
+    if name.startswith("masked"):
+        assert dead.any()
+        np.testing.assert_array_equal(got_out.transpose(0, 2, 1, 3)[dead],
+                                      0.0)
+    np.testing.assert_allclose(got_out, want_out, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got_lse[~dead], want_lse[~dead], rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_b4_recurrence_over_skipped_edge_and_interior_tiles():
+    """Three 64-row query tiles against four key tiles under offsets: rows
+    0-69 see no key, so the first query tile visits no key tile and the
+    second has six fully masked rows in a visited one; later rows rescale
+    across interior tiles and a ragged edge tile.  Against the plain
+    version, to the same 2e-5."""
+    case = (2, 150, 230, 2, 16, True, 20, 90)
+    q, k, v, _, _ = _inputs(case, seed=11)
+    got_out, got_lse = _b4_model(q, k, v, *case[5:])
+    want_out, want_lse = (x.numpy() for x in fa.attention_lse_plain(
+        *(torch.from_numpy(x) for x in (q, k, v)), *case[5:]))
+    dead = want_lse == NEG
+    assert dead[:, :, :70].all() and not dead[:, :, 70:].any()
+    np.testing.assert_array_equal(got_lse == NEG, dead)
+    np.testing.assert_array_equal(got_out.transpose(0, 2, 1, 3)[dead], 0.0)
+    np.testing.assert_allclose(got_out, want_out, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got_lse[~dead], want_lse[~dead], rtol=2e-5,
+                               atol=2e-5)
 
 
 @pytest.mark.parametrize("name", ["offsets", "masked_rows", "full"])
@@ -300,4 +420,4 @@ def test_chip_smoke_reads_the_compiler_report_by_entry_function():
     assert chip_smoke.ptxas_reports("cached") == {}
     assert chip_smoke._flash_entry("dq", 32) == "flash_dq_kernel<32>"
     assert chip_smoke._flash_entry("dkv", 20) == "flash_dkv_kernel<32>"
-    assert chip_smoke._flash_entry("fwd", 32) == "flash_fwd_kernel<8>"
+    assert chip_smoke._flash_entry("fwd", 32) == "flash_fwd_kernel<32>"
