@@ -17,19 +17,29 @@ result):
 2. ``kernel`` — each kernel against its plain PyTorch version on the card,
    at its paths' shapes and at odd shapes, then kernel, plain and library
    (or yardstick) times beside the least time the card could take
-   (``bound_ms``):
+   (``bound_ms``).  Kernel and library times are read on the device alone
+   (:func:`_device_ms`: each launch's own kernels as ``torch.profiler``
+   records them, median of 200, L2 evicted before each launch); the
+   event-bracketed time of 50 launches in a row, which the host's launch
+   rate can set, stays beside them as ``ms_host_paced``:
    - B1 ``fused_sgd_apply``: mixed per-row gates (a NaN gate among them) at
      the three paths' shapes, rows at every residue mod 4, base pointers
      off a 16-byte boundary (for all three tensors, and for one alone),
      rows shorter than one vector: bitwise, with gated rows and the floats
      around each tensor untouched; timed at the CNN shape
-     ``[10, 1,206,590]`` and the DGA shape ``[10, 2,727,184]`` beside
+     ``[10, 1,206,590]``, the DGA shape ``[10, 2,727,184]``, the ResNet
+     shape ``[10, 11,227,812]`` and the LSTM shape ``[10, 820,522]`` beside
      ``torch._fused_sgd_``, with the card's clock and draw under it;
    - B2 ``fused_gaussian_noise``: the plain PyTorch Philox against
      cuRAND's ``curand_Philox4x32_10`` (Random123's known answers and
      random counters and keys), bitwise; the kernel's normals against the
-     plain version's (bitwise, else within 2 ulp, and it says which); the moments and 3-sigma tail of its output, two seeds, and
-     the correlation of neighbouring elements and blocks;
+     plain version's (bitwise, else within 2 ulp, and it says which); the
+     moments and 3-sigma tail of its output, two seeds, and the
+     correlation of neighbouring elements and blocks; its bound has an
+     issue term, the instructions an element on the common path of the
+     kernel's loop in the built library's SASS
+     (``msrflute_tpu_torch/ops/sass.py::loop_path``) over SMs x 128
+     lanes x the peak SM clock;
    - B3 ``quant_bin_sparsify``: the GRU's 7 leaves x 10 clients with
      thresholds from the 0.7 quantile and mixed ones, a leaf with
      ``hi == lo``, values exactly at half-bins, and odd shapes: bitwise;
@@ -74,11 +84,11 @@ result):
    Thresh.`` records.  ``dga_profile`` as ``profile``, plus the share of
    the device time the quantile's sort takes; ``dga_learns``: 3 rounds
    with local and global DP off, whose val loss must fall (DP's noise
-   swamps the ``dga`` phase's updates); ``dga_cross_device``: 2
-   rounds with local DP off (``torch.randn`` draws other numbers on the
-   two devices) and global DP and quantization on, twice on ``cuda`` and
-   once on ``cpu``: the cuda runs are bitwise equal and agree with the cpu
-   run within ``DGA_CROSS_TOL``.
+   swamps the ``dga`` phase's updates); ``dga_cross_device``: 2 rounds
+   of 10 clients with local DP off (``torch.randn`` draws other numbers on
+   the two devices) and global DP and quantization on, twice on ``cuda``
+   and once on ``cpu``: the cuda runs are bitwise equal and agree with the
+   cpu run within ``DGA_CROSS_TOL``.
 5. ``ringlm`` — FedAvg RingLM through the CLI on ``cuda``:
    ``experiments/ringlm/config.yaml`` at its published widths (vocab 90
    chars, embed 128, 4 heads of 32, mlp 512, 4 layers, seq_len 1024;
@@ -93,6 +103,25 @@ result):
    within ``RINGLM_FLASH_DENSE_TOL``; ``ringlm_cross_device``: 2 rounds of
    2 clients, one local step each, twice on ``cuda`` (bitwise equal) and
    once on ``cpu`` (within ``RINGLM_CROSS_TOL``).
+6. ``resnet`` — FedAvg ResNet-18-GN through the CLI on ``cuda``:
+   ``experiments/cv_resnet_fedcifar100/config.yaml`` at its published
+   widths (100 classes, 16 channels a group, 32x32x3; P = 11,227,812; 10
+   clients a round at batch 20, client SGD lr 0.1, server SGD lr 1.0) plus
+   ``pallas_apply`` (B1), 5 rounds, a checkpoint every round, on a
+   synthetic Fed-CIFAR-100-shaped blob (100 train clients of 100 images, 10
+   val and 10 test clients).  ``shakespeare`` — the same for
+   ``experiments/nlp_rnn_fedshakespeare/config.yaml`` (the 2-layer LSTM,
+   vocab 90, embed 8, hidden 256, 80 chars; P = 820,522; 10 clients at
+   batch 4, client SGD lr 0.8) on a synthetic blob of fed_shakespeare's 715
+   clients.  Each asserts B1 launched once a local step and no other
+   kernel, finite losses, a train loss that falls (the mean loss over the
+   first 50 clients' data, initial against final weights), ``latest`` at
+   round 5 and its ``.prev`` slot at round 4 equal to that round's backup,
+   and the status log; ``resnet_profile`` / ``shakespeare_profile`` as
+   ``profile`` (the latter over one round each way);
+   ``resnet_cross_device`` / ``shakespeare_cross_device``: 2 rounds of 2
+   clients, one local step each, twice on ``cuda`` (bitwise equal) and
+   once on ``cpu`` (within ``FEDAVG_CROSS_TOL``).
 
 The line before the last is the ``kernels`` table (launches on each path,
 ``max_abs_err``, ``ms``, ``plain_ms``, ``bound_ms``, ``library_ms``);
@@ -127,6 +156,10 @@ MAIN_K, MAIN_P = 10, 1_206_590
 DGA_K, DGA_P = 10, 2_727_184
 #: the RingLM path's: K = 10 clients x P = RingLM's params
 RINGLM_P = 945_370
+#: the ResNet path's: P = ResNet-18-GN at Fed-CIFAR-100's widths
+RESNET_P = 11_227_812
+#: the Shakespeare path's: P = the 2-layer LSTM at its published widths
+LSTM_P = 820_522
 #: B2's int32 work per element: half a Philox-4x32-10 call (10 rounds of
 #: two mul.lo, two mul.hi and four xors).  The round keys depend on the
 #: seed alone, the same for every element, so they are not counted.
@@ -161,7 +194,13 @@ CNN_CONFIG = {
 }
 
 
+#: when the script started: each phase line carries its seconds since
+_START = time.time()
+
+
 def emit(record: dict) -> None:
+    if "phase" in record:
+        record = {**record, "t": round(time.time() - _START, 1)}
     print(json.dumps(record), flush=True)
 
 
@@ -244,6 +283,8 @@ SGD_CASES = [
     (DGA_K, DGA_P, [1, 1, 0, 1, 1, 1, 1, -1, 1, 1], (0, 0, 0)),
     (MAIN_K, RINGLM_P, [1, 1, 1, 0, 1, float("nan"), 1, 1, 0, 1],
      (0, 0, 0)),
+    (MAIN_K, RESNET_P, [1, 1, 0, 1, 1, 1, 1, 1, -1, 1], (0, 0, 0)),
+    (MAIN_K, LSTM_P, [0, 1, 1, 1, 1, 1, 1, 1, 1, 0], (0, 0, 0)),
     # odd P: rows at all four residues mod 4, also under an offset base
     (4, 127, [0, 1, -2, 1], (0, 0, 0)),
     (4, 1_000_003, [1, 1, 1, 1], (1, 1, 1)),
@@ -284,6 +325,85 @@ def _time_ms(torch, fn, iters=50, warmup=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+#: the buffer :func:`_device_ms` reads between launches, and the names of
+#: the kernels that read it
+_FLUSH = {}
+
+
+def _flush_l2(torch):
+    """Read a buffer of twice the card's L2 size: the next launch finds its
+    data in device memory, not in L2.  A read, so no dirty line of the
+    flush is left for the next launch to write back."""
+    if "buf" not in _FLUSH:
+        l2 = torch.cuda.get_device_properties(0).L2_cache_size
+        _FLUSH["buf"] = torch.ones(max(2 * l2, 1 << 20) // 4, device="cuda")
+    _FLUSH["buf"].sum(dtype=torch.float64)
+
+
+def _cuda_events(torch, prof):
+    """The device's kernels and copies of a profiler run, by start time:
+    ``[(start_us, name, duration_us)]``."""
+    from torch.autograd import DeviceType
+    return sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                  for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def _per_call_us(events, flush_names):
+    """Device time of each call between flushes: ``events`` in start order
+    as ``(start, name, duration)``, a flush one or more events named in
+    ``flush_names``; what follows a flush, up to the next, is one call's,
+    summed.  Events before the first flush are not counted."""
+    calls, flushing = [], False
+    for _, name, us in events:
+        if name in flush_names:
+            if not flushing:          # a flush may run several kernels
+                calls.append(0.0)
+            flushing = True
+        elif calls:
+            calls[-1] += us
+            flushing = False
+    return calls
+
+
+def _device_ms(torch, fn, launches=200, lead=20):
+    """Median device time of one call of ``fn``: each call's own kernels
+    (summed where it runs several) as ``torch.profiler`` (CUPTI) records
+    them, over the last ``launches`` of ``lead + launches`` calls, with L2
+    evicted before each (:func:`_flush_l2`, whose kernels are not counted).
+    The tracer may miss the first calls after it starts (an H100 run saw 13
+    of 200 go unrecorded), hence the ``lead``.  Host time between launches
+    does not enter, as it does in :func:`_time_ms`."""
+    import statistics
+    from torch.profiler import ProfilerActivity, profile
+    if "names" not in _FLUSH:
+        _flush_l2(torch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead):
+                _flush_l2(torch)
+            torch.cuda.synchronize()
+        _FLUSH["names"] = {n for _, n, _ in _cuda_events(torch, prof)}
+        check(bool(_FLUSH["names"]), "the profiler saw no device activity")
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(lead + launches):
+            _flush_l2(torch)
+            fn()
+        torch.cuda.synchronize()
+    calls = _per_call_us(_cuda_events(torch, prof), _FLUSH["names"])
+    # fewer flushes than calls: the tracer missed some; more: a call ran a
+    # kernel named like the flush's and was split, and its parts would
+    # read as calls too short
+    check(launches <= len(calls) <= lead + launches
+          and min(calls[-launches:]) > 0,
+          f"device timing: {len(calls)} flushes recorded for "
+          f"{lead + launches} calls, "
+          f"{sum(c == 0 for c in calls)} calls with no kernel of their own")
+    return statistics.median(calls[-launches:]) / 1e3
 
 
 def _under_load(torch, fn, seconds=3.0):
@@ -335,7 +455,7 @@ def phase_kernel(torch):
             torch.cuda.synchronize()
             err = max(float((p - pp).abs().max()),
                       float((m - pm).abs().max()))
-            if (K, P) in ((MAIN_K, MAIN_P), (DGA_K, DGA_P)):
+            if K == MAIN_K and P in (MAIN_P, DGA_P, RESNET_P, LSTM_P):
                 max_err = max(max_err, err)
             what = f"fused_sgd [{K}, {P}] offsets {offsets} mu={mu}"
             check(torch.equal(p, pp) and torch.equal(m, pm),
@@ -356,43 +476,48 @@ def phase_kernel(torch):
     # no per-row gate)
     mu = 0.9
     timed = {}
-    for path, K, P in (("cnn", MAIN_K, MAIN_P), ("dga", DGA_K, DGA_P)):
+    for path, K, P in (("cnn", MAIN_K, MAIN_P), ("dga", DGA_K, DGA_P),
+                       ("resnet", MAIN_K, RESNET_P),
+                       ("shakespeare", MAIN_K, LSTM_P)):
         p, g, m, gt, _ = _sgd_inputs(torch, K, P, [1] * K, seed=1)
-        kernel_ms = _time_ms(torch, lambda: fused_sgd_apply(p, g, m, lr, mu,
-                                                            gt))
-        plain_ms = _time_ms(torch, lambda: fused_sgd_plain(p, g, m, lr, mu,
-                                                           gt))
-        library_ms = _time_ms(torch, lambda: torch._fused_sgd_(
+        kernel = lambda: fused_sgd_apply(p, g, m, lr, mu, gt)  # noqa: E731
+        library = lambda: torch._fused_sgd_(  # noqa: E731
             [p], [g], [m], weight_decay=0.0, momentum=mu, lr=lr,
             dampening=0.0, nesterov=False, maximize=False,
-            is_first_step=False))
-        kernel_ms_2 = _time_ms(torch, lambda: fused_sgd_apply(p, g, m, lr,
-                                                              mu, gt))
+            is_first_step=False)
+        kernel_ms = _device_ms(torch, kernel)
+        plain_ms = _time_ms(torch, lambda: fused_sgd_plain(p, g, m, lr, mu,
+                                                           gt))
+        library_ms = _device_ms(torch, library)
+        kernel_ms_2 = _device_ms(torch, kernel)
         n = K * P
         nbytes = 20 * n + 4 * K           # read p, g, m, gate; write p, m
         bound_ms = max(nbytes / PEAK_BYTES_PER_S,
                        4 * n / PEAK_F32_FLOPS) * 1e3
         timed[path] = {
             "shape": [K, P], "ms": kernel_ms, "ms_repeat": kernel_ms_2,
+            "ms_host_paced": _time_ms(torch, kernel),
             "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_ms_host_paced": _time_ms(torch, library),
             "bound_ms": bound_ms, "bytes": nbytes,
             "share_of_bound": bound_ms / kernel_ms,
             "achieved_gb_s": nbytes / (kernel_ms * 1e-3) / 1e9,
             "library_gb_s": nbytes / (library_ms * 1e-3) / 1e9,
-            "card_under_kernel": _under_load(
-                torch, lambda: fused_sgd_apply(p, g, m, lr, mu, gt))}
+            "card_under_kernel": _under_load(torch, kernel)}
         del p, g, m
     cnn = timed["cnn"]
     row = {"name": "fused_sgd_apply", "route": "cuda",
            "source": "msrflute_tpu_torch/csrc/fused_sgd.cu",
            "replaces": "msrflute_tpu/ops/pallas_kernels.py:212",
            "launches": None, "max_abs_err": max_err,
-           "ms": cnn["ms"], "plain_ms": cnn["plain_ms"],
+           "ms": cnn["ms"], "ms_host_paced": cnn["ms_host_paced"],
+           "plain_ms": cnn["plain_ms"],
            "bound_ms": cnn["bound_ms"], "bound_by": "bytes",
            "library_ms": cnn["library_ms"],
-           "at_dga_shape": {k: timed["dga"][k] for k in
-                            ("shape", "ms", "plain_ms", "bound_ms",
-                             "library_ms")}}
+           **{f"at_{path}_shape": {k: timed[path][k] for k in
+                                   ("shape", "ms", "ms_host_paced",
+                                    "plain_ms", "bound_ms", "library_ms")}
+              for path in ("dga", "resnet", "shakespeare")}}
     emit({"phase": "kernel", "ok": True, "name": "fused_sgd_apply",
           "cases": len(SGD_CASES) * 2, "bitwise": True, **timed})
     return row
@@ -523,23 +648,27 @@ def phase_kernel_noise(torch):
     check(all(abs(c) < 5e-3 for c in corr.values()),
           f"correlated noise: {corr}")
     # timing at the DGA shape (one global-DP call per round)
-    kernel_ms = _time_ms(torch, lambda: fused_gaussian_noise(x, 1.0, sigma,
-                                                             99))
+    kernel = lambda: fused_gaussian_noise(x, 1.0, sigma, 99)  # noqa: E731
+    yardstick = lambda: x + sigma * torch.randn_like(x)  # noqa: E731
+    kernel_ms = _device_ms(torch, kernel)
     plain_ms = _time_ms(torch, lambda: gaussian_noise_plain(x, 1.0, sigma,
                                                             99), iters=5)
-    yard_ms = _time_ms(torch, lambda: x + sigma * torch.randn_like(x))
-    kernel_ms_2 = _time_ms(torch, lambda: fused_gaussian_noise(x, 1.0, sigma,
-                                                               99))
+    yard_ms = _device_ms(torch, yardstick)
+    kernel_ms_2 = _device_ms(torch, kernel)
+    host_paced = {"ms": _time_ms(torch, kernel),
+                  "yardstick_ms": _time_ms(torch, yardstick)}
     nbytes = 8 * DGA_P
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = PHILOX_INT_OPS_PER_ELEMENT * DGA_P / PEAK_INT32_OPS * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    issue = _noise_issue(torch, kernel)
+    bound_ms = max(bytes_ms, ops_ms, issue["issue_ms"])
     row = {"name": "fused_gaussian_noise", "route": "cuda",
            "source": "msrflute_tpu_torch/csrc/gaussian_noise.cu",
            "replaces": "msrflute_tpu/ops/pallas_kernels.py:127",
            "launches": None, "max_abs_err": max_err, "ms": kernel_ms,
+           "ms_host_paced": host_paced["ms"],
            "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+           "bound_by": "bytes" if bytes_ms >= bound_ms else "operations",
            "library_ms": None,
            "library_note": "no one PyTorch call draws normals and adds "
                            "them; yardstick x + sigma * randn_like(x)",
@@ -550,11 +679,45 @@ def phase_kernel_noise(torch):
           "normals_max_ulp": max_ulp, "normals_bitwise": max_ulp == 0,
           "shape": [DGA_P], "max_abs_err": max_err, "stats": stats,
           "corr": corr, "ms": kernel_ms, "ms_repeat": kernel_ms_2,
+          "host_paced": host_paced,
           "plain_ms": plain_ms, "yardstick_ms": yard_ms,
           "bound_ms": bound_ms, "bytes_ms": bytes_ms,
-          "int32_ops_ms": ops_ms,
+          "int32_ops_ms": ops_ms, "issue": issue,
+          "share_of_bound": bound_ms / kernel_ms,
           "achieved_gb_s": nbytes / (kernel_ms * 1e-3) / 1e9})
     return row
+
+
+def _noise_issue(torch, kernel):
+    """B2's issue term: the thread instructions an element on the common
+    path of the kernel's loop, counted in the SASS of the built library
+    (``msrflute_tpu_torch/ops/sass.py::loop_path``), times the elements,
+    over the card's SMs x 128 lanes x its peak SM clock.  Only the
+    function's own work is counted: the loop makes no round key (they are
+    kernel parameters) and indexes in 32 bits, and its constant-bank loads
+    are left out (they reload the parameters, the same in every iteration,
+    which a kernel with registers to spare would hold).  The clock under
+    this kernel is recorded beside the peak."""
+    from msrflute_tpu_torch.ops import _build, sass
+    lib = _build.library_path("gaussian_noise")
+    bodies = [body for name, body in sass.functions(
+        sass.disassemble(lib)).items() if "gaussian_noise_kernel" in name]
+    check(len(bodies) == 1, f"{len(bodies)} gaussian_noise_kernel entries "
+                            "in the SASS")
+    path = sass.loop_path(bodies[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits", "-i", "0"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    peak_mhz = float(smi.stdout.strip())
+    card = _under_load(torch, kernel)
+    counted = (path["instructions"] - path["constant_loads"]) \
+        / path["floats"]
+    issue_ms = DGA_P * counted / (sms * 128 * peak_mhz * 1e6) * 1e3
+    return {"issue_ms": issue_ms, "counted_per_element": counted,
+            "sms": sms, "sm_clock_mhz_peak": peak_mhz,
+            "card_under_kernel": card, "sass": path}
 
 
 def _gru_bounds():
@@ -621,13 +784,13 @@ def phase_kernel_quant(torch):
                               1024)[5, a6 + 1:a6 + 8].tolist()
     check(half == [0.0, 1.0, 2.0, 2.0, 2.0, 3.0, 4.0],
           f"half-bin values are not rounded half to even: {half}")
-    kernel_ms = _time_ms(torch, lambda: quant_bin_sparsify(x, off, lo, hi,
-                                                           th, 1024))
+    kernel = lambda: quant_bin_sparsify(x, off, lo, hi, th,  # noqa: E731
+                                        1024)
+    kernel_ms = _device_ms(torch, kernel)
     off_cpu = off.cpu()
     plain_ms = _time_ms(torch, lambda: quant_bin_plain(x, off_cpu, lo, hi,
                                                        th, 1024), iters=10)
-    kernel_ms_2 = _time_ms(torch, lambda: quant_bin_sparsify(x, off, lo, hi,
-                                                             th, 1024))
+    kernel_ms_2 = _device_ms(torch, kernel)
     quantile_ms = _time_ms(torch, lambda: [
         exact_quantile_abs(x[:, a:b].abs(), 0.7)
         for a, b in zip(bounds[:-1], bounds[1:])], iters=5)
@@ -642,6 +805,7 @@ def phase_kernel_quant(torch):
            "source": "msrflute_tpu_torch/csrc/quant_bin.cu",
            "replaces": "msrflute_tpu/ops/pallas_kernels.py:164",
            "launches": None, "max_abs_err": max_err, "ms": kernel_ms,
+           "ms_host_paced": _time_ms(torch, kernel),
            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "library_ms": None,
@@ -649,7 +813,8 @@ def phase_kernel_quant(torch):
     emit({"phase": "kernel", "ok": True, "name": "quant_bin_sparsify",
           "cases": len(cases) * 3, "bitwise": True,
           "shape": [DGA_K, DGA_P], "leaves": L, "ms": kernel_ms,
-          "ms_repeat": kernel_ms_2, "plain_ms": plain_ms,
+          "ms_repeat": kernel_ms_2, "ms_host_paced": row["ms_host_paced"],
+          "plain_ms": plain_ms,
           "bound_ms": row["bound_ms"], "bytes": nbytes,
           "achieved_gb_s": nbytes / (kernel_ms * 1e-3) / 1e9,
           "exact_quantile_ms_all_leaves": quantile_ms,
@@ -797,10 +962,10 @@ def phase_kernel_flash(torch):
     out, lse = fa.flash_fwd(q, k, v, causal, qo, ko)
     delta = fa.attention_delta(out, g)
     bwd_args = (q, k, v, g, lse, delta, g_lse, causal, qo, ko)
-    t = {"fwd": _time_ms(torch, lambda: fa.flash_fwd(q, k, v, causal, qo,
-                                                     ko), iters=20),
-         "dq": _time_ms(torch, lambda: fa.flash_dq(*bwd_args), iters=20),
-         "dkv": _time_ms(torch, lambda: fa.flash_dkv(*bwd_args), iters=20)}
+    calls = {"fwd": lambda: fa.flash_fwd(q, k, v, causal, qo, ko),
+             "dq": lambda: fa.flash_dq(*bwd_args),
+             "dkv": lambda: fa.flash_dkv(*bwd_args)}
+    t = {key: _device_ms(torch, fn) for key, fn in calls.items()}
     plain = {"fwd": _time_ms(torch, lambda: fa.attention_lse_plain(
                  q, k, v, causal, qo, ko), iters=5),
              "dq": _time_ms(torch, lambda: fa.attention_dq_plain(*bwd_args),
@@ -813,14 +978,21 @@ def phase_kernel_flash(torch):
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
     gt = g.transpose(1, 2).contiguous()
-    with torch.no_grad():
-        lib_fwd = _time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True),
-                           iters=20)
+
+    def lib_fwd_call():
+        with torch.no_grad():
+            sdpa(qt, kt, vt, is_causal=True)
+
     lib_out = sdpa(qt, kt, vt, is_causal=True)
-    lib_bwd = _time_ms(torch, lambda: torch.autograd.grad(
-        lib_out, (qt, kt, vt), gt, retain_graph=True), iters=20)
-    t_again = _time_ms(torch, lambda: fa.flash_fwd(q, k, v, causal, qo, ko),
-                       iters=20)
+    lib_bwd_call = lambda: torch.autograd.grad(  # noqa: E731
+        lib_out, (qt, kt, vt), gt, retain_graph=True)
+    lib_fwd = _device_ms(torch, lib_fwd_call)
+    lib_bwd = _device_ms(torch, lib_bwd_call)
+    t_again = _device_ms(torch, calls["fwd"])
+    host_paced = {**{key: _time_ms(torch, fn, iters=20)
+                     for key, fn in calls.items()},
+                  "sdpa_fwd": _time_ms(torch, lib_fwd_call, iters=20),
+                  "sdpa_bwd": _time_ms(torch, lib_bwd_call, iters=20)}
     bwd_under_load = _under_load(
         torch, lambda: (fa.flash_dq(*bwd_args), fa.flash_dkv(*bwd_args)))
     fwd_under_load = _under_load(
@@ -843,13 +1015,16 @@ def phase_kernel_flash(torch):
     eval_pairs = _visible_pairs(torch, Be, Lq, Lk, H, causal, qo, ko)
     eval_flops = 2 * 2 * D * eval_pairs
     eval_bytes = (qbytes + 2 * kbytes + qbytes + sbytes) * Be // B
-    with torch.no_grad():
-        eval_sdpa = _time_ms(torch, lambda: sdpa(qet, ket, vet,
-                                                 is_causal=True), iters=20)
+
+    def eval_sdpa_call():
+        with torch.no_grad():
+            sdpa(qet, ket, vet, is_causal=True)
+
+    eval_sdpa = _device_ms(torch, eval_sdpa_call)
     fwd_eval = {
         "shape": [Be, Lq, H, D],
-        "ms": _time_ms(torch, lambda: fa.flash_fwd(qe, ke, ve, causal, qo,
-                                                   ko), iters=20),
+        "ms": _device_ms(torch, lambda: fa.flash_fwd(qe, ke, ve, causal, qo,
+                                                     ko)),
         "bound_ms": max(eval_flops / PEAK_F32_FLOPS,
                         eval_bytes / PEAK_BYTES_PER_S) * 1e3,
         "bound_by": "operations", "sdpa_fwd_ms": eval_sdpa}
@@ -875,7 +1050,8 @@ def phase_kernel_flash(torch):
             "source": "msrflute_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"msrflute_tpu/ops/pallas_attention.py{line}",
             "launches": None, "max_abs_err": max_err[key],
-            "ms": t[key], "plain_ms": plain[key],
+            "ms": t[key], "ms_host_paced": host_paced[key],
+            "plain_ms": plain[key],
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": lib_ms, "library_note": note})
@@ -897,7 +1073,8 @@ def phase_kernel_flash(torch):
           "tolerance": {"fwd": FLASH_FWD_TOL, "bwd": FLASH_BWD_TOL},
           "rel_err": errs, "max_abs_err_main": max_abs,
           "bitwise_repeat": True, "visible_pairs": pairs,
-          "ms": t, "fwd_ms_repeat": t_again, "plain_ms": plain,
+          "ms": t, "fwd_ms_repeat": t_again, "host_paced": host_paced,
+          "plain_ms": plain,
           "sdpa_fwd_ms": lib_fwd, "sdpa_bwd_ms": lib_bwd,
           "dq_plus_dkv_ms": t["dq"] + t["dkv"],
           "sdpa_fwd_over_fwd": lib_fwd / t["fwd"],
@@ -918,20 +1095,45 @@ def phase_kernel_flash(torch):
 
 # ----------------------------------------------------------------------
 def write_femnist_blob(path, num_users, lo, hi, seed):
-    """A FEMNIST-shaped user blob: 28x28 uint8 images, 62 classes."""
+    """A FEMNIST-shaped user blob: 28x28 uint8 images (written flat, as
+    784 pixels a row), 62 classes."""
     import numpy as np
     rng = np.random.default_rng(seed)
     users = [f"f{seed}_{i:04d}" for i in range(num_users)]
     counts = rng.integers(lo, hi + 1, size=num_users).tolist()
-    data, labels = {}, {}
+    rows, labels = [], {}
     for u, n in zip(users, counts):
-        data[u] = {"x": rng.integers(0, 256, size=(n, 28, 28),
-                                     dtype=np.uint8).tolist()}
+        x = rng.integers(0, 256, size=(n, 28 * 28), dtype=np.uint8)
+        rows.append(_pixel_rows(x))
         labels[u] = rng.integers(0, 62, size=n).tolist()
-    with open(path, "w") as fh:
-        json.dump({"users": users, "num_samples": counts, "user_data": data,
-                   "user_data_label": labels}, fh)
+    _write_json_blob(path, users, rows, labels)
     return sum(counts)
+
+
+#: each byte value's decimal text, for writing pixel rows quickly
+_BYTE_TEXT = [str(v) for v in range(256)]
+
+
+def _pixel_rows(x):
+    """``[n, pixels]`` uint8 -> one JSON list text a row."""
+    import numpy as np
+    text = np.asarray(_BYTE_TEXT, dtype=object)
+    return ["[" + ",".join(text[r]) + "]" for r in x]
+
+
+def _write_json_blob(path, users, rows, labels=None):
+    """A user blob written row by row: ``rows[i]`` is user i's samples,
+    each a JSON text (a flat pixel list or a quoted line)."""
+    with open(path, "w") as fh:
+        fh.write('{"users": ' + json.dumps(users) + ', "num_samples": '
+                 + json.dumps([len(r) for r in rows]) + ', "user_data": {')
+        for i, u in enumerate(users):
+            fh.write(("," if i else "") + json.dumps(u) + ': {"x": ['
+                     + ",".join(rows[i]) + "]}")
+        fh.write("}")
+        if labels is not None:
+            fh.write(', "user_data_label": ' + json.dumps(labels))
+        fh.write("}")
 
 
 def _run_cli(work, name, raw, device, task="cv_cnn_femnist"):
@@ -1295,9 +1497,10 @@ def phase_dga(torch, work, kernel_rows):
 #: round 2.  Both devices draw the same global-DP bits (the Philox stream)
 #: and quantize with the same thresholds up to float32 order, so only
 #: reduction order differs: this phase measured 4.5e-8 after round 1 and
-#: 5.1e-8 after round 2 on three H100s.  An element that lands on another
-#: quantization level, or an adam step of another sign (each moves a
-#: parameter by about 2 lr = 2e-3), breaks the bound.
+#: 5.1e-8 after round 2 on three H100s with the path's 10 clients.  An
+#: element that lands on another quantization level, or an adam step of
+#: another sign (each moves a parameter by about 2 lr = 2e-3), breaks the
+#: bound.
 DGA_CROSS_TOL = {1: 1e-6, 2: 1e-6}
 
 
@@ -1335,8 +1538,8 @@ def phase_dga_learns(torch, work):
 
 
 def phase_cross_device_dga(torch, work):
-    """2 DGA rounds, local DP off, global DP and quantization on
-    (:func:`_cross_device`)."""
+    """2 DGA rounds of the path's 10 clients, local DP off, global DP and
+    quantization on (:func:`_cross_device`)."""
     raw = dga_config(rounds=2)
     raw["dp_config"]["enable_local_dp"] = False
     raw["server_config"].update(val_freq=100, rec_freq=100,
@@ -1534,6 +1737,227 @@ def phase_cross_device_ringlm(torch, work):
 
 
 # ----------------------------------------------------------------------
+#: rounds of the ResNet and Shakespeare paths
+FEDAVG_PATH_ROUNDS = 5
+#: Fed-CIFAR-100 (500 train clients of 100 images, 100 test clients) cut to
+#: what generates and loads in seconds: (split, clients, images a client,
+#: seed)
+CIFAR100_SPLITS = (("train", 100, 100, 40), ("val", 10, 100, 41),
+                   ("test", 10, 100, 42))
+#: fed_shakespeare's population, uncut: 715 clients, 16,068 train and
+#: 2,356 test lines (means 22.5 and 3.3 a client): (split, clients, fewest
+#: and most lines a client, seed)
+SHAKESPEARE_SPLITS = (("train", 715, 4, 41, 50), ("val", 715, 1, 6, 51),
+                      ("test", 715, 1, 6, 52))
+SHAKESPEARE_WORDS = (
+    "thou thy thee art hath doth love lord king queen night day sweet "
+    "fair death heart good sir my lady what shall be not is the and of "
+    "to a in that with for you me it so but his her our if no more "
+    "upon come go speak hear now well").split()
+
+
+def write_cifar100_blob(path, num_users, per_user, seed):
+    """A Fed-CIFAR-100-shaped blob: 32x32x3 uint8 images of 100 classes,
+    each image its class's fixed template (the same in every split: a
+    random 4x4 grid of colours, each cell 8x8 pixels) at half contrast
+    under uniform noise, so the class can be learned."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    cells = np.random.default_rng(1234).integers(0, 128, (100, 4, 4, 3))
+    templates = cells.repeat(8, axis=1).repeat(8, axis=2).reshape(100, -1)
+    n = num_users * per_user
+    y = rng.integers(0, 100, n)
+    x = (templates[y] + rng.integers(0, 128, (n, 32 * 32 * 3))).astype(
+        np.uint8)
+    users = [f"c{seed}_{i:04d}" for i in range(num_users)]
+    rows = [_pixel_rows(x[i * per_user:(i + 1) * per_user])
+            for i in range(num_users)]
+    labels = {u: y[i * per_user:(i + 1) * per_user].tolist()
+              for i, u in enumerate(users)}
+    _write_json_blob(path, users, rows, labels)
+    return n
+
+
+def write_shakespeare_blob(path, num_users, lo, hi, seed):
+    """A fed_shakespeare-shaped blob: ``lo..hi`` lines a client, each 80
+    chars of a word soup over ``SHAKESPEARE_WORDS`` with capitals and
+    punctuation from the char table."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(lo, hi + 1, num_users)
+    words = np.asarray(SHAKESPEARE_WORDS + [w.capitalize() + p for w in
+                                            SHAKESPEARE_WORDS[:12]
+                                            for p in (",", ".", "!", "?")])
+    lines = [" ".join(rng.choice(words, 24))[:80]
+             for _ in range(int(counts.sum()))]
+    check(min(map(len, lines)) == 80, "a line is too short")
+    users = [f"s{seed}_{i:04d}" for i in range(num_users)]
+    ends = np.cumsum(counts)
+    rows = [[json.dumps(t) for t in lines[e - c:e]]
+            for e, c in zip(ends, counts)]
+    _write_json_blob(path, users, rows)
+    return int(counts.sum())
+
+
+def fedavg_path_config(name, data_dir, rounds=FEDAVG_PATH_ROUNDS):
+    """``experiments/<name>/config.yaml`` at its published widths plus
+    ``pallas_apply``, cut to ``rounds`` rounds, a checkpoint every round
+    and a backup every second, data paths to ``data_dir``."""
+    import yaml
+    with open(os.path.join(HERE, "experiments", name, "config.yaml")) as fh:
+        raw = yaml.safe_load(fh)
+    raw["server_config"].update(max_iteration=rounds, val_freq=rounds,
+                                rec_freq=rounds, rounds_per_step=1,
+                                model_backup_freq=2,
+                                megakernel={"pallas_apply": True})
+    dc = raw["server_config"]["data_config"]
+    dc["val"]["val_data"] = f"{data_dir}/val.json"
+    dc["test"]["test_data"] = f"{data_dir}/test.json"
+    raw["client_config"]["data_config"]["train"]["list_of_train_data"] = \
+        f"{data_dir}/train.json"
+    return raw
+
+
+def _train_loss_before_after(server, clients=50):
+    """Mean loss a sample over the first ``clients`` train clients' data,
+    with the run's initial weights and with its final ones.  The logged
+    ``Training loss`` sums each client's local steps, whose number follows
+    the cohort, so it does not say by itself whether the loss fell."""
+    from msrflute_tpu_torch.data.batching import pack_eval_batches
+    from msrflute_tpu_torch.data.dataset import ArraysDataset
+    from msrflute_tpu_torch.engine.evaluation import (evaluate,
+                                                      stage_eval_batches)
+    ds, engine = server.train_dataset, server.engine
+    n = min(clients, len(ds))
+    sub = ArraysDataset(ds.user_list[:n], [ds.user_arrays(i)
+                                           for i in range(n)],
+                        ds.num_samples[:n])
+    batches = stage_eval_batches(pack_eval_batches(sub, 512), engine.device)
+    init = engine.init_state(server.task.init_params(engine.seed))
+    return {"clients": n,
+            "before": evaluate(server.task, engine.params_dict(init),
+                               batches)["loss"].value,
+            "after": evaluate(server.task, engine.params_dict(server.state),
+                              batches)["loss"].value}
+
+
+def phase_fedavg_path(torch, work, kernel_rows, name, task, data_dir, P,
+                      sizes, blob_s, population_note):
+    """One FedAvg path of B1 alone through the CLI on cuda: B1 launched
+    once a local step and no other kernel, finite losses, a train loss
+    that falls over the rounds (:func:`_train_loss_before_after`),
+    ``latest`` and its ``.prev`` slot (the round before, equal to that
+    round's backup) with their sidecars, and the status log."""
+    import numpy as np
+    from msrflute_tpu_torch.engine.checkpoint import LATEST, LATEST_PREV
+    rounds = FEDAVG_PATH_ROUNDS
+    _reset_counts()
+    server, out, secs = _run_cli(work, name,
+                                 fedavg_path_config(task, data_dir), "cuda",
+                                 task=task)
+    launches = _read_counts()
+    check(server.state.params.is_cuda, "server params are not on cuda")
+    check(server.engine.layout.numel == P,
+          f"{name}: {server.engine.layout.numel} params, not {P}")
+    steps = server.engine.local_steps
+    want = {k: 0 for k in launches}
+    want["fused_sgd_apply"] = steps
+    check(steps > 0 and launches == want,
+          f"{name} launches {launches}, want {want}")
+    with open(os.path.join(out, "log", "metrics.jsonl")) as fh:
+        records = [json.loads(line) for line in fh]
+    train_loss = [r["value"] for r in records
+                  if r.get("name") == "Training loss"]
+    check(len(train_loss) == rounds and all(map(math.isfinite, train_loss)),
+          f"{name} training losses {train_loss}")
+    fit = _train_loss_before_after(server)
+    check(fit["after"] < fit["before"],
+          f"{name}: the train loss did not fall: {fit}")
+    check(all(math.isfinite(h["loss"]) for h in server.history),
+          f"{name}: non-finite eval loss: {server.history}")
+    models = os.path.join(out, "models")
+    for f in (LATEST, LATEST + ".sum", LATEST_PREV, LATEST_PREV + ".sum",
+              "status_log.json", "best_val_acc_model.pt",
+              f"epoch{rounds - 1}.pt"):
+        check(os.path.exists(os.path.join(models, f)), f"missing {f}")
+    cpu = torch.device("cpu")
+    latest, prev = (server.ckpt.load(cpu, n) for n in (LATEST, LATEST_PREV))
+    backup = server.ckpt.load(cpu, f"epoch{rounds - 1}.pt")
+    check(latest.round == rounds and prev.round == rounds - 1 and
+          torch.equal(prev.params, backup.params) and
+          torch.equal(latest.params, server.state.params.cpu()),
+          f"{name}: latest at round {latest.round}, .prev at {prev.round}")
+    with open(os.path.join(models, "status_log.json")) as fh:
+        check(json.load(fh)["i"] == rounds,
+              f"{name}: status_log.json is not at round {rounds}")
+    for row in kernel_rows:
+        row.setdefault("launches_by_path", {})[name] = launches[row["name"]]
+    secs_per_round = server.run_stats["secsPerRound"]
+    emit({"phase": name, "ok": True, "device": "cuda", "params": P,
+          "samples": sizes, "population_note": population_note,
+          "blob_seconds": round(blob_s, 3), "run_seconds": round(secs, 3),
+          "rounds": len(secs_per_round), "secs_per_round": secs_per_round,
+          "secs_per_round_after_first": float(np.mean(secs_per_round[1:])),
+          "local_steps": steps, "launches": launches,
+          "train_loss": train_loss, "train_loss_first_clients": fit,
+          "checkpoint": {"latest_round": latest.round,
+                         "prev_round": prev.round,
+                         "prev_equals_backup": True},
+          "evals": [{"split": h["split"], "round": h["round"],
+                     "loss": h["loss"], "acc": h["acc"]}
+                    for h in server.history]})
+    return server
+
+
+def phase_resnet(torch, work, kernel_rows):
+    os.makedirs(os.path.join(work, "fedcifar100"), exist_ok=True)
+    tic = time.time()
+    sizes = {split: write_cifar100_blob(
+        os.path.join(work, "fedcifar100", f"{split}.json"), users, per,
+        seed) for split, users, per, seed in CIFAR100_SPLITS}
+    return phase_fedavg_path(
+        torch, work, kernel_rows, "resnet", "cv_resnet_fedcifar100",
+        "fedcifar100", RESNET_P, sizes, time.time() - tic,
+        "Fed-CIFAR-100's 500 train clients of 100 images cut to 100, its "
+        "100 test clients to 10 val and 10 test (synthetic 32x32x3 images "
+        "of 100 classes)")
+
+
+def phase_shakespeare(torch, work, kernel_rows):
+    os.makedirs(os.path.join(work, "shakespeare"), exist_ok=True)
+    tic = time.time()
+    sizes = {split: write_shakespeare_blob(
+        os.path.join(work, "shakespeare", f"{split}.json"), users, lo, hi,
+        seed) for split, users, lo, hi, seed in SHAKESPEARE_SPLITS}
+    return phase_fedavg_path(
+        torch, work, kernel_rows, "shakespeare", "nlp_rnn_fedshakespeare",
+        "shakespeare", LSTM_P, sizes, time.time() - tic,
+        "fed_shakespeare's 715 clients uncut, 4-41 train lines a client "
+        "(mean 22.5) and 1-6 val and test lines (mean 3.5) of 80 synthetic "
+        "chars")
+
+
+#: cuda vs cpu on the ResNet and Shakespeare paths, relative L2 of the
+#: params after round 1 and round 2 (2 clients, one local step of one batch
+#: a round).  Only reduction order differs (cuDNN's and cuBLAS's sums
+#: against the CPU's, GroupNorm's statistics), about 1e-6 of an update
+#: that moves the params by well under 1 %, so some 1e-8.
+FEDAVG_CROSS_TOL = {1: 1e-6, 2: 1e-6}
+
+
+def phase_cross_device_fedavg_path(torch, work, name, task, data_dir, batch):
+    """2 rounds of 2 clients, one local step each, at the published widths
+    (:func:`_cross_device`): the cpu leg is cut to what runs in seconds."""
+    raw = fedavg_path_config(task, data_dir, rounds=2)
+    raw["server_config"].update(num_clients_per_iteration=2, val_freq=100,
+                                rec_freq=100, initial_val=False,
+                                model_backup_freq=1)
+    raw["client_config"]["desired_max_samples"] = batch
+    _cross_device(torch, work, f"{name}_cross_device", raw, task,
+                  FEDAVG_CROSS_TOL)
+
+
+# ----------------------------------------------------------------------
 def main() -> int:
     argv = sys.argv[1:]
     if argv not in ([], ["--kernels"]):
@@ -1587,6 +2011,27 @@ def main() -> int:
             phase_ringlm_flash_vs_dense(torch, work)
             phase = "ringlm_cross_device"
             phase_cross_device_ringlm(torch, work)
+            phase = "resnet"
+            server = phase_resnet(torch, work, rows)
+            phase = "resnet_profile"
+            phase_profile(torch, server, phase="resnet_profile")
+            del server
+            phase = "resnet_cross_device"
+            phase_cross_device_fedavg_path(torch, work, "resnet",
+                                      "cv_resnet_fedcifar100", "fedcifar100",
+                                      20)
+            phase = "shakespeare"
+            server = phase_shakespeare(torch, work, rows)
+            phase = "shakespeare_profile"
+            # one round each way: tracing the LSTM's 30,000 launches a
+            # round takes the profiler about 45 s a round
+            phase_profile(torch, server, rounds=1,
+                          phase="shakespeare_profile", client_lr=0.8)
+            del server
+            phase = "shakespeare_cross_device"
+            phase_cross_device_fedavg_path(torch, work, "shakespeare",
+                                      "nlp_rnn_fedshakespeare", "shakespeare",
+                                      4)
     except Exception as exc:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})

@@ -6,9 +6,10 @@ YAML drives both packages:
     model_config, dp_config, privacy_metrics_config, strategy,
     server_config, client_config
 
-Trimmed to what the ported slices read: FedAvg over the LR, CNN_FEMNIST
-and RingLM (local attention) tasks, and DGA (softmax weights, local and
-global DP, quantization, staleness) over the nlg_gru GRU word LM.
+Trimmed to what the ported slices read: FedAvg over the LR, CNN_FEMNIST,
+CIFAR_CNN, ResNet-18/34 with GroupNorm, Shakespeare LSTM and RingLM
+(local attention) tasks, and DGA (softmax weights, local and global DP,
+quantization, staleness) over the nlg_gru GRU word LM.
 :func:`validate` replaces the JAX package's ``schema.py`` for those
 slices: a key the port runs is accepted, a key that only tunes how the TPU
 program is dispatched (and changes no result) is accepted and ignored, and
@@ -389,7 +390,10 @@ _OFF_OK = {
 }
 
 _STRATEGIES_PORTED = {"fedavg", "fedprox", "dga"}
-_MODELS_PORTED = {"LR", "CNN", "CNN_FEMNIST", "GRU", "RINGLM"}
+_MODELS_PORTED = {"LR", "CNN", "CNN_FEMNIST", "CIFAR_CNN", "RESNET",
+                  "ResNet", "RNN", "LSTM", "GRU", "RINGLM"}
+#: ResNet depths and their stages (``msrflute_tpu/models/resnet.py``)
+RESNET_DEPTHS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
 
 
 def _off(key: str, value: Any) -> bool:
@@ -461,6 +465,10 @@ def validate(raw: Dict[str, Any]) -> None:
             f"model_config.dtype={model['dtype']!r} is {NOT_PORTED}")
     if mtype == "RINGLM":
         check_ringlm_model(model)
+    if mtype in ("RESNET", "ResNet") and \
+            int(model.get("depth", 18)) not in RESNET_DEPTHS:
+        raise ValueError(f"model_config.depth={model['depth']!r}: ResNet "
+                         f"depths are {sorted(RESNET_DEPTHS)}")
     if not dga:
         for key in ("quant_threshold", "quant_bits"):
             if model.get(key) is not None:

@@ -33,12 +33,18 @@
 // of two 32 x 32 -> 64 bit products (mul.lo and mul.hi each) and four xors,
 // 40 int32 operations (the round keys depend on the seed alone, not on the
 // element).  At 64 int32 lanes per SM per clock (16.75 Tops/s on the H100
-// SXM) that is also about 6.5 us, before the log, square root and cosine:
-// bytes and operations bound it about equally.
+// SXM) that is also about 6.5 us, before the log, square root and cosine,
+// which make the instructions a thread issues the largest term
+// (chip_smoke.py counts them in this kernel's SASS).
 //
 // Design, for the card rather than the TPU:
 // - one thread per element PAIR, so each Philox call feeds two normals and
-//   no word is wasted; a grid-stride loop, all indices 64-bit;
+//   no word is wasted; a grid-stride loop;
+// - no work in the loop that is not an element's: the 20 round keys are
+//   made once a launch on the host and read from the kernel's parameters
+//   (operands of the xors, not instructions), and indices are 32-bit, the
+//   launcher splitting a vector of 2^31 elements or more into launches of
+//   2^31, each told its first pair's counter;
 // - one wave: no more blocks than the card holds at once (as B1);
 // - Philox needs no state: any block can start anywhere in the stream, so
 //   blocks run in any order and the result does not depend on the grid.
@@ -54,21 +60,25 @@ constexpr uint32_t kM1 = 0xCD9E8D57u;
 constexpr uint32_t kW0 = 0x9E3779B9u;
 constexpr uint32_t kW1 = 0xBB67AE85u;
 
+// Elements one launch covers: 32-bit element and pair indices
+constexpr long long kChunk = 1LL << 31;
+
 struct Words4 {
   uint32_t x, y, z, w;
 };
 
-__device__ __forceinline__ Words4 philox4x32_10(Words4 c, uint32_t k0,
-                                                uint32_t k1) {
+// The round keys of Philox-4x32-10, (k0 + r W0, k1 + r W1) for r = 0..9.
+struct RoundKeys {
+  uint32_t k0[10], k1[10];
+};
+
+__device__ __forceinline__ Words4 philox4x32_10(Words4 c,
+                                                const RoundKeys& keys) {
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k0 += kW0;
-      k1 += kW1;
-    }
     const uint32_t hi0 = __umulhi(kM0, c.x), lo0 = kM0 * c.x;
     const uint32_t hi1 = __umulhi(kM1, c.z), lo1 = kM1 * c.z;
-    c = Words4{hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0};
+    c = Words4{hi1 ^ c.y ^ keys.k0[r], lo1, hi0 ^ c.w ^ keys.k1[r], lo0};
   }
   return c;
 }
@@ -83,24 +93,29 @@ __device__ __forceinline__ float bits_to_normal(uint32_t b1, uint32_t b2) {
                    cosf(__fmul_rn(two_pi, u2)));
 }
 
+// n <= kChunk elements from x to out; pair j draws counter
+// (j0 + j, j_hi, 0, 0), where (j_hi, j0) is the first pair's 64-bit index
+// in the whole vector (j0 a multiple of 2^30, so j0 + j never carries).
 __global__ void __launch_bounds__(kThreads)
 gaussian_noise_kernel(const float* __restrict__ x, float* __restrict__ out,
-                      int64_t n, float scale, float sigma, uint32_t k0,
-                      uint32_t k1) {
-  const int64_t pairs = (n + 1) / 2;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       j < pairs; j += stride) {
-    const Words4 r = philox4x32_10(
-        Words4{static_cast<uint32_t>(j), static_cast<uint32_t>(j >> 32), 0u,
-               0u},
-        k0, k1);
-    const int64_t i = 2 * j;
-    out[i] = __fadd_rn(__fmul_rn(x[i], scale),
-                       __fmul_rn(sigma, bits_to_normal(r.x, r.y)));
-    if (i + 1 < n) {
-      out[i + 1] = __fadd_rn(__fmul_rn(x[i + 1], scale),
-                             __fmul_rn(sigma, bits_to_normal(r.z, r.w)));
+                      uint32_t n, float scale, float sigma,
+                      const RoundKeys keys, uint32_t j0, uint32_t j_hi) {
+  const uint32_t pairs = n / 2 + (n & 1u);
+  const uint32_t stride = gridDim.x * kThreads;
+  for (uint32_t j = blockIdx.x * kThreads + threadIdx.x; j < pairs;
+       j += stride) {
+    // the pair's addresses once, its loads in flight during the rounds
+    const float* xp = x + 2 * j;
+    float* op = out + 2 * j;
+    const bool both = 2 * j + 1 < n;
+    const float x0 = xp[0];
+    const float x1 = both ? xp[1] : 0.0f;
+    const Words4 r = philox4x32_10(Words4{j0 + j, j_hi, 0u, 0u}, keys);
+    op[0] = __fadd_rn(__fmul_rn(x0, scale),
+                      __fmul_rn(sigma, bits_to_normal(r.x, r.y)));
+    if (both) {
+      op[1] = __fadd_rn(__fmul_rn(x1, scale),
+                        __fmul_rn(sigma, bits_to_normal(r.z, r.w)));
     }
   }
 }
@@ -131,15 +146,27 @@ long long resident_blocks() {
 extern "C" int gaussian_noise_launch(const void* x, void* out, long long n,
                                      float scale, float sigma, uint32_t k0,
                                      uint32_t k1, void* stream) {
-  if (n <= 0) return 0;
-  const long long need = ((n + 1) / 2 + kThreads - 1) / kThreads;
-  long long blocks = resident_blocks();
-  if (blocks > need) blocks = need;
-  gaussian_noise_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out),
-      static_cast<int64_t>(n), scale, sigma, k0, k1);
-  return static_cast<int>(cudaGetLastError());
+  RoundKeys keys;
+  for (uint32_t r = 0; r < 10; ++r) {
+    keys.k0[r] = k0 + r * kW0;
+    keys.k1[r] = k1 + r * kW1;
+  }
+  for (long long start = 0; start < n; start += kChunk) {
+    const long long len = n - start < kChunk ? n - start : kChunk;
+    const unsigned long long pair0 =
+        static_cast<unsigned long long>(start) / 2;
+    const long long need = ((len + 1) / 2 + kThreads - 1) / kThreads;
+    long long blocks = resident_blocks();
+    if (blocks > need) blocks = need;
+    gaussian_noise_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x) + start, static_cast<float*>(out) + start,
+        static_cast<uint32_t>(len), scale, sigma, keys,
+        static_cast<uint32_t>(pair0), static_cast<uint32_t>(pair0 >> 32));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 extern "C" const char* gaussian_noise_error_string(int code) {

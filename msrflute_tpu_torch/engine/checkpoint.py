@@ -18,6 +18,16 @@ tensors: the server optimizer's state, Adam's moments and count included,
 and the strategy's cross-round state, DGA's staleness sums), written to a
 temporary file and renamed into place, with a crc32 sidecar verified at
 load.
+
+``latest`` keeps two slots, as the JAX package's msgpack backend does
+(``checkpoint.py:41-44, 485-580``): every save first rotates the previous
+file and its sidecar to ``latest_model.pt.prev`` (by hard link, so the
+committed file never disappears), and a load whose ``latest`` fails its
+crc or cannot be read (a torn write) falls back to ``.prev``, one round
+back, recording a recovery event.  A load of ``latest`` raises
+:class:`CheckpointCorruptionError` when both of its slots that exist are
+bad; a single-slot file (a best model) that is bad is skipped with a
+recovery event and reads as None, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,11 +41,13 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..resilience.integrity import (CheckpointCorruptionError, blob_checksum,
-                                    verify_blob, write_sidecar)
+from ..resilience.integrity import (SIDECAR_SUFFIX, CheckpointCorruptionError,
+                                    blob_checksum, verify_blob, write_sidecar)
 from .round import ServerState
 
 LATEST = "latest_model.pt"
+#: the previous generation of ``latest``, rotated into place on every save
+LATEST_PREV = LATEST + ".prev"
 STATUS_LOG = "status_log.json"
 
 _LOGGER = logging.getLogger("msrflute_tpu_torch")
@@ -63,10 +75,25 @@ class CheckpointManager:
         self.model_dir = model_dir
         self.layout = layout
         self.backup_freq = max(int(backup_freq), 1)
+        #: ``{"event", "path"}`` of each slot a load skipped or fell back to
+        self.recovery_events = []
         os.makedirs(model_dir, exist_ok=True)
 
     def _path(self, name: str) -> str:
         return os.path.join(self.model_dir, name)
+
+    def _rotate(self, src: str, dst: str) -> None:
+        """Move ``src``'s content to ``dst`` while ``src`` stays readable:
+        hard-link it beside ``dst`` (a copy where links are refused), then
+        rename the link over ``dst``."""
+        link = dst + ".lnk"
+        if os.path.exists(link):
+            os.remove(link)
+        try:
+            os.link(src, link)
+        except OSError:
+            shutil.copyfile(src, link)
+        os.replace(link, dst)
 
     def _write(self, name: str, state: ServerState) -> None:
         payload = {
@@ -89,6 +116,14 @@ class CheckpointManager:
         write_sidecar(path, blob_checksum(blob), len(blob))
 
     def save_latest(self, state: ServerState) -> None:
+        path, prev = self._path(LATEST), self._path(LATEST_PREV)
+        if os.path.exists(path):
+            # blob, then sidecar: a crash between the two leaves a sidecar
+            # one generation stale, which the load's check refuses, and
+            # ``latest`` stays the loadable slot until it is replaced
+            self._rotate(path, prev)
+            if os.path.exists(path + SIDECAR_SUFFIX):
+                self._rotate(path + SIDECAR_SUFFIX, prev + SIDECAR_SUFFIX)
         self._write(LATEST, state)
 
     def save_best(self, state: ServerState, metric_name: str) -> None:
@@ -106,27 +141,50 @@ class CheckpointManager:
             if os.path.exists(self._path(src)):
                 shutil.copyfile(self._path(src), self._path(dst))
 
+    def _recover(self, event: str, path: str) -> None:
+        self.recovery_events.append({"event": event, "path": path})
+        _LOGGER.warning("checkpoint recovery: %s (%s)", event, path)
+
     def load(self, device: torch.device,
              name: str = LATEST) -> Optional[ServerState]:
+        """The checkpoint ``name`` on ``device``; for ``latest``, its
+        ``.prev`` slot where ``latest`` is corrupt or torn.  None when no
+        slot exists or when a single-slot ``name`` is bad; raises
+        :class:`CheckpointCorruptionError` when both slots of ``latest``
+        that exist are bad."""
         path = self._path(name)
-        if not os.path.exists(path):
-            return None
-        with open(path, "rb") as fh:
-            blob = fh.read()
-        try:
-            verify_blob(path, blob)
-        except CheckpointCorruptionError as exc:
-            _LOGGER.warning("checkpoint %s failed its integrity check: %s",
-                            path, exc)
-            return None
-        payload = torch.load(io.BytesIO(blob), map_location="cpu",
-                             weights_only=True)
-        params = self.layout.flatten(payload["params"]).to(device)
-        opt_state = {k: v.to(device) for k, v in payload["opt_state"].items()}
-        strategy_state = {k: v.to(device) for k, v in
-                          payload.get("strategy_state", {}).items()}
-        return ServerState(params, opt_state, int(payload["round"]),
-                           strategy_state)
+        slots = [path] + ([self._path(LATEST_PREV)] if name == LATEST
+                          else [])
+        tried = []
+        for slot in slots:
+            if not os.path.exists(slot):
+                continue
+            tried.append(slot)
+            with open(slot, "rb") as fh:
+                blob = fh.read()
+            try:
+                verify_blob(slot, blob)
+                payload = torch.load(io.BytesIO(blob), map_location="cpu",
+                                     weights_only=True)
+            except CheckpointCorruptionError as exc:
+                self._recover(f"integrity check failed: {exc}", slot)
+                continue
+            except Exception as exc:  # a torn or truncated file
+                self._recover(f"unreadable checkpoint: {exc!r}", slot)
+                continue
+            if slot != path:
+                self._recover("restored from backup slot", slot)
+            params = self.layout.flatten(payload["params"]).to(device)
+            opt_state = {k: v.to(device)
+                         for k, v in payload["opt_state"].items()}
+            strategy_state = {k: v.to(device) for k, v in
+                              payload.get("strategy_state", {}).items()}
+            return ServerState(params, opt_state, int(payload["round"]),
+                               strategy_state)
+        if tried and name == LATEST:
+            raise CheckpointCorruptionError(
+                f"no loadable checkpoint among {tried}")
+        return None
 
     def update_status(self, update: Dict[str, Any]) -> Dict[str, Any]:
         return update_json_log(self._path(STATUS_LOG), update)

@@ -36,7 +36,14 @@ def evaluate(task: BaseTask, params: Params,
         step = {k: torch.where(finite, v, torch.zeros_like(v))
                 for k, v in step.items()}
         sums = step if sums is None else {k: sums[k] + step[k] for k in sums}
-    host = dict(zip(sums, torch.stack(list(sums.values())).cpu().tolist()))
+    # one device->host transfer; a per-class stat (CIFAR_CNN's tp, fp, fn)
+    # comes back as a list
+    flat = torch.cat([v.reshape(-1).to(torch.float32)
+                      for v in sums.values()]).cpu().tolist()
+    host, at = {}, 0
+    for name, v in sums.items():
+        host[name] = flat[at] if v.ndim == 0 else flat[at:at + v.numel()]
+        at += v.numel()
     metrics = task.finalize_metrics(host)
     if host["sample_count"] <= 0.0:
         metrics = {name: Metric(float("nan"), m.higher_is_better)

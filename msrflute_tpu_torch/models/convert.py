@@ -8,9 +8,17 @@ The JAX package's parameters are a nested dict of arrays in flax layout:
 ``Dense_0`` (see :mod:`.cv`), no input-axis permutation of ``Dense_0`` is
 needed: the only layout rule is the per-kernel transpose.
 
-The GRU LM (:mod:`.nlp`) keeps flax's own names and layouts (``kernel
-[in, out]``, nested ``Scan_ConvexGRUCell_0.w_hh.kernel``): a flax path
-that the task names as it is carries across unchanged.
+The ResNet (:mod:`.resnet`) follows the same rule: its convolutions have
+no bias, so ``_BasicBlock_3.Conv_2.kernel`` (HWIO) becomes
+``_BasicBlock_3.Conv_2.weight`` (OIHW) alone, and GroupNorm's ``scale``
+and ``bias`` keep their names and ``[C]`` shapes.
+
+The GRU LM, the Shakespeare LSTM (:mod:`.nlp`) and RingLM keep flax's own
+names and layouts (``kernel [in, out]``, nested
+``Scan_ConvexGRUCell_0.w_hh.kernel``; the LSTM's gate kernels
+``OptimizedLSTMCell_0.ii.kernel`` ... ``.ho.kernel`` with the biases on
+the hidden ones, ``Embed_0.embedding``): a flax path that the task names
+as it is carries across unchanged.
 """
 
 from __future__ import annotations

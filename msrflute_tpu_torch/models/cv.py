@@ -1,11 +1,12 @@
 """Computer-vision tasks — the port's counterpart of ``msrflute_tpu/models/cv.py``:
-LR (MNIST) and CNN_FEMNIST.  CIFAR_CNN is not ported yet (ROADMAP.md).
+LR (MNIST), CNN_FEMNIST and CIFAR_CNN (with its F1 scores).
 
 Layouts follow the JAX package at the public boundary: images are NHWC
-``[N, 28, 28, 1]``; the CNN permutes to NCHW for ``conv2d`` and back to
-NHWC before the flatten, so ``Dense_0``'s 9216 inputs are in flax order and
-weights carry across 1:1 (:mod:`.convert`).  Parameter names are the flax
-module names: ``Conv_0.weight``, ``Dense_1.bias``, ...
+(``[N, 28, 28, 1]``, ``[N, 32, 32, 3]``); the CNNs permute to NCHW for
+``conv2d`` and back to NHWC before the flatten, so ``Dense_0``'s inputs
+are in flax order and weights carry across 1:1 (:mod:`.convert`).
+Parameter names are the flax module names: ``Conv_0.weight``,
+``Dense_1.bias``, ...
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ from torch import nn
 from ..data.dataset import ArraysDataset
 from ..data.featurize import to_image
 from ..data.user_blob import UserBlob
-from .base import (BaseTask, Batch, Params, dropout, lecun_normal_,
-                   masked_mean, softmax_xent, to_float_image)
+from .base import (BaseTask, Batch, Metric, Params, dropout,
+                   lecun_normal_, masked_mean, softmax_xent, to_float_image)
 
 
 class LRModule(nn.Module):
@@ -71,17 +72,46 @@ class CNNFEMNISTModule(nn.Module):
         return self.Dense_1(x)
 
 
+class CIFARCNNModule(nn.Module):
+    """The CIFAR-10 CNN (reference ``experiments/classif_cnn/model.py:33-62``):
+    conv3x3x32 SAME -> relu -> maxpool2 -> conv3x3x64 SAME -> relu ->
+    maxpool2 -> conv3x3x64 SAME -> relu -> flatten(4096) -> fc64 -> relu ->
+    fc."""
+
+    def __init__(self, num_classes: int = 10):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(3, 32, 3, padding=1)
+        self.Conv_1 = nn.Conv2d(32, 64, 3, padding=1)
+        self.Conv_2 = nn.Conv2d(64, 64, 3, padding=1)
+        self.Dense_0 = nn.Linear(8 * 8 * 64, 64)
+        self.Dense_1 = nn.Linear(64, num_classes)
+
+    def forward(self, x, masks: Tuple[torch.Tensor, ...] = ()):
+        x = to_float_image(x).permute(0, 3, 1, 2)          # NHWC -> NCHW
+        x = F.max_pool2d(F.relu(self.Conv_0(x)), 2)
+        x = F.max_pool2d(F.relu(self.Conv_1(x)), 2)
+        x = F.relu(self.Conv_2(x)).permute(0, 2, 3, 1)     # back to NHWC
+        x = F.relu(self.Dense_0(x.reshape(x.shape[0], -1)))
+        return self.Dense_1(x)
+
+
 class ClassificationTask(BaseTask):
-    """Masked classification over an ``nn.Module``."""
+    """Masked classification over an ``nn.Module``.  ``with_f1`` adds the
+    per-class true/false positive and false negative sums to the eval
+    stats, and the micro F1 (``f1_score``, the reference's sklearn
+    ``average='micro'``) and the macro F1 over the classes seen
+    (``f1_macro``) to the metrics, as the JAX task does."""
 
     def __init__(self, module: nn.Module, example_shape: Tuple[int, ...],
                  name: str, num_classes: int,
-                 dropout_sites: Sequence[Tuple[float, Tuple[int, ...]]] = ()):
+                 dropout_sites: Sequence[Tuple[float, Tuple[int, ...]]] = (),
+                 with_f1: bool = False):
         self.module = module
         self.example_shape = tuple(example_shape)
         self.name = name
         self.num_classes = num_classes
         self.dropout_sites = tuple(dropout_sites)
+        self.with_f1 = with_f1
 
     def init_params(self, seed: int) -> Params:
         """flax's defaults: lecun-normal kernels, zero biases; drawn on the
@@ -106,10 +136,33 @@ class ClassificationTask(BaseTask):
         labels = batch["y"].long()
         mask = batch["sample_mask"]
         per_sample = softmax_xent(logits, labels)
-        correct = (torch.argmax(logits, dim=-1) == labels).to(torch.float32)
-        return {"loss_sum": torch.sum(per_sample * mask),
-                "correct_sum": torch.sum(correct * mask),
-                "sample_count": torch.sum(mask)}
+        pred = torch.argmax(logits, dim=-1)
+        correct = (pred == labels).to(torch.float32)
+        stats = {"loss_sum": torch.sum(per_sample * mask),
+                 "correct_sum": torch.sum(correct * mask),
+                 "sample_count": torch.sum(mask)}
+        if self.with_f1:
+            true = F.one_hot(labels, self.num_classes) * mask[:, None]
+            hit = F.one_hot(pred, self.num_classes) * mask[:, None]
+            stats["tp"] = torch.sum(true * hit, dim=0)
+            stats["fp"] = torch.sum((1 - true) * hit, dim=0)
+            stats["fn"] = torch.sum(true * (1 - hit), dim=0)
+        return stats
+
+    def finalize_metrics(self, sums: Dict[str, float]) -> Dict[str, Metric]:
+        metrics = super().finalize_metrics(sums)
+        if self.with_f1 and "tp" in sums:
+            tp, fp, fn = (np.asarray(sums[k], np.float64)
+                          for k in ("tp", "fp", "fn"))
+            metrics["f1_score"] = Metric(float(
+                2 * tp.sum() / max(2 * tp.sum() + fp.sum() + fn.sum(),
+                                   1e-8)))
+            # sklearn's macro average: classes seen in labels or predictions
+            denom = 2 * tp + fp + fn
+            seen = denom > 0
+            metrics["f1_macro"] = Metric(float(
+                np.sum(2 * tp[seen] / denom[seen]) / max(seen.sum(), 1)))
+        return metrics
 
     def make_dataset(self, blob: UserBlob, data_config=None) -> ArraysDataset:
         """Featurize an image/vector user blob into ``{"x", "y"}`` arrays
@@ -150,3 +203,10 @@ def make_cnn_femnist_task(model_config) -> ClassificationTask:
         example_shape=(side, side, 1), name="cv_cnn_femnist",
         num_classes=num_classes,
         dropout_sites=((drop1, (12, 12, 64)), (drop2, (128,))))
+
+
+def make_cifar_cnn_task(model_config) -> ClassificationTask:
+    num_classes = int(model_config.get("num_classes", 10))
+    return ClassificationTask(
+        CIFARCNNModule(num_classes), example_shape=(32, 32, 3),
+        name="classif_cnn", num_classes=num_classes, with_f1=True)

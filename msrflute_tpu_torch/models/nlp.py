@@ -1,10 +1,18 @@
 """NLP tasks — the port's counterpart of ``msrflute_tpu/models/nlp.py``:
 the masked sequence-LM task base (:class:`SequenceLMTask`, which the RingLM
-task of :mod:`.ringlm` shares) and the Reddit GRU word LM of
-``experiments/nlg_gru`` (the Shakespeare LSTM is not ported yet,
-ROADMAP.md).
+task of :mod:`.ringlm` shares), the Shakespeare char LSTM of
+``experiments/nlp_rnn_fedshakespeare`` and the Reddit GRU word LM of
+``experiments/nlg_gru``.
 
-The model (reference ``experiments/nlg_gru/model.py:11-133``): a tied
+The LSTM (reference ``experiments/nlp_rnn_fedshakespeare/model.py:12-40``,
+the JAX package's ``_ShakespeareLSTM``): an embedding of the 90 chars into
+8, two stacked flax ``OptimizedLSTMCell``s of 256 run from a zero carry,
+and a dense layer back to the vocabulary at every position.  The cell's
+parameters keep flax's names: input kernels ``ii``, ``if``, ``ig``, ``io``
+``[in, H]`` without bias, hidden kernels ``hi``, ``hf``, ``hg``, ``ho``
+``[H, H]`` with the bias; ``c' = f c + i g``, ``h' = o tanh(c')``.
+
+The GRU (reference ``experiments/nlg_gru/model.py:11-133``): a tied
 embedding table, a convex-combination GRU cell (``hy = n + i * (h - n)``,
 gates split in r, i, n order), the zero initial state's prediction
 concatenated in front, a bias-free ``squeeze`` projection back to the
@@ -46,6 +54,75 @@ class _Dense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x @ self.kernel
         return y if self.bias is None else y + self.bias
+
+
+def embed_lookup(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``table[x]`` as a one-hot product: exact (one term of each sum is
+    nonzero), and its backward is a GEMM, where PyTorch's CUDA embedding
+    backward sums with atomics past 3,072 indices, so that two runs differ.
+    At the char vocabulary (90) it costs about 1 GFLOP a local step."""
+    onehot = x[..., None] == torch.arange(table.shape[0], device=x.device)
+    return onehot.to(table.dtype) @ table
+
+
+class _Embed(nn.Module):
+    def __init__(self, vocab_size: int, dim: int):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.zeros(vocab_size, dim))
+
+
+class _LSTMCell(nn.Module):
+    """flax ``OptimizedLSTMCell``'s parameters, run over a whole sequence."""
+
+    GATES = "ifgo"
+
+    def __init__(self, d_in: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        for g in self.GATES:
+            self.add_module(f"i{g}", _Dense(d_in, hidden, use_bias=False))
+            self.add_module(f"h{g}", _Dense(hidden, hidden))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x [B, T, d_in]`` -> the hidden states ``[B, T, H]`` from a zero
+        carry.  The input projection of every step is one product up front;
+        the ``T`` steps are a Python loop of one ``[B, H] x [H, 4H]``
+        product and the gate arithmetic each."""
+        w_i = torch.cat([getattr(self, f"i{g}").kernel for g in self.GATES],
+                        dim=1)
+        w_h = torch.cat([getattr(self, f"h{g}").kernel for g in self.GATES],
+                        dim=1)
+        b_h = torch.cat([getattr(self, f"h{g}").bias for g in self.GATES])
+        xi = x @ w_i                                       # [B, T, 4H]
+        h = torch.zeros((x.shape[0], self.hidden), dtype=xi.dtype,
+                        device=xi.device)
+        c, out = h, []
+        for t in range(x.shape[1]):
+            i, f, g, o = ((h @ w_h + b_h) + xi[:, t]).split(self.hidden,
+                                                             dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            out.append(h)
+        return torch.stack(out, dim=1)
+
+
+class ShakespeareLSTMModule(nn.Module):
+    """``x [B, T]`` char ids -> logits ``[B, T, V]``; the attribute names
+    are flax's module names."""
+
+    def __init__(self, vocab_size: int = 90, embed_dim: int = 8,
+                 hidden: int = 256):
+        super().__init__()
+        self.Embed_0 = _Embed(vocab_size, embed_dim)
+        self.OptimizedLSTMCell_0 = _LSTMCell(embed_dim, hidden)
+        self.OptimizedLSTMCell_1 = _LSTMCell(hidden, hidden)
+        self.Dense_0 = _Dense(hidden, vocab_size)
+
+    def forward(self, x: torch.Tensor,
+                masks: Tuple[torch.Tensor, ...] = ()) -> torch.Tensor:
+        h = embed_lookup(x, self.Embed_0.embedding)
+        h = self.OptimizedLSTMCell_1(self.OptimizedLSTMCell_0(h))
+        return self.Dense_0(h)
 
 
 class _ConvexGRUCell(nn.Module):
@@ -258,6 +335,43 @@ class GRUWordTask(SequenceLMTask):
                 lecun_normal_(t, shape[0], gen)
             out[name] = t
         return out
+
+
+class ShakespeareTask(SequenceLMTask):
+    """:class:`SequenceLMTask` over :class:`ShakespeareLSTMModule`: chars,
+    the plain shift alignment (or explicit targets ``y``), rows counted."""
+
+    tokenizer = "chars"
+
+    def init_params(self, seed: int) -> Params:
+        """flax's initializers: ``nn.Embed`` normal with variance
+        ``1 / embed_dim``, input and output kernels lecun-normal, hidden
+        kernels orthogonal, biases 0; drawn on the CPU so every device
+        starts from the same bits."""
+        gen = torch.Generator().manual_seed(int(seed))
+        out = {}
+        for name, shape in self.param_spec():
+            t = torch.zeros(shape, dtype=torch.float32)
+            path = name.split(".")
+            if path[-1] == "embedding":
+                t.normal_(0.0, math.sqrt(1.0 / shape[1]), generator=gen)
+            elif path[-1] == "kernel" and path[-2] in ("hi", "hf", "hg",
+                                                        "ho"):
+                nn.init.orthogonal_(t, generator=gen)
+            elif path[-1] == "kernel":
+                lecun_normal_(t, shape[0], gen)
+            out[name] = t
+        return out
+
+
+def make_shakespeare_lstm_task(model_config) -> ShakespeareTask:
+    vocab = int(model_config.get("vocab_size", 90))
+    module = ShakespeareLSTMModule(
+        vocab_size=vocab, embed_dim=int(model_config.get("embed_dim", 8)),
+        hidden=int(model_config.get("hidden_dim", 256)))
+    return ShakespeareTask(module, seq_len=int(model_config.get("seq_len",
+                                                                80)),
+                           name="nlp_rnn_fedshakespeare")
 
 
 def make_gru_lm_task(model_config) -> GRUWordTask:

@@ -5,14 +5,20 @@ from __future__ import annotations
 
 from ..config import NOT_PORTED
 from .base import BaseTask
-from .cv import make_cnn_femnist_task, make_lr_task
-from .nlp import make_gru_lm_task
+from .cv import make_cifar_cnn_task, make_cnn_femnist_task, make_lr_task
+from .nlp import make_gru_lm_task, make_shakespeare_lstm_task
+from .resnet import make_resnet_task
 from .ringlm import make_ringlm_task
 
 TASK_REGISTRY = {
     "LR": make_lr_task,
     "CNN": make_cnn_femnist_task,
     "CNN_FEMNIST": make_cnn_femnist_task,
+    "CIFAR_CNN": make_cifar_cnn_task,
+    "RESNET": make_resnet_task,
+    "ResNet": make_resnet_task,
+    "RNN": make_shakespeare_lstm_task,
+    "LSTM": make_shakespeare_lstm_task,
     "GRU": make_gru_lm_task,
     "RINGLM": make_ringlm_task,
 }

@@ -34,19 +34,10 @@ from torch import nn
 from ..config import check_ringlm_model
 from ..ops.flash_attention import flash_attention
 from .base import Params, lecun_normal_
-from .nlp import SequenceLMTask, _Dense
+from .nlp import SequenceLMTask, _Dense, _Embed, embed_lookup
 
 #: flax ``nn.LayerNorm``'s default epsilon (torch's is 1e-5)
 LN_EPS = 1e-6
-
-
-def embed_lookup(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """``table[x]`` as a one-hot product: exact (one term of each sum is
-    nonzero), and its backward is a GEMM, where PyTorch's CUDA embedding
-    backward sums with atomics past 3,072 indices, so that two runs differ.
-    At the char vocabulary (90) it costs about 1 GFLOP a local step."""
-    onehot = x[..., None] == torch.arange(table.shape[0], device=x.device)
-    return onehot.to(table.dtype) @ table
 
 
 class _LayerNorm(nn.Module):
@@ -64,12 +55,6 @@ class _LayerNorm(nn.Module):
                           min=0.0)
         return (x - mean) * (torch.rsqrt(var + LN_EPS) * self.scale) \
             + self.bias
-
-
-class _Embed(nn.Module):
-    def __init__(self, vocab_size: int, dim: int):
-        super().__init__()
-        self.embedding = nn.Parameter(torch.zeros(vocab_size, dim))
 
 
 class _MHA(nn.Module):

@@ -64,7 +64,7 @@ def test_nlg_gru_config_with_dp_and_quantization_parses():
     ("privacy_metrics_config.apply_metrics", True),
     ("strategy", "scaffold"),
     ("strategy", "fedbuff"),
-    ("model_config.model_type", "RNN"),
+    ("model_config.model_type", "NRMS"),
     ("server_config.wantRL", True),
 ])
 def test_keys_outside_the_dga_slice_still_raise(path, value):
@@ -105,7 +105,7 @@ def _with(path, value):
 @pytest.mark.parametrize("path,value", [
     ("strategy", "fedac"),
     ("strategy", "scaffold"),
-    ("model_config.model_type", "CIFAR_CNN"),
+    ("model_config.model_type", "ECG_CNN"),
     ("model_config.dtype", "bfloat16"),
     ("client_config.optimizer_config.type", "adam"),
     ("client_config.optimizer_config.nesterov", True),
@@ -196,3 +196,54 @@ def test_ringlm_task_refuses_what_the_config_refuses():
     with pytest.raises(ValueError, match="bool or 'auto'"):
         FLUTEConfig.from_dict(dict(_ringlm(), model_config=dict(
             _ringlm()["model_config"], flash_attention="sometimes")))
+
+
+@pytest.mark.parametrize("name,model_type,params", [
+    ("cv_resnet_fedcifar100", "RESNET", 11_227_812),
+    ("nlp_rnn_fedshakespeare", "RNN", 820_522),
+    ("classif_cnn", "CIFAR_CNN", 319_178),
+])
+def test_slice_six_configs_parse_and_build_their_task(name, model_type,
+                                                      params):
+    """The published configs of ResNet-18-GN, the Shakespeare LSTM and
+    CIFAR_CNN parse (``compilation_cache_dir`` ignored) and build their
+    task at the published widths."""
+    from msrflute_tpu_torch.models import make_task
+    with open(os.path.join(REPO, "experiments", name, "config.yaml")) as fh:
+        cfg = FLUTEConfig.from_dict(yaml.safe_load(fh))
+    assert cfg.model_config.model_type == model_type
+    assert make_task(cfg.model_config).layout().numel == params
+
+
+@pytest.mark.parametrize("model_type", ["ResNet", "LSTM"])
+def test_model_type_aliases_build_the_same_task(model_type):
+    from msrflute_tpu_torch.models import make_task
+    alias = FLUTEConfig.from_dict(_with("model_config.model_type",
+                                        model_type)).model_config
+    canon = dict(alias, model_type={"ResNet": "RESNET",
+                                    "LSTM": "RNN"}[model_type])
+    assert make_task(alias).param_spec() == make_task(canon).param_spec()
+
+
+@pytest.mark.parametrize("model_type,key,value", [
+    ("RESNET", "dtype", "bfloat16"),
+    ("RNN", "dtype", "bf16"),
+    ("CIFAR_CNN", "model_folder", "experiments/hello_mlp"),
+    ("RESNET", "pretrained_model_path", "resnet.msgpack"),
+    ("RNN", "quant_threshold", 0.7),
+])
+def test_keys_the_new_models_do_not_port_still_raise(model_type, key, value):
+    raw = _with("model_config.model_type", model_type)
+    raw["model_config"][key] = value
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        FLUTEConfig.from_dict(raw)
+
+
+def test_classif_cnn_hdf5_blobs_are_refused_at_load(tmp_path):
+    """``experiments/classif_cnn`` points at hdf5 blobs: the config parses,
+    the reader refuses the format instead of misreading it."""
+    from msrflute_tpu_torch.data import load_user_blob
+    path = tmp_path / "train.hdf5"
+    path.write_bytes(b"")
+    with pytest.raises(NotImplementedError, match="hdf5"):
+        load_user_blob(str(path))

@@ -86,6 +86,22 @@ def test_slice_three_modules_import_without_building(module):
     assert "flash_attention" not in _build._loaded
 
 
+@pytest.mark.parametrize("module", [
+    "msrflute_tpu_torch.models.resnet",
+    "msrflute_tpu_torch.models.nlp",
+    "msrflute_tpu_torch.models.cv",
+    "msrflute_tpu_torch.engine.checkpoint",
+])
+def test_slice_six_modules_import_without_building(module):
+    """The ResNet, LSTM, CIFAR_CNN and checkpoint modules import without
+    building kernel B1."""
+    import importlib
+    mod = importlib.import_module(module)
+    assert mod.__name__ == module
+    from msrflute_tpu_torch.ops import _build
+    assert "fused_sgd" not in _build._loaded
+
+
 def test_every_cuda_source_has_its_notes():
     """Each kernel source says which TPU kernel it replaces (or what it
     checks) and what bounds it on the card."""

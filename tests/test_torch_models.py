@@ -1,10 +1,13 @@
-"""The port's LR and CNN_FEMNIST tasks against the JAX package's, on weights
-carried across by ``msrflute_tpu_torch.models.convert.from_jax_params``.
+"""The port's LR, CNN_FEMNIST and CIFAR_CNN tasks against the JAX package's,
+on weights carried across by
+``msrflute_tpu_torch.models.convert.from_jax_params``.
 
-Tolerances: LR logits, loss and grads to ``rtol 1e-5``; CNN_FEMNIST to
+Tolerances: LR logits, loss and grads to ``rtol 1e-5``; the CNNs to
 ``rtol 1e-4`` / ``atol 1e-6`` (the two frameworks reduce the convolutions
-and the 9216-wide dense layer in different orders).  Dropout is off on
-both sides: the two random streams cannot match.
+and the 9216- and 4096-wide dense layers in different orders); CIFAR_CNN's
+F1 scores to ``rel 1e-6`` (the JAX task sums its counts in float32, the
+port in float64, both exact at these counts).  Dropout is off on both
+sides: the two random streams cannot match.
 """
 
 import jax
@@ -26,6 +29,7 @@ CASES = {
                     "sigmoid_output": True}, 1e-5, 0.0),
     "cnn": ({"model_type": "CNN", "num_classes": 62, "dropout1": 0.0,
              "dropout2": 0.0}, 1e-4, 1e-6),
+    "cifar": ({"model_type": "CIFAR_CNN", "num_classes": 10}, 1e-4, 1e-6),
 }
 
 
@@ -42,6 +46,8 @@ def _batch(raw, n=6, seed=0):
     rng = np.random.default_rng(seed)
     if raw["model_type"] == "LR":
         x = rng.normal(size=(n, 8)).astype(np.float32)
+    elif raw["model_type"] == "CIFAR_CNN":
+        x = rng.integers(0, 256, size=(n, 32, 32, 3)).astype(np.uint8)
     else:
         x = rng.integers(0, 256, size=(n, 28, 28, 1)).astype(np.uint8)
     y = rng.integers(0, raw["num_classes"], size=(n,)).astype(np.int32)
@@ -72,7 +78,8 @@ def test_logits_loss_and_eval_match(name):
     js, ts = jt.eval_stats(jp, jb), pt.eval_stats(tp, tb)
     assert set(js) == set(ts)
     for k in js:
-        np.testing.assert_allclose(float(ts[k]), float(js[k]), rtol=rtol)
+        np.testing.assert_allclose(ts[k].numpy(), np.asarray(js[k]),
+                                   rtol=rtol)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -105,3 +112,25 @@ def test_cnn_femnist_parameter_count():
     """P = 1,206,590, the figure the kernel's bound is computed from."""
     _, pt = _tasks({"model_type": "CNN", "num_classes": 62})
     assert pt.layout().numel == 1_206_590
+
+
+def test_cifar_cnn_f1_scores_match_the_jax_task():
+    """Micro F1 (the reference's sklearn ``average='micro'``) and macro F1
+    over the classes seen, from eval stats summed over batches, as the JAX
+    task finalizes them; micro F1 with one label a sample is the accuracy."""
+    _, _, _, jt, pt, jp, tp = _setup("cifar")
+    raw = CASES["cifar"][0]
+    jsum = tsum = None
+    for seed in range(3):
+        b = _batch(raw, n=16, seed=seed)
+        js = jt.eval_stats(jp, {k: jnp.asarray(v) for k, v in b.items()})
+        ts = pt.eval_stats(tp, {k: torch.from_numpy(v) for k, v in b.items()})
+        jsum = js if jsum is None else {k: jsum[k] + js[k] for k in js}
+        tsum = ts if tsum is None else {k: tsum[k] + ts[k] for k in ts}
+    want = jt.finalize_metrics(jax.device_get(jsum))
+    got = pt.finalize_metrics({k: v.tolist() for k, v in tsum.items()})
+    assert set(got) == set(want) == {"loss", "acc", "f1_score", "f1_macro"}
+    for k in want:
+        assert got[k].value == pytest.approx(want[k].value, rel=1e-6), k
+        assert got[k].higher_is_better == want[k].higher_is_better
+    assert got["f1_score"].value == pytest.approx(got["acc"].value)
