@@ -8,8 +8,10 @@ YAML drives both packages:
 
 Trimmed to what the ported slices read: FedAvg over the LR, CNN_FEMNIST,
 CIFAR_CNN, ResNet-18/34 with GroupNorm, Shakespeare LSTM and RingLM
-(local attention) tasks, and DGA (softmax weights, local and global DP,
-quantization, staleness) over the nlg_gru GRU word LM.
+(local attention) tasks and over ``model_folder`` plugins, DGA (softmax
+weights, local and global DP, quantization, staleness) over the nlg_gru GRU
+word LM, the personalization server (per-user local models and convex
+interpolation) and FedLabels semi-supervision with RandAugment.
 :func:`validate` replaces the JAX package's ``schema.py`` for those
 slices: a key the port runs is accepted, a key that only tunes how the TPU
 program is dispatched (and changes no result) is accepted and ignored, and
@@ -317,14 +319,16 @@ _SERVER = {"type", "max_iteration", "num_clients_per_iteration",
            "fall_back_to_best_model", "model_backup_freq",
            "resume_from_checkpoint", "max_grad_norm", "rounds_per_step",
            "megakernel", "data_config", "optimizer_config",
-           "annealing_config"}
+           "annealing_config", "personalization_init",
+           "personalization_interp", "semisupervision"}
 _CLIENT = {"type", "desired_max_samples", "max_grad_norm", "fedprox_mu",
-           "num_epochs", "step_bucketing", "data_config", "optimizer_config"}
+           "num_epochs", "step_bucketing", "data_config", "optimizer_config",
+           "convex_model_interp", "semisupervision"}
 #: ``max_num_words`` of a data split is inert: the sequence length comes
 #: from ``model_config.max_num_words``, as in the JAX package
 _DATASET = {"batch_size", "list_of_train_data", "test_data", "val_data",
             "train_data", "desired_max_samples", "vocab_dict",
-            "max_num_words"}
+            "max_num_words", "augment"}
 _OPTIMIZER = {"type", "lr", "momentum", "nesterov", "weight_decay"}
 #: adam's keys; ``amsgrad`` is accepted and not applied, as the JAX
 #: package builds ``optax.adam`` whatever it says
@@ -337,6 +341,14 @@ _DGA_SERVER = {"aggregate_median", "softmax_beta", "weight_train_loss",
                "stale_prob"}
 _DGA_CLIENT = {"quant_thresh", "quant_threshold", "quant_bits",
                "quant_approx", "quant_anneal"}
+#: ``semisupervision`` (FedLabels, read from the client section, then the
+#: server's); ``comp`` names the pseudo-label comparison, of which the JAX
+#: package runs ``var`` whatever it says, so the port accepts only that
+_SEMISUP = {"eta", "burnout_round", "unsuptrain_ep", "temp", "thre", "comp",
+            "vat_consis", "l2_lambda", "unsup_lamb", "uda"}
+#: ``data_config.<split>.augment``: RandAugment on the train split
+_AUGMENT = {"type", "num_ops", "magnitude", "seed"}
+_SERVER_TYPES = ("optimization", "model_optimization", "personalization")
 _DP = {"enable_local_dp", "enable_global_dp", "eps", "delta", "max_grad",
        "max_weight", "min_weight", "weight_scaler", "global_sigma"}
 
@@ -367,20 +379,18 @@ _OFF_OK = {
         "dump_norm_stats", "scaffold_device_controls", "scaffold_flush_freq",
         "ef_device_residuals", "ef_flush_freq", "chaos", "checkpoint_retry",
         "traffic", "telemetry", "robust", "cohort_bucketing", "megabatch",
-        "fleet", "precision", "semisupervision", "updatable_names",
-        "fedac_eta", "fedac_gamma", "fedac_alpha", "fedac_beta", "qffl_q",
-        "personalization_init", "personalization_interp"} | _DGA_SERVER,
+        "fleet", "precision", "updatable_names",
+        "fedac_eta", "fedac_gamma", "fedac_alpha", "fedac_beta",
+        "qffl_q"} | _DGA_SERVER,
     "client_config": {
         "meta_learning", "copying_train_data", "ignore_subtask",
-        "num_skip_decoding", "freeze_layer",
-        "convex_model_interp", "meta_optimizer_config", "ss_config",
-        "updatable_layers", "semisupervision"} | _DGA_CLIENT,
+        "num_skip_decoding", "freeze_layer", "meta_optimizer_config",
+        "ss_config", "updatable_layers"} | _DGA_CLIENT,
     "dataset": {
         "train_data_server", "max_batch_size",
         "max_seq_length", "min_words_per_utt", "num_frames",
         "max_samples_per_user", "max_grad_norm", "utterance_mvn",
-        "unsorted_batch", "lazy", "lazy_cache_users", "augment",
-        "wantLogits", "step_bucketing", "per_user_stats"},
+        "unsorted_batch", "lazy", "lazy_cache_users", "wantLogits", "step_bucketing", "per_user_stats"},
     "optimizer": {"amsgrad", "eps", "betas", "dampening"},
     "annealing": {"peak_lr", "floor_lr", "rampup_steps", "hold_steps",
                   "decay_steps"},
@@ -389,7 +399,7 @@ _OFF_OK = {
             "experiment"},
 }
 
-_STRATEGIES_PORTED = {"fedavg", "fedprox", "dga"}
+_STRATEGIES_PORTED = {"fedavg", "fedprox", "dga", "fedlabels"}
 _MODELS_PORTED = {"LR", "CNN", "CNN_FEMNIST", "CIFAR_CNN", "RESNET",
                   "ResNet", "RNN", "LSTM", "GRU", "RINGLM"}
 #: ResNet depths and their stages (``msrflute_tpu/models/resnet.py``)
@@ -454,11 +464,17 @@ def validate(raw: Dict[str, Any]) -> None:
                     off_ok=_OFF_OK["dp"])
     model = dict(raw.get("model_config") or {})
     mtype = model.get("model_type", "LR")
-    if mtype not in _MODELS_PORTED:
+    folder = model.get("model_folder")
+    if folder is not None and not isinstance(folder, str):
+        raise ValueError("model_config.model_folder must be a path, got "
+                         f"{folder!r}")
+    # a plugin's model_type names its folder's task; models/registry.py
+    # finds the port's twin of it or raises
+    if not folder and mtype not in _MODELS_PORTED:
         raise NotImplementedError(f"model_type {mtype!r} is {NOT_PORTED}")
-    for key in ("model_folder", "pretrained_model_path"):
-        if model.get(key):
-            raise NotImplementedError(f"model_config.{key} is {NOT_PORTED}")
+    if model.get("pretrained_model_path"):
+        raise NotImplementedError(
+            f"model_config.pretrained_model_path is {NOT_PORTED}")
     if str(model.get("dtype", "float32") or "float32").lower() not in (
             "float32", "f32"):
         raise NotImplementedError(
@@ -481,10 +497,15 @@ def validate(raw: Dict[str, Any]) -> None:
                 _SERVER | (_DGA_SERVER if dga else set()),
                 off_ok=_OFF_OK["server_config"],
                 ignored=_DISPATCH_ONLY["server_config"])
-    if str(sc.get("type", "optimization")) not in ("optimization",
-                                                    "model_optimization"):
+    if str(sc.get("type", "optimization")) not in _SERVER_TYPES:
         raise NotImplementedError(
             f"server_config.type={sc.get('type')!r} is {NOT_PORTED}")
+    for key, allowed in (("personalization_init",
+                          ("global", "initial", "random")),
+                         ("personalization_interp", ("probs", "logprobs"))):
+        if sc.get(key) is not None and sc[key] not in allowed:
+            raise ValueError(f"server_config.{key}={sc[key]!r}: one of "
+                             f"{list(allowed)}")
     mk = sc.get("megakernel") or {}
     _check_keys(mk, "server_config.megakernel", _MEGAKERNEL)
     cc = raw.get("client_config") or {}
@@ -495,6 +516,17 @@ def validate(raw: Dict[str, Any]) -> None:
     if str(cc.get("type", "optimization")) != "optimization":
         raise NotImplementedError(
             f"client_config.type={cc.get('type')!r} is {NOT_PORTED}")
+    interp = cc.get("convex_model_interp")
+    if interp is not None and not 0.0 <= float(interp) <= 1.0:
+        raise ValueError(f"client_config.convex_model_interp={interp!r} "
+                         "is outside [0, 1]")
+    for path, section in (("client_config", cc), ("server_config", sc)):
+        ss = section.get("semisupervision")
+        _check_keys(ss, f"{path}.semisupervision", _SEMISUP)
+        if ss and str(ss.get("comp", "var")) != "var":
+            raise NotImplementedError(
+                f"{path}.semisupervision.comp={ss['comp']!r} is "
+                f"{NOT_PORTED}")
     for path, section in (("server_config", sc), ("client_config", cc)):
         dc = section.get("data_config") or {}
         _check_keys(dc, f"{path}.data_config", {"train", "val", "test"})
@@ -502,6 +534,12 @@ def validate(raw: Dict[str, Any]) -> None:
             _check_keys(dc.get(split), f"{path}.data_config.{split}",
                         _DATASET, off_ok=_OFF_OK["dataset"],
                         ignored=_DISPATCH_ONLY["dataset"])
+            aug = (dc.get(split) or {}).get("augment")
+            _check_keys(aug, f"{path}.data_config.{split}.augment", _AUGMENT)
+            if aug and str(aug.get("type", "randaugment")) != "randaugment":
+                raise NotImplementedError(
+                    f"{path}.data_config.{split}.augment.type="
+                    f"{aug['type']!r} is {NOT_PORTED}")
         _check_optimizer(section.get("optimizer_config"),
                          f"{path}.optimizer_config",
                          allow_adam=path == "server_config")

@@ -71,10 +71,12 @@ def pack_round_batches(
     max_steps: int,
     rng: Optional[np.random.Generator] = None,
     desired_max_samples: Optional[int] = None,
+    shuffle: bool = True,
 ) -> RoundBatch:
     """Assemble ``[K, S, B, ...]`` arrays for the sampled clients: per
     client, shuffle its samples with ``rng`` (one ``permutation`` draw per
-    client, in cohort order), truncate to the cap, and zero-pad."""
+    client, in cohort order; in order and with no draw when ``shuffle`` is
+    false, as an eval packs them), truncate to the cap, and zero-pad."""
     rng = rng or np.random.default_rng(0)
     K = len(client_indices)
     S, B = max_steps, batch_size
@@ -91,7 +93,7 @@ def pack_round_batches(
     for j, ci in enumerate(client_indices):
         user = dataset.user_arrays(int(ci))
         n = len(next(iter(user.values())))
-        take = rng.permutation(n)[:cap]
+        take = (rng.permutation(n) if shuffle else np.arange(n))[:cap]
         t = len(take)
         for k in spec:
             arrays[k][j].reshape((S * B,) + spec[k])[:t] = user[k][take]

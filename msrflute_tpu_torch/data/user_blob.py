@@ -3,7 +3,9 @@ copy of ``msrflute_tpu/data/user_blob.py``, trimmed to the JSON layout.
 
 A blob holds ``users`` (or ``user_list``), ``num_samples``, ``user_data``
 (user id -> ``{'x': [...]}`` or a bare list) and optionally
-``user_data_label`` (reference ``doc/sphinx/scenarios.rst:5-33``).
+``user_data_label`` (reference ``doc/sphinx/scenarios.rst:5-33``).  An
+entry with streams beside ``x`` and ``y`` (semisupervision's unlabeled
+``ux`` and ``ux_rand``) is kept whole for the task's featurizer.
 """
 
 from __future__ import annotations

@@ -11,7 +11,8 @@ The run goes to ``cuda`` unless ``-device cpu`` is given; without a usable
 card it stops with an error instead of running on the CPU.  Outputs:
 ``<out>/<config file>``, ``<out>/log/log.out``, ``<out>/log/metrics.jsonl``
 and ``<out>/models/`` (``latest_model.pt``, ``best_val_<metric>_model.pt``,
-``epoch<N>.pt``, ``status_log.json``).
+``epoch<N>.pt``, ``status_log.json``; under ``server_config.type:
+personalization`` also ``personalization/user<N>_model.pt``, one per user).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import yaml
 
 from .config import FLUTEConfig
 from .device import resolve_device
-from .engine import OptimizationServer
+from .engine import OptimizationServer, select_server
 from .models import make_task
 from .tasks import build_task_datasets
 from .utils.logging import MetricsLog, init_logging, print_rank
@@ -66,10 +67,10 @@ def main(argv: Optional[Sequence[str]] = None) -> OptimizationServer:
                f"test={len(test_ds) if test_ds else 0}")
     metrics = MetricsLog(log_dir)
     try:
-        server = OptimizationServer(task, cfg, train_ds, val_dataset=val_ds,
-                                    test_dataset=test_ds,
-                                    model_dir=model_dir, device=device,
-                                    metrics=metrics)
+        server_cls = select_server(cfg.server_config.get("type"))
+        server = server_cls(task, cfg, train_ds, val_dataset=val_ds,
+                            test_dataset=test_ds, model_dir=model_dir,
+                            device=device, metrics=metrics)
         server.train()
     finally:
         metrics.close()

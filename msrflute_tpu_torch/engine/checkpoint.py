@@ -53,6 +53,29 @@ STATUS_LOG = "status_log.json"
 _LOGGER = logging.getLogger("msrflute_tpu_torch")
 
 
+def write_verified(path: str, payload: Dict[str, Any]) -> None:
+    """``torch.save`` of ``payload`` to a temporary file renamed into
+    place, then its crc32 sidecar."""
+    buf = io.BytesIO()
+    torch.save(payload, buf)
+    blob = buf.getvalue()
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as fh:
+        fh.write(blob)
+    os.replace(tmp, path)
+    write_sidecar(path, blob_checksum(blob), len(blob))
+
+
+def read_verified(path: str) -> Dict[str, Any]:
+    """The payload at ``path`` (CPU tensors) after its crc check; raises
+    :class:`CheckpointCorruptionError` on a mismatch."""
+    with open(path, "rb") as fh:
+        blob = fh.read()
+    verify_blob(path, blob)
+    return torch.load(io.BytesIO(blob), map_location="cpu",
+                      weights_only=True)
+
+
 def update_json_log(path: str, update: Dict[str, Any]) -> Dict[str, Any]:
     """Merge ``update`` into a JSON file, written atomically."""
     data: Dict[str, Any] = {}
@@ -105,15 +128,7 @@ class CheckpointManager:
                                state.strategy_state.items()},
             "round": int(state.round),
         }
-        buf = io.BytesIO()
-        torch.save(payload, buf)
-        blob = buf.getvalue()
-        path = self._path(name)
-        tmp = path + ".tmp"
-        with open(tmp, "wb") as fh:
-            fh.write(blob)
-        os.replace(tmp, path)
-        write_sidecar(path, blob_checksum(blob), len(blob))
+        write_verified(self._path(name), payload)
 
     def save_latest(self, state: ServerState) -> None:
         path, prev = self._path(LATEST), self._path(LATEST_PREV)
@@ -160,12 +175,8 @@ class CheckpointManager:
             if not os.path.exists(slot):
                 continue
             tried.append(slot)
-            with open(slot, "rb") as fh:
-                blob = fh.read()
             try:
-                verify_blob(slot, blob)
-                payload = torch.load(io.BytesIO(blob), map_location="cpu",
-                                     weights_only=True)
+                payload = read_verified(slot)
             except CheckpointCorruptionError as exc:
                 self._recover(f"integrity check failed: {exc}", slot)
                 continue

@@ -70,6 +70,11 @@ def build_client_update(task: BaseTask, client_opt_cfg,
     """Returns ``client_update(global_flat, arrays, sample_mask, lr, gens)``
     -> ``(pseudo_grad [K, P], train_loss [K], num_samples [K], stats)``.
 
+    ``global_flat`` is the ``[P]`` vector every client starts from, or a
+    ``[K, P]`` stack of one start a client (the personalization server's
+    local models); the pseudo-gradient is each client's start less its
+    trained params.
+
     ``arrays``: dict of ``[K, S, B, ...]`` tensors; ``sample_mask``:
     ``[K, S, B]``; ``gens``: one ``torch.Generator`` per client for the
     dropout stream (``None`` when the task draws no random numbers).
@@ -90,7 +95,10 @@ def build_client_update(task: BaseTask, client_opt_cfg,
                       sample_mask: torch.Tensor, lr: float,
                       gens: Optional[List[torch.Generator]] = None):
         K, S, B = sample_mask.shape
-        params = global_flat.expand(K, -1).contiguous()
+        # a copy in every case: a [K, P] start is the caller's, and the
+        # steps below update params in place
+        params = global_flat.expand(K, -1).clone(
+            memory_format=torch.contiguous_format)
         trace = (torch.zeros_like(params)
                  if hparams.pallas_apply or mu else None)
         views = layout.views(params)

@@ -1,5 +1,7 @@
 """Evaluation in sum form — the port's counterpart of
-``msrflute_tpu/engine/evaluation.py::build_eval_fn``/``evaluate``.
+``msrflute_tpu/engine/evaluation.py::build_eval_fn``/``evaluate``, and the
+personalization server's per-user interpolated eval
+(:func:`personalized_eval_sums`).
 
 All eval samples are packed into one ``[T, B, ...]`` grid
 (:func:`..data.batching.pack_eval_batches`); each step's task stats are
@@ -11,11 +13,12 @@ package; if every step is excluded the metrics are NaN.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from ..models.base import BaseTask, Metric, Params
+from ..models.base import BaseTask, Metric, ParamLayout, Params, softmax_xent
 
 
 def stage_eval_batches(batches, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -49,3 +52,40 @@ def evaluate(task: BaseTask, params: Params,
         metrics = {name: Metric(float("nan"), m.higher_is_better)
                    for name, m in metrics.items()}
     return metrics
+
+
+@torch.no_grad()
+def personalized_eval_sums(task: BaseTask, layout: ParamLayout,
+                           global_flat: torch.Tensor,
+                           local_flat: torch.Tensor, alpha: torch.Tensor,
+                           arrays: Dict[str, torch.Tensor],
+                           sample_mask: torch.Tensor, logspace: bool
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """``(correct, samples, loss)`` sums over K users, each with its local
+    model (a row of ``local_flat`` ``[K, P]``) and its ``alpha``: the
+    prediction is the argmax of ``alpha * squash(local) + (1 - alpha) *
+    squash(global)`` (``squash`` the log-softmax under ``logspace``, else
+    the softmax), and a user's loss the mean of the two models' masked
+    mean cross entropies, weighted by its sample count (the JAX package's
+    ``personalization.py:326-371``; ``arrays`` ``[K, S, B, ...]``)."""
+    x = arrays["x"].flatten(1, 2)
+    y = arrays["y"].flatten(1, 2).long()
+    mask = sample_mask.flatten(1, 2)
+    K = x.shape[0]
+    logits_g = task.apply(layout.views(global_flat),
+                          x.flatten(0, 1)).unflatten(0, (K, -1))
+    # one forward a user: the ResNet's GroupNorm has no vmap rule outside
+    # a grad transform (it asks the batched input for channels-last)
+    logits_l = torch.stack([task.apply(layout.views(local_flat[k]), x[k])
+                            for k in range(K)])
+    squash = F.log_softmax if logspace else F.softmax
+    a = alpha[:, None, None]
+    mixed = a * squash(logits_l, dim=-1) + (1.0 - a) * squash(logits_g,
+                                                              dim=-1)
+    correct = ((torch.argmax(mixed, dim=-1) == y).to(mask.dtype) * mask).sum()
+    n = mask.sum(-1)
+    denom = torch.clamp(n, min=1.0)
+    ce_g = (softmax_xent(logits_g, y) * mask).sum(-1) / denom
+    ce_l = (softmax_xent(logits_l, y) * mask).sum(-1) / denom
+    return correct, n.sum(), (0.5 * (ce_g + ce_l) * n).sum()

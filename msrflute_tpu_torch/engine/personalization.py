@@ -1,0 +1,305 @@
+"""Personalization — per-user local models with convex interpolation, the
+port's counterpart of the host path of
+``msrflute_tpu/engine/personalization.py`` (reference
+``experiments/cv/server.py``, ``core/client.py:387-443``,
+``utils/utils.py:598-617``):
+
+- every user owns a local model and a scalar ``alpha``
+  (``client_config.convex_model_interp`` to start, 0.75);
+- when sampled, a user trains both the global model and its local model
+  on the same packed batch, through the round's own client update (kernel
+  B1 under ``pallas_apply``), the K users' local models as one ``[K, P]``
+  stack; then ``alpha`` takes one SGD step at the client learning rate:
+  ``grad_alpha = sum((w_g - pg_g) - (w_p - pg_p)) . (alpha pg_g +
+  (1 - alpha) pg_p) + 0.02 alpha``, clipped to ``[1e-4, 0.9999]``, a
+  non-finite result reset to the starting alpha;
+- the personal pass runs inside :meth:`PersonalizationServer._sample`,
+  after the cohort draw and before the round packs its own batch, so the
+  shuffles come from ``_np_rng`` in the JAX package's order;
+- the personalized eval at every ``val_freq`` scores each val user by
+  ``alpha * squash(local) + (1 - alpha) * squash(global)`` and logs
+  ``Personalized val acc`` / ``Personalized val loss``
+  (:func:`.evaluation.personalized_eval_sums`), users staged K at a time;
+- a user's local model starts as the current global model
+  (``personalization_init: global``, the default), the round-0 model
+  (``initial``) or a fresh init from the port's own stream (``random``).
+
+Per-user state lives on the host in :class:`PersonalizationStore` between
+rounds, one file per user (``personalization/user<N>_model.pt`` with a
+crc32 sidecar), written for the users a round updated; a resumed run
+reloads it, so a run resumed after round N equals one that never stopped.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from ..data.batching import pack_round_batches, steps_for
+from ..utils.logging import print_rank
+from .checkpoint import read_verified, write_verified
+from .evaluation import personalized_eval_sums
+from .round import SERVER_SLOT, stream_seed
+from .server import OptimizationServer
+
+#: stream tags (see :mod:`.round`): the personal pass's global-model and
+#: local-model dropout streams, and the ``random`` cold start
+PERSONAL_GLOBAL_TAG, PERSONAL_LOCAL_TAG, PERSONAL_INIT_TAG = 5, 6, 7
+ALPHA_MIN, ALPHA_MAX, ALPHA_DECAY = 1e-4, 0.9999, 0.02
+
+
+class PersonalizationStore:
+    """Host-side per-user ``(local params [P], alpha)``, saved one file per
+    user and only for the users updated since the last save."""
+
+    def __init__(self, init_alpha: float, store_dir: Optional[str] = None):
+        self.init_alpha = float(init_alpha)
+        self.store_dir = store_dir
+        self.params: Dict[int, torch.Tensor] = {}
+        self.alpha: Dict[int, float] = {}
+        self._dirty: set = set()
+
+    def get(self, user_idx: int) -> Tuple[Optional[torch.Tensor], float]:
+        """``(local params or None, alpha)`` of a user."""
+        return (self.params.get(user_idx),
+                self.alpha.get(user_idx, self.init_alpha))
+
+    def put(self, user_idx: int, params: torch.Tensor, alpha: float) -> None:
+        self.params[user_idx] = params
+        self.alpha[user_idx] = float(alpha)
+        self._dirty.add(user_idx)
+
+    def _user_path(self, uid: int) -> str:
+        return os.path.join(self.store_dir, f"user{uid}_model.pt")
+
+    def save(self) -> None:
+        if self.store_dir is None:
+            return
+        os.makedirs(self.store_dir, exist_ok=True)
+        for uid in sorted(self._dirty):
+            write_verified(self._user_path(uid),
+                           {"alpha": self.alpha[uid],
+                            "params": self.params[uid]})
+        self._dirty.clear()
+
+    def load(self) -> bool:
+        """Read every user file of the store directory (each checked
+        against its crc sidecar); False when there is none."""
+        if self.store_dir is None or not os.path.isdir(self.store_dir):
+            return False
+        found = False
+        for name in sorted(os.listdir(self.store_dir)):
+            if not (name.startswith("user") and name.endswith("_model.pt")):
+                continue
+            uid = int(name[len("user"):-len("_model.pt")])
+            payload = read_verified(os.path.join(self.store_dir, name))
+            self.params[uid] = payload["params"]
+            self.alpha[uid] = float(payload["alpha"])
+            found = True
+        return found
+
+
+def personal_step(client_update, global_flat: torch.Tensor,
+                  local_flat: torch.Tensor, alpha: torch.Tensor,
+                  arrays: Dict[str, torch.Tensor], sample_mask: torch.Tensor,
+                  client_mask: torch.Tensor, lr: float, alpha0: float,
+                  gens: Tuple = (None, None)
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One personal pass over K users: the global model's and the local
+    models' client updates on the same batch, then the alpha step.
+    Returns the new local models ``[K, P]`` and alphas ``[K]``; rows of
+    padding users (``client_mask`` 0) are returned unchanged."""
+    pg_g = client_update(global_flat, arrays, sample_mask, lr, gens[0])[0]
+    pg_p = client_update(local_flat, arrays, sample_mask, lr, gens[1])[0]
+    new_local = local_flat - pg_p
+    a = alpha[:, None]
+    # the reference updates alpha after both trainings, so the difference
+    # is of the trained models: (w_g - pg_g) - (w_p - pg_p)
+    grad_alpha = torch.sum(((global_flat - pg_g) - new_local) *
+                           (a * pg_g + (1.0 - a) * pg_p), dim=-1) \
+        + ALPHA_DECAY * alpha
+    new_alpha = torch.clamp(alpha - lr * grad_alpha, ALPHA_MIN, ALPHA_MAX)
+    new_alpha = torch.where(torch.isfinite(new_alpha), new_alpha,
+                            torch.full_like(new_alpha, alpha0))
+    live = client_mask > 0
+    return (torch.where(live[:, None], new_local, local_flat),
+            torch.where(live, new_alpha, alpha))
+
+
+def _max_clients(spec) -> int:
+    """The most clients a round samples (``"lo:hi"`` -> hi)."""
+    if isinstance(spec, str) and ":" in spec:
+        return int(spec.split(":")[1])
+    return int(spec)
+
+
+class PersonalizationServer(OptimizationServer):
+    """:class:`OptimizationServer` plus the personal pass in ``_sample``,
+    the personalized eval at ``val_freq`` and the per-user store."""
+
+    def __init__(self, task, config, train_dataset, val_dataset=None,
+                 test_dataset=None, model_dir: str = "./models",
+                 device=None, seed: int = 0, init_params=None,
+                 metrics=None):
+        sc, cc = config.server_config, config.client_config
+        # the personal pass reads the current global model every round
+        if int(sc.get("rounds_per_step", 1) or 1) > 1:
+            print_rank("personalization forces rounds_per_step=1")
+            sc["rounds_per_step"] = 1
+        self.alpha0 = float(cc.get("convex_model_interp", 0.75))
+        self.init_kind = str(sc.get("personalization_init", "global"))
+        self.logspace = sc.get("personalization_interp", "probs") == \
+            "logprobs"
+        # before the base constructor, whose resume reloads the store
+        self.store = PersonalizationStore(
+            self.alpha0, os.path.join(model_dir, "personalization"))
+        if self.init_kind == "initial" and init_params is None:
+            init_params = task.init_params(seed)
+        super().__init__(task, config, train_dataset, val_dataset,
+                         test_dataset, model_dir=model_dir, device=device,
+                         seed=seed, init_params=init_params, metrics=metrics)
+        self._initial_params = (
+            self.engine.layout.flatten(init_params).to(self.device)
+            if self.init_kind == "initial" else None)
+        #: users scored at once by the personalized eval: one round's K
+        self.eval_chunk = max(_max_clients(
+            sc.get("num_clients_per_iteration", 10)), 1)
+        self._eval_chunks: Optional[List[tuple]] = None
+        for key in ("secsPersonalPass", "secsPersonalStore",
+                    "secsPersonalSave"):
+            self.run_stats[key] = []
+
+    def _resume(self) -> bool:
+        if not super()._resume():
+            return False
+        if self.store.load():
+            print_rank(f"restored personalization state for "
+                       f"{len(self.store.alpha)} users")
+        return True
+
+    # ------------------------------------------------------------------
+    def _sample(self) -> list:
+        sampled = super()._sample()
+        self._run_personal_pass(sampled)
+        return sampled
+
+    def _default_local(self) -> torch.Tensor:
+        """A new user's local model: ``[P]`` on the device."""
+        if self.init_kind == "random":
+            seed = stream_seed(self.engine.seed, self.state.round,
+                               SERVER_SLOT, PERSONAL_INIT_TAG)
+            return self.engine.layout.flatten(
+                self.task.init_params(seed)).to(self.device)
+        if self.init_kind == "initial":
+            return self._initial_params
+        return self.state.params
+
+    def _stage_locals(self, user_ids, default: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The users' local models ``[K, P]`` and alphas ``[K]`` on the
+        device, ``default`` for a user without local state."""
+        local = torch.empty((len(user_ids), self.engine.layout.numel),
+                            dtype=torch.float32, device=self.device)
+        alphas = []
+        for j, uid in enumerate(user_ids):
+            lp, a = self.store.get(int(uid))
+            local[j].copy_(default if lp is None else lp)
+            alphas.append(a)
+        return local, torch.tensor(alphas, dtype=torch.float32,
+                                   device=self.device)
+
+    def _run_personal_pass(self, sampled) -> None:
+        """Train the sampled users' local models and alphas against the
+        current global model, and put them in the store."""
+        tic = time.time()
+        batch = pack_round_batches(
+            self.train_dataset, sampled, self.batch_size, self.max_steps,
+            rng=self._np_rng, desired_max_samples=self.desired_max_samples)
+        engine, dev, r = self.engine, self.device, self.state.round
+        ids = batch.client_ids.tolist()
+        local, alpha = self._stage_locals(ids, self._default_local())
+        store_s = time.time() - tic
+        arrays = {k: torch.from_numpy(v).to(dev)
+                  for k, v in batch.arrays.items()}
+        sample_mask = torch.from_numpy(batch.sample_mask).to(dev)
+        client_mask = torch.from_numpy(batch.client_mask).to(dev)
+        gens = ((engine.client_generators(r, ids, PERSONAL_GLOBAL_TAG),
+                 engine.client_generators(r, ids, PERSONAL_LOCAL_TAG))
+                if engine.random else (None, None))
+        engine.local_steps += 2 * engine.hparams.num_epochs * \
+            sample_mask.shape[1]
+        new_local, new_alpha = personal_step(
+            engine.client_update, self.state.params, local, alpha, arrays,
+            sample_mask, client_mask, self.initial_lr_client * self.lr_weight,
+            self.alpha0, gens)
+        tac = time.time()
+        new_alpha = new_alpha.cpu().tolist()
+        for j, uid in enumerate(ids):
+            if uid >= 0:
+                self.store.put(uid, new_local[j].to("cpu", copy=True),
+                               new_alpha[j])
+        toc = time.time()
+        self.run_stats["secsPersonalStore"].append(store_s + toc - tac)
+        self.run_stats["secsPersonalPass"].append(toc - tic)
+
+    # ------------------------------------------------------------------
+    def _round_housekeeping(self, round_no: int, val_freq: int,
+                            rec_freq: int) -> None:
+        super()._round_housekeeping(round_no, val_freq, rec_freq)
+        if round_no % val_freq == 0 and self.val_dataset is not None:
+            self.personalized_eval(self.val_dataset)
+        tic = time.time()
+        self.store.save()
+        self.run_stats["secsPersonalSave"].append(time.time() - tic)
+
+    def train(self):
+        state = super().train()
+        self.store.save()
+        return state
+
+    def _personal_eval_batches(self, dataset) -> List[tuple]:
+        """The split's users in chunks of :attr:`eval_chunk`, each packed
+        in order on one ``[S, B]`` grid and staged on the device once."""
+        if self._eval_chunks is None:
+            bs = int(self.config.server_config.data_config.val.get(
+                "batch_size", self.batch_size))
+            S = steps_for(int(max(dataset.num_samples)), bs,
+                          self.desired_max_samples)
+            self._eval_chunks = []
+            for i in range(0, len(dataset), self.eval_chunk):
+                users = list(range(i, min(i + self.eval_chunk,
+                                          len(dataset))))
+                batch = pack_round_batches(
+                    dataset, users, bs, S, shuffle=False,
+                    desired_max_samples=self.desired_max_samples)
+                self._eval_chunks.append((users, {
+                    k: torch.from_numpy(v).to(self.device)
+                    for k, v in batch.arrays.items()},
+                    torch.from_numpy(batch.sample_mask).to(self.device)))
+        return self._eval_chunks
+
+    def personalized_eval(self, dataset) -> Optional[Tuple[float, float]]:
+        """``(accuracy, loss)`` of the interpolated models over all of the
+        split's users; a user without local state scores the global model
+        in both slots.  None before any user has local state."""
+        if not self.store.alpha or len(dataset) == 0:
+            return None
+        sums = torch.zeros(3, dtype=torch.float64, device=self.device)
+        for users, arrays, mask in self._personal_eval_batches(dataset):
+            local, alpha = self._stage_locals(users, self.state.params)
+            sums += torch.stack(personalized_eval_sums(
+                self.task, self.engine.layout, self.state.params, local,
+                alpha, arrays, mask, self.logspace)).double()
+        correct, total, loss = sums.cpu().tolist()
+        if total == 0:
+            return None
+        acc, loss = correct / total, loss / total
+        step = self.state.round
+        self.metrics.log("Personalized val acc", acc, step=step)
+        self.metrics.log("Personalized val loss", loss, step=step)
+        self.history.append({"split": "personalized_val", "round": step,
+                             "acc": acc, "loss": loss})
+        return acc, loss

@@ -2,12 +2,14 @@
 path of ``msrflute_tpu/engine/round.py::RoundEngine._build_round_step``.
 
 Per round: the K clients train at once (:mod:`.client_update`), the
-strategy weighs and transforms each client's payload (FedAvg: its sample
-count; DGA: softmax weight, local DP, quantization), the client mask
-zeroes padding clients' weights, loss and sample counts, the weighted sums
-go through ``strategy.combine_parts`` (with the staleness split when the
-strategy defers clients, ``round.py:917-922, 988-1019``), and the server
-optimizer steps on the aggregate pseudo-gradient.
+strategy weighs and transforms each client's payload parts (FedAvg: its
+sample count; DGA: softmax weight, local DP, quantization; FedLabels: a
+supervised and an unsupervised part), the client mask zeroes padding
+clients' weights, loss and sample counts, each part's weighted sums go
+through ``strategy.combine_parts`` with the round's global params (with
+the staleness split when the strategy defers clients,
+``round.py:917-922, 988-1019``), and the server optimizer steps on the
+aggregate pseudo-gradient.
 
 Randomness, all from ``np.random.SeedSequence`` entropy, so a resumed run
 needs only the round number and the numpy sampling state to replay every
@@ -73,6 +75,7 @@ class RoundEngine:
                  device: torch.device, seed: int = 0):
         self.task = task
         self.strategy = strategy
+        strategy.task = task
         self.device = device
         self.seed = int(seed)
         self.layout = task.layout()
@@ -147,7 +150,7 @@ class RoundEngine:
             self.client_update, state.params, arrays, sample_mask,
             client_lr, gens, quant_threshold=quant_threshold,
             client_rngs=lambda tag: self.client_generators(
-                r, batch.client_ids, tag), bounds=self.bounds)
+                r, batch.client_ids, tag), bounds=self.bounds, round_idx=r)
         stale = None
         if self.strategy.stale_prob > 0.0:
             stale = torch.from_numpy(
@@ -169,7 +172,7 @@ class RoundEngine:
                         "weight_sum": part_sums["default"]["weight_sum_def"]}
         agg, strategy_state = self.strategy.combine_parts(
             part_sums, deferred, state.strategy_state, self.server_seed(r),
-            float(batch.client_mask.sum()))
+            float(batch.client_mask.sum()), global_params=state.params)
         if self.server_max_grad_norm is not None:
             norm = torch.linalg.vector_norm(agg)
             agg = agg * torch.clamp(float(self.server_max_grad_norm)
@@ -178,11 +181,14 @@ class RoundEngine:
             state.params, agg, state.opt_state, server_lr)
         count = cm.sum()
         denom = torch.clamp(count, min=1.0)
+        # the JAX package's choice: the "default" part's weight sum, else
+        # the first part's (FedLabels' "sup", its client count)
+        first = part_sums.get("default", next(iter(part_sums.values())))
         round_stats = {
             "train_loss_sum": (tl * cm).sum(),
             "num_samples_sum": (ns * cm).sum(),
             "client_count": count,
-            "weight_sum": part_sums["default"]["weight_sum"],
+            "weight_sum": first["weight_sum"],
             "grad_mean": (stats["mean"] * cm).sum() / denom,
             "grad_mag": (stats["mag"] * cm).sum() / denom,
             "grad_var": (stats["var_corrected"] * cm).sum() / denom,

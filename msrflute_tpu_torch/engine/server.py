@@ -98,10 +98,12 @@ class OptimizationServer:
             self._resume()
 
     # ------------------------------------------------------------------
-    def _resume(self) -> None:
+    def _resume(self) -> bool:
+        """Reload the latest checkpoint and the status log; False when
+        there is no checkpoint to resume from."""
         restored = self.ckpt.load(self.device)
         if restored is None:
-            return
+            return False
         self.state = restored
         status = self.ckpt.read_status()
         if int(status.get("i", -1)) != restored.round:
@@ -129,8 +131,13 @@ class OptimizationServer:
                 self.best_val[name] = Metric(float(value),
                                              bool(hib.get(name, name != "loss")))
         print_rank(f"resumed from checkpoint at round {self.state.round}")
+        return True
 
     def _sample(self) -> list:
+        """The round's cohort (a subclass may hook work onto the draw, as
+        the personalization server does: anything it draws from
+        ``_np_rng`` comes after the cohort and before the round's own
+        packing, as in the JAX package)."""
         sc = self.config.server_config
         n = parse_clients_per_round(sc.get("num_clients_per_iteration", 10),
                                     self._np_rng)
@@ -306,3 +313,12 @@ class OptimizationServer:
                                  float(np.percentile(values, 50)))
                 self.metrics.log(f"{key} (p95)",
                                  float(np.percentile(values, 95)))
+
+
+def select_server(server_type: str) -> type:
+    """``personalization`` -> :class:`~.personalization.PersonalizationServer`,
+    else :class:`OptimizationServer` (``msrflute_tpu/engine/server.py:3140``)."""
+    if str(server_type or "").lower() == "personalization":
+        from .personalization import PersonalizationServer
+        return PersonalizationServer
+    return OptimizationServer

@@ -8,7 +8,9 @@ The JAX package's parameters are a nested dict of arrays in flax layout:
 ``Dense_0`` (see :mod:`.cv`), no input-axis permutation of ``Dense_0`` is
 needed: the only layout rule is the per-kernel transpose.
 
-The ResNet (:mod:`.resnet`) follows the same rule: its convolutions have
+The hello_mlp plugin's MLP (:mod:`..plugins.hello_mlp`, ``Dense_0`` and
+``Dense_1``) needs no other rule.  The ResNet (:mod:`.resnet`) follows
+the same rule: its convolutions have
 no bias, so ``_BasicBlock_3.Conv_2.kernel`` (HWIO) becomes
 ``_BasicBlock_3.Conv_2.weight`` (OIHW) alone, and GroupNorm's ``scale``
 and ``bias`` keep their names and ``[C]`` shapes.

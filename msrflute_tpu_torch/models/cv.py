@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..data.augment import rand_augment
 from ..data.dataset import ArraysDataset
 from ..data.featurize import to_image
 from ..data.user_blob import UserBlob
@@ -164,20 +165,46 @@ class ClassificationTask(BaseTask):
                 np.sum(2 * tp[seen] / denom[seen]) / max(seen.sum(), 1)))
         return metrics
 
-    def make_dataset(self, blob: UserBlob, data_config=None) -> ArraysDataset:
+    def make_dataset(self, blob: UserBlob, data_config=None,
+                     split: str = "train") -> ArraysDataset:
         """Featurize an image/vector user blob into ``{"x", "y"}`` arrays
-        (``x`` reshaped to the example shape; uint8 pixels stay uint8)."""
+        (``x`` reshaped to the example shape; uint8 pixels stay uint8).
+
+        Semisupervision blobs hold per-user dicts with an unlabeled stream
+        ``ux`` (and optionally its augmented view ``ux_rand``); with
+        ``data_config.augment`` on the train split, ``ux_rand`` is made
+        here by RandAugment from one ``aug_rng`` shared by all users and
+        seeded by ``augment.seed`` (0), as in the JAX package
+        (``msrflute_tpu/models/cv.py:193-243``)."""
+        aug_cfg = (dict((data_config or {}).get("augment") or {})
+                   if split == "train" else {})
+        aug_rng = np.random.default_rng(int(aug_cfg.get("seed", 0)))
         per_user = []
         for i in range(len(blob)):
-            data = blob.user_data[i]
-            raw_x = data["x"] if isinstance(data, dict) else data
-            x = to_image(np.asarray(raw_x), self.example_shape)
             label = (blob.user_labels[i] if blob.user_labels is not None
                      else None)
-            y = (np.asarray(label).astype(np.int32) if label is not None
-                 else np.zeros((len(x),), np.int32))
-            per_user.append({"x": x, "y": y})
+            per_user.append(self._featurize_user(blob.user_data[i], label,
+                                                 aug_cfg, aug_rng))
         return ArraysDataset(blob.user_list, per_user, blob.num_samples)
+
+    def _featurize_user(self, data, label, aug_cfg, aug_rng
+                        ) -> Dict[str, np.ndarray]:
+        raw_x = data["x"] if isinstance(data, dict) else data
+        x = to_image(np.asarray(raw_x), self.example_shape)
+        y = (np.asarray(label).astype(np.int32) if label is not None
+             else np.zeros((len(x),), np.int32))
+        user = {"x": x, "y": y}
+        if isinstance(data, dict) and "ux" in data:
+            user["ux"] = ux = to_image(np.asarray(data["ux"]),
+                                       self.example_shape)
+            if "ux_rand" in data:
+                user["ux_rand"] = to_image(np.asarray(data["ux_rand"]),
+                                           self.example_shape)
+            elif aug_cfg:
+                user["ux_rand"] = rand_augment(
+                    ux, num_ops=int(aug_cfg.get("num_ops", 2)),
+                    magnitude=int(aug_cfg.get("magnitude", 9)), rng=aug_rng)
+        return user
 
 
 def make_lr_task(model_config) -> ClassificationTask:

@@ -268,7 +268,8 @@ class SequenceLMTask(BaseTask):
                 "sample_count": torch.sum(tok_mask),
                 "seq_count": torch.sum(batch["sample_mask"])}
 
-    def make_dataset(self, blob: UserBlob, data_config=None) -> ArraysDataset:
+    def make_dataset(self, blob: UserBlob, data_config=None,
+                     split: str = "train") -> ArraysDataset:
         """Raw strings are encoded by ``tokenizer`` (words through the vocab
         of ``model_config.vocab_dict``, else the split's ``vocab_dict``);
         token lists through the vocab; int sequences pass through.  Rows

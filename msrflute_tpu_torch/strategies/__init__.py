@@ -2,6 +2,7 @@ from ..config import NOT_PORTED
 from .base import BaseStrategy, filter_weight  # noqa: F401
 from .dga import DGA
 from .fedavg import FedAvg
+from .fedlabels import FedLabels
 
 
 def select_strategy(name: str) -> type:
@@ -10,4 +11,6 @@ def select_strategy(name: str) -> type:
         return DGA
     if key in ("fedavg", "fedprox"):
         return FedAvg
+    if key == "fedlabels":
+        return FedLabels
     raise NotImplementedError(f"strategy {name!r} is {NOT_PORTED}")

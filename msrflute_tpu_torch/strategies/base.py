@@ -1,10 +1,11 @@
-"""Strategy contract — the port's counterpart of ``msrflute_tpu/strategies/base.py``,
-trimmed to the single ``"default"`` payload part.
+"""Strategy contract — the port's counterpart of ``msrflute_tpu/strategies/base.py``.
 
 A strategy contributes functions over the round's ``[K, ...]`` client
 stacks (``msrflute_tpu/strategies/base.py:153-181, 300-330``):
 
-- :meth:`client_step` — local work -> weighted payload parts; it hands
+- :meth:`client_step` — local work -> named, weighted payload parts
+  (``"default"`` for a single-part strategy; FedLabels sends ``"sup"`` and
+  ``"unsup"``); it gets the round's index and hands
   :meth:`transform_payload` the round's quantization threshold, the
   clients' random streams and the leaf bounds of the flat parameter
   vector;
@@ -13,7 +14,12 @@ stacks (``msrflute_tpu/strategies/base.py:153-181, 300-330``):
 - :meth:`init_state` / :meth:`combine` — weighted sums -> aggregate
   pseudo-gradient, with cross-round state (DGA's staleness buffer) passed
   in and returned: ``combine(weighted_grad_sum, weight_sum, deferred,
-  state, seed, num_clients) -> (agg, new_state)``.
+  state, seed, num_clients) -> (agg, new_state)``;
+  :meth:`combine_parts` takes every part's sums and the round's global
+  params, and a multi-part strategy overrides it.
+
+The round engine sets :attr:`BaseStrategy.task` (a strategy that runs the
+model itself, as FedLabels' unsupervised pass does, reads it there).
 
 Random streams: ``client_rngs(tag)`` gives one ``torch.Generator`` per
 client (``SeedSequence([seed, round, client, tag])``, the analogue of the
@@ -26,8 +32,6 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
-
-from ..config import NOT_PORTED
 
 MAX_WEIGHT = 100.0  # reference core/strategies/utils.py:11-19
 
@@ -46,6 +50,8 @@ class BaseStrategy:
     #: staleness); the engine draws the per-client coin and hands
     #: :meth:`combine` separate now and deferred sums
     stale_prob: float = 0.0
+    #: the round engine's task
+    task = None
 
     def __init__(self, config):
         self.config = config
@@ -54,12 +60,13 @@ class BaseStrategy:
     def client_step(self, client_update, global_flat, arrays, sample_mask,
                     client_lr, gens=None, quant_threshold=None,
                     client_rngs: Optional[ClientRngs] = None,
-                    bounds: Optional[List[int]] = None):
+                    bounds: Optional[List[int]] = None,
+                    round_idx: Optional[int] = None):
         """Run the K clients' local work; returns ``(parts, train_loss,
         num_samples, stats)`` with ``parts = {"default": (pg [K, P],
         w [K])}``.  ``bounds`` are the parameter leaves' offsets in the
         flat vector followed by its length (per-leaf work such as
-        quantization reads them)."""
+        quantization reads them); ``round_idx`` is the round's index."""
         pg, tl, ns, stats = client_update(global_flat, arrays, sample_mask,
                                           client_lr, gens)
         w = self.client_weight(num_samples=ns, train_loss=tl, stats=stats)
@@ -93,10 +100,16 @@ class BaseStrategy:
 
     def combine_parts(self, part_sums: Dict[str, Dict[str, torch.Tensor]],
                       deferred: Optional[State], state: State, seed: int,
-                      num_clients: float) -> Tuple[torch.Tensor, State]:
+                      num_clients: float,
+                      global_params: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, State]:
+        """Every part's ``{"grad_sum", "weight_sum"}`` -> ``(agg, new
+        state)``; single-part strategies fall through to :meth:`combine`,
+        a multi-part one overrides this."""
         if set(part_sums) != {"default"}:
             raise NotImplementedError(
-                f"payload parts {sorted(part_sums)} are {NOT_PORTED}")
+                f"{type(self).__name__} must override combine_parts for "
+                f"parts {sorted(part_sums)}")
         return self.combine(part_sums["default"]["grad_sum"],
                             part_sums["default"]["weight_sum"], deferred,
                             state, seed, num_clients)

@@ -1,6 +1,7 @@
 """Task dataset assembly — the port's counterpart of ``msrflute_tpu/tasks.py``:
 the split files named in the config are read by the user-blob reader and
-featurized by the task into :class:`~.data.dataset.ArraysDataset`."""
+featurized by the task into :class:`~.data.dataset.ArraysDataset` (only the
+train split is augmented)."""
 
 from __future__ import annotations
 
@@ -22,13 +23,13 @@ def build_task_datasets(cfg: FLUTEConfig, task: BaseTask) -> Tuple[
     if not train_path:
         raise ValueError("client_config.data_config.train needs "
                          "list_of_train_data or train_data")
-    train = scrub_empty_clients(task.make_dataset(load_user_blob(train_path),
-                                                  data_config=cc_train))
+    train = scrub_empty_clients(task.make_dataset(
+        load_user_blob(train_path), data_config=cc_train, split="train"))
 
-    def _load(split_cfg, key):
+    def _load(split, key):
+        split_cfg = cfg.server_config.data_config[split]
         path = split_cfg.get(key)
-        return (task.make_dataset(load_user_blob(path), data_config=split_cfg)
-                if path else None)
+        return (task.make_dataset(load_user_blob(path), data_config=split_cfg,
+                                  split=split) if path else None)
 
-    dc = cfg.server_config.data_config
-    return train, _load(dc.val, "val_data"), _load(dc.test, "test_data")
+    return train, _load("val", "val_data"), _load("test", "test_data")

@@ -228,7 +228,7 @@ def test_model_type_aliases_build_the_same_task(model_type):
 @pytest.mark.parametrize("model_type,key,value", [
     ("RESNET", "dtype", "bfloat16"),
     ("RNN", "dtype", "bf16"),
-    ("CIFAR_CNN", "model_folder", "experiments/hello_mlp"),
+    ("RINGLM", "remat", True),
     ("RESNET", "pretrained_model_path", "resnet.msgpack"),
     ("RNN", "quant_threshold", 0.7),
 ])
@@ -247,3 +247,50 @@ def test_classif_cnn_hdf5_blobs_are_refused_at_load(tmp_path):
     path.write_bytes(b"")
     with pytest.raises(NotImplementedError, match="hdf5"):
         load_user_blob(str(path))
+
+
+@pytest.mark.parametrize("name,strategy,server_type", [
+    ("hello_mlp", "fedavg", "model_optimization"),
+    ("cv", "fedavg", "personalization"),
+    ("semisupervision", "fedlabels", "optimization"),
+])
+def test_slice_seven_configs_parse(name, strategy, server_type):
+    """The plugin, personalization and FedLabels configs the repo ships
+    parse as published."""
+    with open(os.path.join(REPO, "experiments", name, "config.yaml")) as fh:
+        cfg = FLUTEConfig.from_dict(yaml.safe_load(fh))
+    assert cfg.strategy == strategy
+    assert cfg.server_config.type == server_type
+
+
+def _semisup():
+    with open(os.path.join(REPO, "experiments", "semisupervision",
+                           "config.yaml")) as fh:
+        return yaml.safe_load(fh)
+
+
+@pytest.mark.parametrize("path,value,error", [
+    ("client_config.semisupervision.comp", "entropy", NotImplementedError),
+    ("client_config.semisupervision.tau", 1.0, ValueError),
+    ("client_config.data_config.train.augment.type", "autoaugment",
+     NotImplementedError),
+    ("client_config.data_config.train.augment.ops", 2, ValueError),
+    ("dp_config", {"enable_local_dp": True}, NotImplementedError),
+    ("server_config.fused_carry", True, NotImplementedError),
+    ("server_config.personalization_init", "zeros", ValueError),
+    ("server_config.personalization_interp", "logits", ValueError),
+    ("client_config.convex_model_interp", 1.5, ValueError),
+    ("server_config.type", "replay", NotImplementedError),
+])
+def test_slice_seven_keys_outside_the_slice_raise(path, value, error):
+    """FedLabels with DP, fused_carry, a pseudo-label comparison other
+    than ``var``, another augmentation, and out-of-range personalization
+    keys still fail loudly."""
+    raw = _semisup()
+    node = raw
+    keys = path.split(".")
+    for k in keys[:-1]:
+        node = node.setdefault(k, {})
+    node[keys[-1]] = value
+    with pytest.raises(error):
+        FLUTEConfig.from_dict(raw)

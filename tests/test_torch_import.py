@@ -102,6 +102,27 @@ def test_slice_six_modules_import_without_building(module):
     assert "fused_sgd" not in _build._loaded
 
 
+@pytest.mark.parametrize("module", [
+    "msrflute_tpu_torch.models.registry",
+    "msrflute_tpu_torch.plugins",
+    "msrflute_tpu_torch.plugins.hello_mlp",
+    "msrflute_tpu_torch.engine.personalization",
+    "msrflute_tpu_torch.engine.evaluation",
+    "msrflute_tpu_torch.strategies.fedlabels",
+    "msrflute_tpu_torch.data.augment",
+])
+def test_slice_seven_modules_import_without_building(module):
+    """The plugin loader and its hello_mlp twin, the personalization
+    server and FedLabels with RandAugment import without building kernel
+    B1 (and so does the plugin twin's package: ``task.py`` of a plugin
+    folder is never imported)."""
+    import importlib
+    mod = importlib.import_module(module)
+    assert mod.__name__ == module
+    from msrflute_tpu_torch.ops import _build
+    assert "fused_sgd" not in _build._loaded
+
+
 def test_every_cuda_source_has_its_notes():
     """Each kernel source says which TPU kernel it replaces (or what it
     checks) and what bounds it on the card."""
