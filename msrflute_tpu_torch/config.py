@@ -7,10 +7,12 @@ YAML drives both packages:
     server_config, client_config
 
 Trimmed to what the ported slices read: FedAvg over the LR, CNN_FEMNIST,
-CIFAR_CNN, ResNet-18/34 with GroupNorm, Shakespeare LSTM and RingLM
-(local attention) tasks and over ``model_folder`` plugins, DGA (softmax
-weights, local and global DP, quantization, staleness) over the nlg_gru GRU
-word LM, the personalization server (per-user local models and convex
+CIFAR_CNN, ResNet-18/34 with GroupNorm, Shakespeare LSTM, RingLM (local
+attention), ECG_CNN and NRMS tasks and over ``model_folder`` plugins, DGA
+(softmax weights, local and global DP, quantization, staleness) over the
+nlg_gru GRU word LM and the BERT masked LM, the privacy-attack metrics
+(``privacy_metrics_config``), client ``adam`` / ``adamW`` / ``adamax``,
+the personalization server (per-user local models and convex
 interpolation) and FedLabels semi-supervision with RandAugment.
 :func:`validate` replaces the JAX package's ``schema.py`` for those
 slices: a key the port runs is accepted, a key that only tunes how the TPU
@@ -237,11 +239,46 @@ class ClientConfig(Config):
 
 
 @dataclass
+class PrivacyMetricsConfig(Config):
+    """Privacy-attack metric settings, with the JAX package's defaults
+    (``msrflute_tpu/config.py::PrivacyMetricsConfig``): an absent
+    ``attacker_optimizer_config`` is ``OptimizerConfig()``, plain SGD at
+    0.01, as there."""
+
+    apply_metrics: bool = False
+    apply_indices_extraction: bool = False
+    allowed_word_rank: int = 9000
+    apply_leakage_metric: bool = False
+    max_leakage: float = 30.0
+    max_allowed_leakage: float = 3.0
+    adaptive_leakage_threshold: float = 0.0
+    is_leakage_weighted: bool = False
+    attacker_optimizer_config: OptimizerConfig = field(
+        default_factory=OptimizerConfig)
+    extra: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, raw: Optional[Dict[str, Any]]
+                  ) -> "PrivacyMetricsConfig":
+        raw = dict(raw or {})
+        att = OptimizerConfig.from_dict(raw.pop("attacker_optimizer_config",
+                                                None))
+        out = cls(**_take(raw, [
+            "apply_metrics", "apply_indices_extraction", "allowed_word_rank",
+            "apply_leakage_metric", "max_leakage", "max_allowed_leakage",
+            "adaptive_leakage_threshold", "is_leakage_weighted"]))
+        out.attacker_optimizer_config = att
+        return out
+
+
+@dataclass
 class FLUTEConfig(Config):
     model_config: ModelConfig = field(default_factory=ModelConfig)
     strategy: str = "fedavg"
     #: ``dp_config`` as written (``strategy: dga`` only; see :func:`validate`)
     dp_config: Optional[Dict[str, Any]] = None
+    #: ``None`` unless ``privacy_metrics_config.apply_metrics`` is on
+    privacy_metrics_config: Optional[PrivacyMetricsConfig] = None
     server_config: ServerConfig = field(default_factory=ServerConfig)
     client_config: ClientConfig = field(default_factory=ClientConfig)
     task: Optional[str] = None
@@ -253,12 +290,16 @@ class FLUTEConfig(Config):
     def from_dict(cls, raw: Dict[str, Any]) -> "FLUTEConfig":
         raw = copy.deepcopy(raw)
         validate(raw)
-        for key in ("privacy_metrics_config", "mesh_config", "experiment"):
+        for key in ("mesh_config", "experiment"):
             raw.pop(key, None)   # validate() proved them inert
+        pm = raw.pop("privacy_metrics_config", None)
         return cls(
             model_config=ModelConfig.from_dict(raw.pop("model_config", None)),
             strategy=raw.pop("strategy", "fedavg"),
             dp_config=raw.pop("dp_config", None),
+            privacy_metrics_config=(PrivacyMetricsConfig.from_dict(pm)
+                                    if pm and pm.get("apply_metrics")
+                                    else None),
             server_config=ServerConfig.from_dict(raw.pop("server_config",
                                                          None)),
             client_config=ClientConfig.from_dict(raw.pop("client_config",
@@ -330,9 +371,19 @@ _DATASET = {"batch_size", "list_of_train_data", "test_data", "val_data",
             "train_data", "desired_max_samples", "vocab_dict",
             "max_num_words", "augment"}
 _OPTIMIZER = {"type", "lr", "momentum", "nesterov", "weight_decay"}
-#: adam's keys; ``amsgrad`` is accepted and not applied, as the JAX
-#: package builds ``optax.adam`` whatever it says
+#: adam's and adamax's keys; ``amsgrad`` is accepted and not applied, as
+#: the JAX package builds ``optax.adam`` whatever it says (adamW also takes
+#: ``weight_decay``, 0 only; the JAX package gives adamW and adamax
+#: optax's default betas whatever ``betas`` says)
 _ADAM = {"type", "lr", "eps", "betas", "amsgrad"}
+_ADAM_FAMILY = ("adam", "adamw", "adamax")
+#: ``privacy_metrics_config`` (``msrflute_tpu/schema.py``
+#: ``PRIVACY_METRICS_KEYS``)
+_PRIVACY_METRICS = {"apply_metrics", "apply_indices_extraction",
+                    "allowed_word_rank", "apply_leakage_metric",
+                    "max_leakage", "max_allowed_leakage",
+                    "adaptive_leakage_threshold", "is_leakage_weighted",
+                    "attacker_optimizer_config", "max_allowed_overlap"}
 _ANNEALING = {"type", "step_interval", "step_size", "gamma", "milestones",
               "patience", "factor"}
 _MEGAKERNEL = {"enable", "fused_epochs", "pallas_apply"}
@@ -395,13 +446,13 @@ _OFF_OK = {
     "annealing": {"peak_lr", "floor_lr", "rampup_steps", "hold_steps",
                   "decay_steps"},
     "dp": {"enable_prod", "max_bound", "min_bound", "adaptive_clipping"},
-    "top": {"dp_config", "privacy_metrics_config", "mesh_config",
-            "experiment"},
+    "top": {"dp_config", "mesh_config", "experiment"},
 }
 
 _STRATEGIES_PORTED = {"fedavg", "fedprox", "dga", "fedlabels"}
 _MODELS_PORTED = {"LR", "CNN", "CNN_FEMNIST", "CIFAR_CNN", "RESNET",
-                  "ResNet", "RNN", "LSTM", "GRU", "RINGLM"}
+                  "ResNet", "RNN", "LSTM", "GRU", "RINGLM", "ECG_CNN",
+                  "NRMS", "FEDNEWSREC", "BERT"}
 #: ResNet depths and their stages (``msrflute_tpu/models/resnet.py``)
 RESNET_DEPTHS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
 
@@ -418,8 +469,6 @@ def _off(key: str, value: Any) -> bool:
     if key == "dp_config" and isinstance(value, dict):
         return not (value.get("enable_local_dp") or
                     value.get("enable_global_dp"))
-    if key == "privacy_metrics_config" and isinstance(value, dict):
-        return not value.get("apply_metrics")
     if key == "mesh_config" and isinstance(value, dict):
         return int(value.get("model_axis_size", 1) or 1) == 1
     if key == "experiment":
@@ -457,8 +506,18 @@ def validate(raw: Dict[str, Any]) -> None:
     # DP and quantization are ported inside DGA only; under FedAvg they
     # keep raising unless off
     top_off = _OFF_OK["top"] - ({"dp_config"} if dga else set())
-    _check_keys(raw, "config", _TOP | ({"dp_config"} if dga else set()),
-                off_ok=top_off)
+    check_mesh(raw.get("mesh_config"))
+    _check_keys(raw, "config",
+                _TOP | {"privacy_metrics_config"}
+                | ({"dp_config"} if dga else set()), off_ok=top_off)
+    pm = raw.get("privacy_metrics_config")
+    _check_keys(pm, "privacy_metrics_config", _PRIVACY_METRICS)
+    if pm and pm.get("apply_metrics"):
+        if strategy == "fedlabels":
+            raise NotImplementedError(
+                f"privacy_metrics_config under fedlabels is {NOT_PORTED}")
+        _check_optimizer(pm.get("attacker_optimizer_config"),
+                         "privacy_metrics_config.attacker_optimizer_config")
     if dga:
         _check_keys(raw.get("dp_config"), "dp_config", _DP,
                     off_ok=_OFF_OK["dp"])
@@ -481,6 +540,16 @@ def validate(raw: Dict[str, Any]) -> None:
             f"model_config.dtype={model['dtype']!r} is {NOT_PORTED}")
     if mtype == "RINGLM":
         check_ringlm_model(model)
+    if mtype == "BERT":
+        check_bert_model(model)
+    if mtype in ("NRMS", "FEDNEWSREC") and \
+            str(model.get("arch", "nrms")) != "nrms":
+        if str(model["arch"]) == "fednewsrec":
+            raise NotImplementedError(
+                f"model_config.arch='fednewsrec' (the frozen-GloVe net) is "
+                f"{NOT_PORTED}")
+        raise ValueError("model_config.arch must be 'nrms' or 'fednewsrec', "
+                         f"got {model['arch']!r}")
     if mtype in ("RESNET", "ResNet") and \
             int(model.get("depth", 18)) not in RESNET_DEPTHS:
         raise ValueError(f"model_config.depth={model['depth']!r}: ResNet "
@@ -541,8 +610,7 @@ def validate(raw: Dict[str, Any]) -> None:
                     f"{path}.data_config.{split}.augment.type="
                     f"{aug['type']!r} is {NOT_PORTED}")
         _check_optimizer(section.get("optimizer_config"),
-                         f"{path}.optimizer_config",
-                         allow_adam=path == "server_config")
+                         f"{path}.optimizer_config")
     ann = sc.get("annealing_config")
     _check_keys(ann, "server_config.annealing_config", _ANNEALING,
                 off_ok=_OFF_OK["annealing"])
@@ -569,12 +637,52 @@ def check_ringlm_model(model: Dict[str, Any]) -> None:
                 f"model_config.{key}={model[key]!r} is {NOT_PORTED}")
 
 
-def _check_optimizer(raw: Any, path: str, allow_adam: bool) -> None:
-    """SGD anywhere; adam as the server optimizer only (the client update
-    runs the SGD tail that kernel B1 implements)."""
-    kind = str((raw or {}).get("type", "sgd")).lower()
-    if kind == "adam" and allow_adam:
-        _check_keys(raw, path, _ADAM, off_ok=_OFF_OK["optimizer"])
+def check_mesh(mesh: Any) -> None:
+    """One device: ``mesh_config.model_axis_size`` must be 1 (the JAX
+    package's ``make_mesh`` refuses 4 on one chip too)."""
+    size = int((mesh or {}).get("model_axis_size", 1) or 1)
+    if size > 1:
+        raise NotImplementedError(
+            f"mesh_config.model_axis_size={size}: tensor parallelism over "
+            "several GPUs is ROADMAP.md queue A item 13 (multi-GPU); the "
+            f"port runs one device, so set it to 1 ({NOT_PORTED})")
+
+
+def check_bert_model(model: Dict[str, Any]) -> None:
+    """The BERT masked LM is ported from a fresh init in float32 with the
+    full MLM head; a checkpoint path, another dtype and the gathered head
+    raise."""
+    bert = dict((model.get("BERT") or {}).get("model") or {})
+    if bert.get("model_name_or_path"):
+        raise NotImplementedError(
+            f"BERT.model.model_name_or_path is {NOT_PORTED} (queue A item "
+            "10)")
+    dtype = str(bert.get("dtype", model.get("dtype", "float32"))
+                or "float32").lower()
+    if dtype not in ("float32", "f32"):
+        raise NotImplementedError(
+            f"BERT dtype={dtype!r} is {NOT_PORTED} (queue A item 7)")
+    head = str(bert.get("mlm_head", "full")).lower()
+    if head == "gathered":
+        raise NotImplementedError(
+            f"BERT.model.mlm_head='gathered' is {NOT_PORTED} (queue A item "
+            "10)")
+    if head != "full":
+        raise ValueError("BERT.model.mlm_head must be 'full' or "
+                         f"'gathered', got {head!r}")
+
+
+def _check_optimizer(raw: Any, path: str) -> None:
+    """SGD, or one of the Adam family (``adamW`` with no weight decay)."""
+    raw = raw or {}
+    kind = str(raw.get("type", "sgd")).lower()
+    if kind in _ADAM_FAMILY:
+        _check_keys(raw, path,
+                    _ADAM | ({"weight_decay"} if kind == "adamw" else set()),
+                    off_ok=_OFF_OK["optimizer"])
+        if raw.get("weight_decay"):
+            raise NotImplementedError(
+                f"{path}: adamW weight_decay is {NOT_PORTED}")
         return
     _check_keys(raw, path, _OPTIMIZER, off_ok=_OFF_OK["optimizer"])
     if kind != "sgd":

@@ -8,7 +8,8 @@ Semantics kept from the JAX package (and the reference FLUTE trainer):
   ``t`` reading batch ``t % S`` (the fused-epoch indexing);
 - per step: loss -> grad -> ``combine_grad_terms`` (FedProx, clip) ->
   stats -> optimizer step, with an all-padding step (``has_data`` 0) a
-  no-op for params and momentum;
+  no-op for params and the optimizer state (momentum; Adam's moments and
+  step count);
 - pseudo-gradient ``w_server - w_trained``; stats on it, including the
   reference's degenerate ``var`` (identically 0) and ``var_corrected``;
 - ``mean_sample_loss`` and ``num_samples`` as in the JAX package:
@@ -19,9 +20,15 @@ Layout: the K clients' params are ONE flat ``[K, P]`` float32 buffer with
 per-leaf views into it.  Gradients come from ``torch.func.vmap`` of
 ``grad_and_value`` over ``functional_call`` (the analogue of the JAX
 ``vmap``) and are flattened into a ``[K, P]`` grad buffer.  The optimizer
-tail is then one pass over ``[K, P]``: with ``pallas_apply`` (the JAX
-config key ``server_config.megakernel.pallas_apply``) one launch of kernel
-B1 (:mod:`..ops.fused_sgd`), else the plain ``fused_apply`` ops.
+tail is then one pass over ``[K, P]``: for momentum SGD with
+``pallas_apply`` (the JAX config key
+``server_config.megakernel.pallas_apply``) one launch of kernel B1
+(:mod:`..ops.fused_sgd`), else the plain ``fused_apply`` ops.  An
+Adam-family client optimizer (``adam``, ``adamW``, ``adamax``) runs
+``fused_opt_apply``: optax's arithmetic with a fresh state a round, the
+client learning rate injected; it has no kernel, and ``pallas_apply``
+with it raises ``ValueError``, as in the JAX package
+(``client_update.py:182-187``).
 """
 
 from __future__ import annotations
@@ -32,10 +39,10 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 from torch.func import grad_and_value, vmap
 
-from ..config import NOT_PORTED
 from ..models.base import BaseTask
 from ..ops.fused_sgd import fused_sgd_apply
-from ..optim import SGD, combine_grad_terms, fused_apply, make_optimizer
+from ..optim import (SGD, combine_grad_terms, fused_apply, fused_opt_apply,
+                     make_optimizer)
 
 
 @dataclass(frozen=True)
@@ -77,16 +84,16 @@ def build_client_update(task: BaseTask, client_opt_cfg,
 
     ``arrays``: dict of ``[K, S, B, ...]`` tensors; ``sample_mask``:
     ``[K, S, B]``; ``gens``: one ``torch.Generator`` per client for the
-    dropout stream (``None`` when the task draws no random numbers).
-    The only ported client optimizer, momentum SGD, is the one kernel B1
-    implements, so ``pallas_apply`` needs no further check."""
+    dropout stream (``None`` when the task draws no random numbers)."""
     opt = make_optimizer(client_opt_cfg)
-    if not isinstance(opt, SGD):
-        raise NotImplementedError(
-            f"client optimizer {client_opt_cfg.get('type')!r} is "
-            f"{NOT_PORTED}")
+    sgd = isinstance(opt, SGD)
+    if hparams.pallas_apply and not sgd:
+        raise ValueError(
+            "megakernel.pallas_apply requires a plain SGD client "
+            "optimizer (momentum ok; no nesterov/weight_decay) — got "
+            f"type={client_opt_cfg.get('type', 'sgd')!r}")
     layout = task.layout()
-    mu = opt.momentum
+    mu = opt.momentum if sgd else 0.0
     epochs = max(int(hparams.num_epochs), 1)
     grad_fn = vmap(grad_and_value(task.loss_and_aux, has_aux=True))
 
@@ -100,7 +107,8 @@ def build_client_update(task: BaseTask, client_opt_cfg,
         params = global_flat.expand(K, -1).clone(
             memory_format=torch.contiguous_format)
         trace = (torch.zeros_like(params)
-                 if hparams.pallas_apply or mu else None)
+                 if sgd and (hparams.pallas_apply or mu) else None)
+        opt_state = None if sgd else opt.init(params)
         views = layout.views(params)
         zero = torch.zeros((K,), dtype=torch.float32,
                            device=sample_mask.device)
@@ -123,10 +131,14 @@ def build_client_update(task: BaseTask, client_opt_cfg,
             # sample-weighted loss sum (loss is the batch's masked MEAN)
             wloss_acc = wloss_acc + loss * rows
             ns_acc = ns_acc + has_data * aux.get("train_sample_count", rows)
-            if hparams.pallas_apply:
+            if not sgd:
+                opt_state = fused_opt_apply(opt, params, grads, opt_state,
+                                            lr, has_data)
+            elif hparams.pallas_apply:
                 fused_sgd_apply(params, grads, trace, lr, mu, has_data)
             else:
                 fused_apply(params, grads, trace, lr, mu, has_data)
+            del grads
 
         pseudo_grad = global_flat - params
         stats = _derive_stats(*_suff_stats_of(pseudo_grad))

@@ -91,7 +91,7 @@ class RoundEngine:
             task, cc.optimizer_config, self.hparams)
         self.server_opt = make_optimizer(sc.optimizer_config)
         self.server_max_grad_norm = sc.get("max_grad_norm")
-        self.random = any(rate > 0 for rate, _ in task.dropout_sites)
+        self.random = task.draws_random
         #: local steps run so far (num_epochs x S per round): the number of
         #: optimizer-tail passes, hence of kernel B1 launches with
         #: pallas_apply
@@ -135,8 +135,13 @@ class RoundEngine:
 
     def run_round(self, state: ServerState, batch: RoundBatch,
                   client_lr: float, server_lr: float,
-                  quant_threshold: Optional[float] = None
+                  quant_threshold: Optional[float] = None,
+                  leakage_threshold: Optional[float] = None
                   ) -> Tuple[ServerState, Dict[str, float]]:
+        """One round -> ``(new state, stats)``: the round's scalar sums,
+        and with the privacy metrics on, ``stats["privacy"]``: each
+        ``privacy_*`` key's ``[K]`` values and the client mask, on the
+        host (the server logs them and adapts the leakage threshold)."""
         dev = self.device
         r = state.round
         arrays = {k: torch.from_numpy(v).to(dev)
@@ -150,7 +155,8 @@ class RoundEngine:
             self.client_update, state.params, arrays, sample_mask,
             client_lr, gens, quant_threshold=quant_threshold,
             client_rngs=lambda tag: self.client_generators(
-                r, batch.client_ids, tag), bounds=self.bounds, round_idx=r)
+                r, batch.client_ids, tag), bounds=self.bounds, round_idx=r,
+            leakage_threshold=leakage_threshold)
         stale = None
         if self.strategy.stale_prob > 0.0:
             stale = torch.from_numpy(
@@ -195,7 +201,20 @@ class RoundEngine:
             "grad_norm": (stats["norm"] * cm).sum() / denom,
             "agg_grad_norm": torch.linalg.vector_norm(agg),
         }
+        privacy = [k for k in stats if k.startswith("privacy_")]
+        if privacy:
+            round_stats.update((k, stats[k]) for k in privacy)
+            round_stats["client_mask"] = cm
         # one device->host transfer for the whole stats dict
-        host = torch.stack(list(round_stats.values())).cpu().tolist()
+        sizes = [v.numel() for v in round_stats.values()]
+        host = torch.cat([v.reshape(-1).to(torch.float32)
+                          for v in round_stats.values()]).cpu()
+        out = dict(zip(round_stats, torch.split(host, sizes)))
+        per_client = {k: out.pop(k).numpy() for k in privacy}
+        if privacy:
+            per_client["client_mask"] = out.pop("client_mask").numpy()
+            out["privacy"] = per_client
+        out.update((k, float(v[0])) for k, v in list(out.items())
+                   if k != "privacy")
         return (ServerState(new_params, opt_state, r + 1, strategy_state),
-                dict(zip(round_stats, host)))
+                out)

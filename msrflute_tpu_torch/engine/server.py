@@ -1,7 +1,10 @@
 """The federated round loop — the port's counterpart of
 ``msrflute_tpu/engine/server.py::OptimizationServer`` on its plain serial
 path: ``_sample`` (the numpy cohort draw), the annealed quantization
-threshold (``server.py:649-650, 1444-1453``), the round, and
+threshold (``server.py:649-650, 1444-1453``), the round, the
+privacy-attack bookkeeping (``server.py:455-462, 2867-2900``: the metrics
+logged, the leakage threshold adapted to a quantile of the round's
+leakages), and
 ``_round_housekeeping`` (val/test cadence, best model, client-LR decay,
 plateau LR, fall-back-to-best, checkpoint, ``status_log.json``), with
 ``resume_from_checkpoint``.
@@ -70,6 +73,16 @@ class OptimizationServer:
                                              False))
         self.best_val: Dict[str, Metric] = {}
         self._last_val: Dict[str, Metric] = {}
+
+        # privacy-attack bookkeeping (reference core/server.py:319-325)
+        pm = getattr(config, "privacy_metrics_config", None)
+        self.max_allowed_leakage: Optional[float] = None
+        self.adaptive_leakage: Optional[float] = None
+        if pm is not None and pm.get("apply_metrics", False):
+            self.max_allowed_leakage = pm.get("max_allowed_leakage")
+            if pm.get("adaptive_leakage_threshold"):
+                self.adaptive_leakage = float(
+                    pm.get("adaptive_leakage_threshold"))
 
         # quantization threshold annealing (reference core/server.py:294-298)
         self.quant_thresh = cc.get("quant_thresh") or \
@@ -208,8 +221,11 @@ class OptimizationServer:
                 # covers the round's device work
                 self.state, stats = self.engine.run_round(
                     self.state, batch, client_lr, server_lr,
-                    quant_threshold=thresholds[j])
+                    quant_threshold=thresholds[j],
+                    leakage_threshold=self.max_allowed_leakage)
                 self.run_stats["secsPerRound"].append(time.time() - tic)
+                if "privacy" in stats:
+                    self._process_privacy_stats(stats["privacy"], r)
                 n_clients = max(stats["client_count"], 1.0)
                 self.metrics.log("Training loss",
                                  stats["train_loss_sum"] / n_clients, step=r)
@@ -222,6 +238,39 @@ class OptimizationServer:
         self._log_timing()
         self.metrics.flush()
         return self.state
+
+    def _process_privacy_stats(self, stats: Dict[str, np.ndarray],
+                               round_no: int) -> None:
+        """Log the attack metrics over the round's real clients (the
+        largest value of each, and the dropped count), and move the
+        leakage threshold to the ``adaptive_leakage_threshold`` quantile of
+        the round's sorted leakages (reference ``core/server.py:390-409``)."""
+        real = stats["client_mask"] > 0
+
+        def select(key):
+            vals = stats[key][real]
+            return vals[np.isfinite(vals)]
+
+        self.metrics.log("Dropped clients",
+                         float(select("privacy_dropped").sum()),
+                         step=round_no)
+        for key, name in (
+                ("privacy_overlap", "Extracted indices percentage"),
+                ("privacy_leakage", "Practical epsilon (Max leakage)"),
+                ("privacy_above_rank", "Words percentage above rank")):
+            if key in stats:
+                finite = select(key)
+                if finite.size:
+                    self.metrics.log(name, float(finite.max()),
+                                     step=round_no)
+        if self.adaptive_leakage is not None and "privacy_leakage" in stats:
+            values = np.sort(select("privacy_leakage"))
+            if values.size:
+                idx = min(int(self.adaptive_leakage * values.size),
+                          values.size - 1)
+                self.max_allowed_leakage = float(values[idx])
+                print_rank("updated leakage threshold to "
+                           f"{self.max_allowed_leakage}")
 
     # ------------------------------------------------------------------
     def _round_housekeeping(self, round_no: int, val_freq: int,

@@ -118,6 +118,13 @@ class BaseTask:
     def param_spec(self) -> List[Tuple[str, Tuple[int, ...]]]:
         return [(n, tuple(p.shape)) for n, p in self.module.named_parameters()]
 
+    @property
+    def draws_random(self) -> bool:
+        """Whether a train step draws random numbers (dropout masks, the
+        BERT task's MLM mask), so the client update needs a generator a
+        client."""
+        return any(rate > 0 for rate, _ in self.dropout_sites)
+
     def layout(self) -> ParamLayout:
         return ParamLayout(self.param_spec())
 
@@ -158,7 +165,7 @@ class BaseTask:
         """Masked mean loss plus ``aux["sample_count"]``.  Train mode draws
         its dropout masks from ``gen`` (required when a site is live)."""
         masks: Tuple[torch.Tensor, ...] = ()
-        if train and any(rate > 0 for rate, _ in self.dropout_sites):
+        if train and self.draws_random:
             if gen is None:
                 raise ValueError(f"{self.name}: loss(train=True) needs a "
                                  "generator for the dropout stream")

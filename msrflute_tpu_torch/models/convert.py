@@ -15,12 +15,17 @@ no bias, so ``_BasicBlock_3.Conv_2.kernel`` (HWIO) becomes
 ``_BasicBlock_3.Conv_2.weight`` (OIHW) alone, and GroupNorm's ``scale``
 and ``bias`` keep their names and ``[C]`` shapes.
 
-The GRU LM, the Shakespeare LSTM (:mod:`.nlp`) and RingLM keep flax's own
-names and layouts (``kernel [in, out]``, nested
-``Scan_ConvexGRUCell_0.w_hh.kernel``; the LSTM's gate kernels
+The GRU LM, the Shakespeare LSTM (:mod:`.nlp`), RingLM, ECG_CNN
+(:mod:`.ecg`), NRMS (:mod:`.fednewsrec`) and the BERT masked LM
+(:mod:`.bert`) keep flax's own names and layouts (``kernel [in, out]``,
+nested ``Scan_ConvexGRUCell_0.w_hh.kernel``; the LSTM's gate kernels
 ``OptimizedLSTMCell_0.ii.kernel`` ... ``.ho.kernel`` with the biases on
-the hidden ones, ``Embed_0.embedding``): a flax path that the task names
-as it is carries across unchanged.
+the hidden ones, ``Embed_0.embedding``; ECG's 1-D ``Conv_*.kernel`` ``[k,
+in, out]``; NRMS's ``SelfAttention_0.query.kernel`` ``[in, heads,
+head_dim]``; HF Flax ``FlaxBertForMaskedLM``'s
+``bert.encoder.layer.0.attention.self.query.kernel``): a flax path that
+the task names as it is carries across unchanged, and the task lists its
+leaves in ``ravel_pytree`` order.
 """
 
 from __future__ import annotations

@@ -83,11 +83,12 @@ class _LSTMCell(nn.Module):
             self.add_module(f"i{g}", _Dense(d_in, hidden, use_bias=False))
             self.add_module(f"h{g}", _Dense(hidden, hidden))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_cell: bool = False):
         """``x [B, T, d_in]`` -> the hidden states ``[B, T, H]`` from a zero
-        carry.  The input projection of every step is one product up front;
-        the ``T`` steps are a Python loop of one ``[B, H] x [H, 4H]``
-        product and the gate arithmetic each."""
+        carry (and the last cell state ``c [B, H]`` with ``return_cell``).
+        The input projection of every step is one product up front; the
+        ``T`` steps are a Python loop of one ``[B, H] x [H, 4H]`` product
+        and the gate arithmetic each."""
         w_i = torch.cat([getattr(self, f"i{g}").kernel for g in self.GATES],
                         dim=1)
         w_h = torch.cat([getattr(self, f"h{g}").kernel for g in self.GATES],
@@ -103,7 +104,8 @@ class _LSTMCell(nn.Module):
             c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
             h = torch.sigmoid(o) * torch.tanh(c)
             out.append(h)
-        return torch.stack(out, dim=1)
+        out = torch.stack(out, dim=1)
+        return (out, c) if return_cell else out
 
 
 class ShakespeareLSTMModule(nn.Module):
@@ -252,6 +254,16 @@ class SequenceLMTask(BaseTask):
     def loss_masked(self, params: Params, batch: Batch,
                     masks: Sequence[torch.Tensor] = ()) -> torch.Tensor:
         return self.loss_and_aux(params, batch, masks)[0]
+
+    def token_logprobs(self, params: Params, batch: Batch
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Each target's log-probability and the validity mask (the
+        leakage attack's scorer, reference
+        ``extensions/privacy/metrics.py:25-30``)."""
+        logits, targets, tok_mask = self._logits_targets(params, batch)
+        logp = F.log_softmax(logits, dim=-1)
+        return (torch.gather(logp, -1, targets[..., None])[..., 0],
+                tok_mask)
 
     def eval_stats(self, params: Params, batch: Batch
                    ) -> Dict[str, torch.Tensor]:

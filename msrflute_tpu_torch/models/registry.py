@@ -23,7 +23,10 @@ import os
 
 from ..config import NOT_PORTED
 from .base import BaseTask
+from .bert import make_bert_task
 from .cv import make_cifar_cnn_task, make_cnn_femnist_task, make_lr_task
+from .ecg import make_ecg_task
+from .fednewsrec import make_nrms_task
 from .nlp import make_gru_lm_task, make_shakespeare_lstm_task
 from .resnet import make_resnet_task
 from .ringlm import make_ringlm_task
@@ -39,6 +42,10 @@ TASK_REGISTRY = {
     "LSTM": make_shakespeare_lstm_task,
     "GRU": make_gru_lm_task,
     "RINGLM": make_ringlm_task,
+    "ECG_CNN": make_ecg_task,
+    "NRMS": make_nrms_task,
+    "FEDNEWSREC": make_nrms_task,
+    "BERT": make_bert_task,
 }
 
 #: the plugin file the port loads from a model folder

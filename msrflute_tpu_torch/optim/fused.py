@@ -6,11 +6,13 @@ Every expression keeps the JAX package's association
 port differs from it only in reduction order.  Row ``k`` of each buffer is
 client ``k``; scalars that are per client (the clip scale, the
 ``has_data`` gate) are ``[K]`` vectors broadcast over the row.
+:func:`fused_apply` is momentum SGD's tail, :func:`fused_opt_apply` the
+Adam family's.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -46,3 +48,38 @@ def fused_apply(params: torch.Tensor, grads: torch.Tensor,
     else:
         t = grads
     params.copy_(torch.where(live, params + (-lr) * t, params))
+
+
+#: columns of ``[K, P]`` a chunk of :func:`fused_opt_apply` reads at once:
+#: the moments' temporaries stay at a few ``[K, 2^24]`` buffers even at
+#: BERT-base's P of 109.5M
+OPT_CHUNK = 1 << 24
+
+
+def fused_opt_apply(opt, params: torch.Tensor, grads: torch.Tensor,
+                    state: Dict[str, torch.Tensor], lr: float,
+                    has_data: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """An Adam-family step (``opt.step``) over ``[K, P]`` client rows, in
+    place, with the all-padding no-op pin of ``fused_apply``'s ``where``:
+    a client whose ``has_data`` is 0 keeps its params and its whole
+    optimizer state, step count included.  ``state`` holds ``[K, P]``
+    moments and a ``[K]`` count; the step is elementwise in ``P``, so it
+    runs over column chunks of :data:`OPT_CHUNK` and gives the same bits
+    as one pass.  Returns the new state (the moments updated in place)."""
+    live = has_data > 0
+    rows = live[:, None]
+    new_count = None
+    for a in range(0, params.shape[-1], OPT_CHUNK):
+        cols = slice(a, a + OPT_CHUNK)
+        sub = {k: (v[:, cols] if v.ndim == 2 else v)
+               for k, v in state.items()}
+        p_new, s_new = opt.step(params[:, cols], grads[:, cols], sub, lr)
+        params[:, cols] = torch.where(rows, p_new, params[:, cols])
+        for k, v in s_new.items():
+            if v.ndim == 2:
+                state[k][:, cols] = torch.where(rows, v, sub[k])
+            else:
+                new_count = v
+    out = dict(state)
+    out["count"] = torch.where(live, new_count, state["count"])
+    return out

@@ -16,9 +16,9 @@ of ``msrflute_tpu/privacy/__init__.py`` (reference
   ``global_sigma * max_grad / num_clients`` on the aggregate
   (reference ``:128-151``), through kernel B2 (:mod:`..ops.gaussian_noise`).
 
-The RDP accountant, the attack metrics, PRV accounting and DP k-means are
-off the ported path (the JAX server calls no accountant) and are not
-ported yet (ROADMAP.md).
+The attack metrics live in :mod:`.attacks`.  The RDP accountant, PRV
+accounting and DP k-means are off the ported path (the JAX server calls
+no accountant) and are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations

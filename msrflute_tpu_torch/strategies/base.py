@@ -10,7 +10,11 @@ stacks (``msrflute_tpu/strategies/base.py:153-181, 300-330``):
   clients' random streams and the leaf bounds of the flat parameter
   vector;
 - :meth:`client_weight`, :meth:`transform_payload` (local DP,
-  quantization);
+  quantization), and between them the privacy-attack metrics of
+  ``privacy_metrics_config`` (:meth:`_apply_privacy_metrics`, the JAX
+  package's ``strategies/base.py:153-231``): the metrics go into the
+  clients' stats under ``privacy_*`` keys, and a dropped client is a zero
+  weight;
 - :meth:`init_state` / :meth:`combine` — weighted sums -> aggregate
   pseudo-gradient, with cross-round state (DGA's staleness buffer) passed
   in and returned: ``combine(weighted_grad_sum, weight_sum, deferred,
@@ -29,6 +33,7 @@ stream (global DP's kernel seed).
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -37,6 +42,18 @@ MAX_WEIGHT = 100.0  # reference core/strategies/utils.py:11-19
 
 ClientRngs = Callable[[int], List[torch.Generator]]
 State = Dict[str, torch.Tensor]
+
+
+def find_embedding_leaf(layout) -> Optional[Tuple[int, int, tuple]]:
+    """``(offset, size, shape)`` of the first 2-D leaf, in the layout's
+    (``ravel_pytree``) order, whose name holds ``embed`` — the JAX
+    package's ``_find_embedding_leaf`` rule (on BERT that is
+    ``position_embeddings``, not the word table)."""
+    for name, off, size, shape in zip(layout.names, layout.offsets,
+                                      layout.sizes, layout.shapes):
+        if "embed" in name.lower() and len(shape) == 2:
+            return off, size, shape
+    return None
 
 
 def filter_weight(weight: torch.Tensor) -> torch.Tensor:
@@ -61,18 +78,69 @@ class BaseStrategy:
                     client_lr, gens=None, quant_threshold=None,
                     client_rngs: Optional[ClientRngs] = None,
                     bounds: Optional[List[int]] = None,
-                    round_idx: Optional[int] = None):
+                    round_idx: Optional[int] = None,
+                    leakage_threshold: Optional[float] = None):
         """Run the K clients' local work; returns ``(parts, train_loss,
         num_samples, stats)`` with ``parts = {"default": (pg [K, P],
         w [K])}``.  ``bounds`` are the parameter leaves' offsets in the
         flat vector followed by its length (per-leaf work such as
-        quantization reads them); ``round_idx`` is the round's index."""
+        quantization reads them); ``round_idx`` is the round's index;
+        ``leakage_threshold`` drops a client whose leakage exceeds it."""
         pg, tl, ns, stats = client_update(global_flat, arrays, sample_mask,
                                           client_lr, gens)
         w = self.client_weight(num_samples=ns, train_loss=tl, stats=stats)
+        w = self._apply_privacy_metrics(pg, w, stats, global_flat, arrays,
+                                        sample_mask, leakage_threshold)
         pg, w = self.transform_payload(pg, w, quant_threshold=quant_threshold,
                                        client_rngs=client_rngs, bounds=bounds)
         return {"default": (pg, w)}, tl, ns, stats
+
+    def _apply_privacy_metrics(self, pg, weight, stats, global_flat, arrays,
+                               sample_mask, leakage_threshold):
+        """Attack metrics and ``wt = 0`` client dropping (reference
+        ``core/client.py:466-508``) for the K clients: ``privacy_overlap``,
+        ``privacy_above_rank``, ``privacy_leakage`` and
+        ``privacy_dropped`` land in ``stats`` as ``[K]`` vectors."""
+        pm = getattr(self.config, "privacy_metrics_config", None)
+        if pm is None or not pm.get("apply_metrics", False):
+            return weight
+        from ..privacy import attacks
+        layout = self.task.layout()
+        dropped = torch.zeros_like(weight)
+        if pm.get("apply_indices_extraction", False) and "x" in arrays:
+            leaf = find_embedding_leaf(layout)
+            if leaf is not None:
+                off, size, shape = leaf
+                embed = pg[:, off:off + size].unflatten(-1, shape)
+                x = arrays["x"]
+                num_tokens = sample_mask.sum(dim=(1, 2)) * x.shape[-1]
+                overlap, extracted = attacks.extract_indices_from_embeddings(
+                    embed, x, num_tokens=num_tokens)
+                stats["privacy_overlap"] = overlap
+                rank = int(pm.get("allowed_word_rank", 9000))
+                stats["privacy_above_rank"] = (
+                    extracted[:, rank:].sum(-1)
+                    / torch.clamp(extracted.sum(-1), min=1.0)
+                    if rank < extracted.shape[1] else torch.zeros_like(overlap))
+                max_overlap = pm.get("max_allowed_overlap")
+                if max_overlap is not None:
+                    dropped = torch.maximum(
+                        dropped, (overlap > float(max_overlap)).to(
+                            weight.dtype))
+        if pm.get("apply_leakage_metric", False) and \
+                getattr(self.task, "token_logprobs", None) is not None:
+            leakage = attacks.practical_epsilon_leakage(
+                layout.views(global_flat), global_flat, pg, self.task,
+                layout, arrays, sample_mask,
+                is_weighted=bool(pm.get("is_leakage_weighted", False)),
+                max_ratio=math.exp(float(pm.get("max_leakage", 30.0))),
+                attacker_optimizer_config=pm.attacker_optimizer_config)
+            stats["privacy_leakage"] = leakage
+            if leakage_threshold is not None:
+                dropped = torch.maximum(
+                    dropped, (leakage > leakage_threshold).to(weight.dtype))
+        stats["privacy_dropped"] = dropped
+        return weight * (1.0 - dropped)
 
     def client_weight(self, *, num_samples: torch.Tensor,
                       train_loss: torch.Tensor,

@@ -66,7 +66,8 @@ class FedLabels(BaseStrategy):
 
     def client_step(self, client_update, global_flat, arrays, sample_mask,
                     client_lr, gens=None, quant_threshold=None,
-                    client_rngs=None, bounds=None, round_idx=None):
+                    client_rngs=None, bounds=None, round_idx=None,
+                    leakage_threshold=None):
         labeled = {k: v for k, v in arrays.items() if k not in UNLABELED}
         pg_sup, tl, ns, stats = client_update(global_flat, labeled,
                                               sample_mask, client_lr, gens)

@@ -113,6 +113,6 @@ def test_both_port_arms_are_bitwise_equal():
 
 def test_pallas_apply_refuses_unfusable_optimizer():
     pt = make_task(ModelConfig(model_type="LR", extra=dict(MODEL)))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="plain SGD"):
         build_client_update(pt, OptimizerConfig(type="adam", lr=0.1),
                             ClientHParams(pallas_apply=True))

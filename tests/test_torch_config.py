@@ -61,10 +61,10 @@ def test_nlg_gru_config_with_dp_and_quantization_parses():
 
 @pytest.mark.parametrize("path,value", [
     ("dp_config.adaptive_clipping", {"target_quantile": 0.5}),
-    ("privacy_metrics_config.apply_metrics", True),
+    ("mesh_config.model_axis_size", 4),
     ("strategy", "scaffold"),
     ("strategy", "fedbuff"),
-    ("model_config.model_type", "NRMS"),
+    ("strategy", "qffl"),
     ("server_config.wantRL", True),
 ])
 def test_keys_outside_the_dga_slice_still_raise(path, value):
@@ -83,7 +83,7 @@ def test_keys_outside_the_dga_slice_still_raise(path, value):
     ("client_config.quant_thresh", 0.5),
     ("model_config.quant_threshold", 0.7),
     ("server_config.stale_prob", 0.3),
-    ("client_config.optimizer_config.type", "adam"),
+    ("client_config.quant_anneal", 0.99),
 ])
 def test_dga_features_refused_under_fedavg(path, value):
     """DP, quantization and staleness run inside DGA only; a FedAvg config
@@ -105,9 +105,9 @@ def _with(path, value):
 @pytest.mark.parametrize("path,value", [
     ("strategy", "fedac"),
     ("strategy", "scaffold"),
-    ("model_config.model_type", "ECG_CNN"),
+    ("mesh_config.model_axis_size", 2),
     ("model_config.dtype", "bfloat16"),
-    ("client_config.optimizer_config.type", "adam"),
+    ("client_config.optimizer_config.type", "lamb"),
     ("client_config.optimizer_config.nesterov", True),
     ("server_config.optimizer_config.type", "yogi"),
     ("server_config.cohort_bucketing", {"enable": True}),
@@ -293,4 +293,53 @@ def test_slice_seven_keys_outside_the_slice_raise(path, value, error):
         node = node.setdefault(k, {})
     node[keys[-1]] = value
     with pytest.raises(error):
+        FLUTEConfig.from_dict(raw)
+
+
+def _shipped(name):
+    with open(os.path.join(REPO, "experiments", name, "config.yaml")) as fh:
+        return yaml.safe_load(fh)
+
+
+@pytest.mark.parametrize("name,client_opt", [
+    ("ecg_cnn", "adam"), ("fednewsrec", "adam"), ("mlm_bert", "adamW")])
+def test_slice_eight_shipped_configs_load(name, client_opt):
+    """The three configs slice 8 ports load as shipped (mlm_bert on one
+    device: ``model_axis_size: 1``), client Adam family included."""
+    raw = _shipped(name)
+    if name == "mlm_bert":
+        raw["mesh_config"]["model_axis_size"] = 1
+    cfg = FLUTEConfig.from_dict(raw)
+    assert cfg.client_config.optimizer_config.type == client_opt
+    if name == "mlm_bert":
+        pm = cfg.privacy_metrics_config
+        assert pm.apply_metrics and pm.adaptive_leakage_threshold == 0.95
+        assert pm.attacker_optimizer_config.type == "adamax"
+
+
+@pytest.mark.parametrize("size", [4, 2])
+def test_mlm_bert_model_axis_raises_naming_multi_gpu(size):
+    raw = _shipped("mlm_bert")
+    raw["mesh_config"]["model_axis_size"] = size
+    with pytest.raises(NotImplementedError, match="queue A item 13"):
+        FLUTEConfig.from_dict(raw)
+
+
+@pytest.mark.parametrize("path,value", [
+    ("model_config.arch", "fednewsrec"),
+    ("model_config.BERT.model.mlm_head", "gathered"),
+    ("model_config.BERT.model.model_name_or_path", "/ckpt"),
+    ("model_config.BERT.model.dtype", "bfloat16"),
+    ("client_config.optimizer_config.weight_decay", 0.01),
+])
+def test_slice_eight_options_not_ported_raise(path, value):
+    raw = _shipped("fednewsrec" if path == "model_config.arch"
+                   else "mlm_bert")
+    raw.setdefault("mesh_config", {})["model_axis_size"] = 1
+    node = raw
+    keys = path.split(".")
+    for k in keys[:-1]:
+        node = node.setdefault(k, {})
+    node[keys[-1]] = value
+    with pytest.raises(NotImplementedError, match="not yet ported"):
         FLUTEConfig.from_dict(raw)

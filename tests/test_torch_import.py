@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing ``msrflute_tpu_torch`` and every
-one of its submodules pulls neither JAX (nor flax/optax) nor anything of
-``msrflute_tpu`` into ``sys.modules``, and no source file of the port or
-``chip_smoke.py`` imports them."""
+one of its submodules pulls neither JAX (nor flax/optax/transformers) nor
+anything of ``msrflute_tpu`` into ``sys.modules``, and no source file of
+the port or ``chip_smoke.py`` imports them."""
 
 import ast
 import os
@@ -11,7 +11,8 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msrflute_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "transformers",
+             "msrflute_tpu")
 
 
 def _forbidden(name: str) -> bool:
@@ -60,67 +61,45 @@ def test_no_source_imports_jax(path):
         assert not bad, f"{path}:{node.lineno} imports {bad}"
 
 
-@pytest.mark.parametrize("module", [
+#: each slice's modules and the kernel library that importing them must
+#: not build (the CUDA sources compile at first use, on a machine with
+#: ``nvcc``): the DGA slice's, RingLM's (B4-B6), slice 6's ResNet, LSTM,
+#: CIFAR_CNN and checkpoint, slice 7's plugin loader, personalization
+#: server and FedLabels with RandAugment, and slice 8's ECG_CNN, NRMS, the
+#: BERT masked LM (written in the repo, no ``transformers``), the
+#: deterministic lookup, the attack metrics and the client Adam tail
+SLICE_MODULES = [(m, None) for m in (
     "msrflute_tpu_torch.models.nlp", "msrflute_tpu_torch.privacy",
     "msrflute_tpu_torch.ops.quantization", "msrflute_tpu_torch.ops.quant_bin",
-    "msrflute_tpu_torch.ops.gaussian_noise", "msrflute_tpu_torch.strategies.dga",
-])
-def test_slice_two_modules_import_without_building(module):
-    """The DGA slice's modules import (no kernel is built at import: the
-    CUDA sources compile at first use, on a machine with ``nvcc``)."""
+    "msrflute_tpu_torch.ops.gaussian_noise",
+    "msrflute_tpu_torch.strategies.dga")] + [
+    (m, "flash_attention") for m in (
+        "msrflute_tpu_torch.ops.flash_attention",
+        "msrflute_tpu_torch.models.ringlm")] + [
+    (m, "fused_sgd") for m in (
+        "msrflute_tpu_torch.models.resnet", "msrflute_tpu_torch.models.nlp",
+        "msrflute_tpu_torch.models.cv", "msrflute_tpu_torch.engine.checkpoint",
+        "msrflute_tpu_torch.models.registry", "msrflute_tpu_torch.plugins",
+        "msrflute_tpu_torch.plugins.hello_mlp",
+        "msrflute_tpu_torch.engine.personalization",
+        "msrflute_tpu_torch.engine.evaluation",
+        "msrflute_tpu_torch.strategies.fedlabels",
+        "msrflute_tpu_torch.data.augment")] + [
+    (m, "quant_bin") for m in (
+        "msrflute_tpu_torch.models.ecg", "msrflute_tpu_torch.models.fednewsrec",
+        "msrflute_tpu_torch.models.bert", "msrflute_tpu_torch.models.embed",
+        "msrflute_tpu_torch.privacy.attacks", "msrflute_tpu_torch.optim.fused")]
+
+
+@pytest.mark.parametrize("module,kernel", SLICE_MODULES,
+                         ids=[m for m, _ in SLICE_MODULES])
+def test_slice_modules_import_without_building(module, kernel):
     import importlib
     mod = importlib.import_module(module)
     assert mod.__name__ == module
-
-
-@pytest.mark.parametrize("module", [
-    "msrflute_tpu_torch.ops.flash_attention",
-    "msrflute_tpu_torch.models.ringlm",
-])
-def test_slice_three_modules_import_without_building(module):
-    """The RingLM slice's modules import without building kernels B4-B6."""
-    import importlib
-    mod = importlib.import_module(module)
-    assert mod.__name__ == module
-    from msrflute_tpu_torch.ops import _build
-    assert "flash_attention" not in _build._loaded
-
-
-@pytest.mark.parametrize("module", [
-    "msrflute_tpu_torch.models.resnet",
-    "msrflute_tpu_torch.models.nlp",
-    "msrflute_tpu_torch.models.cv",
-    "msrflute_tpu_torch.engine.checkpoint",
-])
-def test_slice_six_modules_import_without_building(module):
-    """The ResNet, LSTM, CIFAR_CNN and checkpoint modules import without
-    building kernel B1."""
-    import importlib
-    mod = importlib.import_module(module)
-    assert mod.__name__ == module
-    from msrflute_tpu_torch.ops import _build
-    assert "fused_sgd" not in _build._loaded
-
-
-@pytest.mark.parametrize("module", [
-    "msrflute_tpu_torch.models.registry",
-    "msrflute_tpu_torch.plugins",
-    "msrflute_tpu_torch.plugins.hello_mlp",
-    "msrflute_tpu_torch.engine.personalization",
-    "msrflute_tpu_torch.engine.evaluation",
-    "msrflute_tpu_torch.strategies.fedlabels",
-    "msrflute_tpu_torch.data.augment",
-])
-def test_slice_seven_modules_import_without_building(module):
-    """The plugin loader and its hello_mlp twin, the personalization
-    server and FedLabels with RandAugment import without building kernel
-    B1 (and so does the plugin twin's package: ``task.py`` of a plugin
-    folder is never imported)."""
-    import importlib
-    mod = importlib.import_module(module)
-    assert mod.__name__ == module
-    from msrflute_tpu_torch.ops import _build
-    assert "fused_sgd" not in _build._loaded
+    if kernel is not None:
+        from msrflute_tpu_torch.ops import _build
+        assert kernel not in _build._loaded
 
 
 def test_every_cuda_source_has_its_notes():

@@ -70,7 +70,8 @@ def test_adam_state_round_trips_through_a_dict():
     assert state["count"].dtype == torch.int32
 
 
-@pytest.mark.parametrize("cfg", [{"type": "adamw", "lr": 0.1},
+@pytest.mark.parametrize("cfg", [{"type": "adamw", "lr": 0.1,
+                                  "weight_decay": 0.01},
                                  {"type": "sgd", "nesterov": True}])
 def test_other_optimizers_raise(cfg):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
