@@ -44,9 +44,18 @@ result):
      lanes x the peak SM clock;
    - B3 ``quant_bin_sparsify``: the GRU's 7 leaves x 10 clients with
      thresholds from the 0.7 quantile and mixed ones, a leaf with
-     ``hi == lo``, values exactly at half-bins, and odd shapes: bitwise;
-     then at BERT-base's ``[10, 109,514,298]`` in 202 leaves (a second
-     row of the ``kernels`` table);
+     ``hi == lo``, values exactly at half-bins, and the odd layouts of
+     ``QUANT_CASES`` (empty leaves, leaves of 1-3 elements, ``[5, P]`` at
+     P = 1, 2 and 3 mod 4, 1,000 leaves, x off a 16-byte boundary), each
+     at ``n_bins`` 1024, 16 and 2: bitwise; then at BERT-base's
+     ``[10, 109,514,298]`` in 202 leaves (a second row of the ``kernels``
+     table).  At both shapes: the yardstick (the same function as a few
+     PyTorch calls over the whole ``[K, P]``, held bitwise to the kernel
+     first), the share of the bound and the rate, and the instructions a
+     thread of a full tile issues an element, counted in the built
+     library's SASS (``ops/sass.py::vector_path``; its loads of x must be
+     128-bit), whose issue time over SMs x 128 lanes x the peak SM clock
+     is the bound's third term;
    - B4, B5, B6 (flash attention forward, dq, dk/dv): at the RingLM
      path's ``[40, 1023, 4, 32]`` causal and at L = 1, 17 and 1000,
      Lq != Lk with offsets (rows whose keys are all masked must give exact
@@ -777,11 +786,7 @@ def _noise_issue(torch, kernel):
                             "in the SASS")
     path = sass.loop_path(bodies[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                          "--format=csv,noheader,nounits", "-i", "0"],
-                         capture_output=True, text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    peak_mhz = float(smi.stdout.strip())
+    peak_mhz = _peak_sm_mhz()
     card = _under_load(torch, kernel)
     counted = (path["instructions"] - path["constant_loads"]) \
         / path["floats"]
@@ -791,6 +796,14 @@ def _noise_issue(torch, kernel):
             "card_under_kernel": card, "sass": path}
 
 
+def _peak_sm_mhz():
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits", "-i", "0"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    return float(smi.stdout.strip())
+
+
 def _gru_bounds():
     from msrflute_tpu_torch.models.nlp import make_gru_lm_task
     layout = make_gru_lm_task({"model_type": "GRU"}).layout()
@@ -798,11 +811,40 @@ def _gru_bounds():
     return list(layout.offsets) + [layout.numel]
 
 
+#: B3's odd layouts: (name, K, leaf sizes, floats by which x starts past a
+#: 16-byte boundary).  Each is held bitwise to the plain version at every
+#: ``QUANT_BINS``.  Together they give every head and tail length of the
+#: kernel's tiles (0-3 scalars) at every row alignment, segments of 1-3
+#: elements, empty leaves, 1,000 leaves and x off a 16-byte boundary
+#: (``tests/test_torch_quant_bin.py`` checks that on the CPU)
+QUANT_CASES = [
+    ("odd", 3, (1, 7, 1000, 33, 2049), 0),
+    ("one", 1, (1,), 0),
+    ("empty_leaves", 3, (0, 1000, 0, 37, 4099, 0), 0),
+    ("tiny_leaves", 4, (1, 2, 3, 1, 3, 2, 8195, 1, 2, 3), 0),
+    ("p_mod4_1", 5, (4097, 3, 12290, 1, 6), 0),
+    ("p_mod4_2", 5, (2, 4101, 9, 8192, 2), 0),
+    ("p_mod4_3", 5, (5, 12287, 2, 3, 6), 0),
+    ("leaves_1000", 4, tuple(i * 37 % 97 for i in range(1000)), 0),
+    ("x_off_16B", 5, (5, 4099, 2, 8190), 1),
+    ("x_off_16B_3", 3, (3, 6, 4093, 1), 3),
+]
+QUANT_BINS = (1024, 16, 2)
+
+
 def _quant_case(torch, x, bounds, q, overrides=()):
+    """lo, hi and the ``q`` quantile threshold of every (row, leaf) of
+    ``x`` (0 for an empty leaf), with ``overrides`` ``((k, l), thresh)``,
+    and the bounds as a device tensor."""
     from msrflute_tpu_torch.ops.quantization import exact_quantile_abs
     lo, hi, th = [], [], []
     for a, b in zip(bounds[:-1], bounds[1:]):
         g = x[:, a:b]
+        if b == a:
+            lo.append(g.new_zeros(x.shape[0]))
+            hi.append(lo[-1])
+            th.append(lo[-1])
+            continue
         lo.append(g.amin(dim=-1))
         hi.append(g.amax(dim=-1))
         th.append(exact_quantile_abs(g.abs(), q))
@@ -813,9 +855,135 @@ def _quant_case(torch, x, bounds, q, overrides=()):
     return off, lo, hi, th
 
 
+def _quant_odd_input(torch, gen, K, sizes, shift):
+    """``[K, sum(sizes)]`` normals as a view ``shift`` floats into a buffer
+    of its own, and the leaf bounds."""
+    bounds = [0]
+    for n in sizes:
+        bounds.append(bounds[-1] + n)
+    P = bounds[-1]
+    buf = torch.randn(K * P + shift + 1, device="cuda", generator=gen)
+    return buf[shift:shift + K * P].view(K, P), bounds
+
+
+def _quant_yardstick(torch, x, bounds, lo, hi, th, n_bins):
+    """B3's function as a few PyTorch calls over the whole ``[K, P]``:
+    each element's lo, width and threshold gathered through a leaf-index
+    vector made here, once, then division, ``round``, ``clamp`` and
+    ``where`` (in place where the memory of BERT-base's shape asks for
+    it).  The port never calls it."""
+    from msrflute_tpu_torch.ops.quant_bin import _widths
+    sizes = torch.tensor([b - a for a, b in zip(bounds[:-1], bounds[1:])],
+                         device="cuda")
+    leaf = torch.repeat_interleave(
+        torch.arange(len(sizes), device="cuda"), sizes)
+    width, wdiv = _widths(lo, hi, n_bins)
+
+    def call():
+        lo_e = lo[:, leaf]
+        y = x - lo_e
+        y.div_(wdiv[:, leaf]).round_().clamp_(0, n_bins - 1)
+        y.mul_(width[:, leaf]).add_(lo_e)
+        del lo_e
+        return torch.where(x.abs() > th[:, leaf], y, 0.0)
+    return call
+
+
+def _quant_sass(torch):
+    """B3's instruction count: :func:`msrflute_tpu_torch.ops.sass.
+    vector_path` of the built kernel (a thread of a full tile, set-up
+    included), whether the path's loads of x are 128-bit (as many 128-bit
+    loads as 128-bit stores), and the SM count and peak clock its issue
+    term takes."""
+    from msrflute_tpu_torch.ops import _build, sass
+    lib = _build.library_path("quant_bin")
+    bodies = [body for name, body in sass.functions(
+        sass.disassemble(lib)).items() if "quant_bin_kernel" in name]
+    check(len(bodies) == 1, f"{len(bodies)} quant_bin_kernel entries in "
+                            "the SASS")
+    path = sass.vector_path(bodies[0])
+    path["loads_128bit"] = path["loads"].get(128, 0) == \
+        path["stores"].get(128, 0) == path["floats"] // 4 > 0
+    check(path["loads_128bit"], f"B3's body does not load x in 128-bit "
+                                f"loads: {path['loads']} {path['stores']}")
+    # the path bins every element it stores: a reciprocal (MUFU.RCP, the
+    # IEEE division's first step) an element, and one for the width
+    check(path["mix"].get("MUFU", 0) > path["floats"],
+          f"B3's counted path skips divisions: {path['mix']}")
+    path["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
+    path["sm_clock_mhz_peak"] = _peak_sm_mhz()
+    return path
+
+
+def _quant_bytes(K, P, L):
+    """What B3 must move: x read and out written once, the lo / hi /
+    thresh tables and the offsets read once."""
+    return 8 * K * P + 12 * K * L + 8 * (L + 1)
+
+
+def _quant_timing(torch, x, bounds, off, lo, hi, th, launches=200,
+                  lead=20, plain_iters=10):
+    """B3 at one shape: the kernel and the yardstick on the device alone
+    (the yardstick checked bitwise against the kernel first), the plain
+    version host-paced, the bound (bytes, flops, and the issue term of the
+    instructions :func:`_quant_sass` counts), share and achieved rate."""
+    from msrflute_tpu_torch.ops.quant_bin import (quant_bin_plain,
+                                                  quant_bin_sparsify)
+    K, P = x.shape
+    L = len(bounds) - 1
+    kernel = lambda: quant_bin_sparsify(x, off, lo, hi, th,  # noqa: E731
+                                        1024)
+    yardstick = _quant_yardstick(torch, x, bounds, lo, hi, th, 1024)
+    check(torch.equal(yardstick(), kernel()),
+          f"B3's yardstick != the kernel at [{K}, {P}]")
+    torch.cuda.empty_cache()
+    kernel_ms = _device_ms(torch, kernel, launches, lead)
+    off_cpu = off.cpu()
+    plain_ms = _time_ms(torch, lambda: quant_bin_plain(x, off_cpu, lo, hi,
+                                                       th, 1024),
+                        iters=plain_iters, warmup=1)
+    yard_ms = _device_ms(torch, yardstick, min(launches, 20), 5)
+    torch.cuda.empty_cache()
+    kernel_ms_2 = _device_ms(torch, kernel, launches, lead)
+    nbytes = _quant_bytes(K, P, L)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = 10 * K * P / PEAK_F32_FLOPS * 1e3
+    sass = _quant_sass(torch)
+    issue_ms = K * P * sass["per_element"] / (
+        sass["sms"] * 128 * sass["sm_clock_mhz_peak"] * 1e6) * 1e3
+    bound_ms = max(bytes_ms, ops_ms, issue_ms)
+    return {"shape": [K, P], "leaves": L, "ms": kernel_ms,
+            "ms_repeat": kernel_ms_2,
+            "ms_host_paced": _time_ms(torch, kernel, iters=20),
+            "plain_ms": plain_ms, "yardstick_ms": yard_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= bound_ms else "operations",
+            "bytes": nbytes, "bytes_ms": bytes_ms, "flops_ms": ops_ms,
+            "issue_ms": issue_ms, "sass": sass,
+            "share": bound_ms / kernel_ms,
+            "achieved_gb_s": nbytes / (kernel_ms * 1e-3) / 1e9}
+
+
+def _quant_row(timed, max_err):
+    return {"name": "quant_bin_sparsify", "shape": timed["shape"],
+            "route": "cuda",
+            "source": "msrflute_tpu_torch/csrc/quant_bin.cu",
+            "replaces": "msrflute_tpu/ops/pallas_kernels.py:164",
+            "launches": None, "max_abs_err": max_err, "ms": timed["ms"],
+            "ms_host_paced": timed["ms_host_paced"],
+            "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
+            "bound_by": timed["bound_by"], "library_ms": None,
+            "library_note": "no one PyTorch call bins and sparsifies; "
+                            "yardstick: lo, width and thresh gathered "
+                            "through a leaf index, then round, clamp, "
+                            "where",
+            "yardstick_ms": timed["yardstick_ms"], "share": timed["share"]}
+
+
 def phase_kernel_quant(torch):
-    """B3 against its plain version, bitwise, at the DGA shape and odd
-    shapes; then timed, with the exact quantile's time beside it."""
+    """B3 against its plain version, bitwise, at the DGA shape and the odd
+    layouts of ``QUANT_CASES``; then timed, with the yardstick and the
+    exact quantile's time beside it, and its SASS counted."""
     from msrflute_tpu_torch.ops.quant_bin import (quant_bin_plain,
                                                   quant_bin_sparsify)
     from msrflute_tpu_torch.ops.quantization import exact_quantile_abs
@@ -833,14 +1001,13 @@ def phase_kernel_quant(torch):
     mixed = (((0, 1), 0.0), ((1, 4), -1.0), ((2, 2), 1e30), ((5, 6), -1.0),
              ((7, 3), float(x[7, bounds[3]:bounds[4]].abs().max())))
     cases = [("dga", x, bounds, mixed)]
-    odd_bounds = [0, 1, 8, 1008, 1041, 3090]
-    y = torch.randn((3, odd_bounds[-1]), device="cuda", generator=gen)
-    cases.append(("odd", y, odd_bounds, (((1, 0), -1.0),)))
-    cases.append(("one", y[:1, :1].contiguous(), [0, 1], ()))
+    for name, K, sizes, shift in QUANT_CASES:
+        t, bnd = _quant_odd_input(torch, gen, K, sizes, shift)
+        cases.append((name, t, bnd, (((K - 1, len(sizes) // 2), -1.0),)))
     max_err = 0.0
     for name, t, bnd, over in cases:
         off, lo, hi, th = _quant_case(torch, t, bnd, 0.7, over)
-        for n_bins in (1024, 16, 2):
+        for n_bins in QUANT_BINS:
             k = quant_bin_sparsify(t, off, lo, hi, th, n_bins)
             pl = quant_bin_plain(t, off.cpu(), lo, hi, th, n_bins)
             torch.cuda.synchronize()
@@ -855,42 +1022,18 @@ def phase_kernel_quant(torch):
                               1024)[5, a6 + 1:a6 + 8].tolist()
     check(half == [0.0, 1.0, 2.0, 2.0, 2.0, 3.0, 4.0],
           f"half-bin values are not rounded half to even: {half}")
-    kernel = lambda: quant_bin_sparsify(x, off, lo, hi, th,  # noqa: E731
-                                        1024)
-    kernel_ms = _device_ms(torch, kernel)
-    off_cpu = off.cpu()
-    plain_ms = _time_ms(torch, lambda: quant_bin_plain(x, off_cpu, lo, hi,
-                                                       th, 1024), iters=10)
-    kernel_ms_2 = _device_ms(torch, kernel)
+    timed = _quant_timing(torch, x, bounds, off, lo, hi, th)
     quantile_ms = _time_ms(torch, lambda: [
         exact_quantile_abs(x[:, a:b].abs(), 0.7)
         for a, b in zip(bounds[:-1], bounds[1:])], iters=5)
     minmax_ms = _time_ms(torch, lambda: [
         (x[:, a:b].amin(dim=-1), x[:, a:b].amax(dim=-1))
         for a, b in zip(bounds[:-1], bounds[1:])], iters=10)
-    n = DGA_K * DGA_P
-    nbytes = 8 * n + 12 * DGA_K * L + 8 * (L + 1)
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = 10 * n / PEAK_F32_FLOPS * 1e3
-    row = {"name": "quant_bin_sparsify", "route": "cuda",
-           "source": "msrflute_tpu_torch/csrc/quant_bin.cu",
-           "replaces": "msrflute_tpu/ops/pallas_kernels.py:164",
-           "launches": None, "max_abs_err": max_err, "ms": kernel_ms,
-           "ms_host_paced": _time_ms(torch, kernel),
-           "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "library_ms": None,
-           "library_note": "no one PyTorch call bins and sparsifies"}
     emit({"phase": "kernel", "ok": True, "name": "quant_bin_sparsify",
-          "cases": len(cases) * 3, "bitwise": True,
-          "shape": [DGA_K, DGA_P], "leaves": L, "ms": kernel_ms,
-          "ms_repeat": kernel_ms_2, "ms_host_paced": row["ms_host_paced"],
-          "plain_ms": plain_ms,
-          "bound_ms": row["bound_ms"], "bytes": nbytes,
-          "achieved_gb_s": nbytes / (kernel_ms * 1e-3) / 1e9,
+          "cases": len(cases) * len(QUANT_BINS), "bitwise": True, **timed,
           "exact_quantile_ms_all_leaves": quantile_ms,
           "min_max_ms_all_leaves": minmax_ms})
-    return row
+    return _quant_row(timed, max_err)
 
 
 #: the RingLM path's attention shape: K = 10 clients x batch 4 folded into
@@ -2818,8 +2961,8 @@ def phase_kernel_quant_bert(torch):
     """B3 at the mlm_bert path's shape, ``[10, 109,514,298]`` in 202
     leaves, against its plain version bitwise at full P (thresholds from
     each leaf's exact 0.7 quantile, as the path takes them); then timed
-    beside the exact quantile over all leaves, which the path also pays
-    once a round."""
+    beside its yardstick and the exact quantile over all leaves, which the
+    path also pays once a round."""
     from msrflute_tpu_torch.ops.quant_bin import (quant_bin_plain,
                                                   quant_bin_sparsify)
     from msrflute_tpu_torch.ops.quantization import exact_quantile_abs
@@ -2830,47 +2973,26 @@ def phase_kernel_quant_bert(torch):
     x *= torch.logspace(-4, -1, K, device="cuda")[:, None]
     off, lo, hi, th = _quant_case(torch, x, bounds, 0.7)
     k = quant_bin_sparsify(x, off, lo, hi, th, 1024)
-    off_cpu = off.cpu()
-    pl = quant_bin_plain(x, off_cpu, lo, hi, th, 1024)
+    pl = quant_bin_plain(x, off.cpu(), lo, hi, th, 1024)
     torch.cuda.synchronize()
     err = float((k - pl).abs().max())
     check(torch.equal(k, pl), f"quant_bin at the BERT shape: kernel != "
                               f"plain (max abs err {err})")
     del k, pl
-    kernel = lambda: quant_bin_sparsify(x, off, lo, hi, th,  # noqa: E731
-                                        1024)
-    kernel_ms = _device_ms(torch, kernel)
-    plain_ms = _time_ms(torch, lambda: quant_bin_plain(x, off_cpu, lo, hi,
-                                                       th, 1024), iters=5,
-                        warmup=1)
+    torch.cuda.empty_cache()
+    timed = _quant_timing(torch, x, bounds, off, lo, hi, th, plain_iters=5)
     quantile_ms = _time_ms(torch, lambda: [
         exact_quantile_abs(x[:, a:b].abs(), 0.7)
         for a, b in zip(bounds[:-1], bounds[1:])], iters=3, warmup=1)
-    n = K * BERT_P
-    nbytes = 8 * n + 12 * K * L + 8 * (L + 1)
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = 10 * n / PEAK_F32_FLOPS * 1e3
-    row = {"name": "quant_bin_sparsify", "shape": [K, BERT_P],
-           "route": "cuda",
-           "source": "msrflute_tpu_torch/csrc/quant_bin.cu",
-           "replaces": "msrflute_tpu/ops/pallas_kernels.py:164",
-           "launches": None, "max_abs_err": err, "ms": kernel_ms,
-           "ms_host_paced": _time_ms(torch, kernel, iters=20),
-           "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "library_ms": None,
-           "library_note": "no one PyTorch call bins and sparsifies"}
+    card = _under_load(torch, lambda: quant_bin_sparsify(x, off, lo, hi, th,
+                                                         1024))
     emit({"phase": "kernel", "ok": True, "name": "quant_bin_sparsify",
-          "bitwise": True, "full_p": True, "shape": [K, BERT_P],
-          "leaves": L, "ms": kernel_ms,
-          "ms_host_paced": row["ms_host_paced"], "plain_ms": plain_ms,
-          "bound_ms": row["bound_ms"], "share": row["bound_ms"] / kernel_ms,
-          "bytes": nbytes,
-          "achieved_gb_s": nbytes / (kernel_ms * 1e-3) / 1e9,
+          "bitwise": True, "full_p": True, **timed,
+          "card_under_kernel": card,
           "exact_quantile_ms_all_leaves": quantile_ms})
     del x
     torch.cuda.empty_cache()
-    return row
+    return _quant_row(timed, err)
 
 
 def main() -> int:

@@ -1,7 +1,8 @@
 """Reading the SASS of the port's built kernels: ``cuobjdump -sass`` of a
 library, split by function, parsed into instructions, and the common path
-of a function's main loop counted (:func:`loop_path`).  ``chip_smoke.py``
-takes kernel B2's issue term from it, and
+of a function's main loop (:func:`loop_path`) or of a loop-free kernel's
+16-byte body (:func:`vector_path`) counted.  ``chip_smoke.py`` takes
+kernel B2's issue term and kernel B3's instruction count from it, and
 ``csrc/probes/sass_mix.py`` prints instruction mixes with it.  Needs the
 CUDA toolkit's ``cuobjdump`` to disassemble, nothing to parse."""
 
@@ -15,8 +16,9 @@ LINE = re.compile(r"/\*([0-9a-f]{4,6})\*/\s+(?:@!?U?P[T\d]\s+)?([A-Z0-9_.]+)"
 PRED = re.compile(r"/\*[0-9a-f]{4,6}\*/\s+@(!?U?P[T\d])\s")
 LABEL = re.compile(r"^\s*([.$][\w$.]+):\s*$")
 TARGET = re.compile(r"`\(([^)]+)\)|0x([0-9a-f]+)")
-#: floats written by one global store, by the store's width suffix
-STORE_FLOATS = {"STG.E": 1, "STG.E.64": 2, "STG.E.128": 4}
+#: bits a global load or store moves, by a width suffix of its opcode
+#: (``LDG.E.128``, ``STG.E.EF.64``, ``LDG.E.U8.CONSTANT``); 32 without one
+WIDTH_BITS = {"U8": 8, "S8": 8, "U16": 16, "S16": 16, "64": 64, "128": 128}
 
 
 def cuda_tool(tool):
@@ -72,16 +74,30 @@ def _target(args, labels):
     return int(m.group(2), 16)
 
 
+def width_bits(op):
+    """Bits one ``LDG`` / ``STG`` of opcode ``op`` moves a thread."""
+    for part in op.split(".")[1:]:
+        if part in WIDTH_BITS:
+            return WIDTH_BITS[part]
+    return 32
+
+
 def _store_floats(op):
-    return STORE_FLOATS.get(op, 0) if op.startswith("STG") else 0
+    return width_bits(op) // 32 if op.startswith("STG") else 0
 
 
-def _best_path(ops, labels, start, stop_at=None):
+def _vector_floats(op):
+    return 4 if op.startswith("STG") and width_bits(op) == 128 else 0
+
+
+def _best_path(ops, labels, start, stop_at=None, end="RET",
+               floats=_store_floats):
     """Bellman-Ford over the instructions from address ``start``: the path
-    that stores the most floats, and of those issues the fewest
-    instructions, ending at the instruction at ``stop_at`` (inclusive) or,
-    without it, at a ``RET``.  A ``CALL`` costs its callee's shortest path
-    to ``RET``.  Returns ``(floats, instructions, addresses)`` or None."""
+    that stores the most floats (``floats(opcode)`` a store), and of those
+    issues the fewest instructions, ending at the instruction at
+    ``stop_at`` (inclusive) or, without it, at a ``RET`` (or ``end``).  A
+    ``CALL`` costs its callee's shortest path to ``RET``.  Returns
+    ``(floats, instructions, addresses)`` or None."""
     index = {a: i for i, (a, _, _, _) in enumerate(ops)}
     if start not in index:
         return None
@@ -114,7 +130,7 @@ def _best_path(ops, labels, start, stop_at=None):
     def better(a, b):
         return b is None or (a[0], -a[1]) > (b[0], -b[1])
 
-    best = {index[start]: (_store_floats(ops[index[start]][1]),
+    best = {index[start]: (floats(ops[index[start]][1]),
                            cost(index[start]), None)}
     changed, passes = True, 0
     while changed:
@@ -122,16 +138,16 @@ def _best_path(ops, labels, start, stop_at=None):
         if passes > len(ops) + 1:
             raise ValueError("a cycle inside the loop stores floats")
         for i in list(best):
-            floats, n, _ = best[i]
+            stored, n, _ = best[i]
             for j in succ(i):
-                cand = (floats + _store_floats(ops[j][1]), n + cost(j), i)
+                cand = (stored + floats(ops[j][1]), n + cost(j), i)
                 if better(cand, best.get(j)):
                     best[j] = cand
                     changed = True
     if stop_at is not None:
         ends = [index[stop_at]] if index.get(stop_at) in best else []
     else:
-        ends = [i for i in best if ops[i][1].startswith("RET")]
+        ends = [i for i in best if ops[i][1].startswith(end)]
     if not ends:
         return None
     end = max(ends, key=lambda i: (best[i][0], -best[i][1]))
@@ -193,6 +209,40 @@ def loop_path(body):
             "mix": opcode_mix([(a, by_addr[a], "") for a in path]),
             "loop_span_instructions": sum(1 for a, *_ in ops
                                           if head <= a <= edge)}
+
+
+def vector_path(body):
+    """The path of a thread through a loop-free kernel that moves a whole
+    vector body: from the function's first instruction to an ``EXIT``, the
+    path that stores the most floats with 128-bit stores and, of those,
+    issues the fewest instructions.  That is a thread of a block with no
+    ragged edge, which skips the scalar head and tail and the early exits.
+    Predicated instructions count, as in :func:`loop_path`.  Returns a
+    dict with ``instructions``, ``floats`` (stored by the 128-bit stores),
+    ``per_element`` (their ratio: the kernel's whole issue cost an element,
+    set-up included), ``constant_loads``, ``loads`` and ``stores`` (the
+    path's ``LDG`` / ``STG`` by width in bits), ``ranges`` and ``mix``."""
+    ops, labels = parse(body)
+    if not ops:
+        raise ValueError("no instructions")
+    found = _best_path(ops, labels, ops[0][0], end="EXIT",
+                       floats=_vector_floats)
+    if found is None or found[0] == 0:
+        raise ValueError("no path to EXIT stores a 128-bit vector")
+    floats, n, path = found
+    by_addr = {a: op for a, op, _, _ in ops}
+
+    def widths(prefix):
+        return dict(collections.Counter(
+            width_bits(by_addr[a]) for a in path
+            if by_addr[a].startswith(prefix)))
+
+    return {"instructions": n, "floats": floats, "per_element": n / floats,
+            "constant_loads": sum(1 for a in path
+                                  if by_addr[a].startswith(("LDC", "ULDC"))),
+            "loads": widths("LDG"), "stores": widths("STG"),
+            "ranges": _ranges(path, ops),
+            "mix": opcode_mix([(a, by_addr[a], "") for a in path])}
 
 
 def disassemble(path):
