@@ -67,7 +67,16 @@ result):
      forward and backward are the yardstick; B4 is also timed at the eval
      step's ``[16, 1023, 4, 32]``, with the card's clock and draw under it;
      the D = 32 instances of all three must not spill and must fit two
-     blocks an SM (``ptxas`` and the CUDA runtime).
+     blocks an SM (``ptxas`` and the CUDA runtime);
+   - the bfloat16 and float16 storage arms (rows of their own in the
+     ``kernels`` table, named ``fused_sgd_apply[bfloat16]`` and so on):
+     B1's on ``SGD_CASES`` in 16-bit buffers, bitwise, timed at the CNN
+     shape beside ``torch._fused_sgd_`` on the same 16-bit tensors; B4-B6's
+     on eleven cases within ``FLASH16_TOL`` (one ulp of the type at the
+     largest magnitude), two launches bitwise, timed at ``[40, 1023, 4,
+     32]`` (B4 also at ``[16, 1023, 4, 32]``) beside the causal SDPA call
+     in the same type, with a byte bound and an operation bound at the
+     16-bit tensor-core rate (the float32 CUDA-core one beside it).
 3. ``main``   — the FedAvg CNN_FEMNIST path through the port's CLI
    (``msrflute_tpu_torch.e2e_trainer``, in process) on ``cuda``, at the
    published ``cv_cnn_femnist`` widths (10 clients a round, batch 20,
@@ -80,9 +89,9 @@ result):
    ``profile`` then times three more rounds of the same engine on the host
    clock and three under ``torch.profiler``: wall time and device time per
    round, the device's idle share, and the kernels that take the most
-   device time.  ``cross_device``: 2 rounds with dropout off, twice on
-   ``cuda`` and once on ``cpu``: the cuda runs are bitwise equal and agree
-   with the cpu run within ``CROSS_TOL``.
+   device time.  ``cross_device``: 2 rounds with dropout off on a
+   40-writer blob, twice on ``cuda`` and once on ``cpu``: the cuda runs
+   are bitwise equal and agree with the cpu run within ``CROSS_TOL``.
 4. ``dga``    — the DGA path through the CLI on ``cuda``:
    ``experiments/nlg_gru/config.yaml`` (the GRU word LM at its published
    widths, vocab 10,000, embed 160, hidden 512, 25 words; 10 clients a
@@ -116,6 +125,26 @@ result):
    within ``RINGLM_FLASH_DENSE_TOL``; ``ringlm_cross_device``: 2 rounds of
    2 clients, one local step each, twice on ``cuda`` (bitwise equal) and
    once on ``cpu`` (within ``RINGLM_CROSS_TOL``).
+   ``ringlm_bf16`` — the same config at its published widths with
+   ``dtype: bfloat16``, 3 rounds: B4-B6's bf16 arms launched 4 x (local
+   + eval steps) and 4 x local steps, B1 once a local step (its f32 arm:
+   the params stay f32), a val loss that falls; ``ringlm_bf16_profile``
+   (2 rounds each way, beside the f32 ``ringlm_profile`` of this call);
+   ``ringlm_bf16_flash_vs_dense`` within ``RINGLM16_FLASH_DENSE_TOL``;
+   ``ringlm_bf16_cross_device`` (two cuda runs bitwise, cpu within
+   ``RINGLM16_CROSS_TOL``); ``ringlm_f16``, one round of 2 clients in
+   float16 for the f16 arms.  ``precision`` — the ``main`` config with
+   ``dtype: bfloat16`` and ``precision: {params: bfloat16, compute:
+   bfloat16}``, 3 rounds: B1's bf16 arm once a local step;
+   ``precision_cross_device`` (``PRECISION_CROSS_TOL``); an absent and an
+   explicit float32 policy bitwise equal on the card; a float16 leg of one
+   round for B1's f16 arm.  ``dtype`` — LR, CIFAR_CNN, ResNet-18-GN and
+   the LSTM at their shipped widths in bf16, 2 rounds, twice, bitwise,
+   secs/round beside the same config in f32.  ``optimizers`` — LR through
+   server lamb, lars and yogi, client SGD with nesterov and weight decay,
+   the rampup schedule, ``freeze_layer`` and server replay with
+   ``updatable_names``: each twice on cuda (bitwise) and once on cpu
+   (``OPT_CROSS_TOL``).
 6. ``resnet`` — FedAvg ResNet-18-GN through the CLI on ``cuda``:
    ``experiments/cv_resnet_fedcifar100/config.yaml`` at its published
    widths (100 classes, 16 channels a group, 32x32x3; P = 11,227,812; 10
@@ -190,8 +219,10 @@ result):
    there (the ``kernel`` phase's second B3 line).
 
 The line before the last is the ``kernels`` table (launches on each path,
-``max_abs_err``, ``ms``, ``plain_ms``, ``bound_ms``, ``library_ms``);
-the last line is ``{"ok": true, "device": {...}}``.
+``max_abs_err``, ``ms``, ``plain_ms``, ``bound_ms``, ``library_ms``), the
+16-bit arms' rows after the float32 ones (each launched on a path of the
+run, or the script fails); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -320,8 +351,12 @@ def ptxas_reports(log):
                           r"loads", line)
         regs = re.search(r"Used (\d+) registers", line)
         if entry:
-            inst = re.search(r"\d([a-z_]+)ILi(\d+)EE", entry.group(1))
-            name = (f"{inst.group(1)}<{inst.group(2)}>" if inst
+            inst = re.search(r"\d([a-z_]+)ILi(\d+)E(f|13__nv_bfloat16|"
+                             r"6__half)?EE", entry.group(1))
+            arm = {"13__nv_bfloat16": ", bfloat16",
+                   "6__half": ", float16"}.get(inst.group(3), "") \
+                if inst else ""
+            name = (f"{inst.group(1)}<{inst.group(2)}{arm}>" if inst
                     else entry.group(1))
             reports[name] = {}
         elif name and spill and "spill_store_bytes" not in reports[name]:
@@ -339,8 +374,11 @@ def phase_build():
     tic = time.time()
     logs = _build.build(sources)
     BUILD_LOGS.update(logs)
+    from msrflute_tpu_torch.ops import KERNELS
+    arms = {name: sorted(getattr(w, "launches_by_dtype", {"float32": 0}))
+            for name, w in KERNELS.items()}
     emit({"phase": "build", "ok": True, "kernels": sources,
-          "seconds": round(time.time() - tic, 3),
+          "arms": arms, "seconds": round(time.time() - tic, 3),
           "ptxas": {k: ptxas_reports(v) for k, v in logs.items()}})
 
 
@@ -377,11 +415,13 @@ SGD_CASES = [
 ]
 
 
-def _sgd_inputs(torch, K, P, gate, seed, offsets=(0, 0, 0)):
-    """p, g, m as views ``offsets`` floats into buffers one guard float
-    longer than they need, the buffers, and the gate."""
+def _sgd_inputs(torch, K, P, gate, seed, offsets=(0, 0, 0), dtype=None):
+    """p, g, m as views ``offsets`` elements into buffers one guard element
+    longer than they need (of ``dtype``, float32 by default), the buffers,
+    and the gate."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    bufs = [torch.randn(K * P + off + 1, generator=gen, device="cuda")
+    bufs = [torch.randn(K * P + off + 1, generator=gen,
+                        device="cuda").to(dtype or torch.float32)
             for off in offsets]
     p, g, m = (b[off:off + K * P].view(K, P)
                for b, off in zip(bufs, offsets))
@@ -449,8 +489,11 @@ def _device_ms(torch, fn, launches=200, lead=20):
     them, over the last ``launches`` of ``lead + launches`` calls, with L2
     evicted before each (:func:`_flush_l2`, whose kernels are not counted).
     The tracer may miss the first calls after it starts (an H100 run saw 13
-    of 200 go unrecorded), hence the ``lead``.  Host time between launches
-    does not enter, as it does in :func:`_time_ms`."""
+    of 200 go unrecorded), hence the ``lead``; it has also dropped a single
+    event in the middle of a window (one run in many), so a window that
+    fails the check is traced once more, and the second must pass it.
+    Host time between launches does not enter, as it does in
+    :func:`_time_ms`."""
     import statistics
     from torch.profiler import ProfilerActivity, profile
     if "names" not in _FLUSH:
@@ -465,20 +508,24 @@ def _device_ms(torch, fn, launches=200, lead=20):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(lead + launches):
-            _flush_l2(torch)
-            fn()
-        torch.cuda.synchronize()
-    calls = _per_call_us(_cuda_events(torch, prof), _FLUSH["names"])
-    # fewer flushes than calls: the tracer missed some; more: a call ran a
-    # kernel named like the flush's and was split, and its parts would
-    # read as calls too short
-    check(launches <= len(calls) <= lead + launches
-          and min(calls[-launches:]) > 0,
-          f"device timing: {len(calls)} flushes recorded for "
-          f"{lead + launches} calls, "
-          f"{sum(c == 0 for c in calls)} calls with no kernel of their own")
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead + launches):
+                _flush_l2(torch)
+                fn()
+            torch.cuda.synchronize()
+        calls = _per_call_us(_cuda_events(torch, prof), _FLUSH["names"])
+        # fewer flushes than calls: the tracer missed some; more: a call
+        # ran a kernel named like the flush's and was split, and its parts
+        # would read as calls too short
+        whole = (launches <= len(calls) <= lead + launches
+                 and min(calls[-launches:]) > 0)
+        if whole:
+            break
+    check(whole, f"device timing: {len(calls)} flushes recorded for "
+                 f"{lead + launches} calls, "
+                 f"{sum(c == 0 for c in calls)} calls with no kernel of "
+                 "their own (twice)")
     return statistics.median(calls[-launches:]) / 1e3
 
 
@@ -514,27 +561,30 @@ def _under_load(torch, fn, seconds=3.0):
             "samples": len(rows)}
 
 
-def phase_kernel(torch):
-    """B1 against its plain version: bitwise, then timed."""
+def _sgd_cases(torch, dtype=None):
+    """B1 against its plain version on every case of ``SGD_CASES`` in
+    ``dtype`` buffers (float32 by default): bitwise, gated rows and the
+    elements around each view untouched, g unwritten.  Returns the largest
+    error at the paths' shapes."""
     from msrflute_tpu_torch.ops.fused_sgd import (fused_sgd_apply,
                                                   fused_sgd_plain)
-    lr = 0.1
-    max_err = 0.0
+    lr, max_err = 0.1, 0.0
+    arm = "" if dtype is None else f" {dtype}"
     for K, P, gate, offsets in SGD_CASES:
         for mu in (0.0, 0.9):
             p, g, m, gt, bufs = _sgd_inputs(torch, K, P, gate, K * 7 + P,
-                                            offsets)
+                                            offsets, dtype)
             before = [b.clone() for b in bufs]
             pp, pm = p.clone(), m.clone()
             fused_sgd_plain(pp, g, pm, lr, mu, gt)
             fused_sgd_apply(p, g, m, lr, mu, gt)
             torch.cuda.synchronize()
-            err = max(float((p - pp).abs().max()),
-                      float((m - pm).abs().max()))
+            err = max(float((p.float() - pp.float()).abs().max()),
+                      float((m.float() - pm.float()).abs().max()))
             if K == MAIN_K and P in (MAIN_P, DGA_P, RESNET_P, LSTM_P,
                                      RESNET10_P, CIFAR_CNN_P):
                 max_err = max(max_err, err)
-            what = f"fused_sgd [{K}, {P}] offsets {offsets} mu={mu}"
+            what = f"fused_sgd{arm} [{K}, {P}] offsets {offsets} mu={mu}"
             check(torch.equal(p, pp) and torch.equal(m, pm),
                   f"{what}: kernel != plain (max abs err {err})")
             p0, m0 = (before[i][off:off + K * P].view(K, P)
@@ -542,12 +592,21 @@ def phase_kernel(torch):
             dead = [k for k, v in enumerate(gate) if not v > 0]
             check(all(torch.equal(p[k], p0[k]) and torch.equal(m[k], m0[k])
                       for k in dead), f"{what}: gated rows were written")
-            # the floats around each view, and all of g, are untouched
+            # the elements around each view, and all of g, are untouched
             for b, b0, off in zip(bufs, before, offsets):
                 check(torch.equal(b[:off], b0[:off]) and
                       torch.equal(b[off + K * P:], b0[off + K * P:]),
                       f"{what}: a write outside the view")
             check(torch.equal(bufs[1], before[1]), f"{what}: g was written")
+    return max_err
+
+
+def phase_kernel(torch):
+    """B1 against its plain version: bitwise, then timed."""
+    from msrflute_tpu_torch.ops.fused_sgd import (fused_sgd_apply,
+                                                  fused_sgd_plain)
+    lr = 0.1
+    max_err = _sgd_cases(torch)
 
     # timing at each path's shape, every row live (the library call has
     # no per-row gate)
@@ -1057,12 +1116,13 @@ FLASH_BWD_TOL = 1e-4
 PEAK_TF32_FLOPS = 495e12
 
 
-def _flash_entry(key, D):
+def _flash_entry(key, D, storage="float32"):
     """Pass ``key``'s entry function at head width D, as
     :func:`ptxas_reports` names it: the template argument is D padded to
-    8, 16, 32, 64 or 128."""
+    8, 16, 32, 64 or 128, then the storage type where it is 16-bit."""
     width = next(w for w in (8, 16, 32, 64, 128) if D <= w)
-    return f"flash_{key}_kernel<{width}>"
+    arm = "" if storage == "float32" else f", {storage}"
+    return f"flash_{key}_kernel<{width}{arm}>"
 
 
 def _flash_case(torch, B, Lq, Lk, H, D, seed):
@@ -1087,6 +1147,70 @@ def _visible_pairs(torch, B, Lq, Lk, H, causal, q_off, k_off):
     q_pos = q_off + torch.arange(Lq)
     per_row = torch.clamp(q_pos - k_off + 1, min=0, max=Lk)
     return B * H * int(per_row.sum())
+
+
+def _flash_cases(torch, cases, dtype, tol):
+    """B4, B5 and B6 against their plain versions on the same ``dtype``
+    inputs (B5 and B6 take the plain forward's out and lse): the largest
+    error over the largest plain value within ``tol`` (``out``, ``lse``,
+    ``grads``), outputs in the input's type and lse in float32, fully
+    masked rows exactly 0 with ``lse == -1e30``, two launches bitwise
+    equal at the path's shape and at a ragged offset case.  Returns the
+    errors of each case, the absolute ones of ``main`` and the number of
+    fully masked rows checked."""
+    from msrflute_tpu_torch.ops import flash_attention as fa
+    errs, max_abs, masked_rows, repeated = {}, None, 0, []
+    for seed, (name, (B, Lq, Lk, H, D, causal, qo, ko)) in enumerate(cases):
+        q, k, v, g, g_lse = _flash_case(torch, B, Lq, Lk, H, D, seed)
+        q, k, v, g = (x.to(dtype) for x in (q, k, v, g))
+        out, lse = fa.flash_fwd(q, k, v, causal, qo, ko)
+        p_out, p_lse = fa.attention_lse_plain(q, k, v, causal, qo, ko)
+        delta = fa.attention_delta(p_out, g)
+        bwd_args = (q, k, v, g, p_lse, delta, g_lse, causal, qo, ko)
+        dq = fa.flash_dq(*bwd_args)
+        dk, dv = fa.flash_dkv(*bwd_args)
+        p_dq = fa.attention_dq_plain(*bwd_args)
+        p_dk, p_dv = fa.attention_dkv_plain(*bwd_args)
+        torch.cuda.synchronize()
+        check(out.dtype == dq.dtype == dk.dtype == dv.dtype == dtype and
+              lse.dtype == torch.float32, f"flash {dtype} {name}: types")
+        dead = p_lse == fa.NEG           # rows whose keys are all masked
+        masked_rows += int(dead.sum())
+        check(torch.equal(lse == fa.NEG, dead),
+              f"flash {dtype} {name}: lse marks other rows fully masked")
+        check(bool((out.transpose(1, 2)[dead] == 0).all()),
+              f"flash {dtype} {name}: a fully masked row is not exactly 0")
+        live = ~dead
+        pairs = {"out": (out, p_out), "dq": (dq, p_dq), "dk": (dk, p_dk),
+                 "dv": (dv, p_dv)}
+        e = {key: _rel_err(torch, a.float(), b.float())
+             for key, (a, b) in pairs.items()}
+        e["lse"] = (_rel_err(torch, lse[live], p_lse[live])
+                    if bool(live.any()) else 0.0)
+        errs[name] = e
+        check(e["out"] <= tol["out"] and e["lse"] <= tol["lse"],
+              f"flash {dtype} forward {name}: {e}")
+        check(max(e["dq"], e["dk"], e["dv"]) <= tol["grads"],
+              f"flash {dtype} backward {name}: {e}")
+        if name == "main":
+            max_abs = {key: float((a.float() - b.float()).abs().max())
+                       for key, (a, b) in {**pairs,
+                                           "lse": (lse, p_lse)}.items()}
+        if name in ("main", "ragged_diag_edge"):
+            again = (fa.flash_fwd(q, k, v, causal, qo, ko),
+                     fa.flash_dq(*bwd_args), fa.flash_dkv(*bwd_args))
+            torch.cuda.synchronize()
+            check(torch.equal(again[0][0], out) and
+                  torch.equal(again[0][1], lse) and
+                  torch.equal(again[1], dq) and
+                  torch.equal(again[2][0], dk) and
+                  torch.equal(again[2][1], dv),
+                  f"flash {dtype} {name}: two launches differ")
+            repeated.append(name)
+    check(masked_rows > 0, "no case had fully masked rows")
+    check(repeated == ["main", "ragged_diag_edge"],
+          f"bitwise repeat ran on {repeated}")
+    return errs, max_abs, masked_rows
 
 
 def phase_kernel_flash(torch):
@@ -1119,55 +1243,9 @@ def phase_kernel_flash(torch):
         # fewer blocks than the card has SMs
         ("BH1", (1, 1023, 1023, 1, 32, True, 0, 0)),
     ]
-    errs, masked_rows, repeated = {}, 0, []
-    for seed, (name, (B, Lq, Lk, H, D, causal, qo, ko)) in enumerate(cases):
-        q, k, v, g, g_lse = _flash_case(torch, B, Lq, Lk, H, D, seed)
-        out, lse = fa.flash_fwd(q, k, v, causal, qo, ko)
-        p_out, p_lse = fa.attention_lse_plain(q, k, v, causal, qo, ko)
-        delta = fa.attention_delta(p_out, g)
-        bwd_args = (q, k, v, g, p_lse, delta, g_lse, causal, qo, ko)
-        dq = fa.flash_dq(*bwd_args)
-        dk, dv = fa.flash_dkv(*bwd_args)
-        p_dq = fa.attention_dq_plain(*bwd_args)
-        p_dk, p_dv = fa.attention_dkv_plain(*bwd_args)
-        torch.cuda.synchronize()
-        dead = p_lse == fa.NEG           # rows whose keys are all masked
-        masked_rows += int(dead.sum())
-        check(torch.equal(lse == fa.NEG, dead),
-              f"flash {name}: lse marks other rows fully masked")
-        check(bool((out.transpose(1, 2)[dead] == 0).all()),
-              f"flash {name}: a fully masked row is not exactly 0")
-        live = ~dead
-        e = {"out": _rel_err(torch, out, p_out),
-             "lse": (_rel_err(torch, lse[live], p_lse[live])
-                     if bool(live.any()) else 0.0),
-             "dq": _rel_err(torch, dq, p_dq), "dk": _rel_err(torch, dk, p_dk),
-             "dv": _rel_err(torch, dv, p_dv)}
-        errs[name] = e
-        check(e["out"] <= FLASH_FWD_TOL and e["lse"] <= FLASH_FWD_TOL,
-              f"flash forward {name}: {e}")
-        check(max(e["dq"], e["dk"], e["dv"]) <= FLASH_BWD_TOL,
-              f"flash backward {name}: {e}")
-        if name == "main":
-            max_abs = {"out": float((out - p_out).abs().max()),
-                       "lse": float((lse - p_lse).abs().max()),
-                       "dq": float((dq - p_dq).abs().max()),
-                       "dk": float((dk - p_dk).abs().max()),
-                       "dv": float((dv - p_dv).abs().max())}
-        if name in ("main", "ragged_diag_edge"):
-            again = (fa.flash_fwd(q, k, v, causal, qo, ko),
-                     fa.flash_dq(*bwd_args), fa.flash_dkv(*bwd_args))
-            torch.cuda.synchronize()
-            check(torch.equal(again[0][0], out) and
-                  torch.equal(again[0][1], lse) and
-                  torch.equal(again[1], dq) and
-                  torch.equal(again[2][0], dk) and
-                  torch.equal(again[2][1], dv),
-                  f"flash {name}: two launches differ")
-            repeated.append(name)
-    check(masked_rows > 0, "no case had fully masked rows")
-    check(repeated == ["main", "ragged_diag_edge"],
-          f"bitwise repeat ran on {repeated}")
+    errs, max_abs, masked_rows = _flash_cases(
+        torch, cases, torch.float32,
+        {"out": FLASH_FWD_TOL, "lse": FLASH_FWD_TOL, "grads": FLASH_BWD_TOL})
 
     # timing at the path's shape
     B, Lq, Lk, H, D, causal, qo, ko = FLASH_MAIN
@@ -1373,6 +1451,22 @@ def _reset_counts():
     from msrflute_tpu_torch.ops import KERNELS
     for wrapper in KERNELS.values():
         wrapper.launches = 0
+        for arm in getattr(wrapper, "launches_by_dtype", {}):
+            wrapper.launches_by_dtype[arm] = 0
+
+
+def _arm(name, dtype):
+    """A kernel's 16-bit storage arm, as the ``kernels`` table names it."""
+    return f"{name}[{dtype}]"
+
+
+def _read_arm_counts():
+    """The 16-bit arms' launches: ``{"fused_sgd_apply[bfloat16]": n,
+    ...}`` (the totals of :func:`_read_counts` include them)."""
+    from msrflute_tpu_torch.ops import KERNELS
+    return {_arm(name, dt): n for name, w in KERNELS.items()
+            for dt, n in getattr(w, "launches_by_dtype", {}).items()
+            if dt != "float32"}
 
 
 def _read_counts():
@@ -1478,9 +1572,12 @@ def phase_profile(torch, server, rounds=3, phase="profile",
         state = engine.run_round(state, batch, client_lr, server_lr,
                                  quant_threshold=quant_threshold)[0]
 
+    traced = _trace_rounds(torch, step, rounds, phase)
+    F32_PROFILE[phase] = {k: traced[k] for k in (
+        "wall_ms_per_round", "device_busy_ms_per_round",
+        "device_idle_share")}
     emit({"phase": phase, "ok": True, "rounds": rounds,
-          "steps_per_round": int(batch.sample_mask.shape[1]),
-          **_trace_rounds(torch, step, rounds, phase)})
+          "steps_per_round": int(batch.sample_mask.shape[1]), **traced})
 
 
 def _trace_rounds(torch, step, rounds, phase):
@@ -1582,9 +1679,25 @@ def _cross_device(torch, work, phase, raw, task, tol, extra=None,
           "seconds": {k: round(v, 3) for k, v in secs.items()}})
 
 
+def _small_femnist(work):
+    """A 40-writer FEMNIST-shaped blob (4 val, 4 test) beside ``main``'s:
+    the legs that run one config three times keep its per-writer sizes
+    and spend seconds, not most of the phase, loading it."""
+    data_dir = "femnist_small"
+    if not os.path.isdir(os.path.join(work, data_dir)):
+        os.makedirs(os.path.join(work, data_dir))
+        for split, users, seed in (("train", 40, 5), ("val", 4, 6),
+                                   ("test", 4, 7)):
+            write_femnist_blob(os.path.join(work, data_dir,
+                                            f"{split}.json"),
+                               users, 50, 300, seed)
+    return data_dir
+
+
 def phase_cross_device(torch, work):
-    """2 CNN_FEMNIST rounds with dropout off (:func:`_cross_device`)."""
-    raw = json.loads(json.dumps(CNN_CONFIG))
+    """2 CNN_FEMNIST rounds with dropout off (:func:`_cross_device`), on
+    :func:`_small_femnist`'s writers."""
+    raw = _set_data(json.loads(json.dumps(CNN_CONFIG)), _small_femnist(work))
     raw["model_config"].update(dropout1=0.0, dropout2=0.0)
     raw["server_config"].update(max_iteration=2, val_freq=100, rec_freq=100,
                                 initial_val=False, rounds_per_step=1,
@@ -2995,6 +3108,578 @@ def phase_kernel_quant_bert(torch):
     return _quant_row(timed, err)
 
 
+# ----------------------------------------------------------------------
+# the 16-bit storage arms of B1 and B4-B6, and the paths that run them
+# ----------------------------------------------------------------------
+#: the 16-bit storage arms, and the mantissa bits of each
+STORAGE16 = ("bfloat16", "float16")
+MANTISSA = {"bfloat16": 7, "float16": 10}
+#: H100 SXM dense bf16 / fp16 tensor-core peak: the least time a 16-bit
+#: attention could take (these kernels compute in float32 on CUDA cores;
+#: ``bound_ms_f32`` beside it is that rate's)
+PEAK_TC16_FLOPS = 989e12
+#: B4-B6's 16-bit arms against their plain versions: max |kernel - plain|
+#: over max |plain| within one ulp of the storage type at the largest
+#: magnitude (2^-7 bfloat16, 2^-10 float16): both sum the same float32
+#: products in other orders and round once.  An H100 measured at most
+#: 1.5e-3 (bf16) and 4.7e-4 (f16) on these cases.  lse stays float32:
+#: ``FLASH_FWD_TOL``.
+FLASH16_TOL = {dt: 2.0 ** -MANTISSA[dt] for dt in STORAGE16}
+#: the f32 paths' profile figures, kept for the 16-bit paths' lines
+F32_PROFILE = {}
+
+
+def phase_kernel16(torch):
+    """B1's bfloat16 and float16 arms against the plain version, bitwise,
+    on ``SGD_CASES`` (offsets in elements, so rows start 2-6 bytes off a
+    16-byte boundary too), gated rows and the elements around each view
+    untouched; timed at the CNN shape beside ``torch._fused_sgd_`` on the
+    same 16-bit tensors."""
+    from msrflute_tpu_torch.ops.fused_sgd import (fused_sgd_apply,
+                                                  fused_sgd_plain)
+    lr, rows, timed = 0.1, [], {}
+    for dt_name in STORAGE16:
+        dt = getattr(torch, dt_name)
+        max_err = _sgd_cases(torch, dt)
+        K, P, mu = MAIN_K, MAIN_P, 0.9
+        p, g, m, gt, _ = _sgd_inputs(torch, K, P, [1] * K, 1, dtype=dt)
+        kernel = lambda: fused_sgd_apply(p, g, m, lr, mu, gt)  # noqa: E731
+        library = lambda: torch._fused_sgd_(  # noqa: E731
+            [p], [g], [m], weight_decay=0.0, momentum=mu, lr=lr,
+            dampening=0.0, nesterov=False, maximize=False,
+            is_first_step=False)
+        kernel_ms = _device_ms(torch, kernel)
+        plain_ms = _time_ms(torch, lambda: fused_sgd_plain(p, g, m, lr, mu,
+                                                           gt))
+        library_ms = _device_ms(torch, library)
+        nbytes = 10 * K * P + 4 * K   # read p, g, m, gate; write p, m
+        bound_ms = max(nbytes / PEAK_BYTES_PER_S,
+                       4 * K * P / PEAK_F32_FLOPS) * 1e3
+        timed[dt_name] = {
+            "shape": [K, P], "ms": kernel_ms,
+            "ms_repeat": _device_ms(torch, kernel),
+            "ms_host_paced": _time_ms(torch, kernel), "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bytes": nbytes,
+            "share_of_bound": bound_ms / kernel_ms,
+            "achieved_gb_s": nbytes / (kernel_ms * 1e-3) / 1e9,
+            "library_gb_s": nbytes / (library_ms * 1e-3) / 1e9}
+        if dt_name == "bfloat16":
+            timed[dt_name]["card_under_kernel"] = _under_load(torch, kernel)
+        rows.append({
+            "name": _arm("fused_sgd_apply", dt_name), "route": "cuda",
+            "source": "msrflute_tpu_torch/csrc/fused_sgd.cu",
+            "replaces": "msrflute_tpu/ops/pallas_kernels.py:212",
+            "launches": None, "max_abs_err": max_err, "ms": kernel_ms,
+            "ms_host_paced": timed[dt_name]["ms_host_paced"],
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": library_ms})
+        del p, g, m
+    emit({"phase": "kernel", "ok": True, "name": "fused_sgd_apply (16-bit)",
+          "cases": len(SGD_CASES) * 2 * len(STORAGE16), "bitwise": True,
+          **timed})
+    return rows
+
+
+def _flash16_case(torch, dt, B, Lq, Lk, H, D, seed):
+    return tuple(x.to(dt) if x.dim() == 4 else x
+                 for x in _flash_case(torch, B, Lq, Lk, H, D, seed))
+
+
+def phase_kernel_flash16(torch):
+    """B4, B5 and B6 in bfloat16 and float16 against their plain versions
+    (float32 math on the 16-bit inputs, rounded once) within
+    ``FLASH16_TOL``, at the RingLM path's shape and at odd shapes (the
+    16-byte staged copies at D % 8 == 0, the element path at D = 5 and 20,
+    masked rows, ragged edges); two launches bitwise equal; then timed at
+    ``[40, 1023, 4, 32]`` and B4 at ``[16, 1023, 4, 32]`` beside the
+    causal SDPA call in the same type, with two bounds: bytes, and
+    operations at the 16-bit tensor-core rate (the least time the card
+    needs; the float32 CUDA-core rate these kernels run at beside it)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from msrflute_tpu_torch.ops import flash_attention as fa
+    cases = [
+        ("main", FLASH_MAIN),
+        ("L17", (3, 17, 17, 2, 32, True, 0, 0)),
+        ("offsets_masked_rows", (2, 100, 150, 2, 32, True, 0, 30)),
+        ("non_causal", (2, 77, 130, 2, 32, False, 0, 0)),
+        ("D8", (2, 65, 65, 2, 8, True, 0, 0)),
+        ("D64", (2, 200, 200, 2, 64, True, 0, 0)),
+        ("D128", (2, 129, 129, 2, 128, True, 0, 0)),
+        ("ragged_diag_edge", (2, 150, 170, 2, 32, True, 37, 11)),
+        ("D20", (2, 100, 90, 2, 20, True, 5, 0)),
+        ("D5", (1, 70, 80, 2, 5, True, 10, 0)),
+        ("BH1", (1, 1023, 1023, 1, 32, True, 0, 0)),
+    ]
+    rows, lines = [], {}
+    for dt_name in STORAGE16:
+        dt = getattr(torch, dt_name)
+        tol = FLASH16_TOL[dt_name]
+        errs, max_abs, _ = _flash_cases(
+            torch, cases, dt, {"out": tol, "lse": FLASH_FWD_TOL,
+                               "grads": tol})
+        # timing at the path's shape
+        B, Lq, Lk, H, D, causal, qo, ko = FLASH_MAIN
+        q, k, v, g, g_lse = _flash16_case(torch, dt, B, Lq, Lk, H, D, 99)
+        g_lse.zero_()
+        out, lse = fa.flash_fwd(q, k, v, causal, qo, ko)
+        args = (q, k, v, g, lse, fa.attention_delta(out, g), g_lse, causal,
+                qo, ko)
+        calls = {"fwd": lambda: fa.flash_fwd(q, k, v, causal, qo, ko),
+                 "dq": lambda: fa.flash_dq(*args),
+                 "dkv": lambda: fa.flash_dkv(*args)}
+        t = {key: _device_ms(torch, fn) for key, fn in calls.items()}
+        plain = {"fwd": _time_ms(torch, lambda: fa.attention_lse_plain(
+                     q, k, v, causal, qo, ko), iters=5),
+                 "dq": _time_ms(torch, lambda: fa.attention_dq_plain(*args),
+                                iters=5),
+                 "dkv": _time_ms(torch, lambda: fa.attention_dkv_plain(
+                     *args), iters=5)}
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        gt = g.transpose(1, 2).contiguous()
+
+        def lib_fwd_call():
+            with torch.no_grad():
+                sdpa(qt, kt, vt, is_causal=True)
+
+        lib_out = sdpa(qt, kt, vt, is_causal=True)
+        lib_bwd_call = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, (qt, kt, vt), gt, retain_graph=True)
+        lib = {"fwd": _device_ms(torch, lib_fwd_call),
+               "bwd": _device_ms(torch, lib_bwd_call)}
+        pairs = _visible_pairs(torch, B, Lq, Lk, H, causal, qo, ko)
+        qb, kb, sb = 2 * B * Lq * H * D, 2 * B * Lk * H * D, 4 * B * H * Lq
+        work = {"fwd": (2 * 2 * D * pairs, qb + 2 * kb + qb + sb),
+                "dq": (3 * 2 * D * pairs, 2 * qb + 2 * kb + 3 * sb + qb),
+                "dkv": (4 * 2 * D * pairs, 2 * qb + 2 * kb + 3 * sb
+                        + 2 * kb)}
+        Be = FLASH_EVAL_B
+        qe, ke, ve, _, _ = _flash16_case(torch, dt, Be, Lq, Lk, H, D, 98)
+        qet, ket, vet = (x.transpose(1, 2).contiguous() for x in (qe, ke,
+                                                                   ve))
+
+        def eval_sdpa_call():
+            with torch.no_grad():
+                sdpa(qet, ket, vet, is_causal=True)
+
+        e_flops = 2 * 2 * D * _visible_pairs(torch, Be, Lq, Lk, H, causal,
+                                             qo, ko)
+        e_bytes = work["fwd"][1] * Be // B
+        e_ms = _device_ms(torch, lambda: fa.flash_fwd(qe, ke, ve, causal,
+                                                      qo, ko))
+        fwd_eval = {"shape": [Be, Lq, H, D], "ms": e_ms,
+                    "bound_ms": max(e_flops / PEAK_TC16_FLOPS,
+                                    e_bytes / PEAK_BYTES_PER_S) * 1e3,
+                    "bound_ms_f32": e_flops / PEAK_F32_FLOPS * 1e3,
+                    "sdpa_fwd_ms": _device_ms(torch, eval_sdpa_call)}
+        fwd_eval["share_of_bound"] = fwd_eval["bound_ms"] / e_ms
+        max_err = {"fwd": max(max_abs["out"], max_abs["lse"]),
+                   "dq": max_abs["dq"],
+                   "dkv": max(max_abs["dk"], max_abs["dv"])}
+        detail = {}
+        for which, (key, name, line) in enumerate((
+                ("fwd", "flash_attention_fwd", ":336"),
+                ("dq", "flash_attention_dq", ":385"),
+                ("dkv", "flash_attention_dkv", ":411"))):
+            flops, nbytes = work[key]
+            ops_ms = flops / PEAK_TC16_FLOPS * 1e3
+            bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            lib_ms = lib["fwd" if key == "fwd" else "bwd"]
+            rows.append({
+                "name": _arm(name, dt_name), "route": "cuda",
+                "source": "msrflute_tpu_torch/csrc/flash_attention.cu",
+                "replaces": f"msrflute_tpu/ops/pallas_attention.py{line}",
+                "launches": None, "max_abs_err": max_err[key],
+                "ms": t[key], "plain_ms": plain[key],
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "library_ms": lib_ms,
+                "library_note": f"causal {dt_name} SDPA "
+                                + ("forward" if key == "fwd" else
+                                   "backward: dq, dk and dv together")})
+            info = fa.kernel_info(which, D, dt)
+            detail[key] = {
+                "flops": flops, "bytes": nbytes,
+                "bound_ms_bytes": bytes_ms, "bound_ms_tc16": ops_ms,
+                "bound_ms_f32": flops / PEAK_F32_FLOPS * 1e3,
+                "share_of_bound": max(ops_ms, bytes_ms) / t[key],
+                "share_of_f32_bound": flops / PEAK_F32_FLOPS * 1e3 / t[key],
+                "library_over_kernel": lib_ms / t[key], **info,
+                "ptxas": ptxas_reports(BUILD_LOGS.get(
+                    "flash_attention", "")).get(
+                        _flash_entry(key, D, dt_name))}
+        lines[dt_name] = {"rel_err": errs, "max_abs_err_main": max_abs,
+                          "tolerance": tol, "ms": t, "plain_ms": plain,
+                          "sdpa_ms": lib, "fwd_at_eval_shape": fwd_eval,
+                          "detail": detail}
+        if dt_name == "bfloat16":
+            lines[dt_name]["card_under_dq_and_dkv"] = _under_load(
+                torch, lambda: (fa.flash_dq(*args), fa.flash_dkv(*args)))
+    emit({"phase": "kernel", "ok": True,
+          "name": "flash_attention 16-bit (B4, B5, B6)",
+          "shape": list(FLASH_MAIN), "cases": len(cases),
+          "bitwise_repeat": True, **lines})
+    return rows
+
+
+def _set_arm_launches(arm_rows, counts, path):
+    """Each 16-bit arm row's launches on ``path``; ``launches`` is the
+    count on the path that runs the arm (a row keeps the first it got)."""
+    for row in arm_rows:
+        n = counts.get(row["name"], 0)
+        row.setdefault("launches_by_path", {})[path] = n
+        if n and not row.get("launches"):
+            row["launches"] = n
+
+
+def _cnn16_config(dtype, rounds):
+    """``CNN_CONFIG`` (B1 through ``pallas_apply``) with the model and the
+    client's local copy in ``dtype``: ``model_config.dtype`` and
+    ``precision: {params, compute}``."""
+    raw = json.loads(json.dumps(CNN_CONFIG))
+    raw["model_config"]["dtype"] = dtype
+    raw["server_config"].update(max_iteration=rounds, val_freq=rounds,
+                                rec_freq=rounds,
+                                precision={"params": dtype,
+                                           "compute": dtype})
+    return raw
+
+
+#: cuda vs cpu of the bf16 CNN_FEMNIST precision path (3 clients, one
+#: local step a round, dropout off), relative L2 of the params: the bf16
+#: local copy rounds every update to 8 bits, and where the two devices'
+#: float32 sums differ a rounding flips and moves a weight by a bf16 ulp
+#: (2^-8 relative).  An H100 measured 6.9e-5 after round 1 and 2.2e-4
+#: after round 2; the bounds leave about tenfold room.
+PRECISION_CROSS_TOL = {1: 1e-3, 2: 3e-3}
+
+
+def phase_precision(torch, work, arm_rows):
+    """CNN_FEMNIST with ``dtype: bfloat16``, ``precision: {params:
+    bfloat16, compute: bfloat16}`` and ``pallas_apply``: kernel B1's bf16
+    arm once a local step; then two cuda runs bitwise and cuda vs cpu
+    within ``PRECISION_CROSS_TOL``; an absent and an explicit float32
+    policy bitwise equal on the card; and a float16 leg (one round) for
+    B1's f16 arm."""
+    import numpy as np
+    _reset_counts()
+    server, out, secs = _run_cli(work, "precision",
+                                 _cnn16_config("bfloat16", 3), "cuda")
+    arms, totals = _read_arm_counts(), _read_counts()
+    steps = server.engine.local_steps
+    check(steps > 0 and arms[_arm("fused_sgd_apply", "bfloat16")] == steps
+          == totals["fused_sgd_apply"],
+          f"precision: B1 launches {arms} / {totals} for {steps} steps")
+    check(server.engine.precision == {"params": "bfloat16",
+                                      "compute": "bfloat16"} and
+          server.state.params.dtype == torch.float32,
+          "precision: the policy or the master params")
+    train_loss = [r["value"] for r in _records(out, "Training loss")]
+    check(len(train_loss) == 3 and all(map(math.isfinite, train_loss)),
+          f"precision: training losses {train_loss}")
+    _set_arm_launches(arm_rows, arms, "precision")
+    rounds = server.run_stats["secsPerRound"]
+    del server
+    # reproducible on the card, near the cpu, on a small blob
+    raw = _set_data(_cnn16_config("bfloat16", 2), _small_femnist(work))
+    raw["model_config"].update(dropout1=0.0, dropout2=0.0)
+    raw["server_config"].update(num_clients_per_iteration=3, val_freq=100,
+                                rec_freq=100, initial_val=False,
+                                rounds_per_step=1, model_backup_freq=1)
+    raw["client_config"]["desired_max_samples"] = 20
+    _cross_device(torch, work, "precision_cross_device", raw,
+                  "cv_cnn_femnist", PRECISION_CROSS_TOL)
+    # absent and explicit float32: one code path, bitwise on the card
+    finals = {}
+    for tag, block in (("absent", None),
+                       ("float32", {"params": "float32",
+                                    "compute": "float32",
+                                    "stats": "float32"})):
+        cfg = json.loads(json.dumps(raw))
+        cfg["model_config"].pop("dtype")
+        cfg["server_config"].pop("precision")
+        if block:
+            cfg["server_config"]["precision"] = block
+        srv, _, _ = _run_cli(work, f"precision_{tag}", cfg, "cuda")
+        finals[tag] = srv.state.params.clone()
+        del srv
+    check(torch.equal(finals["absent"], finals["float32"]),
+          "precision: absent and explicit float32 differ on the card")
+    # float16: one round for B1's f16 arm
+    _reset_counts()
+    srv, out16, _ = _run_cli(work, "precision_f16", _set_data(
+        _cnn16_config("float16", 1), _small_femnist(work)), "cuda")
+    arms16 = _read_arm_counts()
+    check(arms16[_arm("fused_sgd_apply", "float16")] ==
+          srv.engine.local_steps > 0,
+          f"precision f16: B1 launches {arms16}")
+    loss16 = [r["value"] for r in _records(out16, "Training loss")]
+    check(all(map(math.isfinite, loss16)), f"precision f16: {loss16}")
+    _set_arm_launches(arm_rows, arms16, "precision_f16")
+    emit({"phase": "precision", "ok": True, "device": "cuda",
+          "policy": {"params": "bfloat16", "compute": "bfloat16"},
+          "local_steps": steps, "launches": arms, "train_loss": train_loss,
+          "secs_per_round": rounds,
+          "secs_per_round_after_first": float(np.mean(rounds[1:])),
+          "run_seconds": round(secs, 3),
+          "absent_equals_float32_on_card": True,
+          "f16_leg": {"local_steps": srv.engine.local_steps,
+                      "launches": arms16, "train_loss": loss16}})
+
+
+#: bf16 RingLM, flash against dense over 2 rounds: relative L2 of the
+#: change of the params.  In bf16 the two arms differ by more than the
+#: f32 phase's 9e-7: the dense arm rounds its scores, softmax and
+#: probabilities to bf16 (the JAX package's dense path), the flash arm
+#: keeps them in float32 tiles and rounds only out and the gradients.  An
+#: H100 measured 1.4e-3; the bound leaves about sevenfold room.
+RINGLM16_FLASH_DENSE_TOL = 1e-2
+#: cuda vs cpu of bf16 RingLM (2 clients, one step a round): relative L2 of
+#: the params after each round.  The params stay float32; the two devices
+#: round the bf16 activations apart where their float32 sums differ, which
+#: moves a gradient by up to about 1 % (as between the two packages,
+#: ``tests/test_torch_dtype.py``) of an update that moves the params by
+#: well under 1 %.  An H100 measured 1.4e-5 and 1.8e-5; the bounds leave
+#: about tenfold room.
+RINGLM16_CROSS_TOL = {1: 2e-4, 2: 2e-4}
+
+
+def phase_ringlm16(torch, work, arm_rows):
+    """RingLM at full width (P = 945,370, seq_len 1024, batch 4, 500
+    long-text users) with ``dtype: bfloat16`` and flash attention: B4-B6's
+    bf16 arms (and B1, whose local copy stays f32); the loss falls; then
+    ``ringlm_bf16_profile``, flash vs dense, two cuda runs bitwise and cuda
+    vs cpu, and a float16 leg (one round) for B4-B6's f16 arms."""
+    import numpy as np
+    raw = ringlm_config(rounds=3)
+    raw["model_config"]["dtype"] = "bfloat16"
+    _reset_counts()
+    server, out, secs = _run_cli(work, "ringlm_bf16", raw, "cuda",
+                                 task="ringlm")
+    arms = _read_arm_counts()
+    layers = server.task.module.num_layers
+    steps = server.engine.local_steps
+    eval_steps = sum(server._eval_batches[h["split"]]["sample_mask"].shape[0]
+                     for h in server.history)
+    want = {_arm("flash_attention_fwd", "bfloat16"):
+            layers * (steps + eval_steps),
+            _arm("flash_attention_dq", "bfloat16"): layers * steps,
+            _arm("flash_attention_dkv", "bfloat16"): layers * steps}
+    check(steps > 0 and all(arms[k] == n for k, n in want.items()) and
+          _read_counts()["fused_sgd_apply"] == steps,
+          f"ringlm_bf16 launches {arms}, want {want}")
+    check(server.task.module.dtype == torch.bfloat16 and
+          server.state.params.dtype == torch.float32,
+          "ringlm_bf16: the model or the master params")
+    val = [(h["round"], h["loss"]) for h in server.history
+           if h["split"] == "val"]
+    check(len(val) == 2 and all(math.isfinite(x) for _, x in val) and
+          val[1][1] < val[0][1], f"ringlm_bf16: the val loss {val}")
+    _set_arm_launches(arm_rows, arms, "ringlm_bf16")
+    rounds = server.run_stats["secsPerRound"]
+    emit({"phase": "ringlm_bf16", "ok": True, "device": "cuda",
+          "params": server.engine.layout.numel, "local_steps": steps,
+          "eval_steps": eval_steps, "launches": arms, "val": val,
+          "secs_per_round": rounds,
+          "secs_per_round_after_first": float(np.mean(rounds[1:])),
+          "run_seconds": round(secs, 3)})
+    sampled = server._sample()
+    from msrflute_tpu_torch.data.batching import pack_round_batches
+    batch = pack_round_batches(
+        server.train_dataset, sampled, server.batch_size,
+        server._chunk_steps([sampled]), rng=server._np_rng)
+    engine, state = server.engine, server.state
+
+    def step():
+        nonlocal state
+        state = engine.run_round(state, batch, 0.1, 1.0)[0]
+
+    emit({"phase": "ringlm_bf16_profile", "ok": True, "rounds": 2,
+          **_trace_rounds(torch, step, 2, "ringlm_bf16_profile"),
+          "f32_ringlm_profile_same_call": F32_PROFILE.get("ringlm_profile")})
+    del server, engine, state
+    # flash against dense, both bf16
+    two = ringlm_config(rounds=2)
+    two["model_config"]["dtype"] = "bfloat16"
+    two["server_config"].update(val_freq=100, rec_freq=100,
+                                initial_val=False, model_backup_freq=1)
+    final = {}
+    for flash in (True, False):
+        two["model_config"]["flash_attention"] = flash
+        srv, _, _ = _run_cli(work, f"ringlm_bf16_flash_{flash}", two, "cuda",
+                             task="ringlm")
+        final[flash] = srv.state.params.double().cpu()
+        init = srv.engine.layout.flatten(srv.task.init_params(0)).double()
+        del srv
+    d_flash, d_dense = final[True] - init, final[False] - init
+    rel = float((d_flash - d_dense).norm() / d_dense.norm())
+    check(rel <= RINGLM16_FLASH_DENSE_TOL,
+          f"ringlm_bf16 flash vs dense: rel L2 {rel}")
+    emit({"phase": "ringlm_bf16_flash_vs_dense", "ok": True, "rounds": 2,
+          "rel_l2_of_update": rel, "tolerance": RINGLM16_FLASH_DENSE_TOL})
+    cross = ringlm_config(rounds=2)
+    cross["model_config"]["dtype"] = "bfloat16"
+    cross["server_config"].update(num_clients_per_iteration=2, val_freq=100,
+                                  rec_freq=100, initial_val=False,
+                                  rounds_per_step=1, model_backup_freq=1)
+    cross["client_config"]["desired_max_samples"] = 4
+    _cross_device(torch, work, "ringlm_bf16_cross_device", cross, "ringlm",
+                  RINGLM16_CROSS_TOL)
+    # float16: one round of 2 clients for B4-B6's f16 arms
+    f16 = ringlm_config(rounds=1)
+    f16["model_config"]["dtype"] = "float16"
+    f16["server_config"].update(num_clients_per_iteration=2)
+    _reset_counts()
+    srv, out16, _ = _run_cli(work, "ringlm_f16", f16, "cuda", task="ringlm")
+    arms16 = _read_arm_counts()
+    steps16 = srv.engine.local_steps
+    check(steps16 > 0 and arms16[_arm("flash_attention_dq", "float16")] ==
+          layers * steps16, f"ringlm_f16 launches {arms16}")
+    loss16 = [r["value"] for r in _records(out16, "Training loss")]
+    check(all(map(math.isfinite, loss16)), f"ringlm_f16 losses {loss16}")
+    _set_arm_launches(arm_rows, arms16, "ringlm_f16")
+    emit({"phase": "ringlm_f16", "ok": True, "local_steps": steps16,
+          "launches": arms16, "train_loss": loss16})
+
+
+#: the dtype phase's families: (experiments/ folder, task, data dir,
+#: writer, splits); data generated here at the published widths
+def _mnist_blob(path, num_users, lo, hi, seed):
+    """MNIST-shaped users for LR: 28x28 uint8 images written flat, 10
+    classes."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    users = [f"m{seed}_{i:04d}" for i in range(num_users)]
+    counts = rng.integers(lo, hi + 1, size=num_users).tolist()
+    rows, labels = [], {}
+    for u, n in zip(users, counts):
+        rows.append(_pixel_rows(rng.integers(0, 256, size=(n, 784),
+                                             dtype=np.uint8)))
+        labels[u] = rng.integers(0, 10, size=n).tolist()
+    _write_json_blob(path, users, rows, labels)
+    return sum(counts)
+
+
+DTYPE_ROUNDS = 2
+
+
+def _dtype_families():
+    return (
+        ("cv_lr_mnist", "mnist", lambda p, n, s: _mnist_blob(p, n, 20, 60,
+                                                             s)),
+        ("classif_cnn", "cifar10_16", lambda p, n, s: write_cifar100_blob(
+            p, n, 40, s, classes=10)),
+        ("cv_resnet_fedcifar100", "fedcifar100_16",
+         lambda p, n, s: write_cifar100_blob(p, n, 40, s)),
+        ("nlp_rnn_fedshakespeare", "shakespeare_16",
+         lambda p, n, s: write_shakespeare_blob(p, n, 4, 41, s)),
+    )
+
+
+def phase_dtype(torch, work):
+    """LR, CIFAR_CNN, ResNet-18-GN and the LSTM at their shipped widths in
+    ``dtype: bfloat16`` (B1's f32 arm, as their params stay f32): 2 rounds,
+    twice, bitwise; secs/round beside the same config in float32 from this
+    call."""
+    out = {}
+    for name, data_dir, writer in _dtype_families():
+        os.makedirs(os.path.join(work, data_dir), exist_ok=True)
+        for split, users, seed in (("train", 40, 60), ("val", 4, 61),
+                                   ("test", 4, 62)):
+            writer(os.path.join(work, data_dir, f"{split}.json"), users,
+                   seed)
+        raw = _set_data(_experiment_config(name), data_dir)
+        raw["server_config"].update(
+            max_iteration=DTYPE_ROUNDS, val_freq=100, rec_freq=100,
+            initial_val=False, rounds_per_step=1, model_backup_freq=100,
+            megakernel={"pallas_apply": True})
+        runs = {}
+        for tag, dtype in (("bf16", "bfloat16"), ("bf16_again", "bfloat16"),
+                           ("f32", "float32")):
+            raw["model_config"]["dtype"] = dtype
+            srv, _, _ = _run_cli(work, f"dtype_{name}_{tag}", raw, "cuda",
+                                 task=name)
+            check(srv.task.module.dtype == getattr(torch, dtype) and
+                  srv.state.params.dtype == torch.float32,
+                  f"dtype {name}: the model or the master params")
+            runs[tag] = (srv.state.params.clone(),
+                         srv.run_stats["secsPerRound"])
+            del srv
+        check(torch.equal(runs["bf16"][0], runs["bf16_again"][0]) and
+              bool(torch.isfinite(runs["bf16"][0]).all()),
+              f"dtype {name}: two bf16 cuda runs differ")
+        out[name] = {"secs_per_round_bf16": runs["bf16"][1],
+                     "secs_per_round_bf16_again": runs["bf16_again"][1],
+                     "secs_per_round_f32": runs["f32"][1]}
+    emit({"phase": "dtype", "ok": True, "rounds": DTYPE_ROUNDS,
+          "reproducible": True, **out})
+
+
+#: cuda vs cpu of the optimizer legs (LR at its shipped widths, 2 rounds
+#: of 3 clients): relative L2 of the params after each round.  Only the
+#: order of float32 sums differs (cuBLAS against the CPU's GEMMs, the
+#: per-leaf norms of lamb and lars): an H100 measured at most 1.3e-7
+#: (lamb); the bound leaves about hundredfold room.
+OPT_CROSS_TOL = {1: 1e-5, 2: 1e-5}
+
+
+def phase_optimizers(torch, work):
+    """One cheap path (LR on the ``mnist`` blob of :func:`phase_dtype`)
+    through each new piece: server ``lamb``, ``lars`` and ``yogi``, client
+    SGD with nesterov and weight decay, the ``rampup-keep-expdecay-keep``
+    schedule, ``freeze_layer``, and server replay with ``updatable_names``
+    on a ``train_data_server`` blob; each leg twice on cuda, bitwise, and
+    against cpu within ``OPT_CROSS_TOL`` (:func:`_cross_device`)."""
+    _mnist_blob(os.path.join(work, "mnist", "server.json"), 3, 20, 40, 63)
+    base = _set_data(_experiment_config("cv_lr_mnist"), "mnist")
+    base["server_config"].update(
+        max_iteration=2, num_clients_per_iteration=3, val_freq=100,
+        rec_freq=100, initial_val=False, rounds_per_step=1,
+        model_backup_freq=1)
+    legs = {
+        "server_lamb": {"server_config.optimizer_config":
+                        {"type": "lamb", "lr": 0.01, "weight_decay": 0.01}},
+        "server_lars": {"server_config.optimizer_config":
+                        {"type": "lars", "lr": 1.0, "momentum": 0.9,
+                         "weight_decay": 1e-4}},
+        "server_yogi": {"server_config.optimizer_config":
+                        {"type": "yogi", "lr": 0.01, "eps": 1e-3}},
+        "client_sgd_nesterov_wd": {"client_config.optimizer_config":
+                                   {"type": "sgd", "lr": 0.03,
+                                    "momentum": 0.9, "nesterov": True,
+                                    "weight_decay": 1e-4}},
+        "rampup_schedule": {"server_config.annealing_config":
+                            {"type": "rampup-keep-expdecay-keep",
+                             "peak_lr": 1.0, "floor_lr": 0.1,
+                             "rampup_steps": 1, "hold_steps": 0,
+                             "decay_steps": 2}},
+        "freeze_layer": {"client_config.freeze_layer": ["Dense_0/bias"]},
+        "server_replay": {"server_config.server_replay_config":
+                          {"server_iterations": 2,
+                           "updatable_names": [r"Dense_0\.kernel"],
+                           "optimizer_config": {"type": "sgd",
+                                                "lr": 0.01}},
+                          "server_config.data_config.train":
+                          {"batch_size": 10,
+                           "train_data_server": "mnist/server.json"}},
+    }
+    for leg, edits in legs.items():
+        raw = json.loads(json.dumps(base))
+        for path, value in edits.items():
+            node = raw
+            keys = path.split(".")
+            for k in keys[:-1]:
+                node = node.setdefault(k, {})
+            node[keys[-1]] = value
+        replays = leg == "server_replay"
+        _cross_device(torch, work, f"optimizers_{leg}", raw, "cv_lr_mnist",
+                      OPT_CROSS_TOL, extra=lambda srv, replays=replays: (
+                          check((srv.server_replay is not None) == replays,
+                                f"optimizers {leg}: server replay"), {})[1])
+    emit({"phase": "optimizers", "ok": True, "legs": sorted(legs)})
+
+
 def main() -> int:
     argv = sys.argv[1:]
     if argv not in ([], ["--kernels"]):
@@ -3019,8 +3704,10 @@ def main() -> int:
         rows = [phase_kernel(torch), phase_kernel_noise(torch),
                 phase_kernel_quant(torch), phase_kernel_quant_bert(torch),
                 *phase_kernel_flash(torch)]
+        # the 16-bit storage arms of B1 and B4-B6: rows of their own
+        arm_rows = [*phase_kernel16(torch), *phase_kernel_flash16(torch)]
         if argv == ["--kernels"]:
-            emit({"kernels": rows})
+            emit({"kernels": rows + arm_rows})
             return 0
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
             phase = "main"
@@ -3049,6 +3736,14 @@ def main() -> int:
             phase_ringlm_flash_vs_dense(torch, work)
             phase = "ringlm_cross_device"
             phase_cross_device_ringlm(torch, work)
+            phase = "ringlm_bf16"
+            phase_ringlm16(torch, work, arm_rows)
+            phase = "precision"
+            phase_precision(torch, work, arm_rows)
+            phase = "dtype"
+            phase_dtype(torch, work)
+            phase = "optimizers"
+            phase_optimizers(torch, work)
             phase = "resnet"
             server = phase_resnet(torch, work, rows)
             phase = "resnet_profile"
@@ -3075,7 +3770,7 @@ def main() -> int:
             phase = "personalization"
             server = phase_personalization(torch, work, rows)
             phase = "personalization_profile"
-            phase_personalization_profile(torch, server)
+            phase_personalization_profile(torch, server, rounds=2)
             del server
             phase = "cross_device_personalization"
             phase_cross_device_personalization(torch, work)
@@ -3096,7 +3791,7 @@ def main() -> int:
             phase = "mlm_bert"
             server = phase_mlm_bert(torch, work, rows)
             phase = "mlm_bert_profile"
-            phase_profile(torch, server, phase="mlm_bert_profile",
+            phase_profile(torch, server, rounds=2, phase="mlm_bert_profile",
                           client_lr=5e-5, server_lr=5e-5,
                           quant_threshold=0.7)
             del server
@@ -3110,7 +3805,13 @@ def main() -> int:
         import traceback
         traceback.print_exc()
         return 1
-    emit({"kernels": rows})
+    # every 16-bit arm ran on a path of this run
+    missing = [r["name"] for r in arm_rows if not r.get("launches")]
+    if missing:
+        emit({"phase": "arms", "ok": False,
+              "error": f"no path launched {missing}"})
+        return 1
+    emit({"kernels": rows + arm_rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -11,9 +11,11 @@ CIFAR_CNN, ResNet-18/34 with GroupNorm, Shakespeare LSTM, RingLM (local
 attention), ECG_CNN and NRMS tasks and over ``model_folder`` plugins, DGA
 (softmax weights, local and global DP, quantization, staleness) over the
 nlg_gru GRU word LM and the BERT masked LM, the privacy-attack metrics
-(``privacy_metrics_config``), client ``adam`` / ``adamW`` / ``adamax``,
-the personalization server (per-user local models and convex
-interpolation) and FedLabels semi-supervision with RandAugment.
+(``privacy_metrics_config``), every optimizer of the JAX package's factory,
+every LR schedule, ``freeze_layer``, server replay, the precision policy
+(``server_config.precision``) and ``model_config.dtype``, the
+personalization server (per-user local models and convex interpolation)
+and FedLabels semi-supervision with RandAugment.
 :func:`validate` replaces the JAX package's ``schema.py`` for those
 slices: a key the port runs is accepted, a key that only tunes how the TPU
 program is dispatched (and changes no result) is accepted and ignored, and
@@ -89,11 +91,19 @@ def _take(raw: Dict[str, Any], known: List[str]) -> Dict[str, Any]:
 
 @dataclass
 class OptimizerConfig(Config):
+    """The JAX package's fields and defaults (``msrflute_tpu/config.py``):
+    the factory reads ``cfg.get(key, default)``, so these, not the
+    factory's own defaults, decide an unset key (``lars`` momentum 0,
+    ``yogi`` eps 1e-8)."""
+
     type: str = "sgd"
     lr: float = 0.01
     momentum: float = 0.0
     nesterov: bool = False
     weight_decay: float = 0.0
+    amsgrad: bool = False
+    eps: float = 1e-8
+    betas: Optional[List[float]] = None
     extra: Dict[str, Any] = field(default_factory=dict)
 
     @classmethod
@@ -101,7 +111,8 @@ class OptimizerConfig(Config):
         if raw is None:
             return cls()
         return cls(**_take(dict(raw), ["type", "lr", "momentum", "nesterov",
-                                       "weight_decay"]))
+                                       "weight_decay", "amsgrad", "eps",
+                                       "betas"]))
 
 
 @dataclass
@@ -327,9 +338,10 @@ class FLUTEConfig(Config):
                         val = getattr(split, attr)
                         if val and not os.path.isabs(val):
                             setattr(split, attr, os.path.join(data_path, val))
-                    vocab = split.get("vocab_dict")
-                    if vocab and not os.path.isabs(vocab):
-                        split["vocab_dict"] = os.path.join(data_path, vocab)
+                    for key in ("vocab_dict", "train_data_server"):
+                        val = split.get(key)
+                        if val and not os.path.isabs(val):
+                            split[key] = os.path.join(data_path, val)
             vocab = self.model_config.get("vocab_dict")
             if vocab and not os.path.isabs(vocab):
                 self.model_config["vocab_dict"] = os.path.join(data_path,
@@ -361,22 +373,49 @@ _SERVER = {"type", "max_iteration", "num_clients_per_iteration",
            "resume_from_checkpoint", "max_grad_norm", "rounds_per_step",
            "megakernel", "data_config", "optimizer_config",
            "annealing_config", "personalization_init",
-           "personalization_interp", "semisupervision"}
+           "personalization_interp", "semisupervision", "precision",
+           "server_replay_config"}
 _CLIENT = {"type", "desired_max_samples", "max_grad_norm", "fedprox_mu",
            "num_epochs", "step_bucketing", "data_config", "optimizer_config",
-           "convex_model_interp", "semisupervision"}
+           "convex_model_interp", "semisupervision", "freeze_layer"}
 #: ``max_num_words`` of a data split is inert: the sequence length comes
 #: from ``model_config.max_num_words``, as in the JAX package
 _DATASET = {"batch_size", "list_of_train_data", "test_data", "val_data",
             "train_data", "desired_max_samples", "vocab_dict",
-            "max_num_words", "augment"}
-_OPTIMIZER = {"type", "lr", "momentum", "nesterov", "weight_decay"}
-#: adam's and adamax's keys; ``amsgrad`` is accepted and not applied, as
-#: the JAX package builds ``optax.adam`` whatever it says (adamW also takes
-#: ``weight_decay``, 0 only; the JAX package gives adamW and adamax
-#: optax's default betas whatever ``betas`` says)
+            "max_num_words", "augment", "train_data_server"}
+#: each optimizer type's keys (``msrflute_tpu/optim/factory.py`` reads no
+#: other).  adam's ``amsgrad`` is accepted and not applied, as the JAX
+#: package builds ``optax.adam`` whatever it says; the JAX package gives
+#: adamW and adamax optax's default betas whatever ``betas`` says.  Any
+#: other optimizer key raises unless off.
+_SGD = {"type", "lr", "momentum", "nesterov", "weight_decay"}
 _ADAM = {"type", "lr", "eps", "betas", "amsgrad"}
-_ADAM_FAMILY = ("adam", "adamw", "adamax")
+_OPTIMIZER_KEYS = {
+    "sgd": _SGD, "adam": _ADAM, "adamax": _ADAM,
+    "adamw": _ADAM | {"weight_decay"},
+    "lamb": {"type", "lr", "weight_decay"},
+    "lars": {"type", "lr", "momentum", "weight_decay"},
+    "larssgd": {"type", "lr", "momentum", "weight_decay"},
+    "yogi": {"type", "lr", "betas", "eps", "weight_decay"},
+}
+#: ``server_config.precision`` (``msrflute_tpu/schema.py:306-312``): each
+#: entry a dtype name, float32 (absent) the bit-identical default
+_PRECISION = {"enable", "params", "compute", "stats"}
+_PRECISION_DTYPES = ("float32", "bfloat16", "float16")
+#: ``model_config.dtype`` spellings (``msrflute_tpu/models/base.py:78-92``)
+DTYPE_NAMES = {"float32": "float32", "f32": "float32",
+               "bfloat16": "bfloat16", "bf16": "bfloat16",
+               "float16": "float16", "f16": "float16"}
+#: the models whose JAX modules read ``model_config.dtype``
+#: (``parse_dtype``) and whose port casts each layer to it; the precision
+#: policy's ``params`` and ``compute`` need these casts too.  GRU, ECG_CNN,
+#: NRMS and plugins never call ``parse_dtype``: their ``dtype`` is
+#: accepted and ignored, as in the JAX package
+DTYPE_MODELS = {"LR", "CNN", "CNN_FEMNIST", "CIFAR_CNN", "RESNET", "ResNet",
+                "RNN", "LSTM", "RINGLM"}
+#: ``server_config.server_replay_config`` (``msrflute_tpu/engine/
+#: server.py:629-646``; ``updatable_names`` is what its replay reads)
+_REPLAY = {"server_iterations", "optimizer_config", "updatable_names"}
 #: ``privacy_metrics_config`` (``msrflute_tpu/schema.py``
 #: ``PRIVACY_METRICS_KEYS``)
 _PRIVACY_METRICS = {"apply_metrics", "apply_indices_extraction",
@@ -385,7 +424,10 @@ _PRIVACY_METRICS = {"apply_metrics", "apply_indices_extraction",
                     "adaptive_leakage_threshold", "is_leakage_weighted",
                     "attacker_optimizer_config", "max_allowed_overlap"}
 _ANNEALING = {"type", "step_interval", "step_size", "gamma", "milestones",
-              "patience", "factor"}
+              "patience", "factor", "peak_lr", "floor_lr", "rampup_steps",
+              "hold_steps", "decay_steps"}
+_ANNEALING_TYPES = ("step_lr", "multi_step_lr", "val_loss", "constant",
+                    "rampup-keep-expdecay-keep")
 _MEGAKERNEL = {"enable", "fused_epochs", "pallas_apply"}
 #: ``strategy: dga`` runs these besides the keys above
 _DGA_SERVER = {"aggregate_median", "softmax_beta", "weight_train_loss",
@@ -406,13 +448,17 @@ _DP = {"enable_local_dp", "enable_global_dp", "eps", "delta", "max_grad",
 #: keys that tune how the JAX package dispatches its TPU program and change
 #: no result; the port runs one round after another and ignores them.
 #: (``client_config.annealing_config`` is here because the JAX package
-#: reads no client schedule at all.)
+#: reads no client schedule at all, and ``client_config.updatable_layers``
+#: because its round never passes it into ``ClientHParams``,
+#: ``msrflute_tpu/engine/round.py:150-204``: only server replay's
+#: ``updatable_names`` reaches a client update.)
 _DISPATCH_ONLY = {
     "server_config": {"pipeline_depth", "compilation_cache_dir",
                       "input_staging", "checkpoint_async"},
     "dataset": {"loader_type", "pin_memory", "num_workers",
                 "prefetch_factor", "length_bucketing", "device_resident"},
-    "client_config": {"do_profiling", "annealing_config"},
+    "client_config": {"do_profiling", "annealing_config",
+                      "updatable_layers"},
 }
 
 #: every other key the JAX package's schema knows (``msrflute_tpu/schema.py``
@@ -424,27 +470,27 @@ _DISPATCH_ONLY = {
 _OFF_OK = {
     "server_config": {
         "send_dicts", "do_profiling", "wantRL", "initial_lr",
-        "num_skip_decoding", "server_replay_config", "RL",
+        "num_skip_decoding", "RL",
         "nbest_task_scheduler", "best_model_metric", "fused_carry",
         "clients_per_chunk", "checkpoint_backend", "secure_agg", "fedbuff",
         "dump_norm_stats", "scaffold_device_controls", "scaffold_flush_freq",
         "ef_device_residuals", "ef_flush_freq", "chaos", "checkpoint_retry",
         "traffic", "telemetry", "robust", "cohort_bucketing", "megabatch",
-        "fleet", "precision", "updatable_names",
+        "fleet", "updatable_names",
         "fedac_eta", "fedac_gamma", "fedac_alpha", "fedac_beta",
         "qffl_q"} | _DGA_SERVER,
     "client_config": {
         "meta_learning", "copying_train_data", "ignore_subtask",
-        "num_skip_decoding", "freeze_layer", "meta_optimizer_config",
-        "ss_config", "updatable_layers"} | _DGA_CLIENT,
+        "num_skip_decoding", "meta_optimizer_config",
+        "ss_config"} | _DGA_CLIENT,
     "dataset": {
-        "train_data_server", "max_batch_size",
+        "max_batch_size",
         "max_seq_length", "min_words_per_utt", "num_frames",
         "max_samples_per_user", "max_grad_norm", "utterance_mvn",
         "unsorted_batch", "lazy", "lazy_cache_users", "wantLogits", "step_bucketing", "per_user_stats"},
-    "optimizer": {"amsgrad", "eps", "betas", "dampening"},
-    "annealing": {"peak_lr", "floor_lr", "rampup_steps", "hold_steps",
-                  "decay_steps"},
+    "optimizer": {"amsgrad", "eps", "betas", "dampening", "momentum",
+                  "nesterov", "weight_decay"},
+    "replay": {"data_config"},
     "dp": {"enable_prod", "max_bound", "min_bound", "adaptive_clipping"},
     "top": {"dp_config", "mesh_config", "experiment"},
 }
@@ -534,10 +580,7 @@ def validate(raw: Dict[str, Any]) -> None:
     if model.get("pretrained_model_path"):
         raise NotImplementedError(
             f"model_config.pretrained_model_path is {NOT_PORTED}")
-    if str(model.get("dtype", "float32") or "float32").lower() not in (
-            "float32", "f32"):
-        raise NotImplementedError(
-            f"model_config.dtype={model['dtype']!r} is {NOT_PORTED}")
+    model_dtype(model)   # a known spelling, else ValueError
     if mtype == "RINGLM":
         check_ringlm_model(model)
     if mtype == "BERT":
@@ -577,11 +620,32 @@ def validate(raw: Dict[str, Any]) -> None:
                              f"{list(allowed)}")
     mk = sc.get("megakernel") or {}
     _check_keys(mk, "server_config.megakernel", _MEGAKERNEL)
+    check_precision(sc.get("precision"), mtype if not folder else None)
+    replay = sc.get("server_replay_config")
+    _check_keys(replay, "server_config.server_replay_config", _REPLAY,
+                off_ok=_OFF_OK["replay"])
+    if replay:
+        _check_optimizer(replay.get("optimizer_config"),
+                         "server_config.server_replay_config."
+                         "optimizer_config")
+        names = replay.get("updatable_names")
+        if names is not None and not (
+                isinstance(names, (list, tuple)) and
+                all(isinstance(n, str) for n in names)):
+            raise ValueError("server_config.server_replay_config."
+                             "updatable_names must be a list of patterns, "
+                             f"got {names!r}")
     cc = raw.get("client_config") or {}
     _check_keys(cc, "client_config",
                 _CLIENT | (_DGA_CLIENT if dga else set()),
                 off_ok=_OFF_OK["client_config"],
                 ignored=_DISPATCH_ONLY["client_config"])
+    freeze = cc.get("freeze_layer")
+    if freeze is not None and not isinstance(freeze, str) and not (
+            isinstance(freeze, (list, tuple)) and
+            all(isinstance(f, str) for f in freeze)):
+        raise ValueError("client_config.freeze_layer must be a name or a "
+                         f"list of names, got {freeze!r}")
     if str(cc.get("type", "optimization")) != "optimization":
         raise NotImplementedError(
             f"client_config.type={cc.get('type')!r} is {NOT_PORTED}")
@@ -612,12 +676,49 @@ def validate(raw: Dict[str, Any]) -> None:
         _check_optimizer(section.get("optimizer_config"),
                          f"{path}.optimizer_config")
     ann = sc.get("annealing_config")
-    _check_keys(ann, "server_config.annealing_config", _ANNEALING,
-                off_ok=_OFF_OK["annealing"])
-    if ann and ann.get("type", "step_lr") not in (
-            "step_lr", "multi_step_lr", "val_loss", "constant"):
+    _check_keys(ann, "server_config.annealing_config", _ANNEALING)
+    if ann and ann.get("type", "step_lr") not in _ANNEALING_TYPES:
+        raise ValueError(f"annealing type {ann.get('type')!r}: one of "
+                         f"{list(_ANNEALING_TYPES)}")
+
+
+def model_dtype(model: Dict[str, Any]) -> str:
+    """``model_config.dtype`` as ``float32``, ``bfloat16`` or ``float16``
+    (the JAX package's ``parse_dtype`` spellings); ValueError otherwise."""
+    name = str(model.get("dtype", "float32") or "float32").lower()
+    if name not in DTYPE_NAMES:
+        raise ValueError(f"model_config.dtype={name!r}; expected one of "
+                         f"{sorted(DTYPE_NAMES)}")
+    return DTYPE_NAMES[name]
+
+
+def check_precision(prec: Any, model_type: Optional[str]) -> None:
+    """``server_config.precision``: a mapping of ``enable`` (bool) and
+    ``params`` / ``compute`` / ``stats`` dtypes.  A non-float32 ``params``
+    or ``compute`` casts the leaves, which only the models of
+    :data:`DTYPE_MODELS` take (each layer casts to its own dtype)."""
+    if prec is None:
+        return
+    if not isinstance(prec, dict):
+        raise ValueError("server_config.precision must be a mapping, got "
+                         f"{type(prec).__name__}")
+    _check_keys(prec, "server_config.precision", _PRECISION)
+    if prec.get("enable") is not None and \
+            not isinstance(prec["enable"], bool):
+        raise ValueError("server_config.precision.enable must be a bool, "
+                         f"got {prec['enable']!r}")
+    for key in ("params", "compute", "stats"):
+        value = prec.get(key)
+        if value is not None and str(value) not in _PRECISION_DTYPES:
+            raise ValueError(f"server_config.precision.{key}={value!r}: one "
+                             f"of {list(_PRECISION_DTYPES)}")
+    casts = [k for k in ("params", "compute")
+             if str(prec.get(k) or "float32") != "float32"]
+    if casts and prec.get("enable", True) and model_type not in DTYPE_MODELS:
         raise NotImplementedError(
-            f"annealing type {ann.get('type')!r} is {NOT_PORTED}")
+            f"server_config.precision.{casts[0]} on model_type "
+            f"{model_type!r} is {NOT_PORTED} (the port casts per layer on "
+            f"{sorted(DTYPE_MODELS)} only)")
 
 
 def check_ringlm_model(model: Dict[str, Any]) -> None:
@@ -661,7 +762,7 @@ def check_bert_model(model: Dict[str, Any]) -> None:
                 or "float32").lower()
     if dtype not in ("float32", "f32"):
         raise NotImplementedError(
-            f"BERT dtype={dtype!r} is {NOT_PORTED} (queue A item 7)")
+            f"BERT dtype={dtype!r} is {NOT_PORTED} (queue A item 8)")
     head = str(bert.get("mlm_head", "full")).lower()
     if head == "gathered":
         raise NotImplementedError(
@@ -673,21 +774,11 @@ def check_bert_model(model: Dict[str, Any]) -> None:
 
 
 def _check_optimizer(raw: Any, path: str) -> None:
-    """SGD, or one of the Adam family (``adamW`` with no weight decay)."""
+    """One of the JAX package's optimizer types with the keys it reads."""
     raw = raw or {}
     kind = str(raw.get("type", "sgd")).lower()
-    if kind in _ADAM_FAMILY:
-        _check_keys(raw, path,
-                    _ADAM | ({"weight_decay"} if kind == "adamw" else set()),
-                    off_ok=_OFF_OK["optimizer"])
-        if raw.get("weight_decay"):
-            raise NotImplementedError(
-                f"{path}: adamW weight_decay is {NOT_PORTED}")
-        return
-    _check_keys(raw, path, _OPTIMIZER, off_ok=_OFF_OK["optimizer"])
-    if kind != "sgd":
-        raise NotImplementedError(
-            f"{path}.type={raw.get('type')!r} is {NOT_PORTED}")
-    if raw.get("nesterov") or raw.get("weight_decay"):
-        raise NotImplementedError(
-            f"{path}: nesterov / weight_decay are {NOT_PORTED}")
+    if kind not in _OPTIMIZER_KEYS:
+        raise ValueError(f"{path}.type={raw.get('type')!r}: one of "
+                         f"{sorted(_OPTIMIZER_KEYS)}")
+    _check_keys(raw, path, _OPTIMIZER_KEYS[kind],
+                off_ok=_OFF_OK["optimizer"])

@@ -20,9 +20,25 @@
 // lse = -1e30 exactly; ds = p * (dp - delta + glse) * scale with
 // delta = rowsum(dO * O) computed by the caller (pallas_attention.py:374).
 //
-// Layouts: q, k, v, out, dO, dq, dk, dv are contiguous [B, L, H, D] float32
-// (the JAX public layout; no transpose to [B, H, L, D] is made); lse,
-// delta and glse are contiguous [B, H, Lq] float32.
+// Layouts: q, k, v, out, dO, dq, dk, dv are contiguous [B, L, H, D] (the JAX
+// public layout; no transpose to [B, H, L, D] is made); lse, delta and glse
+// are contiguous [B, H, Lq] float32.
+//
+// Storage types.  The TPU kernels take any float storage: they upcast each
+// tile to f32, compute in f32, and store out, dq, dk and dv in the input's
+// type, lse in f32 (pallas_attention.py:109-111, :150, :172-175, :209,
+// :224-227, :268-269).  So q, k, v, dO and the outputs are float,
+// __nv_bfloat16 or __half here, one type for all of them (the launchers
+// with the _bf16 and _f16 suffix): every tile is widened to f32 once, as it
+// enters shared memory, the f32 register tiles and the lse / delta math
+// stay as they are, and the outputs are rounded to nearest even on store.
+// A 16-bit tile arrives by the same cp.async copies, 8 elements a 16-byte
+// copy, into the tail of the f32 tile it will become (64 * DT * 2 bytes of
+// the 64 * (DT + 4) * 4); when the copy has landed the block reads it into
+// registers, meets, and writes the f32 tile, columns past D as zeros, and
+// meets again: two barriers more a tile, no shared memory more.  Where a
+// 16-bit tile cannot take 16-byte copies (D % 8 != 0, or a tensor off a
+// 16-byte boundary) each element is loaded, widened and stored directly.
 //
 // Bound on the H100: at the RingLM path's [40, 1023, 4, 32] causal each
 // pass reads a few tens of MB and does 1.1e10 (B4), 1.6e10 (B5) and
@@ -126,6 +142,8 @@
 // spill and run slower, and rescaling only when a row max grows by 2^8
 // gains nothing (csrc/probes/fwd_variants.py).
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -215,6 +233,31 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// the storage types: widen to f32 exactly, narrow rounding to nearest even
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
+
+template <typename S>
+__device__ __forceinline__ S narrow(float x);
+template <>
+__device__ __forceinline__ float narrow<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half narrow<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+template <typename S>
+constexpr bool kWide = sizeof(S) == 4;  // f32 storage: no staging
+
 // rows [row0, row0 + 64) of one head of kTensors (1 or 2) tensors of one
 // shape (the head starts `head` floats into each, rows are `row_stride`
 // floats apart) into consecutive [64][kStride] shared tiles, `per_row`
@@ -236,26 +279,129 @@ __device__ __forceinline__ void copy_rows(float* dst, const float* src_a,
   }
 }
 
+// where a 16-bit tile lands before it is widened: the last 64 * DT * 2
+// bytes of the f32 tile `tile`, rows DT elements apart
+template <int DT, typename S>
+__device__ __forceinline__ S* staging(float* tile) {
+  return reinterpret_cast<S*>(tile + Layout<DT>::kTileFloats) - kTile * DT;
+}
+
+// 16-bit rows [row0, row0 + 64) of kTensors tensors into the staging of
+// consecutive f32 tiles, 16-byte copies of 8 elements, `per_row` a row;
+// rows at or past L arrive as zeros
+template <int DT, typename S, int kTensors>
+__device__ __forceinline__ void stage_rows(float* dst, const S* src_a,
+                                           const S* src_b, int64_t head,
+                                           int64_t row_stride, int row0,
+                                           int L, int per_row) {
+  S* raw_a = staging<DT, S>(dst);
+  S* raw_b = staging<DT, S>(dst + Layout<DT>::kTileFloats);
+  for (int i = threadIdx.x; i < kTile * per_row; i += kThreads) {
+    const int rr = i / per_row, c = (i - rr * per_row) * 8;
+    const bool real = row0 + rr < L;
+    const int64_t from = head + (real ? (row0 + rr) * row_stride : 0) + c;
+    const unsigned sa =
+        static_cast<unsigned>(__cvta_generic_to_shared(raw_a + rr * DT + c));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sa),
+                 "l"(src_a + from), "r"(real ? 16 : 0)
+                 : "memory");
+    if (kTensors == 2) {
+      const unsigned sb = static_cast<unsigned>(
+          __cvta_generic_to_shared(raw_b + rr * DT + c));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sb),
+                   "l"(src_b + from), "r"(real ? 16 : 0)
+                   : "memory");
+    }
+  }
+}
+
+// the same rows element by element, widened and stored straight into the
+// f32 tiles (a 16-bit tile that cannot take 16-byte copies)
+template <int DT, typename S, int kTensors>
+__device__ __forceinline__ void widen_rows(float* dst, const S* src_a,
+                                           const S* src_b, int64_t head,
+                                           int64_t row_stride, int row0,
+                                           int L, int D) {
+  constexpr int kStride = Layout<DT>::kStride;
+  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+    const int rr = i / D, c = i - rr * D;
+    const bool real = row0 + rr < L;
+    const int64_t from = head + (real ? (row0 + rr) * row_stride : 0) + c;
+    dst[rr * kStride + c] = real ? widen(src_a[from]) : 0.0f;
+    if (kTensors == 2)
+      dst[kTile * kStride + rr * kStride + c] =
+          real ? widen(src_b[from]) : 0.0f;
+  }
+}
+
+// kTiles consecutive f32 tiles from their staging, in place: every thread
+// reads its 16-byte pieces of all of them, the block meets, every thread
+// writes them widened (zeros at columns D and past), and the block meets
+// again.  Called by every thread of the block.
+template <int DT, typename S, int kTiles>
+__device__ __forceinline__ void widen_tiles(float* tiles_base, int D) {
+  constexpr int kPieces = kTile * DT / 8;  // 8 elements a piece
+  constexpr int kEach = (kPieces + kThreads - 1) / kThreads;
+  uint4 held[kTiles][kEach];
+#pragma unroll
+  for (int t = 0; t < kTiles; ++t)
+#pragma unroll
+    for (int e = 0; e < kEach; ++e) {
+      const int i = threadIdx.x + e * kThreads;
+      if (i < kPieces)
+        held[t][e] = reinterpret_cast<const uint4*>(staging<DT, S>(
+            tiles_base + t * Layout<DT>::kTileFloats))[i];
+    }
+  __syncthreads();
+#pragma unroll
+  for (int t = 0; t < kTiles; ++t)
+#pragma unroll
+    for (int e = 0; e < kEach; ++e) {
+      const int i = threadIdx.x + e * kThreads;
+      if (i >= kPieces) continue;
+      const int row = i / (DT / 8), c = (i - row * (DT / 8)) * 8;
+      float* out = tiles_base + t * Layout<DT>::kTileFloats +
+                   row * Layout<DT>::kStride + c;
+      const S* v = reinterpret_cast<const S*>(&held[t][e]);
+      float w[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) w[j] = c < D ? widen(v[j]) : 0.0f;
+      *reinterpret_cast<float4*>(out) = make_float4(w[0], w[1], w[2], w[3]);
+      *reinterpret_cast<float4*>(out + 4) = make_float4(w[4], w[5], w[6], w[7]);
+    }
+  __syncthreads();
+}
+
 // the asynchronous tile load, for the two tensors that always travel
 // together (K and V, Q and dO; kTensors 2) or for Q alone (B4; kTensors 1,
 // src_b unused): 16-byte copies when `vec`
-template <int DT, int kTensors = 2>
-__device__ __forceinline__ void load_pair_async(float* dst, const float* src_a,
-                                                const float* src_b, int b,
+template <int DT, typename S, int kTensors = 2>
+__device__ __forceinline__ void load_pair_async(float* dst, const S* src_a,
+                                                const S* src_b, int b,
                                                 int h, int row0, int L,
                                                 const Dims& p, bool vec) {
   constexpr int kStride = Layout<DT>::kStride;
   const int64_t head = elem(p, b, L, 0, h, 0);
   const int64_t row_stride = static_cast<int64_t>(p.H) * p.D;
-  if (vec && p.D == DT)  // the division by a constant folds
+  if constexpr (!kWide<S>) {
+    // 16-bit: staged for widen_tiles when vec (D % 8 == 0), else widened
+    // here
+    if (vec)
+      stage_rows<DT, S, kTensors>(dst, src_a, src_b, head, row_stride, row0,
+                                  L, p.D / 8);
+    else
+      widen_rows<DT, S, kTensors>(dst, src_a, src_b, head, row_stride, row0,
+                                  L, p.D);
+  } else if (vec && p.D == DT) {  // the division by a constant folds
     copy_rows<kStride, 16, kTensors>(dst, src_a, src_b, head, row_stride,
                                      row0, L, DT / 4);
-  else if (vec)
+  } else if (vec) {
     copy_rows<kStride, 16, kTensors>(dst, src_a, src_b, head, row_stride,
                                      row0, L, p.D / 4);
-  else
+  } else {
     copy_rows<kStride, 4, kTensors>(dst, src_a, src_b, head, row_stride,
                                     row0, L, p.D);
+  }
 }
 
 // lse, delta and glse of query rows [row0, row0 + 64) into dst[3][64]
@@ -393,9 +539,9 @@ __device__ __forceinline__ void accumulate(
 
 // the lane's piece of a [64][DT] result into rows [row0, row0 + 64) of head
 // h of a [B, L, H, D] tensor
-template <int DT>
+template <int DT, typename S>
 __device__ __forceinline__ void store_rows(
-    float* dst, const float4 (&acc)[Layout<DT>::kRows][Layout<DT>::kCols],
+    S* dst, const float4 (&acc)[Layout<DT>::kRows][Layout<DT>::kCols],
     const Owned<DT>& own, int b, int h, int row0, int L, const Dims& p,
     bool vec) {
   using T = Layout<DT>;
@@ -406,15 +552,20 @@ __device__ __forceinline__ void store_rows(
       const int row = row0 + own.row + i * T::kRowLanes;
       const int col = own.col + 4 * T::kColLanes * j;
       if (row >= L || col >= p.D) continue;
-      float* o = dst + elem(p, b, L, row, h, col);
-      if (vec) {
+      S* o = dst + elem(p, b, L, row, h, col);
+      const float a[4] = {acc[i][j].x, acc[i][j].y, acc[i][j].z,
+                          acc[i][j].w};
+      if (vec && kWide<S>) {
         *reinterpret_cast<float4*>(o) = acc[i][j];
+      } else if (vec) {  // 4 16-bit values, 8 bytes
+        S n[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) n[c] = narrow<S>(a[c]);
+        *reinterpret_cast<uint2*>(o) = *reinterpret_cast<const uint2*>(n);
       } else {
-        const float a[4] = {acc[i][j].x, acc[i][j].y, acc[i][j].z,
-                            acc[i][j].w};
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          if (col + c < p.D) o[c] = a[c];
+          if (col + c < p.D) o[c] = narrow<S>(a[c]);
       }
     }
   }
@@ -540,10 +691,10 @@ __device__ __forceinline__ void online_softmax(float (&s)[4][4],
   }
 }
 
-template <int DT>
+template <int DT, typename S>
 __global__ void __launch_bounds__(kThreads, Layout<DT>::kMinBlocks)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out,
+flash_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
+                 const S* __restrict__ v, S* __restrict__ out,
                  float* __restrict__ lse, Dims p, int vec) {
   using T = Layout<DT>;
   extern __shared__ float4 smem[];
@@ -556,9 +707,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // heavy tiles first
   const int n = key_tiles(p, q0);
 
-  if (p.D < DT) zero_pad_columns<DT>(Qs, 1 + 2 * T::kStages, p.D);
+  // a staged 16-bit tile is widened with its pad columns
+  const bool staged = !kWide<S> && vec;
+  if (p.D < DT && !staged)
+    zero_pad_columns<DT>(Qs, 1 + 2 * T::kStages, p.D);
   if (n > 0) {
-    load_pair_async<DT, 1>(Qs, q, nullptr, b, h, q0, p.Lq, p, vec);
+    load_pair_async<DT, S, 1>(Qs, q, nullptr, b, h, q0, p.Lq, p, vec);
     load_pair_async<DT>(KVs, k, v, b, h, 0, p.Lk, p, vec);
     cp_async_commit();
   }
@@ -581,6 +735,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* Vs = Ks + T::kTileFloats;
     cp_async_wait_all();
     __syncthreads();  // tile kj is here; tile kj - 1's readers are done
+    if (staged) {
+      if (kj == 0) widen_tiles<DT, S, 1>(Qs, p.D);
+      widen_tiles<DT, S, 2>(Ks, p.D);
+    }
     if (T::kStages == 2 && kj + 1 < n) {
       load_pair_async<DT>(KVs + (stage ^ 1) * 2 * T::kTileFloats, k, v, b, h,
                           (kj + 1) * kTile, p.Lk, p, vec);
@@ -659,20 +817,20 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         a.x /= lc, a.y /= lc, a.z /= lc, a.w /= lc;
       }
     }
-    store_rows<DT>(out, acc, own, b, h, q0, p.Lq, p, vec);
+    store_rows<DT, S>(out, acc, own, b, h, q0, p.Lq, p, vec);
   }
 }
 
 // ---------------------------------------------------------------------
 // B5: dq
 // ---------------------------------------------------------------------
-template <int DT>
+template <int DT, typename S>
 __global__ void __launch_bounds__(kThreads, Layout<DT>::kMinBlocks)
-flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ dout,
+flash_dq_kernel(const S* __restrict__ q, const S* __restrict__ k,
+                const S* __restrict__ v, const S* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta,
-                const float* __restrict__ glse, float* __restrict__ dq,
+                const float* __restrict__ glse, S* __restrict__ dq,
                 Dims p, int vec) {
   using T = Layout<DT>;
   extern __shared__ float4 smem[];
@@ -686,7 +844,9 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // heavy tiles first
   const int n = key_tiles(p, q0);
 
-  if (p.D < DT) zero_pad_columns<DT>(Qs, 2 + 2 * T::kStages, p.D);
+  const bool staged = !kWide<S> && vec;
+  if (p.D < DT && !staged)
+    zero_pad_columns<DT>(Qs, 2 + 2 * T::kStages, p.D);
   if (n > 0) {
     load_pair_async<DT>(Qs, q, dout, b, h, q0, p.Lq, p, vec);
     load_stats_async(stats, lse, delta, glse, b, h, q0, p);
@@ -708,6 +868,10 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* Vs = Ks + T::kTileFloats;
     cp_async_wait_all();
     __syncthreads();  // tile kj is here; tile kj - 1's readers are done
+    if (staged) {
+      if (kj == 0) widen_tiles<DT, S, 2>(Qs, p.D);
+      widen_tiles<DT, S, 2>(Ks, p.D);
+    }
     if (T::kStages == 2 && kj + 1 < n) {
       load_pair_async<DT>(KVs + (stage ^ 1) * 2 * T::kTileFloats, k, v, b, h,
                           (kj + 1) * kTile, p.Lk, p, vec);
@@ -748,20 +912,20 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       a.w = (a.w + __shfl_down_sync(0xffffffffu, a.w, 16)) * p.scale;
     }
   }
-  if (own.half == 0) store_rows<DT>(dq, acc, own, b, h, q0, p.Lq, p, vec);
+  if (own.half == 0) store_rows<DT, S>(dq, acc, own, b, h, q0, p.Lq, p, vec);
 }
 
 // ---------------------------------------------------------------------
 // B6: dk, dv
 // ---------------------------------------------------------------------
-template <int DT>
+template <int DT, typename S>
 __global__ void __launch_bounds__(kThreads, Layout<DT>::kMinBlocks)
-flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ dout,
+flash_dkv_kernel(const S* __restrict__ q, const S* __restrict__ k,
+                 const S* __restrict__ v, const S* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta,
-                 const float* __restrict__ glse, float* __restrict__ dk,
-                 float* __restrict__ dv, Dims p, int vec) {
+                 const float* __restrict__ glse, S* __restrict__ dk,
+                 S* __restrict__ dv, Dims p, int vec) {
   using T = Layout<DT>;
   extern __shared__ float4 smem[];
   float* Ks = reinterpret_cast<float*>(smem);
@@ -795,7 +959,9 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      qj * kTile, p);
   };
 
-  if (p.D < DT) zero_pad_columns<DT>(Ks, 2 + 2 * T::kStages, p.D);
+  const bool staged = !kWide<S> && vec;
+  if (p.D < DT && !staged)
+    zero_pad_columns<DT>(Ks, 2 + 2 * T::kStages, p.D);
   if (first < nq) {
     load_pair_async<DT>(Ks, k, v, b, h, k0, p.Lk, p, vec);
     load_stage(0, first);
@@ -817,6 +983,10 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* Gs = Qs + T::kTileFloats;
     cp_async_wait_all();
     __syncthreads();  // tile qj is here; tile qj - 1's readers are done
+    if (staged) {
+      if (qj == first) widen_tiles<DT, S, 2>(Ks, p.D);
+      widen_tiles<DT, S, 2>(Qs, p.D);
+    }
     if (T::kStages == 2 && qj + 1 < nq) {
       load_stage(stage ^ 1, qj + 1);
       cp_async_commit();
@@ -857,7 +1027,8 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         a.x *= p.scale, a.y *= p.scale, a.z *= p.scale, a.w *= p.scale;
       }
   }
-  store_rows<DT>(own.half == 0 ? dv : dk, acc, own, b, h, k0, p.Lk, p, vec);
+  store_rows<DT, S>(own.half == 0 ? dv : dk, acc, own, b, h, k0, p.Lk, p,
+                    vec);
 }
 
 // ---------------------------------------------------------------------
@@ -893,15 +1064,16 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* granted) {
   return e;
 }
 
-// 16-byte copies and stores need D % 4 == 0 and every tensor aligned
-bool vector_path(const void* const* ptr, int n, int D) {
-  if (D % 4 != 0) return false;
+// 16-byte copies and stores need every tensor 16-byte aligned and D % 4 ==
+// 0 (f32: 4 elements a copy) or D % 8 == 0 (16-bit: 8)
+bool vector_path(const void* const* ptr, int n, int D, int elems) {
+  if (D % elems != 0) return false;
   for (int i = 0; i < n; ++i)
     if (reinterpret_cast<uintptr_t>(ptr[i]) % 16 != 0) return false;
   return true;
 }
 
-template <int DT>
+template <int DT, typename S>
 cudaError_t launch(int which, const void* const* ptr, const Dims& p,
                    cudaStream_t stream) {
   static size_t granted[3] = {0, 0, 0};
@@ -910,30 +1082,31 @@ cudaError_t launch(int which, const void* const* ptr, const Dims& p,
   const int nk = (p.Lk + kTile - 1) / kTile;
   const dim3 grid(static_cast<unsigned>(p.B * p.H),
                   static_cast<unsigned>(which == kDkv ? nk : nq));
-  const float* const* f = reinterpret_cast<const float* const*>(ptr);
+  const S* const* f = reinterpret_cast<const S* const*>(ptr);
+  const float* const* st = reinterpret_cast<const float* const*>(ptr);
+  constexpr int kElems = 16 / static_cast<int>(sizeof(S));
   cudaError_t e;
   switch (which) {
     case kFwd:
-      e = allow_smem(flash_fwd_kernel<DT>, bytes, &granted[kFwd]);
+      e = allow_smem(flash_fwd_kernel<DT, S>, bytes, &granted[kFwd]);
       if (e != cudaSuccess) return e;
-      flash_fwd_kernel<DT><<<grid, kThreads, bytes, stream>>>(
-          f[0], f[1], f[2], const_cast<float*>(f[3]),
-          const_cast<float*>(f[4]), p, vector_path(ptr, 4, p.D));
+      flash_fwd_kernel<DT, S><<<grid, kThreads, bytes, stream>>>(
+          f[0], f[1], f[2], const_cast<S*>(f[3]), const_cast<float*>(st[4]),
+          p, vector_path(ptr, 4, p.D, kElems));
       break;
     case kDq:
-      e = allow_smem(flash_dq_kernel<DT>, bytes, &granted[kDq]);
+      e = allow_smem(flash_dq_kernel<DT, S>, bytes, &granted[kDq]);
       if (e != cudaSuccess) return e;
-      flash_dq_kernel<DT><<<grid, kThreads, bytes, stream>>>(
-          f[0], f[1], f[2], f[3], f[4], f[5], f[6],
-          const_cast<float*>(f[7]), p, vector_path(ptr, 8, p.D));
+      flash_dq_kernel<DT, S><<<grid, kThreads, bytes, stream>>>(
+          f[0], f[1], f[2], f[3], st[4], st[5], st[6], const_cast<S*>(f[7]),
+          p, vector_path(ptr, 8, p.D, kElems));
       break;
     default:
-      e = allow_smem(flash_dkv_kernel<DT>, bytes, &granted[kDkv]);
+      e = allow_smem(flash_dkv_kernel<DT, S>, bytes, &granted[kDkv]);
       if (e != cudaSuccess) return e;
-      flash_dkv_kernel<DT><<<grid, kThreads, bytes, stream>>>(
-          f[0], f[1], f[2], f[3], f[4], f[5], f[6],
-          const_cast<float*>(f[7]), const_cast<float*>(f[8]), p,
-          vector_path(ptr, 9, p.D));
+      flash_dkv_kernel<DT, S><<<grid, kThreads, bytes, stream>>>(
+          f[0], f[1], f[2], f[3], st[4], st[5], st[6], const_cast<S*>(f[7]),
+          const_cast<S*>(f[8]), p, vector_path(ptr, 9, p.D, kElems));
       break;
   }
   return cudaGetLastError();
@@ -942,13 +1115,14 @@ cudaError_t launch(int which, const void* const* ptr, const Dims& p,
 // what the compiler and the card give pass `which` at this width:
 // registers a thread, local memory a thread (stack and spills) and the
 // blocks an SM holds at the pass's shared memory
-template <int DT>
+template <int DT, typename S>
 cudaError_t info(int which, int D, int* regs, int* local_bytes,
                  int* blocks_per_sm) {
   const void* kernel =
-      which == kFwd ? reinterpret_cast<const void*>(flash_fwd_kernel<DT>)
-      : which == kDq ? reinterpret_cast<const void*>(flash_dq_kernel<DT>)
-                     : reinterpret_cast<const void*>(flash_dkv_kernel<DT>);
+      which == kFwd ? reinterpret_cast<const void*>(flash_fwd_kernel<DT, S>)
+      : which == kDq
+          ? reinterpret_cast<const void*>(flash_dq_kernel<DT, S>)
+          : reinterpret_cast<const void*>(flash_dkv_kernel<DT, S>);
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
   if (e != cudaSuccess) return e;
@@ -965,18 +1139,20 @@ cudaError_t info(int which, int D, int* regs, int* local_bytes,
                                                        kThreads, bytes);
 }
 
-// call fn<DT> at the instantiation that serves head width D (DT is
+// call fn<DT, S> at the instantiation that serves head width D (DT is
 // padded_width(D))
-#define FLASH_BY_WIDTH(D, fn, ...)                \
-  ((D) <= 8    ? fn<8>(__VA_ARGS__)               \
-   : (D) <= 16 ? fn<16>(__VA_ARGS__)              \
-   : (D) <= 32 ? fn<32>(__VA_ARGS__)              \
-   : (D) <= 64 ? fn<64>(__VA_ARGS__)              \
-               : fn<128>(__VA_ARGS__))
+#define FLASH_BY_WIDTH(D, fn, S, ...)                \
+  ((D) <= 8    ? fn<8, S>(__VA_ARGS__)               \
+   : (D) <= 16 ? fn<16, S>(__VA_ARGS__)              \
+   : (D) <= 32 ? fn<32, S>(__VA_ARGS__)              \
+   : (D) <= 64 ? fn<64, S>(__VA_ARGS__)              \
+               : fn<128, S>(__VA_ARGS__))
+
+enum Storage { kF32 = 0, kBf16 = 1, kF16 = 2 };
 
 int dispatch(int which, const void* const* ptr, int B, int Lq, int Lk,
              int H, int D, int causal, int q_off, int k_off, float scale,
-             void* stream) {
+             int storage, void* stream) {
   if (D < 1 || D > 128 || B < 0 || H < 0 || Lq < 0 || Lk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = ((which == kDkv ? Lk : Lq) + kTile - 1) / kTile;
@@ -985,58 +1161,151 @@ int dispatch(int which, const void* const* ptr, int B, int Lq, int Lk,
   if (B == 0 || H == 0 || tiles == 0) return 0;
   const Dims p{B, Lq, Lk, H, D, causal != 0, q_off, k_off, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(FLASH_BY_WIDTH(D, launch, which, ptr, p, s));
+  switch (storage) {
+    case kF32:
+      return static_cast<int>(
+          FLASH_BY_WIDTH(D, launch, float, which, ptr, p, s));
+    case kBf16:
+      return static_cast<int>(
+          FLASH_BY_WIDTH(D, launch, __nv_bfloat16, which, ptr, p, s));
+    case kF16:
+      return static_cast<int>(
+          FLASH_BY_WIDTH(D, launch, __half, which, ptr, p, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // Each launcher runs on `stream`, does not synchronise, and returns
-// cudaGetLastError() (0 on success).  Offsets are global positions.
+// cudaGetLastError() (0 on success).  Offsets are global positions.  The
+// unsuffixed launchers take float32 q, k, v, dO and outputs; the _bf16 and
+// _f16 ones take them in bfloat16 or float16 (lse, delta and glse are
+// float32 in every case).
 
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, void* lse, int B, int Lq, int Lk,
-                                int H, int D, int causal, int q_off,
-                                int k_off, float scale, void* stream) {
+                                int H, int D, int causal, int q_off, int k_off,
+                                float scale, void* stream) {
   const void* ptr[] = {q, k, v, out, lse};
   return dispatch(kFwd, ptr, B, Lq, Lk, H, D, causal, q_off, k_off, scale,
-                  stream);
+                  kF32, stream);
 }
 
 extern "C" int flash_dq_launch(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, const void* glse, void* dq,
-                               int B, int Lq, int Lk, int H, int D,
-                               int causal, int q_off, int k_off, float scale,
+                               int B, int Lq, int Lk, int H, int D, int causal,
+                               int q_off, int k_off, float scale,
                                void* stream) {
   const void* ptr[] = {q, k, v, dout, lse, delta, glse, dq};
   return dispatch(kDq, ptr, B, Lq, Lk, H, D, causal, q_off, k_off, scale,
-                  stream);
+                  kF32, stream);
 }
 
 extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
-                                const void* delta, const void* glse,
-                                void* dk, void* dv, int B, int Lq, int Lk,
-                                int H, int D, int causal, int q_off,
-                                int k_off, float scale, void* stream) {
+                                const void* delta, const void* glse, void* dk,
+                                void* dv, int B, int Lq, int Lk, int H, int D,
+                                int causal, int q_off, int k_off, float scale,
+                                void* stream) {
   const void* ptr[] = {q, k, v, dout, lse, delta, glse, dk, dv};
   return dispatch(kDkv, ptr, B, Lq, Lk, H, D, causal, q_off, k_off, scale,
-                  stream);
+                  kF32, stream);
 }
 
-// shared memory a block of pass `which` (0 B4, 1 B5, 2 B6) uses at D
+extern "C" int flash_fwd_launch_bf16(const void* q, const void* k,
+                                     const void* v, void* out, void* lse, int B,
+                                     int Lq, int Lk, int H, int D, int causal,
+                                     int q_off, int k_off, float scale,
+                                     void* stream) {
+  const void* ptr[] = {q, k, v, out, lse};
+  return dispatch(kFwd, ptr, B, Lq, Lk, H, D, causal, q_off, k_off, scale,
+                  kBf16, stream);
+}
+
+extern "C" int flash_dq_launch_bf16(const void* q, const void* k, const void* v,
+                                    const void* dout, const void* lse,
+                                    const void* delta, const void* glse,
+                                    void* dq, int B, int Lq, int Lk, int H,
+                                    int D, int causal, int q_off, int k_off,
+                                    float scale, void* stream) {
+  const void* ptr[] = {q, k, v, dout, lse, delta, glse, dq};
+  return dispatch(kDq, ptr, B, Lq, Lk, H, D, causal, q_off, k_off, scale,
+                  kBf16, stream);
+}
+
+extern "C" int flash_dkv_launch_bf16(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const void* lse, const void* delta,
+                                     const void* glse, void* dk, void* dv,
+                                     int B, int Lq, int Lk, int H, int D,
+                                     int causal, int q_off, int k_off,
+                                     float scale, void* stream) {
+  const void* ptr[] = {q, k, v, dout, lse, delta, glse, dk, dv};
+  return dispatch(kDkv, ptr, B, Lq, Lk, H, D, causal, q_off, k_off, scale,
+                  kBf16, stream);
+}
+
+extern "C" int flash_fwd_launch_f16(const void* q, const void* k, const void* v,
+                                    void* out, void* lse, int B, int Lq, int Lk,
+                                    int H, int D, int causal, int q_off,
+                                    int k_off, float scale, void* stream) {
+  const void* ptr[] = {q, k, v, out, lse};
+  return dispatch(kFwd, ptr, B, Lq, Lk, H, D, causal, q_off, k_off, scale,
+                  kF16, stream);
+}
+
+extern "C" int flash_dq_launch_f16(const void* q, const void* k, const void* v,
+                                   const void* dout, const void* lse,
+                                   const void* delta, const void* glse,
+                                   void* dq, int B, int Lq, int Lk, int H,
+                                   int D, int causal, int q_off, int k_off,
+                                   float scale, void* stream) {
+  const void* ptr[] = {q, k, v, dout, lse, delta, glse, dq};
+  return dispatch(kDq, ptr, B, Lq, Lk, H, D, causal, q_off, k_off, scale,
+                  kF16, stream);
+}
+
+extern "C" int flash_dkv_launch_f16(const void* q, const void* k, const void* v,
+                                    const void* dout, const void* lse,
+                                    const void* delta, const void* glse,
+                                    void* dk, void* dv, int B, int Lq, int Lk,
+                                    int H, int D, int causal, int q_off,
+                                    int k_off, float scale, void* stream) {
+  const void* ptr[] = {q, k, v, dout, lse, delta, glse, dk, dv};
+  return dispatch(kDkv, ptr, B, Lq, Lk, H, D, causal, q_off, k_off, scale,
+                  kF16, stream);
+}
+
+// shared memory a block of pass `which` (0 B4, 1 B5, 2 B6) uses at D (the
+// same in every storage type)
 extern "C" long long flash_smem_bytes(int which, int D) {
   return static_cast<long long>(smem_bytes(which, D));
 }
 
 // registers a thread, local memory a thread in bytes (0 means no spill)
-// and resident blocks an SM of pass `which` at D; returns a CUDA error code
+// and resident blocks an SM of pass `which` at D; returns a CUDA error
+// code.  `which` is the pass (0 B4, 1 B5, 2 B6) plus 3 times the storage
+// (0 float32, 1 bfloat16, 2 float16)
 extern "C" int flash_kernel_info(int which, int D, int* regs,
                                  int* local_bytes, int* blocks_per_sm) {
-  if (which < kFwd || which > kDkv || D < 1 || D > 128)
+  if (which < 0 || which > 8 || D < 1 || D > 128)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(
-      FLASH_BY_WIDTH(D, info, which, D, regs, local_bytes, blocks_per_sm));
+  const int pass = which % 3;
+  switch (which / 3) {
+    case kF32:
+      return static_cast<int>(FLASH_BY_WIDTH(D, info, float, pass, D, regs,
+                                             local_bytes, blocks_per_sm));
+    case kBf16:
+      return static_cast<int>(FLASH_BY_WIDTH(D, info, __nv_bfloat16, pass, D,
+                                             regs, local_bytes,
+                                             blocks_per_sm));
+    default:
+      return static_cast<int>(FLASH_BY_WIDTH(D, info, __half, pass, D, regs,
+                                             local_bytes, blocks_per_sm));
+  }
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -30,6 +30,10 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     # three decimal digits), so both are pinned off for the whole process.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # Under model_config.dtype bfloat16 / float16, XLA sums a 16-bit GEMM
+    # in float32; cuBLAS may otherwise reduce in the 16-bit type.
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     # The JAX package replays a run bit for bit (a resumed run equals an
     # uninterrupted one).  cuDNN otherwise picks convolution algorithms
     # that sum with atomics, and two runs of one config then differ.

@@ -28,7 +28,7 @@ from .config import FLUTEConfig
 from .device import resolve_device
 from .engine import OptimizationServer, select_server
 from .models import make_task
-from .tasks import build_task_datasets
+from .tasks import build_server_train_dataset, build_task_datasets
 from .utils.logging import MetricsLog, init_logging, print_rank
 
 
@@ -70,7 +70,9 @@ def main(argv: Optional[Sequence[str]] = None) -> OptimizationServer:
         server_cls = select_server(cfg.server_config.get("type"))
         server = server_cls(task, cfg, train_ds, val_dataset=val_ds,
                             test_dataset=test_ds, model_dir=model_dir,
-                            device=device, metrics=metrics)
+                            device=device, metrics=metrics,
+                            server_train_dataset=build_server_train_dataset(
+                                cfg, task))
         server.train()
     finally:
         metrics.close()

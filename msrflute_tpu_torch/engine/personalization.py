@@ -143,7 +143,7 @@ class PersonalizationServer(OptimizationServer):
     def __init__(self, task, config, train_dataset, val_dataset=None,
                  test_dataset=None, model_dir: str = "./models",
                  device=None, seed: int = 0, init_params=None,
-                 metrics=None):
+                 metrics=None, server_train_dataset=None):
         sc, cc = config.server_config, config.client_config
         # the personal pass reads the current global model every round
         if int(sc.get("rounds_per_step", 1) or 1) > 1:
@@ -160,7 +160,8 @@ class PersonalizationServer(OptimizationServer):
             init_params = task.init_params(seed)
         super().__init__(task, config, train_dataset, val_dataset,
                          test_dataset, model_dir=model_dir, device=device,
-                         seed=seed, init_params=init_params, metrics=metrics)
+                         seed=seed, init_params=init_params, metrics=metrics,
+                         server_train_dataset=server_train_dataset)
         self._initial_params = (
             self.engine.layout.flatten(init_params).to(self.device)
             if self.init_kind == "initial" else None)

@@ -70,6 +70,16 @@ def pallas_apply_flag(server_config) -> bool:
                                                           False))
 
 
+def precision_policy(server_config) -> Dict[str, str]:
+    """``server_config.precision`` -> ``{"params"|"compute"|"stats":
+    dtype name}``: empty when absent or ``enable: false``."""
+    raw = server_config.get("precision") or {}
+    if not raw or not bool(raw.get("enable", True)):
+        return {}
+    return {k: str(raw[k]) for k in ("params", "compute", "stats")
+            if raw.get(k) is not None}
+
+
 class RoundEngine:
     def __init__(self, task: BaseTask, config, strategy: BaseStrategy,
                  device: torch.device, seed: int = 0):
@@ -82,11 +92,22 @@ class RoundEngine:
         #: the leaves' offsets in the flat vector, then its length
         self.bounds = list(self.layout.offsets) + [self.layout.numel]
         cc, sc = config.client_config, config.server_config
+        freeze = cc.get("freeze_layer") or []
+        if isinstance(freeze, str):
+            freeze = [freeze]
+        #: the precision policy as the JAX engine normalizes it
+        #: (``round.py:185-197``): off under ``enable: false``, else each
+        #: dtype given
+        self.precision = precision_policy(sc)
         self.hparams = ClientHParams(
             max_grad_norm=cc.get("max_grad_norm"),
             fedprox_mu=float(cc.get("fedprox_mu", 0.0) or 0.0),
             num_epochs=int(cc.get("num_epochs", 1) or 1),
-            pallas_apply=pallas_apply_flag(sc))
+            pallas_apply=pallas_apply_flag(sc),
+            freeze_layers=tuple(freeze),
+            param_dtype=self.precision.get("params"),
+            compute_dtype=self.precision.get("compute"),
+            stats_dtype=self.precision.get("stats"))
         self.client_update = build_client_update(
             task, cc.optimizer_config, self.hparams)
         self.server_opt = make_optimizer(sc.optimizer_config)
@@ -184,7 +205,7 @@ class RoundEngine:
             agg = agg * torch.clamp(float(self.server_max_grad_norm)
                                     / torch.clamp(norm, min=1e-12), max=1.0)
         new_params, opt_state = self.server_opt.step(
-            state.params, agg, state.opt_state, server_lr)
+            state.params, agg, state.opt_state, server_lr, self.bounds)
         count = cm.sum()
         denom = torch.clamp(count, min=1.0)
         # the JAX package's choice: the "default" part's weight sum, else

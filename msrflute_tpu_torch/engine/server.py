@@ -7,7 +7,10 @@ logged, the leakage threshold adapted to a quantile of the round's
 leakages), and
 ``_round_housekeeping`` (val/test cadence, best model, client-LR decay,
 plateau LR, fall-back-to-best, checkpoint, ``status_log.json``), with
-``resume_from_checkpoint``.
+``resume_from_checkpoint``, and server replay (``server.py:629-646,
+2366-2411``): after each round, ``server_iterations`` local epochs on the
+server's own ``train_data_server`` blob with the replay optimizer and its
+``updatable_names``.
 
 Rounds run one after another.  ``rounds_per_step`` keeps the JAX
 package's host-side order of random draws — a chunk of R rounds (never
@@ -24,18 +27,24 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
-from ..config import parse_clients_per_round
+from ..config import OptimizerConfig, parse_clients_per_round
 from ..data.batching import (pack_eval_batches, pack_round_batches,
                              pow2_ceil, steps_for)
+from ..data.dataset import ArraysDataset
 from ..device import DeviceLike, resolve_device
 from ..models.base import BaseTask, Metric, Params
 from ..optim import PlateauTracker, make_lr_schedule
 from ..strategies import select_strategy
 from ..utils.logging import MetricsLog, print_rank
 from .checkpoint import CheckpointManager
+from .client_update import ClientHParams, build_client_update
 from .evaluation import evaluate, stage_eval_batches
-from .round import RoundEngine
+from .round import SERVER_SLOT, RoundEngine, ServerState
+
+#: the replay's dropout stream: ``[seed, r, SERVER_SLOT, REPLAY_TAG]``
+REPLAY_TAG = 5
 
 
 class OptimizationServer:
@@ -43,7 +52,8 @@ class OptimizationServer:
                  val_dataset=None, test_dataset=None,
                  model_dir: str = "./models", device: DeviceLike = None,
                  seed: int = 0, init_params: Optional[Params] = None,
-                 metrics: Optional[MetricsLog] = None):
+                 metrics: Optional[MetricsLog] = None,
+                 server_train_dataset=None):
         self.task = task
         self.config = config
         self.train_dataset = train_dataset
@@ -83,6 +93,26 @@ class OptimizationServer:
             if pm.get("adaptive_leakage_threshold"):
                 self.adaptive_leakage = float(
                     pm.get("adaptive_leakage_threshold"))
+
+        # server replay (reference core/server.py:429-442): on only with
+        # both the block and the server's data, as in the JAX package
+        self.server_replay: Optional[dict] = None
+        replay = sc.get("server_replay_config")
+        if replay is not None and server_train_dataset is not None:
+            if getattr(self.strategy, "owns_server_update", False):
+                raise ValueError(
+                    f"{type(self.strategy).__name__} maintains coupled "
+                    "parameter sequences; server replay would mutate params "
+                    "behind its back — disable server_replay_config")
+            names = replay.get("updatable_names")
+            self.server_replay = {
+                "dataset": server_train_dataset,
+                "iterations": int(replay.get("server_iterations", 1)),
+                "opt_cfg": OptimizerConfig.from_dict(
+                    replay.get("optimizer_config")),
+                # None: no allowlist; an empty list freezes every leaf
+                "updatable_names": (None if names is None
+                                    else tuple(names))}
 
         # quantization threshold annealing (reference core/server.py:294-298)
         self.quant_thresh = cc.get("quant_thresh") or \
@@ -182,6 +212,10 @@ class OptimizationServer:
         if self.state.round == 0 and sc.get("initial_rec", False):
             self._maybe_eval("test", 0)
         rounds_per_step = max(int(sc.get("rounds_per_step", 1) or 1), 1)
+        if self.server_replay is not None and rounds_per_step > 1:
+            # the reference replays after every round (core/server.py:429)
+            print_rank("server replay forces rounds_per_step=1")
+            rounds_per_step = 1
 
         def chunk_R(r0: int) -> int:
             until_val = (val_freq - (r0 % val_freq)
@@ -233,11 +267,52 @@ class OptimizationServer:
                 self.metrics.log("Client learning rate", client_lr, step=r)
                 self.metrics.log("Agg. grad norm", stats["agg_grad_norm"],
                                  step=r)
+                if self.server_replay is not None:
+                    self._run_server_replay(r)
             round_no += R
             self._round_housekeeping(round_no, val_freq, rec_freq)
         self._log_timing()
         self.metrics.flush()
         return self.state
+
+    def _run_server_replay(self, round_idx: int) -> None:
+        """``server_iterations`` epochs of the replay optimizer over the
+        server's data, every user's samples in one client, repacked (and
+        reshuffled from ``_np_rng``) each round; the result replaces the
+        global params, the server optimizer's state is left as it is
+        (``msrflute_tpu/engine/server.py:2366-2411``)."""
+        replay = self.server_replay
+        if "update" not in replay:
+            names = replay["updatable_names"]
+            replay["update"] = build_client_update(
+                self.task, replay["opt_cfg"],
+                ClientHParams(num_epochs=replay["iterations"],
+                              updatable_layers=names))
+            ds = replay["dataset"]
+            merged = {k: np.concatenate([ds.user_arrays(i)[k]
+                                         for i in range(len(ds))])
+                      for k in ds.user_arrays(0)}
+            n = len(next(iter(merged.values())))
+            bs = int(self.config.server_config.data_config.train.get(
+                "batch_size", self.batch_size))
+            replay["pack"] = (ArraysDataset(["server"], [merged]), bs,
+                              steps_for(n, bs))
+            replay["lr"] = float(replay["opt_cfg"].get("lr", 0.01))
+        one, bs, steps = replay["pack"]
+        batch = pack_round_batches(one, [0], bs, steps, rng=self._np_rng)
+        dev = self.device
+        arrays = {k: torch.from_numpy(v).to(dev)
+                  for k, v in batch.arrays.items()}
+        mask = torch.from_numpy(batch.sample_mask).to(dev)
+        gens = (self.engine.client_generators(round_idx, [SERVER_SLOT],
+                                              tag=REPLAY_TAG)
+                if self.engine.random else None)
+        pg, tl, _, _ = replay["update"](self.state.params, arrays, mask,
+                                        replay["lr"], gens)
+        st = self.state
+        self.state = ServerState(st.params - pg[0], st.opt_state, st.round,
+                                 st.strategy_state)
+        print_rank(f"server replay loss {float(tl[0]):.4f}")
 
     def _process_privacy_stats(self, stats: Dict[str, np.ndarray],
                                round_no: int) -> None:

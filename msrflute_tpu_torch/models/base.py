@@ -32,6 +32,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
+from ..config import model_dtype
+
 Params = Dict[str, torch.Tensor]
 Batch = Dict[str, torch.Tensor]
 
@@ -47,12 +49,49 @@ class Metric:
         return self.value < other.value
 
 
-def to_float_image(x: torch.Tensor) -> torch.Tensor:
+#: ``model_config.dtype`` names (:data:`..config.DTYPE_NAMES`) as torch
+#: dtypes
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16}
+
+
+def parse_dtype(model_config) -> torch.dtype:
+    """``model_config.dtype`` -> the dtype a model computes in (the JAX
+    package's ``parse_dtype``, ``msrflute_tpu/models/base.py:78-92``):
+    parameters stay float32, each layer casts its inputs and weights, and
+    the loss and metrics run on float32 logits."""
+    return TORCH_DTYPES[model_dtype(model_config)]
+
+
+def to_float_image(x: torch.Tensor,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """uint8 pixels normalize to [0, 1] on the device; anything else is
-    cast to float32."""
+    cast to ``dtype``.  In a 16-bit dtype the factor 1/255 is rounded to
+    it first, as the JAX package's weakly typed scalar is."""
     if x.dtype == torch.uint8:
-        return x.to(torch.float32) * (1.0 / 255.0)
-    return x.to(torch.float32)
+        if dtype == torch.float32:
+            return x.to(torch.float32) * (1.0 / 255.0)
+        return x.to(dtype) * torch.tensor(1.0 / 255.0, dtype=dtype,
+                                          device=x.device)
+    return x.to(dtype)
+
+
+def linear(layer: nn.Linear, x: torch.Tensor,
+           dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=...)`` with ``layer``'s ``[out, in]`` weight:
+    input, weight and bias cast to ``dtype`` (``promote_dtype``), output in
+    ``dtype``.  In float32 it is ``layer(x)``."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def conv(layer: nn.Conv2d, x: torch.Tensor,
+         dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Conv(dtype=...)`` with ``layer``'s weight over NCHW ``x``:
+    input, weight and bias cast to ``dtype``, output in ``dtype``."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.conv2d(x.to(dtype), layer.weight.to(dtype), bias,
+                    stride=layer.stride, padding=layer.padding)
 
 
 def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

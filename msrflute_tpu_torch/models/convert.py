@@ -30,7 +30,7 @@ leaves in ``ravel_pytree`` order.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -86,17 +86,25 @@ def from_jax_params(task: BaseTask, params_np: Dict[str, Any]
     return {name: out[name] for name in want}
 
 
+def flax_path(name: str) -> Tuple[str, ...]:
+    """The flax path of the port's leaf ``name`` (``Dense_0.weight`` ->
+    ``("Dense_0", "kernel")``): the keys the JAX package's layer controls
+    join, ``/`` for ``freeze_layer`` and ``.`` for ``updatable_layers``."""
+    *path, leaf = name.split(".")
+    return (*path, _FLAX_NAME.get(leaf, leaf))
+
+
 def to_jax_params(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """Inverse of :func:`from_jax_params`: the port's tensors -> flax's
     nested dict of numpy arrays."""
     out: Dict[str, Any] = {}
     for name, tensor in params.items():
-        *path, leaf = name.split(".")
+        *path, leaf = flax_path(name)
         arr = tensor.detach().cpu().numpy()
-        if leaf == "weight":
+        if name.split(".")[-1] == "weight":
             arr = np.ascontiguousarray(_to_flax_layout(arr))
         node = out
         for key in path:
             node = node.setdefault(key, {})
-        node[_FLAX_NAME.get(leaf, leaf)] = arr
+        node[leaf] = arr
     return out

@@ -7,6 +7,12 @@ Layouts follow the JAX package at the public boundary: images are NHWC
 are in flax order and weights carry across 1:1 (:mod:`.convert`).
 Parameter names are the flax module names: ``Conv_0.weight``,
 ``Dense_1.bias``, ...
+
+``model_config.dtype`` (bfloat16, float16) is the JAX modules' ``dtype``:
+each convolution and dense layer casts its input, weight and bias to it
+and outputs it (flax's ``promote_dtype``), images normalize in it; the
+parameters stay float32 and the logits come back float32.  The same
+casts serve a precision policy's 16-bit leaves in a float32 model.
 """
 
 from __future__ import annotations
@@ -22,8 +28,9 @@ from ..data.augment import rand_augment
 from ..data.dataset import ArraysDataset
 from ..data.featurize import to_image
 from ..data.user_blob import UserBlob
-from .base import (BaseTask, Batch, Metric, Params, dropout,
-                   lecun_normal_, masked_mean, softmax_xent, to_float_image)
+from .base import (BaseTask, Batch, Metric, Params, conv, dropout,
+                   lecun_normal_, linear, masked_mean, parse_dtype,
+                   softmax_xent, to_float_image)
 
 
 class LRModule(nn.Module):
@@ -32,13 +39,16 @@ class LRModule(nn.Module):
     sigmoid activations, not logits, into the cross entropy."""
 
     def __init__(self, num_classes: int = 10, input_dim: int = 784,
-                 sigmoid_output: bool = False):
+                 sigmoid_output: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.Dense_0 = nn.Linear(input_dim, num_classes)
         self.sigmoid_output = sigmoid_output
+        self.dtype = dtype
 
     def forward(self, x, masks: Tuple[torch.Tensor, ...] = ()):
-        out = self.Dense_0(to_float_image(x).reshape(x.shape[0], -1))
+        out = linear(self.Dense_0, to_float_image(x, self.dtype).reshape(
+            x.shape[0], -1), self.dtype)
         return torch.sigmoid(out) if self.sigmoid_output else out
 
 
@@ -49,28 +59,30 @@ class CNNFEMNISTModule(nn.Module):
     dropout(.25) -> flatten(9216) -> fc128 -> relu -> dropout(.5) -> fc62."""
 
     def __init__(self, num_classes: int = 62, drop1: float = 0.25,
-                 drop2: float = 0.5):
+                 drop2: float = 0.5, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.Conv_0 = nn.Conv2d(1, 32, 3)
         self.Conv_1 = nn.Conv2d(32, 64, 3)
         self.Dense_0 = nn.Linear(9216, 128)
         self.Dense_1 = nn.Linear(128, num_classes)
         self.drop1, self.drop2 = drop1, drop2
+        self.dtype = dtype
 
     def forward(self, x, masks: Tuple[torch.Tensor, ...] = ()):
+        dt = self.dtype
         if x.ndim == 3:
             x = x[..., None]
-        x = to_float_image(x).permute(0, 3, 1, 2)          # NHWC -> NCHW
-        x = F.relu(self.Conv_0(x))
-        x = F.relu(self.Conv_1(x))
+        x = to_float_image(x, dt).permute(0, 3, 1, 2)      # NHWC -> NCHW
+        x = F.relu(conv(self.Conv_0, x, dt))
+        x = F.relu(conv(self.Conv_1, x, dt))
         x = F.max_pool2d(x, 2).permute(0, 2, 3, 1)         # back to NHWC
         live = iter(masks)
         if masks and self.drop1 > 0:
             x = dropout(x, next(live), self.drop1)
-        x = F.relu(self.Dense_0(x.reshape(x.shape[0], -1)))
+        x = F.relu(linear(self.Dense_0, x.reshape(x.shape[0], -1), dt))
         if masks and self.drop2 > 0:
             x = dropout(x, next(live), self.drop2)
-        return self.Dense_1(x)
+        return linear(self.Dense_1, x, dt)
 
 
 class CIFARCNNModule(nn.Module):
@@ -79,21 +91,24 @@ class CIFARCNNModule(nn.Module):
     maxpool2 -> conv3x3x64 SAME -> relu -> flatten(4096) -> fc64 -> relu ->
     fc."""
 
-    def __init__(self, num_classes: int = 10):
+    def __init__(self, num_classes: int = 10,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.Conv_0 = nn.Conv2d(3, 32, 3, padding=1)
         self.Conv_1 = nn.Conv2d(32, 64, 3, padding=1)
         self.Conv_2 = nn.Conv2d(64, 64, 3, padding=1)
         self.Dense_0 = nn.Linear(8 * 8 * 64, 64)
         self.Dense_1 = nn.Linear(64, num_classes)
+        self.dtype = dtype
 
     def forward(self, x, masks: Tuple[torch.Tensor, ...] = ()):
-        x = to_float_image(x).permute(0, 3, 1, 2)          # NHWC -> NCHW
-        x = F.max_pool2d(F.relu(self.Conv_0(x)), 2)
-        x = F.max_pool2d(F.relu(self.Conv_1(x)), 2)
-        x = F.relu(self.Conv_2(x)).permute(0, 2, 3, 1)     # back to NHWC
-        x = F.relu(self.Dense_0(x.reshape(x.shape[0], -1)))
-        return self.Dense_1(x)
+        dt = self.dtype
+        x = to_float_image(x, dt).permute(0, 3, 1, 2)      # NHWC -> NCHW
+        x = F.max_pool2d(F.relu(conv(self.Conv_0, x, dt)), 2)
+        x = F.max_pool2d(F.relu(conv(self.Conv_1, x, dt)), 2)
+        x = F.relu(conv(self.Conv_2, x, dt)).permute(0, 2, 3, 1)
+        x = F.relu(linear(self.Dense_0, x.reshape(x.shape[0], -1), dt))
+        return linear(self.Dense_1, x, dt)
 
 
 class ClassificationTask(BaseTask):
@@ -212,7 +227,8 @@ def make_lr_task(model_config) -> ClassificationTask:
     input_dim = int(model_config.get("input_dim", 784))
     return ClassificationTask(
         LRModule(num_classes, input_dim,
-                 bool(model_config.get("sigmoid_output", False))),
+                 bool(model_config.get("sigmoid_output", False)),
+                 parse_dtype(model_config)),
         example_shape=(input_dim,), name="cv_lr_mnist",
         num_classes=num_classes)
 
@@ -226,7 +242,8 @@ def make_cnn_femnist_task(model_config) -> ClassificationTask:
     drop1 = float(model_config.get("dropout1", 0.25))
     drop2 = float(model_config.get("dropout2", 0.5))
     return ClassificationTask(
-        CNNFEMNISTModule(num_classes, drop1, drop2),
+        CNNFEMNISTModule(num_classes, drop1, drop2,
+                         parse_dtype(model_config)),
         example_shape=(side, side, 1), name="cv_cnn_femnist",
         num_classes=num_classes,
         dropout_sites=((drop1, (12, 12, 64)), (drop2, (128,))))
@@ -235,5 +252,6 @@ def make_cnn_femnist_task(model_config) -> ClassificationTask:
 def make_cifar_cnn_task(model_config) -> ClassificationTask:
     num_classes = int(model_config.get("num_classes", 10))
     return ClassificationTask(
-        CIFARCNNModule(num_classes), example_shape=(32, 32, 3),
+        CIFARCNNModule(num_classes, parse_dtype(model_config)),
+        example_shape=(32, 32, 3),
         name="classif_cnn", num_classes=num_classes, with_f1=True)

@@ -10,7 +10,13 @@ the JAX package's ``_ShakespeareLSTM``): an embedding of the 90 chars into
 and a dense layer back to the vocabulary at every position.  The cell's
 parameters keep flax's names: input kernels ``ii``, ``if``, ``ig``, ``io``
 ``[in, H]`` without bias, hidden kernels ``hi``, ``hf``, ``hg``, ``ho``
-``[H, H]`` with the bias; ``c' = f c + i g``, ``h' = o tanh(c')``.
+``[H, H]`` with the bias; ``c' = f c + i g``, ``h' = o tanh(c')``.  Under
+``model_config.dtype`` (bfloat16, float16) the embedding, the gate
+products and activations and the head run in that dtype, while the
+carry stays float32 (flax initialises it in the parameters' dtype, and
+``f * c`` promotes), as ``msrflute_tpu/models/nlp.py:32-44`` does; the
+logits are upcast for the cross entropy.  The GRU runs in float32 whatever
+``dtype`` says, as the JAX package's does.
 
 The GRU (reference ``experiments/nlg_gru/model.py:11-133``): a tied
 embedding table, a convex-combination GRU cell (``hy = n + i * (h - n)``,
@@ -37,7 +43,8 @@ from torch import nn
 from ..data import featurize
 from ..data.dataset import ArraysDataset
 from ..data.user_blob import UserBlob
-from .base import BaseTask, Batch, Params, lecun_normal_, softmax_xent
+from .base import (BaseTask, Batch, Params, lecun_normal_, parse_dtype,
+                   softmax_xent)
 
 
 class _Dense(nn.Module):
@@ -51,9 +58,12 @@ class _Dense(nn.Module):
             self.bias = None
         self.kernel = nn.Parameter(torch.zeros(d_in, d_out))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.kernel
-        return y if self.bias is None else y + self.bias
+    def forward(self, x: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """In ``dtype``: the input, kernel and bias cast to it (flax's
+        ``promote_dtype``); in float32 the casts are the identity."""
+        y = x.to(dtype) @ self.kernel.to(dtype)
+        return y if self.bias is None else y + self.bias.to(dtype)
 
 
 def embed_lookup(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -76,9 +86,11 @@ class _LSTMCell(nn.Module):
 
     GATES = "ifgo"
 
-    def __init__(self, d_in: int, hidden: int):
+    def __init__(self, d_in: int, hidden: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.hidden = hidden
+        self.dtype = dtype
         for g in self.GATES:
             self.add_module(f"i{g}", _Dense(d_in, hidden, use_bias=False))
             self.add_module(f"h{g}", _Dense(hidden, hidden))
@@ -89,18 +101,21 @@ class _LSTMCell(nn.Module):
         The input projection of every step is one product up front; the
         ``T`` steps are a Python loop of one ``[B, H] x [H, 4H]`` product
         and the gate arithmetic each."""
+        dt = self.dtype
         w_i = torch.cat([getattr(self, f"i{g}").kernel for g in self.GATES],
-                        dim=1)
+                        dim=1).to(dt)
         w_h = torch.cat([getattr(self, f"h{g}").kernel for g in self.GATES],
-                        dim=1)
-        b_h = torch.cat([getattr(self, f"h{g}").bias for g in self.GATES])
-        xi = x @ w_i                                       # [B, T, 4H]
-        h = torch.zeros((x.shape[0], self.hidden), dtype=xi.dtype,
+                        dim=1).to(dt)
+        b_h = torch.cat([getattr(self, f"h{g}").bias
+                         for g in self.GATES]).to(dt)
+        xi = x.to(dt) @ w_i                                # [B, T, 4H]
+        # the carry in the parameters' dtype, float32
+        h = torch.zeros((x.shape[0], self.hidden), dtype=torch.float32,
                         device=xi.device)
         c, out = h, []
         for t in range(x.shape[1]):
-            i, f, g, o = ((h @ w_h + b_h) + xi[:, t]).split(self.hidden,
-                                                             dim=-1)
+            i, f, g, o = ((h.to(dt) @ w_h + b_h) + xi[:, t]).split(
+                self.hidden, dim=-1)
             c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
             h = torch.sigmoid(o) * torch.tanh(c)
             out.append(h)
@@ -113,18 +128,19 @@ class ShakespeareLSTMModule(nn.Module):
     are flax's module names."""
 
     def __init__(self, vocab_size: int = 90, embed_dim: int = 8,
-                 hidden: int = 256):
+                 hidden: int = 256, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.Embed_0 = _Embed(vocab_size, embed_dim)
-        self.OptimizedLSTMCell_0 = _LSTMCell(embed_dim, hidden)
-        self.OptimizedLSTMCell_1 = _LSTMCell(hidden, hidden)
+        self.OptimizedLSTMCell_0 = _LSTMCell(embed_dim, hidden, dtype)
+        self.OptimizedLSTMCell_1 = _LSTMCell(hidden, hidden, dtype)
         self.Dense_0 = _Dense(hidden, vocab_size)
 
     def forward(self, x: torch.Tensor,
                 masks: Tuple[torch.Tensor, ...] = ()) -> torch.Tensor:
-        h = embed_lookup(x, self.Embed_0.embedding)
+        h = embed_lookup(x, self.Embed_0.embedding.to(self.dtype))
         h = self.OptimizedLSTMCell_1(self.OptimizedLSTMCell_0(h))
-        return self.Dense_0(h)
+        return self.Dense_0(h, self.dtype)
 
 
 class _ConvexGRUCell(nn.Module):
@@ -381,7 +397,8 @@ def make_shakespeare_lstm_task(model_config) -> ShakespeareTask:
     vocab = int(model_config.get("vocab_size", 90))
     module = ShakespeareLSTMModule(
         vocab_size=vocab, embed_dim=int(model_config.get("embed_dim", 8)),
-        hidden=int(model_config.get("hidden_dim", 256)))
+        hidden=int(model_config.get("hidden_dim", 256)),
+        dtype=parse_dtype(model_config))
     return ShakespeareTask(module, seq_len=int(model_config.get("seq_len",
                                                                 80)),
                            name="nlp_rnn_fedshakespeare")

@@ -24,6 +24,11 @@ with ``Conv_*.weight`` OIHW and ``Dense_0.weight`` ``[out, in]``, as
 variance as the mean of squared deviations where flax takes
 ``E[x^2] - E[x]^2``: the two agree to float32 rounding at these widths
 (``tests/test_torch_resnet.py`` states the tolerance).
+
+Under ``model_config.dtype`` (bfloat16, float16) the convolutions and the
+dense layer run in that dtype; GroupNorm takes its statistics and its
+affine in float32 and returns the dtype, as flax's does
+(``msrflute_tpu/models/resnet.py:30-42``).
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import RESNET_DEPTHS
-from .base import Params, lecun_normal_, to_float_image
+from .base import (Params, conv, lecun_normal_, linear, parse_dtype,
+                   to_float_image)
 from .cv import ClassificationTask
 
 GN_EPS = 1e-5
@@ -54,7 +60,11 @@ class _GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x, self.groups, self.scale, self.bias, GN_EPS)
+        if x.dtype == torch.float32:
+            return F.group_norm(x, self.groups, self.scale.float(),
+                                self.bias.float(), GN_EPS)
+        return F.group_norm(x.float(), self.groups, self.scale.float(),
+                            self.bias.float(), GN_EPS).to(x.dtype)
 
 
 def _conv(c_in: int, c_out: int, k: int, stride: int = 1) -> nn.Conv2d:
@@ -77,9 +87,10 @@ class _BasicBlock(nn.Module):
             self.GroupNorm_2 = _GroupNorm(planes, channels_per_group)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.GroupNorm_0(self.Conv_0(x)))
-        y = self.GroupNorm_1(self.Conv_1(y))
-        residual = self.GroupNorm_2(self.Conv_2(x)) if self.project else x
+        y = F.relu(self.GroupNorm_0(conv(self.Conv_0, x, x.dtype)))
+        y = self.GroupNorm_1(conv(self.Conv_1, y, y.dtype))
+        residual = (self.GroupNorm_2(conv(self.Conv_2, x, x.dtype))
+                    if self.project else x)
         return F.relu(y + residual)
 
 
@@ -89,8 +100,9 @@ class ResNetGNModule(nn.Module):
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
                  num_classes: int = 100, channels_per_group: int = 32,
-                 in_channels: int = 3):
+                 in_channels: int = 3, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.Conv_0 = _conv(in_channels, 64, 7, 2)
         self.GroupNorm_0 = _GroupNorm(64, channels_per_group)
         blocks, c_in, planes = [], 64, 64
@@ -108,12 +120,13 @@ class ResNetGNModule(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 masks: Tuple[torch.Tensor, ...] = ()) -> torch.Tensor:
-        x = to_float_image(x).permute(0, 3, 1, 2)          # NHWC -> NCHW
-        x = F.relu(self.GroupNorm_0(self.Conv_0(x)))
+        x = to_float_image(x, self.dtype).permute(0, 3, 1, 2)  # NCHW
+        x = F.relu(self.GroupNorm_0(conv(self.Conv_0, x, x.dtype)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for i in range(self.num_blocks):
             x = getattr(self, f"_BasicBlock_{i}")(x)
-        return self.Dense_0(x.mean(dim=(2, 3)))          # global avg pool
+        return linear(self.Dense_0, x.mean(dim=(2, 3)),  # global avg pool
+                      self.dtype)
 
 
 class ResNetTask(ClassificationTask):
@@ -146,6 +159,7 @@ def make_resnet_task(model_config) -> ResNetTask:
     num_classes = int(model_config.get("num_classes", 100))
     module = ResNetGNModule(
         RESNET_DEPTHS[int(model_config.get("depth", 18))], num_classes,
-        int(model_config.get("channels_per_group", 32)), chans)
+        int(model_config.get("channels_per_group", 32)), chans,
+        parse_dtype(model_config))
     return ResNetTask(module, example_shape=(side, side, chans),
                       name="cv_resnet_fedcifar100", num_classes=num_classes)

@@ -10,7 +10,11 @@ have no bias, the MLP ``Dense`` layers do; the qkv projection is split as
 ``reshape(B, L, 3H, D)`` cut in three along the ``3H`` axis.  With
 ``flash_attention: true`` the attention runs through kernels B4-B6
 (:mod:`..ops.flash_attention`); otherwise it is the JAX package's einsum
-path with ``finfo.min`` masking.
+path with ``finfo.min`` masking.  Under ``model_config.dtype`` (bfloat16,
+float16) the embedding, the dense layers, the attention and the residual
+stream run in that dtype, LayerNorm takes its statistics and affine in
+float32 and returns the dtype, and the flash arm feeds 16-bit q/k/v to
+B4-B6 (``msrflute_tpu/models/ringlm.py:41-183``).
 
 Parameters keep flax's names and ``[in, out]`` kernel layouts, and
 :meth:`RingLMTask.param_spec` lists them in ``ravel_pytree`` order (keys
@@ -19,7 +23,7 @@ sorted as strings at every level, so ``block_10`` sorts before
 
 Not ported (ROADMAP.md): the sequence-parallel mode (``sp_module``,
 ``build_sp_train_step``, ring attention) with multi-GPU, ``remat``, the MoE
-FFN (``moe_experts``), bf16 and the ``flash_attention: "auto"`` gate.
+FFN (``moe_experts``) and the ``flash_attention: "auto"`` gate.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from torch import nn
 
 from ..config import check_ringlm_model
 from ..ops.flash_attention import flash_attention
-from .base import Params, lecun_normal_
+from .base import Params, lecun_normal_, parse_dtype
 from .nlp import SequenceLMTask, _Dense, _Embed, embed_lookup
 
 #: flax ``nn.LayerNorm``'s default epsilon (torch's is 1e-5)
@@ -42,7 +46,8 @@ LN_EPS = 1e-6
 
 class _LayerNorm(nn.Module):
     """flax ``nn.LayerNorm``: the fast variance ``E[x^2] - E[x]^2`` (clipped
-    at 0), then ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+    at 0), then ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, in
+    float32, returned in the dtype of ``x``."""
 
     def __init__(self, dim: int):
         super().__init__()
@@ -50,11 +55,12 @@ class _LayerNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt, x = x.dtype, x.float()
         mean = x.mean(dim=-1, keepdim=True)
         var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean,
                           min=0.0)
-        return (x - mean) * (torch.rsqrt(var + LN_EPS) * self.scale) \
-            + self.bias
+        return ((x - mean) * (torch.rsqrt(var + LN_EPS) * self.scale.float())
+                + self.bias.float()).to(dt)
 
 
 class _MHA(nn.Module):
@@ -68,7 +74,8 @@ class _MHA(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, L, _ = x.shape
         H, D = self.heads, self.head_dim
-        q, k, v = self.Dense_0(x).reshape(B, L, 3 * H, D).split(H, dim=2)
+        q, k, v = self.Dense_0(x, x.dtype).reshape(B, L, 3 * H, D).split(
+            H, dim=2)
         if self.use_flash:
             attn = flash_attention(q, k, v, causal=True)
         else:
@@ -80,7 +87,7 @@ class _MHA(nn.Module):
                                  torch.finfo(scores.dtype).min)
             attn = torch.einsum("bhlm,bmhd->blhd",
                                 torch.softmax(scores, dim=-1), v)
-        return self.Dense_1(attn.reshape(B, L, H * D))
+        return self.Dense_1(attn.reshape(B, L, H * D), x.dtype)
 
 
 class _Block(nn.Module):
@@ -95,8 +102,9 @@ class _Block(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self._MHA_0(self.LayerNorm_0(x))
-        h = F.gelu(self.Dense_0(self.LayerNorm_1(x)), approximate="tanh")
-        return x + self.Dense_1(h)
+        h = F.gelu(self.Dense_0(self.LayerNorm_1(x), x.dtype),
+                   approximate="tanh")
+        return x + self.Dense_1(h, x.dtype)
 
 
 class RingLMModule(nn.Module):
@@ -105,9 +113,11 @@ class RingLMModule(nn.Module):
     def __init__(self, vocab_size: int = 256, embed_dim: int = 64,
                  heads: int = 4, head_dim: int = 16, mlp_dim: int = 256,
                  num_layers: int = 2, max_len: int = 127,
-                 use_flash: bool = False):
+                 use_flash: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_layers = num_layers
+        self.dtype = dtype
         self.Embed_0 = _Embed(vocab_size, embed_dim)
         self.pos = nn.Parameter(torch.zeros(max_len, embed_dim))
         for i in range(num_layers):
@@ -119,11 +129,11 @@ class RingLMModule(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 masks: Sequence[torch.Tensor] = ()) -> torch.Tensor:
-        h = embed_lookup(x, self.Embed_0.embedding)
-        h = h + self.pos[:x.shape[1]][None]
+        h = embed_lookup(x, self.Embed_0.embedding.to(self.dtype))
+        h = h + self.pos[:x.shape[1]].to(self.dtype)[None]
         for i in range(self.num_layers):
             h = getattr(self, f"block_{i}")(h)
-        return self.Dense_0(self.LayerNorm_0(h))
+        return self.Dense_0(self.LayerNorm_0(h), self.dtype)
 
 
 class RingLMTask(SequenceLMTask):
@@ -165,5 +175,6 @@ def make_ringlm_task(model_config) -> RingLMTask:
         mlp_dim=int(model_config.get("mlp_dim", 256)),
         num_layers=int(model_config.get("num_layers", 2)),
         max_len=seq_len - 1,
-        use_flash=bool(model_config.get("flash_attention", False)))
+        use_flash=bool(model_config.get("flash_attention", False)),
+        dtype=parse_dtype(model_config))
     return RingLMTask(module, seq_len=seq_len, name="ringlm")

@@ -19,7 +19,13 @@ Public functions keep the JAX layout and signature: ``q [B, Lq, H, D]``,
 global positions ``q_offset``/``k_offset``; :func:`flash_attention_lse`
 also returns the per-row logsumexp ``[B, H, Lq]`` and its gradient honours
 the lse cotangent.  A row whose keys are all masked gives zeros with
-``lse = -1e30``.  float32 only in this slice (bf16 raises ``TypeError``).
+``lse = -1e30``.  ``q``, ``k``, ``v`` (and ``dO``) are float32, bfloat16 or
+float16, one type for all: the kernels widen every tile to float32 as it
+enters shared memory, compute in float32, and round ``out``, ``dq``,
+``dk`` and ``dv`` to that type (``lse``, ``delta`` and the lse cotangent
+stay float32), as the TPU kernels' upcasts and ``astype`` do
+(``pallas_attention.py:109-111``, ``:150``, ``:172-175``, ``:209``,
+``:224-227``, ``:268-269``); any other type raises ``TypeError``.
 
 The gradient is two ``torch.autograd.Function``s, forward and backward,
 each with a ``vmap`` rule that folds the vmapped axis into ``B``: under
@@ -30,15 +36,16 @@ reduction outside the kernels, as in JAX (``pallas_attention.py:374``).
 Each kernel's wrapper (:data:`flash_fwd`, :data:`flash_dq`,
 :data:`flash_dkv`) runs its plain PyTorch version on CPU tensors and
 launches the kernel on CUDA tensors (anything else raises); ``launches``
-counts kernel launches.  The plain versions: :func:`attention_lse_plain`
-(the JAX package's ``_dense_lse``), :func:`attention_dq_plain` and
-:func:`attention_dkv_plain` (the backward in the kernels' math), and
-:func:`attention_bwd_plain`, which runs both.  :func:`kernel_info` reports
-what the compiler and the card give a kernel (registers, spills, blocks an
-SM, shared memory a block).
+counts kernel launches, ``launches_by_dtype`` each storage arm's.  The
+plain versions (float32 math on upcast inputs, the result cast back):
+:func:`attention_lse_plain` (the JAX package's ``_dense_lse``),
+:func:`attention_dq_plain` and :func:`attention_dkv_plain` (the backward
+in the kernels' math), and :func:`attention_bwd_plain`, which runs both.
+:func:`kernel_info` reports what the compiler and the card give a kernel
+(registers, spills, blocks an SM, shared memory a block).
 
 Not ported (ROADMAP.md): the JAX package's dispatch gate
-(``plan_attention``, ``attention_fallback_dense``), its tile knobs, bf16.
+(``plan_attention``, ``attention_fallback_dense``) and its tile knobs.
 """
 
 from __future__ import annotations
@@ -115,7 +122,8 @@ def attention_dq_plain(q, k, v, g, lse, delta, g_lse, causal=False,
     """B5's plain version: ``dq [B, Lq, H, D]``."""
     _, ds = _probs_and_ds(q, k, v, g, lse, delta, g_lse, causal, q_offset,
                           k_offset)
-    return torch.einsum("bhlm,bmhd->blhd", ds, k.to(torch.float32))
+    return torch.einsum("bhlm,bmhd->blhd", ds,
+                        k.to(torch.float32)).to(q.dtype)
 
 
 def attention_dkv_plain(q, k, v, g, lse, delta, g_lse, causal=False,
@@ -126,7 +134,7 @@ def attention_dkv_plain(q, k, v, g, lse, delta, g_lse, causal=False,
                           k_offset)
     dv = torch.einsum("bhlm,blhd->bmhd", p, g.to(torch.float32))
     dk = torch.einsum("bhlm,blhd->bmhd", ds, q.to(torch.float32))
-    return dk, dv
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_delta(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -149,20 +157,30 @@ def attention_bwd_plain(q, k, v, out, lse, g, g_lse, causal=False,
 # ----------------------------------------------------------------------
 # kernel wrappers
 # ----------------------------------------------------------------------
-def _check(name: str, tensors, Lq: int, Lk: int, B: int, H: int,
-           D: int) -> None:
-    """What the kernels take: float32, contiguous, on one device,
-    ``[B, Lq or Lk, H, D]`` tensors and ``[B, H, Lq]`` row statistics,
+#: the storage types and the suffix of their launchers
+SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16", torch.float16: "_f16"}
+
+
+def _check(name: str, tensors, n_storage: int, Lq: int, Lk: int, B: int,
+           H: int, D: int) -> None:
+    """What the kernels take: contiguous tensors on one device, the first
+    ``n_storage`` (``[B, Lq or Lk, H, D]``) of one storage type of
+    :data:`SUFFIX`, the rest (``[B, H, Lq]`` row statistics) float32;
     ``D <= 128``."""
     dev = tensors[0].device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
     if not 1 <= D <= 128:
         raise ValueError(f"{name}: head_dim {D} outside 1..128")
-    for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: float32 only (bf16 is not yet ported; "
-                            f"see ROADMAP.md), got {t.dtype}")
+    storage = tensors[0].dtype
+    if storage not in SUFFIX:
+        raise TypeError(f"{name}: q, k, v must be float32, bfloat16 or "
+                        f"float16, got {storage}")
+    for i, t in enumerate(tensors):
+        want = storage if i < n_storage else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name}: tensor {i} must be {want}, got "
+                            f"{t.dtype}")
         if not t.is_contiguous() or t.device != dev:
             raise ValueError(f"{name}: inputs must be contiguous and on one "
                              "device")
@@ -181,6 +199,14 @@ ENTRY_POINTS = {
                                          _INT_P, _INT_P]),
     "flash_attention_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
+#: the launchers (pointers, then ``B, Lq, Lk, H, D, causal, q_offset,
+#: k_offset, scale, stream``), the 16-bit ones beside the float32 ones
+_LAUNCH_TAIL = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+for _kind, _n_ptr in (("fwd", 5), ("dq", 8), ("dkv", 9)):
+    for _suffix in SUFFIX.values():
+        if _suffix:
+            ENTRY_POINTS[f"flash_{_kind}_launch{_suffix}"] = (
+                ctypes.c_int, [ctypes.c_void_p] * _n_ptr + _LAUNCH_TAIL)
 
 
 def _entry_point(name: str):
@@ -189,15 +215,17 @@ def _entry_point(name: str):
     return fn
 
 
-def kernel_info(which: int, D: int) -> dict:
+def kernel_info(which: int, D: int,
+                storage: torch.dtype = torch.float32) -> dict:
     """What the compiler and the card give pass ``which`` (0 B4, 1 B5, 2 B6)
-    at head width ``D``: registers a thread, local memory a thread in bytes
-    (stack and spills; 0 means no spill), the blocks an SM holds and the
-    shared memory a block.  Builds the library, so it needs the card."""
+    at head width ``D`` in the ``storage`` type: registers a thread, local
+    memory a thread in bytes (stack and spills; 0 means no spill), the
+    blocks an SM holds and the shared memory a block.  Builds the library,
+    so it needs the card."""
     regs, local, blocks = (ctypes.c_int() for _ in range(3))
     code = _entry_point("flash_kernel_info")(
-        which, D, ctypes.byref(regs), ctypes.byref(local),
-        ctypes.byref(blocks))
+        which + 3 * list(SUFFIX).index(storage), D, ctypes.byref(regs),
+        ctypes.byref(local), ctypes.byref(blocks))
     if code != 0:
         err = _entry_point("flash_attention_error_string")(code).decode()
         raise RuntimeError(f"flash_kernel_info failed: {err} ({code})")
@@ -207,39 +235,46 @@ def kernel_info(which: int, D: int) -> dict:
 
 
 class _FlashKernel:
-    """A kernel of ``csrc/flash_attention.cu`` with a plain-integer launch
-    counter.  Every launcher takes its tensors' pointers, then
-    ``B, Lq, Lk, H, D, causal, q_offset, k_offset, scale, stream``."""
+    """A kernel of ``csrc/flash_attention.cu`` with plain-integer launch
+    counters.  Every launcher takes its tensors' pointers, then
+    ``B, Lq, Lk, H, D, causal, q_offset, k_offset, scale, stream``; the
+    float32 one is ``symbol``, the 16-bit ones add ``_bf16`` / ``_f16``."""
 
     #: what follows the ``n_ptr`` pointers of a launcher
-    TAIL = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    TAIL = _LAUNCH_TAIL
 
     def __init__(self, symbol: str, n_ptr: int) -> None:
         self.symbol = symbol
         self.n_ptr = n_ptr
         self.launches = 0
-        self._fn = None
+        self.launches_by_dtype = {str(dt)[6:]: 0 for dt in SUFFIX}
+        self._fns = {}
 
-    def _kernel(self):
-        if self._fn is None:
-            fn = getattr(_build.load("flash_attention"), self.symbol)
-            fn.argtypes = [ctypes.c_void_p] * self.n_ptr + self.TAIL
-            fn.restype = ctypes.c_int
-            self._fn = (fn, _entry_point("flash_attention_error_string"))
-        return self._fn
+    def _kernel(self, storage: torch.dtype = torch.float32):
+        if storage not in self._fns:
+            if storage == torch.float32:
+                fn = getattr(_build.load("flash_attention"), self.symbol)
+                fn.argtypes = [ctypes.c_void_p] * self.n_ptr + self.TAIL
+                fn.restype = ctypes.c_int
+            else:
+                fn = _entry_point(self.symbol + SUFFIX[storage])
+            self._fns[storage] = (
+                fn, _entry_point("flash_attention_error_string"))
+        return self._fns[storage]
 
     def _launch(self, tensors, q, k, causal, q_offset, k_offset) -> None:
         B, Lq, H, D = q.shape
-        fn, err = self._kernel()
+        fn, err = self._kernel(q.dtype)
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             code = fn(*[t.data_ptr() for t in tensors], B, Lq, k.shape[1], H,
                       D, int(bool(causal)), int(q_offset), int(k_offset),
                       _scale(D), stream)
         if code != 0:
-            raise RuntimeError(f"{self.symbol} failed: "
+            raise RuntimeError(f"{self.symbol}{SUFFIX[q.dtype]} failed: "
                                f"{err(code).decode()} ({code})")
         self.launches += 1
+        self.launches_by_dtype[str(q.dtype)[6:]] += 1
 
 
 class FlashFwd(_FlashKernel):
@@ -247,7 +282,7 @@ class FlashFwd(_FlashKernel):
 
     def __call__(self, q, k, v, causal=False, q_offset=0, k_offset=0):
         B, Lq, H, D = q.shape
-        _check("flash_fwd", (q, k, v), Lq, k.shape[1], B, H, D)
+        _check("flash_fwd", (q, k, v), 3, Lq, k.shape[1], B, H, D)
         if q.device.type == "cpu":
             return attention_lse_plain(q, k, v, causal, q_offset, k_offset)
         out = torch.empty_like(q)
@@ -262,8 +297,8 @@ class FlashDq(_FlashKernel):
     def __call__(self, q, k, v, g, lse, delta, g_lse, causal=False,
                  q_offset=0, k_offset=0):
         B, Lq, H, D = q.shape
-        _check("flash_dq", (q, k, v, g, lse, delta, g_lse), Lq, k.shape[1],
-               B, H, D)
+        _check("flash_dq", (q, k, v, g, lse, delta, g_lse), 4, Lq,
+               k.shape[1], B, H, D)
         if q.device.type == "cpu":
             return attention_dq_plain(q, k, v, g, lse, delta, g_lse, causal,
                                       q_offset, k_offset)
@@ -279,8 +314,8 @@ class FlashDkv(_FlashKernel):
     def __call__(self, q, k, v, g, lse, delta, g_lse, causal=False,
                  q_offset=0, k_offset=0):
         B, Lq, H, D = q.shape
-        _check("flash_dkv", (q, k, v, g, lse, delta, g_lse), Lq, k.shape[1],
-               B, H, D)
+        _check("flash_dkv", (q, k, v, g, lse, delta, g_lse), 4, Lq,
+               k.shape[1], B, H, D)
         if q.device.type == "cpu":
             return attention_dkv_plain(q, k, v, g, lse, delta, g_lse, causal,
                                        q_offset, k_offset)

@@ -1,16 +1,16 @@
 """Server LR schedules — ``make_lr_schedule`` and ``PlateauTracker``, which
 the JAX package keeps in ``msrflute_tpu/optim/factory.py``.
 
-Host-side: round index -> LR scalar (reference ``utils/utils.py:151-224``).
-``val_loss`` (ReduceLROnPlateau) depends on validation results and lives in
-:class:`PlateauTracker`.  ``rampup-keep-expdecay-keep`` is not ported yet.
+Host-side: round index -> LR scalar (reference ``utils/utils.py:151-224``),
+in Python floats, so each schedule equals the JAX package's at every
+step.  ``val_loss`` (ReduceLROnPlateau) depends on validation results and
+lives in :class:`PlateauTracker`.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
-
-from ..config import NOT_PORTED
 
 
 def make_lr_schedule(cfg, base_lr: float) -> Callable[[int], float]:
@@ -26,7 +26,34 @@ def make_lr_schedule(cfg, base_lr: float) -> Callable[[int], float]:
         gamma = float(cfg.get("gamma", 1.0))
         return lambda step: base_lr * (
             gamma ** sum(1 for m in milestones if step >= m))
-    raise NotImplementedError(f"annealing type {kind!r} is {NOT_PORTED}")
+    if kind == "rampup-keep-expdecay-keep":
+        return _rampup_keep_expdecay_keep(cfg, base_lr)
+    raise ValueError(f"unknown annealing type {kind!r}")
+
+
+def _rampup_keep_expdecay_keep(cfg, base_lr: float) -> Callable[[int], float]:
+    """The SpecAugment schedule (reference ``utils/utils.py:189-224``): a
+    linear ramp to ``peak_lr`` over ``rampup_steps``, ``peak_lr`` for
+    ``hold_steps``, an exponential decay to ``floor_lr`` over
+    ``decay_steps``, then ``floor_lr``."""
+    peak = float(cfg.get("peak_lr", base_lr))
+    floor = float(cfg.get("floor_lr", base_lr * 0.01))
+    r = int(cfg.get("rampup_steps", 0))
+    h = int(cfg.get("hold_steps", 0))
+    d = max(int(cfg.get("decay_steps", 1)), 1)
+
+    def sched(step: int) -> float:
+        if r and step < r:
+            return peak * (step + 1) / r
+        step2 = step - r
+        if step2 < h:
+            return peak
+        step3 = step2 - h
+        if step3 < d:
+            return peak * math.exp(math.log(max(floor / peak, 1e-12))
+                                   * (step3 / d))
+        return floor
+    return sched
 
 
 class PlateauTracker:

@@ -77,7 +77,8 @@ def practical_epsilon_leakage(global_params: Dict[str, torch.Tensor],
     opt = make_optimizer(attacker_optimizer_config)
     lr = float(attacker_optimizer_config.get("lr", 0.01))
     start = global_flat.expand_as(pseudo_grad)
-    attacked, _ = opt.step(start, pseudo_grad, opt.init(start), lr)
+    attacked, _ = opt.step(start, pseudo_grad, opt.init(start), lr,
+                           list(layout.offsets) + [layout.numel])
     tol = 1.0 / max_ratio
     S = sample_mask.shape[1]
 

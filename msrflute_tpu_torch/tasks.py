@@ -1,7 +1,8 @@
 """Task dataset assembly — the port's counterpart of ``msrflute_tpu/tasks.py``:
 the split files named in the config are read by the user-blob reader and
 featurized by the task into :class:`~.data.dataset.ArraysDataset` (only the
-train split is augmented)."""
+train split is augmented); :func:`build_server_train_dataset` reads server
+replay's ``train_data_server``."""
 
 from __future__ import annotations
 
@@ -33,3 +34,14 @@ def build_task_datasets(cfg: FLUTEConfig, task: BaseTask) -> Tuple[
                                   split=split) if path else None)
 
     return train, _load("val", "val_data"), _load("test", "test_data")
+
+
+def build_server_train_dataset(cfg: FLUTEConfig, task: BaseTask
+                               ) -> Optional[ArraysDataset]:
+    """Server replay's dataset from ``server_config.data_config.train.
+    train_data_server`` (``msrflute_tpu/tasks.py:97-104``), featurized as
+    a train split without augmentation; None when the key is absent."""
+    path = cfg.server_config.data_config.train.get("train_data_server")
+    if not path:
+        return None
+    return task.make_dataset(load_user_blob(path), split="train")

@@ -307,8 +307,10 @@ def test_flash_attention_is_the_first_output():
 
 def test_refusals():
     x = torch.zeros((1, 4, 2, 8))
-    with pytest.raises(TypeError, match="ROADMAP.md"):
-        fa.flash_attention(x.bfloat16(), x.bfloat16(), x.bfloat16())
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        fa.flash_attention(x.double(), x.double(), x.double())
+    with pytest.raises(TypeError, match="must be torch.bfloat16"):
+        fa.flash_attention(x.bfloat16(), x, x.bfloat16())
     with pytest.raises(ValueError):
         fa.flash_attention(x[0], x, x)
     with pytest.raises(ValueError):

@@ -106,23 +106,23 @@ def _with(path, value):
     ("strategy", "fedac"),
     ("strategy", "scaffold"),
     ("mesh_config.model_axis_size", 2),
-    ("model_config.dtype", "bfloat16"),
-    ("client_config.optimizer_config.type", "lamb"),
-    ("client_config.optimizer_config.nesterov", True),
-    ("server_config.optimizer_config.type", "yogi"),
+    ("server_config.secure_agg", {"enable": True}),
+    ("server_config.robust", {"enable": True}),
+    ("client_config.meta_learning", "maml"),
+    ("server_config.telemetry", {"enable": True}),
     ("server_config.cohort_bucketing", {"enable": True}),
     ("server_config.megabatch", {"enable": True}),
     ("server_config.traffic", {"mode": "buffered"}),
     ("server_config.fleet", {"enable": True}),
     ("server_config.chaos", {"enable": True, "dropout_rate": 0.1}),
-    ("server_config.precision", {"compute": "bfloat16"}),
+    ("server_config.qffl_q", 1.0),
     ("client_config.quant_bits", 8),
     ("client_config.data_config.train.lazy", True),
     ("client_config.optimizer_config.dampening", 0.1),
     ("server_config.wantRL", True),
-    ("client_config.freeze_layer", ["Conv_0"]),
+    ("client_config.ss_config", {"mode": "fixmatch"}),
     ("dp_config", {"enable_local_dp": True}),
-    ("server_config.annealing_config", {"type": "rampup-keep-expdecay-keep"}),
+    ("server_config.fused_carry", True),
 ])
 def test_unported_features_raise(path, value):
     with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -179,7 +179,6 @@ def test_ringlm_config_parses_and_ignores_the_tile_knobs():
     ("flash_attention", "auto"),
     ("remat", True),
     ("moe_experts", 2),
-    ("dtype", "bfloat16"),
 ])
 def test_ringlm_features_outside_the_slice_raise(key, value):
     raw = _ringlm()
@@ -226,8 +225,6 @@ def test_model_type_aliases_build_the_same_task(model_type):
 
 
 @pytest.mark.parametrize("model_type,key,value", [
-    ("RESNET", "dtype", "bfloat16"),
-    ("RNN", "dtype", "bf16"),
     ("RINGLM", "remat", True),
     ("RESNET", "pretrained_model_path", "resnet.msgpack"),
     ("RNN", "quant_threshold", 0.7),
@@ -330,7 +327,7 @@ def test_mlm_bert_model_axis_raises_naming_multi_gpu(size):
     ("model_config.BERT.model.mlm_head", "gathered"),
     ("model_config.BERT.model.model_name_or_path", "/ckpt"),
     ("model_config.BERT.model.dtype", "bfloat16"),
-    ("client_config.optimizer_config.weight_decay", 0.01),
+    ("model_config.dtype", "bfloat16"),
 ])
 def test_slice_eight_options_not_ported_raise(path, value):
     raw = _shipped("fednewsrec" if path == "model_config.arch"
@@ -343,3 +340,114 @@ def test_slice_eight_options_not_ported_raise(path, value):
     node[keys[-1]] = value
     with pytest.raises(NotImplementedError, match="not yet ported"):
         FLUTEConfig.from_dict(raw)
+
+
+# ----------------------------------------------------------------------
+# the optimizer family, layer controls, precision policy and model dtype
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("path,value", [
+    ("model_config.dtype", "bfloat16"),
+    ("model_config.dtype", "f16"),
+    ("server_config.precision", {"params": "bfloat16",
+                                 "compute": "bfloat16",
+                                 "stats": "float32"}),
+    ("server_config.precision", {"enable": False, "compute": "float16"}),
+    ("client_config.optimizer_config", {"type": "sgd", "lr": 0.1,
+                                        "momentum": 0.9, "nesterov": True,
+                                        "weight_decay": 1e-4}),
+    ("server_config.optimizer_config", {"type": "lamb", "lr": 0.01,
+                                        "weight_decay": 0.01}),
+    ("server_config.optimizer_config", {"type": "lars", "lr": 0.1,
+                                        "momentum": 0.9}),
+    ("server_config.optimizer_config", {"type": "LarsSGD", "lr": 0.1}),
+    ("server_config.optimizer_config", {"type": "yogi", "lr": 0.01,
+                                        "betas": [0.9, 0.99], "eps": 1e-3,
+                                        "weight_decay": 1e-4}),
+    ("client_config.optimizer_config", {"type": "adamW", "lr": 1e-3,
+                                        "weight_decay": 0.01}),
+    ("server_config.annealing_config", {
+        "type": "rampup-keep-expdecay-keep", "peak_lr": 1.0,
+        "floor_lr": 0.01, "rampup_steps": 10, "hold_steps": 5,
+        "decay_steps": 100}),
+    ("client_config.freeze_layer", ["Conv_0", "Dense_1/bias"]),
+    ("client_config.freeze_layer", "Conv_1"),
+    ("server_config.server_replay_config", {
+        "server_iterations": 2, "updatable_names": [r"Dense_\d\.kernel"],
+        "optimizer_config": {"type": "sgd", "lr": 0.01}}),
+    ("server_config.data_config.train.train_data_server", "server.json"),
+])
+def test_optimizer_layer_and_precision_keys_are_accepted(path, value):
+    FLUTEConfig.from_dict(_with(path, value))
+
+
+@pytest.mark.parametrize("path,value,error", [
+    ("model_config.dtype", "int8", ValueError),
+    ("server_config.precision", {"compute": "float64"}, ValueError),
+    ("server_config.precision", {"cast": "bfloat16"}, ValueError),
+    ("server_config.precision", "bfloat16", ValueError),
+    ("server_config.precision", {"enable": "yes"}, ValueError),
+    ("client_config.optimizer_config.type", "rmsprop", ValueError),
+    ("server_config.optimizer_config", {"type": "lamb", "momentum": 0.9},
+     NotImplementedError),
+    ("server_config.annealing_config", {"type": "cosine"}, ValueError),
+    ("client_config.freeze_layer", [1, 2], ValueError),
+    ("server_config.server_replay_config", {"updatable_names": "Dense"},
+     ValueError),
+    ("server_config.server_replay_config", {"data_config": {"a": 1}},
+     NotImplementedError),
+])
+def test_optimizer_layer_and_precision_keys_refuse_bad_values(path, value, error):
+    with pytest.raises(error):
+        FLUTEConfig.from_dict(_with(path, value))
+
+
+@pytest.mark.parametrize("model_type", ["GRU", "ECG_CNN", "NRMS"])
+def test_precision_casts_refused_where_no_layer_casts(model_type):
+    """A 16-bit ``params`` or ``compute`` needs per-layer casts, which the
+    models that never read ``dtype`` lack; ``stats`` alone is fine."""
+    raw = _with("model_config.model_type", model_type)
+    raw["server_config"]["megakernel"] = {}
+    raw["server_config"]["precision"] = {"compute": "bfloat16"}
+    with pytest.raises(NotImplementedError, match="per layer"):
+        FLUTEConfig.from_dict(raw)
+    raw["server_config"]["precision"] = {"stats": "bfloat16"}
+    FLUTEConfig.from_dict(raw)
+
+
+@pytest.mark.parametrize("model", [
+    {"model_type": "GRU", "vocab_size": 50, "embed_dim": 8,
+     "hidden_dim": 16},
+    {"model_type": "ECG_CNN"},
+    {"model_type": "NRMS", "vocab_size": 50, "embed_dim": 12,
+     "num_heads": 2, "head_dim": 6, "max_history": 3,
+     "max_title_length": 5},
+])
+def test_dtype_is_accepted_and_ignored_where_jax_ignores_it(model):
+    """GRU, ECG_CNN and NRMS never call ``parse_dtype`` in the JAX package:
+    their ``dtype`` changes nothing (ROADMAP.md §C)."""
+    from msrflute_tpu_torch.models import make_task
+    raw = _with("model_config", dict(model, dtype="bfloat16"))
+    raw["server_config"]["megakernel"] = {}
+    cfg = FLUTEConfig.from_dict(raw)
+    task = make_task(cfg.model_config)
+    plain = make_task(dict(model))
+    assert task.param_spec() == plain.param_spec()
+    assert getattr(task.module, "dtype", None) is None
+
+
+def test_client_updatable_layers_is_accepted_and_ignored():
+    """The JAX round never passes ``client_config.updatable_layers`` into
+    its client update (only server replay's ``updatable_names`` reaches
+    one): the port reads it nowhere either (ROADMAP.md §C)."""
+    import torch
+    from msrflute_tpu_torch.engine.round import RoundEngine
+    from msrflute_tpu_torch.models import make_task
+    from msrflute_tpu_torch.strategies import select_strategy
+    raw = _with("client_config.updatable_layers", [r"Dense_0\..*"])
+    raw["server_config"]["megakernel"] = {}
+    cfg = FLUTEConfig.from_dict(raw)
+    task = make_task(cfg.model_config)
+    engine = RoundEngine(task, cfg, select_strategy(cfg.strategy)(cfg),
+                         torch.device("cpu"))
+    assert engine.hparams.updatable_layers is None
+    assert engine.hparams.freeze_layers == ()

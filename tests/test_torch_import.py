@@ -65,9 +65,11 @@ def test_no_source_imports_jax(path):
 #: not build (the CUDA sources compile at first use, on a machine with
 #: ``nvcc``): the DGA slice's, RingLM's (B4-B6), slice 6's ResNet, LSTM,
 #: CIFAR_CNN and checkpoint, slice 7's plugin loader, personalization
-#: server and FedLabels with RandAugment, and slice 8's ECG_CNN, NRMS, the
+#: server and FedLabels with RandAugment, slice 8's ECG_CNN, NRMS, the
 #: BERT masked LM (written in the repo, no ``transformers``), the
-#: deterministic lookup, the attack metrics and the client Adam tail
+#: deterministic lookup, the attack metrics and the client Adam tail, and
+#: the optimizer family, schedules, layer controls, precision policy and
+#: server replay (B1's and B4-B6's 16-bit arms)
 SLICE_MODULES = [(m, None) for m in (
     "msrflute_tpu_torch.models.nlp", "msrflute_tpu_torch.privacy",
     "msrflute_tpu_torch.ops.quantization", "msrflute_tpu_torch.ops.quant_bin",
@@ -88,7 +90,13 @@ SLICE_MODULES = [(m, None) for m in (
     (m, "quant_bin") for m in (
         "msrflute_tpu_torch.models.ecg", "msrflute_tpu_torch.models.fednewsrec",
         "msrflute_tpu_torch.models.bert", "msrflute_tpu_torch.models.embed",
-        "msrflute_tpu_torch.privacy.attacks", "msrflute_tpu_torch.optim.fused")]
+        "msrflute_tpu_torch.privacy.attacks", "msrflute_tpu_torch.optim.fused")] + [
+    (m, "fused_sgd") for m in (
+        "msrflute_tpu_torch.optim.factory",
+        "msrflute_tpu_torch.optim.schedulers",
+        "msrflute_tpu_torch.engine.client_update",
+        "msrflute_tpu_torch.engine.round", "msrflute_tpu_torch.engine.server",
+        "msrflute_tpu_torch.tasks", "msrflute_tpu_torch.models.convert")]
 
 
 @pytest.mark.parametrize("module,kernel", SLICE_MODULES,
