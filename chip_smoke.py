@@ -76,7 +76,11 @@ result):
      largest magnitude), two launches bitwise, timed at ``[40, 1023, 4,
      32]`` (B4 also at ``[16, 1023, 4, 32]``) beside the causal SDPA call
      in the same type, with a byte bound and an operation bound at the
-     16-bit tensor-core rate (the float32 CUDA-core one beside it).
+     16-bit tensor-core rate (the float32 CUDA-core one beside it); B4's
+     and B6's 16-bit arms are tensor-core kernels, and their D = 32
+     instances must show HMMA or HGMMA instructions in the built
+     library's SASS (``ops/sass.py::tensor_core_count``), no spill and two
+     blocks an SM.
 3. ``main``   — the FedAvg CNN_FEMNIST path through the port's CLI
    (``msrflute_tpu_torch.e2e_trainer``, in process) on ``cuda``, at the
    published ``cv_cnn_femnist`` widths (10 clients a round, batch 20,
@@ -338,6 +342,20 @@ def phase_env(torch):
 BUILD_LOGS = {}
 
 
+def _template_name(mangled):
+    """A template instantiation's name as the source writes it
+    (``flash_dq_kernel<32>``, ``flash_fwd_tc_kernel<32, bfloat16>``) from
+    its mangled name; any other name as it is."""
+    import re
+    inst = re.search(r"\d([a-z_]+)ILi(\d+)E(f|13__nv_bfloat16|6__half)?EE",
+                     mangled)
+    if not inst:
+        return mangled
+    arm = {"13__nv_bfloat16": ", bfloat16",
+           "6__half": ", float16"}.get(inst.group(3), "")
+    return f"{inst.group(1)}<{inst.group(2)}{arm}>"
+
+
 def ptxas_reports(log):
     """What ``ptxas -v`` says of each entry function of a build log:
     ``{name: {"registers", "spill_store_bytes", "spill_load_bytes"}}``.  A
@@ -351,13 +369,7 @@ def ptxas_reports(log):
                           r"loads", line)
         regs = re.search(r"Used (\d+) registers", line)
         if entry:
-            inst = re.search(r"\d([a-z_]+)ILi(\d+)E(f|13__nv_bfloat16|"
-                             r"6__half)?EE", entry.group(1))
-            arm = {"13__nv_bfloat16": ", bfloat16",
-                   "6__half": ", float16"}.get(inst.group(3), "") \
-                if inst else ""
-            name = (f"{inst.group(1)}<{inst.group(2)}{arm}>" if inst
-                    else entry.group(1))
+            name = _template_name(entry.group(1))
             reports[name] = {}
         elif name and spill and "spill_store_bytes" not in reports[name]:
             reports[name].update(spill_store_bytes=int(spill.group(1)),
@@ -1119,10 +1131,15 @@ PEAK_TF32_FLOPS = 495e12
 def _flash_entry(key, D, storage="float32"):
     """Pass ``key``'s entry function at head width D, as
     :func:`ptxas_reports` names it: the template argument is D padded to
-    8, 16, 32, 64 or 128, then the storage type where it is 16-bit."""
+    8, 16, 32, 64 or 128, then the storage type where it is 16-bit.  B4 and
+    B6 in 16-bit storage are the tensor-core kernels, ``flash_fwd_tc_kernel``
+    and ``flash_dkv_tc_kernel``, at D padded to 16 at least."""
     width = next(w for w in (8, 16, 32, 64, 128) if D <= w)
-    arm = "" if storage == "float32" else f", {storage}"
-    return f"flash_{key}_kernel<{width}{arm}>"
+    if storage == "float32":
+        return f"flash_{key}_kernel<{width}>"
+    if key == "dq":
+        return f"flash_dq_kernel<{width}, {storage}>"
+    return f"flash_{key}_tc_kernel<{max(width, 16)}, {storage}>"
 
 
 def _flash_case(torch, B, Lq, Lk, H, D, seed):
@@ -3115,14 +3132,19 @@ def phase_kernel_quant_bert(torch):
 STORAGE16 = ("bfloat16", "float16")
 MANTISSA = {"bfloat16": 7, "float16": 10}
 #: H100 SXM dense bf16 / fp16 tensor-core peak: the least time a 16-bit
-#: attention could take (these kernels compute in float32 on CUDA cores;
-#: ``bound_ms_f32`` beside it is that rate's)
+#: attention could take.  B4 and B6 in 16-bit storage run their products
+#: on the tensor cores (``mma.sync``, float32 accumulators); B5 computes
+#: in float32 on CUDA cores, and ``bound_ms_f32`` beside it is that rate's
 PEAK_TC16_FLOPS = 989e12
 #: B4-B6's 16-bit arms against their plain versions: max |kernel - plain|
 #: over max |plain| within one ulp of the storage type at the largest
-#: magnitude (2^-7 bfloat16, 2^-10 float16): both sum the same float32
-#: products in other orders and round once.  An H100 measured at most
-#: 1.5e-3 (bf16) and 4.7e-4 (f16) on these cases.  lse stays float32:
+#: magnitude (2^-7 bfloat16, 2^-10 float16): B5 sums the same float32
+#: products in another order and rounds once; B4 and B6 also round P and
+#: dS once to the storage type for their tensor-core products, a relative
+#: 2^-9 / 2^-12 a term on sums of terms of random signs
+#: (``tests/test_torch_flash_tc16.py`` holds that rounding to this bound on
+#: the CPU).  An H100 measured at most 1.5e-3 (bf16) and 4.7e-4 (f16) on
+#: these cases with every arm in float32 math.  lse stays float32:
 #: ``FLASH_FWD_TOL``.
 FLASH16_TOL = {dt: 2.0 ** -MANTISSA[dt] for dt in STORAGE16}
 #: the f32 paths' profile figures, kept for the 16-bit paths' lines
@@ -3185,16 +3207,30 @@ def _flash16_case(torch, dt, B, Lq, Lk, H, D, seed):
                  for x in _flash_case(torch, B, Lq, Lk, H, D, seed))
 
 
+def _tensor_core_sass():
+    """Tensor-core instructions (HMMA, HGMMA) of each tensor-core
+    instance in the built library's SASS, by :func:`_template_name`
+    (``msrflute_tpu_torch/ops/sass.py::tensor_core_count``)."""
+    from msrflute_tpu_torch.ops import _build, sass
+    lib = _build.library_path("flash_attention")
+    return {_template_name(name): sass.tensor_core_count(body)
+            for name, body in sass.functions(sass.disassemble(lib)).items()
+            if "_tc_kernel" in name}
+
+
 def phase_kernel_flash16(torch):
     """B4, B5 and B6 in bfloat16 and float16 against their plain versions
     (float32 math on the 16-bit inputs, rounded once) within
     ``FLASH16_TOL``, at the RingLM path's shape and at odd shapes (the
-    16-byte staged copies at D % 8 == 0, the element path at D = 5 and 20,
-    masked rows, ragged edges); two launches bitwise equal; then timed at
+    16-byte copies at D % 8 == 0, the element path at D = 5 and 20, masked
+    rows, ragged edges); two launches bitwise equal; then timed at
     ``[40, 1023, 4, 32]`` and B4 at ``[16, 1023, 4, 32]`` beside the
     causal SDPA call in the same type, with two bounds: bytes, and
     operations at the 16-bit tensor-core rate (the least time the card
-    needs; the float32 CUDA-core rate these kernels run at beside it)."""
+    needs; the float32 CUDA-core rate beside it).  B4's and B6's 16-bit
+    instances are the tensor-core kernels: at D = 32 each must show
+    tensor-core instructions in its SASS, no spill and at least two blocks
+    an SM."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from msrflute_tpu_torch.ops import flash_attention as fa
@@ -3212,6 +3248,7 @@ def phase_kernel_flash16(torch):
         ("BH1", (1, 1023, 1023, 1, 32, True, 0, 0)),
     ]
     rows, lines = [], {}
+    tc_sass = _tensor_core_sass()
     for dt_name in STORAGE16:
         dt = getattr(torch, dt_name)
         tol = FLASH16_TOL[dt_name]
@@ -3229,6 +3266,8 @@ def phase_kernel_flash16(torch):
                  "dq": lambda: fa.flash_dq(*args),
                  "dkv": lambda: fa.flash_dkv(*args)}
         t = {key: _device_ms(torch, fn) for key, fn in calls.items()}
+        host_paced = {key: _time_ms(torch, fn, iters=20)
+                      for key, fn in calls.items()}
         plain = {"fwd": _time_ms(torch, lambda: fa.attention_lse_plain(
                      q, k, v, causal, qo, ko), iters=5),
                  "dq": _time_ms(torch, lambda: fa.attention_dq_plain(*args),
@@ -3269,6 +3308,8 @@ def phase_kernel_flash16(torch):
         e_ms = _device_ms(torch, lambda: fa.flash_fwd(qe, ke, ve, causal,
                                                       qo, ko))
         fwd_eval = {"shape": [Be, Lq, H, D], "ms": e_ms,
+                    "ms_host_paced": _time_ms(torch, lambda: fa.flash_fwd(
+                        qe, ke, ve, causal, qo, ko), iters=20),
                     "bound_ms": max(e_flops / PEAK_TC16_FLOPS,
                                     e_bytes / PEAK_BYTES_PER_S) * 1e3,
                     "bound_ms_f32": e_flops / PEAK_F32_FLOPS * 1e3,
@@ -3291,7 +3332,8 @@ def phase_kernel_flash16(torch):
                 "source": "msrflute_tpu_torch/csrc/flash_attention.cu",
                 "replaces": f"msrflute_tpu/ops/pallas_attention.py{line}",
                 "launches": None, "max_abs_err": max_err[key],
-                "ms": t[key], "plain_ms": plain[key],
+                "ms": t[key], "ms_host_paced": host_paced[key],
+                "plain_ms": plain[key],
                 "bound_ms": max(ops_ms, bytes_ms),
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                 "library_ms": lib_ms,
@@ -3306,11 +3348,25 @@ def phase_kernel_flash16(torch):
                 "share_of_bound": max(ops_ms, bytes_ms) / t[key],
                 "share_of_f32_bound": flops / PEAK_F32_FLOPS * 1e3 / t[key],
                 "library_over_kernel": lib_ms / t[key], **info,
+                "instance": _flash_entry(key, D, dt_name),
                 "ptxas": ptxas_reports(BUILD_LOGS.get(
                     "flash_attention", "")).get(
                         _flash_entry(key, D, dt_name))}
+            if key != "dq":   # the tensor-core instances
+                d = detail[key]
+                d["tensor_core_instructions"] = tc_sass.get(d["instance"], 0)
+                spills = d["ptxas"] or {"spill_store_bytes": 0,
+                                        "spill_load_bytes": 0}
+                check(d["tensor_core_instructions"] > 0,
+                      f"{d['instance']}: no HMMA or HGMMA in its SASS")
+                check(d["local_bytes"] == 0 and d["blocks_per_sm"] >= 2 and
+                      spills["spill_store_bytes"] ==
+                      spills["spill_load_bytes"] == 0,
+                      f"{d['instance']} spills or fits one block an SM: "
+                      f"{d}")
         lines[dt_name] = {"rel_err": errs, "max_abs_err_main": max_abs,
-                          "tolerance": tol, "ms": t, "plain_ms": plain,
+                          "tolerance": tol, "ms": t,
+                          "host_paced": host_paced, "plain_ms": plain,
                           "sdpa_ms": lib, "fwd_at_eval_shape": fwd_eval,
                           "detail": detail}
         if dt_name == "bfloat16":

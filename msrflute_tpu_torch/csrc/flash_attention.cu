@@ -1,5 +1,7 @@
 // Flash attention for Hopper (sm_90a): the forward (B4), the dq pass (B5)
-// and the dk/dv pass (B6), f32 on CUDA cores, in one library.
+// and the dk/dv pass (B6), in one library: f32 on CUDA cores, and B4 and
+// B6 in bfloat16 / float16 storage on the tensor cores (the last section
+// of this note).
 //
 // Replaces the TPU kernels of msrflute_tpu/ops/pallas_attention.py:
 // - B4 _fwd (pl.pallas_call at pallas_attention.py:336, body _fwd_kernel
@@ -29,16 +31,18 @@
 // type, lse in f32 (pallas_attention.py:109-111, :150, :172-175, :209,
 // :224-227, :268-269).  So q, k, v, dO and the outputs are float,
 // __nv_bfloat16 or __half here, one type for all of them (the launchers
-// with the _bf16 and _f16 suffix): every tile is widened to f32 once, as it
-// enters shared memory, the f32 register tiles and the lse / delta math
-// stay as they are, and the outputs are rounded to nearest even on store.
-// A 16-bit tile arrives by the same cp.async copies, 8 elements a 16-byte
-// copy, into the tail of the f32 tile it will become (64 * DT * 2 bytes of
-// the 64 * (DT + 4) * 4); when the copy has landed the block reads it into
-// registers, meets, and writes the f32 tile, columns past D as zeros, and
-// meets again: two barriers more a tile, no shared memory more.  Where a
-// 16-bit tile cannot take 16-byte copies (D % 8 != 0, or a tensor off a
-// 16-byte boundary) each element is loaded, widened and stored directly.
+// with the _bf16 and _f16 suffix).  B4 and B6 in 16-bit storage run the
+// tensor-core kernels of the last section.  B5 in 16-bit storage widens
+// every tile to f32 once, as it enters shared memory, the f32 register
+// tiles and the lse / delta math stay as they are, and the outputs are
+// rounded to nearest even on store: a 16-bit tile of B5 arrives by the
+// same cp.async copies, 8 elements a 16-byte copy, into the tail of the
+// f32 tile it will become (64 * DT * 2 bytes of the 64 * (DT + 4) * 4);
+// when the copy has landed the block reads it into registers, meets, and
+// writes the f32 tile, columns past D as zeros, and meets again: two
+// barriers more a tile, no shared memory more.  Where a 16-bit tile cannot
+// take 16-byte copies (D % 8 != 0, or a tensor off a 16-byte boundary)
+// each element is loaded, widened and stored directly.
 //
 // Bound on the H100: at the RingLM path's [40, 1023, 4, 32] causal each
 // pass reads a few tens of MB and does 1.1e10 (B4), 1.6e10 (B5) and
@@ -141,12 +145,67 @@
 // element-wise part does next to three.  Three blocks an SM (80 registers)
 // spill and run slower, and rescaling only when a row max grows by 2^8
 // gains nothing (csrc/probes/fwd_variants.py).
+//
+// The tensor-core arms: flash_fwd_tc_kernel (B4, replacing _fwd at
+// pallas_attention.py:336, body :96-150) and flash_dkv_tc_kernel (B6,
+// replacing _dkv_kernel at :411, body :212-269) for bfloat16 and float16
+// storage.  Bound on the H100: at [40, 1023, 4, 32] causal B4 does 1.1e10
+// flops and moves 42.6 MB, B6 2.1e10 flops and 64.8 MB; at the dense
+// 16-bit tensor-core rate (989 TFLOP/s) and 3.35 TB/s B4 is bound by bytes
+// (0.0127 ms, against 0.0108 of operations) and B6 by operations (0.0217
+// ms, against 0.0193 of bytes).  The f32 arms' CUDA-core FMA loop would
+// hold them at the 67 TFLOP/s f32 rate (0.16 and 0.32 ms); the design puts
+// the products on the tensor cores instead:
+// - products.  mma.sync.m16n8k16 with 16-bit operands and f32
+//   accumulators, fed by ldmatrix from shared memory: B4 runs S = Q K^T
+//   and O += P V, B6 runs S^T = K Q^T, dP^T = V dO^T, dV += P^T dO and
+//   dK += dS^T Q.  A block of 4 warps owns 64 rows of its own tile (Q in
+//   B4, K and V in B6), a warp 16 of them, and streams 64-row tiles of
+//   the other axis; B6 takes a streamed tile 32 queries at a time, which
+//   keeps its D = 32 instance under 128 registers.  The head width is
+//   padded with zero columns to DT = 16, 32, 64 or 128 (D = 5, 8 -> 16,
+//   D = 20 -> 32); D <= 128.  An accumulator of S (or S^T, dP^T) is
+//   already laid out as the A operand of the next product, so P and dS
+//   never leave the registers;
+// - the element-wise work in f32 on the accumulators: B4's online softmax
+//   in the log2 domain with ex2.approx (the row max over the 4 lanes of a
+//   quad, by two shuffles), the global-position causal mask, the TPU
+//   kernels' tile-skip conditions (pallas_attention.py:139, :260),
+//   explicit zeros for masked entries (a fully masked row gives out = 0
+//   and lse = -1e30 exactly), B6's mask on padded query rows, and ds / scale
+//   = p (dp - delta + glse) with the scale on dk once, at the end.  The
+//   row sum l, and so the lse, comes from the f32 p before any rounding;
+// - P and dS into the products.  The TPU kernel multiplies them in f32
+//   (pallas_attention.py:133-134, :246-257); here each is rounded once,
+//   to nearest even, to the storage type, in bfloat16 and in float16
+//   alike.  The error that adds is a relative 2^-9 (bf16) or 2^-12 (f16)
+//   per term of sums whose terms have random signs, well inside the one
+//   ulp of the type at the largest magnitude (2^-7, 2^-10) that the
+//   kernels are held to against their plain versions, and in float16 no
+//   value of P (<= 1) or of the test's dS comes near the type's range;
+//   tests/test_torch_flash_tc16.py holds this rounding to the JAX kernels
+//   and the plain versions on the CPU, in both types, so no hi + lo split
+//   is needed.  Accumulation stays f32;
+// - copies.  Tiles stay 16-bit in shared memory, [64][DT + 8] (a row 16
+//   bytes longer than its values, so each 8 x 8 ldmatrix reads 8 distinct
+//   16-byte bank groups); they arrive by 16-byte cp.async copies where
+//   D % 8 == 0 and the tensors are 16-byte aligned (element by element
+//   otherwise), rows past L zero-filled by the copy, and the streamed tiles
+//   are double-buffered at every width: one barrier a tile, no widening;
+// - determinism: no atomics, a block writes its own rows, every sum runs
+//   in a fixed order, so two launches are bitwise equal;
+// - shared memory a block: B4 5 tiles, B6 6 tiles and two stages of
+//   3 x 64 statistics, 64 * (DT + 8) * 2 bytes a tile: 25,600 / 30,720
+//   bytes at DT = 32 (4 blocks an SM at <= 128 registers), 87,040 / 105,984
+//   at DT = 128 (2 blocks).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -696,6 +755,7 @@ __global__ void __launch_bounds__(kThreads, Layout<DT>::kMinBlocks)
 flash_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
                  const S* __restrict__ v, S* __restrict__ out,
                  float* __restrict__ lse, Dims p, int vec) {
+  static_assert(kWide<S>, "16-bit B4 is flash_fwd_tc_kernel");
   using T = Layout<DT>;
   extern __shared__ float4 smem[];
   float* Qs = reinterpret_cast<float*>(smem);
@@ -707,10 +767,7 @@ flash_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // heavy tiles first
   const int n = key_tiles(p, q0);
 
-  // a staged 16-bit tile is widened with its pad columns
-  const bool staged = !kWide<S> && vec;
-  if (p.D < DT && !staged)
-    zero_pad_columns<DT>(Qs, 1 + 2 * T::kStages, p.D);
+  if (p.D < DT) zero_pad_columns<DT>(Qs, 1 + 2 * T::kStages, p.D);
   if (n > 0) {
     load_pair_async<DT, S, 1>(Qs, q, nullptr, b, h, q0, p.Lq, p, vec);
     load_pair_async<DT>(KVs, k, v, b, h, 0, p.Lk, p, vec);
@@ -735,10 +792,6 @@ flash_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
     float* Vs = Ks + T::kTileFloats;
     cp_async_wait_all();
     __syncthreads();  // tile kj is here; tile kj - 1's readers are done
-    if (staged) {
-      if (kj == 0) widen_tiles<DT, S, 1>(Qs, p.D);
-      widen_tiles<DT, S, 2>(Ks, p.D);
-    }
     if (T::kStages == 2 && kj + 1 < n) {
       load_pair_async<DT>(KVs + (stage ^ 1) * 2 * T::kTileFloats, k, v, b, h,
                           (kj + 1) * kTile, p.Lk, p, vec);
@@ -926,6 +979,7 @@ flash_dkv_kernel(const S* __restrict__ q, const S* __restrict__ k,
                  const float* __restrict__ delta,
                  const float* __restrict__ glse, S* __restrict__ dk,
                  S* __restrict__ dv, Dims p, int vec) {
+  static_assert(kWide<S>, "16-bit B6 is flash_dkv_tc_kernel");
   using T = Layout<DT>;
   extern __shared__ float4 smem[];
   float* Ks = reinterpret_cast<float*>(smem);
@@ -959,9 +1013,7 @@ flash_dkv_kernel(const S* __restrict__ q, const S* __restrict__ k,
                      qj * kTile, p);
   };
 
-  const bool staged = !kWide<S> && vec;
-  if (p.D < DT && !staged)
-    zero_pad_columns<DT>(Ks, 2 + 2 * T::kStages, p.D);
+  if (p.D < DT) zero_pad_columns<DT>(Ks, 2 + 2 * T::kStages, p.D);
   if (first < nq) {
     load_pair_async<DT>(Ks, k, v, b, h, k0, p.Lk, p, vec);
     load_stage(0, first);
@@ -983,10 +1035,6 @@ flash_dkv_kernel(const S* __restrict__ q, const S* __restrict__ k,
     float* Gs = Qs + T::kTileFloats;
     cp_async_wait_all();
     __syncthreads();  // tile qj is here; tile qj - 1's readers are done
-    if (staged) {
-      if (qj == first) widen_tiles<DT, S, 2>(Ks, p.D);
-      widen_tiles<DT, S, 2>(Qs, p.D);
-    }
     if (T::kStages == 2 && qj + 1 < nq) {
       load_stage(stage ^ 1, qj + 1);
       cp_async_commit();
@@ -1032,6 +1080,517 @@ flash_dkv_kernel(const S* __restrict__ q, const S* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------
+// B4 and B6 in 16-bit storage: the tensor-core arms (see the header)
+// ---------------------------------------------------------------------
+// 4 warps a block, 16 rows of the block's 64 each
+constexpr int kTcThreads = 128;
+// B6's streamed queries a pass: S^T, dP^T and the sums of a warp cover
+// 16 keys x 32 queries at a time, which keeps the D = 32 instance under
+// 128 registers
+constexpr int kTcChunk = 32;
+
+// 16-bit tiles [64][DT + 8] at head width DT (D padded to 16, 32, 64 or
+// 128): a row is 16 bytes longer than its DT values, so the 8 rows of an
+// ldmatrix 8 x 8 matrix start in 8 distinct 16-byte groups of the 32
+// banks; columns at or past D are zeros
+template <int DT>
+struct TcLayout {
+  static constexpr int kStride = DT + 8;  // elements
+  static constexpr int kTileElems = kTile * kStride;
+  // blocks an SM the register budget is set for: a B4 warp holds
+  // 16 x (64 + DT) sums, a B6 warp 16 x (32 + 2 DT)
+  static constexpr int kFwdBlocks = DT <= 64 ? 4 : 2;
+  static constexpr int kDkvBlocks = DT <= 32 ? 4 : 2;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool real) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(real ? 16 : 0)
+               : "memory");
+}
+
+// four 8 x 8 matrices of 16-bit values from shared memory; lane i gives
+// the address of row i % 8 of matrix i / 8 and gets, of matrix j, the
+// elements (lane / 4, 2 (lane % 4) .. + 1) in r[j], or with .trans those
+// of the transposed matrix
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// c += A B on the tensor cores: A 16 x 16 (row-major fragment a), B 16 x 8
+// (fragment b0, b1), c 16 x 8 float32 (rows lane / 4 and + 8, columns
+// 2 (lane % 4) .. + 1)
+template <typename S>
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1);
+template <>
+__device__ __forceinline__ void mma16816<__nv_bfloat16>(
+    float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+template <>
+__device__ __forceinline__ void mma16816<__half>(float (&c)[4],
+                                                 const uint32_t (&a)[4],
+                                                 uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two float32 values rounded to nearest even into one 16-bit pair, lo in
+// the low half
+template <typename S>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the A fragment of a 16 x 16 piece from two neighbouring 16 x 8
+// accumulators (columns 0-7 and 8-15), rounded to the storage type
+template <typename S>
+__device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&lo)[4],
+                                     const float (&hi)[4]) {
+  a[0] = pack2<S>(lo[0], lo[1]);
+  a[1] = pack2<S>(lo[2], lo[3]);
+  a[2] = pack2<S>(hi[0], hi[1]);
+  a[3] = pack2<S>(hi[2], hi[3]);
+}
+
+// 16-byte copies of `per_row` pieces a row (8 values each) into a
+// [64][DT + 8] tile, rows at or past L zero-filled by the copy
+template <int DT, typename S>
+__device__ __forceinline__ void tc_copy_rows(S* dst, const S* src,
+                                             int64_t row_stride, int row0,
+                                             int L, int per_row) {
+  for (int i = threadIdx.x; i < kTile * per_row; i += kTcThreads) {
+    const int rr = i / per_row, c = (i - rr * per_row) * 8;
+    const bool real = row0 + rr < L;
+    cp_async16(dst + rr * TcLayout<DT>::kStride + c,
+               src + (real ? (row0 + rr) * row_stride : 0) + c, real);
+  }
+}
+
+// rows [row0, row0 + 64) of one head of a [B, L, H, D] tensor into a
+// [64][DT + 8] tile: 16-byte cp.async copies when `vec`; otherwise element
+// by element, here and now.  Columns at or past D are not written.
+template <int DT, typename S>
+__device__ __forceinline__ void tc_load_tile(S* dst, const S* src, int b,
+                                             int h, int row0, int L,
+                                             const Dims& p, bool vec) {
+  const S* head = src + elem(p, b, L, 0, h, 0);
+  const int64_t row_stride = static_cast<int64_t>(p.H) * p.D;
+  if (vec && p.D == DT) {  // the division by a constant folds
+    tc_copy_rows<DT>(dst, head, row_stride, row0, L, DT / 8);
+  } else if (vec) {
+    tc_copy_rows<DT>(dst, head, row_stride, row0, L, p.D / 8);
+  } else {
+    for (int i = threadIdx.x; i < kTile * p.D; i += kTcThreads) {
+      const int rr = i / p.D, c = i - rr * p.D;
+      dst[rr * TcLayout<DT>::kStride + c] =
+          row0 + rr < L ? head[(row0 + rr) * row_stride + c]
+                        : narrow<S>(0.0f);
+    }
+  }
+}
+
+// zeros in the columns at or past D of `tiles` consecutive tiles: no copy
+// writes them and the products run over all DT columns
+template <int DT, typename S>
+__device__ __forceinline__ void tc_zero_pad(S* tiles_base, int tiles, int D) {
+  const int extra = DT - D;
+  for (int i = threadIdx.x; i < tiles * kTile * extra; i += kTcThreads) {
+    const int row = i / extra;
+    tiles_base[row * TcLayout<DT>::kStride + D + (i - row * extra)] =
+        narrow<S>(0.0f);
+  }
+}
+
+// lse, delta and glse of query rows [row0, row0 + 64) into dst[3][64]
+__device__ __forceinline__ void tc_load_stats(float* dst, const float* lse,
+                                              const float* delta,
+                                              const float* glse, int b,
+                                              int h, int row0,
+                                              const Dims& p) {
+  for (int i = threadIdx.x; i < 3 * kTile; i += kTcThreads) {
+    const int which = i / kTile, row = row0 + i % kTile;
+    const bool real = row < p.Lq;
+    const float* src = which == 0 ? lse : which == 1 ? delta : glse;
+    cp_async<4>(dst + i, src + (real ? stat(p, b, h, row) : 0), real);
+  }
+}
+
+// A lane's place: its ldmatrix address in a 16 x 16 piece, (a_row, a_col)
+// for an A operand stored [row][k] and for a B operand stored [k][n] (by
+// .trans), (b_row, b_col) for a pair of B operands (n 0-7 and 8-15) stored
+// [n][k]; and its accumulator rows g, g + 8 and columns 2 t, 2 t + 1
+struct TcLane {
+  int a_row, a_col, b_row, b_col, g, t;
+  __device__ TcLane() {
+    const int lane = threadIdx.x & 31;
+    a_row = lane & 15;
+    a_col = (lane >> 4) * 8;
+    b_row = (lane & 7) + ((lane >> 4) << 3);
+    b_col = ((lane >> 3) & 1) * 8;
+    g = lane >> 2;
+    t = lane & 3;
+  }
+};
+
+// acc[n] (16 x kN * 8, float32) += A B over k in [0, DT): A the 16 rows of
+// a tile at `a` (the lane's ldmatrix address), B the rows n0 .. n0 + 8 kN
+// of a tile `b` stored [n][k] (the lane's ldmatrix address of row n0)
+template <int DT, int kN, typename S>
+__device__ __forceinline__ void tc_product_nk(float (&acc)[kN][4], const S* a,
+                                              const S* b) {
+  constexpr int kStride = TcLayout<DT>::kStride;
+#pragma unroll
+  for (int kk = 0; kk < DT; kk += 16) {
+    uint32_t fa[4];
+    ldsm_x4(fa, a + kk);
+#pragma unroll
+    for (int np = 0; np < kN / 2; ++np) {
+      uint32_t fb[4];
+      ldsm_x4(fb, b + np * 16 * kStride + kk);
+      mma16816<S>(acc[2 * np], fa, fb[0], fb[1]);
+      mma16816<S>(acc[2 * np + 1], fa, fb[2], fb[3]);
+    }
+  }
+}
+
+// acc[DT / 8] (16 x DT, float32) += W X: W the 16 x 8 kN accumulators
+// `w`, rounded to the storage type, X the kN * 8 rows of a tile stored
+// [k][n] (the lane's .trans ldmatrix address of its first row)
+template <int DT, int kN, typename S>
+__device__ __forceinline__ void tc_product_kn(float (&acc)[DT / 8][4],
+                                              const float (&w)[kN][4],
+                                              const S* x) {
+  constexpr int kStride = TcLayout<DT>::kStride;
+#pragma unroll
+  for (int kk = 0; kk < kN / 2; ++kk) {
+    uint32_t fa[4];
+    to_a<S>(fa, w[2 * kk], w[2 * kk + 1]);
+#pragma unroll
+    for (int dp = 0; dp < DT / 16; ++dp) {
+      uint32_t fb[4];
+      ldsm_x4_t(fb, x + kk * 16 * kStride + dp * 16);
+      mma16816<S>(acc[2 * dp], fa, fb[0], fb[1]);
+      mma16816<S>(acc[2 * dp + 1], fa, fb[2], fb[3]);
+    }
+  }
+}
+
+// One 16 x 64 tile of B4's online softmax in the log2 domain, on the
+// accumulator layout: the lane holds query rows `row` and `row + 8`
+// (s[.][0..1] and s[.][2..3]) against keys `key + 8 n` and + 1.  Scores
+// become p = 2^(s * scale * log2 e - m2) in place, masked ones exactly 0;
+// m2 and the lane's partial row sums l move on; the output rows take corr.
+template <bool kMasked, int kDn>
+__device__ __forceinline__ void tc_online_softmax(float (&s)[kTile / 8][4],
+                                                  float (&o)[kDn][4],
+                                                  float (&m2)[2],
+                                                  float (&l)[2],
+                                                  const Dims& p,
+                                                  float scale2, int row,
+                                                  int key) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mt = kNeg;
+#pragma unroll
+    for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float& x = s[n][2 * r + c];
+        // kNeg marks a masked score below: no real score is -1e30
+        if (kMasked && !visible(p, row + 8 * r, key + 8 * n + c)) x = kNeg;
+        mt = fmaxf(mt, x);
+      }
+    // the 4 lanes of a quad share the row
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    const float m_new = fmaxf(m2[r], mt * scale2);
+    const float corr = fast_exp2(m2[r] - m_new);
+    m2[r] = m_new;
+    float sum = 0.0f;
+#pragma unroll
+    for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float& x = s[n][2 * r + c];
+        // masked entries are zeroed explicitly: in a row that has seen no
+        // visible key s * scale2 == m2 and 2^0 would resurrect them
+        const float pr =
+            kMasked && x == kNeg ? 0.0f : fast_exp2(fmaf(x, scale2, -m_new));
+        x = pr;
+        sum += pr;
+      }
+    l[r] = fmaf(l[r], corr, sum);
+#pragma unroll
+    for (int d = 0; d < kDn; ++d) {
+      o[d][2 * r] *= corr;
+      o[d][2 * r + 1] *= corr;
+    }
+  }
+}
+
+template <int DT, typename S>
+__global__ void __launch_bounds__(kTcThreads, TcLayout<DT>::kFwdBlocks)
+flash_fwd_tc_kernel(const S* __restrict__ q, const S* __restrict__ k,
+                    const S* __restrict__ v, S* __restrict__ out,
+                    float* __restrict__ lse, Dims p, int vec) {
+  using T = TcLayout<DT>;
+  constexpr int kN = kTile / 8;  // 8-key pieces of a tile
+  constexpr int kDn = DT / 8;    // 8-column pieces of an output row
+  extern __shared__ float4 smem[];
+  S* Qs = reinterpret_cast<S*>(smem);
+  S* KVs = Qs + T::kTileElems;  // a stage: K, then V
+
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // heavy tiles first
+  const int n = key_tiles(p, q0);
+  const int warp = threadIdx.x >> 5;
+  const TcLane ln;
+
+  if (p.D < DT) tc_zero_pad<DT>(Qs, 5, p.D);
+  if (n > 0) {
+    tc_load_tile<DT>(Qs, q, b, h, q0, p.Lq, p, vec);
+    tc_load_tile<DT>(KVs, k, b, h, 0, p.Lk, p, vec);
+    tc_load_tile<DT>(KVs + T::kTileElems, v, b, h, 0, p.Lk, p, vec);
+    cp_async_commit();
+  }
+  const S* Qa = Qs + (16 * warp + ln.a_row) * T::kStride + ln.a_col;
+  const int row = q0 + 16 * warp + ln.g;  // the lane's rows: row, row + 8
+  const float scale2 = p.scale * kLog2e;
+  float o[kDn][4] = {};
+  float m2[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f};
+
+  for (int kj = 0; kj < n; ++kj) {
+    S* Ks = KVs + (kj & 1) * 2 * T::kTileElems;
+    S* Vs = Ks + T::kTileElems;
+    cp_async_wait_all();
+    __syncthreads();  // tile kj is here; tile kj - 1's readers are done
+    if (kj + 1 < n) {
+      S* next = KVs + ((kj + 1) & 1) * 2 * T::kTileElems;
+      tc_load_tile<DT>(next, k, b, h, (kj + 1) * kTile, p.Lk, p, vec);
+      tc_load_tile<DT>(next + T::kTileElems, v, b, h, (kj + 1) * kTile,
+                       p.Lk, p, vec);
+      cp_async_commit();
+    }
+    const int k0 = kj * kTile;
+    float s[kN][4] = {};
+    tc_product_nk<DT, kN>(s, Qa, Ks + ln.b_row * T::kStride + ln.b_col);
+    if (key_edge(p, q0, k0))
+      tc_online_softmax<true>(s, o, m2, l, p, scale2, row, k0 + 2 * ln.t);
+    else
+      tc_online_softmax<false>(s, o, m2, l, p, scale2, row, k0 + 2 * ln.t);
+    tc_product_kn<DT, kN>(o, s, Vs + ln.a_row * T::kStride + ln.a_col);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // the quad's partial sums, a butterfly: every lane gets the same bits
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int rr = row + 8 * r;
+    if (rr >= p.Lq) continue;
+    const float lc = fmaxf(l[r], 1e-30f);
+    if (ln.t == 0)
+      lse[stat(p, b, h, rr)] =
+          l[r] > 0.0f ? m2[r] * 0.6931471805599453f + logf(lc) : kNeg;
+    S* o_row = out + elem(p, b, p.Lq, rr, h, 0);
+#pragma unroll
+    for (int d = 0; d < kDn; ++d) {
+      const int col = 8 * d + 2 * ln.t;
+      const float x0 = o[d][2 * r] / lc, x1 = o[d][2 * r + 1] / lc;
+      if (vec) {
+        if (col < p.D)
+          *reinterpret_cast<uint32_t*>(o_row + col) = pack2<S>(x0, x1);
+      } else {
+        if (col < p.D) o_row[col] = narrow<S>(x0);
+        if (col + 1 < p.D) o_row[col + 1] = narrow<S>(x1);
+      }
+    }
+  }
+}
+
+// B6's p and ds / scale = p * (dp - delta + glse) in place of s and dp, on
+// the accumulator layout of a 16-key x kTcChunk-query piece: the lane
+// holds key rows `key` and `key + 8` against local queries `ql + 8 n` and
+// + 1 of the tile at q0; `st` is the tile's [3][64] lse, delta, glse
+template <bool kMasked>
+__device__ __forceinline__ void tc_probs(float (&s)[kTcChunk / 8][4],
+                                         float (&dp)[kTcChunk / 8][4],
+                                         const float* st, const Dims& p,
+                                         float scale2, int q0, int ql,
+                                         int key) {
+#pragma unroll
+  for (int n = 0; n < kTcChunk / 8; ++n) {
+    const int qn = ql + 8 * n;
+    const float2 ls = *reinterpret_cast<const float2*>(st + qn);
+    const float2 de = *reinterpret_cast<const float2*>(st + kTile + qn);
+    const float2 gl = *reinterpret_cast<const float2*>(st + 2 * kTile + qn);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = c & 1;
+      const float lse2 = (j ? ls.y : ls.x) * kLog2e;
+      // d lse / d s = p: the lse cotangent adds straight into ds
+      const float shift = (j ? gl.y : gl.x) - (j ? de.y : de.x);
+      float pr = fast_exp2(fmaf(s[n][c], scale2, -lse2));
+      // padded query rows carry no lse: mask them too
+      const int q_loc = q0 + qn + j;
+      if (kMasked &&
+          !(q_loc < p.Lq && visible(p, q_loc, key + 8 * (c >> 1))))
+        pr = 0.0f;
+      s[n][c] = pr;
+      dp[n][c] = pr * (dp[n][c] + shift);
+    }
+  }
+}
+
+template <int DT, typename S>
+__global__ void __launch_bounds__(kTcThreads, TcLayout<DT>::kDkvBlocks)
+flash_dkv_tc_kernel(const S* __restrict__ q, const S* __restrict__ k,
+                    const S* __restrict__ v, const S* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const float* __restrict__ glse, S* __restrict__ dk,
+                    S* __restrict__ dv, Dims p, int vec) {
+  using T = TcLayout<DT>;
+  constexpr int kN = kTcChunk / 8;  // 8-query pieces of a pass
+  constexpr int kDn = DT / 8;
+  extern __shared__ float4 smem[];
+  S* Ks = reinterpret_cast<S*>(smem);
+  S* Vs = Ks + T::kTileElems;
+  S* QGs = Vs + T::kTileElems;  // a stage: Q, then dO
+  float* stats = reinterpret_cast<float*>(QGs + 4 * T::kTileElems);
+
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int k0 = blockIdx.y * kTile;  // key tile 0 sees the most query tiles
+  // pallas_attention.py:260, as in flash_dkv_kernel
+  const int nq = (p.Lq + kTile - 1) / kTile;
+  int first = 0;
+  if (p.causal) {
+    const int64_t need = static_cast<int64_t>(p.k_off) + k0 + 1 -
+                         static_cast<int64_t>(p.q_off);
+    if (need > 0) {
+      const int64_t f = (need + kTile - 1) / kTile - 1;
+      first = f < nq ? static_cast<int>(f) : nq;
+    }
+  }
+  const int warp = threadIdx.x >> 5;
+  const TcLane ln;
+
+  // tile qj's Q, dO and row statistics into `stage`
+  auto load_stage = [&](int stage, int qj) {
+    S* dst = QGs + stage * 2 * T::kTileElems;
+    tc_load_tile<DT>(dst, q, b, h, qj * kTile, p.Lq, p, vec);
+    tc_load_tile<DT>(dst + T::kTileElems, dout, b, h, qj * kTile, p.Lq, p,
+                     vec);
+    tc_load_stats(stats + stage * 3 * kTile, lse, delta, glse, b, h,
+                  qj * kTile, p);
+  };
+
+  if (p.D < DT) tc_zero_pad<DT>(Ks, 6, p.D);
+  if (first < nq) {
+    tc_load_tile<DT>(Ks, k, b, h, k0, p.Lk, p, vec);
+    tc_load_tile<DT>(Vs, v, b, h, k0, p.Lk, p, vec);
+    load_stage(0, first);
+    cp_async_commit();
+  }
+  const int own = (16 * warp + ln.a_row) * T::kStride + ln.a_col;
+  const int key = k0 + 16 * warp + ln.g;  // the lane's keys: key, key + 8
+  const float scale2 = p.scale * kLog2e;
+  float dk_acc[kDn][4] = {}, dv_acc[kDn][4] = {};
+
+  for (int qj = first; qj < nq; ++qj) {
+    const int stage = (qj - first) & 1;
+    const S* Qs = QGs + stage * 2 * T::kTileElems;
+    const S* Gs = Qs + T::kTileElems;
+    const float* st = stats + stage * 3 * kTile;
+    cp_async_wait_all();
+    __syncthreads();  // tile qj is here; tile qj - 1's readers are done
+    if (qj + 1 < nq) {
+      load_stage(stage ^ 1, qj + 1);
+      cp_async_commit();
+    }
+    const int q0 = qj * kTile;
+    // the mask can touch this tile: it holds padded keys or padded
+    // queries, or its last key lies past its first query
+    const bool edge =
+        k0 + kTile > p.Lk || q0 + kTile > p.Lq ||
+        (p.causal && static_cast<int64_t>(p.k_off) + k0 + kTile - 1 >
+                         static_cast<int64_t>(p.q_off) + q0);
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTile; c0 += kTcChunk) {
+      // S^T = K Q^T and dP^T = V dO^T over the pass's queries
+      float s[kN][4] = {}, dp[kN][4] = {};
+      const int nk = (c0 + ln.b_row) * T::kStride + ln.b_col;
+      tc_product_nk<DT, kN>(s, Ks + own, Qs + nk);
+      tc_product_nk<DT, kN>(dp, Vs + own, Gs + nk);
+      if (edge)
+        tc_probs<true>(s, dp, st, p, scale2, q0, c0 + 2 * ln.t, key);
+      else
+        tc_probs<false>(s, dp, st, p, scale2, q0, c0 + 2 * ln.t, key);
+      // dV += P^T dO and dK += dS^T Q
+      const int kn = (c0 + ln.a_row) * T::kStride + ln.a_col;
+      tc_product_kn<DT, kN>(dv_acc, s, Gs + kn);
+      tc_product_kn<DT, kN>(dk_acc, dp, Qs + kn);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = key + 8 * r;
+    if (rr >= p.Lk) continue;
+    S* k_row = dk + elem(p, b, p.Lk, rr, h, 0);
+    S* v_row = dv + elem(p, b, p.Lk, rr, h, 0);
+#pragma unroll
+    for (int d = 0; d < kDn; ++d) {
+      const int col = 8 * d + 2 * ln.t;
+      // dk takes the scale that ds left out
+      const float k0v = dk_acc[d][2 * r] * p.scale;
+      const float k1v = dk_acc[d][2 * r + 1] * p.scale;
+      const float v0 = dv_acc[d][2 * r], v1 = dv_acc[d][2 * r + 1];
+      if (vec) {
+        if (col < p.D) {
+          *reinterpret_cast<uint32_t*>(k_row + col) = pack2<S>(k0v, k1v);
+          *reinterpret_cast<uint32_t*>(v_row + col) = pack2<S>(v0, v1);
+        }
+      } else {
+        if (col < p.D) k_row[col] = narrow<S>(k0v), v_row[col] = narrow<S>(v0);
+        if (col + 1 < p.D)
+          k_row[col + 1] = narrow<S>(k1v), v_row[col + 1] = narrow<S>(v1);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
 // launch plumbing
 // ---------------------------------------------------------------------
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
@@ -1041,7 +1600,22 @@ int padded_width(int D) {
   return D <= 8 ? 8 : D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
 }
 
-size_t smem_bytes(int which, int D) {
+// the tensor-core arms' width: D padded to 16, 32, 64 or 128
+constexpr int tc_width(int DT) { return DT < 16 ? 16 : DT; }
+
+// B4 and B6 in 16-bit storage run the tensor-core kernels
+constexpr bool tensor_core_arm(int which, int storage) {
+  return storage != 0 && which != 1;
+}
+
+size_t smem_bytes(int which, int D, int storage) {
+  if (tensor_core_arm(which, storage)) {
+    // B4: Q and two stages of K, V; B6: K, V, two stages of Q, dO and of
+    // the three row statistics
+    const size_t tile = static_cast<size_t>(kTile) *
+                        (tc_width(padded_width(D)) + 8) * 2;
+    return which == kFwd ? 5 * tile : 6 * tile + 2 * 3 * kTile * 4;
+  }
   const int DT = padded_width(D), stages = DT <= 64 ? 2 : 1;
   // own tiles: Q in B4; Q, dO in B5; K, V in B6
   const size_t tiles = static_cast<size_t>((which == kFwd ? 1 : 2) +
@@ -1073,11 +1647,50 @@ bool vector_path(const void* const* ptr, int n, int D, int elems) {
   return true;
 }
 
+template <typename S>
+constexpr int storage_of() {
+  return kWide<S> ? 0 : std::is_same<S, __half>::value ? 2 : 1;
+}
+
+// B4 or B6 in 16-bit storage: the tensor-core kernels at width DT
+template <int DT, typename S>
+cudaError_t launch_tc(int which, const void* const* ptr, const Dims& p,
+                      cudaStream_t stream) {
+  static size_t granted[3] = {0, 0, 0};
+  const size_t bytes = smem_bytes(which, p.D, storage_of<S>());
+  const int nq = (p.Lq + kTile - 1) / kTile;
+  const int nk = (p.Lk + kTile - 1) / kTile;
+  const dim3 grid(static_cast<unsigned>(p.B * p.H),
+                  static_cast<unsigned>(which == kDkv ? nk : nq));
+  const S* const* f = reinterpret_cast<const S* const*>(ptr);
+  const float* const* st = reinterpret_cast<const float* const*>(ptr);
+  cudaError_t e;
+  if (which == kFwd) {
+    e = allow_smem(flash_fwd_tc_kernel<DT, S>, bytes, &granted[kFwd]);
+    if (e != cudaSuccess) return e;
+    flash_fwd_tc_kernel<DT, S><<<grid, kTcThreads, bytes, stream>>>(
+        f[0], f[1], f[2], const_cast<S*>(f[3]), const_cast<float*>(st[4]),
+        p, vector_path(ptr, 4, p.D, 8));
+  } else {
+    e = allow_smem(flash_dkv_tc_kernel<DT, S>, bytes, &granted[kDkv]);
+    if (e != cudaSuccess) return e;
+    flash_dkv_tc_kernel<DT, S><<<grid, kTcThreads, bytes, stream>>>(
+        f[0], f[1], f[2], f[3], st[4], st[5], st[6], const_cast<S*>(f[7]),
+        const_cast<S*>(f[8]), p, vector_path(ptr, 9, p.D, 8));
+  }
+  return cudaGetLastError();
+}
+
 template <int DT, typename S>
 cudaError_t launch(int which, const void* const* ptr, const Dims& p,
                    cudaStream_t stream) {
+  if constexpr (!kWide<S>) {
+    if (tensor_core_arm(which, storage_of<S>()))
+      return launch_tc<tc_width(DT), S>(which, ptr, p, stream);
+  }
+  // float32 storage, and B5 in every type
   static size_t granted[3] = {0, 0, 0};
-  const size_t bytes = smem_bytes(which, p.D);
+  const size_t bytes = smem_bytes(which, p.D, storage_of<S>());
   const int nq = (p.Lq + kTile - 1) / kTile;
   const int nk = (p.Lk + kTile - 1) / kTile;
   const dim3 grid(static_cast<unsigned>(p.B * p.H),
@@ -1088,11 +1701,13 @@ cudaError_t launch(int which, const void* const* ptr, const Dims& p,
   cudaError_t e;
   switch (which) {
     case kFwd:
-      e = allow_smem(flash_fwd_kernel<DT, S>, bytes, &granted[kFwd]);
-      if (e != cudaSuccess) return e;
-      flash_fwd_kernel<DT, S><<<grid, kThreads, bytes, stream>>>(
-          f[0], f[1], f[2], const_cast<S*>(f[3]), const_cast<float*>(st[4]),
-          p, vector_path(ptr, 4, p.D, kElems));
+      if constexpr (kWide<S>) {
+        e = allow_smem(flash_fwd_kernel<DT, S>, bytes, &granted[kFwd]);
+        if (e != cudaSuccess) return e;
+        flash_fwd_kernel<DT, S><<<grid, kThreads, bytes, stream>>>(
+            f[0], f[1], f[2], const_cast<S*>(f[3]),
+            const_cast<float*>(st[4]), p, vector_path(ptr, 4, p.D, kElems));
+      }
       break;
     case kDq:
       e = allow_smem(flash_dq_kernel<DT, S>, bytes, &granted[kDq]);
@@ -1102,11 +1717,14 @@ cudaError_t launch(int which, const void* const* ptr, const Dims& p,
           p, vector_path(ptr, 8, p.D, kElems));
       break;
     default:
-      e = allow_smem(flash_dkv_kernel<DT, S>, bytes, &granted[kDkv]);
-      if (e != cudaSuccess) return e;
-      flash_dkv_kernel<DT, S><<<grid, kThreads, bytes, stream>>>(
-          f[0], f[1], f[2], f[3], st[4], st[5], st[6], const_cast<S*>(f[7]),
-          const_cast<S*>(f[8]), p, vector_path(ptr, 9, p.D, kElems));
+      if constexpr (kWide<S>) {
+        e = allow_smem(flash_dkv_kernel<DT, S>, bytes, &granted[kDkv]);
+        if (e != cudaSuccess) return e;
+        flash_dkv_kernel<DT, S><<<grid, kThreads, bytes, stream>>>(
+            f[0], f[1], f[2], f[3], st[4], st[5], st[6],
+            const_cast<S*>(f[7]), const_cast<S*>(f[8]), p,
+            vector_path(ptr, 9, p.D, kElems));
+      }
       break;
   }
   return cudaGetLastError();
@@ -1118,15 +1736,24 @@ cudaError_t launch(int which, const void* const* ptr, const Dims& p,
 template <int DT, typename S>
 cudaError_t info(int which, int D, int* regs, int* local_bytes,
                  int* blocks_per_sm) {
-  const void* kernel =
-      which == kFwd ? reinterpret_cast<const void*>(flash_fwd_kernel<DT, S>)
-      : which == kDq
-          ? reinterpret_cast<const void*>(flash_dq_kernel<DT, S>)
-          : reinterpret_cast<const void*>(flash_dkv_kernel<DT, S>);
+  const bool tc = tensor_core_arm(which, storage_of<S>());
+  const void* kernel = reinterpret_cast<const void*>(flash_dq_kernel<DT, S>);
+  if constexpr (kWide<S>) {
+    if (which == kFwd)
+      kernel = reinterpret_cast<const void*>(flash_fwd_kernel<DT, S>);
+    else if (which == kDkv)
+      kernel = reinterpret_cast<const void*>(flash_dkv_kernel<DT, S>);
+  } else {
+    constexpr int kDTc = tc_width(DT);
+    if (which == kFwd)
+      kernel = reinterpret_cast<const void*>(flash_fwd_tc_kernel<kDTc, S>);
+    else if (which == kDkv)
+      kernel = reinterpret_cast<const void*>(flash_dkv_tc_kernel<kDTc, S>);
+  }
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
   if (e != cudaSuccess) return e;
-  const size_t bytes = smem_bytes(which, D);
+  const size_t bytes = smem_bytes(which, D, storage_of<S>());
   if (bytes > 48 * 1024) {
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1135,8 +1762,8 @@ cudaError_t info(int which, int D, int* regs, int* local_bytes,
   }
   *regs = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
-                                                       kThreads, bytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, kernel, tc ? kTcThreads : kThreads, bytes);
 }
 
 // call fn<DT, S> at the instantiation that serves head width D (DT is
@@ -1279,10 +1906,12 @@ extern "C" int flash_dkv_launch_f16(const void* q, const void* k, const void* v,
                   kF16, stream);
 }
 
-// shared memory a block of pass `which` (0 B4, 1 B5, 2 B6) uses at D (the
-// same in every storage type)
+// shared memory a block of pass `which` uses at D: `which` is the pass (0
+// B4, 1 B5, 2 B6) plus 3 times the storage (0 float32, 1 bfloat16, 2
+// float16), as for flash_kernel_info; -1 for a `which` or D out of range
 extern "C" long long flash_smem_bytes(int which, int D) {
-  return static_cast<long long>(smem_bytes(which, D));
+  if (which < 0 || which > 8 || D < 1 || D > 128) return -1;
+  return static_cast<long long>(smem_bytes(which % 3, D, which / 3));
 }
 
 // registers a thread, local memory a thread in bytes (0 means no spill)

@@ -8,7 +8,8 @@ own, so a number measured by it always names the device it ran on.
 
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -39,3 +40,29 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     # that sum with atomics, and two runs of one config then differ.
     torch.backends.cudnn.deterministic = True
     return dev
+
+
+@contextlib.contextmanager
+def cpu16_guard(device: DeviceLike,
+                *dtypes: Optional[torch.dtype]) -> Iterator[None]:
+    """The context a model's forward and backward run in.  On the CPU, a
+    step that computes in bfloat16 or float16 (any of ``dtypes``) runs
+    with oneDNN off: oneDNN's 16-bit convolution weight gradient returns
+    garbage, NaN at times, at the taps that see only padding (``x [4, 256,
+    1, 1]``, ``w [512, 256, 3, 3]``, stride 2, padding 1, under ``vmap``:
+    in most calls with torch 2.13 on a CPU with AMX), where those taps'
+    gradient is exactly 0 (``tests/test_torch_conv16_cpu.py``).  float32
+    steps, and every step on CUDA (cuDNN runs its convolutions), keep the
+    library's defaults.  The flag is set around the caller's whole
+    forward and backward: autograd runs the backward inside the call of
+    ``vmap(grad(...))``, not inside the layer."""
+    if (torch.device(device).type != "cpu" or
+            not any(dt in (torch.bfloat16, torch.float16) for dt in dtypes)):
+        yield
+        return
+    prev = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = prev

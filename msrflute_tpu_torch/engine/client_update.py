@@ -58,6 +58,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 from torch.func import grad_and_value, vmap
 
+from ..device import cpu16_guard
 from ..models.base import BaseTask
 from ..models.convert import flax_path
 from ..ops.fused_sgd import fused_sgd_apply
@@ -223,7 +224,8 @@ def build_client_update(task: BaseTask, client_opt_cfg,
             batch["sample_mask"] = mask
             masks = (task.draw_masks(gens, B, mask.device)
                      if gens is not None else ())
-            grads, (loss, aux) = grad_fn(views, batch, masks)
+            with cpu16_guard(mask.device, task.compute_dtype, cdt):
+                grads, (loss, aux) = grad_fn(views, batch, masks)
             grads = combine_grad_terms(
                 layout.flatten(grads, batch_dims=1),
                 prox_mu=hparams.fedprox_mu, params=params,

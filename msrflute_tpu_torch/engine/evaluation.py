@@ -18,6 +18,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..device import cpu16_guard
 from ..models.base import BaseTask, Metric, ParamLayout, Params, softmax_xent
 
 
@@ -33,7 +34,9 @@ def evaluate(task: BaseTask, params: Params,
     T = batches["sample_mask"].shape[0]
     sums = None
     for t in range(T):
-        step = task.eval_stats(params, {k: v[t] for k, v in batches.items()})
+        with cpu16_guard(batches["sample_mask"].device, task.compute_dtype):
+            step = task.eval_stats(params,
+                                   {k: v[t] for k, v in batches.items()})
         finite = torch.stack([torch.isfinite(v).all()
                               for v in step.values()]).all()
         step = {k: torch.where(finite, v, torch.zeros_like(v))
@@ -73,12 +76,14 @@ def personalized_eval_sums(task: BaseTask, layout: ParamLayout,
     y = arrays["y"].flatten(1, 2).long()
     mask = sample_mask.flatten(1, 2)
     K = x.shape[0]
-    logits_g = task.apply(layout.views(global_flat),
-                          x.flatten(0, 1)).unflatten(0, (K, -1))
-    # one forward a user: the ResNet's GroupNorm has no vmap rule outside
-    # a grad transform (it asks the batched input for channels-last)
-    logits_l = torch.stack([task.apply(layout.views(local_flat[k]), x[k])
-                            for k in range(K)])
+    with cpu16_guard(x.device, task.compute_dtype):
+        logits_g = task.apply(layout.views(global_flat),
+                              x.flatten(0, 1)).unflatten(0, (K, -1))
+        # one forward a user: the ResNet's GroupNorm has no vmap rule
+        # outside a grad transform (it asks the batched input for
+        # channels-last)
+        logits_l = torch.stack([task.apply(layout.views(local_flat[k]),
+                                           x[k]) for k in range(K)])
     squash = F.log_softmax if logspace else F.softmax
     a = alpha[:, None, None]
     mixed = a * squash(logits_l, dim=-1) + (1.0 - a) * squash(logits_g,

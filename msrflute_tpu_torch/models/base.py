@@ -158,6 +158,12 @@ class BaseTask:
         return [(n, tuple(p.shape)) for n, p in self.module.named_parameters()]
 
     @property
+    def compute_dtype(self) -> torch.dtype:
+        """The type the module computes in (``model_config.dtype``)."""
+        return getattr(getattr(self, "module", None), "dtype",
+                       torch.float32)
+
+    @property
     def draws_random(self) -> bool:
         """Whether a train step draws random numbers (dropout masks, the
         BERT task's MLM mask), so the client update needs a generator a

@@ -4,15 +4,17 @@ Port of ``msrflute_tpu/ops/pallas_attention.py``: B4 replaces ``_fwd``
 (``pallas_call`` at ``pallas_attention.py:336``, body ``_fwd_kernel``), B5
 the dq pass of ``_bwd`` (``:385``, ``_dq_kernel``), B6 its dk/dv pass
 (``:411``, ``_dkv_kernel``).  All three are hand-written CUDA C++ in
-``csrc/flash_attention.cu``, float32 on CUDA cores, bound by operations on
-the H100.  All three are register-tiled: a thread owns a 4 x 4 block of
-each 64 x 64 score product and rows x 4 columns of each accumulated output
-and feeds them with 16-byte shared loads (about one load for 6-8 FMAs, not
-one for one), tiles that the mask cannot touch skip the per-element test,
-and the streamed tiles arrive by double-buffered ``cp.async`` copies; B4's
-online softmax runs in the log2 domain with ``ex2``.  The source's header
-has the bank layout, the shared memory a block and what bounds the
-kernels.
+``csrc/flash_attention.cu``.  In float32 all three run on CUDA cores,
+bound by operations on the H100, and are register-tiled: a thread owns a
+4 x 4 block of each 64 x 64 score product and rows x 4 columns of each
+accumulated output and feeds them with 16-byte shared loads (about one
+load for 6-8 FMAs, not one for one), tiles that the mask cannot touch
+skip the per-element test, and the streamed tiles arrive by
+double-buffered ``cp.async`` copies; B4's online softmax runs in the log2
+domain with ``ex2``.  B4 and B6 in 16-bit storage are other kernels of
+the same library, on the tensor cores (``mma.sync`` fed by ``ldmatrix``).
+The source's header has the bank layout, the shared memory a block and
+what bounds the kernels.
 
 Public functions keep the JAX layout and signature: ``q [B, Lq, H, D]``,
 ``k``/``v`` ``[B, Lk, H, D]``, scale ``1/sqrt(D)``, the causal mask at
@@ -20,12 +22,16 @@ global positions ``q_offset``/``k_offset``; :func:`flash_attention_lse`
 also returns the per-row logsumexp ``[B, H, Lq]`` and its gradient honours
 the lse cotangent.  A row whose keys are all masked gives zeros with
 ``lse = -1e30``.  ``q``, ``k``, ``v`` (and ``dO``) are float32, bfloat16 or
-float16, one type for all: the kernels widen every tile to float32 as it
-enters shared memory, compute in float32, and round ``out``, ``dq``,
-``dk`` and ``dv`` to that type (``lse``, ``delta`` and the lse cotangent
-stay float32), as the TPU kernels' upcasts and ``astype`` do
+float16, one type for all, and ``out``, ``dq``, ``dk`` and ``dv`` come
+back rounded to that type (``lse``, ``delta`` and the lse cotangent stay
+float32), as the TPU kernels' upcasts and ``astype`` do
 (``pallas_attention.py:109-111``, ``:150``, ``:172-175``, ``:209``,
-``:224-227``, ``:268-269``); any other type raises ``TypeError``.
+``:224-227``, ``:268-269``); any other type raises ``TypeError``.  B5, and
+every kernel in float32, widen each tile to float32 as it enters shared
+memory and compute in float32; B4 and B6 in bfloat16 / float16 run their
+products on the tensor cores (16-bit operands, float32 accumulators), the
+softmax and the masks in float32, with P and dS rounded once to the
+storage type for the products that take them.
 
 The gradient is two ``torch.autograd.Function``s, forward and backward,
 each with a ``vmap`` rule that folds the vmapped axis into ``B``: under
@@ -223,15 +229,16 @@ def kernel_info(which: int, D: int,
     blocks an SM holds and the shared memory a block.  Builds the library,
     so it needs the card."""
     regs, local, blocks = (ctypes.c_int() for _ in range(3))
+    arm = which + 3 * list(SUFFIX).index(storage)
     code = _entry_point("flash_kernel_info")(
-        which + 3 * list(SUFFIX).index(storage), D, ctypes.byref(regs),
-        ctypes.byref(local), ctypes.byref(blocks))
+        arm, D, ctypes.byref(regs), ctypes.byref(local),
+        ctypes.byref(blocks))
     if code != 0:
         err = _entry_point("flash_attention_error_string")(code).decode()
         raise RuntimeError(f"flash_kernel_info failed: {err} ({code})")
     return {"registers": regs.value, "local_bytes": local.value,
             "blocks_per_sm": blocks.value,
-            "smem_bytes": int(_entry_point("flash_smem_bytes")(which, D))}
+            "smem_bytes": int(_entry_point("flash_smem_bytes")(arm, D))}
 
 
 class _FlashKernel:

@@ -2,8 +2,10 @@
 library, split by function, parsed into instructions, and the common path
 of a function's main loop (:func:`loop_path`) or of a loop-free kernel's
 16-byte body (:func:`vector_path`) counted.  ``chip_smoke.py`` takes
-kernel B2's issue term and kernel B3's instruction count from it, and
-``csrc/probes/sass_mix.py`` prints instruction mixes with it.  Needs the
+kernel B2's issue term, kernel B3's instruction count and the
+tensor-core instructions of B4's and B6's 16-bit arms
+(:func:`tensor_core_count`) from it, and ``csrc/probes/sass_mix.py``
+prints instruction mixes with it.  Needs the
 CUDA toolkit's ``cuobjdump`` to disassemble, nothing to parse."""
 
 import collections
@@ -24,6 +26,18 @@ WIDTH_BITS = {"U8": 8, "S8": 8, "U16": 16, "S16": 16, "64": 64, "128": 128}
 def cuda_tool(tool):
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     return os.path.join(home, "bin", tool)
+
+
+#: the tensor cores' matrix instructions: ``mma.sync`` (HMMA) and
+#: ``wgmma`` (HGMMA)
+TENSOR_CORE_OPS = ("HMMA", "HGMMA")
+
+
+def tensor_core_count(body):
+    """Tensor-core matrix instructions (:data:`TENSOR_CORE_OPS`) in one
+    function's SASS."""
+    ops, _ = parse(body)
+    return sum(op.split(".")[0] in TENSOR_CORE_OPS for _, op, _, _ in ops)
 
 
 def opcode_mix(ops):

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch.func import grad, vmap
 
+from ..device import cpu16_guard
 from ..models.base import softmax_xent
 from .base import BaseStrategy, State, filter_weight
 
@@ -74,8 +75,12 @@ class FedLabels(BaseStrategy):
         sup = global_flat - pg_sup
         active = "ux" in arrays and (round_idx is None or
                                      round_idx >= self.burnout_round)
-        unsup = (self.unsup_train(global_flat, sup, arrays, sample_mask)
-                 if active else global_flat.expand_as(sup))
+        if active:
+            with cpu16_guard(sup.device, self.task.compute_dtype):
+                unsup = self.unsup_train(global_flat, sup, arrays,
+                                         sample_mask)
+        else:
+            unsup = global_flat.expand_as(sup)
         w = filter_weight(torch.clamp(ns, min=1.0))
         return ({"sup": (sup, torch.ones_like(w)), "unsup": (unsup, w)},
                 tl, ns, stats)
