@@ -76,8 +76,8 @@ result):
      largest magnitude), two launches bitwise, timed at ``[40, 1023, 4,
      32]`` (B4 also at ``[16, 1023, 4, 32]``) beside the causal SDPA call
      in the same type, with a byte bound and an operation bound at the
-     16-bit tensor-core rate (the float32 CUDA-core one beside it); B4's
-     and B6's 16-bit arms are tensor-core kernels, and their D = 32
+     16-bit tensor-core rate (the float32 CUDA-core one beside it); B4's,
+     B5's and B6's 16-bit arms are tensor-core kernels, and their D = 32
      instances must show HMMA or HGMMA instructions in the built
      library's SASS (``ops/sass.py::tensor_core_count``), no spill and two
      blocks an SM.
@@ -1131,14 +1131,13 @@ PEAK_TF32_FLOPS = 495e12
 def _flash_entry(key, D, storage="float32"):
     """Pass ``key``'s entry function at head width D, as
     :func:`ptxas_reports` names it: the template argument is D padded to
-    8, 16, 32, 64 or 128, then the storage type where it is 16-bit.  B4 and
-    B6 in 16-bit storage are the tensor-core kernels, ``flash_fwd_tc_kernel``
-    and ``flash_dkv_tc_kernel``, at D padded to 16 at least."""
+    8, 16, 32, 64 or 128, then the storage type where it is 16-bit.  In
+    16-bit storage the three passes are the tensor-core kernels,
+    ``flash_fwd_tc_kernel``, ``flash_dq_tc_kernel`` and
+    ``flash_dkv_tc_kernel``, at D padded to 16 at least."""
     width = next(w for w in (8, 16, 32, 64, 128) if D <= w)
     if storage == "float32":
         return f"flash_{key}_kernel<{width}>"
-    if key == "dq":
-        return f"flash_dq_kernel<{width}, {storage}>"
     return f"flash_{key}_tc_kernel<{max(width, 16)}, {storage}>"
 
 
@@ -3132,20 +3131,19 @@ def phase_kernel_quant_bert(torch):
 STORAGE16 = ("bfloat16", "float16")
 MANTISSA = {"bfloat16": 7, "float16": 10}
 #: H100 SXM dense bf16 / fp16 tensor-core peak: the least time a 16-bit
-#: attention could take.  B4 and B6 in 16-bit storage run their products
-#: on the tensor cores (``mma.sync``, float32 accumulators); B5 computes
-#: in float32 on CUDA cores, and ``bound_ms_f32`` beside it is that rate's
+#: attention could take.  B4, B5 and B6 in 16-bit storage run their
+#: products on the tensor cores (``mma.sync``, float32 accumulators);
+#: ``bound_ms_f32`` beside it is the float32 CUDA-core rate's
 PEAK_TC16_FLOPS = 989e12
 #: B4-B6's 16-bit arms against their plain versions: max |kernel - plain|
 #: over max |plain| within one ulp of the storage type at the largest
-#: magnitude (2^-7 bfloat16, 2^-10 float16): B5 sums the same float32
-#: products in another order and rounds once; B4 and B6 also round P and
-#: dS once to the storage type for their tensor-core products, a relative
-#: 2^-9 / 2^-12 a term on sums of terms of random signs
-#: (``tests/test_torch_flash_tc16.py`` holds that rounding to this bound on
-#: the CPU).  An H100 measured at most 1.5e-3 (bf16) and 4.7e-4 (f16) on
-#: these cases with every arm in float32 math.  lse stays float32:
-#: ``FLASH_FWD_TOL``.
+#: magnitude (2^-7 bfloat16, 2^-10 float16): besides the one rounding of
+#: the result, B4 rounds P, B5 dS, and B6 P and dS once to the storage type
+#: for their tensor-core products, a relative 2^-9 / 2^-12 a term on sums
+#: of terms of random signs (``tests/test_torch_flash_tc16.py`` holds that
+#: rounding to this bound on the CPU).  An H100 measured at most 6.7e-3
+#: (bf16) and 9.7e-4 (f16) on these cases with the three tensor-core arms.
+#: lse stays float32: ``FLASH_FWD_TOL``.
 FLASH16_TOL = {dt: 2.0 ** -MANTISSA[dt] for dt in STORAGE16}
 #: the f32 paths' profile figures, kept for the 16-bit paths' lines
 F32_PROFILE = {}
@@ -3227,8 +3225,8 @@ def phase_kernel_flash16(torch):
     ``[40, 1023, 4, 32]`` and B4 at ``[16, 1023, 4, 32]`` beside the
     causal SDPA call in the same type, with two bounds: bytes, and
     operations at the 16-bit tensor-core rate (the least time the card
-    needs; the float32 CUDA-core rate beside it).  B4's and B6's 16-bit
-    instances are the tensor-core kernels: at D = 32 each must show
+    needs; the float32 CUDA-core rate beside it).  The 16-bit instances of
+    all three passes are the tensor-core kernels: at D = 32 each must show
     tensor-core instructions in its SASS, no spill and at least two blocks
     an SM."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
@@ -3352,18 +3350,16 @@ def phase_kernel_flash16(torch):
                 "ptxas": ptxas_reports(BUILD_LOGS.get(
                     "flash_attention", "")).get(
                         _flash_entry(key, D, dt_name))}
-            if key != "dq":   # the tensor-core instances
-                d = detail[key]
-                d["tensor_core_instructions"] = tc_sass.get(d["instance"], 0)
-                spills = d["ptxas"] or {"spill_store_bytes": 0,
-                                        "spill_load_bytes": 0}
-                check(d["tensor_core_instructions"] > 0,
-                      f"{d['instance']}: no HMMA or HGMMA in its SASS")
-                check(d["local_bytes"] == 0 and d["blocks_per_sm"] >= 2 and
-                      spills["spill_store_bytes"] ==
-                      spills["spill_load_bytes"] == 0,
-                      f"{d['instance']} spills or fits one block an SM: "
-                      f"{d}")
+            d = detail[key]
+            d["tensor_core_instructions"] = tc_sass.get(d["instance"], 0)
+            spills = d["ptxas"] or {"spill_store_bytes": 0,
+                                    "spill_load_bytes": 0}
+            check(d["tensor_core_instructions"] > 0,
+                  f"{d['instance']}: no HMMA or HGMMA in its SASS")
+            check(d["local_bytes"] == 0 and d["blocks_per_sm"] >= 2 and
+                  spills["spill_store_bytes"] ==
+                  spills["spill_load_bytes"] == 0,
+                  f"{d['instance']} spills or fits one block an SM: {d}")
         lines[dt_name] = {"rel_err": errs, "max_abs_err_main": max_abs,
                           "tolerance": tol, "ms": t,
                           "host_paced": host_paced, "plain_ms": plain,

@@ -1,7 +1,7 @@
 // Flash attention for Hopper (sm_90a): the forward (B4), the dq pass (B5)
-// and the dk/dv pass (B6), in one library: f32 on CUDA cores, and B4 and
-// B6 in bfloat16 / float16 storage on the tensor cores (the last section
-// of this note).
+// and the dk/dv pass (B6), in one library: f32 on CUDA cores, and all three
+// in bfloat16 / float16 storage on the tensor cores (the last section of
+// this note).
 //
 // Replaces the TPU kernels of msrflute_tpu/ops/pallas_attention.py:
 // - B4 _fwd (pl.pallas_call at pallas_attention.py:336, body _fwd_kernel
@@ -31,18 +31,9 @@
 // type, lse in f32 (pallas_attention.py:109-111, :150, :172-175, :209,
 // :224-227, :268-269).  So q, k, v, dO and the outputs are float,
 // __nv_bfloat16 or __half here, one type for all of them (the launchers
-// with the _bf16 and _f16 suffix).  B4 and B6 in 16-bit storage run the
-// tensor-core kernels of the last section.  B5 in 16-bit storage widens
-// every tile to f32 once, as it enters shared memory, the f32 register
-// tiles and the lse / delta math stay as they are, and the outputs are
-// rounded to nearest even on store: a 16-bit tile of B5 arrives by the
-// same cp.async copies, 8 elements a 16-byte copy, into the tail of the
-// f32 tile it will become (64 * DT * 2 bytes of the 64 * (DT + 4) * 4);
-// when the copy has landed the block reads it into registers, meets, and
-// writes the f32 tile, columns past D as zeros, and meets again: two
-// barriers more a tile, no shared memory more.  Where a 16-bit tile cannot
-// take 16-byte copies (D % 8 != 0, or a tensor off a 16-byte boundary)
-// each element is loaded, widened and stored directly.
+// with the _bf16 and _f16 suffix).  In 16-bit storage all three passes run
+// the tensor-core kernels of the last section; the kernels of the sections
+// before it take float32 storage only.
 //
 // Bound on the H100: at the RingLM path's [40, 1023, 4, 32] causal each
 // pass reads a few tens of MB and does 1.1e10 (B4), 1.6e10 (B5) and
@@ -147,37 +138,52 @@
 // gains nothing (csrc/probes/fwd_variants.py).
 //
 // The tensor-core arms: flash_fwd_tc_kernel (B4, replacing _fwd at
-// pallas_attention.py:336, body :96-150) and flash_dkv_tc_kernel (B6,
-// replacing _dkv_kernel at :411, body :212-269) for bfloat16 and float16
-// storage.  Bound on the H100: at [40, 1023, 4, 32] causal B4 does 1.1e10
-// flops and moves 42.6 MB, B6 2.1e10 flops and 64.8 MB; at the dense
-// 16-bit tensor-core rate (989 TFLOP/s) and 3.35 TB/s B4 is bound by bytes
-// (0.0127 ms, against 0.0108 of operations) and B6 by operations (0.0217
-// ms, against 0.0193 of bytes).  The f32 arms' CUDA-core FMA loop would
-// hold them at the 67 TFLOP/s f32 rate (0.16 and 0.32 ms); the design puts
-// the products on the tensor cores instead:
+// pallas_attention.py:336, body :96-150), flash_dq_tc_kernel (B5,
+// replacing _bwd's dq pass at :385, body _dq_kernel at :161-209) and
+// flash_dkv_tc_kernel (B6, replacing _dkv_kernel at :411, body :212-269)
+// for bfloat16 and float16 storage.  Bound on the H100: at [40, 1023, 4,
+// 32] causal B4 does 1.1e10 flops and moves 42.6 MB, B5 1.6e10 flops and
+// 54.3 MB, B6 2.1e10 flops and 64.8 MB; at the dense 16-bit tensor-core
+// rate (989 TFLOP/s) and 3.35 TB/s B4 is bound by bytes (0.0127 ms,
+// against 0.0108 of operations), B5 by operations by a hair (0.0163 ms,
+// against 0.0162 of bytes) and B6 by operations (0.0217 ms, against
+// 0.0193 of bytes).  A CUDA-core FMA loop would hold them at the 67
+// TFLOP/s f32 rate (0.16, 0.24 and 0.32 ms); the design puts the products
+// on the tensor cores instead:
 // - products.  mma.sync.m16n8k16 with 16-bit operands and f32
 //   accumulators, fed by ldmatrix from shared memory: B4 runs S = Q K^T
-//   and O += P V, B6 runs S^T = K Q^T, dP^T = V dO^T, dV += P^T dO and
-//   dK += dS^T Q.  A block of 4 warps owns 64 rows of its own tile (Q in
-//   B4, K and V in B6), a warp 16 of them, and streams 64-row tiles of
-//   the other axis; B6 takes a streamed tile 32 queries at a time, which
-//   keeps its D = 32 instance under 128 registers.  The head width is
-//   padded with zero columns to DT = 16, 32, 64 or 128 (D = 5, 8 -> 16,
-//   D = 20 -> 32); D <= 128.  An accumulator of S (or S^T, dP^T) is
-//   already laid out as the A operand of the next product, so P and dS
-//   never leave the registers;
+//   and O += P V, B5 S = Q K^T, dP = dO V^T and dQ += dS K, B6 S^T =
+//   K Q^T, dP^T = V dO^T, dV += P^T dO and dK += dS^T Q.  A block of 4
+//   warps owns 64 rows of its own tile (Q in B4, Q and dO in B5, K and V
+//   in B6), a warp 16 of them, and streams 64-row tiles of the other axis;
+//   B6 takes a streamed tile 32 queries at a time, which keeps its D = 32
+//   instance within 128 registers; B5 takes it whole up to DT = 32 and 32
+//   keys at a time above.  B5's
+//   dQ += dS K is B4's O += P V with K in V's place: K, stored [key][d],
+//   is read by the transposed ldmatrix with keys as the reduction axis.
+//   B5 owns its query rows, so a lane reads its two rows' lse, delta and
+//   glse once, into registers, where B6 stages them with each query tile,
+//   and a warp holds its Q and dO rows as A fragments in registers (32 at
+//   DT = 32) instead of reading them by ldmatrix every pass.  Both the
+//   held fragments and the whole-tile pass were measured faster, with no
+//   spill; 64 keys a pass spill at DT = 64, and 3 blocks an SM are no
+//   faster (csrc/probes/tc_variants.py; PERF.md has the numbers).  The head width is padded with zero columns
+//   to DT = 16, 32, 64 or 128 (D = 5, 8 -> 16, D = 20 -> 32); D <= 128.
+//   An accumulator of S (or S^T, dP^T) is already laid out as the A
+//   operand of the next product, so P and dS never leave the registers;
 // - the element-wise work in f32 on the accumulators: B4's online softmax
 //   in the log2 domain with ex2.approx (the row max over the 4 lanes of a
 //   quad, by two shuffles), the global-position causal mask, the TPU
 //   kernels' tile-skip conditions (pallas_attention.py:139, :260),
 //   explicit zeros for masked entries (a fully masked row gives out = 0
-//   and lse = -1e30 exactly), B6's mask on padded query rows, and ds / scale
-//   = p (dp - delta + glse) with the scale on dk once, at the end.  The
-//   row sum l, and so the lse, comes from the f32 p before any rounding;
+//   and lse = -1e30 exactly), B6's mask on padded query rows (B5's padded
+//   query rows come from zero Q and dO rows and are stored nowhere), and
+//   ds / scale = p (dp - delta + glse) with the scale on dq and dk once, at
+//   the end.  The row sum l, and so the lse, comes from the f32 p before
+//   any rounding;
 // - P and dS into the products.  The TPU kernel multiplies them in f32
-//   (pallas_attention.py:133-134, :246-257); here each is rounded once,
-//   to nearest even, to the storage type, in bfloat16 and in float16
+//   (pallas_attention.py:133-134, :191-198, :246-257); here each is rounded
+//   once, to nearest even, to the storage type, in bfloat16 and in float16
 //   alike.  The error that adds is a relative 2^-9 (bf16) or 2^-12 (f16)
 //   per term of sums whose terms have random signs, well inside the one
 //   ulp of the type at the largest magnitude (2^-7, 2^-10) that the
@@ -194,10 +200,11 @@
 //   are double-buffered at every width: one barrier a tile, no widening;
 // - determinism: no atomics, a block writes its own rows, every sum runs
 //   in a fixed order, so two launches are bitwise equal;
-// - shared memory a block: B4 5 tiles, B6 6 tiles and two stages of
-//   3 x 64 statistics, 64 * (DT + 8) * 2 bytes a tile: 25,600 / 30,720
-//   bytes at DT = 32 (4 blocks an SM at <= 128 registers), 87,040 / 105,984
-//   at DT = 128 (2 blocks).
+// - shared memory a block: B4 5 tiles (Q, two stages of K and V), B5 6
+//   (Q, dO, two stages of K and V), B6 6 and two stages of 3 x 64
+//   statistics, 64 * (DT + 8) * 2 bytes a tile: 25,600 / 30,720 / 32,256
+//   bytes at DT = 32 (4 blocks an SM at <= 128 registers), 87,040 / 104,448
+//   / 105,984 at DT = 128 (2 blocks).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -292,19 +299,9 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// the storage types: widen to f32 exactly, narrow rounding to nearest even
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
-
+// the storage types: narrow rounding to nearest even
 template <typename S>
 __device__ __forceinline__ S narrow(float x);
-template <>
-__device__ __forceinline__ float narrow<float>(float x) {
-  return x;
-}
 template <>
 __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
@@ -315,7 +312,7 @@ __device__ __forceinline__ __half narrow<__half>(float x) {
 }
 
 template <typename S>
-constexpr bool kWide = sizeof(S) == 4;  // f32 storage: no staging
+constexpr bool kWide = sizeof(S) == 4;  // f32 storage: CUDA-core kernels
 
 // rows [row0, row0 + 64) of one head of kTensors (1 or 2) tensors of one
 // shape (the head starts `head` floats into each, rows are `row_stride`
@@ -338,99 +335,6 @@ __device__ __forceinline__ void copy_rows(float* dst, const float* src_a,
   }
 }
 
-// where a 16-bit tile lands before it is widened: the last 64 * DT * 2
-// bytes of the f32 tile `tile`, rows DT elements apart
-template <int DT, typename S>
-__device__ __forceinline__ S* staging(float* tile) {
-  return reinterpret_cast<S*>(tile + Layout<DT>::kTileFloats) - kTile * DT;
-}
-
-// 16-bit rows [row0, row0 + 64) of kTensors tensors into the staging of
-// consecutive f32 tiles, 16-byte copies of 8 elements, `per_row` a row;
-// rows at or past L arrive as zeros
-template <int DT, typename S, int kTensors>
-__device__ __forceinline__ void stage_rows(float* dst, const S* src_a,
-                                           const S* src_b, int64_t head,
-                                           int64_t row_stride, int row0,
-                                           int L, int per_row) {
-  S* raw_a = staging<DT, S>(dst);
-  S* raw_b = staging<DT, S>(dst + Layout<DT>::kTileFloats);
-  for (int i = threadIdx.x; i < kTile * per_row; i += kThreads) {
-    const int rr = i / per_row, c = (i - rr * per_row) * 8;
-    const bool real = row0 + rr < L;
-    const int64_t from = head + (real ? (row0 + rr) * row_stride : 0) + c;
-    const unsigned sa =
-        static_cast<unsigned>(__cvta_generic_to_shared(raw_a + rr * DT + c));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sa),
-                 "l"(src_a + from), "r"(real ? 16 : 0)
-                 : "memory");
-    if (kTensors == 2) {
-      const unsigned sb = static_cast<unsigned>(
-          __cvta_generic_to_shared(raw_b + rr * DT + c));
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sb),
-                   "l"(src_b + from), "r"(real ? 16 : 0)
-                   : "memory");
-    }
-  }
-}
-
-// the same rows element by element, widened and stored straight into the
-// f32 tiles (a 16-bit tile that cannot take 16-byte copies)
-template <int DT, typename S, int kTensors>
-__device__ __forceinline__ void widen_rows(float* dst, const S* src_a,
-                                           const S* src_b, int64_t head,
-                                           int64_t row_stride, int row0,
-                                           int L, int D) {
-  constexpr int kStride = Layout<DT>::kStride;
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int rr = i / D, c = i - rr * D;
-    const bool real = row0 + rr < L;
-    const int64_t from = head + (real ? (row0 + rr) * row_stride : 0) + c;
-    dst[rr * kStride + c] = real ? widen(src_a[from]) : 0.0f;
-    if (kTensors == 2)
-      dst[kTile * kStride + rr * kStride + c] =
-          real ? widen(src_b[from]) : 0.0f;
-  }
-}
-
-// kTiles consecutive f32 tiles from their staging, in place: every thread
-// reads its 16-byte pieces of all of them, the block meets, every thread
-// writes them widened (zeros at columns D and past), and the block meets
-// again.  Called by every thread of the block.
-template <int DT, typename S, int kTiles>
-__device__ __forceinline__ void widen_tiles(float* tiles_base, int D) {
-  constexpr int kPieces = kTile * DT / 8;  // 8 elements a piece
-  constexpr int kEach = (kPieces + kThreads - 1) / kThreads;
-  uint4 held[kTiles][kEach];
-#pragma unroll
-  for (int t = 0; t < kTiles; ++t)
-#pragma unroll
-    for (int e = 0; e < kEach; ++e) {
-      const int i = threadIdx.x + e * kThreads;
-      if (i < kPieces)
-        held[t][e] = reinterpret_cast<const uint4*>(staging<DT, S>(
-            tiles_base + t * Layout<DT>::kTileFloats))[i];
-    }
-  __syncthreads();
-#pragma unroll
-  for (int t = 0; t < kTiles; ++t)
-#pragma unroll
-    for (int e = 0; e < kEach; ++e) {
-      const int i = threadIdx.x + e * kThreads;
-      if (i >= kPieces) continue;
-      const int row = i / (DT / 8), c = (i - row * (DT / 8)) * 8;
-      float* out = tiles_base + t * Layout<DT>::kTileFloats +
-                   row * Layout<DT>::kStride + c;
-      const S* v = reinterpret_cast<const S*>(&held[t][e]);
-      float w[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) w[j] = c < D ? widen(v[j]) : 0.0f;
-      *reinterpret_cast<float4*>(out) = make_float4(w[0], w[1], w[2], w[3]);
-      *reinterpret_cast<float4*>(out + 4) = make_float4(w[4], w[5], w[6], w[7]);
-    }
-  __syncthreads();
-}
-
 // the asynchronous tile load, for the two tensors that always travel
 // together (K and V, Q and dO; kTensors 2) or for Q alone (B4; kTensors 1,
 // src_b unused): 16-byte copies when `vec`
@@ -442,16 +346,7 @@ __device__ __forceinline__ void load_pair_async(float* dst, const S* src_a,
   constexpr int kStride = Layout<DT>::kStride;
   const int64_t head = elem(p, b, L, 0, h, 0);
   const int64_t row_stride = static_cast<int64_t>(p.H) * p.D;
-  if constexpr (!kWide<S>) {
-    // 16-bit: staged for widen_tiles when vec (D % 8 == 0), else widened
-    // here
-    if (vec)
-      stage_rows<DT, S, kTensors>(dst, src_a, src_b, head, row_stride, row0,
-                                  L, p.D / 8);
-    else
-      widen_rows<DT, S, kTensors>(dst, src_a, src_b, head, row_stride, row0,
-                                  L, p.D);
-  } else if (vec && p.D == DT) {  // the division by a constant folds
+  if (vec && p.D == DT) {  // the division by a constant folds
     copy_rows<kStride, 16, kTensors>(dst, src_a, src_b, head, row_stride,
                                      row0, L, DT / 4);
   } else if (vec) {
@@ -614,17 +509,12 @@ __device__ __forceinline__ void store_rows(
       S* o = dst + elem(p, b, L, row, h, col);
       const float a[4] = {acc[i][j].x, acc[i][j].y, acc[i][j].z,
                           acc[i][j].w};
-      if (vec && kWide<S>) {
+      if (vec) {
         *reinterpret_cast<float4*>(o) = acc[i][j];
-      } else if (vec) {  // 4 16-bit values, 8 bytes
-        S n[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) n[c] = narrow<S>(a[c]);
-        *reinterpret_cast<uint2*>(o) = *reinterpret_cast<const uint2*>(n);
       } else {
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          if (col + c < p.D) o[c] = narrow<S>(a[c]);
+          if (col + c < p.D) o[c] = a[c];
       }
     }
   }
@@ -885,6 +775,7 @@ flash_dq_kernel(const S* __restrict__ q, const S* __restrict__ k,
                 const float* __restrict__ delta,
                 const float* __restrict__ glse, S* __restrict__ dq,
                 Dims p, int vec) {
+  static_assert(kWide<S>, "16-bit B5 is flash_dq_tc_kernel");
   using T = Layout<DT>;
   extern __shared__ float4 smem[];
   float* Qs = reinterpret_cast<float*>(smem);
@@ -897,9 +788,7 @@ flash_dq_kernel(const S* __restrict__ q, const S* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // heavy tiles first
   const int n = key_tiles(p, q0);
 
-  const bool staged = !kWide<S> && vec;
-  if (p.D < DT && !staged)
-    zero_pad_columns<DT>(Qs, 2 + 2 * T::kStages, p.D);
+  if (p.D < DT) zero_pad_columns<DT>(Qs, 2 + 2 * T::kStages, p.D);
   if (n > 0) {
     load_pair_async<DT>(Qs, q, dout, b, h, q0, p.Lq, p, vec);
     load_stats_async(stats, lse, delta, glse, b, h, q0, p);
@@ -921,10 +810,6 @@ flash_dq_kernel(const S* __restrict__ q, const S* __restrict__ k,
     float* Vs = Ks + T::kTileFloats;
     cp_async_wait_all();
     __syncthreads();  // tile kj is here; tile kj - 1's readers are done
-    if (staged) {
-      if (kj == 0) widen_tiles<DT, S, 2>(Qs, p.D);
-      widen_tiles<DT, S, 2>(Ks, p.D);
-    }
     if (T::kStages == 2 && kj + 1 < n) {
       load_pair_async<DT>(KVs + (stage ^ 1) * 2 * T::kTileFloats, k, v, b, h,
                           (kj + 1) * kTile, p.Lk, p, vec);
@@ -1080,7 +965,7 @@ flash_dkv_kernel(const S* __restrict__ q, const S* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------
-// B4 and B6 in 16-bit storage: the tensor-core arms (see the header)
+// B4, B5 and B6 in 16-bit storage: the tensor-core arms (see the header)
 // ---------------------------------------------------------------------
 // 4 warps a block, 16 rows of the block's 64 each
 constexpr int kTcThreads = 128;
@@ -1098,9 +983,15 @@ struct TcLayout {
   static constexpr int kStride = DT + 8;  // elements
   static constexpr int kTileElems = kTile * kStride;
   // blocks an SM the register budget is set for: a B4 warp holds
-  // 16 x (64 + DT) sums, a B6 warp 16 x (32 + 2 DT)
+  // 16 x (64 + DT) sums, a B5 warp 16 x (2 kDqChunk + DT) and its Q and dO
+  // rows, a B6 warp 16 x (32 + 2 DT)
   static constexpr int kFwdBlocks = DT <= 64 ? 4 : 2;
+  static constexpr int kDqBlocks = DT <= 64 ? 4 : 2;
   static constexpr int kDkvBlocks = DT <= 32 ? 4 : 2;
+  // B5's streamed keys a pass: S, dP and dS of a warp cover 16 queries x
+  // 64 keys at a time up to DT = 32, and 32 keys above, where 64 would
+  // spill at 128 registers
+  static constexpr int kDqChunk = DT <= 32 ? 64 : 32;
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -1439,6 +1330,154 @@ flash_fwd_tc_kernel(const S* __restrict__ q, const S* __restrict__ k,
   }
 }
 
+// acc[n] (16 x kN * 8, float32) += A B over k in [0, DT): A the 16 x DT
+// fragments `fa` the warp holds, B as in tc_product_nk
+template <int DT, int kN, typename S>
+__device__ __forceinline__ void tc_product_held(
+    float (&acc)[kN][4], const uint32_t (&fa)[DT / 16][4], const S* b) {
+#pragma unroll
+  for (int kk = 0; kk < DT / 16; ++kk)
+#pragma unroll
+    for (int np = 0; np < kN / 2; ++np) {
+      uint32_t fb[4];
+      ldsm_x4(fb, b + np * 16 * TcLayout<DT>::kStride + kk * 16);
+      mma16816<S>(acc[2 * np], fa[kk], fb[0], fb[1]);
+      mma16816<S>(acc[2 * np + 1], fa[kk], fb[2], fb[3]);
+    }
+}
+
+// B5's p and ds / scale = p * (dp - delta + glse) in place of dp, on the
+// accumulator layout of a 16-query x 8 kN-key piece: the lane holds query
+// rows `row` and `row + 8` (dp[.][0..1] and dp[.][2..3]) against keys
+// `key + 8 n` and + 1; lse2 is each row's lse times log2 e, shift its
+// glse - delta
+template <bool kMasked, int kN>
+__device__ __forceinline__ void tc_probs_q(const float (&s)[kN][4],
+                                           float (&dp)[kN][4],
+                                           const float (&lse2)[2],
+                                           const float (&shift)[2],
+                                           const Dims& p, float scale2,
+                                           int row, int key) {
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int r = c >> 1;
+      float pr = fast_exp2(fmaf(s[n][c], scale2, -lse2[r]));
+      if (kMasked && !visible(p, row + 8 * r, key + 8 * n + (c & 1)))
+        pr = 0.0f;
+      dp[n][c] = pr * (dp[n][c] + shift[r]);
+    }
+}
+
+template <int DT, typename S>
+__global__ void __launch_bounds__(kTcThreads, TcLayout<DT>::kDqBlocks)
+flash_dq_tc_kernel(const S* __restrict__ q, const S* __restrict__ k,
+                   const S* __restrict__ v, const S* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   const float* __restrict__ glse, S* __restrict__ dq,
+                   Dims p, int vec) {
+  using T = TcLayout<DT>;
+  constexpr int kN = T::kDqChunk / 8;  // 8-key pieces of a pass
+  constexpr int kDn = DT / 8;
+  extern __shared__ float4 smem[];
+  S* Qs = reinterpret_cast<S*>(smem);
+  S* Gs = Qs + T::kTileElems;   // dO
+  S* KVs = Gs + T::kTileElems;  // a stage: K, then V
+
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // heavy tiles first
+  const int n = key_tiles(p, q0);
+  const int warp = threadIdx.x >> 5;
+  const TcLane ln;
+
+  if (p.D < DT) tc_zero_pad<DT>(Qs, 6, p.D);
+  if (n > 0) {
+    tc_load_tile<DT>(Qs, q, b, h, q0, p.Lq, p, vec);
+    tc_load_tile<DT>(Gs, dout, b, h, q0, p.Lq, p, vec);
+    tc_load_tile<DT>(KVs, k, b, h, 0, p.Lk, p, vec);
+    tc_load_tile<DT>(KVs + T::kTileElems, v, b, h, 0, p.Lk, p, vec);
+    cp_async_commit();
+  }
+  const int own = (16 * warp + ln.a_row) * T::kStride + ln.a_col;
+  const int row = q0 + 16 * warp + ln.g;  // the lane's rows: row, row + 8
+  // the rows' statistics, once: the block owns its query rows
+  float lse2[2], shift[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool real = row + 8 * r < p.Lq;
+    const int64_t at = real ? stat(p, b, h, row + 8 * r) : 0;
+    lse2[r] = real ? lse[at] * kLog2e : 0.0f;
+    // d lse / d s = p: the lse cotangent adds straight into ds
+    shift[r] = real ? glse[at] - delta[at] : 0.0f;
+  }
+  const float scale2 = p.scale * kLog2e;
+  float dq_acc[kDn][4] = {};
+  // the warp's Q and dO rows as A fragments, read once when they land
+  uint32_t qa[DT / 16][4], ga[DT / 16][4];
+
+  for (int kj = 0; kj < n; ++kj) {
+    const S* Ks = KVs + (kj & 1) * 2 * T::kTileElems;
+    const S* Vs = Ks + T::kTileElems;
+    cp_async_wait_all();
+    __syncthreads();  // tile kj is here; tile kj - 1's readers are done
+    if (kj + 1 < n) {
+      S* next = KVs + ((kj + 1) & 1) * 2 * T::kTileElems;
+      tc_load_tile<DT>(next, k, b, h, (kj + 1) * kTile, p.Lk, p, vec);
+      tc_load_tile<DT>(next + T::kTileElems, v, b, h, (kj + 1) * kTile,
+                       p.Lk, p, vec);
+      cp_async_commit();
+    }
+    const int k0 = kj * kTile;
+    const bool edge = key_edge(p, q0, k0);
+    if (kj == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DT / 16; ++kk) {
+        ldsm_x4(qa[kk], Qs + own + 16 * kk);
+        ldsm_x4(ga[kk], Gs + own + 16 * kk);
+      }
+    }
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTile; c0 += T::kDqChunk) {
+      // S = Q K^T and dP = dO V^T over the pass's keys
+      float s[kN][4] = {}, dp[kN][4] = {};
+      const int nk = (c0 + ln.b_row) * T::kStride + ln.b_col;
+      tc_product_held<DT, kN>(s, qa, Ks + nk);
+      tc_product_held<DT, kN>(dp, ga, Vs + nk);
+      if (edge)
+        tc_probs_q<true>(s, dp, lse2, shift, p, scale2, row,
+                         k0 + c0 + 2 * ln.t);
+      else
+        tc_probs_q<false>(s, dp, lse2, shift, p, scale2, row,
+                          k0 + c0 + 2 * ln.t);
+      // dQ += dS K, K read with keys as the reduction axis
+      tc_product_kn<DT, kN>(dq_acc, dp,
+                            Ks + (c0 + ln.a_row) * T::kStride + ln.a_col);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = row + 8 * r;
+    if (rr >= p.Lq) continue;
+    S* q_row = dq + elem(p, b, p.Lq, rr, h, 0);
+#pragma unroll
+    for (int d = 0; d < kDn; ++d) {
+      const int col = 8 * d + 2 * ln.t;
+      // dq takes the scale that ds left out
+      const float x0 = dq_acc[d][2 * r] * p.scale;
+      const float x1 = dq_acc[d][2 * r + 1] * p.scale;
+      if (vec) {
+        if (col < p.D)
+          *reinterpret_cast<uint32_t*>(q_row + col) = pack2<S>(x0, x1);
+      } else {
+        if (col < p.D) q_row[col] = narrow<S>(x0);
+        if (col + 1 < p.D) q_row[col + 1] = narrow<S>(x1);
+      }
+    }
+  }
+}
+
 // B6's p and ds / scale = p * (dp - delta + glse) in place of s and dp, on
 // the accumulator layout of a 16-key x kTcChunk-query piece: the lane
 // holds key rows `key` and `key + 8` against local queries `ql + 8 n` and
@@ -1603,18 +1642,15 @@ int padded_width(int D) {
 // the tensor-core arms' width: D padded to 16, 32, 64 or 128
 constexpr int tc_width(int DT) { return DT < 16 ? 16 : DT; }
 
-// B4 and B6 in 16-bit storage run the tensor-core kernels
-constexpr bool tensor_core_arm(int which, int storage) {
-  return storage != 0 && which != 1;
-}
-
 size_t smem_bytes(int which, int D, int storage) {
-  if (tensor_core_arm(which, storage)) {
-    // B4: Q and two stages of K, V; B6: K, V, two stages of Q, dO and of
-    // the three row statistics
+  if (storage != 0) {  // the tensor-core kernels
+    // B4: Q and two stages of K, V; B5: Q, dO and two stages of K, V; B6:
+    // K, V, two stages of Q, dO and of the three row statistics
     const size_t tile = static_cast<size_t>(kTile) *
                         (tc_width(padded_width(D)) + 8) * 2;
-    return which == kFwd ? 5 * tile : 6 * tile + 2 * 3 * kTile * 4;
+    return which == kFwd  ? 5 * tile
+           : which == kDq ? 6 * tile
+                          : 6 * tile + 2 * 3 * kTile * 4;
   }
   const int DT = padded_width(D), stages = DT <= 64 ? 2 : 1;
   // own tiles: Q in B4; Q, dO in B5; K, V in B6
@@ -1652,7 +1688,7 @@ constexpr int storage_of() {
   return kWide<S> ? 0 : std::is_same<S, __half>::value ? 2 : 1;
 }
 
-// B4 or B6 in 16-bit storage: the tensor-core kernels at width DT
+// 16-bit storage: the tensor-core kernels at width DT
 template <int DT, typename S>
 cudaError_t launch_tc(int which, const void* const* ptr, const Dims& p,
                       cudaStream_t stream) {
@@ -1671,6 +1707,12 @@ cudaError_t launch_tc(int which, const void* const* ptr, const Dims& p,
     flash_fwd_tc_kernel<DT, S><<<grid, kTcThreads, bytes, stream>>>(
         f[0], f[1], f[2], const_cast<S*>(f[3]), const_cast<float*>(st[4]),
         p, vector_path(ptr, 4, p.D, 8));
+  } else if (which == kDq) {
+    e = allow_smem(flash_dq_tc_kernel<DT, S>, bytes, &granted[kDq]);
+    if (e != cudaSuccess) return e;
+    flash_dq_tc_kernel<DT, S><<<grid, kTcThreads, bytes, stream>>>(
+        f[0], f[1], f[2], f[3], st[4], st[5], st[6], const_cast<S*>(f[7]),
+        p, vector_path(ptr, 8, p.D, 8));
   } else {
     e = allow_smem(flash_dkv_tc_kernel<DT, S>, bytes, &granted[kDkv]);
     if (e != cudaSuccess) return e;
@@ -1685,49 +1727,41 @@ template <int DT, typename S>
 cudaError_t launch(int which, const void* const* ptr, const Dims& p,
                    cudaStream_t stream) {
   if constexpr (!kWide<S>) {
-    if (tensor_core_arm(which, storage_of<S>()))
-      return launch_tc<tc_width(DT), S>(which, ptr, p, stream);
-  }
-  // float32 storage, and B5 in every type
-  static size_t granted[3] = {0, 0, 0};
-  const size_t bytes = smem_bytes(which, p.D, storage_of<S>());
-  const int nq = (p.Lq + kTile - 1) / kTile;
-  const int nk = (p.Lk + kTile - 1) / kTile;
-  const dim3 grid(static_cast<unsigned>(p.B * p.H),
-                  static_cast<unsigned>(which == kDkv ? nk : nq));
-  const S* const* f = reinterpret_cast<const S* const*>(ptr);
-  const float* const* st = reinterpret_cast<const float* const*>(ptr);
-  constexpr int kElems = 16 / static_cast<int>(sizeof(S));
-  cudaError_t e;
-  switch (which) {
-    case kFwd:
-      if constexpr (kWide<S>) {
+    return launch_tc<tc_width(DT), S>(which, ptr, p, stream);
+  } else {
+    static size_t granted[3] = {0, 0, 0};
+    const size_t bytes = smem_bytes(which, p.D, 0);
+    const int nq = (p.Lq + kTile - 1) / kTile;
+    const int nk = (p.Lk + kTile - 1) / kTile;
+    const dim3 grid(static_cast<unsigned>(p.B * p.H),
+                    static_cast<unsigned>(which == kDkv ? nk : nq));
+    const float* const* f = reinterpret_cast<const float* const*>(ptr);
+    float* const* out = const_cast<float* const*>(f);
+    cudaError_t e;
+    switch (which) {
+      case kFwd:
         e = allow_smem(flash_fwd_kernel<DT, S>, bytes, &granted[kFwd]);
         if (e != cudaSuccess) return e;
         flash_fwd_kernel<DT, S><<<grid, kThreads, bytes, stream>>>(
-            f[0], f[1], f[2], const_cast<S*>(f[3]),
-            const_cast<float*>(st[4]), p, vector_path(ptr, 4, p.D, kElems));
-      }
-      break;
-    case kDq:
-      e = allow_smem(flash_dq_kernel<DT, S>, bytes, &granted[kDq]);
-      if (e != cudaSuccess) return e;
-      flash_dq_kernel<DT, S><<<grid, kThreads, bytes, stream>>>(
-          f[0], f[1], f[2], f[3], st[4], st[5], st[6], const_cast<S*>(f[7]),
-          p, vector_path(ptr, 8, p.D, kElems));
-      break;
-    default:
-      if constexpr (kWide<S>) {
+            f[0], f[1], f[2], out[3], out[4], p, vector_path(ptr, 4, p.D, 4));
+        break;
+      case kDq:
+        e = allow_smem(flash_dq_kernel<DT, S>, bytes, &granted[kDq]);
+        if (e != cudaSuccess) return e;
+        flash_dq_kernel<DT, S><<<grid, kThreads, bytes, stream>>>(
+            f[0], f[1], f[2], f[3], f[4], f[5], f[6], out[7], p,
+            vector_path(ptr, 8, p.D, 4));
+        break;
+      default:
         e = allow_smem(flash_dkv_kernel<DT, S>, bytes, &granted[kDkv]);
         if (e != cudaSuccess) return e;
         flash_dkv_kernel<DT, S><<<grid, kThreads, bytes, stream>>>(
-            f[0], f[1], f[2], f[3], st[4], st[5], st[6],
-            const_cast<S*>(f[7]), const_cast<S*>(f[8]), p,
-            vector_path(ptr, 9, p.D, kElems));
-      }
-      break;
+            f[0], f[1], f[2], f[3], f[4], f[5], f[6], out[7], out[8], p,
+            vector_path(ptr, 9, p.D, 4));
+        break;
+    }
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 // what the compiler and the card give pass `which` at this width:
@@ -1736,19 +1770,21 @@ cudaError_t launch(int which, const void* const* ptr, const Dims& p,
 template <int DT, typename S>
 cudaError_t info(int which, int D, int* regs, int* local_bytes,
                  int* blocks_per_sm) {
-  const bool tc = tensor_core_arm(which, storage_of<S>());
-  const void* kernel = reinterpret_cast<const void*>(flash_dq_kernel<DT, S>);
+  const void* kernel;
   if constexpr (kWide<S>) {
-    if (which == kFwd)
-      kernel = reinterpret_cast<const void*>(flash_fwd_kernel<DT, S>);
-    else if (which == kDkv)
-      kernel = reinterpret_cast<const void*>(flash_dkv_kernel<DT, S>);
+    kernel = which == kFwd
+                 ? reinterpret_cast<const void*>(flash_fwd_kernel<DT, S>)
+             : which == kDq
+                 ? reinterpret_cast<const void*>(flash_dq_kernel<DT, S>)
+                 : reinterpret_cast<const void*>(flash_dkv_kernel<DT, S>);
   } else {
     constexpr int kDTc = tc_width(DT);
-    if (which == kFwd)
-      kernel = reinterpret_cast<const void*>(flash_fwd_tc_kernel<kDTc, S>);
-    else if (which == kDkv)
-      kernel = reinterpret_cast<const void*>(flash_dkv_tc_kernel<kDTc, S>);
+    kernel =
+        which == kFwd
+            ? reinterpret_cast<const void*>(flash_fwd_tc_kernel<kDTc, S>)
+        : which == kDq
+            ? reinterpret_cast<const void*>(flash_dq_tc_kernel<kDTc, S>)
+            : reinterpret_cast<const void*>(flash_dkv_tc_kernel<kDTc, S>);
   }
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
@@ -1763,7 +1799,7 @@ cudaError_t info(int which, int D, int* regs, int* local_bytes,
   *regs = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, kernel, tc ? kTcThreads : kThreads, bytes);
+      blocks_per_sm, kernel, kWide<S> ? kThreads : kTcThreads, bytes);
 }
 
 // call fn<DT, S> at the instantiation that serves head width D (DT is

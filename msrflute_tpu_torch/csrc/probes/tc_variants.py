@@ -1,22 +1,23 @@
 #!/usr/bin/env python3
-"""Variants of the tensor-core arms of kernels B4 and B6 (bfloat16 storage)
-timed side by side.
+"""Variants of the tensor-core arms of kernels B4, B5 and B6 (bfloat16
+storage) timed side by side.
 
     python3 msrflute_tpu_torch/csrc/probes/tc_variants.py [name ...]
 
 Builds ``../flash_attention.cu`` once as it stands (``base``) and once for
 each variant, an edit of the source text named in ``VARIANTS``, all
 ``nvcc`` runs started together; then, on the card, holds each build's
-bfloat16 B4 and B6 to the plain versions (largest error over the largest
-value within ``chip_smoke.FLASH16_TOL``, lse within ``FLASH_FWD_TOL``, and
-two launches bitwise equal) at the RingLM path's ``[40, 1023, 4, 32]``
-causal and at a ragged offset case with fully masked rows, and times each
-on the device alone (``chip_smoke._device_ms``) at that shape (B4 and B6)
-and at the eval step's ``[16, 1023, 4, 32]`` (B4), in turns (each build
-once forward through the list, then once back).  Prints one JSON line a
-build: registers, local memory and blocks an SM of both instances at
-D = 32, the errors and the times.  Needs one CUDA card and ``nvcc``;
-nothing imports it.
+bfloat16 B4, B5 and B6 to the plain versions (largest error over the
+largest value within ``chip_smoke.FLASH16_TOL``, lse within
+``FLASH_FWD_TOL``, and two launches bitwise equal) at the RingLM path's
+``[40, 1023, 4, 32]`` causal and at a ragged offset case with fully masked
+rows, and times each on the device alone (``chip_smoke._device_ms``) at
+that shape (B4, B5 and B6) and at the eval step's ``[16, 1023, 4, 32]``
+(B4), in turns (each build once forward through the list, then once
+back).  Prints one JSON line a build: registers, local memory and blocks
+an SM of the three instances at D = 32, B5's registers and spills at
+every width (``ptxas``), the errors and the times.  Needs
+one CUDA card and ``nvcc``; nothing imports it.
 """
 
 import ctypes
@@ -30,6 +31,19 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(HERE)))
 SOURCE = os.path.join(HERE, "..", "flash_attention.cu")
 
+#: B5 at 32 keys a pass at every width, and at 64 at every width
+_DQ_C32 = ("static constexpr int kDqChunk = DT <= 32 ? 64 : 32;",
+           "static constexpr int kDqChunk = 32;")
+_DQ_C64 = ("static constexpr int kDqChunk = DT <= 32 ? 64 : 32;",
+           "static constexpr int kDqChunk = 64;")
+_DQ_BLOCKS3 = ("static constexpr int kDqBlocks = DT <= 64 ? 4 : 2;",
+               "static constexpr int kDqBlocks = DT <= 32 ? 3 : 2;")
+#: B5 reading its warp's Q and dO A fragments by ldmatrix every pass, as
+#: its first design did, instead of holding them in registers
+_DQ_RELOAD = ("""      tc_product_held<DT, kN>(s, qa, Ks + nk);
+      tc_product_held<DT, kN>(dp, ga, Vs + nk);""",
+              """      tc_product_nk<DT, kN>(s, Qs + own, Ks + nk);
+      tc_product_nk<DT, kN>(dp, Gs + own, Vs + nk);""")
 #: name -> [(text of the source, what replaces it)]
 VARIANTS = {
     # B4: three blocks an SM at D <= 32 (up to 168 registers a thread)
@@ -41,6 +55,12 @@ VARIANTS = {
         ("constexpr int kTcChunk = 32;", "constexpr int kTcChunk = 64;"),
         ("static constexpr int kDkvBlocks = DT <= 32 ? 4 : 2;",
          "static constexpr int kDkvBlocks = DT <= 32 ? 3 : 2;")],
+    # B5: 32 keys a pass; 64 at every width; three blocks an SM; its
+    # first design, Q and dO read every pass, at 32 keys a pass
+    "dq_c32": [_DQ_C32],
+    "dq_c64": [_DQ_C64],
+    "dq_blocks3": [_DQ_BLOCKS3],
+    "dq_reload_c32": [_DQ_RELOAD, _DQ_C32],
 }
 
 _TAIL = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
@@ -55,8 +75,9 @@ def _build(names, work):
     for name in names:
         src = text
         for old, new in VARIANTS.get(name, []):
-            if old not in src:
-                raise SystemExit(f"variant {name}: anchor not in the source")
+            if src.count(old) != 1:
+                raise SystemExit(f"variant {name}: anchor not once in the "
+                                 "source")
             src = src.replace(old, new)
         cu = os.path.join(work, f"{name}.cu")
         with open(cu, "w") as fh:
@@ -65,21 +86,23 @@ def _build(names, work):
         procs[name] = (so, subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-o", so, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
+    libs, logs = {}, {}
     for name, (so, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed for {name}:\n{log}")
+        logs[name] = log
         lib = ctypes.CDLL(so)
         lib.flash_fwd_launch_bf16.argtypes = [ctypes.c_void_p] * 5 + _TAIL
+        lib.flash_dq_launch_bf16.argtypes = [ctypes.c_void_p] * 8 + _TAIL
         lib.flash_dkv_launch_bf16.argtypes = [ctypes.c_void_p] * 9 + _TAIL
         lib.flash_kernel_info.argtypes = [ctypes.c_int, ctypes.c_int] + [
             ctypes.POINTER(ctypes.c_int)] * 3
-        for fn in (lib.flash_fwd_launch_bf16, lib.flash_dkv_launch_bf16,
-                   lib.flash_kernel_info):
+        for fn in (lib.flash_fwd_launch_bf16, lib.flash_dq_launch_bf16,
+                   lib.flash_dkv_launch_bf16, lib.flash_kernel_info):
             fn.restype = ctypes.c_int
         libs[name] = lib
-    return libs
+    return libs, logs
 
 
 def main(argv):
@@ -91,7 +114,7 @@ def main(argv):
     dt = torch.bfloat16
     tol = cs.FLASH16_TOL["bfloat16"]
     with tempfile.TemporaryDirectory(prefix="tc_variants_") as work:
-        libs = _build(names, work)
+        libs, logs = _build(names, work)
         stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa
 
         def fwd(lib, q, k, v, causal, qo, ko):
@@ -104,6 +127,17 @@ def main(argv):
                 1.0 / D ** 0.5, stream())
             assert code == 0, code
             return out, lse
+
+        def dq(lib, q, k, v, g, lse, delta, glse, causal, qo, ko):
+            B, Lq, H, D = q.shape
+            out = torch.empty_like(q)
+            code = lib.flash_dq_launch_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), glse.data_ptr(),
+                out.data_ptr(), B, Lq, k.shape[1], H, D, int(causal), qo, ko,
+                1.0 / D ** 0.5, stream())
+            assert code == 0, code
+            return out
 
         def dkv(lib, q, k, v, g, lse, delta, glse, causal, qo, ko):
             B, Lq, H, D = q.shape
@@ -131,29 +165,37 @@ def main(argv):
             bwd = (q, k, v, g, p_lse, fa.attention_delta(p_out, g), g_lse,
                    causal, qo, ko)
             inputs[key] = (q, k, v, causal, qo, ko, p_out, p_lse, bwd,
-                           fa.attention_dkv_plain(*bwd))
+                           fa.attention_dkv_plain(*bwd),
+                           fa.attention_dq_plain(*bwd))
         rec = {n: {"variant": n, "ms": {}, "rel_err": {}} for n in names}
         for n in names:
-            for which in (0, 2):
+            for which, key in enumerate(("fwd", "dq", "dkv")):
                 regs, local, blocks = (ctypes.c_int() for _ in range(3))
                 libs[n].flash_kernel_info(which + 3, 32, ctypes.byref(regs),
                                           ctypes.byref(local),
                                           ctypes.byref(blocks))
-                rec[n]["fwd" if which == 0 else "dkv"] = {
+                rec[n][key] = {
                     "registers": regs.value, "local_bytes": local.value,
                     "blocks_per_sm": blocks.value}
+            # B5's instances at every width: registers and spills
+            rec[n]["dq_ptxas"] = {
+                name: r for name, r in cs.ptxas_reports(logs[n]).items()
+                if name.startswith("flash_dq_tc_kernel")
+                and "bfloat16" in name}
             ok = True
             for key in ("main", "ragged", "masked_rows"):
-                q, k, v, causal, qo, ko, p_out, p_lse, bwd, p_dkv = \
+                q, k, v, causal, qo, ko, p_out, p_lse, bwd, p_dkv, p_dq = \
                     inputs[key]
                 out, lse = fwd(libs[n], q, k, v, causal, qo, ko)
                 again = fwd(libs[n], q, k, v, causal, qo, ko)
                 dk, dv = dkv(libs[n], *bwd)
                 dk2, dv2 = dkv(libs[n], *bwd)
+                dq1, dq2 = dq(libs[n], *bwd), dq(libs[n], *bwd)
                 dead = p_lse == fa.NEG
                 live = ~dead
                 err = {"out": cs._rel_err(torch, out.float(), p_out.float()),
                        "lse": cs._rel_err(torch, lse[live], p_lse[live]),
+                       "dq": cs._rel_err(torch, dq1.float(), p_dq.float()),
                        "dk": cs._rel_err(torch, dk.float(),
                                          p_dkv[0].float()),
                        "dv": cs._rel_err(torch, dv.float(),
@@ -162,17 +204,21 @@ def main(argv):
                 ok &= (torch.equal(again[0], out) and
                        torch.equal(again[1], lse) and
                        torch.equal(dk2, dk) and torch.equal(dv2, dv) and
+                       torch.equal(dq1, dq2) and
                        torch.equal(lse == fa.NEG, dead) and
                        bool((out.transpose(1, 2)[dead] == 0).all()) and
-                       max(err["out"], err["dk"], err["dv"]) <= tol and
+                       max(err["out"], err["dq"], err["dk"],
+                           err["dv"]) <= tol and
                        err["lse"] <= cs.FLASH_FWD_TOL)
             rec[n]["checks_ok"] = ok
         for key, calls in (("fwd_main", "main"), ("fwd_eval", "eval"),
-                           ("dkv_main", "main")):
-            q, k, v, causal, qo, ko, _, _, bwd, _ = inputs[calls]
+                           ("dq_main", "main"), ("dkv_main", "main")):
+            q, k, v, causal, qo, ko, _, _, bwd, _, _ = inputs[calls]
             for n in names + names[::-1]:
                 if key.startswith("fwd"):
                     fn = lambda: fwd(libs[n], q, k, v, causal, qo, ko)  # noqa
+                elif key.startswith("dq"):
+                    fn = lambda: dq(libs[n], *bwd)  # noqa
                 else:
                     fn = lambda: dkv(libs[n], *bwd)  # noqa
                 rec[n]["ms"].setdefault(key, []).append(

@@ -11,7 +11,7 @@ accumulated output and feeds them with 16-byte shared loads (about one
 load for 6-8 FMAs, not one for one), tiles that the mask cannot touch
 skip the per-element test, and the streamed tiles arrive by
 double-buffered ``cp.async`` copies; B4's online softmax runs in the log2
-domain with ``ex2``.  B4 and B6 in 16-bit storage are other kernels of
+domain with ``ex2``.  In 16-bit storage all three are other kernels of
 the same library, on the tensor cores (``mma.sync`` fed by ``ldmatrix``).
 The source's header has the bank layout, the shared memory a block and
 what bounds the kernels.
@@ -26,12 +26,12 @@ float16, one type for all, and ``out``, ``dq``, ``dk`` and ``dv`` come
 back rounded to that type (``lse``, ``delta`` and the lse cotangent stay
 float32), as the TPU kernels' upcasts and ``astype`` do
 (``pallas_attention.py:109-111``, ``:150``, ``:172-175``, ``:209``,
-``:224-227``, ``:268-269``); any other type raises ``TypeError``.  B5, and
-every kernel in float32, widen each tile to float32 as it enters shared
-memory and compute in float32; B4 and B6 in bfloat16 / float16 run their
-products on the tensor cores (16-bit operands, float32 accumulators), the
-softmax and the masks in float32, with P and dS rounded once to the
-storage type for the products that take them.
+``:224-227``, ``:268-269``); any other type raises ``TypeError``.  In
+float32 the kernels compute in float32 on CUDA cores; in bfloat16 /
+float16 all three run their products on the tensor cores (16-bit
+operands, float32 accumulators), the softmax and the masks in float32,
+with P and dS rounded once to the storage type for the products that take
+them.
 
 The gradient is two ``torch.autograd.Function``s, forward and backward,
 each with a ``vmap`` rule that folds the vmapped axis into ``B``: under
