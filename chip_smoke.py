@@ -7,8 +7,9 @@ Run from the root of a checkout; needs one CUDA card, ``nvcc`` and no
 network.  ``--kernels`` runs phases 1 and 2 alone and ends with the
 ``kernels`` table (a quick check and timing of the kernels after an edit,
 or of two trees in one call); without it every phase runs.  Phases, each
-printing one JSON line (any failure exits non-zero and prints no
-result):
+printing one JSON line with ``t`` (seconds since the start) and
+``phase_seconds`` (seconds since the line before) (any failure exits
+non-zero and prints no result):
 
 1. ``env``    — the card's name and power limit (``nvidia-smi``), the torch
    and CUDA versions; then ``build``: every kernel of the port compiled
@@ -49,7 +50,8 @@ result):
      P = 1, 2 and 3 mod 4, 1,000 leaves, x off a 16-byte boundary), each
      at ``n_bins`` 1024, 16 and 2: bitwise; then at BERT-base's
      ``[10, 109,514,298]`` in 202 leaves (a second row of the ``kernels``
-     table).  At both shapes: the yardstick (the same function as a few
+     table) and at EF quantization's ``[10, 1,206,590]`` with one leaf a
+     row, at 16 levels (a third row).  At each shape: the yardstick (the same function as a few
      PyTorch calls over the whole ``[K, P]``, held bitwise to the kernel
      first), the share of the bound and the rate, and the instructions a
      thread of a full tile issues an element, counted in the built
@@ -90,8 +92,8 @@ result):
    with 50-300 samples each: FEMNIST's population of 3,400 writers cut to
    a tenth, so it generates in seconds.  Asserts B1 ran on every local
    step, losses are finite, and the checkpoint and status log exist.
-   ``profile`` then times three more rounds of the same engine on the host
-   clock and three under ``torch.profiler``: wall time and device time per
+   ``profile`` then times two more rounds of the same engine on the host
+   clock and two under ``torch.profiler``: wall time and device time per
    round, the device's idle share, and the kernels that take the most
    device time.  ``cross_device``: 2 rounds with dropout off on a
    40-writer blob, twice on ``cuda`` and once on ``cpu``: the cuda runs
@@ -222,6 +224,26 @@ result):
    ``[10, 109,514,298]`` (full P, the real 202-leaf table) and timed
    there (the ``kernel`` phase's second B3 line).
 
+9. ``strategies`` — ``main``'s CNN_FEMNIST config (P = 1,206,590, 10
+   clients at batch 20, the 350 writers, ``pallas_apply``) through the CLI
+   under q-FFL, FedAC, FedBuff (``max_staleness: 4``), SCAFFOLD on the host
+   store and on the ``[350, P]`` device table, and EF quantization (4
+   bits) on the host store and on the device table, 3 rounds a leg: B1
+   once a local step, B3 once a round on the EF legs (one leaf a client
+   row) and no other kernel, finite losses, the round markers; each store
+   leg again cut after round 2 and resumed to 3, its params and rows
+   bitwise those of the uninterrupted leg.
+   ``strategies_cross_device_*``: each strategy's leg at 4 clients, 2
+   rounds, dropout off, twice on ``cuda`` (bitwise) and once on ``cpu``
+   (``STRATEGY_CROSS_TOL``, SCAFFOLD's ``c`` too; EF's ``EF_CROSS_TOL``).  ``rl`` — ``dga``'s
+   config with ``wantRL: true`` (local DP off), 3 rounds: rewards, the
+   kept candidate each round, B1 once a local step, B3 once a round, no
+   B2 (the RL round never calls the strategy's combine).
+   ``classif_cnn`` — ``experiments/classif_cnn/config.yaml`` (CIFAR_CNN,
+   ``f1_score``) plus ``pallas_apply``, 3 rounds on generated hdf5 blobs
+   (their JSON twin where ``h5py`` is missing; the line says which): B1
+   once a local step, ``Val f1_score`` logged.
+
 The line before the last is the ``kernels`` table (launches on each path,
 ``max_abs_err``, ``ms``, ``plain_ms``, ``bound_ms``, ``library_ms``), the
 16-bit arms' rows after the float32 ones (each launched on a path of the
@@ -302,12 +324,17 @@ CNN_CONFIG = {
 
 
 #: when the script started: each phase line carries its seconds since
+#: (``t``) and its own seconds (``phase_seconds``, since the line before)
 _START = time.time()
+_LAST_LINE = [_START]
 
 
 def emit(record: dict) -> None:
     if "phase" in record:
-        record = {**record, "t": round(time.time() - _START, 1)}
+        now = time.time()
+        record = {**record, "t": round(now - _START, 1),
+                  "phase_seconds": round(now - _LAST_LINE[0], 1)}
+        _LAST_LINE[0] = now
     print(json.dumps(record), flush=True)
 
 
@@ -993,7 +1020,7 @@ def _quant_bytes(K, P, L):
 
 
 def _quant_timing(torch, x, bounds, off, lo, hi, th, launches=200,
-                  lead=20, plain_iters=10):
+                  lead=20, plain_iters=10, n_bins=1024):
     """B3 at one shape: the kernel and the yardstick on the device alone
     (the yardstick checked bitwise against the kernel first), the plain
     version host-paced, the bound (bytes, flops, and the issue term of the
@@ -1003,15 +1030,15 @@ def _quant_timing(torch, x, bounds, off, lo, hi, th, launches=200,
     K, P = x.shape
     L = len(bounds) - 1
     kernel = lambda: quant_bin_sparsify(x, off, lo, hi, th,  # noqa: E731
-                                        1024)
-    yardstick = _quant_yardstick(torch, x, bounds, lo, hi, th, 1024)
+                                        n_bins)
+    yardstick = _quant_yardstick(torch, x, bounds, lo, hi, th, n_bins)
     check(torch.equal(yardstick(), kernel()),
           f"B3's yardstick != the kernel at [{K}, {P}]")
     torch.cuda.empty_cache()
     kernel_ms = _device_ms(torch, kernel, launches, lead)
     off_cpu = off.cpu()
     plain_ms = _time_ms(torch, lambda: quant_bin_plain(x, off_cpu, lo, hi,
-                                                       th, 1024),
+                                                       th, n_bins),
                         iters=plain_iters, warmup=1)
     yard_ms = _device_ms(torch, yardstick, min(launches, 20), 5)
     torch.cuda.empty_cache()
@@ -1562,7 +1589,7 @@ def _busy_us(intervals):
     return busy
 
 
-def phase_profile(torch, server, rounds=3, phase="profile",
+def phase_profile(torch, server, rounds=2, phase="profile",
                   client_lr=0.1, server_lr=1.0, quant_threshold=None):
     """Where a path's round time goes: on one fresh cohort, after one
     warm-up round, ``rounds`` rounds of the run's engine timed on the host
@@ -1870,7 +1897,8 @@ def phase_dga(torch, work, kernel_rows):
 #: round 2.  Both devices draw the same global-DP bits (the Philox stream)
 #: and quantize with the same thresholds up to float32 order, so only
 #: reduction order differs: this phase measured 4.5e-8 after round 1 and
-#: 5.1e-8 after round 2 on three H100s with the path's 10 clients.  An
+#: 5.1e-8 after round 2 on three H100s with the path's 10 clients (4 since
+#: PR 13, which cut the cpu run's depth).  An
 #: element that lands on another quantization level, or an adam step of
 #: another sign (each moves a parameter by about 2 lr = 2e-3), breaks the
 #: bound.
@@ -1911,12 +1939,14 @@ def phase_dga_learns(torch, work):
 
 
 def phase_cross_device_dga(torch, work):
-    """2 DGA rounds of the path's 10 clients, local DP off, global DP and
-    quantization on (:func:`_cross_device`)."""
+    """2 DGA rounds of 4 clients (the path takes 10; the GRU's cpu run is
+    the phase's cost), local DP off, global DP and quantization on
+    (:func:`_cross_device`)."""
     raw = dga_config(rounds=2)
     raw["dp_config"]["enable_local_dp"] = False
     raw["server_config"].update(val_freq=100, rec_freq=100,
-                                initial_val=False, model_backup_freq=1)
+                                initial_val=False, model_backup_freq=1,
+                                num_clients_per_iteration=4)
     _cross_device(torch, work, "dga_cross_device", raw, "nlg_gru",
                   DGA_CROSS_TOL)
 
@@ -3732,6 +3762,391 @@ def phase_optimizers(torch, work):
     emit({"phase": "optimizers", "ok": True, "legs": sorted(legs)})
 
 
+# ----------------------------------------------------------------------
+# the strategies beyond FedAvg / DGA, DGA's RL hook and classif_cnn
+# ----------------------------------------------------------------------
+def phase_kernel_quant_ef(torch):
+    """B3 at EF quantization's layout: ``[10, 1,206,590]`` (the strategies
+    phase's K and CNN_FEMNIST's P) with one leaf a row, offsets ``(0,
+    P)``, against its plain version bitwise at 16 levels (``quant_bits:
+    4``) and at 1024 and 2; then timed at 16 levels beside its yardstick,
+    with the byte bound (8 bytes an element) and its share."""
+    from msrflute_tpu_torch.ops.quant_bin import (quant_bin_plain,
+                                                  quant_bin_sparsify)
+    K, P = MAIN_K, MAIN_P
+    bounds = [0, P]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((K, P), device="cuda", generator=gen)
+    x *= torch.logspace(-4, -1, K, device="cuda")[:, None]
+    off, lo, hi, th = _quant_case(torch, x, bounds, EF_QUANT_THRESH)
+    max_err = 0.0
+    for n_bins in (2 ** EF_QUANT_BITS, 1024, 2):
+        k = quant_bin_sparsify(x, off, lo, hi, th, n_bins)
+        pl = quant_bin_plain(x, off.cpu(), lo, hi, th, n_bins)
+        torch.cuda.synchronize()
+        err = float((k - pl).abs().max())
+        max_err = max(max_err, err)
+        check(torch.equal(k, pl), f"quant_bin at the EF layout, n_bins="
+                                  f"{n_bins}: kernel != plain (max abs "
+                                  f"err {err})")
+    del k, pl
+    timed = _quant_timing(torch, x, bounds, off, lo, hi, th,
+                          n_bins=2 ** EF_QUANT_BITS)
+    emit({"phase": "kernel", "ok": True, "name": "quant_bin_sparsify",
+          "layout": "ef_quant: one leaf a client row", "bitwise": True,
+          "n_bins": 2 ** EF_QUANT_BITS, **timed})
+    del x
+    torch.cuda.empty_cache()
+    row = _quant_row(timed, max_err)
+    row["layout"] = "one leaf a row (ef_quant)"
+    return row
+
+
+#: EF quantization's settings on the strategies phase
+EF_QUANT_BITS, EF_QUANT_THRESH = 4, 0.0
+STRATEGY_ROUNDS = 3
+#: ``(strategy, server_config, client_config)`` of each leg of the
+#: strategies phase, over CNN_CONFIG (CNN_FEMNIST, 350 writers, 10
+#: clients at batch 20, ``pallas_apply``)
+STRATEGY_LEGS = {
+    "qffl": ("qffl", {"qffl_q": 1.0}, {}),
+    "fedac": ("fedac", {"fedac_eta": 0.5, "fedac_gamma": 1.0}, {}),
+    "fedbuff": ("fedbuff", {"fedbuff": {"max_staleness": 4}}, {}),
+    "scaffold": ("scaffold", {}, {}),
+    "scaffold_device": ("scaffold", {"scaffold_device_controls": True}, {}),
+    "ef_quant": ("ef_quant", {}, {"quant_bits": EF_QUANT_BITS,
+                                  "quant_thresh": EF_QUANT_THRESH}),
+    "ef_quant_device": ("ef_quant", {"ef_device_residuals": True},
+                        {"quant_bits": EF_QUANT_BITS,
+                         "quant_thresh": EF_QUANT_THRESH}),
+}
+#: the legs whose per-client rows are resumed bit for bit
+RESUMED_LEGS = ("scaffold", "scaffold_device", "ef_quant", "ef_quant_device")
+
+
+def strategy_config(leg, rounds=STRATEGY_ROUNDS, data_dir="femnist"):
+    """CNN_CONFIG under the leg's strategy, a val eval at the end only."""
+    strategy, server, client = STRATEGY_LEGS[leg]
+    raw = _set_data(json.loads(json.dumps(CNN_CONFIG)), data_dir)
+    raw["strategy"] = strategy
+    raw["server_config"].update(max_iteration=rounds, val_freq=rounds,
+                                rec_freq=1000, initial_val=False,
+                                rounds_per_step=1, **server)
+    raw["client_config"].update(client)
+    return raw
+
+
+def _store_rows(server):
+    """``{client id: row}`` of the leg's durable store (and SCAFFOLD's
+    ``c`` under -1), as numpy."""
+    import numpy as np
+    store = server.scaffold_store or server.ef_store
+    ids = store.persisted_client_ids()
+    if server.scaffold_store is not None:
+        rows = {i: store.ci(i) for i in ids}
+        rows[-1] = store.c
+        return rows
+    return dict(zip(ids, store.rows(np.asarray(ids))))
+
+
+def phase_strategies(torch, work, kernel_rows, ef_row):
+    """q-FFL, FedAC, FedBuff (``max_staleness: 4``), SCAFFOLD on the host
+    store and on the ``[350, P]`` device table, and EF quantization
+    (``quant_bits: 4``) on the host store and the device table, each 3
+    rounds through the CLI at CNN_FEMNIST's published width on ``main``'s
+    350 writers: B1 once a local step (SCAFFOLD's ``c - c_i`` goes in with
+    the gradient), B3 once a round on the EF legs (one leaf a client row)
+    and no other kernel; finite losses.  Then each store leg again, cut
+    after round 2 and resumed to 3 through the CLI: the params and the
+    store's rows are bitwise those of the uninterrupted leg."""
+    import numpy as np
+    from msrflute_tpu_torch import e2e_trainer
+    legs, ef_launches = {}, 0
+    # the 350 writers take the CLI seconds to parse, more than a leg's 3
+    # rounds: the legs and their resumes share one parse (each still runs
+    # e2e_trainer.main; the datasets are read-only to a run)
+    parse = e2e_trainer.build_task_datasets
+    parsed = {}
+
+    def shared(cfg, task):
+        key = json.dumps([cfg.client_config.data_config.train,
+                          cfg.server_config.data_config.val,
+                          cfg.server_config.data_config.test,
+                          cfg.model_config], sort_keys=True, default=str)
+        if key not in parsed:
+            parsed[key] = parse(cfg, task)
+        return parsed[key]
+
+    e2e_trainer.build_task_datasets = shared
+    try:
+        _strategy_legs(torch, work, kernel_rows, legs)
+    finally:
+        e2e_trainer.build_task_datasets = parse
+    ef_launches = sum(leg["launches"]["quant_bin_sparsify"]
+                      for leg in legs.values())
+    ef_row["launches"] = ef_launches
+    emit({"phase": "strategies", "ok": True, "params": MAIN_P,
+          "clients_per_round": MAIN_K, "writers": 350,
+          "rounds": STRATEGY_ROUNDS, "legs": legs})
+
+
+def _strategy_legs(torch, work, kernel_rows, legs):
+    import numpy as np
+    for leg in STRATEGY_LEGS:
+        tic = time.time()
+        _reset_counts()
+        server, out, secs = _run_cli(work, f"strategies_{leg}",
+                                     strategy_config(leg), "cuda")
+        launches = _read_counts()
+        steps = server.engine.local_steps
+        ef = leg.startswith("ef_quant")
+        want = {k: 0 for k in launches}
+        want["fused_sgd_apply"] = steps
+        want["quant_bin_sparsify"] = STRATEGY_ROUNDS if ef else 0
+        check(steps > 0 and launches == want,
+              f"strategies {leg}: launches {launches}, want {want}")
+        for row in kernel_rows:
+            row.setdefault("launches_by_path", {})[f"strategies_{leg}"] = \
+                launches[row["name"]]
+        train_loss = [r["value"] for r in _records(out, "Training loss")]
+        val = [h["loss"] for h in server.history if h["split"] == "val"]
+        check(len(train_loss) == STRATEGY_ROUNDS and
+              all(map(math.isfinite, train_loss + val)) and len(val) == 1,
+              f"strategies {leg}: losses {train_loss} val {val}")
+        check(server.state.params.is_cuda, f"{leg}: params not on cuda")
+        rounds = server.run_stats["secsPerRound"]
+        record = {"secs_per_round": rounds,
+                  "secs_per_round_after_first": float(np.mean(rounds[1:])),
+                  "local_steps": steps, "launches": launches,
+                  "train_loss": train_loss, "val_loss": val[0],
+                  "run_seconds": round(secs, 3)}
+        store = server.scaffold_store or server.ef_store
+        if store is not None:
+            check(store.round() == STRATEGY_ROUNDS,
+                  f"{leg}: round marker {store.round()}")
+            table = server.scaffold_device or server.ef_device
+            record["device_table_gb"] = (
+                None if table is None else
+                table.table.numel() * 4 / 1e9)
+            check(table is None or table.table.is_cuda,
+                  f"{leg}: device table not on cuda")
+        if leg.startswith("scaffold"):
+            norm = [r["value"] for r in _records(out,
+                                                 "Control norm (server c)")]
+            check(len(norm) == STRATEGY_ROUNDS and
+                  all(map(math.isfinite, norm)) and norm[-1] > 0,
+                  f"{leg}: control norms {norm}")
+            record["control_norm"] = norm
+        if leg in RESUMED_LEGS:
+            want_params = server.state.params.cpu()
+            want_rows = _store_rows(server)
+            del server
+            torch.cuda.empty_cache()
+            name = f"strategies_{leg}_resume"
+            _run_cli(work, name, strategy_config(leg, rounds=2), "cuda")
+            raw = strategy_config(leg)
+            raw["server_config"]["resume_from_checkpoint"] = True
+            resumed, _, _ = _run_cli(work, name, raw, "cuda")
+            check(resumed.state.round == STRATEGY_ROUNDS,
+                  f"{leg}: resumed run ended at {resumed.state.round}")
+            got_rows = _store_rows(resumed)
+            check(torch.equal(resumed.state.params.cpu(), want_params),
+                  f"{leg}: resumed params differ from the uninterrupted "
+                  "run")
+            check(sorted(got_rows) == sorted(want_rows) and all(
+                np.array_equal(got_rows[i], want_rows[i])
+                for i in want_rows),
+                  f"{leg}: resumed store rows differ from the "
+                  "uninterrupted run")
+            record["resume_bitwise"] = {"params": True,
+                                        "rows": len(want_rows)}
+            del resumed
+        else:
+            del server
+        torch.cuda.empty_cache()
+        record["seconds"] = round(time.time() - tic, 3)
+        legs[leg] = record
+
+
+RL_ROUNDS = 3
+
+
+def phase_rl(torch, work, kernel_rows):
+    """``dga``'s config with ``wantRL: true`` and local DP off (as in
+    ``dga_learns``: local DP's noise puts entries of the RL state vector,
+    the clients' weights and pseudo-gradient statistics, so far out that
+    the DQN's first SGD step diverged in a CPU rehearsal), 3 rounds through
+    the CLI: a round makes candidate A (DGA's weights) and B (the RL
+    weights) from one state, validates both, keeps one, trains the DQN.
+    B1 once a local step and B3 once a round (DGA's quantization in the
+    client step); B2 (global DP) is not on this path: the JAX package's RL
+    round applies its own aggregate (``apply_custom_weights``) and never
+    the strategy's combine, where global DP lives."""
+    raw = dga_config(rounds=RL_ROUNDS)
+    raw["dp_config"]["enable_local_dp"] = False
+    raw["server_config"]["wantRL"] = True
+    _reset_counts()
+    server, out, secs = _run_cli(work, "rl", raw, "cuda", task="nlg_gru")
+    launches = _read_counts()
+    steps = server.engine.local_steps
+    want = {k: 0 for k in launches}
+    want.update(fused_sgd_apply=steps, quant_bin_sparsify=RL_ROUNDS)
+    check(steps > 0 and launches == want,
+          f"rl launches {launches}, want {want}")
+    for row in kernel_rows:
+        row.setdefault("launches_by_path", {})["rl"] = launches[row["name"]]
+    rewards = [r["value"] for r in _records(out, "RL Rewards")]
+    accs = [r["value"] for r in _records(out, "Val acc (baseline vs RL)")]
+    running = [r["value"] for r in _records(out, "RL Running Loss")]
+    check(len(rewards) == RL_ROUNDS and
+          set(rewards) <= {1.0, 0.1, -1.0} and
+          len(server.rl_kept) == RL_ROUNDS and
+          all(map(math.isfinite, running)),
+          f"rl rewards {rewards} kept {server.rl_kept} loss {running}")
+    check(os.path.exists(server.rl.model_name), "no RL model file")
+    check(all(math.isfinite(h["loss"]) for h in server.history),
+          f"rl evals {server.history}")
+    emit({"phase": "rl", "ok": True, "rounds": RL_ROUNDS,
+          "rewards": rewards, "kept_rl_candidate": server.rl_kept,
+          "val_acc_baseline_vs_rl": accs, "rl_running_loss": running,
+          "epsilon": server.rl.epsilon, "local_steps": steps,
+          "launches": launches,
+          "secs_per_round": server.run_stats["secsPerRound"],
+          "run_seconds": round(secs, 3)})
+    del server
+
+
+#: experiments/classif_cnn's CIFAR-10 cut to what generates in seconds:
+#: (split, clients, images a client, seed)
+CIFAR10_SPLITS = (("train", 100, 50, 60), ("val", 10, 100, 61),
+                  ("test", 10, 100, 62))
+CLASSIF_ROUNDS = 3
+
+
+def write_cifar10_hdf5(path, num_users, per_user, seed):
+    """:func:`write_cifar100_blob`'s images at 10 classes in the hdf5
+    layout (``uint8 [n, 32, 32, 3]`` a user), through the port's writer."""
+    import numpy as np
+    from msrflute_tpu_torch.data.user_blob import (UserBlob,
+                                                   save_user_blob_hdf5)
+    n = num_users * per_user
+    x, y = _template_images(np.random.default_rng(seed), n, 10)
+    x = x.reshape(n, 32, 32, 3)
+    cut = [slice(i * per_user, (i + 1) * per_user) for i in range(num_users)]
+    save_user_blob_hdf5(path, UserBlob(
+        [f"c{seed}_{i:04d}" for i in range(num_users)],
+        [per_user] * num_users, [x[c] for c in cut], [y[c] for c in cut]))
+    return n
+
+
+def phase_classif_cnn(torch, work, kernel_rows):
+    """``experiments/classif_cnn/config.yaml`` (CIFAR_CNN, ``f1_score`` the
+    best-model criterion, ``rounds_per_step: 20``) plus ``pallas_apply``,
+    3 rounds through the CLI on generated hdf5 blobs (their JSON twin when
+    this machine has no ``h5py``; the line says which): B1 once a local
+    step, finite losses, ``f1_score`` logged and its best model saved."""
+    try:
+        import h5py  # noqa: F401
+        hdf5 = True
+    except ImportError:
+        hdf5 = False
+    ext = "hdf5" if hdf5 else "json"
+    os.makedirs(os.path.join(work, "cifar10"), exist_ok=True)
+    tic = time.time()
+    for split, users, per_user, seed in CIFAR10_SPLITS:
+        path = os.path.join(work, "cifar10", f"{split}.{ext}")
+        if hdf5:
+            write_cifar10_hdf5(path, users, per_user, seed)
+        else:
+            write_cifar100_blob(path, users, per_user, seed, classes=10)
+    blob_s = time.time() - tic
+    raw = _experiment_config("classif_cnn")
+    raw["server_config"].update(
+        max_iteration=CLASSIF_ROUNDS, val_freq=CLASSIF_ROUNDS,
+        rec_freq=CLASSIF_ROUNDS, megakernel={"pallas_apply": True})
+    dc = raw["server_config"]["data_config"]
+    dc["val"]["val_data"] = f"cifar10/val.{ext}"
+    dc["test"]["test_data"] = f"cifar10/test.{ext}"
+    raw["client_config"]["data_config"]["train"]["list_of_train_data"] = \
+        f"cifar10/train.{ext}"
+    _reset_counts()
+    server, out, secs = _run_cli(work, "classif_cnn", raw, "cuda",
+                                 task="classif_cnn")
+    launches = _read_counts()
+    _b1_alone("classif_cnn", launches, server.engine.local_steps)
+    for row in kernel_rows:
+        row.setdefault("launches_by_path", {})["classif_cnn"] = \
+            launches[row["name"]]
+    check(server.engine.layout.numel == CIFAR_CNN_P,
+          f"CIFAR_CNN has {server.engine.layout.numel} params")
+    train_loss = [r["value"] for r in _records(out, "Training loss")]
+    f1 = [r["value"] for r in _records(out, "Val f1_score")]
+    check(len(train_loss) == CLASSIF_ROUNDS and
+          all(map(math.isfinite, train_loss)), f"losses {train_loss}")
+    check(len(f1) == 2 and all(0.0 <= v <= 1.0 for v in f1),
+          f"Val f1_score {f1}")
+    check(os.path.exists(os.path.join(out, "models",
+                                      "best_val_f1_score_model.pt")),
+          "no best_val_f1_score_model.pt")
+    emit({"phase": "classif_cnn", "ok": True, "hdf5": hdf5,
+          "params": CIFAR_CNN_P,
+          "users": {s[0]: s[1] for s in CIFAR10_SPLITS},
+          "population_note": "CIFAR-10's 50,000 train images cut to 100 "
+                             "clients of 50 (synthetic template images)",
+          "blob_seconds": round(blob_s, 3), "run_seconds": round(secs, 3),
+          "secs_per_round": server.run_stats["secsPerRound"],
+          "local_steps": server.engine.local_steps, "launches": launches,
+          "train_loss": train_loss, "val_f1_score": f1,
+          "evals": [{"split": h["split"], "round": h["round"],
+                     "loss": h["loss"], "f1_score": h["f1_score"]}
+                    for h in server.history]})
+    del server
+
+
+#: cuda vs cpu on the strategies' legs at 4 clients a round on
+#: :func:`_small_femnist`'s writers, dropout off, relative L2 of the params
+#: after rounds 1 and 2: only reduction order differs, as on the FedAvg CNN
+#: path (CROSS_TOL), and EF's 16 levels move an element by a level where it
+#: lands on another one.  q-FFL, FedAC and FedBuff measured 8.0e-5–8.9e-5
+#: after round 1 and 1.5e-3–2.8e-3 after round 2 (an H100, PR 13).
+STRATEGY_CROSS_TOL = {1: 5e-4, 2: 2e-2}
+#: EF quantization's leg: one float32 difference can move an element of a
+#: payload across a level of its 16 (a whole level, a fifteenth of the
+#: row's range), which the other legs' bound cannot hold: 2.2e-3 after
+#: round 1 on an H100 (PR 13).  Its round 2 is not held: the levels moved
+#: in round 1 grow with round 2's local steps, as every CNN leg's
+#: differences do (about tenfold a round), past a bound that would still
+#: single out a fault
+EF_CROSS_TOL = {1: 2e-2}
+#: SCAFFOLD's server control ``c`` after round 2: a sum of pseudo-gradient
+#: differences over ``K lr``, whose relative error is the payloads', not the
+#: params' (which the payloads move by a small step): 2.8e-2 on an H100
+#: (PR 13)
+SCAFFOLD_C_CROSS_TOL = 1e-1
+STRATEGY_CROSS_LEGS = ("qffl", "fedac", "fedbuff", "scaffold", "ef_quant")
+
+
+def phase_cross_device_strategies(torch, work):
+    """Each new strategy's CNN_FEMNIST leg, 2 rounds of 4 clients,
+    :func:`_cross_device` (FedBuff draws its staleness on the host, so
+    both devices start their clients from the same versions; EF is held
+    after round 1 alone, ``EF_CROSS_TOL``)."""
+    for leg in STRATEGY_CROSS_LEGS:
+        raw = strategy_config(leg, rounds=2, data_dir=_small_femnist(work))
+        raw["model_config"].update(dropout1=0.0, dropout2=0.0)
+        raw["server_config"].update(num_clients_per_iteration=4,
+                                    val_freq=100, model_backup_freq=1)
+        scaffold = leg == "scaffold"
+        _cross_device(
+            torch, work, f"strategies_cross_device_{leg}", raw,
+            "cv_cnn_femnist",
+            EF_CROSS_TOL if leg == "ef_quant" else STRATEGY_CROSS_TOL,
+            extra=(lambda srv: {"c": torch.from_numpy(
+                srv.scaffold_store.c)}) if scaffold else None,
+            extra_tol={"c": SCAFFOLD_C_CROSS_TOL} if scaffold else None)
+
+
+
 def main() -> int:
     argv = sys.argv[1:]
     if argv not in ([], ["--kernels"]):
@@ -3753,9 +4168,10 @@ def main() -> int:
         phase = "build"
         phase_build()
         phase = "kernel"
+        ef_row = phase_kernel_quant_ef(torch)
         rows = [phase_kernel(torch), phase_kernel_noise(torch),
                 phase_kernel_quant(torch), phase_kernel_quant_bert(torch),
-                *phase_kernel_flash(torch)]
+                ef_row, *phase_kernel_flash(torch)]
         # the 16-bit storage arms of B1 and B4-B6: rows of their own
         arm_rows = [*phase_kernel16(torch), *phase_kernel_flash16(torch)]
         if argv == ["--kernels"]:
@@ -3851,6 +4267,14 @@ def main() -> int:
             phase_mlm_bert_learns(torch, work)
             phase = "mlm_bert_cross_device"
             phase_cross_device_mlm_bert(torch, work)
+            phase = "strategies"
+            phase_strategies(torch, work, rows, ef_row)
+            phase = "strategies_cross_device"
+            phase_cross_device_strategies(torch, work)
+            phase = "rl"
+            phase_rl(torch, work, rows)
+            phase = "classif_cnn"
+            phase_classif_cnn(torch, work, rows)
     except Exception as exc:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})

@@ -14,8 +14,13 @@ nlg_gru GRU word LM and the BERT masked LM, the privacy-attack metrics
 (``privacy_metrics_config``), every optimizer of the JAX package's factory,
 every LR schedule, ``freeze_layer``, server replay, the precision policy
 (``server_config.precision``) and ``model_config.dtype``, the
-personalization server (per-user local models and convex interpolation)
-and FedLabels semi-supervision with RandAugment.
+personalization server (per-user local models and convex interpolation),
+FedLabels semi-supervision with RandAugment, and the strategies q-FFL,
+FedAC, FedBuff (drawn staleness), SCAFFOLD and error-feedback quantization
+(host store or device table) and DGA's RL weight hook (``wantRL``, the
+``RL`` block).  The combinations that the JAX constructors and round
+engine refuse are refused here, by :func:`check_strategy`, with
+``ValueError`` and the JAX package's meaning.
 :func:`validate` replaces the JAX package's ``schema.py`` for those
 slices: a key the port runs is accepted, a key that only tunes how the TPU
 program is dispatched (and changes no result) is accepted and ignored, and
@@ -136,6 +141,46 @@ class AnnealingConfig(Config):
 
 
 @dataclass
+class RLConfig(Config):
+    """The RL weight hook's settings: the JAX package's ``RLConfig``
+    (``msrflute_tpu/config.py:326-351``), fields and defaults."""
+
+    marginal_update_RL: bool = True
+    RL_path: Optional[str] = None
+    RL_path_global: bool = True
+    model_descriptor_RL: str = "marginalUpdate"
+    network_params: Optional[List[int]] = None
+    initial_epsilon: float = 0.5
+    final_epsilon: float = 0.0001
+    epsilon_gamma: float = 0.90
+    max_replay_memory_size: int = 1000
+    minibatch_size: int = 16
+    gamma: float = 0.99
+    optimizer_config: OptimizerConfig = field(default_factory=OptimizerConfig)
+    annealing_config: AnnealingConfig = field(default_factory=AnnealingConfig)
+    wantLSTM: bool = False
+    extra: Dict[str, Any] = field(default_factory=dict)
+
+    @classmethod
+    def from_dict(cls, raw: Optional[Dict[str, Any]]) -> Optional["RLConfig"]:
+        if raw is None:
+            return None
+        raw = dict(raw)
+        opt = OptimizerConfig.from_dict(raw.pop("optimizer_config", None))
+        ann = AnnealingConfig.from_dict(raw.pop("annealing_config", None))
+        out = cls(**_take(raw, _RL_FIELDS))
+        out.optimizer_config = opt
+        out.annealing_config = ann
+        return out
+
+
+_RL_FIELDS = ["marginal_update_RL", "RL_path", "RL_path_global",
+              "model_descriptor_RL", "network_params", "initial_epsilon",
+              "final_epsilon", "epsilon_gamma", "max_replay_memory_size",
+              "minibatch_size", "gamma", "wantLSTM"]
+
+
+@dataclass
 class DatasetConfig(Config):
     batch_size: int = 32
     list_of_train_data: Optional[str] = None
@@ -200,6 +245,7 @@ class ServerConfig(Config):
     max_grad_norm: Optional[float] = None
     rounds_per_step: int = 1
     megakernel: Optional[Dict[str, Any]] = None
+    RL: Optional[RLConfig] = None
     data_config: DataConfig = field(default_factory=DataConfig)
     optimizer_config: OptimizerConfig = field(default_factory=OptimizerConfig)
     annealing_config: AnnealingConfig = field(default_factory=AnnealingConfig)
@@ -208,6 +254,7 @@ class ServerConfig(Config):
     @classmethod
     def from_dict(cls, raw: Optional[Dict[str, Any]]) -> "ServerConfig":
         raw = dict(raw or {})
+        rl = RLConfig.from_dict(raw.pop("RL", None))
         data = DataConfig.from_dict(raw.pop("data_config", None))
         opt = OptimizerConfig.from_dict(raw.pop("optimizer_config", None))
         ann = AnnealingConfig.from_dict(raw.pop("annealing_config", None))
@@ -221,6 +268,7 @@ class ServerConfig(Config):
         out.data_config = data
         out.optimizer_config = opt
         out.annealing_config = ann
+        out.RL = rl
         return out
 
 
@@ -434,6 +482,15 @@ _DGA_SERVER = {"aggregate_median", "softmax_beta", "weight_train_loss",
                "stale_prob"}
 _DGA_CLIENT = {"quant_thresh", "quant_threshold", "quant_bits",
                "quant_approx", "quant_anneal"}
+#: ``strategy: ef_quant``'s client keys (``strategies/ef_quant.py``)
+_EF_CLIENT = {"quant_thresh", "quant_bits", "quant_approx", "quant_anneal"}
+#: the later strategies' server keys, and the RL hook's; each strategy
+#: reads its own and ignores the others', as in the JAX package
+_STRATEGY_SERVER = {"wantRL", "RL", "qffl_q", "fedac_eta", "fedac_gamma",
+                    "fedac_alpha", "fedac_beta", "fedbuff",
+                    "scaffold_device_controls", "scaffold_flush_freq",
+                    "ef_device_residuals", "ef_flush_freq"}
+_RL = set(_RL_FIELDS) | {"optimizer_config", "annealing_config"}
 #: ``semisupervision`` (FedLabels, read from the client section, then the
 #: server's); ``comp`` names the pseudo-label comparison, of which the JAX
 #: package runs ``var`` whatever it says, so the port accepts only that
@@ -469,16 +526,13 @@ _DISPATCH_ONLY = {
 #: ``NotImplementedError``
 _OFF_OK = {
     "server_config": {
-        "send_dicts", "do_profiling", "wantRL", "initial_lr",
-        "num_skip_decoding", "RL",
+        "send_dicts", "do_profiling", "initial_lr",
+        "num_skip_decoding",
         "nbest_task_scheduler", "best_model_metric", "fused_carry",
-        "clients_per_chunk", "checkpoint_backend", "secure_agg", "fedbuff",
-        "dump_norm_stats", "scaffold_device_controls", "scaffold_flush_freq",
-        "ef_device_residuals", "ef_flush_freq", "chaos", "checkpoint_retry",
+        "clients_per_chunk", "checkpoint_backend", "secure_agg",
+        "dump_norm_stats", "chaos", "checkpoint_retry",
         "traffic", "telemetry", "robust", "cohort_bucketing", "megabatch",
-        "fleet", "updatable_names",
-        "fedac_eta", "fedac_gamma", "fedac_alpha", "fedac_beta",
-        "qffl_q"} | _DGA_SERVER,
+        "fleet", "updatable_names"} | _DGA_SERVER,
     "client_config": {
         "meta_learning", "copying_train_data", "ignore_subtask",
         "num_skip_decoding", "meta_optimizer_config",
@@ -495,7 +549,8 @@ _OFF_OK = {
     "top": {"dp_config", "mesh_config", "experiment"},
 }
 
-_STRATEGIES_PORTED = {"fedavg", "fedprox", "dga", "fedlabels"}
+_STRATEGIES_PORTED = {"fedavg", "fedprox", "dga", "fedlabels", "qffl",
+                      "fedac", "fedbuff", "scaffold", "ef_quant", "efquant"}
 _MODELS_PORTED = {"LR", "CNN", "CNN_FEMNIST", "CIFAR_CNN", "RESNET",
                   "ResNet", "RNN", "LSTM", "GRU", "RINGLM", "ECG_CNN",
                   "NRMS", "FEDNEWSREC", "BERT"}
@@ -548,7 +603,9 @@ def validate(raw: Dict[str, Any]) -> None:
     strategy = str(raw.get("strategy", "fedavg")).lower()
     if strategy not in _STRATEGIES_PORTED:
         raise NotImplementedError(f"strategy {strategy!r} is {NOT_PORTED}")
+    check_strategy(raw, strategy)
     dga = strategy == "dga"
+    ef = strategy in ("ef_quant", "efquant")
     # DP and quantization are ported inside DGA only; under FedAvg they
     # keep raising unless off
     top_off = _OFF_OK["top"] - ({"dp_config"} if dga else set())
@@ -606,9 +663,16 @@ def validate(raw: Dict[str, Any]) -> None:
 
     sc = raw.get("server_config") or {}
     _check_keys(sc, "server_config",
-                _SERVER | (_DGA_SERVER if dga else set()),
+                _SERVER | _STRATEGY_SERVER | (_DGA_SERVER if dga else set()),
                 off_ok=_OFF_OK["server_config"],
                 ignored=_DISPATCH_ONLY["server_config"])
+    rl = sc.get("RL")
+    _check_keys(rl, "server_config.RL", _RL)
+    if rl:
+        _check_optimizer(rl.get("optimizer_config"),
+                         "server_config.RL.optimizer_config")
+        _check_keys(rl.get("annealing_config"),
+                    "server_config.RL.annealing_config", _ANNEALING)
     if str(sc.get("type", "optimization")) not in _SERVER_TYPES:
         raise NotImplementedError(
             f"server_config.type={sc.get('type')!r} is {NOT_PORTED}")
@@ -637,7 +701,8 @@ def validate(raw: Dict[str, Any]) -> None:
                              f"got {names!r}")
     cc = raw.get("client_config") or {}
     _check_keys(cc, "client_config",
-                _CLIENT | (_DGA_CLIENT if dga else set()),
+                _CLIENT | (_DGA_CLIENT if dga else _EF_CLIENT if ef
+                           else set()),
                 off_ok=_OFF_OK["client_config"],
                 ignored=_DISPATCH_ONLY["client_config"])
     freeze = cc.get("freeze_layer")
@@ -680,6 +745,112 @@ def validate(raw: Dict[str, Any]) -> None:
     if ann and ann.get("type", "step_lr") not in _ANNEALING_TYPES:
         raise ValueError(f"annealing type {ann.get('type')!r}: one of "
                          f"{list(_ANNEALING_TYPES)}")
+
+
+def _refuse(cond: bool, why: str) -> None:
+    if cond:
+        raise ValueError(why)
+
+
+def check_strategy(raw: Dict[str, Any], strategy: str) -> None:
+    """The combinations that the JAX strategies' constructors, its round
+    engine (``engine/round.py:213-216, 297-316``) and its server
+    (``engine/server.py:606-620, 632-636, 824-830``) refuse: each raises
+    ``ValueError`` here, with their meaning."""
+    from .strategies import STRATEGIES   # they import this module
+    cls = STRATEGIES[strategy]
+    sc = raw.get("server_config") or {}
+    cc = raw.get("client_config") or {}
+    model = raw.get("model_config") or {}
+    dp = raw.get("dp_config") or {}
+    local_dp = bool(dp.get("enable_local_dp", False))
+    adaptive = bool(dp.get("adaptive_clipping"))
+    server_opt = str((sc.get("optimizer_config") or {}).get(
+        "type", "sgd")).lower()
+    ef = strategy in ("ef_quant", "efquant")
+    _refuse(bool(sc.get("wantRL")) and not cls.supports_rl,
+            f"strategy {strategy!r} does not support wantRL")
+    _refuse(bool(sc.get("wantRL")) and not isinstance(
+        sc.get("num_clients_per_iteration", 10), int),
+            "wantRL requires a fixed num_clients_per_iteration")
+    _refuse(cls.owns_server_update and server_opt != "sgd",
+            f"strategy {strategy!r} applies its own server update; server "
+            f"optimizer_config type={server_opt!r} would be silently "
+            "ignored — use sgd (the lr still scales the update)")
+    train_server = (((sc.get("data_config") or {}).get("train") or {})
+                    .get("train_data_server"))
+    _refuse(cls.owns_server_update and
+            bool(sc.get("server_replay_config")) and bool(train_server),
+            f"strategy {strategy!r} maintains coupled parameter sequences; "
+            "server replay would mutate params behind its back — disable "
+            "server_replay_config")
+    resident = (((cc.get("data_config") or {}).get("train") or {})
+                .get("device_resident"))
+    _refuse(bool(resident) and (bool(sc.get("wantRL")) or
+                                cls.host_rounds),
+            "data_config.train.device_resident does not apply to "
+            "host-orchestrated rounds (wantRL / strategy: scaffold / "
+            "strategy: ef_quant) — drop the flag for this configuration")
+    _refuse(bool(sc.get("scaffold_device_controls")) and
+            strategy != "scaffold",
+            "server_config.scaffold_device_controls requires strategy: "
+            "scaffold — drop the flag")
+    _refuse(bool(sc.get("ef_device_residuals")) and not ef,
+            "server_config.ef_device_residuals requires strategy: "
+            "ef_quant — drop the flag")
+    if strategy == "qffl":
+        _refuse(local_dp or bool(dp.get("enable_global_dp", False)),
+                "strategy: qffl does not compose with "
+                "dp_config.enable_local_dp / enable_global_dp")
+        _refuse(float(sc.get("qffl_q", 1.0)) < 0,
+                f"server_config.qffl_q must be >= 0, got {sc['qffl_q']}")
+    if strategy == "fedac":
+        _refuse(adaptive, "FedAC and dp_config.adaptive_clipping are not "
+                          "supported together; use strategy: fedavg")
+    if strategy == "fedbuff":
+        fb = sc.get("fedbuff", True)
+        _refuse(not isinstance(fb, (dict, bool)),
+                "server_config.fedbuff must be a bool or an options dict")
+        fb = fb if isinstance(fb, dict) else {}
+        unknown = set(fb) - {"max_staleness", "staleness_exponent"}
+        _refuse(bool(unknown), f"server_config.fedbuff has unknown keys "
+                               f"{sorted(unknown)}")
+        _refuse(int(fb.get("max_staleness", 4)) < 1,
+                "fedbuff.max_staleness must be >= 1")
+        _refuse(float(fb.get("staleness_exponent", 0.5)) < 0,
+                "fedbuff.staleness_exponent must be >= 0")
+        _refuse(adaptive, "FedBuff does not implement "
+                          "dp_config.adaptive_clipping")
+    if strategy == "scaffold":
+        _refuse(local_dp or adaptive,
+                "strategy: scaffold does not compose with "
+                "dp_config.enable_local_dp / adaptive_clipping")
+        oc = cc.get("optimizer_config") or {}
+        plain = (str(oc.get("type", "sgd")).lower() == "sgd" and
+                 not float(oc.get("momentum", 0.0) or 0.0) and
+                 not bool(oc.get("nesterov", False)) and
+                 not float(oc.get("weight_decay", 0.0) or 0.0))
+        _refuse(not plain, "strategy: scaffold requires a PLAIN sgd client "
+                           f"optimizer, got {oc!r}")
+        _refuse(float(cc.get("fedprox_mu", 0.0) or 0.0) > 0.0,
+                "strategy: scaffold does not compose with fedprox_mu")
+        _refuse(cc.get("max_grad_norm") is not None,
+                "strategy: scaffold does not compose with "
+                "client_config.max_grad_norm")
+        _refuse(bool(cc.get("freeze_layer") or cc.get("updatable_layers")),
+                "strategy: scaffold does not compose with layer freezing")
+        _refuse(cc.get("quant_thresh") is not None or
+                model.get("quant_threshold") is not None,
+                "strategy: scaffold does not compose with gradient "
+                "quantization")
+    if ef:
+        bits = int(cc.get("quant_bits", 4))
+        _refuse(not 1 <= bits <= 16,
+                f"ef_quant quant_bits must be in [1, 16], got {bits}")
+        thresh = float(cc.get("quant_thresh", 0.0))
+        _refuse(not 0.0 <= thresh < 1.0,
+                "ef_quant quant_thresh is an |.|-quantile in [0, 1), got "
+                f"{thresh}")
 
 
 def model_dtype(model: Dict[str, Any]) -> str:

@@ -148,8 +148,9 @@ def _derive_stats(s, s2, n) -> Dict[str, torch.Tensor]:
 
 def build_client_update(task: BaseTask, client_opt_cfg,
                         hparams: ClientHParams) -> Callable:
-    """Returns ``client_update(global_flat, arrays, sample_mask, lr, gens)``
-    -> ``(pseudo_grad [K, P], train_loss [K], num_samples [K], stats)``.
+    """Returns ``client_update(global_flat, arrays, sample_mask, lr, gens,
+    grad_offset=None)`` -> ``(pseudo_grad [K, P], train_loss [K],
+    num_samples [K], stats)``.
 
     ``global_flat`` is the ``[P]`` vector every client starts from, or a
     ``[K, P]`` stack of one start a client (the personalization server's
@@ -158,7 +159,11 @@ def build_client_update(task: BaseTask, client_opt_cfg,
 
     ``arrays``: dict of ``[K, S, B, ...]`` tensors; ``sample_mask``:
     ``[K, S, B]``; ``gens``: one ``torch.Generator`` per client for the
-    dropout stream (``None`` when the task draws no random numbers)."""
+    dropout stream (``None`` when the task draws no random numbers);
+    ``grad_offset``: a ``[K, P]`` term added to every local step's gradient
+    before the proximal term and the clip (SCAFFOLD's ``c - c_i``,
+    ``msrflute_tpu/engine/client_update.py:197-231``), so it enters kernel
+    B1 with the gradient."""
     opt = make_optimizer(client_opt_cfg)
     sgd = isinstance(opt, SGD) and opt.plain
     if hparams.pallas_apply and not sgd:
@@ -196,7 +201,8 @@ def build_client_update(task: BaseTask, client_opt_cfg,
     def client_update(global_flat: torch.Tensor,
                       arrays: Dict[str, torch.Tensor],
                       sample_mask: torch.Tensor, lr: float,
-                      gens: Optional[List[torch.Generator]] = None):
+                      gens: Optional[List[torch.Generator]] = None,
+                      grad_offset: Optional[torch.Tensor] = None):
         K, S, B = sample_mask.shape
         # a copy in every case: a [K, P] start is the caller's, and the
         # steps below update params in place
@@ -227,7 +233,7 @@ def build_client_update(task: BaseTask, client_opt_cfg,
             with cpu16_guard(mask.device, task.compute_dtype, cdt):
                 grads, (loss, aux) = grad_fn(views, batch, masks)
             grads = combine_grad_terms(
-                layout.flatten(grads, batch_dims=1),
+                layout.flatten(grads, batch_dims=1), offset=grad_offset,
                 prox_mu=hparams.fedprox_mu, params=params,
                 global_params=global_flat, max_norm=hparams.max_grad_norm)
             rows = mask.sum(-1)

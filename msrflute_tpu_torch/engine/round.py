@@ -9,7 +9,18 @@ clients' weights, loss and sample counts, each part's weighted sums go
 through ``strategy.combine_parts`` with the round's global params (with
 the staleness split when the strategy defers clients,
 ``round.py:917-922, 988-1019``), and the server optimizer steps on the
-aggregate pseudo-gradient.
+aggregate pseudo-gradient — or, for a strategy that owns its server
+update (FedAC, FedBuff), ``strategy.apply_server_update`` replaces that
+step (``round.py:1408-1411``).  The clients start from
+``strategy.broadcast_params`` (``round.py:1295``; FedAC's ``w_md``).
+
+The host-orchestrated rounds (SCAFFOLD, EF quantization, DGA's RL hook)
+use the pair :meth:`RoundEngine.client_payloads` (the clients' weighted
+payloads, with a per-client gradient offset) and
+:meth:`RoundEngine.apply_custom_weights` (a server step on the payloads
+under weights the caller picks), ``round.py:1554-1660``.  The server
+optimizers are functional, so two calls of ``apply_custom_weights`` from
+one state (the RL hook's candidates) both start from that state.
 
 Randomness, all from ``np.random.SeedSequence`` entropy, so a resumed run
 needs only the round number and the numpy sampling state to replay every
@@ -154,6 +165,67 @@ class RoundEngine:
         return stream_seed(self.seed, int(round_idx), SERVER_SLOT,
                            SERVER_TAG)
 
+    def _client_step(self, state: ServerState, batch: RoundBatch,
+                     global_flat: torch.Tensor, client_lr: float,
+                     quant_threshold: Optional[float],
+                     leakage_threshold: Optional[float],
+                     grad_offsets: Optional[torch.Tensor] = None):
+        """The round's batch on the device and the strategy's client step
+        -> ``(parts, train_loss, num_samples, stats, client_mask)``."""
+        dev = self.device
+        r = state.round
+        arrays = {k: torch.from_numpy(v).to(dev)
+                  for k, v in batch.arrays.items()}
+        sample_mask = torch.from_numpy(batch.sample_mask).to(dev)
+        cm = torch.from_numpy(batch.client_mask).to(dev)
+        gens = (self.client_generators(r, batch.client_ids)
+                if self.random else None)
+        self.local_steps += self.hparams.num_epochs * sample_mask.shape[1]
+        parts, tl, ns, stats = self.strategy.client_step(
+            self.client_update, global_flat, arrays, sample_mask,
+            client_lr, gens, quant_threshold=quant_threshold,
+            client_rngs=lambda tag: self.client_generators(
+                r, batch.client_ids, tag), bounds=self.bounds, round_idx=r,
+            leakage_threshold=leakage_threshold,
+            strategy_state=state.strategy_state, grad_offset=grad_offsets)
+        return parts, tl, ns, stats, cm
+
+    def _server_clip(self, agg: torch.Tensor) -> torch.Tensor:
+        if self.server_max_grad_norm is None:
+            return agg
+        norm = torch.linalg.vector_norm(agg)
+        return agg * torch.clamp(float(self.server_max_grad_norm)
+                                 / torch.clamp(norm, min=1e-12), max=1.0)
+
+    def client_payloads(self, state: ServerState, batch: RoundBatch,
+                        client_lr: float,
+                        grad_offsets: Optional[torch.Tensor] = None,
+                        leakage_threshold: Optional[float] = None):
+        """Per-client ``(pseudo_grad [K, P], weight [K], train_loss [K],
+        stats)`` from the server's params, padding clients' weight and
+        loss zeroed — the payload program of the host-orchestrated rounds
+        (``msrflute_tpu/engine/round.py:1554-1632``).  ``grad_offsets``
+        (``[K, P]`` on the engine's device, zero rows for padding clients)
+        goes to every local step's gradient (SCAFFOLD's ``c - c_i``)."""
+        parts, tl, _, stats, cm = self._client_step(
+            state, batch, state.params, client_lr, None, leakage_threshold,
+            grad_offsets)
+        pg, w = parts["default"]
+        return pg, w * cm, tl * cm, stats
+
+    def apply_custom_weights(self, state: ServerState, pgs: torch.Tensor,
+                             weights, server_lr: float) -> ServerState:
+        """The server step on ``sum_k w_k pg_k / sum_k w_k`` (reference
+        ``dga.py:317-332``; ``round.py:1634-1660``), round + 1, the
+        strategy state passed through.  ``state`` is left as it was."""
+        w = torch.as_tensor(weights, dtype=torch.float32, device=pgs.device)
+        agg = (w @ pgs) / torch.clamp(w.sum(), min=1e-12)
+        params, opt_state = self.server_opt.step(
+            state.params, self._server_clip(agg), state.opt_state,
+            server_lr, self.bounds)
+        return ServerState(params, opt_state, state.round + 1,
+                           state.strategy_state)
+
     def run_round(self, state: ServerState, batch: RoundBatch,
                   client_lr: float, server_lr: float,
                   quant_threshold: Optional[float] = None,
@@ -165,19 +237,11 @@ class RoundEngine:
         host (the server logs them and adapts the leakage threshold)."""
         dev = self.device
         r = state.round
-        arrays = {k: torch.from_numpy(v).to(dev)
-                  for k, v in batch.arrays.items()}
-        sample_mask = torch.from_numpy(batch.sample_mask).to(dev)
-        cm = torch.from_numpy(batch.client_mask).to(dev)
-        gens = (self.client_generators(r, batch.client_ids)
-                if self.random else None)
-        self.local_steps += self.hparams.num_epochs * sample_mask.shape[1]
-        parts, tl, ns, stats = self.strategy.client_step(
-            self.client_update, state.params, arrays, sample_mask,
-            client_lr, gens, quant_threshold=quant_threshold,
-            client_rngs=lambda tag: self.client_generators(
-                r, batch.client_ids, tag), bounds=self.bounds, round_idx=r,
-            leakage_threshold=leakage_threshold)
+        bcast = self.strategy.broadcast_params(state.params,
+                                               state.strategy_state)
+        parts, tl, ns, stats, cm = self._client_step(
+            state, batch, bcast, client_lr, quant_threshold,
+            leakage_threshold)
         stale = None
         if self.strategy.stale_prob > 0.0:
             stale = torch.from_numpy(
@@ -199,13 +263,15 @@ class RoundEngine:
                         "weight_sum": part_sums["default"]["weight_sum_def"]}
         agg, strategy_state = self.strategy.combine_parts(
             part_sums, deferred, state.strategy_state, self.server_seed(r),
-            float(batch.client_mask.sum()), global_params=state.params)
-        if self.server_max_grad_norm is not None:
-            norm = torch.linalg.vector_norm(agg)
-            agg = agg * torch.clamp(float(self.server_max_grad_norm)
-                                    / torch.clamp(norm, min=1e-12), max=1.0)
-        new_params, opt_state = self.server_opt.step(
-            state.params, agg, state.opt_state, server_lr, self.bounds)
+            float(batch.client_mask.sum()), global_params=bcast)
+        agg = self._server_clip(agg)
+        if self.strategy.owns_server_update:
+            new_params, strategy_state = self.strategy.apply_server_update(
+                state.params, agg, strategy_state, server_lr)
+            opt_state = state.opt_state
+        else:
+            new_params, opt_state = self.server_opt.step(
+                state.params, agg, state.opt_state, server_lr, self.bounds)
         count = cm.sum()
         denom = torch.clamp(count, min=1.0)
         # the JAX package's choice: the "default" part's weight sum, else

@@ -17,19 +17,37 @@ package's host-side order of random draws — a chunk of R rounds (never
 crossing an eval boundary) samples its R cohorts first, then packs them
 — so both packages draw the same cohorts and grids from one seed; the
 rounds themselves are not fused into one program.
+
+Host-orchestrated rounds (``server.py:1410``): with ``wantRL`` (DGA's RL
+weight hook), ``strategy: scaffold`` or ``strategy: ef_quant`` each round
+runs through :meth:`_host_round_setup` and the engine's
+``client_payloads`` / ``apply_custom_weights`` pair — :meth:`_run_rl_round`
+(``server.py:2791-2842``: candidates A and B from one state, two
+validation evals, a reward), :meth:`_run_scaffold_round`
+(``server.py:2626``) and :meth:`_run_ef_round` (``server.py:2704``).  The
+SCAFFOLD controls and EF residuals keep the JAX server's discipline
+(``server.py:771-858``): their files reload only when the checkpoint
+resumed and reset when their round marker disagrees with the checkpoint's
+round; the marker is -1 while a round changes the files and takes the
+round once its checkpoint is written (a device table flushes its dirty
+rows first, every ``scaffold_flush_freq`` / ``ef_flush_freq`` rounds,
+``server.py:2505-2552``); a fall-back to the best model resets them
+(``server.py:3118-3126``); and a resume replays EF's ``quant_anneal``
+(``server.py:760-770``).
 """
 
 from __future__ import annotations
 
 import copy
 import logging
+import os
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from ..config import OptimizerConfig, parse_clients_per_round
+from ..config import OptimizerConfig, RLConfig, parse_clients_per_round
 from ..data.batching import (pack_eval_batches, pack_round_batches,
                              pow2_ceil, steps_for)
 from ..data.dataset import ArraysDataset
@@ -37,6 +55,9 @@ from ..device import DeviceLike, resolve_device
 from ..models.base import BaseTask, Metric, Params
 from ..optim import PlateauTracker, make_lr_schedule
 from ..strategies import select_strategy
+from ..strategies.ef_quant import (DeviceResidualTable, EFQuant,
+                                   ResidualStore)
+from ..strategies.scaffold import ControlStore, DeviceControlTable, Scaffold
 from ..utils.logging import MetricsLog, print_rank
 from .checkpoint import CheckpointManager
 from .client_update import ClientHParams, build_client_update
@@ -137,8 +158,57 @@ class OptimizationServer:
         self.state = self.engine.init_state(
             init_params if init_params is not None
             else task.init_params(seed))
-        if sc.get("resume_from_checkpoint", False):
+        resumed = bool(sc.get("resume_from_checkpoint", False)) and \
             self._resume()
+
+        # DGA's RL weight hook (server.py:437-451)
+        self.rl = None
+        #: per RL round, whether candidate B (the RL weights) was kept
+        self.rl_kept: List[bool] = []
+        if sc.get("wantRL", False):
+            from ..rl import RLAggregator
+            self.rl = RLAggregator(
+                sc.get("RL") or RLConfig(),
+                int(sc.get("num_clients_per_iteration", 10)), model_dir,
+                seed=seed, device=self.device)
+        # SCAFFOLD's controls and EF's residuals, built after the resume
+        # decision so that they pair with the checkpoint's trajectory
+        self.scaffold_store = self.ef_store = None
+        self.scaffold_device = self.ef_device = None
+        if isinstance(self.strategy, Scaffold):
+            self.scaffold_store = self._paired_store(
+                ControlStore, model_dir, "scaffold", "SCAFFOLD controls",
+                resumed)
+            if sc.get("scaffold_device_controls", False):
+                self.scaffold_device = DeviceControlTable(
+                    self.scaffold_store, len(train_dataset), self.device)
+        if isinstance(self.strategy, EFQuant):
+            self.ef_store = self._paired_store(
+                ResidualStore, model_dir, "ef_residuals", "EF residuals",
+                resumed)
+            if sc.get("ef_device_residuals", False):
+                self.ef_device = DeviceResidualTable(
+                    self.ef_store, len(train_dataset), self.device)
+            if resumed and self.quant_anneal != 1.0:
+                # the strategy's running threshold anneals once a round
+                self.strategy.quant_thresh *= \
+                    self.quant_anneal ** self.state.round
+        self._max_iteration = int(sc.get("max_iteration", 100))
+
+    def _paired_store(self, cls, model_dir: str, subdir: str, what: str,
+                      resumed: bool):
+        """A per-client row store under ``model_dir/subdir``: reloaded
+        only on a resume, reset when its round marker is not the
+        checkpoint's round (a crash inside a round's window)."""
+        store = cls(self.engine.layout.numel,
+                    store_dir=os.path.join(model_dir, subdir),
+                    resume=resumed)
+        if resumed and store.round() != self.state.round:
+            print_rank(f"{what} were at round {store.round()} but the "
+                       f"checkpoint resumed at {self.state.round}; "
+                       "resetting them")
+            store.reset()
+        return store
 
     # ------------------------------------------------------------------
     def _resume(self) -> bool:
@@ -225,8 +295,22 @@ class OptimizationServer:
             return min(rounds_per_step, max_iteration - r0, until_val,
                        until_rec)
 
+        host_round = (self._run_rl_round if self.rl is not None else
+                      self._run_scaffold_round
+                      if self.scaffold_store is not None else
+                      self._run_ef_round if self.ef_store is not None
+                      else None)
         round_no = self.state.round
         while round_no < max_iteration:
+            if host_round is not None:
+                tic = time.time()
+                host_round(round_no)
+                if self.server_replay is not None:
+                    self._run_server_replay(round_no)
+                round_no += 1
+                self.run_stats["secsPerRound"].append(time.time() - tic)
+                self._round_housekeeping(round_no, val_freq, rec_freq)
+                continue
             R = chunk_R(round_no)
             client_lr = self.initial_lr_client * self.lr_weight
             samples = [self._sample() for _ in range(R)]
@@ -314,6 +398,158 @@ class OptimizationServer:
                                  st.strategy_state)
         print_rank(f"server replay loss {float(tl[0]):.4f}")
 
+    # ------------------------------------------------------------------
+    def _host_round_setup(self, round_no: int):
+        """The host rounds' prologue (``server.py:2607``): client and
+        server LR, the cohort and its packed batch."""
+        client_lr = self.initial_lr_client * self.lr_weight
+        server_lr = (self.plateau.lr if self.plateau is not None
+                     else self.server_lr_schedule(round_no))
+        sampled = self._sample()
+        batch = pack_round_batches(
+            self.train_dataset, sampled, self.batch_size,
+            self._chunk_steps([sampled]), rng=self._np_rng,
+            desired_max_samples=self.desired_max_samples)
+        return client_lr, server_lr, batch
+
+    def _host_round_tail(self, round_no: int, batch, stats, tls, ws_np
+                         ) -> None:
+        """Privacy bookkeeping, the round's mean loss and weight sum."""
+        self._process_payload_privacy(stats, batch, round_no)
+        n_real = max(float((batch.client_ids >= 0).sum()), 1.0)
+        self.metrics.log("Training loss", float(tls.sum()) / n_real,
+                         step=round_no)
+        self.metrics.log("Aggregated weights", float(ws_np.sum()),
+                         step=round_no)
+
+    def _process_payload_privacy(self, stats, batch, round_no: int) -> None:
+        keys = [k for k in stats if k.startswith("privacy_")]
+        if keys:
+            host = {k: stats[k].float().cpu().numpy() for k in keys}
+            host["client_mask"] = batch.client_mask
+            self._process_privacy_stats(host, round_no)
+
+    def _run_scaffold_round(self, round_no: int) -> None:
+        """One SCAFFOLD round: the ``c - c_i`` offsets into every local
+        step, sample-count aggregation, then option II on the controls
+        (host store or device table) for the clients that took part."""
+        client_lr, server_lr, batch = self._host_round_setup(round_no)
+        ids = batch.client_ids
+        offsets = (self.scaffold_device.offsets(ids)
+                   if self.scaffold_device is not None else
+                   torch.from_numpy(self.scaffold_store.offsets(ids)).to(
+                       self.device))
+        pgs, ws, tls, stats = self.engine.client_payloads(
+            self.state, batch, client_lr, grad_offsets=offsets,
+            leakage_threshold=self.max_allowed_leakage)
+        del offsets
+        self.state = self.engine.apply_custom_weights(self.state, pgs, ws,
+                                                      server_lr)
+        ws_np = ws.cpu().numpy()
+        epochs = int(self.config.client_config.get("num_epochs", 1) or 1)
+        # real local steps a client: steps with a real sample, per epoch
+        steps = (batch.sample_mask.sum(axis=2) > 0).sum(axis=1) * epochs
+        self.scaffold_store.set_round(-1)   # the files change from here
+        if self.scaffold_device is not None:
+            c_norm = float(self.scaffold_device.update(
+                ids, steps, pgs, ws, client_lr,
+                total_clients=len(self.train_dataset)))
+        else:
+            self.strategy.update_controls(
+                self.scaffold_store, ids, steps, pgs.cpu().numpy(),
+                client_lr, total_clients=len(self.train_dataset),
+                weights=ws_np)
+            c_norm = float(np.linalg.norm(self.scaffold_store.c))
+        self._host_round_tail(round_no, batch, stats, tls, ws_np)
+        self.metrics.log("Control norm (server c)", c_norm, step=round_no)
+
+    def _run_ef_round(self, round_no: int) -> None:
+        """One error-feedback round: the payloads plus the stored
+        residuals, quantized a row at a time (one launch of kernel B3),
+        the quantized payloads aggregated, ``corrected - q`` kept for the
+        clients that took part."""
+        client_lr, server_lr, batch = self._host_round_setup(round_no)
+        ids = batch.client_ids
+        real = ids[ids >= 0]
+        if len(np.unique(real)) != len(real):
+            raise ValueError(
+                "ef_quant round batch contains duplicate client ids "
+                f"({sorted(real.tolist())}); per-client EF residuals "
+                "require without-replacement sampling")
+        pgs, ws, tls, stats = self.engine.client_payloads(
+            self.state, batch, client_lr,
+            leakage_threshold=self.max_allowed_leakage)
+        thresh = self.strategy.next_threshold()
+        if self.strategy.quant_anneal != 1.0:
+            self.metrics.log("Quantization Thresh.", thresh, step=round_no)
+        residuals = (self.ef_device.rows(ids) if self.ef_device is not None
+                     else torch.from_numpy(self.ef_store.rows(ids)).to(
+                         self.device))
+        self.ef_store.set_round(-1)   # the files change from here
+        q, new_res = self.strategy.ef_step(pgs, residuals, thresh)
+        del pgs, residuals
+        self.state = self.engine.apply_custom_weights(self.state, q, ws,
+                                                      server_lr)
+        ws_np = ws.cpu().numpy()
+        if self.ef_device is not None:
+            self.ef_device.update(ids, new_res, ws)
+        else:
+            keep = (ids >= 0) & (ws_np > 0)
+            self.ef_store.update(ids, new_res.cpu().numpy(), keep)
+        self._host_round_tail(round_no, batch, stats, tls, ws_np)
+
+    def _run_rl_round(self, round_no: int) -> None:
+        """One RL round (reference ``core/strategies/dga.py:286-406``):
+        the payloads once, candidate A under the strategy's weights and B
+        under the RL weights (both from the round's state), the one that
+        validates better kept, the policy rewarded and trained."""
+        client_lr, server_lr, batch = self._host_round_setup(round_no)
+        pgs, ws, _, stats = self.engine.client_payloads(
+            self.state, batch, client_lr,
+            leakage_threshold=self.max_allowed_leakage)
+        ws_np = ws.cpu().numpy()
+        k = int((batch.client_ids >= 0).sum())
+        state_vec = np.concatenate(
+            [ws_np[:k]] + [stats[key].float().cpu().numpy()[:k]
+                           for key in ("mag", "mean", "var_corrected")])
+        baseline_state = self.engine.apply_custom_weights(
+            self.state, pgs, ws, server_lr)
+        action = self.rl.forward(state_vec)
+        rl_w = self.rl.weights_from_action(action)
+        rl_w_full = np.zeros_like(ws_np)
+        rl_w_full[:k] = rl_w[:k] if len(rl_w) >= k else \
+            np.pad(rl_w, (0, k - len(rl_w)))
+        rl_state = self.engine.apply_custom_weights(
+            self.state, pgs, rl_w_full, server_lr)
+        del pgs
+        self.state = baseline_state
+        baseline_acc = self._val_acc()
+        self.state = rl_state
+        rl_acc = self._val_acc()
+        rl_cfg = self.config.server_config.get("RL") or RLConfig()
+        reward, keep_rl = self.rl.compute_reward(
+            baseline_acc, rl_acc, bool(rl_cfg.get("marginal_update_RL",
+                                                  True)))
+        self.state = rl_state if keep_rl else baseline_state
+        self.rl_kept.append(bool(keep_rl))
+        self.metrics.log("RL Rewards", reward, step=round_no)
+        self.metrics.log("Val acc (baseline vs RL)",
+                         {"baseline": baseline_acc, "rl": rl_acc},
+                         step=round_no)
+        self._process_payload_privacy(stats, batch, round_no)
+        self.rl.train(state_vec, action, reward)
+        self.rl.save()
+        self.metrics.log("RL Running Loss", self.rl.running_loss,
+                         step=round_no)
+
+    def _val_acc(self) -> float:
+        """Validation accuracy (else minus the loss) for the RL reward."""
+        metrics = evaluate(self.task, self.engine.params_dict(self.state),
+                           self._staged_eval("val"))
+        if "acc" in metrics:
+            return float(metrics["acc"].value)
+        return -float(metrics["loss"].value)
+
     def _process_privacy_stats(self, stats: Dict[str, np.ndarray],
                                round_no: int) -> None:
         """Log the attack metrics over the round's real clients (the
@@ -366,6 +602,23 @@ class OptimizationServer:
 
         self.ckpt.save_latest(self.state)
         self.ckpt.backup(round_no, best_names=tuple(self.best_val))
+        sc = self.config.server_config
+        for store, table, freq_key in (
+                (self.scaffold_store, self.scaffold_device,
+                 "scaffold_flush_freq"),
+                (self.ef_store, self.ef_device, "ef_flush_freq")):
+            # the marker takes the round once its checkpoint is written;
+            # a device table writes its dirty rows through first, every
+            # flush_freq rounds and at the last
+            if store is None:
+                continue
+            freq = int(sc.get(freq_key, 1) or 1)
+            if table is None:
+                store.set_round(self.state.round)
+            elif freq <= 1 or round_no % freq == 0 or \
+                    round_no >= self._max_iteration:
+                table.flush()
+                store.set_round(self.state.round)
         status = {
             "i": round_no,
             "weight": self.lr_weight,
@@ -389,17 +642,22 @@ class OptimizationServer:
         dc = self.config.server_config.data_config
         return dc.val if split == "val" else dc.test
 
-    def _maybe_eval(self, split: str, round_no: int) -> bool:
-        dataset = self.val_dataset if split == "val" else self.test_dataset
-        if dataset is None or len(dataset) == 0:
-            return False
+    def _staged_eval(self, split: str):
         if split not in self._eval_batches:
+            dataset = (self.val_dataset if split == "val"
+                       else self.test_dataset)
             bs = int(self._split_cfg(split).get("batch_size",
                                                 self.batch_size))
             self._eval_batches[split] = stage_eval_batches(
                 pack_eval_batches(dataset, bs), self.device)
+        return self._eval_batches[split]
+
+    def _maybe_eval(self, split: str, round_no: int) -> bool:
+        dataset = self.val_dataset if split == "val" else self.test_dataset
+        if dataset is None or len(dataset) == 0:
+            return False
         metrics = evaluate(self.task, self.engine.params_dict(self.state),
-                           self._eval_batches[split])
+                           self._staged_eval(split))
         for name, metric in metrics.items():
             self.metrics.log(f"{split.capitalize()} {name}", metric.value,
                              step=round_no)
@@ -428,6 +686,15 @@ class OptimizationServer:
             restored.round = self.state.round
             self.state = restored
             print_rank("fell back to previous best model")
+            # rows gathered since that checkpoint belong to the abandoned
+            # trajectory (a device table resets its store too)
+            for store, table, what in (
+                    (self.scaffold_store, self.scaffold_device,
+                     "SCAFFOLD controls"),
+                    (self.ef_store, self.ef_device, "EF residuals")):
+                if store is not None:
+                    (table or store).reset()
+                    print_rank(f"reset {what} after fallback")
 
     def _log_timing(self) -> None:
         for key, values in self.run_stats.items():

@@ -26,6 +26,14 @@ head_dim]``; HF Flax ``FlaxBertForMaskedLM``'s
 ``bert.encoder.layer.0.attention.self.query.kernel``): a flax path that
 the task names as it is carries across unchanged, and the task lists its
 leaves in ``ravel_pytree`` order.
+
+DGA's RL weight hook (:class:`..rl.QNet`) keeps flax's names and layouts
+too: ``Dense_<i>.kernel [in, out]`` and ``bias``, and with ``wantLSTM``
+``OptimizedLSTMCell_0`` (forward) and ``_1`` (reversed) with their
+per-gate kernels ``ii`` ... ``io`` and ``hi`` ... ``ho`` (biases on the
+hidden ones), which the cell stacks in the order ``i, f, g, o`` when it
+runs.  :func:`qnet_from_flax` carries a flax ``_QNet``'s parameters across
+by name.
 """
 
 from __future__ import annotations
@@ -107,4 +115,19 @@ def to_jax_params(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         for key in path:
             node = node.setdefault(key, {})
         node[leaf] = arr
+    return out
+
+
+def qnet_from_flax(module: torch.nn.Module, params_np: Dict[str, Any]
+                   ) -> Dict[str, torch.Tensor]:
+    """A flax ``_QNet``'s parameters (nested dict of numpy arrays) ->
+    ``{name: float32 CPU tensor}`` in the port's :class:`..rl.QNet`
+    ``module``'s names, checked against its shapes."""
+    want = {n: tuple(p.shape) for n, p in module.named_parameters()}
+    out = {path: torch.from_numpy(np.array(value, dtype=np.float32,
+                                           order="C"))
+           for path, value in _flatten(params_np)}
+    got = {k: tuple(v.shape) for k, v in out.items()}
+    if got != want:
+        raise ValueError(f"QNet parameter shapes {got} do not match {want}")
     return out

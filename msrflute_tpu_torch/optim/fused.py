@@ -49,12 +49,17 @@ def trust_ratio(params: torch.Tensor, update: torch.Tensor,
 
 
 def combine_grad_terms(grads: torch.Tensor, *,
+                       offset: Optional[torch.Tensor] = None,
                        prox_mu: float = 0.0,
                        params: Optional[torch.Tensor] = None,
                        global_params: Optional[torch.Tensor] = None,
                        max_norm: Optional[float] = None) -> torch.Tensor:
-    """``clip(g + mu * (w - w0))`` per client row: ``prox_mu`` is the
-    FedProx weight, ``max_norm`` the per-client global-norm clip bound."""
+    """``clip((g + offset) + mu * (w - w0))`` per client row: ``offset``
+    is SCAFFOLD's ``[K, P]`` drift correction ``c - c_i``, ``prox_mu`` the
+    FedProx weight, ``max_norm`` the per-client global-norm clip bound
+    (``msrflute_tpu/optim/fused.py:35-58``, the same association)."""
+    if offset is not None:
+        grads = grads + offset
     if prox_mu > 0.0:
         grads = grads + prox_mu * (params - global_params)
     if max_norm is not None:

@@ -15,6 +15,12 @@ stacks (``msrflute_tpu/strategies/base.py:153-181, 300-330``):
   package's ``strategies/base.py:153-231``): the metrics go into the
   clients' stats under ``privacy_*`` keys, and a dropped client is a zero
   weight;
+- :meth:`broadcast_params` — the point the clients start from (the
+  server's params; FedAC's coupled ``w_md``), and, for a strategy that
+  ``owns_server_update``, :meth:`apply_server_update` in place of the
+  server optimizer (FedAC's coupled sequences, FedBuff's SGD step and
+  version roll), as ``msrflute_tpu/engine/round.py:1295, 1408-1411`` call
+  them;
 - :meth:`init_state` / :meth:`combine` — weighted sums -> aggregate
   pseudo-gradient, with cross-round state (DGA's staleness buffer) passed
   in and returned: ``combine(weighted_grad_sum, weight_sum, deferred,
@@ -67,6 +73,17 @@ class BaseStrategy:
     #: staleness); the engine draws the per-client coin and hands
     #: :meth:`combine` separate now and deferred sums
     stale_prob: float = 0.0
+    #: class flags of ``msrflute_tpu/strategies/base.py:51-117``: whether
+    #: the strategy composes with the RL weight hook, and whether it
+    #: replaces the server optimizer (``stateful`` and
+    #: ``supports_staleness`` have no reader here: the JAX package reads
+    #: them in its fused RL and for ``stale_prob``, which the port's config
+    #: allows under DGA alone)
+    supports_rl: bool = True
+    owns_server_update: bool = False
+    #: the server runs the strategy's rounds host-side, one at a time
+    #: (SCAFFOLD's controls, EF quantization's residuals)
+    host_rounds: bool = False
     #: the round engine's task
     task = None
 
@@ -79,15 +96,21 @@ class BaseStrategy:
                     client_rngs: Optional[ClientRngs] = None,
                     bounds: Optional[List[int]] = None,
                     round_idx: Optional[int] = None,
-                    leakage_threshold: Optional[float] = None):
+                    leakage_threshold: Optional[float] = None,
+                    strategy_state: Optional[State] = None,
+                    grad_offset: Optional[torch.Tensor] = None):
         """Run the K clients' local work; returns ``(parts, train_loss,
         num_samples, stats)`` with ``parts = {"default": (pg [K, P],
         w [K])}``.  ``bounds`` are the parameter leaves' offsets in the
         flat vector followed by its length (per-leaf work such as
         quantization reads them); ``round_idx`` is the round's index;
-        ``leakage_threshold`` drops a client whose leakage exceeds it."""
+        ``leakage_threshold`` drops a client whose leakage exceeds it;
+        ``strategy_state`` is the round's cross-round state (FedBuff reads
+        its version history); ``grad_offset`` (``[K, P]``, SCAFFOLD's
+        ``c - c_i``) goes to every local step's gradient."""
         pg, tl, ns, stats = client_update(global_flat, arrays, sample_mask,
-                                          client_lr, gens)
+                                          client_lr, gens,
+                                          grad_offset=grad_offset)
         w = self.client_weight(num_samples=ns, train_loss=tl, stats=stats)
         w = self._apply_privacy_metrics(pg, w, stats, global_flat, arrays,
                                         sample_mask, leakage_threshold)
@@ -156,6 +179,19 @@ class BaseStrategy:
 
     def init_state(self, params: torch.Tensor) -> State:
         return {}
+
+    def broadcast_params(self, params: torch.Tensor,
+                         state: State) -> torch.Tensor:
+        """The ``[P]`` point the round's clients start from."""
+        return params
+
+    def apply_server_update(self, params: torch.Tensor, agg: torch.Tensor,
+                            state: State, server_lr: float
+                            ) -> Tuple[torch.Tensor, State]:
+        """``(new params, new state)`` for a strategy that
+        ``owns_server_update``: the engine calls it instead of the server
+        optimizer, whose state passes through untouched."""
+        raise NotImplementedError
 
     def combine(self, weighted_grad_sum: torch.Tensor,
                 weight_sum: torch.Tensor, deferred: Optional[State],

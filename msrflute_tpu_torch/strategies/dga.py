@@ -15,7 +15,14 @@ counterpart of ``msrflute_tpu/strategies/dga.py:30-118`` (reference
   and banks this round's for the next;
 - global DP on the aggregate (kernel B2).
 
-The RL weight re-estimation hook is not ported yet (ROADMAP.md).
+The RL weight re-estimation hook (reference ``dga.py:286-406``) is a host
+round of the server (``engine/server.py::_run_rl_round`` with
+:class:`..rl.RLAggregator`, under ``server_config.wantRL``): the clients'
+payloads come through :meth:`DGA.client_step` as in any round (local DP
+and quantization included, kernel B3), then candidate A aggregates them
+under these softmax weights and candidate B under the RL weights, both by
+``RoundEngine.apply_custom_weights``; :meth:`DGA.combine` (staleness,
+global DP) is not on that path, as in the JAX package.
 """
 
 from __future__ import annotations

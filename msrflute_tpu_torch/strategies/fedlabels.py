@@ -48,6 +48,9 @@ UNLABELED = ("ux", "ux_rand", "uy")
 
 class FedLabels(BaseStrategy):
 
+    #: its two payload parts do not take the RL hook
+    supports_rl = False
+
     def __init__(self, config):
         super().__init__(config)
         # read as the JAX package reads it: the client section's, else the
@@ -68,7 +71,8 @@ class FedLabels(BaseStrategy):
     def client_step(self, client_update, global_flat, arrays, sample_mask,
                     client_lr, gens=None, quant_threshold=None,
                     client_rngs=None, bounds=None, round_idx=None,
-                    leakage_threshold=None):
+                    leakage_threshold=None, strategy_state=None,
+                    grad_offset=None):
         labeled = {k: v for k, v in arrays.items() if k not in UNLABELED}
         pg_sup, tl, ns, stats = client_update(global_flat, labeled,
                                               sample_mask, client_lr, gens)

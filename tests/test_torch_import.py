@@ -69,7 +69,9 @@ def test_no_source_imports_jax(path):
 #: BERT masked LM (written in the repo, no ``transformers``), the
 #: deterministic lookup, the attack metrics and the client Adam tail, and
 #: the optimizer family, schedules, layer controls, precision policy and
-#: server replay (B1's and B4-B6's 16-bit arms)
+#: server replay (B1's and B4-B6's 16-bit arms), and the later strategies,
+#: DGA's RL hook and the hdf5 reader (B3 on EF quantization's path; the
+#: reader imports ``h5py`` only when it reads)
 SLICE_MODULES = [(m, None) for m in (
     "msrflute_tpu_torch.models.nlp", "msrflute_tpu_torch.privacy",
     "msrflute_tpu_torch.ops.quantization", "msrflute_tpu_torch.ops.quant_bin",
@@ -96,7 +98,15 @@ SLICE_MODULES = [(m, None) for m in (
         "msrflute_tpu_torch.optim.schedulers",
         "msrflute_tpu_torch.engine.client_update",
         "msrflute_tpu_torch.engine.round", "msrflute_tpu_torch.engine.server",
-        "msrflute_tpu_torch.tasks", "msrflute_tpu_torch.models.convert")]
+        "msrflute_tpu_torch.tasks", "msrflute_tpu_torch.models.convert")] + [
+    (m, "quant_bin") for m in (
+        "msrflute_tpu_torch.rl", "msrflute_tpu_torch.rl.rl",
+        "msrflute_tpu_torch.strategies.qffl",
+        "msrflute_tpu_torch.strategies.fedac",
+        "msrflute_tpu_torch.strategies.fedbuff",
+        "msrflute_tpu_torch.strategies.scaffold",
+        "msrflute_tpu_torch.strategies.ef_quant",
+        "msrflute_tpu_torch.data.user_blob")]
 
 
 @pytest.mark.parametrize("module,kernel", SLICE_MODULES,
