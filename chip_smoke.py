@@ -1563,6 +1563,7 @@ def phase_main(torch, work, kernel_rows):
         if row["name"] == "fused_sgd_apply":
             row["launches"] = launches[row["name"]]
     rounds = server.run_stats["secsPerRound"]
+    MAIN_SECS["after_first"] = float(np.mean(rounds[1:]))
     val = [h for h in evals if h["split"] == "val"]
     emit({"phase": "main", "ok": True, "device": "cuda",
           "users": {"train": 350, "val": 35, "test": 35},
@@ -1623,10 +1624,12 @@ def phase_profile(torch, server, rounds=2, phase="profile",
           "steps_per_round": int(batch.sample_mask.shape[1]), **traced})
 
 
-def _trace_rounds(torch, step, rounds, phase):
+def _trace_rounds(torch, step, rounds, phase, groups=None):
     """After one warm-up call of ``step`` (one round), ``rounds`` calls
     timed on the host clock, then ``rounds`` more under ``torch.profiler``:
-    the per-round figures :func:`phase_profile` reports."""
+    the per-round figures :func:`phase_profile` reports.  ``groups``
+    (``{group: name fragments}``) adds each group's device ms a round and
+    calls, over the kernels whose name holds one of its fragments."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     step()
@@ -1656,7 +1659,15 @@ def _trace_rounds(torch, step, rounds, phase):
     sort_ms = sum(us for name, (us, _) in by_name.items()
                   if "sort" in name.lower()) / 1e3 / rounds
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    return {"wall_ms_per_round": wall_ms,
+    grouped = {}
+    for group, frags in (groups or {}).items():
+        hits = [v for k, v in by_name.items()
+                if any(f in k for f in frags)]
+        grouped[group] = {
+            "ms_per_round": sum(us for us, _ in hits) / 1e3 / rounds,
+            "calls_per_round": sum(n for _, n in hits) / rounds}
+    return {**({"groups": grouped} if groups else {}),
+            "wall_ms_per_round": wall_ms,
             "device_busy_ms_per_round": busy_ms,
             "kernel_ms_per_round": kernel_ms,
             "device_streams": len(streams),
@@ -4147,6 +4158,364 @@ def phase_cross_device_strategies(torch, work):
 
 
 
+# ----------------------------------------------------------------------
+#: the defense phase: chaos client faults and corruption,
+#: fluteshield's screening and robust aggregators, secure aggregation and
+#: local DP with adaptive clipping, each a leg over CNN_CONFIG (CNN_FEMNIST
+#: at P = 1,206,590, 10 clients at batch 20, the 350 writers,
+#: ``pallas_apply``), 3 rounds through the CLI
+DEFENSE_ROUNDS = 3
+DEFENSE_CHAOS = {"seed": 0, "dropout_rate": 0.2, "straggler_rate": 0.2,
+                 "corrupt_nan_rate": 0.1, "corrupt_scale_rate": 0.1,
+                 "corrupt_scale_factor": 50.0,
+                 "corrupt_sign_flip_rate": 0.1}
+SCREENED_MEAN = {"norm_multiplier": 5.0}
+#: ``(strategy, server_config, dp_config)`` of each leg: (a) .. (f)
+DEFENSE_LEGS = {
+    "dp_adaptive": ("fedavg", {}, {
+        "enable_local_dp": True, "eps": -1.0, "max_grad": 10.0,
+        "adaptive_clipping": {"target_quantile": 0.5, "clip_lr": 0.2,
+                              "initial_clip": 1.0}}),
+    "chaos_shield": ("fedavg", {"chaos": DEFENSE_CHAOS,
+                                "robust": SCREENED_MEAN}, None),
+    "chaos_trimmed_mean": ("fedavg", {"chaos": DEFENSE_CHAOS, "robust": {
+        "aggregator": "trimmed_mean", "trim_fraction": 0.1}}, None),
+    "chaos_median": ("fedavg", {"chaos": DEFENSE_CHAOS,
+                                "robust": {"aggregator": "median"}}, None),
+    "secagg_full": ("secure_agg", {"chaos": DEFENSE_CHAOS,
+                                   "robust": SCREENED_MEAN,
+                                   "secure_agg": {"graph": "full"}}, None),
+    "secagg_log": ("secure_agg", {
+        "chaos": {"seed": 0, "dropout_rate": 0.2},
+        "secure_agg": {"graph": "log", "min_survivors": 8}}, None),
+}
+#: the legs cut after round 2 and resumed to 3, bit for bit
+DEFENSE_RESUMED = ("dp_adaptive", "secagg_full")
+#: the legs run cuda, cuda, cpu at 4 clients for 2 rounds
+DEFENSE_CROSS_LEGS = ("chaos_shield", "chaos_trimmed_mean", "secagg_full")
+#: ``main``'s secs/round after the first, for the legs' lines
+MAIN_SECS = {}
+
+
+def defense_config(leg, rounds=DEFENSE_ROUNDS, data_dir="femnist"):
+    """CNN_CONFIG under the leg's strategy and defenses, a val eval at the
+    end only."""
+    strategy, server, dp = DEFENSE_LEGS[leg]
+    raw = _set_data(json.loads(json.dumps(CNN_CONFIG)), data_dir)
+    raw["strategy"] = strategy
+    raw["server_config"].update(max_iteration=rounds, val_freq=rounds,
+                                rec_freq=1000, initial_val=False,
+                                rounds_per_step=1,
+                                **json.loads(json.dumps(server)))
+    if dp is not None:
+        raw["dp_config"] = json.loads(json.dumps(dp))
+    return raw
+
+
+def _defense_replay(raw, rounds):
+    """The host's replay of the chaos schedule over the rounds the engine
+    ran (``rounds``: ``(round, sample_mask, client_mask)``): each round's
+    expected counters."""
+    import numpy as np
+    from msrflute_tpu_torch.resilience.chaos import (
+        CORRUPT_NAN, CORRUPT_SCALE, CORRUPT_SIGN_FLIP, make_chaos)
+    sched = make_chaos(raw["server_config"])
+    want = []
+    for r, sm, cm in rounds:
+        row = {}
+        live = cm
+        if sched is None:
+            want.append({"live": float(live.sum())})
+            continue
+        if sched.has_client_faults:
+            drop, keep = sched.client_faults(r, sm)
+            live = cm * (1.0 - drop)
+            steps = sm.sum(axis=2) > 0
+            real = steps.sum(axis=1)
+            row.update({
+                "Chaos dropped clients": float((cm * drop).sum()),
+                "Chaos stragglers": float((live * (keep < real)).sum()),
+                "Chaos steps lost": float(sum(
+                    steps[k, int(min(keep[k], sm.shape[1])):].sum() * live[k]
+                    for k in range(len(keep))))})
+        if sched.has_corruption:
+            mode = np.where(live > 0, sched.corrupt_modes(r, len(cm)), 0)
+            row.update({
+                "Chaos NaN-injected clients": float((mode == CORRUPT_NAN)
+                                                    .sum()),
+                "Chaos scaled clients": float((mode == CORRUPT_SCALE).sum()),
+                "Chaos sign-flipped clients": float(
+                    (mode == CORRUPT_SIGN_FLIP).sum())})
+        row["live"] = float(live.sum())
+        want.append(row)
+    return want
+
+
+def phase_defense(torch, work, kernel_rows):
+    """Legs (a)-(f) of :data:`DEFENSE_LEGS` through the CLI: (a) clip-only
+    local DP with adaptive clipping; (b) chaos (dropout 0.2, stragglers
+    0.2, NaN 0.1, x50 scale 0.1, sign flip 0.1) under the screened mean;
+    (c) (b) under the trimmed mean (0.1); (d) (b) under the median; (e)
+    secure_agg, ``graph: full``, under (b)'s chaos and the screened mean;
+    (f) secure_agg, ``graph: log``, ``min_survivors: 8``, under (b)'s
+    dropout.  Each: B1 once a local step and no other kernel; finite
+    losses; every round's chaos counters equal the host's replay of the
+    schedule, every NaN-injected client quarantined as non-finite, on the
+    secure_agg legs every dropped client recovered (and on (e) every
+    quarantined one), on (f) the aborted rounds those the replay leaves
+    with fewer than 8 survivors; secs/round beside ``main``'s.  Legs (a)
+    and (e) again, cut after round 2 and resumed to 3: params (and (a)'s
+    ``dp_clip``) bitwise those of the uninterrupted leg.  Then one round
+    of (e)'s engine with a dropout, its masks drawn and with every mask
+    zeroed: the decoded aggregate (so the params) bitwise equal; and a
+    profile of two of (e)'s rounds."""
+    import numpy as np
+    from msrflute_tpu_torch import e2e_trainer
+    from msrflute_tpu_torch.engine.round import RoundEngine
+    parse = e2e_trainer.build_task_datasets
+    parsed = {}
+
+    def shared(cfg, task):
+        key = json.dumps([cfg.client_config.data_config.train,
+                          cfg.server_config.data_config.val,
+                          cfg.server_config.data_config.test,
+                          cfg.model_config], sort_keys=True, default=str)
+        if key not in parsed:
+            parsed[key] = parse(cfg, task)
+        return parsed[key]
+
+    ran = []
+    run_round = RoundEngine.run_round
+
+    def recording(self, state, batch, *args, **kw):
+        ran.append((state.round, batch.sample_mask.copy(),
+                    batch.client_mask.copy()))
+        return run_round(self, state, batch, *args, **kw)
+
+    e2e_trainer.build_task_datasets = shared
+    RoundEngine.run_round = recording
+    legs = {}
+    try:
+        for leg in DEFENSE_LEGS:
+            tic = time.time()
+            del ran[:]
+            legs[leg], server = _defense_leg(torch, work, kernel_rows, leg,
+                                             ran)
+            if leg == "secagg_full":
+                RoundEngine.run_round = run_round
+                legs[leg]["masked_equals_unmasked"] = \
+                    _masked_equals_unmasked(torch, server)
+                phase_profile_defense(torch, server)
+                RoundEngine.run_round = recording
+            del server
+            torch.cuda.empty_cache()
+            if leg in DEFENSE_RESUMED:
+                legs[leg]["resume_bitwise"] = _defense_resume(torch, work, leg,
+                                                              legs[leg])
+            legs[leg].pop("_params")
+            legs[leg].pop("_dp_clip", None)
+            legs[leg]["seconds"] = round(time.time() - tic, 3)
+    finally:
+        e2e_trainer.build_task_datasets = parse
+        RoundEngine.run_round = run_round
+    emit({"phase": "defense", "ok": True, "params": MAIN_P,
+          "clients_per_round": MAIN_K, "writers": 350,
+          "rounds": DEFENSE_ROUNDS, "chaos": DEFENSE_CHAOS,
+          "main_secs_per_round_after_first":
+              MAIN_SECS.get("after_first"), "legs": legs})
+
+
+def _defense_leg(torch, work, kernel_rows, leg, ran):
+    import numpy as np
+    raw = defense_config(leg)
+    _reset_counts()
+    server, out, secs = _run_cli(work, f"defense_{leg}", raw, "cuda")
+    launches = _read_counts()
+    steps = server.engine.local_steps
+    want = {k: 0 for k in launches}
+    want["fused_sgd_apply"] = steps
+    check(steps > 0 and launches == want,
+          f"defense {leg}: launches {launches}, want {want}")
+    for row in kernel_rows:
+        row.setdefault("launches_by_path", {})[f"defense_{leg}"] = \
+            launches[row["name"]]
+    check(server.state.params.is_cuda, f"defense {leg}: params not on cuda")
+    train_loss = [r["value"] for r in _records(out, "Training loss")]
+    val = [h["loss"] for h in server.history if h["split"] == "val"]
+    check(len(train_loss) == DEFENSE_ROUNDS and
+          all(map(math.isfinite, train_loss + val)) and len(val) == 1,
+          f"defense {leg}: losses {train_loss} val {val}")
+    logged = {}
+    for name in ("Chaos dropped clients", "Chaos stragglers",
+                 "Chaos steps lost", "Chaos NaN-injected clients",
+                 "Chaos scaled clients", "Chaos sign-flipped clients",
+                 "Quarantined clients (non-finite)",
+                 "Quarantined clients (norm outlier)",
+                 "SecAgg recovered (dropout)",
+                 "SecAgg recovered (quarantine)", "SecAgg aborted round",
+                 "DP clip norm"):
+        recs = _records(out, name)
+        if recs:
+            logged[name] = {r["step"]: r["value"] for r in recs}
+    check([r for r, _, _ in ran] == list(range(DEFENSE_ROUNDS)),
+          f"defense {leg}: rounds run {[r for r, _, _ in ran]}")
+    replay = _defense_replay(raw, ran)
+    for r, want_row in enumerate(replay):
+        for name, value in want_row.items():
+            if name == "live":
+                continue
+            check(logged.get(name, {}).get(r) == value,
+                  f"defense {leg} round {r}: {name} "
+                  f"{logged.get(name, {}).get(r)}, replay {value}")
+        nan = want_row.get("Chaos NaN-injected clients")
+        if nan is not None and "Quarantined clients (non-finite)" in logged:
+            check(logged["Quarantined clients (non-finite)"][r] == nan,
+                  f"defense {leg} round {r}: NaN clients not quarantined")
+        if server.strategy.wants_cohort:
+            check(logged["SecAgg recovered (dropout)"][r] ==
+                  want_row["Chaos dropped clients"],
+                  f"defense {leg} round {r}: recovered != dropped")
+            quarantined = sum(logged.get(q, {}).get(r, 0.0) for q in (
+                "Quarantined clients (non-finite)",
+                "Quarantined clients (norm outlier)"))
+            check(logged["SecAgg recovered (quarantine)"][r] == quarantined,
+                  f"defense {leg} round {r}: recovered quarantine")
+            aborted = logged.get("SecAgg aborted round", {}).get(r, 0.0)
+            floor = server.strategy.min_survivors
+            check(aborted == float(0 < floor and
+                                   want_row["live"] - quarantined < floor),
+                  f"defense {leg} round {r}: aborted {aborted}")
+    if leg == "dp_adaptive":
+        clips = [logged["DP clip norm"][r] for r in
+                 sorted(logged.get("DP clip norm", {}))]
+        check(len(clips) == DEFENSE_ROUNDS and
+              all(0 < c <= 10.0 for c in clips),
+              f"defense {leg}: DP clip norms {clips}")
+    rounds = server.run_stats["secsPerRound"]
+    record = {"secs_per_round": rounds,
+              "secs_per_round_after_first": float(np.mean(rounds[1:])),
+              "local_steps": steps, "launches": launches,
+              "train_loss": train_loss, "val_loss": val[0],
+              "counters": {name: [v[r] for r in sorted(v)]
+                           for name, v in logged.items()},
+              "run_seconds": round(secs, 3),
+              "_params": server.state.params.cpu()}
+    if "dp_clip" in server.state.strategy_state:
+        record["_dp_clip"] = server.state.strategy_state["dp_clip"].cpu()
+    return record, server
+
+
+def _defense_resume(torch, work, leg, record):
+    """The leg cut after round 2 and resumed to 3 through the CLI: its
+    params (and ``dp_clip``) bitwise the uninterrupted leg's."""
+    name = f"defense_{leg}_resume"
+    _run_cli(work, name, defense_config(leg, rounds=2), "cuda")
+    raw = defense_config(leg)
+    raw["server_config"]["resume_from_checkpoint"] = True
+    resumed, _, _ = _run_cli(work, name, raw, "cuda")
+    check(resumed.state.round == DEFENSE_ROUNDS,
+          f"defense {leg}: resumed run ended at {resumed.state.round}")
+    check(torch.equal(resumed.state.params.cpu(), record["_params"]),
+          f"defense {leg}: resumed params differ from the uninterrupted run")
+    out = {"params": True}
+    if "_dp_clip" in record:
+        check(torch.equal(resumed.state.strategy_state["dp_clip"].cpu(),
+                          record["_dp_clip"]),
+              f"defense {leg}: resumed dp_clip differs")
+        out["dp_clip"] = float(record["_dp_clip"])
+    del resumed
+    torch.cuda.empty_cache()
+    return out
+
+
+def _defense_batch(server):
+    from msrflute_tpu_torch.data.batching import pack_round_batches
+    sampled = server._sample()
+    return pack_round_batches(
+        server.train_dataset, sampled, server.batch_size,
+        server._chunk_steps([sampled]), rng=server._np_rng,
+        desired_max_samples=server.desired_max_samples)
+
+
+def _masked_equals_unmasked(torch, server):
+    """One secure_agg round on the card at a round whose schedule drops a
+    client (so the mask recovery runs), from one state, twice: with its
+    pairwise masks, and with every mask zeroed.  The decoded aggregate,
+    hence the params after the server's SGD step, and the stats are
+    bitwise equal."""
+    import numpy as np
+    from msrflute_tpu_torch.engine.round import ServerState
+    batch = _defense_batch(server)
+    engine, strategy, st = server.engine, server.strategy, server.state
+    r = next(r for r in range(st.round, st.round + 100)
+             if (server.chaos.client_faults(r, batch.sample_mask)[0]
+                 * batch.client_mask).sum() > 0)
+    state = ServerState(st.params, st.opt_state, r, st.strategy_state)
+    vecs = server.chaos_vectors(r, batch)
+    masked, stats = engine.run_round(state, batch, 0.1, 1.0, chaos=vecs)
+    pair_mask = strategy.pair_mask
+    strategy.pair_mask = lambda *a, **kw: torch.zeros_like(
+        pair_mask(*a, **kw))
+    try:
+        plain, plain_stats = engine.run_round(state, batch, 0.1, 1.0,
+                                              chaos=vecs)
+    finally:
+        strategy.pair_mask = pair_mask
+    check(torch.equal(masked.params, plain.params) and stats == plain_stats,
+          "secure_agg: the masked round's aggregate differs from the "
+          "unmasked one")
+    check(not torch.equal(masked.params, st.params),
+          "secure_agg: the round moved no parameter")
+    # the int32 traps of the port, on the card: wraparound and an
+    # arithmetic right shift
+    i32 = torch.tensor([2 ** 31 - 1, -5], dtype=torch.int32,
+                       device=server.device)
+    check((i32 + 1).tolist() == [-2 ** 31, -4] and
+          (i32 >> 15).tolist() == [65535, -1],
+          f"int32 on the card: {(i32 + 1).tolist()}, {(i32 >> 15).tolist()}")
+    return {"round": r, "dropped": stats["secagg_recovered_dropout"],
+            "quarantined": stats["secagg_recovered_quarantine"],
+            "bitwise": True}
+
+
+def phase_profile_defense(torch, server, rounds=2):
+    """Leg (e)'s rounds under the profiler (:func:`_trace_rounds`): one
+    fresh cohort, its chaos vectors at the next round, the same round
+    repeated; its masks are K(K-1) generations of P int32 a round."""
+    batch = _defense_batch(server)
+    engine, state = server.engine, server.state
+    vecs = server.chaos_vectors(state.round, batch)
+
+    def step():
+        engine.run_round(state, batch, 0.1, 1.0, chaos=vecs)
+
+    # the masks' random fill, and the int64 adds, casts and wrap of the
+    # masked rows (the elementwise kernels the CNN path also runs)
+    traced = _trace_rounds(torch, step, rounds, "defense_profile", groups={
+        "mask_random_fill": ("distribution_elementwise", "random_from_to",
+                             "philox"),
+        "elementwise": ("elementwise_kernel",)})
+    emit({"phase": "defense_profile", "ok": True, "leg": "secagg_full",
+          "rounds": rounds, "clients": int(batch.client_mask.sum()),
+          "mask_generations_per_round": int(
+              batch.client_mask.sum() * (batch.client_mask.sum() - 1)),
+          **traced})
+
+
+def phase_cross_device_defense(torch, work):
+    """Legs (b), (c) and (e) at 4 clients for 2 rounds on
+    :func:`_small_femnist`'s writers, dropout off: twice on cuda
+    (bitwise) and once on cpu, within ``STRATEGY_CROSS_TOL``
+    (:func:`_cross_device`)."""
+    for leg in DEFENSE_CROSS_LEGS:
+        raw = defense_config(leg, rounds=2, data_dir=_small_femnist(work))
+        raw["model_config"].update(dropout1=0.0, dropout2=0.0)
+        raw["server_config"].update(num_clients_per_iteration=4,
+                                    val_freq=100, model_backup_freq=1)
+        _cross_device(torch, work, f"defense_cross_device_{leg}", raw,
+                      "cv_cnn_femnist", STRATEGY_CROSS_TOL)
+
+
 def main() -> int:
     argv = sys.argv[1:]
     if argv not in ([], ["--kernels"]):
@@ -4275,6 +4644,10 @@ def main() -> int:
             phase_rl(torch, work, rows)
             phase = "classif_cnn"
             phase_classif_cnn(torch, work, rows)
+            phase = "defense"
+            phase_defense(torch, work, rows)
+            phase = "defense_cross_device"
+            phase_cross_device_defense(torch, work)
     except Exception as exc:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})

@@ -18,7 +18,11 @@ personalization server (per-user local models and convex interpolation),
 FedLabels semi-supervision with RandAugment, and the strategies q-FFL,
 FedAC, FedBuff (drawn staleness), SCAFFOLD and error-feedback quantization
 (host store or device table) and DGA's RL weight hook (``wantRL``, the
-``RL`` block).  The combinations that the JAX constructors and round
+``RL`` block), and FedAvg's defenses and privacy: chaos client faults and
+corruption (``server_config.chaos``), fluteshield (``robust``), secure
+aggregation (``strategy: secure_agg``, ``server_config.secure_agg``) and
+local DP with adaptive clipping under FedAvg / FedProx, checked by
+:func:`check_defense`.  The combinations that the JAX constructors and round
 engine refuse are refused here, by :func:`check_strategy`, with
 ``ValueError`` and the JAX package's meaning.
 :func:`validate` replaces the JAX package's ``schema.py`` for those
@@ -334,7 +338,8 @@ class PrivacyMetricsConfig(Config):
 class FLUTEConfig(Config):
     model_config: ModelConfig = field(default_factory=ModelConfig)
     strategy: str = "fedavg"
-    #: ``dp_config`` as written (``strategy: dga`` only; see :func:`validate`)
+    #: ``dp_config`` as written (DGA, FedAvg / FedProx and secure_agg; see
+    #: :func:`validate`)
     dp_config: Optional[Dict[str, Any]] = None
     #: ``None`` unless ``privacy_metrics_config.apply_metrics`` is on
     privacy_metrics_config: Optional[PrivacyMetricsConfig] = None
@@ -500,7 +505,33 @@ _SEMISUP = {"eta", "burnout_round", "unsuptrain_ep", "temp", "thre", "comp",
 _AUGMENT = {"type", "num_ops", "magnitude", "seed"}
 _SERVER_TYPES = ("optimization", "model_optimization", "personalization")
 _DP = {"enable_local_dp", "enable_global_dp", "eps", "delta", "max_grad",
-       "max_weight", "min_weight", "weight_scaler", "global_sigma"}
+       "max_weight", "min_weight", "weight_scaler", "global_sigma",
+       "adaptive_clipping"}
+#: ``dp_config.adaptive_clipping`` (``msrflute_tpu/schema.py``
+#: ``ADAPTIVE_CLIP_KEYS``)
+_ADAPTIVE_CLIP = {"target_quantile", "clip_lr", "initial_clip",
+                  "count_sigma"}
+#: the strategies that run dp_config (DGA's DP; FedAvg / FedProx's local DP
+#: and adaptive clipping; secure_agg, which refuses both DP modes)
+_DP_STRATEGIES = {"dga", "fedavg", "fedprox", "secure_agg", "secagg",
+                  "secureagg"}
+_SECURE_AGG_NAMES = ("secure_agg", "secagg", "secureagg")
+#: ``server_config.chaos`` (``CHAOS_KEYS``); of them, the checkpoint-IO
+#: faults, preemption and the infra services are not ported
+_CHAOS = {"enable", "seed", "dropout_rate", "straggler_rate",
+          "straggler_inflation", "ckpt_io_error_rate", "preempt_at_round",
+          "corrupt_nan_rate", "corrupt_scale_rate", "corrupt_sign_flip_rate",
+          "corrupt_scale_factor", "corrupt_sign_flip_scale", "infra"}
+_CHAOS_INFRA = {"store_write_error_rate", "store_read_error_rate",
+                "prefetch_error_rate", "prefetch_delay_rate",
+                "prefetch_delay_s", "writer_error_rate",
+                "writeback_error_rate"}
+#: ``server_config.robust`` (``ROBUST_KEYS``)
+_ROBUST = {"enable", "screen_nonfinite", "norm_multiplier", "aggregator",
+           "trim_fraction"}
+#: the server keys of this slice's defenses, checked by
+#: :func:`check_defense`
+_DEFENSE_SERVER = {"chaos", "robust", "secure_agg"}
 
 #: keys that tune how the JAX package dispatches its TPU program and change
 #: no result; the port runs one round after another and ignores them.
@@ -529,9 +560,9 @@ _OFF_OK = {
         "send_dicts", "do_profiling", "initial_lr",
         "num_skip_decoding",
         "nbest_task_scheduler", "best_model_metric", "fused_carry",
-        "clients_per_chunk", "checkpoint_backend", "secure_agg",
-        "dump_norm_stats", "chaos", "checkpoint_retry",
-        "traffic", "telemetry", "robust", "cohort_bucketing", "megabatch",
+        "clients_per_chunk", "checkpoint_backend",
+        "dump_norm_stats", "checkpoint_retry",
+        "traffic", "telemetry", "cohort_bucketing", "megabatch",
         "fleet", "updatable_names"} | _DGA_SERVER,
     "client_config": {
         "meta_learning", "copying_train_data", "ignore_subtask",
@@ -545,12 +576,13 @@ _OFF_OK = {
     "optimizer": {"amsgrad", "eps", "betas", "dampening", "momentum",
                   "nesterov", "weight_decay"},
     "replay": {"data_config"},
-    "dp": {"enable_prod", "max_bound", "min_bound", "adaptive_clipping"},
+    "dp": {"enable_prod", "max_bound", "min_bound"},
     "top": {"dp_config", "mesh_config", "experiment"},
 }
 
 _STRATEGIES_PORTED = {"fedavg", "fedprox", "dga", "fedlabels", "qffl",
-                      "fedac", "fedbuff", "scaffold", "ef_quant", "efquant"}
+                      "fedac", "fedbuff", "scaffold", "ef_quant", "efquant",
+                      "secure_agg", "secagg", "secureagg"}
 _MODELS_PORTED = {"LR", "CNN", "CNN_FEMNIST", "CIFAR_CNN", "RESNET",
                   "ResNet", "RNN", "LSTM", "GRU", "RINGLM", "ECG_CNN",
                   "NRMS", "FEDNEWSREC", "BERT"}
@@ -604,15 +636,18 @@ def validate(raw: Dict[str, Any]) -> None:
     if strategy not in _STRATEGIES_PORTED:
         raise NotImplementedError(f"strategy {strategy!r} is {NOT_PORTED}")
     check_strategy(raw, strategy)
+    check_defense(raw, strategy)
     dga = strategy == "dga"
     ef = strategy in ("ef_quant", "efquant")
-    # DP and quantization are ported inside DGA only; under FedAvg they
-    # keep raising unless off
-    top_off = _OFF_OK["top"] - ({"dp_config"} if dga else set())
+    # quantization is ported inside DGA only, DP inside DGA, FedAvg /
+    # FedProx and secure_agg; under the other strategies they keep raising
+    # unless off
+    dp_ok = strategy in _DP_STRATEGIES
+    top_off = _OFF_OK["top"] - ({"dp_config"} if dp_ok else set())
     check_mesh(raw.get("mesh_config"))
     _check_keys(raw, "config",
                 _TOP | {"privacy_metrics_config"}
-                | ({"dp_config"} if dga else set()), off_ok=top_off)
+                | ({"dp_config"} if dp_ok else set()), off_ok=top_off)
     pm = raw.get("privacy_metrics_config")
     _check_keys(pm, "privacy_metrics_config", _PRIVACY_METRICS)
     if pm and pm.get("apply_metrics"):
@@ -621,9 +656,11 @@ def validate(raw: Dict[str, Any]) -> None:
                 f"privacy_metrics_config under fedlabels is {NOT_PORTED}")
         _check_optimizer(pm.get("attacker_optimizer_config"),
                          "privacy_metrics_config.attacker_optimizer_config")
-    if dga:
-        _check_keys(raw.get("dp_config"), "dp_config", _DP,
-                    off_ok=_OFF_OK["dp"])
+    if dp_ok:
+        dp = raw.get("dp_config")
+        _check_keys(dp, "dp_config", _DP, off_ok=_OFF_OK["dp"])
+        _check_keys((dp or {}).get("adaptive_clipping"),
+                    "dp_config.adaptive_clipping", _ADAPTIVE_CLIP)
     model = dict(raw.get("model_config") or {})
     mtype = model.get("model_type", "LR")
     folder = model.get("model_folder")
@@ -663,7 +700,8 @@ def validate(raw: Dict[str, Any]) -> None:
 
     sc = raw.get("server_config") or {}
     _check_keys(sc, "server_config",
-                _SERVER | _STRATEGY_SERVER | (_DGA_SERVER if dga else set()),
+                _SERVER | _STRATEGY_SERVER | _DEFENSE_SERVER
+                | (_DGA_SERVER if dga else set()),
                 off_ok=_OFF_OK["server_config"],
                 ignored=_DISPATCH_ONLY["server_config"])
     rl = sc.get("RL")
@@ -803,7 +841,7 @@ def check_strategy(raw: Dict[str, Any], strategy: str) -> None:
                 "strategy: qffl does not compose with "
                 "dp_config.enable_local_dp / enable_global_dp")
         _refuse(float(sc.get("qffl_q", 1.0)) < 0,
-                f"server_config.qffl_q must be >= 0, got {sc['qffl_q']}")
+                f"server_config.qffl_q must be >= 0, got {sc.get('qffl_q')}")
     if strategy == "fedac":
         _refuse(adaptive, "FedAC and dp_config.adaptive_clipping are not "
                           "supported together; use strategy: fedavg")
@@ -851,6 +889,112 @@ def check_strategy(raw: Dict[str, Any], strategy: str) -> None:
         _refuse(not 0.0 <= thresh < 1.0,
                 "ef_quant quant_thresh is an |.|-quantile in [0, 1), got "
                 f"{thresh}")
+
+
+def check_defense(raw: Dict[str, Any], strategy: str) -> None:
+    """``server_config.chaos``, ``robust`` and ``secure_agg`` and adaptive
+    clipping: their options as the JAX schema and constructors check them
+    (``msrflute_tpu/schema.py:816-830, 864-968``), with ``ValueError``; the
+    combinations that the JAX strategies, engine and server refuse
+    (``strategies/robust.py``, ``engine/round.py:411-467``,
+    ``engine/server.py:172-230``), with ``ValueError``; and the parts of
+    chaos this slice leaves out (checkpoint-IO faults, preemption, the
+    infra services), with ``NotImplementedError``."""
+    from .resilience.chaos import make_chaos
+    from .robust import make_shield
+    from .strategies import STRATEGIES
+    from .strategies.secure_agg import check_options
+    cls = STRATEGIES[strategy]
+    sc = raw.get("server_config") or {}
+    dp = raw.get("dp_config") or {}
+    secagg = strategy in _SECURE_AGG_NAMES
+    host = (bool(sc.get("wantRL")) or cls.host_rounds or
+            str(sc.get("type", "optimization")) == "personalization")
+    adaptive = bool(dp.get("adaptive_clipping"))
+    _refuse(adaptive and not cls.supports_adaptive_clipping,
+            f"strategy {strategy!r} does not implement "
+            "dp_config.adaptive_clipping — use strategy: fedavg")
+    _refuse(adaptive and strategy in ("fedavg", "fedprox") and
+            not dp.get("enable_local_dp", False),
+            "dp_config.adaptive_clipping requires enable_local_dp: true "
+            "(the clip applies inside the local-DP transform)")
+
+    if sc.get("secure_agg") is not None and not secagg:
+        raise ValueError(
+            "server_config.secure_agg is set but strategy is "
+            f"{strategy!r} — only strategy: secure_agg reads it; "
+            "payloads would flow UNMASKED")
+    if secagg:
+        check_options(sc.get("secure_agg", True),
+                      sc.get("num_clients_per_iteration", 10), dp,
+                      bool(raw.get("dump_norm_stats",
+                                   sc.get("dump_norm_stats", False))))
+
+    chaos = sc.get("chaos")
+    if chaos is not None:
+        _check_keys(chaos, "server_config.chaos", _CHAOS)
+        infra = chaos.get("infra")
+        _check_keys(infra, "server_config.chaos.infra", _CHAOS_INFRA)
+        seed = chaos.get("seed", 0)
+        if not isinstance(seed, int) or isinstance(seed, bool) or seed < 0:
+            raise ValueError(f"server_config.chaos.seed must be an int >= 0, "
+                             f"got {seed!r}")
+        schedule = make_chaos(sc)   # the constructor's range checks
+        if schedule is not None:
+            for key in ("ckpt_io_error_rate", "preempt_at_round"):
+                if chaos.get(key):
+                    raise NotImplementedError(
+                        f"server_config.chaos.{key}={chaos[key]!r} is "
+                        f"{NOT_PORTED} (queue A item 8)")
+            if infra and any(float(v or 0.0) > 0.0 for k, v in infra.items()
+                             if k.endswith("_rate")):
+                raise NotImplementedError(
+                    f"server_config.chaos.infra is {NOT_PORTED} (queue A "
+                    "item 8)")
+            faults = schedule.has_client_faults or schedule.has_corruption
+            _refuse(faults and host,
+                    "server_config.chaos dropout_rate/straggler_rate/"
+                    "corrupt_* rates require the fused round path — "
+                    "wantRL, strategy: scaffold / ef_quant, and "
+                    "personalization orchestrate rounds host-side and "
+                    "would ignore the injected faults; zero those rates "
+                    "or drop the feature")
+            _refuse(schedule.has_corruption and strategy == "fedlabels",
+                    "server_config.chaos corrupt_* rates corrupt the "
+                    "default payload part, and fedlabels sends its "
+                    "sup / unsup parts instead — zero those rates")
+
+    robust = sc.get("robust")
+    if robust is not None:
+        _check_keys(robust, "server_config.robust", _ROBUST)
+        shield = make_shield(sc)   # the constructor's checks
+        # the schema's rules read the block as written (an empty block is
+        # on there, though the server then builds no shield)
+        if robust.get("enable", True):
+            aggregator = str(robust.get("aggregator", "mean"))
+            _refuse(strategy not in ("fedavg", "fedprox") and not secagg,
+                    "server_config.robust requires strategy: fedavg/"
+                    f"fedprox/secure_agg — {strategy!r} aggregates through "
+                    "its own parts and would ignore the screening; drop "
+                    "the robust block or the strategy")
+            _refuse(aggregator in ("trimmed_mean", "median") and secagg,
+                    f"robust.aggregator={aggregator!r} sorts "
+                    "per-client payload coordinates, but secure_agg "
+                    "submissions are masked int32 group elements — use "
+                    "aggregator: mean (submitted-norm screening still "
+                    "applies)")
+        if shield is not None:
+            _refuse(adaptive,
+                    "server_config.robust is incompatible with "
+                    "dp_config.adaptive_clipping: quarantined clients' "
+                    "below-clip votes would still steer the clip quantile "
+                    "— use a fixed max_grad or drop the robust block")
+            _refuse(host,
+                    "server_config.robust requires the fused round path "
+                    "— wantRL, strategy: scaffold / ef_quant, and "
+                    "personalization orchestrate rounds host-side and "
+                    "would aggregate unscreened payloads; drop the "
+                    "robust block for this configuration")
 
 
 def model_dtype(model: Dict[str, Any]) -> str:

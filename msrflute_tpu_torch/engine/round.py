@@ -14,6 +14,17 @@ update (FedAC, FedBuff), ``strategy.apply_server_update`` replaces that
 step (``round.py:1408-1411``).  The clients start from
 ``strategy.broadcast_params`` (``round.py:1295``; FedAC's ``w_md``).
 
+The defenses (``round.py:884-1016, 1213-1377``) ride the same round, in
+the JAX package's order: the chaos faults fold into the masks (a dropped
+client leaves the client mask, a straggler's late steps the sample mask),
+a live client's corruption mode transforms its default payload, secure
+aggregation encodes and masks it (:meth:`~..strategies.secure_agg.
+SecureAgg.mask_parts`), fluteshield's screen quarantines with
+``torch.where``, the masked part sums in the int32 group and the lost
+clients' masks are recovered, and a robust strategy combines the screened
+stack.  Without a ``chaos`` block (or with zero rates), ``robust`` block or
+secure aggregation, the round is the one it always was, bit for bit.
+
 The host-orchestrated rounds (SCAFFOLD, EF quantization, DGA's RL hook)
 use the pair :meth:`RoundEngine.client_payloads` (the clients' weighted
 payloads, with a per-client gradient offset) and
@@ -45,7 +56,10 @@ import torch
 from ..data.batching import RoundBatch
 from ..models.base import BaseTask, Params
 from ..optim import make_optimizer
+from ..resilience.chaos import CORRUPT_NAN, CORRUPT_SCALE, CORRUPT_SIGN_FLIP
+from ..robust import make_shield
 from ..strategies.base import BaseStrategy
+from ..strategies.secure_agg import wrap_int32
 from .client_update import ClientHParams, build_client_update
 
 
@@ -128,6 +142,59 @@ class RoundEngine:
         #: optimizer-tail passes, hence of kernel B1 launches with
         #: pallas_apply
         self.local_steps = 0
+        # chaos client faults and corruption (``round.py:364-386``): read
+        # from the config block, so a zero-rate block runs the round of no
+        # block; the server draws the vectors
+        chaos = sc.get("chaos") or {}
+        chaos_on = bool(chaos) and bool(chaos.get("enable", True))
+        self.chaos_client_faults = chaos_on and any(
+            float(chaos.get(k, 0.0) or 0.0) > 0.0
+            for k in ("dropout_rate", "straggler_rate"))
+        self.chaos_corruption = chaos_on and any(
+            float(chaos.get(k, 0.0) or 0.0) > 0.0
+            for k in ("corrupt_nan_rate", "corrupt_scale_rate",
+                      "corrupt_sign_flip_rate"))
+        self.corrupt_scale = float(chaos.get("corrupt_scale_factor", 10.0)
+                                   or 10.0)
+        self.corrupt_flip_scale = float(
+            chaos.get("corrupt_sign_flip_scale", 1.0) or 1.0)
+        #: fluteshield's screening (``round.py:411-467``); None without a
+        #: ``robust`` block
+        self.shield = make_shield(sc)
+        if self.shield is not None:
+            self._check_shield(strategy)
+
+    def _check_shield(self, strategy: BaseStrategy) -> None:
+        """The JAX engine's refusals of a ``robust`` block."""
+        from ..strategies.fedavg import FedAvg
+        from ..strategies.robust import RobustFedAvg
+        from ..strategies.secure_agg import SecureAgg
+        if type(strategy) not in (FedAvg, RobustFedAvg, SecureAgg):
+            raise ValueError(
+                "server_config.robust requires strategy: fedavg/"
+                f"fedprox/secure_agg — {type(strategy).__name__} "
+                "aggregates through its own payload parts and would "
+                "bypass the screening")
+        if isinstance(strategy, SecureAgg) and self.shield.wants_stack:
+            raise ValueError(
+                f"robust.aggregator={self.shield.aggregator!r} sorts "
+                "per-client payload coordinates, but secure_agg "
+                "submissions are masked int32 group elements — only "
+                "the SUM is meaningful.  Use aggregator: mean (norm "
+                "screening still applies, on submitted norms)")
+        if getattr(strategy, "adaptive_clip", None) is not None:
+            raise ValueError(
+                "server_config.robust is incompatible with "
+                "dp_config.adaptive_clipping: quarantined clients' "
+                "below-clip votes would still steer the clip "
+                "quantile — use a fixed max_grad or drop the robust "
+                "block")
+        if self.shield.wants_stack and not strategy.wants_client_stack:
+            raise ValueError(
+                f"robust.aggregator={self.shield.aggregator!r} needs "
+                "the stack-combining RobustFedAvg strategy "
+                "(strategies/robust.py); the server wires this — "
+                "constructing RoundEngine directly, pass it yourself")
 
     def init_state(self, params: Params) -> ServerState:
         flat = self.layout.flatten(params).to(self.device, torch.float32)
@@ -169,15 +236,21 @@ class RoundEngine:
                      global_flat: torch.Tensor, client_lr: float,
                      quant_threshold: Optional[float],
                      leakage_threshold: Optional[float],
-                     grad_offsets: Optional[torch.Tensor] = None):
+                     grad_offsets: Optional[torch.Tensor] = None,
+                     masks: Optional[Tuple[torch.Tensor,
+                                           torch.Tensor]] = None):
         """The round's batch on the device and the strategy's client step
-        -> ``(parts, train_loss, num_samples, stats, client_mask)``."""
+        -> ``(parts, train_loss, num_samples, stats, client_mask)``.
+        ``masks`` replaces the batch's ``(sample_mask, client_mask)`` on the
+        device (the round's chaos faults folded in)."""
         dev = self.device
         r = state.round
         arrays = {k: torch.from_numpy(v).to(dev)
                   for k, v in batch.arrays.items()}
-        sample_mask = torch.from_numpy(batch.sample_mask).to(dev)
-        cm = torch.from_numpy(batch.client_mask).to(dev)
+        if masks is None:
+            masks = (torch.from_numpy(batch.sample_mask).to(dev),
+                     torch.from_numpy(batch.client_mask).to(dev))
+        sample_mask, cm = masks
         gens = (self.client_generators(r, batch.client_ids)
                 if self.random else None)
         self.local_steps += self.hparams.num_epochs * sample_mask.shape[1]
@@ -226,47 +299,164 @@ class RoundEngine:
         return ServerState(params, opt_state, state.round + 1,
                            state.strategy_state)
 
+    def _chaos_masks(self, batch: RoundBatch, chaos: Optional[dict],
+                     stats: Dict[str, torch.Tensor]):
+        """The round's ``(sample_mask, client_mask)`` on the device with
+        the chaos faults folded in (``msrflute_tpu/engine/round.py:
+        1213-1243``): a dropped client leaves the client mask, a
+        straggler's steps past its budget leave the sample mask (its
+        partial work still aggregates).  The fault counts go into
+        ``stats``."""
+        dev = self.device
+        sample_mask = torch.from_numpy(batch.sample_mask).to(dev)
+        cm = torch.from_numpy(batch.client_mask).to(dev)
+        if chaos is None or "drop" not in chaos:
+            return sample_mask, cm
+        drop = torch.from_numpy(chaos["drop"]).to(dev)
+        keep = torch.from_numpy(chaos["keep"]).to(dev)
+        step_live = sample_mask.sum(dim=-1) > 0                   # [K, S]
+        real_steps = step_live.sum(dim=-1)                        # [K]
+        keep_f = (torch.arange(sample_mask.shape[-2], device=dev)[None, :]
+                  < keep[:, None]).to(torch.float32)              # [K, S]
+        live_cm = cm * (1.0 - drop)
+        stats["chaos_dropped"] = torch.sum(cm * drop)
+        stats["chaos_straggled"] = torch.sum(
+            live_cm * (keep < real_steps).to(torch.float32))
+        stats["chaos_steps_lost"] = torch.sum(
+            step_live.to(torch.float32) * (1.0 - keep_f) * live_cm[:, None])
+        sample_mask = sample_mask * keep_f[..., None].to(sample_mask.dtype)
+        return sample_mask, live_cm
+
+    def _corrupt(self, pg: torch.Tensor, mode: torch.Tensor) -> torch.Tensor:
+        """The default payload as a corrupted client would transmit it
+        (``round.py:884-904``): NaN, times ``corrupt_scale_factor``, or
+        times ``-corrupt_sign_flip_scale``, by the live clients' modes."""
+        mult = torch.where(
+            mode == CORRUPT_SCALE, self.corrupt_scale,
+            torch.where(mode == CORRUPT_SIGN_FLIP, -self.corrupt_flip_scale,
+                        1.0)).to(pg.dtype)
+        nan = torch.full_like(pg, float("nan"))
+        return torch.where((mode == CORRUPT_NAN)[:, None], nan,
+                           pg * mult[:, None])
+
     def run_round(self, state: ServerState, batch: RoundBatch,
                   client_lr: float, server_lr: float,
                   quant_threshold: Optional[float] = None,
-                  leakage_threshold: Optional[float] = None
+                  leakage_threshold: Optional[float] = None,
+                  chaos: Optional[Dict[str, np.ndarray]] = None
                   ) -> Tuple[ServerState, Dict[str, float]]:
         """One round -> ``(new state, stats)``: the round's scalar sums,
         and with the privacy metrics on, ``stats["privacy"]``: each
         ``privacy_*`` key's ``[K]`` values and the client mask, on the
-        host (the server logs them and adapts the leakage threshold)."""
+        host (the server logs them and adapts the leakage threshold).
+
+        ``chaos`` holds the round's fault vectors
+        (``resilience/chaos.py``): ``drop`` and ``keep`` (``[K]`` float32)
+        when the engine runs client faults, ``corrupt`` (``[K]`` int32)
+        when it runs corruption.  The round keeps the JAX package's order:
+        faults, client step, corruption, masking (secure aggregation),
+        screening, the part sums, mask recovery, the combine."""
         dev = self.device
         r = state.round
-        bcast = self.strategy.broadcast_params(state.params,
-                                               state.strategy_state)
+        strategy = self.strategy
+        bcast = strategy.broadcast_params(state.params,
+                                          state.strategy_state)
+        extra: Dict[str, torch.Tensor] = {}
+        masks = self._chaos_masks(batch, chaos, extra)
+        live_cm = masks[1]
+        mode = None
+        if self.chaos_corruption:
+            # gated on the live mask: a dropped client never transmits,
+            # and a padding slot's zero row must not become NaN
+            mode = torch.from_numpy(chaos["corrupt"]).to(dev)
+            mode = torch.where(live_cm > 0, mode, torch.zeros_like(mode))
+            for key, code in (("chaos_nan_injected", CORRUPT_NAN),
+                              ("chaos_scaled", CORRUPT_SCALE),
+                              ("chaos_sign_flipped", CORRUPT_SIGN_FLIP)):
+                extra[key] = torch.sum((mode == code).to(torch.float32))
         parts, tl, ns, stats, cm = self._client_step(
             state, batch, bcast, client_lr, quant_threshold,
-            leakage_threshold)
+            leakage_threshold, masks=masks)
+        if mode is not None:
+            pg, w = parts["default"]
+            parts = dict(parts)
+            parts["default"] = (self._corrupt(pg, mode), w)
+        sub_norm = None
+        if strategy.wants_cohort:
+            parts, sub_norm = strategy.mask_parts(
+                parts, batch.client_ids, batch.client_mask, cm, r)
+        parts = {name: (pg, w * cm) for name, (pg, w) in parts.items()}
+        if self.shield is not None:
+            # quarantine from the payloads that would aggregate; zeroed
+            # with torch.where, which a NaN row cannot survive
+            pg, w = parts["default"]
+            if sub_norm is not None:
+                keep, q_nonfinite, q_norm = self.shield.screen_masked(
+                    sub_norm, tl * cm, w, cm)
+            else:
+                keep, q_nonfinite, q_norm = self.shield.screen(
+                    pg, tl * cm, w, cm)
+            kb = keep > 0
+            zero = torch.zeros((), dtype=pg.dtype, device=dev)
+            parts["default"] = (torch.where(kb[:, None], pg, zero),
+                                torch.where(kb, w, 0.0))
+            tl = torch.where(kb, tl * cm, 0.0)
+            ns = torch.where(kb, ns * cm, 0.0)
+            stats = {k: (v if k.startswith("privacy_")
+                         else torch.where(kb, v, 0.0))
+                     for k, v in stats.items()}
+            cm = cm * keep
+            extra["shield_nonfinite"] = torch.sum(q_nonfinite)
+            extra["shield_norm_outlier"] = torch.sum(q_norm)
         stale = None
-        if self.strategy.stale_prob > 0.0:
+        if strategy.stale_prob > 0.0:
             stale = torch.from_numpy(
                 self.stale_coins(r, batch.client_ids)).to(dev) * cm
         part_sums = {}
         for name, (pg, w) in parts.items():
-            w = w * cm
+            if name in strategy.unit_weight_parts:
+                # every present row enters with coefficient 1, summed in
+                # the int32 group (an int64 sum wrapped back)
+                live = (cm > 0).to(torch.int64)[:, None]
+                part_sums[name] = {
+                    "grad_sum": wrap_int32((pg.to(torch.int64) * live).sum(0)),
+                    "weight_sum": w.sum(), "weight_sum_raw": w.sum()}
+                continue
             if stale is None:
-                part_sums[name] = {"grad_sum": w @ pg, "weight_sum": w.sum()}
+                part_sums[name] = {"grad_sum": w @ pg, "weight_sum": w.sum(),
+                                   "weight_sum_raw": w.sum()}
                 continue
             w_now, w_def = w * (1.0 - stale), w * stale
             part_sums[name] = {"grad_sum": w_now @ pg,
                                "weight_sum": w_now.sum(),
                                "grad_sum_def": w_def @ pg,
-                               "weight_sum_def": w_def.sum()}
+                               "weight_sum_def": w_def.sum(),
+                               "weight_sum_raw": w.sum()}
+        # the live cohort on the host: sampled, less the dropped
+        live_host = batch.client_mask
+        if chaos is not None and "drop" in chaos:
+            live_host = live_host * (1.0 - chaos["drop"])
+        if strategy.wants_cohort:
+            part_sums["default"]["grad_sum"] = self._recover_masks(
+                part_sums["default"]["grad_sum"], batch, live_host,
+                cm if self.shield is not None else None, r, extra)
         deferred = None
         if stale is not None:
             deferred = {"grad_sum": part_sums["default"]["grad_sum_def"],
                         "weight_sum": part_sums["default"]["weight_sum_def"]}
-        agg, strategy_state = self.strategy.combine_parts(
-            part_sums, deferred, state.strategy_state, self.server_seed(r),
-            float(batch.client_mask.sum()), global_params=bcast)
+        if strategy.wants_client_stack:
+            # the robust combine over the screened stack; the strategy
+            # state passes through
+            agg = strategy.combine_stack(parts["default"][0], cm)
+            strategy_state = state.strategy_state
+        else:
+            agg, strategy_state = strategy.combine_parts(
+                part_sums, deferred, state.strategy_state,
+                self.server_seed(r), float(live_host.sum()),
+                global_params=bcast)
         agg = self._server_clip(agg)
-        if self.strategy.owns_server_update:
-            new_params, strategy_state = self.strategy.apply_server_update(
+        if strategy.owns_server_update:
+            new_params, strategy_state = strategy.apply_server_update(
                 state.params, agg, strategy_state, server_lr)
             opt_state = state.opt_state
         else:
@@ -282,12 +472,17 @@ class RoundEngine:
             "num_samples_sum": (ns * cm).sum(),
             "client_count": count,
             "weight_sum": first["weight_sum"],
+            "weight_sum_raw": first["weight_sum_raw"],
             "grad_mean": (stats["mean"] * cm).sum() / denom,
             "grad_mag": (stats["mag"] * cm).sum() / denom,
             "grad_var": (stats["var_corrected"] * cm).sum() / denom,
             "grad_norm": (stats["norm"] * cm).sum() / denom,
             "agg_grad_norm": torch.linalg.vector_norm(agg),
+            **extra,
         }
+        if "dp_clip" in strategy_state:
+            # the clip the next round applies (adaptive clipping)
+            round_stats["dp_clip"] = strategy_state["dp_clip"]
         privacy = [k for k in stats if k.startswith("privacy_")]
         if privacy:
             round_stats.update((k, stats[k]) for k in privacy)
@@ -305,3 +500,32 @@ class RoundEngine:
                    if k != "privacy")
         return (ServerState(new_params, opt_state, r + 1, strategy_state),
                 out)
+
+    def _recover_masks(self, grad_sum: torch.Tensor, batch: RoundBatch,
+                       live: np.ndarray, screened: Optional[torch.Tensor],
+                       round_idx: int, stats: Dict[str, torch.Tensor]
+                       ) -> torch.Tensor:
+        """Secure aggregation's mask recovery (``round.py:1329-1367``):
+        the residual masks of every (survivor, lost) edge leave the int32
+        sum, the recovery counts go into ``stats``, and a round with fewer
+        than ``min_survivors`` survivors aborts (a zero sum).  The sampled
+        and live masks are known on the host; the survivors after a
+        screen (``screened``, the client mask after it) are read back once
+        (``K`` values), since the edges to re-derive are picked on the
+        host."""
+        sampled = batch.client_mask
+        survivors = live if screened is None else screened.cpu().numpy()
+        strategy = self.strategy
+        grad_sum = strategy.cancel_masks(grad_sum, batch.client_ids,
+                                         sampled, survivors, round_idx)
+        dev = self.device
+        stats["secagg_recovered_dropout"] = torch.tensor(
+            float(((sampled > 0) & (live <= 0)).sum()), device=dev)
+        stats["secagg_recovered_quarantine"] = torch.tensor(
+            float(((live > 0) & (survivors <= 0)).sum()), device=dev)
+        if strategy.min_survivors > 0:
+            abort = float(np.sum(survivors)) < strategy.min_survivors
+            if abort:
+                grad_sum = torch.zeros_like(grad_sum)
+            stats["secagg_abort"] = torch.tensor(float(abort), device=dev)
+        return grad_sum

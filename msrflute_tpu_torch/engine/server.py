@@ -12,6 +12,14 @@ plateau LR, fall-back-to-best, checkpoint, ``status_log.json``), with
 server's own ``train_data_server`` blob with the replay optimizer and its
 ``updatable_names``.
 
+The defenses (``server.py:76-86, 172-230, 1858-1960``): a ``robust`` block
+selects :class:`~..strategies.robust.RobustFedAvg` for a stack
+aggregator; the chaos schedule's vectors are drawn for each round from its
+index before the round runs (so a resumed run draws the same); the chaos,
+quarantine and secure-aggregation counters and the adaptive clip are
+logged under the JAX server's metric names.  Chaos client faults and a
+``robust`` block are refused on the host-orchestrated rounds.
+
 Rounds run one after another.  ``rounds_per_step`` keeps the JAX
 package's host-side order of random draws — a chunk of R rounds (never
 crossing an eval boundary) samples its R cohorts first, then packs them
@@ -54,9 +62,11 @@ from ..data.dataset import ArraysDataset
 from ..device import DeviceLike, resolve_device
 from ..models.base import BaseTask, Metric, Params
 from ..optim import PlateauTracker, make_lr_schedule
+from ..resilience.chaos import make_chaos
 from ..strategies import select_strategy
 from ..strategies.ef_quant import (DeviceResidualTable, EFQuant,
                                    ResidualStore)
+from ..strategies.robust import select_robust_strategy
 from ..strategies.scaffold import ControlStore, DeviceControlTable, Scaffold
 from ..utils.logging import MetricsLog, print_rank
 from .checkpoint import CheckpointManager
@@ -66,6 +76,15 @@ from .round import SERVER_SLOT, RoundEngine, ServerState
 
 #: the replay's dropout stream: ``[seed, r, SERVER_SLOT, REPLAY_TAG]``
 REPLAY_TAG = 5
+#: the chaos counters of the round's stats: ``(stats key, counter, the
+#: JAX server's metric name)``
+CHAOS_METRICS = (
+    ("chaos_dropped", "dropped", "Chaos dropped clients"),
+    ("chaos_straggled", "straggled", "Chaos stragglers"),
+    ("chaos_steps_lost", "steps_lost", "Chaos steps lost"),
+    ("chaos_nan_injected", "nan_injected", "Chaos NaN-injected clients"),
+    ("chaos_scaled", "scaled", "Chaos scaled clients"),
+    ("chaos_sign_flipped", "sign_flipped", "Chaos sign-flipped clients"))
 
 
 class OptimizationServer:
@@ -83,9 +102,21 @@ class OptimizationServer:
         self.device = resolve_device(device)
         self.metrics = metrics if metrics is not None else MetricsLog()
         sc, cc = config.server_config, config.client_config
-        self.strategy = select_strategy(config.strategy)(config)
+        strategy_cls = select_strategy(config.strategy)
+        if sc.get("robust"):
+            # a stack aggregator swaps in RobustFedAvg; a strategy the
+            # screening cannot see into is refused (server.py:76-86)
+            self.strategy = select_robust_strategy(config, strategy_cls)
+        else:
+            self.strategy = strategy_cls(config)
         self.engine = RoundEngine(task, config, self.strategy, self.device,
                                   seed=seed)
+        #: fluteshield's policy (None without a robust block) and the
+        #: chaos schedule (None without a chaos block); the server draws
+        #: each round's fault vectors and logs the counters
+        self.shield = self.engine.shield
+        self.chaos = make_chaos(sc)
+        self._check_host_rounds(sc)
         self.ckpt = CheckpointManager(model_dir, self.engine.layout,
                                       sc.get("model_backup_freq", 100))
 
@@ -194,6 +225,78 @@ class OptimizationServer:
                 self.strategy.quant_thresh *= \
                     self.quant_anneal ** self.state.round
         self._max_iteration = int(sc.get("max_iteration", 100))
+
+    def _check_host_rounds(self, sc) -> None:
+        """The host-orchestrated rounds (RL, SCAFFOLD, EF, the
+        personalization server's hooked sampling) build their payloads
+        outside :meth:`RoundEngine.run_round`: a ``robust`` block or chaos
+        client faults there are refused, as in ``server.py:195-222``."""
+        host = (bool(sc.get("wantRL", False)) or
+                getattr(self.strategy, "host_rounds", False) or
+                type(self)._sample is not OptimizationServer._sample)
+        if not host:
+            return
+        if self.shield is not None:
+            raise ValueError(
+                "server_config.robust requires the fused round path "
+                "— wantRL, strategy: scaffold / ef_quant, and "
+                "personalization orchestrate rounds host-side and "
+                "would aggregate unscreened payloads; drop the "
+                "robust block for this configuration")
+        if self.chaos is not None and (self.chaos.has_client_faults or
+                                       self.chaos.has_corruption):
+            raise ValueError(
+                "server_config.chaos dropout_rate/straggler_rate/"
+                "corrupt_* rates require the fused round path — "
+                "wantRL, strategy: scaffold / ef_quant, and "
+                "personalization orchestrate rounds host-side and "
+                "would ignore the injected faults; zero those rates "
+                "or drop the feature")
+
+    def chaos_vectors(self, round_no: int, batch) -> Optional[dict]:
+        """The round's fault vectors from the schedule, keyed on the round
+        index (so a resumed run draws the same ones): what
+        :meth:`RoundEngine.run_round` takes as ``chaos``."""
+        engine = self.engine
+        if not (engine.chaos_client_faults or engine.chaos_corruption):
+            return None
+        vecs = {}
+        if engine.chaos_client_faults:
+            vecs["drop"], vecs["keep"] = self.chaos.client_faults(
+                round_no, batch.sample_mask)
+        if engine.chaos_corruption:
+            vecs["corrupt"] = self.chaos.corrupt_modes(
+                round_no, batch.sample_mask.shape[0])
+        return vecs
+
+    def _log_defense(self, stats: Dict[str, float], r: int) -> None:
+        """The round's chaos, quarantine and secure-aggregation counters,
+        under the JAX server's metric names (``server.py:1858-1960``),
+        added to the run's totals."""
+        log = self.metrics.log
+        for key, name, metric in CHAOS_METRICS:
+            if key in stats:
+                self.chaos.counters[name] += stats[key]
+                log(metric, stats[key], step=r)
+        if self.shield is not None and "shield_nonfinite" in stats:
+            c = self.shield.counters
+            c["quarantined_nonfinite"] += stats["shield_nonfinite"]
+            c["quarantined_norm_outlier"] += stats["shield_norm_outlier"]
+            log("Quarantined clients (non-finite)",
+                stats["shield_nonfinite"], step=r)
+            log("Quarantined clients (norm outlier)",
+                stats["shield_norm_outlier"], step=r)
+        if "secagg_recovered_dropout" in stats:
+            c = self.strategy.counters
+            c["recovered_dropout"] += stats["secagg_recovered_dropout"]
+            c["recovered_quarantine"] += stats["secagg_recovered_quarantine"]
+            log("SecAgg recovered (dropout)",
+                stats["secagg_recovered_dropout"], step=r)
+            log("SecAgg recovered (quarantine)",
+                stats["secagg_recovered_quarantine"], step=r)
+            if stats.get("secagg_abort"):
+                c["aborted_rounds"] += stats["secagg_abort"]
+                log("SecAgg aborted round", stats["secagg_abort"], step=r)
 
     def _paired_store(self, cls, model_dir: str, subdir: str, what: str,
                       resumed: bool):
@@ -340,7 +443,8 @@ class OptimizationServer:
                 self.state, stats = self.engine.run_round(
                     self.state, batch, client_lr, server_lr,
                     quant_threshold=thresholds[j],
-                    leakage_threshold=self.max_allowed_leakage)
+                    leakage_threshold=self.max_allowed_leakage,
+                    chaos=self.chaos_vectors(r, batch))
                 self.run_stats["secsPerRound"].append(time.time() - tic)
                 if "privacy" in stats:
                     self._process_privacy_stats(stats["privacy"], r)
@@ -351,9 +455,15 @@ class OptimizationServer:
                 self.metrics.log("Client learning rate", client_lr, step=r)
                 self.metrics.log("Agg. grad norm", stats["agg_grad_norm"],
                                  step=r)
+                self._log_defense(stats, r)
                 if self.server_replay is not None:
                     self._run_server_replay(r)
             round_no += R
+            if "dp_clip" in stats:
+                # the clip the next round applies, logged at that round
+                # once a chunk (server.py:1962-1968)
+                self.metrics.log("DP clip norm", stats["dp_clip"],
+                                 step=round_no)
             self._round_housekeeping(round_no, val_freq, rec_freq)
         self._log_timing()
         self.metrics.flush()

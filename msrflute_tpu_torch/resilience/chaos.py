@@ -1,0 +1,176 @@
+"""Deterministic client faults and update corruption (``server_config.chaos``)
+— the port's copy of the client half of ``msrflute_tpu/resilience/chaos.py``
+(``:202-356``, ``:402-443``).
+
+A seeded schedule that makes the cohort unreliable: clients that drop out
+mid-round, stragglers that reach the round barrier with only part of their
+local steps done, and adversarial payloads that come back NaN, scaled up or
+sign-flipped.  Every decision is a pure function of ``(chaos.seed, stream,
+round)`` through ``np.random.SeedSequence``, with the JAX package's stream
+tags, entropy and draw order, so both packages draw the same ``drop``,
+``keep_steps`` and corruption vectors, draw for draw.  A zero-rate block
+draws nothing that reaches the round: the round is bitwise the one without
+a block.
+
+How the vectors land (``engine/round.py``): dropout multiplies into the
+client mask, straggling truncates the sample mask's step grid (a
+straggler's partial work still aggregates), and a live client's corruption
+mode transforms the default payload it would transmit.  The counters come
+back with the round's stats.
+
+Not ported (``config.validate`` refuses them): the checkpoint-IO fault
+stream (``ckpt_io_error_rate``), ``preempt_at_round`` and the ``infra``
+service faults, which need the checkpoint retry loop, preemption and fleet
+paging.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+#: stream tags keeping the fault streams independent of each other
+_CLIENT_STREAM = 0xC7A05C11
+#: the corruption stream has its own tag, so enabling corruption never
+#: moves the dropout / straggler schedule a seed produces
+_CORRUPT_STREAM = 0xC7A0C0DE
+
+#: corruption modes of the per-round ``[K]`` int32 vector; 0 = clean
+CORRUPT_NONE = 0
+CORRUPT_NAN = 1        # payload becomes NaN (corrupted transfer)
+CORRUPT_SCALE = 2      # payload x corrupt_scale_factor (scaling attack)
+CORRUPT_SIGN_FLIP = 3  # payload x -corrupt_sign_flip_scale (sign flip)
+
+#: "no straggler bound": far above any step grid
+NO_BOUND = 1e9
+
+
+class ChaosSchedule:
+    """Seeded fault schedule, one a run; every method is deterministic
+    given the constructor's arguments."""
+
+    def __init__(self, seed: int = 0, dropout_rate: float = 0.0,
+                 straggler_rate: float = 0.0,
+                 straggler_inflation: float = 2.0,
+                 ckpt_io_error_rate: float = 0.0,
+                 preempt_at_round: Optional[int] = None,
+                 corrupt_nan_rate: float = 0.0,
+                 corrupt_scale_rate: float = 0.0,
+                 corrupt_sign_flip_rate: float = 0.0,
+                 corrupt_scale_factor: float = 10.0,
+                 corrupt_sign_flip_scale: float = 1.0):
+        if not 0.0 <= float(dropout_rate) <= 1.0:
+            raise ValueError("chaos.dropout_rate must be in [0, 1]")
+        if not 0.0 <= float(straggler_rate) <= 1.0:
+            raise ValueError("chaos.straggler_rate must be in [0, 1]")
+        if float(straggler_inflation) < 1.0:
+            raise ValueError("chaos.straggler_inflation must be >= 1 "
+                             "(it divides the steps a straggler completes "
+                             "before the round barrier)")
+        if not 0.0 <= float(ckpt_io_error_rate) <= 1.0:
+            raise ValueError("chaos.ckpt_io_error_rate must be in [0, 1]")
+        for key, val in (("corrupt_nan_rate", corrupt_nan_rate),
+                         ("corrupt_scale_rate", corrupt_scale_rate),
+                         ("corrupt_sign_flip_rate", corrupt_sign_flip_rate)):
+            if not 0.0 <= float(val) <= 1.0:
+                raise ValueError(f"chaos.{key} must be in [0, 1]")
+        if float(corrupt_nan_rate) + float(corrupt_scale_rate) + \
+                float(corrupt_sign_flip_rate) > 1.0:
+            raise ValueError(
+                "chaos corruption rates must sum to <= 1 (each client "
+                "draws at most one corruption mode per round)")
+        if float(corrupt_scale_factor) <= 0.0:
+            raise ValueError("chaos.corrupt_scale_factor must be > 0")
+        if float(corrupt_sign_flip_scale) <= 0.0:
+            raise ValueError("chaos.corrupt_sign_flip_scale must be > 0")
+        self.seed = int(seed)
+        self.dropout_rate = float(dropout_rate)
+        self.straggler_rate = float(straggler_rate)
+        self.straggler_inflation = float(straggler_inflation)
+        self.ckpt_io_error_rate = float(ckpt_io_error_rate)
+        self.preempt_at_round = (None if preempt_at_round is None
+                                 else int(preempt_at_round))
+        self.corrupt_nan_rate = float(corrupt_nan_rate)
+        self.corrupt_scale_rate = float(corrupt_scale_rate)
+        self.corrupt_sign_flip_rate = float(corrupt_sign_flip_rate)
+        self.corrupt_scale_factor = float(corrupt_scale_factor)
+        self.corrupt_sign_flip_scale = float(corrupt_sign_flip_scale)
+        #: injected-fault totals, accumulated by the server from the
+        #: round stats
+        self.counters: Dict[str, float] = {
+            "dropped": 0.0, "straggled": 0.0, "steps_lost": 0.0,
+            "nan_injected": 0.0, "scaled": 0.0, "sign_flipped": 0.0,
+        }
+
+    @property
+    def has_client_faults(self) -> bool:
+        return self.dropout_rate > 0.0 or self.straggler_rate > 0.0
+
+    @property
+    def has_corruption(self) -> bool:
+        return (self.corrupt_nan_rate > 0.0 or
+                self.corrupt_scale_rate > 0.0 or
+                self.corrupt_sign_flip_rate > 0.0)
+
+    def _rng(self, stream: int, round_no: int) -> np.random.Generator:
+        return np.random.default_rng(np.random.SeedSequence(
+            [self.seed, stream, int(round_no)]))
+
+    def client_faults(self, round_no: int, sample_mask: np.ndarray
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+        """``(drop [K] f32 in {0, 1}, keep_steps [K] f32)`` for the round's
+        packed ``[K, S, B]`` sample mask (padding slots included).
+        ``keep_steps`` is a straggler's step budget,
+        ``max(ceil(real_steps / straggler_inflation), 1)``, and
+        :data:`NO_BOUND` for everyone else.  Keyed on (seed, round, client
+        slot); the draw order is drop, then straggle."""
+        k = int(sample_mask.shape[0])
+        rng = self._rng(_CLIENT_STREAM, round_no)
+        drop = (rng.random(k) < self.dropout_rate).astype(np.float32)
+        straggle = rng.random(k) < self.straggler_rate
+        real_steps = (np.asarray(sample_mask).sum(axis=2) > 0).sum(axis=1)
+        keep = np.where(
+            straggle,
+            np.maximum(np.ceil(real_steps / self.straggler_inflation), 1.0),
+            NO_BOUND).astype(np.float32)
+        return drop, keep
+
+    def corrupt_modes(self, round_no: int, k: int) -> np.ndarray:
+        """``[K] int32`` corruption modes for the round: one uniform draw a
+        client slot, partitioned into NaN, scale and sign-flip (at most one
+        mode a client).  Padding and dropped slots draw too; the round
+        applies a mode only to a live client."""
+        u = self._rng(_CORRUPT_STREAM, round_no).random(int(k))
+        mode = np.full(int(k), CORRUPT_NONE, np.int32)
+        hi = self.corrupt_nan_rate + self.corrupt_scale_rate + \
+            self.corrupt_sign_flip_rate
+        mode[u < hi] = CORRUPT_SIGN_FLIP
+        mode[u < self.corrupt_nan_rate + self.corrupt_scale_rate] = \
+            CORRUPT_SCALE
+        mode[u < self.corrupt_nan_rate] = CORRUPT_NAN
+        return mode
+
+
+def make_chaos(server_config) -> Optional[ChaosSchedule]:
+    """The run's :class:`ChaosSchedule` from ``server_config.chaos`` (None
+    when absent or ``enable: false``)."""
+    raw = server_config.get("chaos") if server_config is not None else None
+    if not raw:
+        return None
+    raw = dict(raw)
+    if not raw.pop("enable", True):
+        return None
+    return ChaosSchedule(
+        seed=raw.get("seed", 0),
+        dropout_rate=raw.get("dropout_rate", 0.0),
+        straggler_rate=raw.get("straggler_rate", 0.0),
+        straggler_inflation=raw.get("straggler_inflation", 2.0),
+        ckpt_io_error_rate=raw.get("ckpt_io_error_rate", 0.0),
+        preempt_at_round=raw.get("preempt_at_round"),
+        corrupt_nan_rate=raw.get("corrupt_nan_rate", 0.0),
+        corrupt_scale_rate=raw.get("corrupt_scale_rate", 0.0),
+        corrupt_sign_flip_rate=raw.get("corrupt_sign_flip_rate", 0.0),
+        corrupt_scale_factor=raw.get("corrupt_scale_factor", 10.0),
+        corrupt_sign_flip_scale=raw.get("corrupt_sign_flip_scale", 1.0),
+    )

@@ -84,12 +84,32 @@ class BaseStrategy:
     #: the server runs the strategy's rounds host-side, one at a time
     #: (SCAFFOLD's controls, EF quantization's residuals)
     host_rounds: bool = False
+    #: the flags the round keys off (``msrflute_tpu/strategies/base.py:
+    #: 76-87``, ``strategies/robust.py:106``): whether the strategy
+    #: implements ``dp_config.adaptive_clipping`` (else its constructor
+    #: refuses it); the parts whose ``[K, P]`` rows enter the sum with the
+    #: 0/1 live mask instead of the weight (secure aggregation's masked
+    #: int32 rows, where every mask must enter with coefficient 1; the
+    #: weight sum still normalizes); whether the round hands
+    #: :meth:`mask_parts` the sampled cohort (secure aggregation); whether
+    #: the round reduces the screened ``[K, P]`` stack with
+    #: ``combine_stack`` instead of ``combine_parts`` (the robust
+    #: aggregators)
+    supports_adaptive_clipping: bool = False
+    unit_weight_parts: frozenset = frozenset()
+    wants_cohort: bool = False
+    wants_client_stack: bool = False
     #: the round engine's task
     task = None
 
     def __init__(self, config):
         self.config = config
         self.dp_config = getattr(config, "dp_config", None) or {}
+        if self.dp_config.get("adaptive_clipping") and \
+                not self.supports_adaptive_clipping:
+            raise ValueError(
+                f"{type(self).__name__} does not implement "
+                "dp_config.adaptive_clipping — use strategy: fedavg")
 
     def client_step(self, client_update, global_flat, arrays, sample_mask,
                     client_lr, gens=None, quant_threshold=None,

@@ -60,10 +60,10 @@ def test_nlg_gru_config_with_dp_and_quantization_parses():
 
 
 @pytest.mark.parametrize("path,value", [
-    ("dp_config.adaptive_clipping", {"target_quantile": 0.5}),
+    ("server_config.dump_norm_stats", True),
     ("mesh_config.model_axis_size", 4),
     ("strategy", "secure_agg"),
-    ("server_config.robust", {"enable": True}),
+    ("server_config.chaos", {"preempt_at_round": 2}),
 ])
 def test_keys_outside_the_dga_slice_still_raise(path, value):
     raw = _nlg_gru()
@@ -77,15 +77,17 @@ def test_keys_outside_the_dga_slice_still_raise(path, value):
 
 
 @pytest.mark.parametrize("path,value", [
-    ("dp_config", {"enable_global_dp": True, "global_sigma": 1.0}),
+    ("server_config.softmax_beta", 2.0),
     ("client_config.quant_thresh", 0.5),
     ("model_config.quant_threshold", 0.7),
     ("server_config.stale_prob", 0.3),
     ("client_config.quant_anneal", 0.99),
 ])
 def test_dga_features_refused_under_fedavg(path, value):
-    """DP, quantization and staleness run inside DGA only; a FedAvg config
-    that asks for them raises instead of running without them."""
+    """Quantization, staleness and DGA's softmax weighting run inside DGA
+    only; a FedAvg config that asks for them raises instead of running
+    without them.  (Local DP and adaptive clipping run under FedAvg since
+    the defense slice, ``tests/test_torch_dp_fedavg.py``.)"""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         FLUTEConfig.from_dict(_with(path, value))
 
@@ -101,23 +103,23 @@ def _with(path, value):
 
 
 @pytest.mark.parametrize("path,value", [
-    ("strategy", "secure_agg"),
+    ("server_config.checkpoint_backend", "orbax"),
     ("strategy", "robust"),
     ("mesh_config.model_axis_size", 2),
-    ("server_config.secure_agg", {"enable": True}),
-    ("server_config.robust", {"enable": True}),
+    ("server_config.checkpoint_retry", {"retries": 3}),
+    ("server_config.clients_per_chunk", 2),
     ("client_config.meta_learning", "maml"),
     ("server_config.telemetry", {"enable": True}),
     ("server_config.cohort_bucketing", {"enable": True}),
     ("server_config.megabatch", {"enable": True}),
     ("server_config.traffic", {"mode": "buffered"}),
     ("server_config.fleet", {"enable": True}),
-    ("server_config.chaos", {"enable": True, "dropout_rate": 0.1}),
+    ("server_config.chaos", {"enable": True, "ckpt_io_error_rate": 0.1}),
     ("client_config.quant_bits", 8),
     ("client_config.data_config.train.lazy", True),
     ("client_config.optimizer_config.dampening", 0.1),
     ("client_config.ss_config", {"mode": "fixmatch"}),
-    ("dp_config", {"enable_local_dp": True}),
+    ("dp_config", {"enable_prod": True}),
     ("server_config.fused_carry", True),
 ])
 def test_unported_features_raise(path, value):

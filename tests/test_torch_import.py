@@ -71,7 +71,9 @@ def test_no_source_imports_jax(path):
 #: the optimizer family, schedules, layer controls, precision policy and
 #: server replay (B1's and B4-B6's 16-bit arms), and the later strategies,
 #: DGA's RL hook and the hdf5 reader (B3 on EF quantization's path; the
-#: reader imports ``h5py`` only when it reads)
+#: reader imports ``h5py`` only when it reads), and the defense slice's
+#: chaos schedule, shield, robust aggregators, secure aggregation, FedAvg's
+#: local DP and the RDP accountant
 SLICE_MODULES = [(m, None) for m in (
     "msrflute_tpu_torch.models.nlp", "msrflute_tpu_torch.privacy",
     "msrflute_tpu_torch.ops.quantization", "msrflute_tpu_torch.ops.quant_bin",
@@ -106,7 +108,14 @@ SLICE_MODULES = [(m, None) for m in (
         "msrflute_tpu_torch.strategies.fedbuff",
         "msrflute_tpu_torch.strategies.scaffold",
         "msrflute_tpu_torch.strategies.ef_quant",
-        "msrflute_tpu_torch.data.user_blob")]
+        "msrflute_tpu_torch.data.user_blob")] + [
+    (m, "fused_sgd") for m in (
+        "msrflute_tpu_torch.resilience.chaos", "msrflute_tpu_torch.robust",
+        "msrflute_tpu_torch.robust.shield",
+        "msrflute_tpu_torch.privacy.accountant",
+        "msrflute_tpu_torch.strategies.robust",
+        "msrflute_tpu_torch.strategies.secure_agg",
+        "msrflute_tpu_torch.strategies.fedavg")]
 
 
 @pytest.mark.parametrize("module,kernel", SLICE_MODULES,

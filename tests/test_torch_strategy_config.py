@@ -134,9 +134,9 @@ def test_refused_combination_raises_value_error_in_both(name, tmp_path):
 
 
 @pytest.mark.parametrize("path,value", [
-    ("strategy", "secure_agg"),
-    ("strategy", "secagg"),
-    ("server_config.robust", {"enable": True}),
+    ("server_config.dump_norm_stats", True),
+    ("server_config.clients_per_chunk", 2),
+    ("server_config.chaos", {"infra": {"writer_error_rate": 0.1}}),
     ("server_config.fused_carry", True),
     ("server_config.traffic", {"mode": "buffered"}),
     ("server_config.cohort_bucketing", {"enable": True}),
