@@ -98,6 +98,21 @@ non-zero and prints no result):
    device time.  ``cross_device``: 2 rounds with dropout off on a
    40-writer blob, twice on ``cuda`` and once on ``cpu``: the cuda runs
    are bitwise equal and agree with the cpu run within ``CROSS_TOL``.
+   ``pipeline``: ``main``'s config for 8 rounds (one val eval at the end)
+   at ``pipeline_depth`` 0, 1 and 2 x ``rounds_per_step`` 1 and 25
+   (``PIPELINE_SETTINGS``): params bitwise across depths, B1 once a local
+   step at each setting, secs/round and its host split (pack, stage,
+   dispatch, drain wait, host tail, checkpoint submit) and the chunks
+   drained behind a later dispatch; a depth-1 run cut after round 4 and
+   resumed to 8, bitwise; one round's dispatch half (staging, the round,
+   the stats' copy, the ``latest`` snapshot) under
+   ``torch.cuda.set_sync_debug_mode``, "warn" to name any synchronizing
+   call and "error" to prove there is none (``dga`` does the same for the
+   DGA round).  ``pipeline_profile``: busy and idle share through the
+   server's own loop (``LOOP_SETTINGS``: depth 0 with per-leaf and with
+   staged inputs, depths 1 and 2), windows of ``LOOP_ROUNDS`` rounds
+   timed in turns, beside ``profile``.  Every other phase runs through
+   the ring at the default depth 1.
 4. ``dga``    — the DGA path through the CLI on ``cuda``:
    ``experiments/nlg_gru/config.yaml`` (the GRU word LM at its published
    widths, vocab 10,000, embed 160, hidden 512, 25 words; 10 clients a
@@ -1761,6 +1776,289 @@ def phase_cross_device(torch, work):
 
 
 # ----------------------------------------------------------------------
+#: the pipeline phase: ``main``'s CNN_FEMNIST config (P = 1,206,590, 10
+#: clients at batch 20, the 350 writers, ``pallas_apply``) for 8 rounds
+#: with one val eval at the end, so that one-round chunks overlap in the
+#: ring; each ``(pipeline_depth, rounds_per_step)``
+PIPELINE_ROUNDS = 8
+PIPELINE_SETTINGS = ((0, 1), (1, 1), (2, 1), (0, 25), (1, 25), (2, 25))
+#: the rounds of each timed window of a loop profile, its passes over
+#: the settings (forward then back, each), and the rounds of its warm-up
+#: and traced windows (the profiler's cost grows with each traced
+#: launch); and the loop's settings: ``(name, pipeline_depth,
+#: input_staging)``
+LOOP_ROUNDS = 8
+LOOP_PASSES = 3
+LOOP_TRACE_ROUNDS = 2
+LOOP_SETTINGS = (("depth0_per_leaf", 0, False), ("depth0", 0, True),
+                 ("depth1", 1, True), ("depth2", 2, True))
+#: the host split's ``run_stats`` keys
+HOST_SPLIT = ("secsPerRoundPack", "secsPerRoundStage",
+              "secsPerRoundDispatch", "secsPerRoundDrainWait",
+              "secsPerRoundHostTail", "secsPerRoundCkptSubmit")
+
+
+def pipeline_config(depth, rps, rounds=PIPELINE_ROUNDS, staging=True):
+    raw = json.loads(json.dumps(CNN_CONFIG))
+    raw["server_config"].update(
+        max_iteration=rounds, val_freq=PIPELINE_ROUNDS, rec_freq=1000,
+        initial_val=False, pipeline_depth=depth, rounds_per_step=rps,
+        input_staging=staging)
+    return raw
+
+
+def _shared_parse():
+    """``e2e_trainer.build_task_datasets`` that parses each blob once for
+    the runs of a phase; returns ``(patched, restore)``."""
+    from msrflute_tpu_torch import e2e_trainer
+    parse = e2e_trainer.build_task_datasets
+    parsed = {}
+
+    def shared(cfg, task):
+        key = json.dumps([cfg.client_config.data_config.train,
+                          cfg.server_config.data_config.val,
+                          cfg.server_config.data_config.test,
+                          cfg.model_config], sort_keys=True, default=str)
+        if key not in parsed:
+            parsed[key] = parse(cfg, task)
+        return parsed[key]
+
+    def restore():
+        e2e_trainer.build_task_datasets = parse
+
+    e2e_trainer.build_task_datasets = shared
+    return restore
+
+
+def _mean(values):
+    return float(sum(values) / len(values)) if values else None
+
+
+def _host_split(server):
+    return {key: _mean(server.run_stats[key]) for key in HOST_SPLIT}
+
+
+def _sync_points(torch, fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode``: first "warn",
+    recording where a synchronizing call was made (file:line), then
+    "error".  Returns the recorded places; the phase fails on any."""
+    import warnings
+    prev = torch.cuda.get_sync_debug_mode()
+    places = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    for w in caught:
+        if "called a synchronizing CUDA operation" in str(w.message):
+            places.append(f"{os.path.relpath(w.filename, HERE)}:{w.lineno}")
+    check(not places, f"synchronizing calls in the dispatch half: {places}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    return places
+
+
+def _dispatch_half(torch, server, client_lr=0.1, server_lr=1.0,
+                   quant_threshold=None):
+    """One round's dispatch half through the server's own calls: the
+    chaos vectors, :meth:`dispatch_rounds` (staging, the round, the stats'
+    copy) and the ``latest`` snapshot, under :func:`_sync_points`.  The
+    packing (numpy, before any device call) runs first.  Returns the
+    places of synchronizing calls (none, or the phase failed)."""
+    from msrflute_tpu_torch.data.batching import pack_round_batches
+    sampled = server._sample()
+    batch = pack_round_batches(
+        server.train_dataset, sampled, server.batch_size,
+        server._chunk_steps([sampled]), rng=server._np_rng,
+        desired_max_samples=server.desired_max_samples)
+    state = server.state
+    out = []
+
+    def dispatch():
+        new, packed = server.engine.dispatch_rounds(
+            state, [batch], [client_lr], [server_lr],
+            quant_thresholds=[quant_threshold],
+            chaos_vecs=[server.chaos_vectors(state.round, batch)])
+        server.ckpt.snapshot(new)
+        out.append(packed)
+
+    torch.cuda.synchronize()
+    places = _sync_points(torch, dispatch)
+    stats = [{k: v for k, v in p.fetch()[0].items() if k != "privacy"}
+             for p in out]
+    check(len(stats) == 2 and stats[0] == stats[1] and
+          math.isfinite(stats[0]["train_loss_sum"]),
+          f"dispatch half: stats {stats}")
+    return places
+
+
+def phase_pipeline(torch, work, kernel_rows):
+    """``main``'s config through the CLI at every ``PIPELINE_SETTINGS``
+    entry: params bitwise equal across depths at one chunk size, B1 once a
+    local step at each setting, secs/round, the host split and the chunks
+    drained behind a later dispatch; a run cut after round 4 and resumed
+    to 8 at depth 1, bitwise; one CNN round's dispatch half with no
+    synchronizing call (:func:`_sync_points`)."""
+    restore = _shared_parse()
+    settings, params, servers = {}, {}, {}
+    try:
+        for depth, rps in PIPELINE_SETTINGS:
+            name = f"pipeline_d{depth}_r{rps}"
+            _reset_counts()
+            server, _, secs = _run_cli(work, name,
+                                       pipeline_config(depth, rps), "cuda")
+            launches = _read_counts()
+            steps = server.engine.local_steps
+            want = {k: 0 for k in launches}
+            want["fused_sgd_apply"] = steps
+            check(steps > 0 and launches == want,
+                  f"{name}: launches {launches}, want {want}")
+            for row in kernel_rows:
+                row.setdefault("launches_by_path", {})[name] = \
+                    launches[row["name"]]
+            rounds = server.run_stats["secsPerRound"]
+            check(len(rounds) == PIPELINE_ROUNDS and
+                  all(map(math.isfinite, rounds)), f"{name}: {rounds}")
+            params[(depth, rps)] = server.state.params.cpu()
+            settings[name] = {
+                "pipeline_depth": depth, "rounds_per_step": rps,
+                "secs_per_round": _mean(rounds),
+                "secs_per_round_after_first": _mean(rounds[1:]),
+                "host_split": _host_split(server),
+                "housekeeping_secs": _mean(
+                    server.run_stats["secsPerRoundHousekeeping"]),
+                "pipelined_chunks": server.pipelined_chunks,
+                "checkpoint_async": server.ckpt.async_latest,
+                "local_steps": steps, "b1_launches":
+                    launches["fused_sgd_apply"],
+                "run_seconds": round(secs, 3)}
+            servers[(depth, rps)] = server
+        for (depth, rps), p in params.items():
+            check(torch.equal(p, params[(0, rps)]),
+                  f"pipeline: depth {depth} at rounds_per_step {rps} "
+                  "differs from depth 0")
+        check(servers[(1, 1)].pipelined_chunks == PIPELINE_ROUNDS - 1,
+              "pipeline: the depth-1 ring overlapped "
+              f"{servers[(1, 1)].pipelined_chunks} chunks")
+        # cut after round 4, resumed to 8 at depth 1
+        _run_cli(work, "pipeline_resume", pipeline_config(1, 1, rounds=4),
+                 "cuda")
+        raw = pipeline_config(1, 1)
+        raw["server_config"]["resume_from_checkpoint"] = True
+        resumed, _, _ = _run_cli(work, "pipeline_resume", raw, "cuda")
+        check(resumed.state.round == PIPELINE_ROUNDS and
+              torch.equal(resumed.state.params.cpu(), params[(1, 1)]),
+              "pipeline: the depth-1 resume differs from the uninterrupted "
+              "run")
+        del resumed
+        places = _dispatch_half(torch, servers[(1, 1)])
+    finally:
+        restore()
+    servers.clear()
+    torch.cuda.empty_cache()
+    emit({"phase": "pipeline", "ok": True, "rounds": PIPELINE_ROUNDS,
+          "params": MAIN_P, "clients_per_round": MAIN_K, "writers": 350,
+          "settings": settings, "bitwise_across_depths": True,
+          "resume_bitwise": True, "dispatch_sync_points": places,
+          "main_secs_per_round_after_first": MAIN_SECS.get("after_first")})
+
+
+def _rescaled(traced, n):
+    """:func:`_trace_rounds`'s figures for one call of ``n`` rounds, per
+    round."""
+    out = dict(traced)
+    for key in list(out):
+        if key.endswith("_per_round") and isinstance(out[key], float):
+            out[key] = out[key] / n
+    out["top_device_ops"] = [
+        {**op, "ms_per_round": op["ms_per_round"] / n,
+         "calls_per_round": op["calls_per_round"] / n}
+        for op in traced["top_device_ops"]]
+    return out
+
+
+def phase_pipeline_profile(torch, work, rounds=LOOP_ROUNDS):
+    """The device's busy and idle share through the server's own loop
+    (packing, staging, the ring, the host tail, housekeeping, the
+    ``latest`` saves) at each ``LOOP_SETTINGS`` entry: ``main``'s config
+    on one-round chunks, each window a call of ``train`` (which ends in
+    its full drain).  Each setting first runs :func:`_trace_rounds` on
+    windows of ``LOOP_TRACE_ROUNDS`` rounds (one to warm up, one timed,
+    one under ``torch.profiler``); then the host clock times windows of
+    ``rounds`` rounds in turns, ``LOOP_PASSES`` times A B C D D C B A.
+    ``device_idle_share`` is the traced busy time over the turns' mean
+    wall time; each setting's gain on depth 0 (staged) is also given turn
+    by turn (its k-th window against depth 0's k-th), so the spread
+    between turns stands beside it; ``profile``'s engine-only round of
+    this call stands beside it."""
+    restore = _shared_parse()
+    servers = {}
+    try:
+        for name, depth, staging in LOOP_SETTINGS:
+            raw = pipeline_config(depth, 1, rounds=1, staging=staging)
+            raw["server_config"]["val_freq"] = 1000
+            servers[name] = _run_cli(work, f"loop_{name}", raw, "cuda")[0]
+
+        def run(server, n=rounds):
+            server.config.server_config["max_iteration"] = \
+                server.state.round + n
+            server.train()
+
+        traced, walls, splits = {}, {n: [] for n in servers}, {}
+        for name, server in servers.items():
+            traced[name] = _rescaled(_trace_rounds(
+                torch, lambda: run(server, LOOP_TRACE_ROUNDS), 1,
+                f"loop_{name}"), LOOP_TRACE_ROUNDS)
+        for name in (list(servers) + list(reversed(servers))) * \
+                LOOP_PASSES:
+            server = servers[name]
+            first = len(server.run_stats["secsPerRound"])
+            torch.cuda.synchronize()
+            tic = time.time()
+            run(server)
+            torch.cuda.synchronize()
+            walls[name].append((time.time() - tic) * 1e3 / rounds)
+            for key in HOST_SPLIT:
+                splits.setdefault(name, {}).setdefault(key, []).extend(
+                    server.run_stats[key][first:])
+        loops = {}
+        for name, depth, staging in LOOP_SETTINGS:
+            t, wall = traced[name], _mean(walls[name])
+            loops[name] = {
+                "pipeline_depth": depth, "input_staging": staging,
+                "pipelined_chunks": servers[name].pipelined_chunks,
+                "wall_ms_per_round_turns": walls[name],
+                "wall_ms_per_round": wall,
+                "wall_ms_per_round_median": float(
+                    sorted(walls[name])[len(walls[name]) // 2]),
+                "gain_on_depth0_per_turn": [
+                    1.0 - w / w0 for w, w0 in zip(walls[name],
+                                                  walls["depth0"])],
+                "device_busy_ms_per_round": t["device_busy_ms_per_round"],
+                "device_idle_share":
+                    1.0 - t["device_busy_ms_per_round"] / wall,
+                "host_split_ms": {k: _mean(v) * 1e3
+                                  for k, v in splits[name].items()},
+                "traced": {k: t[k] for k in (
+                    "wall_ms_per_round", "kernel_ms_per_round",
+                    "device_idle_share", "device_idle_share_traced",
+                    "top_device_ops")}}
+    finally:
+        restore()
+    servers.clear()
+    emit({"phase": "pipeline_profile", "ok": True, "rounds": rounds,
+          "loops": loops,
+          "engine_only_profile": F32_PROFILE.get("profile")})
+
+
+# ----------------------------------------------------------------------
 #: the DGA path's synthetic Reddit population: (users, utterances lo, hi)
 REDDIT_SPLITS = (("train", 1000, 20, 400, 10), ("val", 100, 20, 400, 11),
                  ("test", 100, 20, 400, 12))
@@ -1887,7 +2185,12 @@ def phase_dga(torch, work, kernel_rows):
         if row["name"] in ("fused_gaussian_noise", "quant_bin_sparsify"):
             row["launches"] = launches[row["name"]]
     rounds = server.run_stats["secsPerRound"]
+    # the DGA round's dispatch half (B1, local DP, B3, B2) makes no
+    # synchronizing call either
+    places = _dispatch_half(torch, server, client_lr=1.0, server_lr=0.001,
+                            quant_threshold=0.7)
     emit({"phase": "dga", "ok": True, "device": "cuda",
+          "dispatch_sync_points": places,
           "params": DGA_P, "users": {s[0]: s[1] for s in REDDIT_SPLITS},
           "utterances": sizes, "population_note":
               "LEAF Reddit's population cut to 1,000 train users with "
@@ -4269,31 +4572,17 @@ def phase_defense(torch, work, kernel_rows):
     of (e)'s engine with a dropout, its masks drawn and with every mask
     zeroed: the decoded aggregate (so the params) bitwise equal; and a
     profile of two of (e)'s rounds."""
-    import numpy as np
-    from msrflute_tpu_torch import e2e_trainer
     from msrflute_tpu_torch.engine.round import RoundEngine
-    parse = e2e_trainer.build_task_datasets
-    parsed = {}
-
-    def shared(cfg, task):
-        key = json.dumps([cfg.client_config.data_config.train,
-                          cfg.server_config.data_config.val,
-                          cfg.server_config.data_config.test,
-                          cfg.model_config], sort_keys=True, default=str)
-        if key not in parsed:
-            parsed[key] = parse(cfg, task)
-        return parsed[key]
-
     ran = []
-    run_round = RoundEngine.run_round
+    round_fn = RoundEngine._round
 
     def recording(self, state, batch, *args, **kw):
         ran.append((state.round, batch.sample_mask.copy(),
                     batch.client_mask.copy()))
-        return run_round(self, state, batch, *args, **kw)
+        return round_fn(self, state, batch, *args, **kw)
 
-    e2e_trainer.build_task_datasets = shared
-    RoundEngine.run_round = recording
+    restore = _shared_parse()
+    RoundEngine._round = recording
     legs = {}
     try:
         for leg in DEFENSE_LEGS:
@@ -4302,11 +4591,11 @@ def phase_defense(torch, work, kernel_rows):
             legs[leg], server = _defense_leg(torch, work, kernel_rows, leg,
                                              ran)
             if leg == "secagg_full":
-                RoundEngine.run_round = run_round
+                RoundEngine._round = round_fn
                 legs[leg]["masked_equals_unmasked"] = \
                     _masked_equals_unmasked(torch, server)
                 phase_profile_defense(torch, server)
-                RoundEngine.run_round = recording
+                RoundEngine._round = recording
             del server
             torch.cuda.empty_cache()
             if leg in DEFENSE_RESUMED:
@@ -4316,8 +4605,8 @@ def phase_defense(torch, work, kernel_rows):
             legs[leg].pop("_dp_clip", None)
             legs[leg]["seconds"] = round(time.time() - tic, 3)
     finally:
-        e2e_trainer.build_task_datasets = parse
-        RoundEngine.run_round = run_round
+        restore()
+        RoundEngine._round = round_fn
     emit({"phase": "defense", "ok": True, "params": MAIN_P,
           "clients_per_round": MAIN_K, "writers": 350,
           "rounds": DEFENSE_ROUNDS, "chaos": DEFENSE_CHAOS,
@@ -4552,6 +4841,10 @@ def main() -> int:
             phase = "profile"
             phase_profile(torch, server)
             del server
+            phase = "pipeline"
+            phase_pipeline(torch, work, rows)
+            phase = "pipeline_profile"
+            phase_pipeline_profile(torch, work)
             phase = "cross_device"
             phase_cross_device(torch, work)
             phase = "dga"
@@ -4628,7 +4921,8 @@ def main() -> int:
             phase = "mlm_bert"
             server = phase_mlm_bert(torch, work, rows)
             phase = "mlm_bert_profile"
-            phase_profile(torch, server, rounds=2, phase="mlm_bert_profile",
+            # one round each way: its 2.2 s rounds trace slowly
+            phase_profile(torch, server, rounds=1, phase="mlm_bert_profile",
                           client_lr=5e-5, server_lr=5e-5,
                           quant_threshold=0.7)
             del server

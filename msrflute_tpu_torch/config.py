@@ -22,9 +22,13 @@ FedAC, FedBuff (drawn staleness), SCAFFOLD and error-feedback quantization
 corruption (``server_config.chaos``), fluteshield (``robust``), secure
 aggregation (``strategy: secure_agg``, ``server_config.secure_agg``) and
 local DP with adaptive clipping under FedAvg / FedProx, checked by
-:func:`check_defense`.  The combinations that the JAX constructors and round
-engine refuse are refused here, by :func:`check_strategy`, with
-``ValueError`` and the JAX package's meaning.
+:func:`check_defense`, and the round loop's dispatch plane:
+``rounds_per_step``, ``pipeline_depth`` (the ring of dispatched chunks, 0
+to ``MAX_PIPELINE_DEPTH``), ``input_staging`` and ``checkpoint_async``,
+checked by :func:`check_dispatch` with the JAX schema's messages.  The
+combinations that the JAX constructors and round engine refuse are refused
+here, by :func:`check_strategy`, with ``ValueError`` and the JAX package's
+meaning.
 :func:`validate` replaces the JAX package's ``schema.py`` for those
 slices: a key the port runs is accepted, a key that only tunes how the TPU
 program is dispatched (and changes no result) is accepted and ignored, and
@@ -427,7 +431,8 @@ _SERVER = {"type", "max_iteration", "num_clients_per_iteration",
            "megakernel", "data_config", "optimizer_config",
            "annealing_config", "personalization_init",
            "personalization_interp", "semisupervision", "precision",
-           "server_replay_config"}
+           "server_replay_config", "pipeline_depth", "input_staging",
+           "checkpoint_async"}
 _CLIENT = {"type", "desired_max_samples", "max_grad_norm", "fedprox_mu",
            "num_epochs", "step_bucketing", "data_config", "optimizer_config",
            "convex_model_interp", "semisupervision", "freeze_layer"}
@@ -534,15 +539,14 @@ _ROBUST = {"enable", "screen_nonfinite", "norm_multiplier", "aggregator",
 _DEFENSE_SERVER = {"chaos", "robust", "secure_agg"}
 
 #: keys that tune how the JAX package dispatches its TPU program and change
-#: no result; the port runs one round after another and ignores them.
+#: no result, which the port ignores.
 #: (``client_config.annealing_config`` is here because the JAX package
 #: reads no client schedule at all, and ``client_config.updatable_layers``
 #: because its round never passes it into ``ClientHParams``,
 #: ``msrflute_tpu/engine/round.py:150-204``: only server replay's
 #: ``updatable_names`` reaches a client update.)
 _DISPATCH_ONLY = {
-    "server_config": {"pipeline_depth", "compilation_cache_dir",
-                      "input_staging", "checkpoint_async"},
+    "server_config": {"compilation_cache_dir"},
     "dataset": {"loader_type", "pin_memory", "num_workers",
                 "prefetch_factor", "length_bucketing", "device_resident"},
     "client_config": {"do_profiling", "annealing_config",
@@ -704,6 +708,7 @@ def validate(raw: Dict[str, Any]) -> None:
                 | (_DGA_SERVER if dga else set()),
                 off_ok=_OFF_OK["server_config"],
                 ignored=_DISPATCH_ONLY["server_config"])
+    check_dispatch(sc)
     rl = sc.get("RL")
     _check_keys(rl, "server_config.RL", _RL)
     if rl:
@@ -783,6 +788,53 @@ def validate(raw: Dict[str, Any]) -> None:
     if ann and ann.get("type", "step_lr") not in _ANNEALING_TYPES:
         raise ValueError(f"annealing type {ann.get('type')!r}: one of "
                          f"{list(_ANNEALING_TYPES)}")
+
+
+#: the most chunks the dispatch ring holds (``msrflute_tpu/schema.py:405-411``)
+MAX_PIPELINE_DEPTH = 8
+
+
+class SchemaError(ValueError):
+    """The JAX schema's error: every violation, one a line."""
+
+    def __init__(self, errors: List[str]):
+        self.errors = errors
+        super().__init__("config schema violations:\n  "
+                         + "\n  ".join(errors))
+
+
+def check_dispatch(sc: Dict[str, Any]) -> None:
+    """The round loop's knobs, with the JAX schema's messages
+    (``schema.py:598-602, 713-745, 1181-1192``): ``pipeline_depth`` an
+    integer in ``[0, MAX_PIPELINE_DEPTH]``, ``rounds_per_step`` one >= 1,
+    ``input_staging`` and ``checkpoint_async`` booleans."""
+    errors = []
+    for key, lo in (("pipeline_depth", 0), ("rounds_per_step", 1)):
+        val = sc.get(key)
+        if val is None:
+            continue
+        if isinstance(val, bool) or not isinstance(val, int):
+            errors.append(f"server_config.{key}: must be an integer, got "
+                          f"{type(val).__name__}")
+        elif val < lo:
+            errors.append(f"server_config.{key}: must be >= {lo}, got {val}")
+    for key in ("input_staging", "checkpoint_async"):
+        val = sc.get(key)
+        if val is not None and not isinstance(val, bool):
+            errors.append(f"server_config.{key}: must be a boolean, got "
+                          f"{type(val).__name__}")
+    pd = sc.get("pipeline_depth")
+    if isinstance(pd, int) and not isinstance(pd, bool) and \
+            pd > MAX_PIPELINE_DEPTH:
+        errors.append(
+            f"server_config.pipeline_depth: {pd} exceeds the supported "
+            f"maximum {MAX_PIPELINE_DEPTH} — each depth slot keeps a full "
+            "round chunk's staged inputs and packed stats resident in "
+            "device memory, and depth past the host-tail/device-round "
+            "ratio buys nothing; lower it (see docs/RUNBOOK.md pipeline "
+            "tuning)")
+    if errors:
+        raise SchemaError(errors)
 
 
 def _refuse(cond: bool, why: str) -> None:

@@ -42,6 +42,19 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def host_to_device(values, device: torch.device,
+                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Host values (a list or an array) as a tensor on ``device``.  To a
+    card they go from pinned memory with a ``non_blocking`` copy: a copy
+    from pageable memory waits for every kernel queued before it, a hidden
+    sync.  The pinned block is not reused until its copy has run (the
+    caching host allocator records the copy's stream)."""
+    host = torch.as_tensor(values, dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
 @contextlib.contextmanager
 def cpu16_guard(device: DeviceLike,
                 *dtypes: Optional[torch.dtype]) -> Iterator[None]:

@@ -248,8 +248,8 @@ class PersonalizationServer(OptimizationServer):
 
     # ------------------------------------------------------------------
     def _round_housekeeping(self, round_no: int, val_freq: int,
-                            rec_freq: int) -> None:
-        super()._round_housekeeping(round_no, val_freq, rec_freq)
+                            rec_freq: int, **kw) -> None:
+        super()._round_housekeeping(round_no, val_freq, rec_freq, **kw)
         if round_no % val_freq == 0 and self.val_dataset is not None:
             self.personalized_eval(self.val_dataset)
         tic = time.time()
@@ -257,6 +257,8 @@ class PersonalizationServer(OptimizationServer):
         self.run_stats["secsPersonalSave"].append(time.time() - tic)
 
     def train(self):
+        # the hooked ``_sample`` reads the live global model, so the round
+        # loop runs serial (``_pipeline_capable``)
         state = super().train()
         self.store.save()
         return state

@@ -33,6 +33,27 @@ under weights the caller picks), ``round.py:1554-1660``.  The server
 optimizers are functional, so two calls of ``apply_custom_weights`` from
 one state (the RL hook's candidates) both start from that state.
 
+Dispatch and drain (``round.py:58-87, 340-346, 1713-2029``):
+:meth:`RoundEngine.dispatch_rounds` launches a chunk of R rounds back to
+back with no host sync and returns the new state with a lazy
+:class:`PackedStats`; :meth:`RoundEngine.run_round` is
+``dispatch_rounds([batch])`` then ``fetch()``.  With ``input_staging``
+(the default) the chunk's host inputs — feature grids, masks, chaos
+vectors, staleness coins — are packed into one pinned buffer per dtype
+group (:class:`..utils.flatpack.AxisPacker`) and cross in one
+``non_blocking`` copy each; the buffers come from PyTorch's caching host
+allocator, which reuses a block only once the copy out of it has
+finished, so the host packs chunk k+1 while chunk k's copy may still be in
+flight.  The learning
+rates, round indices and thresholds stay Python numbers: they reach the
+kernels as arguments by value and need no copy.  The round stats are
+packed on the device into one buffer per dtype group
+(:class:`..utils.flatpack.FlatPacker`) and cross once a chunk, through
+pinned memory, behind an event.  The server's state is never written in
+place (the optimizers are functional, B1 writes only the clients' ``[K,
+P]`` copy), so a dispatched chunk's state stays valid while later chunks
+run.
+
 Randomness, all from ``np.random.SeedSequence`` entropy, so a resumed run
 needs only the round number and the numpy sampling state to replay every
 stream:
@@ -47,8 +68,9 @@ stream:
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +82,7 @@ from ..resilience.chaos import CORRUPT_NAN, CORRUPT_SCALE, CORRUPT_SIGN_FLIP
 from ..robust import make_shield
 from ..strategies.base import BaseStrategy
 from ..strategies.secure_agg import wrap_int32
+from ..utils.flatpack import AxisPacker, FlatPacker
 from .client_update import ClientHParams, build_client_update
 
 
@@ -83,6 +106,54 @@ class ServerState:
     opt_state: Dict[str, torch.Tensor]
     round: int = 0
     strategy_state: Dict[str, torch.Tensor] = field(default_factory=dict)
+
+
+#: staged leaves start on the caching allocator's 512-byte boundary, where
+#: a leaf copied on its own would start: a library kernel that picks its
+#: algorithm by alignment then picks the same one either way
+STAGE_ALIGN_BYTES = 512
+
+
+def to_device(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """One host-to-device copy: ``non_blocking`` from pinned memory (the
+    host does not wait), a plain ``.to`` otherwise; on the CPU the tensor
+    itself."""
+    return host.to(device, non_blocking=host.is_pinned())
+
+
+@dataclass
+class PackedStats:
+    """One chunk's round stats, packed on the device into one buffer per
+    dtype group and copied into pinned host memory behind ``event``
+    (``round.py:58-87``).  Nothing waits until :meth:`fetch`."""
+
+    host: Dict[str, torch.Tensor]   #: ``{dtype: 1-D host buffer}``
+    packer: FlatPacker              #: the chunk's slot table
+    rounds: int
+    event: Optional[Any] = None     #: ``torch.cuda.Event`` after the copy
+
+    def fetch(self) -> List[Dict[str, Any]]:
+        """Wait for the copy, then decode: one dict a round, as
+        :meth:`RoundEngine.run_round` returns it."""
+        if self.event is not None:
+            self.event.synchronize()
+        rounds = self.packer.unpack_np(
+            {dt: t.numpy() for dt, t in self.host.items()})
+        return [_decode_stats(r) for r in rounds]
+
+
+def _decode_stats(stats: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """Scalars to floats; each ``privacy_*`` key's ``[K]`` values and the
+    client mask under ``"privacy"``."""
+    out: Dict[str, Any] = {}
+    privacy = {k: np.array(v) for k, v in stats.items()
+               if k.startswith("privacy_")}
+    if privacy:
+        privacy["client_mask"] = np.array(stats["client_mask"])
+        out["privacy"] = privacy
+    out.update((k, float(v)) for k, v in stats.items()
+               if not k.startswith("privacy_") and k != "client_mask")
+    return out
 
 
 def pallas_apply_flag(server_config) -> bool:
@@ -163,6 +234,13 @@ class RoundEngine:
         self.shield = make_shield(sc)
         if self.shield is not None:
             self._check_shield(strategy)
+        #: ``server_config.input_staging`` (``round.py:340-346``): one
+        #: pinned buffer and one copy per dtype group a chunk; off, one
+        #: copy a leaf
+        self.input_staging = bool(sc.get("input_staging", True))
+        #: host seconds the last dispatch spent packing and enqueueing its
+        #: inputs
+        self.last_stage_secs = 0.0
 
     def _check_shield(self, strategy: BaseStrategy) -> None:
         """The JAX engine's refusals of a ``robust`` block."""
@@ -232,30 +310,73 @@ class RoundEngine:
         return stream_seed(self.seed, int(round_idx), SERVER_SLOT,
                            SERVER_TAG)
 
+    def _host_inputs(self, round_idx: int, batch: RoundBatch,
+                     chaos: Optional[Dict[str, np.ndarray]]
+                     ) -> Dict[str, Any]:
+        """A round's host operands: the feature grids, the masks, the chaos
+        vectors and the staleness coins."""
+        tree: Dict[str, Any] = {"arrays": dict(batch.arrays),
+                                "sample_mask": batch.sample_mask,
+                                "client_mask": batch.client_mask}
+        for key in ("drop", "keep", "corrupt"):
+            if chaos is not None and key in chaos:
+                tree[key] = chaos[key]
+        if self.strategy.stale_prob > 0.0:
+            tree["stale"] = self.stale_coins(round_idx, batch.client_ids)
+        return tree
+
+    def stage_inputs(self, round0: int, batches: List[RoundBatch],
+                     chaos_vecs: Optional[list] = None
+                     ) -> List[Dict[str, Any]]:
+        """The chunk's host operands on the device, one dict a round.
+        Staged: one pinned buffer per dtype group, filled in place and
+        copied once (``round.py:1713-1843``); else one copy a leaf."""
+        dev = self.device
+        chaos_vecs = chaos_vecs or [None] * len(batches)
+        host = [self._host_inputs(round0 + j, b, c)
+                for j, (b, c) in enumerate(zip(batches, chaos_vecs))]
+        if not self.input_staging:
+            return [{k: ({a: to_device(torch.from_numpy(x), dev)
+                          for a, x in v.items()} if k == "arrays"
+                         else to_device(torch.from_numpy(v), dev))
+                     for k, v in tree.items()} for tree in host]
+        packer = AxisPacker(host, lead_ndim=0,
+                            align_bytes=STAGE_ALIGN_BYTES)
+        if dev.type == "cuda":
+            # the caching host allocator records each copy's stream on its
+            # block: a freed buffer is handed out again only once its copy
+            # has finished
+            bufs = {dt: torch.empty(shape, dtype=getattr(torch, dt),
+                                    pin_memory=True)
+                    for dt, shape in packer.buffer_shapes().items()}
+            packer.pack_np(host, out={dt: b.numpy()
+                                      for dt, b in bufs.items()})
+            staged = {dt: to_device(b, dev) for dt, b in bufs.items()}
+        else:
+            staged = {dt: to_device(torch.from_numpy(b), dev)
+                      for dt, b in packer.pack_np(host).items()}
+        return packer.unpack(staged)
+
     def _client_step(self, state: ServerState, batch: RoundBatch,
-                     global_flat: torch.Tensor, client_lr: float,
-                     quant_threshold: Optional[float],
+                     inputs: Dict[str, Any], global_flat: torch.Tensor,
+                     client_lr: float, quant_threshold: Optional[float],
                      leakage_threshold: Optional[float],
                      grad_offsets: Optional[torch.Tensor] = None,
                      masks: Optional[Tuple[torch.Tensor,
                                            torch.Tensor]] = None):
-        """The round's batch on the device and the strategy's client step
-        -> ``(parts, train_loss, num_samples, stats, client_mask)``.
-        ``masks`` replaces the batch's ``(sample_mask, client_mask)`` on the
-        device (the round's chaos faults folded in)."""
-        dev = self.device
+        """The strategy's client step on the round's staged ``inputs`` ->
+        ``(parts, train_loss, num_samples, stats, client_mask)``.
+        ``masks`` replaces the inputs' ``(sample_mask, client_mask)`` (the
+        round's chaos faults folded in)."""
         r = state.round
-        arrays = {k: torch.from_numpy(v).to(dev)
-                  for k, v in batch.arrays.items()}
         if masks is None:
-            masks = (torch.from_numpy(batch.sample_mask).to(dev),
-                     torch.from_numpy(batch.client_mask).to(dev))
+            masks = (inputs["sample_mask"], inputs["client_mask"])
         sample_mask, cm = masks
         gens = (self.client_generators(r, batch.client_ids)
                 if self.random else None)
         self.local_steps += self.hparams.num_epochs * sample_mask.shape[1]
         parts, tl, ns, stats = self.strategy.client_step(
-            self.client_update, global_flat, arrays, sample_mask,
+            self.client_update, global_flat, inputs["arrays"], sample_mask,
             client_lr, gens, quant_threshold=quant_threshold,
             client_rngs=lambda tag: self.client_generators(
                 r, batch.client_ids, tag), bounds=self.bounds, round_idx=r,
@@ -280,9 +401,10 @@ class RoundEngine:
         (``msrflute_tpu/engine/round.py:1554-1632``).  ``grad_offsets``
         (``[K, P]`` on the engine's device, zero rows for padding clients)
         goes to every local step's gradient (SCAFFOLD's ``c - c_i``)."""
+        inputs = self.stage_inputs(state.round, [batch])[0]
         parts, tl, _, stats, cm = self._client_step(
-            state, batch, state.params, client_lr, None, leakage_threshold,
-            grad_offsets)
+            state, batch, inputs, state.params, client_lr, None,
+            leakage_threshold, grad_offsets)
         pg, w = parts["default"]
         return pg, w * cm, tl * cm, stats
 
@@ -299,7 +421,7 @@ class RoundEngine:
         return ServerState(params, opt_state, state.round + 1,
                            state.strategy_state)
 
-    def _chaos_masks(self, batch: RoundBatch, chaos: Optional[dict],
+    def _chaos_masks(self, inputs: Dict[str, Any],
                      stats: Dict[str, torch.Tensor]):
         """The round's ``(sample_mask, client_mask)`` on the device with
         the chaos faults folded in (``msrflute_tpu/engine/round.py:
@@ -307,17 +429,14 @@ class RoundEngine:
         straggler's steps past its budget leave the sample mask (its
         partial work still aggregates).  The fault counts go into
         ``stats``."""
-        dev = self.device
-        sample_mask = torch.from_numpy(batch.sample_mask).to(dev)
-        cm = torch.from_numpy(batch.client_mask).to(dev)
-        if chaos is None or "drop" not in chaos:
+        sample_mask, cm = inputs["sample_mask"], inputs["client_mask"]
+        if "drop" not in inputs:
             return sample_mask, cm
-        drop = torch.from_numpy(chaos["drop"]).to(dev)
-        keep = torch.from_numpy(chaos["keep"]).to(dev)
+        drop, keep = inputs["drop"], inputs["keep"]
         step_live = sample_mask.sum(dim=-1) > 0                   # [K, S]
         real_steps = step_live.sum(dim=-1)                        # [K]
-        keep_f = (torch.arange(sample_mask.shape[-2], device=dev)[None, :]
-                  < keep[:, None]).to(torch.float32)              # [K, S]
+        keep_f = (torch.arange(sample_mask.shape[-2], device=self.device)
+                  [None, :] < keep[:, None]).to(torch.float32)    # [K, S]
         live_cm = cm * (1.0 - drop)
         stats["chaos_dropped"] = torch.sum(cm * drop)
         stats["chaos_straggled"] = torch.sum(
@@ -339,43 +458,102 @@ class RoundEngine:
         return torch.where((mode == CORRUPT_NAN)[:, None], nan,
                            pg * mult[:, None])
 
+    def dispatch_rounds(self, state: ServerState,
+                        batches: List[RoundBatch], client_lrs: List[float],
+                        server_lrs: List[float],
+                        leakage_threshold: Optional[float] = None,
+                        quant_thresholds: Optional[List[Optional[float]]]
+                        = None,
+                        chaos_vecs: Optional[list] = None
+                        ) -> Tuple[ServerState, PackedStats]:
+        """Launch ``len(batches)`` rounds back to back without waiting for
+        the device (``round.py:1947-2029``): the inputs staged, each round
+        enqueued, the stats packed and their copy to the host enqueued.
+        Returns the new state and the lazy stats; ``chaos_vecs`` holds
+        each round's fault vectors (see :meth:`run_round`)."""
+        R = len(batches)
+        tic = time.perf_counter()
+        inputs = self.stage_inputs(state.round, batches, chaos_vecs)
+        self.last_stage_secs = time.perf_counter() - tic
+        thresholds = quant_thresholds or [None] * R
+        chaos_vecs = chaos_vecs or [None] * R
+        stats = []
+        for j in range(R):
+            state, round_stats = self._round(
+                state, batches[j], inputs[j], client_lrs[j], server_lrs[j],
+                thresholds[j], leakage_threshold, chaos_vecs[j])
+            stats.append(round_stats)
+        return state, self._pack_stats(stats)
+
+    def _pack_stats(self, stats: List[Dict[str, torch.Tensor]]
+                    ) -> PackedStats:
+        """The chunk's stats, one buffer per dtype group on the device,
+        copied into pinned host memory behind an event (on the CPU the
+        packed buffers are the host's)."""
+        packer = FlatPacker(stats)
+        vecs = packer.pack(stats)
+        if self.device.type != "cuda":
+            return PackedStats(vecs, packer, len(stats))
+        host = {}
+        for dt, v in vecs.items():
+            host[dt] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            host[dt].copy_(v, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return PackedStats(host, packer, len(stats), event)
+
     def run_round(self, state: ServerState, batch: RoundBatch,
                   client_lr: float, server_lr: float,
                   quant_threshold: Optional[float] = None,
                   leakage_threshold: Optional[float] = None,
                   chaos: Optional[Dict[str, np.ndarray]] = None
                   ) -> Tuple[ServerState, Dict[str, float]]:
-        """One round -> ``(new state, stats)``: the round's scalar sums,
-        and with the privacy metrics on, ``stats["privacy"]``: each
-        ``privacy_*`` key's ``[K]`` values and the client mask, on the
-        host (the server logs them and adapts the leakage threshold).
+        """One round -> ``(new state, stats)``: :meth:`dispatch_rounds` of
+        one batch, then its stats fetched.  The stats are the round's
+        scalar sums, and with the privacy metrics on,
+        ``stats["privacy"]``: each ``privacy_*`` key's ``[K]`` values and
+        the client mask, on the host (the server logs them and adapts the
+        leakage threshold).
 
         ``chaos`` holds the round's fault vectors
         (``resilience/chaos.py``): ``drop`` and ``keep`` (``[K]`` float32)
         when the engine runs client faults, ``corrupt`` (``[K]`` int32)
-        when it runs corruption.  The round keeps the JAX package's order:
-        faults, client step, corruption, masking (secure aggregation),
-        screening, the part sums, mask recovery, the combine."""
+        when it runs corruption."""
+        state, packed = self.dispatch_rounds(
+            state, [batch], [client_lr], [server_lr], leakage_threshold,
+            [quant_threshold], [chaos])
+        return state, packed.fetch()[0]
+
+    def _round(self, state: ServerState, batch: RoundBatch,
+               inputs: Dict[str, Any], client_lr: float, server_lr: float,
+               quant_threshold: Optional[float],
+               leakage_threshold: Optional[float],
+               chaos: Optional[Dict[str, np.ndarray]]
+               ) -> Tuple[ServerState, Dict[str, torch.Tensor]]:
+        """One round enqueued -> ``(new state, stats on the device)``.  The
+        round keeps the JAX package's order: faults, client step,
+        corruption, masking (secure aggregation), screening, the part
+        sums, mask recovery, the combine."""
         dev = self.device
         r = state.round
         strategy = self.strategy
         bcast = strategy.broadcast_params(state.params,
                                           state.strategy_state)
         extra: Dict[str, torch.Tensor] = {}
-        masks = self._chaos_masks(batch, chaos, extra)
+        masks = self._chaos_masks(inputs, extra)
         live_cm = masks[1]
         mode = None
         if self.chaos_corruption:
             # gated on the live mask: a dropped client never transmits,
             # and a padding slot's zero row must not become NaN
-            mode = torch.from_numpy(chaos["corrupt"]).to(dev)
+            mode = inputs["corrupt"]
             mode = torch.where(live_cm > 0, mode, torch.zeros_like(mode))
             for key, code in (("chaos_nan_injected", CORRUPT_NAN),
                               ("chaos_scaled", CORRUPT_SCALE),
                               ("chaos_sign_flipped", CORRUPT_SIGN_FLIP)):
                 extra[key] = torch.sum((mode == code).to(torch.float32))
         parts, tl, ns, stats, cm = self._client_step(
-            state, batch, bcast, client_lr, quant_threshold,
+            state, batch, inputs, bcast, client_lr, quant_threshold,
             leakage_threshold, masks=masks)
         if mode is not None:
             pg, w = parts["default"]
@@ -410,8 +588,7 @@ class RoundEngine:
             extra["shield_norm_outlier"] = torch.sum(q_norm)
         stale = None
         if strategy.stale_prob > 0.0:
-            stale = torch.from_numpy(
-                self.stale_coins(r, batch.client_ids)).to(dev) * cm
+            stale = inputs["stale"] * cm
         part_sums = {}
         for name, (pg, w) in parts.items():
             if name in strategy.unit_weight_parts:
@@ -487,19 +664,10 @@ class RoundEngine:
         if privacy:
             round_stats.update((k, stats[k]) for k in privacy)
             round_stats["client_mask"] = cm
-        # one device->host transfer for the whole stats dict
-        sizes = [v.numel() for v in round_stats.values()]
-        host = torch.cat([v.reshape(-1).to(torch.float32)
-                          for v in round_stats.values()]).cpu()
-        out = dict(zip(round_stats, torch.split(host, sizes)))
-        per_client = {k: out.pop(k).numpy() for k in privacy}
-        if privacy:
-            per_client["client_mask"] = out.pop("client_mask").numpy()
-            out["privacy"] = per_client
-        out.update((k, float(v[0])) for k, v in list(out.items())
-                   if k != "privacy")
+        # float32, as the stats have always crossed to the host
+        round_stats = {k: v.to(torch.float32) for k, v in round_stats.items()}
         return (ServerState(new_params, opt_state, r + 1, strategy_state),
-                out)
+                round_stats)
 
     def _recover_masks(self, grad_sum: torch.Tensor, batch: RoundBatch,
                        live: np.ndarray, screened: Optional[torch.Tensor],
@@ -518,14 +686,18 @@ class RoundEngine:
         strategy = self.strategy
         grad_sum = strategy.cancel_masks(grad_sum, batch.client_ids,
                                          sampled, survivors, round_idx)
-        dev = self.device
-        stats["secagg_recovered_dropout"] = torch.tensor(
-            float(((sampled > 0) & (live <= 0)).sum()), device=dev)
-        stats["secagg_recovered_quarantine"] = torch.tensor(
-            float(((live > 0) & (survivors <= 0)).sum()), device=dev)
+        # host counts filled on the device: no copy
+        def count(value) -> torch.Tensor:
+            return torch.full((), float(value), dtype=torch.float32,
+                              device=self.device)
+
+        stats["secagg_recovered_dropout"] = count(
+            ((sampled > 0) & (live <= 0)).sum())
+        stats["secagg_recovered_quarantine"] = count(
+            ((live > 0) & (survivors <= 0)).sum())
         if strategy.min_survivors > 0:
             abort = float(np.sum(survivors)) < strategy.min_survivors
             if abort:
                 grad_sum = torch.zeros_like(grad_sum)
-            stats["secagg_abort"] = torch.tensor(float(abort), device=dev)
+            stats["secagg_abort"] = count(abort)
         return grad_sum

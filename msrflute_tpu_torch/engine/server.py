@@ -20,11 +20,34 @@ quarantine and secure-aggregation counters and the adaptive clip are
 logged under the JAX server's metric names.  Chaos client faults and a
 ``robust`` block are refused on the host-orchestrated rounds.
 
-Rounds run one after another.  ``rounds_per_step`` keeps the JAX
-package's host-side order of random draws — a chunk of R rounds (never
-crossing an eval boundary) samples its R cohorts first, then packs them
-— so both packages draw the same cohorts and grids from one seed; the
-rounds themselves are not fused into one program.
+The round loop is the twin of ``_train_loop`` (``server.py:1256-1983``).
+A chunk of R = ``rounds_per_step`` rounds (never crossing an eval
+boundary) samples its R cohorts first, then packs them, so both packages
+draw the same cohorts and grids from one seed, and is dispatched with
+:meth:`~.round.RoundEngine.dispatch_rounds`, which returns at once with
+lazy stats.  With ``pipeline_depth`` N >= 1 (the default 1) up to N
+dispatched chunks wait in a ring, and the oldest is drained — its stats
+fetched once, the per-round logging, privacy stats, the defense
+counters, housekeeping and the ``latest`` save — after the next chunk is
+dispatched, so the host tail runs while the device works.  At an eval,
+rec or last-round boundary the whole ring drains.  Depth 0 is the serial
+loop; with ``rounds_per_step`` > 1 it packs the next chunk right after a
+dispatch (``prefetch_ok``).  Every random draw (cohorts, shuffles, chaos
+vectors, staleness coins) is a numpy draw in dispatch order and
+housekeeping draws nothing, so params, each metric's series, the status
+log and checkpoints are the same at every depth (a metric logged at
+dispatch, the annealed quantization threshold, may come earlier in
+``metrics.jsonl``); with lookahead packing the
+resume anchor (the ``np_rng`` state) is taken at dispatch and written by
+that chunk's housekeeping.  The status log is written before the chunk's
+``latest`` save and keeps an entry for each of the last ``STATUS_RING``
+chunks, so a resume takes the anchors of the round its checkpoint holds
+even when a crash left the status a chunk or two ahead (the async save
+in flight, or ``latest``'s ``.prev`` slot).  Paths whose host tail feeds
+the next dispatch run serial (``_pipeline_capable``, ``server.py:327-340, 1682-1690``):
+DGA's RL hook, SCAFFOLD and EF's host rounds, server replay, the adaptive
+leakage threshold and a hooked ``_sample`` (personalization).
+``checkpoint_async`` defaults on when the loop is pipelined.
 
 Host-orchestrated rounds (``server.py:1410``): with ``wantRL`` (DGA's RL
 weight hook), ``strategy: scaffold`` or ``strategy: ef_quant`` each round
@@ -50,7 +73,8 @@ import copy
 import logging
 import os
 import time
-from typing import Dict, List, Optional
+from collections import deque
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -76,6 +100,8 @@ from .round import SERVER_SLOT, RoundEngine, ServerState
 
 #: the replay's dropout stream: ``[seed, r, SERVER_SLOT, REPLAY_TAG]``
 REPLAY_TAG = 5
+#: chunks of status entries the status log keeps (``server.py:2493``)
+STATUS_RING = 16
 #: the chaos counters of the round's stats: ``(stats key, counter, the
 #: JAX server's metric name)``
 CHAOS_METRICS = (
@@ -116,9 +142,32 @@ class OptimizationServer:
         #: each round's fault vectors and logs the counters
         self.shield = self.engine.shield
         self.chaos = make_chaos(sc)
+        self._sample_hooked = \
+            type(self)._sample is not OptimizationServer._sample
         self._check_host_rounds(sc)
+
+        # the dispatch/drain ring (server.py:314-352): paths whose host
+        # tail feeds the next dispatch run serial, decided up front
+        # because the async-checkpoint default depends on it
+        self.pipeline_depth = max(int(sc.get("pipeline_depth", 1) or 0), 0)
+        pm_cfg = getattr(config, "privacy_metrics_config", None)
+        wants_adaptive = bool(
+            pm_cfg is not None and pm_cfg.get("apply_metrics", False)
+            and pm_cfg.get("adaptive_leakage_threshold"))
+        self._pipeline_capable = (
+            not sc.get("wantRL", False) and
+            not getattr(self.strategy, "host_rounds", False) and
+            not (sc.get("server_replay_config") is not None and
+                 server_train_dataset is not None) and
+            not wants_adaptive and not self._sample_hooked)
+        ckpt_async = sc.get("checkpoint_async")
+        if ckpt_async is None:
+            ckpt_async = self.pipeline_depth > 0 and self._pipeline_capable
         self.ckpt = CheckpointManager(model_dir, self.engine.layout,
-                                      sc.get("model_backup_freq", 100))
+                                      sc.get("model_backup_freq", 100),
+                                      async_latest=bool(ckpt_async))
+        #: chunks drained while a later chunk was in flight
+        self.pipelined_chunks = 0
 
         # LR machinery: server-side schedule + client plateau decay
         self.initial_lr_client = float(sc.get("initial_lr_client", 0.01))
@@ -181,14 +230,29 @@ class OptimizationServer:
 
         self._np_rng = np.random.default_rng(seed)
         self._eval_batches: Dict[str, dict] = {}
+        #: host seconds a round, one entry a round (a chunk's R rounds
+        #: share its value; housekeeping: one entry a chunk, in seconds):
+        #: ``secsPerRound`` from
+        #: the previous fence to this one when pipelined, from prep to
+        #: fence when serial (``server.py:1709-1716``); its split into
+        #: packing, staging, the dispatch's enqueue, the wait at the
+        #: stats fetch, the host tail after it, checkpoint submission and
+        #: housekeeping
         self.run_stats: Dict[str, List[float]] = {
-            "secsPerRound": [], "secsPerRoundHousekeeping": []}
+            key: [] for key in (
+                "secsPerRound", "secsPerRoundPack", "secsPerRoundStage",
+                "secsPerRoundDispatch", "secsPerRoundDrainWait",
+                "secsPerRoundHostTail", "secsPerRoundCkptSubmit",
+                "secsPerRoundHousekeeping")}
         #: one record per evaluation: split, round and metric values
         self.history: List[Dict[str, float]] = []
 
         self.state = self.engine.init_state(
             init_params if init_params is not None
             else task.init_params(seed))
+        #: ``[round, status]`` of the last few chunks, written into the
+        #: status log (``server.py:2487-2495``)
+        self._status_ring: list = []
         resumed = bool(sc.get("resume_from_checkpoint", False)) and \
             self._resume()
 
@@ -233,7 +297,7 @@ class OptimizationServer:
         client faults there are refused, as in ``server.py:195-222``."""
         host = (bool(sc.get("wantRL", False)) or
                 getattr(self.strategy, "host_rounds", False) or
-                type(self)._sample is not OptimizationServer._sample)
+                self._sample_hooked)
         if not host:
             return
         if self.shield is not None:
@@ -321,7 +385,10 @@ class OptimizationServer:
         if restored is None:
             return False
         self.state = restored
-        status = self.ckpt.read_status()
+        status = self._paired_status(self.ckpt.read_status(), restored.round)
+        # entries beyond the resumed round belong to the abandoned run
+        self._status_ring = [e for e in status.get("status_ring", [])
+                             if int(e[0]) <= restored.round]
         if int(status.get("i", -1)) != restored.round:
             print_rank(f"status_log.json is at round {status.get('i')} but "
                        f"the checkpoint at {restored.round}; the sampling "
@@ -349,6 +416,23 @@ class OptimizationServer:
         print_rank(f"resumed from checkpoint at round {self.state.round}")
         return True
 
+    @staticmethod
+    def _paired_status(status: Dict[str, Any],
+                       round_no: int) -> Dict[str, Any]:
+        """The status entry written for the checkpoint's own round
+        (``server.py:1030-1044``).  The status log is written before the
+        chunk's ``latest`` save, and an async save lands later still, so
+        after a crash the flat fields may be a chunk or two ahead of the
+        loadable slot; the ring's entry for that slot's round re-anchors
+        the sampling trail, the LR weight and the best values.  A log
+        without the entry keeps its flat fields."""
+        for entry in reversed(status.get("status_ring", [])):
+            if int(entry[0]) == int(round_no):
+                merged = dict(status)
+                merged.update(entry[1])
+                return merged
+        return status
+
     def _sample(self) -> list:
         """The round's cohort (a subclass may hook work onto the draw, as
         the personalization server does: anything it draws from
@@ -375,6 +459,23 @@ class OptimizationServer:
     def run(self):
         return self.train()
 
+    def _pipeline_ok(self) -> bool:
+        """Whether the ring may run (``server.py:1682-1690``): everything
+        the host tail feeds into the next dispatch forces serial."""
+        return self._pipeline_capable and self.rl is None and \
+            self.scaffold_store is None and self.ef_store is None and \
+            self.server_replay is None and self.adaptive_leakage is None
+
+    def _pack_chunk(self, R: int) -> list:
+        """The chunk's R cohorts, sampled first, then packed on one step
+        count."""
+        samples = [self._sample() for _ in range(R)]
+        steps = self._chunk_steps(samples)
+        return [pack_round_batches(
+            self.train_dataset, sampled, self.batch_size, steps,
+            rng=self._np_rng, desired_max_samples=self.desired_max_samples)
+            for sampled in samples]
+
     def train(self):
         sc = self.config.server_config
         max_iteration = int(sc.get("max_iteration", 100))
@@ -398,15 +499,29 @@ class OptimizationServer:
             return min(rounds_per_step, max_iteration - r0, until_val,
                        until_rec)
 
+        def pack(R: int):
+            tic = time.time()
+            return R, self._pack_chunk(R), time.time() - tic
+
         host_round = (self._run_rl_round if self.rl is not None else
                       self._run_scaffold_round
                       if self.scaffold_store is not None else
                       self._run_ef_round if self.ef_store is not None
                       else None)
+        pipelined = self.pipeline_depth > 0 and self._pipeline_ok()
+        # serial fused chunks pack the next chunk right after a dispatch;
+        # the ring already packs while the device runs
+        prefetch_ok = (rounds_per_step > 1 and not pipelined and
+                       host_round is None and self.server_replay is None
+                       and not self._sample_hooked)
+        prefetched = None
+        # dispatched, undrained chunks, oldest first
+        pending: deque = deque()
+        self._last_fence = 0.0
         round_no = self.state.round
         while round_no < max_iteration:
+            tic = time.time()
             if host_round is not None:
-                tic = time.time()
                 host_round(round_no)
                 if self.server_replay is not None:
                     self._run_server_replay(round_no)
@@ -416,13 +531,13 @@ class OptimizationServer:
                 continue
             R = chunk_R(round_no)
             client_lr = self.initial_lr_client * self.lr_weight
-            samples = [self._sample() for _ in range(R)]
-            steps = self._chunk_steps(samples)
-            batches = [pack_round_batches(
-                self.train_dataset, sampled, self.batch_size, steps,
-                rng=self._np_rng,
-                desired_max_samples=self.desired_max_samples)
-                for sampled in samples]
+            server_lrs = [(self.plateau.lr if self.plateau is not None
+                           else self.server_lr_schedule(r))
+                          for r in range(round_no, round_no + R)]
+            if prefetched is None or prefetched[0] != R:
+                prefetched = pack(R)
+            _, batches, pack_secs = prefetched
+            prefetched = None
             thresholds = [None] * R
             if self.quant_thresh is not None:
                 # multiplied by quant_anneal BEFORE its first use, each
@@ -433,41 +548,117 @@ class OptimizationServer:
                     thresholds[j] = self.quant_thresh
                     self.metrics.log("Quantization Thresh.",
                                      self.quant_thresh, step=round_no + j)
-            for j, batch in enumerate(batches):
-                r = round_no + j
-                server_lr = (self.plateau.lr if self.plateau is not None
-                             else self.server_lr_schedule(r))
-                tic = time.time()
-                # run_round ends in its stats fetch, so this wall time
-                # covers the round's device work
-                self.state, stats = self.engine.run_round(
-                    self.state, batch, client_lr, server_lr,
-                    quant_threshold=thresholds[j],
-                    leakage_threshold=self.max_allowed_leakage,
-                    chaos=self.chaos_vectors(r, batch))
-                self.run_stats["secsPerRound"].append(time.time() - tic)
-                if "privacy" in stats:
-                    self._process_privacy_stats(stats["privacy"], r)
-                n_clients = max(stats["client_count"], 1.0)
-                self.metrics.log("Training loss",
-                                 stats["train_loss_sum"] / n_clients, step=r)
-                self.metrics.log("LR for agg. opt.", server_lr, step=r)
-                self.metrics.log("Client learning rate", client_lr, step=r)
-                self.metrics.log("Agg. grad norm", stats["agg_grad_norm"],
-                                 step=r)
-                self._log_defense(stats, r)
-                if self.server_replay is not None:
-                    self._run_server_replay(r)
+            tac = time.time()
+            for ch in pending:
+                # the ring's newest chunk is copied for its `latest` save
+                # now, in stream order, before the next dispatch queues
+                # behind it
+                if ch["snapshot"] is None:
+                    ch["snapshot"] = self.ckpt.snapshot(ch["state"])
+            snap_secs = time.time() - tac
+            chaos_vecs = [self.chaos_vectors(round_no + j, b)
+                          for j, b in enumerate(batches)]
+            tac = time.time()
+            self.state, packed = self.engine.dispatch_rounds(
+                self.state, batches, [client_lr] * R, server_lrs,
+                leakage_threshold=self.max_allowed_leakage,
+                quant_thresholds=thresholds, chaos_vecs=chaos_vecs)
+            dispatch_secs = time.time() - tac
+            chunk = {
+                "round0": round_no, "R": R, "state": self.state,
+                "stats": packed, "client_lr": client_lr,
+                "server_lrs": server_lrs, "tic": tic, "snapshot": None,
+                # with lookahead packing the next chunk samples before
+                # this chunk's housekeeping: its resume anchor is now
+                "rng_snapshot": (
+                    copy.deepcopy(self._np_rng.bit_generator.state)
+                    if pipelined or prefetch_ok else None),
+                "secs": {"pack": pack_secs,
+                         "stage": self.engine.last_stage_secs,
+                         "dispatch": dispatch_secs
+                         - self.engine.last_stage_secs,
+                         "ckpt": snap_secs}}
             round_no += R
-            if "dp_clip" in stats:
-                # the clip the next round applies, logged at that round
-                # once a chunk (server.py:1962-1968)
-                self.metrics.log("DP clip norm", stats["dp_clip"],
-                                 step=round_no)
-            self._round_housekeeping(round_no, val_freq, rec_freq)
+            if prefetch_ok and round_no < max_iteration:
+                prefetched = pack(chunk_R(round_no))
+            while len(pending) >= self.pipeline_depth and pending:
+                # ring full: drain the oldest while the device runs the
+                # newer ones
+                self._drain_chunk(pending.popleft(), val_freq, rec_freq)
+                self.pipelined_chunks += 1
+            # the host tail at an eval or rec boundary can change the
+            # LRs, the params (fall-back) and the sampling, and the last
+            # chunk ends the run: the whole ring drains first
+            boundary = (round_no >= max_iteration or
+                        round_no % val_freq == 0 or
+                        (round_no % rec_freq == 0 and
+                         self.test_dataset is not None))
+            if pipelined and not boundary:
+                pending.append(chunk)
+            else:
+                while pending:
+                    self._drain_chunk(pending.popleft(), val_freq, rec_freq)
+                    self.pipelined_chunks += 1
+                self._drain_chunk(chunk, val_freq, rec_freq)
+        self.ckpt.wait()   # the async `latest` is on disk on return
         self._log_timing()
         self.metrics.flush()
         return self.state
+
+    def _drain_chunk(self, chunk: Dict[str, Any], val_freq: int,
+                     rec_freq: int) -> None:
+        """Fetch one dispatched chunk's stats (the fence: one copy per
+        dtype group), then its host tail (``server.py:1692-1837``)."""
+        R = chunk["R"]
+        tic = time.time()
+        stats = chunk["stats"].fetch()
+        toc = time.time()
+        rs = self.run_stats
+        # serial: prep to fence; pipelined: fence to fence, since this
+        # chunk's prep began before the previous fence
+        rs["secsPerRound"] += [
+            (toc - max(chunk["tic"], self._last_fence)) / R] * R
+        self._last_fence = toc
+        rs["secsPerRoundDrainWait"] += [(toc - tic) / R] * R
+        for key, name in (("pack", "secsPerRoundPack"),
+                          ("stage", "secsPerRoundStage"),
+                          ("dispatch", "secsPerRoundDispatch")):
+            rs[name] += [chunk["secs"][key] / R] * R
+        self._drain_host_tail(chunk, stats, val_freq, rec_freq)
+        rs["secsPerRoundHostTail"] += [(time.time() - toc) / R] * R
+
+    def _drain_host_tail(self, chunk: Dict[str, Any], stats: List[dict],
+                         val_freq: int, rec_freq: int) -> None:
+        """The per-round logging, privacy stats, defense counters and
+        server replay, in the order of the serial loop, then the chunk's
+        housekeeping (``server.py:1838-1983``)."""
+        round0, R = chunk["round0"], chunk["R"]
+        client_lr = chunk["client_lr"]
+        for j in range(R):
+            r = round0 + j
+            st = stats[j]
+            if "privacy" in st:
+                self._process_privacy_stats(st["privacy"], r)
+            n_clients = max(st["client_count"], 1.0)
+            self.metrics.log("Training loss",
+                             st["train_loss_sum"] / n_clients, step=r)
+            self.metrics.log("LR for agg. opt.", chunk["server_lrs"][j],
+                             step=r)
+            self.metrics.log("Client learning rate", client_lr, step=r)
+            self.metrics.log("Agg. grad norm", st["agg_grad_norm"], step=r)
+            self._log_defense(st, r)
+            if self.server_replay is not None:
+                self._run_server_replay(r)
+        if "dp_clip" in stats[-1]:
+            # the clip the next round applies, logged at that round once a
+            # chunk (server.py:1962-1968)
+            self.metrics.log("DP clip norm", stats[-1]["dp_clip"],
+                             step=round0 + R)
+        self._round_housekeeping(
+            round0 + R, val_freq, rec_freq,
+            latest=chunk["snapshot"],
+            rng_snapshot=chunk["rng_snapshot"],
+            ckpt_secs=chunk["secs"]["ckpt"], rounds=R)
 
     def _run_server_replay(self, round_idx: int) -> None:
         """``server_iterations`` epochs of the replay optimizer over the
@@ -695,7 +886,17 @@ class OptimizationServer:
 
     # ------------------------------------------------------------------
     def _round_housekeeping(self, round_no: int, val_freq: int,
-                            rec_freq: int) -> None:
+                            rec_freq: int, latest=None,
+                            rng_snapshot: Optional[dict] = None,
+                            ckpt_secs: float = 0.0, rounds: int = 1) -> None:
+        """Eval cadence, LR decay, fall-back, status log, checkpoint
+        (reference ``core/server.py:448-490``).  ``latest``: the snapshot
+        to save as ``latest``, taken when a later chunk was dispatched
+        before this one drained; None saves the current state, which any
+        fall-back or server replay has already replaced.  ``rng_snapshot``: the resume anchor
+        taken at dispatch when packing looked ahead; None takes it now.
+        ``ckpt_secs`` and ``rounds``: the chunk's earlier checkpoint time
+        and its round count, for ``secsPerRoundCkptSubmit``."""
         tic = time.time()
         if round_no % val_freq == 0:
             improved = self._maybe_eval("val", round_no)
@@ -710,29 +911,12 @@ class OptimizationServer:
         if round_no % rec_freq == 0 and self.test_dataset is not None:
             self._maybe_eval("test", round_no)
 
-        self.ckpt.save_latest(self.state)
-        self.ckpt.backup(round_no, best_names=tuple(self.best_val))
-        sc = self.config.server_config
-        for store, table, freq_key in (
-                (self.scaffold_store, self.scaffold_device,
-                 "scaffold_flush_freq"),
-                (self.ef_store, self.ef_device, "ef_flush_freq")):
-            # the marker takes the round once its checkpoint is written;
-            # a device table writes its dirty rows through first, every
-            # flush_freq rounds and at the last
-            if store is None:
-                continue
-            freq = int(sc.get(freq_key, 1) or 1)
-            if table is None:
-                store.set_round(self.state.round)
-            elif freq <= 1 or round_no % freq == 0 or \
-                    round_no >= self._max_iteration:
-                table.flush()
-                store.set_round(self.state.round)
         status = {
             "i": round_no,
             "weight": self.lr_weight,
-            "np_rng_state": copy.deepcopy(self._np_rng.bit_generator.state),
+            "np_rng_state": (
+                rng_snapshot if rng_snapshot is not None
+                else copy.deepcopy(self._np_rng.bit_generator.state)),
             **{f"best_val_{k}": m.value for k, m in self.best_val.items()},
         }
         if self.best_val:
@@ -744,7 +928,38 @@ class OptimizationServer:
             status["plateau"] = {"lr": self.plateau.lr,
                                  "best": self.plateau.best,
                                  "bad_rounds": self.plateau.bad_rounds}
+        # the status leads the chunk's durable sequence (status, latest,
+        # store markers) and the ring keeps an entry a chunk: whichever
+        # slot a crash leaves loadable, its round's anchors are on disk
+        # (server.py:2487-2495)
+        self._status_ring.append([int(round_no), dict(status)])
+        del self._status_ring[:-STATUS_RING]
+        status["status_ring"] = self._status_ring
         self.ckpt.update_status(status)
+        tac = time.time()
+        self.ckpt.save_latest(self.state if latest is None else latest)
+        self.ckpt.backup(round_no, best_names=tuple(self.best_val))
+        self.run_stats["secsPerRoundCkptSubmit"] += [
+            (ckpt_secs + time.time() - tac) / rounds] * rounds
+        sc = self.config.server_config
+        for store, table, freq_key in (
+                (self.scaffold_store, self.scaffold_device,
+                 "scaffold_flush_freq"),
+                (self.ef_store, self.ef_device, "ef_flush_freq")):
+            # the marker takes the round once its checkpoint is written;
+            # a device table writes its dirty rows through first, every
+            # flush_freq rounds and at the last
+            if store is None:
+                continue
+            # the marker claims a checkpoint on disk
+            self.ckpt.wait()
+            freq = int(sc.get(freq_key, 1) or 1)
+            if table is None:
+                store.set_round(self.state.round)
+            elif freq <= 1 or round_no % freq == 0 or \
+                    round_no >= self._max_iteration:
+                table.flush()
+                store.set_round(self.state.round)
         self.metrics.flush()
         self.run_stats["secsPerRoundHousekeeping"].append(time.time() - tic)
 

@@ -71,8 +71,8 @@ def to_float_image(x: torch.Tensor,
     if x.dtype == torch.uint8:
         if dtype == torch.float32:
             return x.to(torch.float32) * (1.0 / 255.0)
-        return x.to(dtype) * torch.tensor(1.0 / 255.0, dtype=dtype,
-                                          device=x.device)
+        return x.to(dtype) * torch.full((), 1.0 / 255.0, dtype=dtype,
+                                        device=x.device)
     return x.to(dtype)
 
 

@@ -30,7 +30,15 @@ Scalar = Union[float, torch.Tensor]
 
 
 def _as_q(q: Scalar, ref: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(q, dtype=torch.float32, device=ref.device)
+    """``q`` as a float32 scalar on ``ref``'s device, filled there (a copy
+    from the host would wait for the stream)."""
+    if isinstance(q, torch.Tensor):
+        return q.to(dtype=torch.float32, device=ref.device)
+    return _full(float(q), ref)
+
+
+def _full(value: float, ref: torch.Tensor) -> torch.Tensor:
+    return torch.full((), value, dtype=torch.float32, device=ref.device)
 
 
 def exact_quantile_abs(a: torch.Tensor, q: Scalar) -> torch.Tensor:
@@ -38,14 +46,17 @@ def exact_quantile_abs(a: torch.Tensor, q: Scalar) -> torch.Tensor:
     (``a`` holds magnitudes); a row with a NaN gives NaN, as in JAX."""
     n = a.shape[-1]
     q = _as_q(q, a)
-    qn = q * torch.tensor(np.float32(n) - np.float32(1), device=a.device)
+    qn = q * _full(float(np.float32(n) - np.float32(1)), a)
     low, high = torch.floor(qn), torch.ceil(qn)
     high_weight = qn - low
     low_weight = 1 - high_weight
     low = torch.clamp(low, 0, n - 1).long()
     high = torch.clamp(high, 0, n - 1).long()
     ordered = torch.sort(a, dim=-1).values
-    result = (ordered[:, low] * low_weight) + (ordered[:, high] * high_weight)
+    # index_select, not ordered[:, low]: indexing by a 0-d tensor reads it
+    # on the host, a sync
+    result = (ordered.index_select(1, low.reshape(1))[:, 0] * low_weight) \
+        + (ordered.index_select(1, high.reshape(1))[:, 0] * high_weight)
     return torch.where(torch.isnan(a).any(dim=-1),
                        torch.full_like(result, float("nan")), result)
 
@@ -64,8 +75,7 @@ def approx_quantile_abs(a: torch.Tensor, q: Scalar,
     rows = torch.arange(K, device=a.device)[:, None] * n_bins
     counts = torch.bincount((idx + rows).reshape(-1),
                             minlength=K * n_bins).reshape(K, n_bins)
-    cdf = torch.cumsum(counts, dim=-1).to(torch.float32) / torch.tensor(
-        float(n), dtype=torch.float32, device=a.device)
+    cdf = torch.cumsum(counts, dim=-1).to(torch.float32) / _full(float(n), a)
     bin_i = torch.argmax((cdf >= q).to(torch.uint8), dim=-1, keepdim=True)
     prev = torch.where(bin_i > 0,
                        cdf.gather(-1, torch.clamp(bin_i - 1, min=0)),

@@ -21,6 +21,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..device import host_to_device
+
 
 def segment_norms(x: torch.Tensor, bounds: Sequence[int]) -> torch.Tensor:
     """``[..., P]`` -> ``[..., L]``: the 2-norm of each leaf's columns
@@ -42,8 +44,8 @@ def trust_ratio(params: torch.Tensor, update: torch.Tensor,
     un = segment_norms(update, bounds)
     ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn),
                         coefficient * pn / un)
-    sizes = torch.tensor([b - a for a, b in zip(bounds[:-1], bounds[1:])],
-                         device=params.device)
+    sizes = host_to_device([b - a for a, b in zip(bounds[:-1], bounds[1:])],
+                           params.device)
     return torch.repeat_interleave(ratio, sizes, dim=-1,
                                    output_size=params.shape[-1])
 

@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..device import host_to_device
 from .fedavg import FedAvg
 
 #: the staleness draw's stream tag (the JAX package folds in 23)
@@ -55,7 +56,7 @@ class FedBuff(FedAvg):
         gens = client_rngs(FEDBUFF_TAG)
         draws = [np.random.default_rng(g.initial_seed()).integers(
             0, self.max_staleness) for g in gens]
-        return torch.tensor(draws, dtype=torch.int64, device=gens[0].device)
+        return host_to_device(draws, gens[0].device, torch.int64)
 
     def client_step(self, client_update, global_flat, arrays, sample_mask,
                     client_lr, gens=None, quant_threshold=None,

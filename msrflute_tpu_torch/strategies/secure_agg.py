@@ -257,8 +257,8 @@ class SecureAgg(FedAvg):
         halves, each exact in float32, so the one rounding left is at the
         aggregate's own magnitude."""
         denom = torch.clamp(weight_sum, min=1e-12)
-        scale = torch.tensor(float(1 << self.frac_bits), dtype=torch.float32,
-                             device=enc_sum.device)
+        scale = torch.full((), float(1 << self.frac_bits),
+                           dtype=torch.float32, device=enc_sum.device)
         hi = enc_sum >> 15                 # arithmetic: floor
         lo = enc_sum - (hi << 15)          # in [0, 2^15)
         k = 1.0 / scale / denom
