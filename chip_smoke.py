@@ -259,6 +259,20 @@ non-zero and prints no result):
    (their JSON twin where ``h5py`` is missing; the line says which): B1
    once a local step, ``Val f1_score`` logged.
 
+10. ``fused_carry`` — last: ``server_config.fused_carry`` on four legs,
+   SCAFFOLD and EF on the strategies legs' config, FedAvg with ``wantRL``
+   on ``main``'s, and personalization's carry on ``experiments/cv``
+   (ResNet-18-GN, 100 users): 2 rounds at ``pipeline_depth`` 2 (the ring
+   overlapping), B1 once a local step (twice under personalization), B3
+   once a round on EF, no other kernel, no synchronizing call in a
+   round's dispatch half; the second round again at depth 0 from the
+   first's ``latest`` slot, its params and ``strategy_state`` bitwise the
+   depth-2 run's; SCAFFOLD and EF bitwise their host device-table legs at
+   round 2.  A line a leg (``fused_carry_<leg>``): per depth the loop's
+   secs/round, busy and idle, each ``latest`` save's bytes and seconds
+   (the tables ride it), the pinned snapshots' peak, the disk writes.
+   Every phase line carries ``io_write_gb``, the run's writes so far.
+
 The line before the last is the ``kernels`` table (launches on each path,
 ``max_abs_err``, ``ms``, ``plain_ms``, ``bound_ms``, ``library_ms``), the
 16-bit arms' rows after the float32 ones (each launched on a path of the
@@ -344,11 +358,28 @@ _START = time.time()
 _LAST_LINE = [_START]
 
 
+def io_write_bytes() -> int:
+    """Bytes this process has handed to ``write`` calls so far (``wchar``
+    of ``/proc/self/io``: the machine's storage layer does not count
+    ``write_bytes``; 0 where the file is missing)."""
+    try:
+        with open("/proc/self/io") as fh:
+            for line in fh:
+                if line.startswith("wchar:"):
+                    return int(line.split()[1])
+    except OSError:
+        pass
+    return 0
+
+
 def emit(record: dict) -> None:
     if "phase" in record:
         now = time.time()
+        # the machine stops a command past 45 GiB of disk writes: each
+        # line carries the run's total so far
         record = {**record, "t": round(now - _START, 1),
-                  "phase_seconds": round(now - _LAST_LINE[0], 1)}
+                  "phase_seconds": round(now - _LAST_LINE[0], 1),
+                  "io_write_gb": round(io_write_bytes() / 1e9, 3)}
         _LAST_LINE[0] = now
     print(json.dumps(record), flush=True)
 
@@ -1605,11 +1636,12 @@ def _busy_us(intervals):
     return busy
 
 
-def phase_profile(torch, server, rounds=2, phase="profile",
+def phase_profile(torch, server, rounds=1, phase="profile",
                   client_lr=0.1, server_lr=1.0, quant_threshold=None):
     """Where a path's round time goes: on one fresh cohort, after one
-    warm-up round, ``rounds`` rounds of the run's engine timed on the host
-    clock, then ``rounds`` more under ``torch.profiler`` for the time each
+    warm-up round, ``rounds`` rounds (one since the fused_carry phase
+    came, two before) of the run's engine timed on the host clock, then
+    ``rounds`` more under ``torch.profiler`` for the time each
     kernel (and copy) runs on the device.  ``device_busy_ms`` is the union
     of the device intervals (kernels on several streams may overlap, so it
     can be less than their sum, ``kernel_ms``).  The idle share is the part
@@ -1654,18 +1686,25 @@ def _trace_rounds(torch, step, rounds, phase, groups=None):
         step()
     torch.cuda.synchronize()
     wall_ms = (time.time() - tic) * 1e3 / rounds
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(rounds):
-            step()
-        torch.cuda.synchronize()
-    by_name, spans, streams = {}, [], set()
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-            spans.append((e.time_range.start, e.time_range.end))
-            streams.add(e.device_resource_id)
+    # the device's activity alone: the host-side events of a round of
+    # tens of thousands of launches cost the profiler most of a minute to
+    # collect (the LSTM's); where CUPTI's records come back only beside
+    # them, trace again with both
+    for activities in ([ProfilerActivity.CUDA],
+                       [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with profile(activities=activities) as prof:
+            for _ in range(rounds):
+                step()
+            torch.cuda.synchronize()
+        by_name, spans, streams = {}, [], set()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                us, n = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+                spans.append((e.time_range.start, e.time_range.end))
+                streams.add(e.device_resource_id)
+        if spans:
+            break
     check(bool(spans), f"{phase}: the profiler saw no device activity")
     kernel_ms = sum(us for us, _ in by_name.values()) / 1e3 / rounds
     busy_ms = _busy_us(spans) / 1e3 / rounds
@@ -1682,6 +1721,8 @@ def _trace_rounds(torch, step, rounds, phase, groups=None):
             "ms_per_round": sum(us for us, _ in hits) / 1e3 / rounds,
             "calls_per_round": sum(n for _, n in hits) / rounds}
     return {**({"groups": grouped} if groups else {}),
+            "profiler_activities": [str(a).split(".")[-1]
+                                    for a in activities],
             "wall_ms_per_round": wall_ms,
             "device_busy_ms_per_round": busy_ms,
             "kernel_ms_per_round": kernel_ms,
@@ -1782,13 +1823,14 @@ def phase_cross_device(torch, work):
 #: ring; each ``(pipeline_depth, rounds_per_step)``
 PIPELINE_ROUNDS = 8
 PIPELINE_SETTINGS = ((0, 1), (1, 1), (2, 1), (0, 25), (1, 25), (2, 25))
-#: the rounds of each timed window of a loop profile, its passes over
-#: the settings (forward then back, each), and the rounds of its warm-up
-#: and traced windows (the profiler's cost grows with each traced
-#: launch); and the loop's settings: ``(name, pipeline_depth,
+#: the rounds of each timed window of a loop profile (4, and one pass
+#: over the settings, forward then back, since the fused_carry phase
+#: came: 8 and three before), and the rounds of
+#: its warm-up and traced windows (the profiler's cost grows with each
+#: traced launch); and the loop's settings: ``(name, pipeline_depth,
 #: input_staging)``
-LOOP_ROUNDS = 8
-LOOP_PASSES = 3
+LOOP_ROUNDS = 4
+LOOP_PASSES = 1
 LOOP_TRACE_ROUNDS = 2
 LOOP_SETTINGS = (("depth0_per_leaf", 0, False), ("depth0", 0, True),
                  ("depth1", 1, True), ("depth2", 2, True))
@@ -1807,12 +1849,18 @@ def pipeline_config(depth, rps, rounds=PIPELINE_ROUNDS, staging=True):
     return raw
 
 
+#: the datasets :func:`_shared_parse` parsed, by config: a run reads its
+#: datasets and never writes them, so the phases that share a blob share
+#: one parse (the 350 writers take the CLI seconds to parse)
+_PARSED = {}
+
+
 def _shared_parse():
     """``e2e_trainer.build_task_datasets`` that parses each blob once for
-    the runs of a phase; returns ``(patched, restore)``."""
+    the runs of the phases that call it; returns ``restore``."""
     from msrflute_tpu_torch import e2e_trainer
     parse = e2e_trainer.build_task_datasets
-    parsed = {}
+    parsed = _PARSED
 
     def shared(cfg, task):
         key = json.dumps([cfg.client_config.data_config.train,
@@ -2790,7 +2838,7 @@ def phase_hello_mlp(torch, work, kernel_rows):
 #: clients, images a client, seed)
 CIFAR10_SPLITS = (("train", 100, 100, 60), ("val", 10, 100, 61),
                   ("test", 10, 100, 62))
-PERSONALIZATION_ROUNDS = 5
+PERSONALIZATION_ROUNDS = 3
 
 
 def personalization_config(rounds=PERSONALIZATION_ROUNDS):
@@ -2823,8 +2871,9 @@ def phase_personalization(torch, work, kernel_rows):
     10 classes): B1 3 x S a round (the round and the personal pass's two
     client updates) and no other kernel, finite losses, every stored
     alpha inside [1e-4, 0.9999] and moved from 0.75, the store's files;
-    then 2 rounds, a resume and 3 more equal to the 5 rounds bit for
-    bit."""
+    then 1 round, a resume and 2 more equal to the 3 rounds bit for bit
+    (5 rounds and 2 + 3 before the fused_carry phase came: each round
+    writes 447 MB of store files, and the machine allows 45 GiB)."""
     import numpy as np
     os.makedirs(os.path.join(work, "cifar10"), exist_ok=True)
     tic = time.time()
@@ -2865,8 +2914,8 @@ def phase_personalization(torch, work, kernel_rows):
     for row in kernel_rows:
         row.setdefault("launches_by_path", {})["personalization"] = \
             launches[row["name"]]
-    # the resume leg: 2 rounds, then 3 more from the checkpoint and store
-    _run_cli(work, "personalization_resume", personalization_config(2),
+    # the resume leg: 1 round, then 2 more from the checkpoint and store
+    _run_cli(work, "personalization_resume", personalization_config(1),
              "cuda", task="cv")
     raw = personalization_config()
     raw["server_config"]["resume_from_checkpoint"] = True
@@ -2877,7 +2926,7 @@ def phase_personalization(torch, work, kernel_rows):
           torch.equal(resumed.state.params, server.state.params) and
           sorted(resumed.store.alpha) == sorted(alphas) and
           all(torch.equal(v, again[k]) for k, v in whole.items()),
-          "personalization: a run resumed after round 2 differs from the "
+          "personalization: a run resumed after round 1 differs from the "
           "uninterrupted one")
     store_bytes = sum(t.numel() * t.element_size()
                       for t in server.store.params.values())
@@ -2899,7 +2948,7 @@ def phase_personalization(torch, work, kernel_rows):
           "evals": [{"split": h["split"], "round": h["round"],
                      "loss": h["loss"], "acc": h["acc"]}
                     for h in server.history],
-          "resume_2_plus_3_equals_5": True})
+          "resume_1_plus_2_equals_3": True})
     del resumed
     return server
 
@@ -3086,9 +3135,9 @@ BERT_SPLITS = (("train", 200, 16, 128, 96), ("val", 20, 16, 64, 97),
                ("test", 20, 16, 64, 98))
 ECG_ROUNDS = NRMS_ROUNDS = 5
 #: BERT-base's checkpoints are 1.3 GB each (params, adamW's moments), one
-#: a round: 3 rounds and a backup at the end keep the script's disk writes
-#: in bounds
-BERT_ROUNDS = 3
+#: a round: 2 rounds (3 before the fused_carry phase came) and a backup at
+#: the end keep the script's disk writes in bounds
+BERT_ROUNDS = 2
 BERT_LEARN_ROUNDS = 2
 
 
@@ -3345,7 +3394,10 @@ def phase_mlm_bert(torch, work, kernel_rows):
 def phase_mlm_bert_learns(torch, work):
     """mlm_bert with local DP off (quantization on) for
     ``BERT_LEARN_ROUNDS`` rounds: the val loss (fixed eval mask) falls."""
-    raw = shipped_config("mlm_bert", "reddit_tokens", BERT_LEARN_ROUNDS)
+    # no epoch backups (2.6 GB of BERT-base copies), which nothing here
+    # reads
+    raw = shipped_config("mlm_bert", "reddit_tokens", BERT_LEARN_ROUNDS,
+                         backup_freq=1000)
     raw["dp_config"]["enable_local_dp"] = False
     _reset_counts()
     server, _, secs = _run_cli(work, "mlm_bert_learns", raw, "cuda",
@@ -3892,7 +3944,7 @@ def phase_ringlm16(torch, work, arm_rows):
         state = engine.run_round(state, batch, 0.1, 1.0)[0]
 
     emit({"phase": "ringlm_bf16_profile", "ok": True, "rounds": 2,
-          **_trace_rounds(torch, step, 2, "ringlm_bf16_profile"),
+          **_trace_rounds(torch, step, 1, "ringlm_bf16_profile"),
           "f32_ringlm_profile_same_call": F32_PROFILE.get("ringlm_profile")})
     del server, engine, state
     # flash against dense, both bf16
@@ -4257,7 +4309,13 @@ def _strategy_legs(torch, work, kernel_rows, legs):
             del server
             torch.cuda.empty_cache()
             name = f"strategies_{leg}_resume"
-            _run_cli(work, name, strategy_config(leg, rounds=2), "cuda")
+            cut, _, _ = _run_cli(work, name, strategy_config(leg, rounds=2),
+                                 "cuda")
+            if leg in FUSED_HOST_LEGS:
+                # the fused_carry phase holds its carry legs, 2 rounds,
+                # to this state
+                HOST_FINAL[leg] = _host_leg_state(cut)
+            del cut
             raw = strategy_config(leg)
             raw["server_config"]["resume_from_checkpoint"] = True
             resumed, _, _ = _run_cli(work, name, raw, "cuda")
@@ -4767,7 +4825,7 @@ def _masked_equals_unmasked(torch, server):
             "bitwise": True}
 
 
-def phase_profile_defense(torch, server, rounds=2):
+def phase_profile_defense(torch, server, rounds=1):
     """Leg (e)'s rounds under the profiler (:func:`_trace_rounds`): one
     fresh cohort, its chaos vectors at the next round, the same round
     repeated; its masks are K(K-1) generations of P int32 a round."""
@@ -4803,6 +4861,381 @@ def phase_cross_device_defense(torch, work):
                                     val_freq=100, model_backup_freq=1)
         _cross_device(torch, work, f"defense_cross_device_{leg}", raw,
                       "cv_cnn_femnist", STRATEGY_CROSS_TOL)
+
+
+# ----------------------------------------------------------------------
+#: the fused_carry phase (``server_config.fused_carry``): SCAFFOLD's and
+#: EF's carry on the strategies phase's CNN_FEMNIST legs, fused RL on
+#: CNN_CONFIG's FedAvg and personalization's carry on experiments/cv
+#: (ResNet-18-GN, 100 users), 2 rounds at depth 2, then round 2 again at
+#: depth 0 from the round-1 ``latest``; no val eval.  Each ``latest``
+#: carries the tables (1.69 GB for ``[350, 1,206,590]`` f32, 4.47 GB for
+#: ``[100, 11,181,642]``) and the machine stops a command past 45 GiB of
+#: disk writes (the earlier phases write 28 GB): the round-1 ``latest`` of
+#: each leg is written, the later ones serialized and timed only
+FUSED_ROUNDS = 2
+FUSED_LEGS = ("scaffold", "ef_quant", "rl", "personalization")
+#: the strategies phase's host leg each carry leg must equal, bit for bit
+FUSED_HOST_LEGS = {"scaffold_device": "scaffold",
+                   "ef_quant_device": "ef_quant"}
+#: the host legs' final params and tables, from the strategies phase
+HOST_FINAL = {}
+
+
+def _host_leg_state(server):
+    """A host device-table leg's params and table (and SCAFFOLD's ``c``)
+    on the host."""
+    table = server.scaffold_device or server.ef_device
+    return {"round": server.state.round, "params": server.state.params.cpu(),
+            "table": table.table.cpu(),
+            **({"c": server.scaffold_device.c.cpu()}
+               if server.scaffold_device is not None else {})}
+
+
+def fused_config(leg, depth, rounds=FUSED_ROUNDS):
+    """The leg's config under ``fused_carry`` at ``pipeline_depth``
+    ``depth``, one-round chunks (SCAFFOLD and EF then draw as the host
+    rounds do)."""
+    rps = 1
+    if leg == "personalization":
+        raw = personalization_config(rounds)
+    elif leg == "rl":
+        raw = json.loads(json.dumps(CNN_CONFIG))
+        # the tuner's state holds FedAvg's weights, the clients' sample
+        # counts (50-300): plain SGD on them diverged in the first DQN
+        # step (an H100 run), Adam's bounded step does not
+        raw["server_config"].update(wantRL=True, RL={
+            "optimizer_config": {"type": "adam", "lr": 1e-3}})
+    else:
+        raw = strategy_config(leg, rounds)
+    raw["server_config"].update(
+        max_iteration=rounds, fused_carry=True, pipeline_depth=depth,
+        rounds_per_step=rps, val_freq=1000, rec_freq=1000,
+        initial_val=False, model_backup_freq=1000)
+    return raw
+
+
+def _state_bytes(state):
+    tensors = [state.params, *state.opt_state.values(),
+               *state.strategy_state.values()]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _payload_bytes(payload):
+    """The tensor bytes of a checkpoint payload (one level of dicts)."""
+    return sum(t.numel() * t.element_size() for v in payload.values()
+               if isinstance(v, dict) for t in v.values())
+
+
+class _CheckpointMeter:
+    """Each ``latest`` save's bytes and seconds (the writer thread's
+    serialization and write; past ``real_saves`` its tensor bytes alone,
+    not written), the
+    pinned host bytes held by the snapshots alive at once, and the wall
+    seconds of each server's ``train`` (the loop, its saves included),
+    through the phase's runs."""
+
+    def __init__(self):
+        import weakref
+        from msrflute_tpu_torch.engine import checkpoint
+        from msrflute_tpu_torch.engine.server import OptimizationServer
+        self.mgr = checkpoint.CheckpointManager
+        self.write, self.snap = self.mgr._write_latest, self.mgr.snapshot
+        self.server, self.train = OptimizationServer, OptimizationServer.train
+        self.saves, self.pinned, self.pinned_peak = [], 0, 0
+        self.train_secs = 0.0
+        #: the ``latest`` saves still written to disk; past them a save is
+        #: counted, not written
+        self.real_saves = 0
+        meter = self
+
+        def train(server):
+            tic = time.time()
+            try:
+                return meter.train(server)
+            finally:
+                meter.train_secs = time.time() - tic
+
+        def write_latest(mgr, payload):
+            if meter.real_saves <= 0:
+                # not written: the payload's tensor bytes, no time
+                meter.saves.append({"bytes": _payload_bytes(payload),
+                                    "secs": None, "written": False})
+                return
+            meter.real_saves -= 1
+            tic = time.time()
+            meter.write(mgr, payload)
+            meter.saves.append({
+                "bytes": os.path.getsize(os.path.join(mgr.model_dir,
+                                                      checkpoint.LATEST)),
+                "secs": time.time() - tic, "written": True})
+
+        def snapshot(state):
+            snap = meter.snap(state)
+            if snap.event is not None:
+                n = _state_bytes(snap.state)
+                meter.pinned += n
+                meter.pinned_peak = max(meter.pinned_peak, meter.pinned)
+                weakref.finalize(snap.state, meter.release, n)
+            return snap
+
+        self.mgr._write_latest = write_latest
+        self.mgr.snapshot = staticmethod(snapshot)
+        self.server.train = train
+
+    def release(self, n):
+        self.pinned -= n
+
+    def take(self):
+        """The saves since the last call, and the pinned peak since."""
+        saves, peak = self.saves, self.pinned_peak
+        self.saves, self.pinned_peak = [], self.pinned
+        return saves, peak
+
+    def restore(self):
+        self.mgr._write_latest = self.write
+        self.mgr.snapshot = staticmethod(self.snap)
+        self.server.train = self.train
+
+
+def _host_ram_gb():
+    try:
+        with open("/proc/meminfo") as fh:
+            for line in fh:
+                if line.startswith("MemTotal:"):
+                    return int(line.split()[1]) * 1024 / 1e9
+    except OSError:
+        pass
+    return None
+
+
+def _fused_run(torch, work, kernel_rows, leg, name, raw, meter, rounds):
+    """One CLI run of a carry leg: its launches held to B1 once a local
+    step (the personalization carry's two passes each launching it) and
+    B3 once a round on EF, no other kernel; its secs/round, ``latest``
+    saves, pinned peak and disk writes."""
+    task = "cv" if leg == "personalization" else "cv_cnn_femnist"
+    io0 = io_write_bytes()
+    _reset_counts()
+    server, out, secs = _run_cli(work, name, raw, "cuda", task=task)
+    server.ckpt.wait()
+    launches = _read_counts()
+    steps = server.engine.local_steps
+    want = {k: 0 for k in launches}
+    want["fused_sgd_apply"] = steps
+    want["quant_bin_sparsify"] = rounds if leg == "ef_quant" else 0
+    check(steps > 0 and launches == want,
+          f"{name}: launches {launches}, want {want}")
+    check(server.strategy.client_passes ==
+          (2 if leg == "personalization" else 1),
+          f"{name}: {server.strategy.client_passes} client passes")
+    for row in kernel_rows:
+        row.setdefault("launches_by_path", {})[name] = launches[row["name"]]
+    check(server.state.params.is_cuda and all(
+        t.is_cuda for t in server.state.strategy_state.values()),
+          f"{name}: state not on cuda")
+    # a resumed run appends to the cut run's log: its own rounds only
+    train_loss = [r["value"] for r in _records(out, "Training loss")
+                  if r["step"] >= server.state.round - rounds]
+    check(len(train_loss) == rounds and all(map(math.isfinite, train_loss)),
+          f"{name}: losses {train_loss}")
+    if leg == "rl":
+        rl = {key: [r["value"] for r in _records(out, key)
+                    if r["step"] >= server.state.round - rounds]
+              for key in ("RL Rewards", "RL Q loss", "RL epsilon")}
+        check(all(len(v) == rounds and all(map(math.isfinite, v))
+                  for v in rl.values()), f"{name}: RL stats {rl}")
+    saves, peak = meter.take()
+    per_round = server.run_stats["secsPerRound"]
+    return server, {
+        "pipeline_depth": server.pipeline_depth,
+        "pipelined_chunks": server.pipelined_chunks,
+        "rounds": rounds, "secs_per_round": per_round,
+        "secs_per_round_after_first": _mean(per_round[1:]),
+        # the loop's own wall, its `latest` saves included (at depth 0
+        # secsPerRound ends at the stats' fence, before the save)
+        "loop_secs_per_round": meter.train_secs / rounds,
+        "host_split": _host_split(server),
+        "local_steps": steps, "launches": launches,
+        "latest_saves": saves, "pinned_snapshot_peak_gb": peak / 1e9,
+        "strategy_state_gb": sum(
+            t.numel() * t.element_size()
+            for t in server.state.strategy_state.values()) / 1e9,
+        "disk_write_gb": (io_write_bytes() - io0) / 1e9,
+        "train_loss": train_loss, "run_seconds": round(secs, 3)}
+
+
+def _flat_state(state):
+    """Params and ``strategy_state`` in one dict, where they are."""
+    return {"params": state.params, **state.strategy_state}
+
+
+def _max_abs_diff(torch, a, b):
+    if a.shape != b.shape:
+        return float("inf")
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def _fused_leg(torch, work, kernel_rows, leg, meter):
+    """One carry leg: :data:`FUSED_ROUNDS` rounds at depth 2 (the ring
+    really overlapping), then the dispatch half's sync scan
+    (:func:`_dispatch_half`), an engine round under the profiler (busy,
+    idle), the leg's own checks; then the last round again from the
+    run's first ``latest`` (:func:`_link_cut`; the later saves are not
+    written), resumed at depth 0, whose params and ``strategy_state``
+    must equal depth 2's bitwise.
+    SCAFFOLD and EF are also held to the strategies phase's device-table
+    legs at the same round."""
+    record, steps, last = {}, {}, [time.time()]
+
+    def lap(name):
+        now = time.time()
+        steps[name] = round(now - last[0], 3)
+        last[0] = now
+
+    # the first `latest` is written, the cut the resume starts from; the
+    # later ones are counted, not written: every save of the tables
+    # written would take the script past the machine's 45 GiB
+    meter.real_saves = 1
+    server, rec = _fused_run(torch, work, kernel_rows, leg,
+                             f"fused_{leg}_d2", fused_config(leg, 2), meter,
+                             FUSED_ROUNDS)
+    check(server._pipeline_ok() and server.pipelined_chunks > 0,
+          f"fused {leg}: the depth-2 ring did not overlap")
+    check(server.rl is None and server.scaffold_store is None and
+          server.ef_store is None and getattr(server, "store", None) is None,
+          f"fused {leg}: a host store was built")
+    lap("depth2_run")
+    rec["dispatch_sync_points"] = _dispatch_half(torch, server)
+    lap("dispatch_half")
+    batch = _defense_batch(server)
+    engine, state = server.engine, server.state
+
+    def step():
+        engine.run_round(state, batch, 0.1, 1.0)
+
+    traced = _trace_rounds(torch, step, 1, f"fused_{leg}_profile")
+    busy = traced["device_busy_ms_per_round"]
+    lap("profile")
+    record["profile"] = {k: traced[k] for k in (
+        "wall_ms_per_round", "device_busy_ms_per_round",
+        "device_idle_share", "top_device_ops")}
+    ss = server.state.strategy_state
+    if leg == "scaffold":
+        record["control_norm"] = [
+            r["value"] for r in _records(
+                os.path.join(work, f"out_fused_{leg}_d2"),
+                "Control norm (server c)")]
+        check(len(record["control_norm"]) == FUSED_ROUNDS and
+              record["control_norm"][-1] > 0,
+              f"fused scaffold: control norms {record['control_norm']}")
+    if leg == "rl":
+        record["epsilon"] = float(ss["rl.eps"])
+        record["replay_count"] = int(ss["rl.count"])
+        check(record["epsilon"] < 0.5 and record["replay_count"] > 0,
+              f"fused rl: eps {record['epsilon']}, count "
+              f"{record['replay_count']}")
+    if leg == "personalization":
+        seen, alpha = ss["seen"].cpu(), ss["alpha"].cpu()
+        check(int((seen > 0).sum()) >= MAIN_K and bool(
+            ((alpha >= 1e-4) & (alpha <= 0.9999)).all()),
+              f"fused personalization: seen {int((seen > 0).sum())}, "
+              f"alpha range {float(alpha.min())}-{float(alpha.max())}")
+        tic = time.time()
+        first = server.personalized_eval(server.val_dataset)
+        record["personalized_eval_seconds"] = round(time.time() - tic, 3)
+        check(first is not None and
+              server.personalized_eval(server.val_dataset) == first,
+              f"fused personalization: personalized eval {first}")
+        record["personalized_val"] = {"acc": first[0], "loss": first[1]}
+        record["users_seen"] = int((seen > 0).sum())
+    # held on the card for the comparisons below
+    whole = _flat_state(server.state)
+    host_leg = {v: k for k, v in FUSED_HOST_LEGS.items()}.get(leg)
+    if host_leg is not None and \
+            HOST_FINAL.get(host_leg, {}).get("round") == FUSED_ROUNDS:
+        host = HOST_FINAL[host_leg]
+        pairs = {"params": "params", "table": "ci" if leg == "scaffold"
+                 else "res", "c": "c"}
+        diffs = {k: _max_abs_diff(torch, whole[pairs[k]],
+                                  host[k].to(whole[pairs[k]].device))
+                 for k in pairs if k in host}
+        record["host_leg"] = {"leg": host_leg,
+                              "bitwise": not any(diffs.values()),
+                              "max_abs_diff": diffs}
+    del server, state, engine, batch
+    torch.cuda.empty_cache()
+    lap("checks")
+    rec["device_idle_share"] = 1.0 - busy / 1e3 / rec["loop_secs_per_round"]
+    record["depth2"] = rec
+
+    # the cut: the depth-2 run's models hard-linked (no byte written
+    # again), as a crash in its last save leaves them: ``latest`` at round
+    # FUSED_ROUNDS - 1, the status log a round ahead (its ring pairs them
+    # at the resume)
+    name = f"fused_{leg}_d0"
+    _link_cut(os.path.join(work, f"out_fused_{leg}_d2", "models"),
+              os.path.join(work, f"out_{name}", "models"))
+    raw = fused_config(leg, 0)
+    raw["server_config"]["resume_from_checkpoint"] = True
+    meter.real_saves = 0
+    resumed, rest = _fused_run(torch, work, kernel_rows, leg, name, raw,
+                               meter, 1)
+    lap("depth0_resume")
+    check(resumed.state.round == FUSED_ROUNDS,
+          f"fused {leg}: the resume ended at {resumed.state.round}")
+    got = _flat_state(resumed.state)
+    del resumed
+    torch.cuda.empty_cache()
+    check(sorted(got) == sorted(whole) and all(
+        torch.equal(got[k], whole[k]) for k in whole),
+          f"fused {leg}: the round resumed at depth 0 differs from depth "
+          "2: " + str({k: _max_abs_diff(torch, got[k], whole[k])
+                       for k in whole if k in got}))
+    rest["device_idle_share"] = \
+        1.0 - busy / 1e3 / rest["loop_secs_per_round"]
+    record["depth0"] = rest
+    record["bitwise_across_depths_and_resume"] = True
+    lap("compare")
+    record["step_seconds"] = steps
+    return record
+
+
+def _link_cut(src, dst):
+    """``dst``: every file of ``src`` hard-linked."""
+    os.makedirs(dst)
+    for name in os.listdir(src):
+        if os.path.isfile(os.path.join(src, name)):
+            os.link(os.path.join(src, name), os.path.join(dst, name))
+
+
+def phase_fused_carry(torch, work, kernel_rows):
+    """Each of :data:`FUSED_LEGS` through :func:`_fused_leg`: a line per
+    leg (``fused_carry_<leg>``) with, per depth, secs/round, busy and
+    idle, each ``latest`` save's bytes and seconds, the pinned snapshot
+    peak beside the host's RAM and the disk writes; then the phase's
+    line."""
+    restore = _shared_parse()
+    meter = _CheckpointMeter()
+    legs = {}
+    try:
+        for leg in FUSED_LEGS:
+            tic = time.time()
+            legs[leg] = _fused_leg(torch, work, kernel_rows, leg, meter)
+            legs[leg]["seconds"] = round(time.time() - tic, 3)
+            emit({"phase": f"fused_carry_{leg}", "ok": True, **legs[leg]})
+    finally:
+        meter.restore()
+        restore()
+    host_stats = getattr(torch.cuda, "host_memory_stats", None)
+    emit({"phase": "fused_carry", "ok": True, "rounds": FUSED_ROUNDS,
+          "legs": list(legs), "host_ram_gb": _host_ram_gb(),
+          "host_memory_stats": host_stats() if host_stats else None,
+          "host_bitwise": {leg: legs[leg]["host_leg"]["bitwise"]
+                           for leg in legs if "host_leg" in legs[leg]},
+          "dispatch_sync_points": {
+              leg: legs[leg]["depth2"]["dispatch_sync_points"]
+              for leg in legs}})
 
 
 def main() -> int:
@@ -4900,7 +5333,7 @@ def main() -> int:
             phase = "personalization"
             server = phase_personalization(torch, work, rows)
             phase = "personalization_profile"
-            phase_personalization_profile(torch, server, rounds=2)
+            phase_personalization_profile(torch, server, rounds=1)
             del server
             phase = "cross_device_personalization"
             phase_cross_device_personalization(torch, work)
@@ -4942,6 +5375,8 @@ def main() -> int:
             phase_defense(torch, work, rows)
             phase = "defense_cross_device"
             phase_cross_device_defense(torch, work)
+            phase = "fused_carry"
+            phase_fused_carry(torch, work, rows)
     except Exception as exc:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})

@@ -499,7 +499,7 @@ _EF_CLIENT = {"quant_thresh", "quant_bits", "quant_approx", "quant_anneal"}
 _STRATEGY_SERVER = {"wantRL", "RL", "qffl_q", "fedac_eta", "fedac_gamma",
                     "fedac_alpha", "fedac_beta", "fedbuff",
                     "scaffold_device_controls", "scaffold_flush_freq",
-                    "ef_device_residuals", "ef_flush_freq"}
+                    "ef_device_residuals", "ef_flush_freq", "fused_carry"}
 _RL = set(_RL_FIELDS) | {"optimizer_config", "annealing_config"}
 #: ``semisupervision`` (FedLabels, read from the client section, then the
 #: server's); ``comp`` names the pseudo-label comparison, of which the JAX
@@ -563,7 +563,7 @@ _OFF_OK = {
     "server_config": {
         "send_dicts", "do_profiling", "initial_lr",
         "num_skip_decoding",
-        "nbest_task_scheduler", "best_model_metric", "fused_carry",
+        "nbest_task_scheduler", "best_model_metric",
         "clients_per_chunk", "checkpoint_backend",
         "dump_norm_stats", "checkpoint_retry",
         "traffic", "telemetry", "cohort_bucketing", "megabatch",
@@ -807,7 +807,8 @@ def check_dispatch(sc: Dict[str, Any]) -> None:
     """The round loop's knobs, with the JAX schema's messages
     (``schema.py:598-602, 713-745, 1181-1192``): ``pipeline_depth`` an
     integer in ``[0, MAX_PIPELINE_DEPTH]``, ``rounds_per_step`` one >= 1,
-    ``input_staging`` and ``checkpoint_async`` booleans."""
+    ``input_staging``, ``checkpoint_async`` and ``fused_carry``
+    booleans."""
     errors = []
     for key, lo in (("pipeline_depth", 0), ("rounds_per_step", 1)):
         val = sc.get(key)
@@ -818,7 +819,7 @@ def check_dispatch(sc: Dict[str, Any]) -> None:
                           f"{type(val).__name__}")
         elif val < lo:
             errors.append(f"server_config.{key}: must be >= {lo}, got {val}")
-    for key in ("input_staging", "checkpoint_async"):
+    for key in ("input_staging", "checkpoint_async", "fused_carry"):
         val = sc.get(key)
         if val is not None and not isinstance(val, bool):
             errors.append(f"server_config.{key}: must be a boolean, got "
@@ -876,8 +877,9 @@ def check_strategy(raw: Dict[str, Any], strategy: str) -> None:
             "server_replay_config")
     resident = (((cc.get("data_config") or {}).get("train") or {})
                 .get("device_resident"))
-    _refuse(bool(resident) and (bool(sc.get("wantRL")) or
-                                cls.host_rounds),
+    fused = fused_paths(raw, strategy)["fused"]
+    _refuse(bool(resident) and not fused and (bool(sc.get("wantRL")) or
+                                              cls.host_rounds),
             "data_config.train.device_resident does not apply to "
             "host-orchestrated rounds (wantRL / strategy: scaffold / "
             "strategy: ef_quant) — drop the flag for this configuration")
@@ -933,6 +935,7 @@ def check_strategy(raw: Dict[str, Any], strategy: str) -> None:
                 model.get("quant_threshold") is not None,
                 "strategy: scaffold does not compose with gradient "
                 "quantization")
+    check_fused_carry(raw, strategy)
     if ef:
         bits = int(cc.get("quant_bits", 4))
         _refuse(not 1 <= bits <= 16,
@@ -941,6 +944,93 @@ def check_strategy(raw: Dict[str, Any], strategy: str) -> None:
         _refuse(not 0.0 <= thresh < 1.0,
                 "ef_quant quant_thresh is an |.|-quantile in [0, 1), got "
                 f"{thresh}")
+
+
+def fused_paths(raw: Dict[str, Any], strategy: str) -> Dict[str, bool]:
+    """Which paths ``server_config.fused_carry`` moves onto the ring:
+    SCAFFOLD's and EF's carry modes, personalization's carry and fused RL
+    (``msrflute_tpu/engine/server.py:75-95, 179-191``)."""
+    sc = raw.get("server_config") or {}
+    fused = bool(sc.get("fused_carry", False))
+    personal = str(sc.get("type", "optimization")) == "personalization"
+    return {
+        "fused": fused,
+        "carry": fused and (strategy in ("scaffold", "ef_quant", "efquant")
+                            or personal),
+        "personal": fused and personal,
+        "rl": fused and bool(sc.get("wantRL", False)),
+    }
+
+
+def check_fused_carry(raw: Dict[str, Any], strategy: str) -> None:
+    """The refusals of ``fused_carry`` that the JAX package makes, each a
+    ``ValueError`` as there: chunked clients under a carry strategy or
+    fused RL (``engine/round.py:250-255, 329-332``); fused RL beside a
+    carry strategy, a strategy without RL (a stack aggregator's
+    ``RobustFedAvg`` too), a stateful strategy, adaptive clipping, masked
+    multi-part payloads, ``stale_prob``, ``wantLSTM`` (``:296-338``); EF's
+    carry with adaptive clipping (``strategies/ef_quant.py:312-322``);
+    personalization's carry with local DP, another
+    ``personalization_init`` or a strategy other than FedAvg / FedProx
+    (``strategies/personalized.py:48-66``,
+    ``engine/personalization.py:126-137``)."""
+    from .strategies import STRATEGIES
+    paths = fused_paths(raw, strategy)
+    if not paths["fused"]:
+        return
+    cls = STRATEGIES[strategy]
+    sc = raw.get("server_config") or {}
+    dp = raw.get("dp_config") or {}
+    adaptive = bool(dp.get("adaptive_clipping"))
+    chunked = bool(sc.get("clients_per_chunk"))
+    _refuse(paths["personal"] and strategy not in ("fedavg", "fedprox"),
+            "fused_carry personalization composes only with strategy: "
+            f"fedavg/fedprox (got {strategy!r}) — the carry tables replace "
+            "the host store, and other strategies keep their own state; "
+            "drop fused_carry")
+    _refuse(paths["carry"] and chunked,
+            "fused_carry is incompatible with clients_per_chunk: the carry "
+            "scatter needs every client's update row, which chunked "
+            "accumulation never materializes — disable one")
+    _refuse(paths["carry"] and strategy in ("ef_quant", "efquant") and
+            adaptive,
+            "strategy: ef_quant with fused_carry does not compose with "
+            "dp_config.adaptive_clipping — the carry state holds only the "
+            "EF residual table; drop fused_carry or adaptive_clipping")
+    if paths["personal"]:
+        _refuse(bool(dp.get("enable_local_dp", False)),
+                "fused_carry personalization does not compose with "
+                "dp_config.enable_local_dp — the alpha update reads the raw "
+                "global pseudo-gradient; drop fused_carry for DP runs")
+        init = sc.get("personalization_init", "global")
+        _refuse(init != "global",
+                "fused_carry personalization supports only "
+                f"personalization_init: global (got {init!r}) — drop "
+                "fused_carry for the other modes")
+    if not paths["rl"]:
+        return
+    robust = sc.get("robust") or {}
+    # a stack aggregator swaps in RobustFedAvg, which takes no RL weights
+    stack = bool(robust) and bool(robust.get("enable", True)) and \
+        str(robust.get("aggregator", "mean")) in ("trimmed_mean", "median")
+    _refuse(not cls.supports_rl or paths["personal"] or stack,
+            f"strategy {strategy!r} does not support wantRL under "
+            "fused_carry: the RL re-weighting assumes the plain "
+            "single-payload flow")
+    _refuse(cls.stateful or adaptive,
+            "fused RL requires a stateless strategy combine (no "
+            "adaptive_clipping / strategy state): the RL weights replace "
+            "the combine entirely")
+    _refuse(cls.wants_cohort or bool(cls.unit_weight_parts),
+            "fused RL does not compose with masked multi-part payloads "
+            "(secure_agg/fedlabels)")
+    _refuse(chunked, "fused RL is incompatible with clients_per_chunk: "
+                     "re-weighting needs the full payload stack")
+    _refuse(float(sc.get("stale_prob", 0.0) or 0.0) > 0.0,
+            "fused RL does not support stale_prob")
+    _refuse(bool((sc.get("RL") or {}).get("wantLSTM", False)),
+            "fused RL does not support wantLSTM — the state-window "
+            "recurrence is host-side; drop fused_carry for LSTM RL runs")
 
 
 def check_defense(raw: Dict[str, Any], strategy: str) -> None:
@@ -960,8 +1050,11 @@ def check_defense(raw: Dict[str, Any], strategy: str) -> None:
     sc = raw.get("server_config") or {}
     dp = raw.get("dp_config") or {}
     secagg = strategy in _SECURE_AGG_NAMES
-    host = (bool(sc.get("wantRL")) or cls.host_rounds or
-            str(sc.get("type", "optimization")) == "personalization")
+    # fused_carry moves the host rounds onto the round path
+    # (``engine/server.py:179-191``)
+    host = not fused_paths(raw, strategy)["fused"] and (
+        bool(sc.get("wantRL")) or cls.host_rounds or
+        str(sc.get("type", "optimization")) == "personalization")
     adaptive = bool(dp.get("adaptive_clipping"))
     _refuse(adaptive and not cls.supports_adaptive_clipping,
             f"strategy {strategy!r} does not implement "
@@ -996,13 +1089,14 @@ def check_defense(raw: Dict[str, Any], strategy: str) -> None:
             for key in ("ckpt_io_error_rate", "preempt_at_round"):
                 if chaos.get(key):
                     raise NotImplementedError(
-                        f"server_config.chaos.{key}={chaos[key]!r} is "
-                        f"{NOT_PORTED} (queue A item 8)")
+                        f"server_config.chaos.{key}={chaos[key]!r} "
+                        f"(chaos's checkpoint-IO and preemption half) is "
+                        f"{NOT_PORTED} §A")
             if infra and any(float(v or 0.0) > 0.0 for k, v in infra.items()
                              if k.endswith("_rate")):
                 raise NotImplementedError(
-                    f"server_config.chaos.infra is {NOT_PORTED} (queue A "
-                    "item 8)")
+                    "server_config.chaos.infra (chaos's infra services) "
+                    f"is {NOT_PORTED} §A")
             faults = schedule.has_client_faults or schedule.has_corruption
             _refuse(faults and host,
                     "server_config.chaos dropout_rate/straggler_rate/"
@@ -1112,8 +1206,8 @@ def check_mesh(mesh: Any) -> None:
     if size > 1:
         raise NotImplementedError(
             f"mesh_config.model_axis_size={size}: tensor parallelism over "
-            "several GPUs is ROADMAP.md queue A item 13 (multi-GPU); the "
-            f"port runs one device, so set it to 1 ({NOT_PORTED})")
+            "several GPUs (multi-GPU) is in ROADMAP.md §A; the port runs "
+            f"one device, so set it to 1 ({NOT_PORTED} §A)")
 
 
 def check_bert_model(model: Dict[str, Any]) -> None:
@@ -1123,18 +1217,18 @@ def check_bert_model(model: Dict[str, Any]) -> None:
     bert = dict((model.get("BERT") or {}).get("model") or {})
     if bert.get("model_name_or_path"):
         raise NotImplementedError(
-            f"BERT.model.model_name_or_path is {NOT_PORTED} (queue A item "
-            "10)")
+            "BERT.model.model_name_or_path (Hugging Face weights) is "
+            f"{NOT_PORTED} §A")
     dtype = str(bert.get("dtype", model.get("dtype", "float32"))
                 or "float32").lower()
     if dtype not in ("float32", "f32"):
         raise NotImplementedError(
-            f"BERT dtype={dtype!r} is {NOT_PORTED} (queue A item 8)")
+            f"BERT dtype={dtype!r} (BERT's dtype) is {NOT_PORTED} §A")
     head = str(bert.get("mlm_head", "full")).lower()
     if head == "gathered":
         raise NotImplementedError(
-            f"BERT.model.mlm_head='gathered' is {NOT_PORTED} (queue A item "
-            "10)")
+            "BERT.model.mlm_head='gathered' (BERT's gathered MLM head) is "
+            f"{NOT_PORTED} §A")
     if head != "full":
         raise ValueError("BERT.model.mlm_head must be 'full' or "
                          f"'gathered', got {head!r}")

@@ -28,10 +28,19 @@ Per-user state lives on the host in :class:`PersonalizationStore` between
 rounds, one file per user (``personalization/user<N>_model.pt`` with a
 crc32 sidecar), written for the users a round updated; a resumed run
 reloads it, so a run resumed after round N equals one that never stopped.
+
+With ``server_config.fused_carry: true`` (``personalization.py:108-150,
+415-450``) the server selects :class:`~..strategies.personalized.
+PersonalizedFedAvg` instead: the local models, alphas and ``seen`` gate
+ride ``strategy_state`` and the round's own client step, ``_sample`` is
+the base sampler, no store is kept (durability rides the model
+checkpoint), the round rides the dispatch ring, and the personalized eval
+reads the tables at the eval boundary: the ``[N]`` ``seen`` gate first.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Dict, List, Optional, Tuple
@@ -138,15 +147,22 @@ def _max_clients(spec) -> int:
 
 class PersonalizationServer(OptimizationServer):
     """:class:`OptimizationServer` plus the personal pass in ``_sample``,
-    the personalized eval at ``val_freq`` and the per-user store."""
+    the personalized eval at ``val_freq`` and the per-user store; under
+    ``fused_carry`` the carry strategy in their place (see the module
+    docstring)."""
+
+    #: under fused_carry ``_sample`` is the base sampler (the personal pass
+    #: runs in the round), so the ring may run
+    fused_carry_sample = True
 
     def __init__(self, task, config, train_dataset, val_dataset=None,
                  test_dataset=None, model_dir: str = "./models",
                  device=None, seed: int = 0, init_params=None,
                  metrics=None, server_train_dataset=None):
         sc, cc = config.server_config, config.client_config
+        fused = bool(sc.get("fused_carry", False))
         # the personal pass reads the current global model every round
-        if int(sc.get("rounds_per_step", 1) or 1) > 1:
+        if not fused and int(sc.get("rounds_per_step", 1) or 1) > 1:
             print_rank("personalization forces rounds_per_step=1")
             sc["rounds_per_step"] = 1
         self.alpha0 = float(cc.get("convex_model_interp", 0.75))
@@ -154,7 +170,7 @@ class PersonalizationServer(OptimizationServer):
         self.logspace = sc.get("personalization_interp", "probs") == \
             "logprobs"
         # before the base constructor, whose resume reloads the store
-        self.store = PersonalizationStore(
+        self.store = None if fused else PersonalizationStore(
             self.alpha0, os.path.join(model_dir, "personalization"))
         if self.init_kind == "initial" and init_params is None:
             init_params = task.init_params(seed)
@@ -173,10 +189,22 @@ class PersonalizationServer(OptimizationServer):
                     "secsPersonalSave"):
             self.run_stats[key] = []
 
+    def _select_strategy(self, config) -> type:
+        if self._fused_carry:
+            from ..strategies.personalized import PersonalizedFedAvg
+            strategy = str(config.strategy or "fedavg").lower()
+            if strategy not in ("fedavg", "fedprox"):
+                raise ValueError(
+                    "fused_carry personalization composes only with "
+                    f"strategy: fedavg/fedprox (got {strategy!r}) — drop "
+                    "fused_carry")
+            return PersonalizedFedAvg
+        return super()._select_strategy(config)
+
     def _resume(self) -> bool:
         if not super()._resume():
             return False
-        if self.store.load():
+        if self.store is not None and self.store.load():
             print_rank(f"restored personalization state for "
                        f"{len(self.store.alpha)} users")
         return True
@@ -184,7 +212,8 @@ class PersonalizationServer(OptimizationServer):
     # ------------------------------------------------------------------
     def _sample(self) -> list:
         sampled = super()._sample()
-        self._run_personal_pass(sampled)
+        if self.store is not None:
+            self._run_personal_pass(sampled)
         return sampled
 
     def _default_local(self) -> torch.Tensor:
@@ -252,15 +281,18 @@ class PersonalizationServer(OptimizationServer):
         super()._round_housekeeping(round_no, val_freq, rec_freq, **kw)
         if round_no % val_freq == 0 and self.val_dataset is not None:
             self.personalized_eval(self.val_dataset)
-        tic = time.time()
-        self.store.save()
-        self.run_stats["secsPersonalSave"].append(time.time() - tic)
+        if self.store is not None:
+            tic = time.time()
+            self.store.save()
+            self.run_stats["secsPersonalSave"].append(time.time() - tic)
 
     def train(self):
-        # the hooked ``_sample`` reads the live global model, so the round
-        # loop runs serial (``_pipeline_capable``)
+        # the host path's hooked ``_sample`` reads the live global model,
+        # so its loop runs serial (``_pipeline_capable``); the carry's
+        # rides the ring
         state = super().train()
-        self.store.save()
+        if self.store is not None:
+            self.store.save()
         return state
 
     def _personal_eval_batches(self, dataset) -> List[tuple]:
@@ -284,15 +316,50 @@ class PersonalizationServer(OptimizationServer):
                     torch.from_numpy(batch.sample_mask).to(self.device)))
         return self._eval_chunks
 
+    def _carry_locals(self, seen: List[float]):
+        """The carry tables' reader for the personalized eval: a chunk of
+        users -> their local models ``[K, P]`` (the table row of a user
+        seen, else the global model) and alphas ``[K]`` (``alpha0`` for a
+        user not seen), gathered on the device; ``seen`` is the ``[N]``
+        gate, read to the host."""
+        ss, dev = self.state.strategy_state, self.device
+
+        def stage(users):
+            mine = [u for u in users if u < len(seen) and seen[u] > 0]
+            local = self.state.params[None, :].repeat(len(users), 1)
+            alpha = torch.full((len(users),), self.alpha0,
+                               dtype=torch.float32, device=dev)
+            if mine:
+                slots = torch.tensor([users.index(u) for u in mine],
+                                     device=dev)
+                rows = torch.tensor(mine, device=dev)
+                local.index_copy_(0, slots, ss["local"].index_select(0, rows))
+                alpha.index_copy_(0, slots, ss["alpha"].index_select(0, rows))
+            return local, alpha
+
+        return stage
+
     def personalized_eval(self, dataset) -> Optional[Tuple[float, float]]:
         """``(accuracy, loss)`` of the interpolated models over all of the
         split's users; a user without local state scores the global model
-        in both slots.  None before any user has local state."""
-        if not self.store.alpha or len(dataset) == 0:
+        in both slots.  None before any user has local state.  Under
+        ``fused_carry`` the ``[N]`` ``seen`` gate is read first, and the
+        tables' rows are gathered on the device."""
+        if len(dataset) == 0:
             return None
+        if self.store is None:
+            seen = self.state.strategy_state["seen"].cpu().tolist()
+            if not any(v > 0 for v in seen):
+                return None
+            stage = self._carry_locals(seen)
+        else:
+            if not self.store.alpha:
+                return None
+            stage = functools.partial(self._stage_locals,
+                                      default=self.state.params)
         sums = torch.zeros(3, dtype=torch.float64, device=self.device)
         for users, arrays, mask in self._personal_eval_batches(dataset):
-            local, alpha = self._stage_locals(users, self.state.params)
+            local, alpha = stage(users)
             sums += torch.stack(personalized_eval_sums(
                 self.task, self.engine.layout, self.state.params, local,
                 alpha, arrays, mask, self.logspace)).double()

@@ -33,6 +33,17 @@ under weights the caller picks), ``round.py:1554-1660``.  The server
 optimizers are functional, so two calls of ``apply_custom_weights`` from
 one state (the RL hook's candidates) both start from that state.
 
+Device-resident carry (``server_config.fused_carry``, ``round.py:786-1410``):
+a ``device_carry`` strategy's client step gathers the cohort's rows of its
+tables from ``strategy_state`` by the staged client ids and returns the
+round's carry rows with their ``keep`` gate (``valid * live``, chaos's
+dropped clients out; the shield does not gate them, as in the JAX
+round); :meth:`~..strategies.base.BaseStrategy.apply_carry` scatters them
+after the combine, before the server step, into new tables: the state is
+never written in place.  Fused RL (``wantRL`` with ``fused_carry``,
+``round.py:287-338, 1378-1392``) replaces the combine with the DQN tuner
+of :mod:`..rl.fused` on the payload stack.
+
 Dispatch and drain (``round.py:58-87, 340-346, 1713-2029``):
 :meth:`RoundEngine.dispatch_rounds` launches a chunk of R rounds back to
 back with no host sync and returns the new state with a lazy
@@ -63,7 +74,11 @@ stream:
 - ``[seed, r, k, 2]``: client k's local-DP noise (``fold_in(rng_c, 2)``);
 - ``[seed, r, k, 3]``: client k's staleness coin (``fold_in(rng_c, 3)``);
 - ``[seed, r, 2**32 - 1, 4]``: the round's server stream, global DP's
-  kernel seed (no dataset index reaches client slot ``2**32 - 1``).
+  kernel seed (no dataset index reaches client slot ``2**32 - 1``);
+  ``[seed, r, 2**32 - 1, 4, 29]`` fused RL's draws, and ``[seed, 0,
+  2**32 - 1, 4, 15]`` its net's init;
+- ``[seed, r, k, 104729]``: client k's local pass under personalization's
+  carry (``fold_in(rng_c, 104729)``).
 """
 
 from __future__ import annotations
@@ -89,6 +104,10 @@ from .client_update import ClientHParams, build_client_update
 #: stream tags (the fourth entropy word) and the server's client slot
 DP_NOISE_TAG, STALE_COIN_TAG, SERVER_TAG = 2, 3, 4
 PAD_CLIENT, SERVER_SLOT = 2**32, 2**32 - 1
+#: fused RL's streams, the fifth word after the round's server stream:
+#: the round's draws (``fold_in(rng, 29)``) and, at round 0, the net's
+#: init (``fold_in(rng, 0xF)``)
+RL_DRAW_SALT, RL_INIT_SALT = 29, 0xF
 
 
 def stream_seed(*entropy: int) -> int:
@@ -241,6 +260,16 @@ class RoundEngine:
         #: host seconds the last dispatch spent packing and enqueueing its
         #: inputs
         self.last_stage_secs = 0.0
+        #: fused RL (``wantRL`` with ``fused_carry``, ``round.py:287-338``):
+        #: the DQN tuner re-weights the payload stack in the round, its
+        #: state in ``strategy_state``; None otherwise
+        self.fused_rl = None
+        if sc.get("wantRL", False) and sc.get("fused_carry", False):
+            from ..config import RLConfig
+            from ..rl.fused import FusedRL
+            self.fused_rl = FusedRL(
+                sc.get("RL") or RLConfig(),
+                int(sc.get("num_clients_per_iteration", 10)))
 
     def _check_shield(self, strategy: BaseStrategy) -> None:
         """The JAX engine's refusals of a ``robust`` block."""
@@ -276,8 +305,14 @@ class RoundEngine:
 
     def init_state(self, params: Params) -> ServerState:
         flat = self.layout.flatten(params).to(self.device, torch.float32)
+        strategy_state = self.strategy.init_state(flat)
+        if self.fused_rl is not None:
+            strategy_state = dict(strategy_state)
+            strategy_state.update(self.fused_rl.init_state(
+                stream_seed(self.seed, 0, SERVER_SLOT, SERVER_TAG,
+                            RL_INIT_SALT), self.device))
         return ServerState(flat, self.server_opt.init(flat), 0,
-                           self.strategy.init_state(flat))
+                           strategy_state)
 
     def params_dict(self, state: ServerState) -> Params:
         return self.layout.views(state.params)
@@ -310,6 +345,12 @@ class RoundEngine:
         return stream_seed(self.seed, int(round_idx), SERVER_SLOT,
                            SERVER_TAG)
 
+    def rl_generator(self, round_idx: int) -> torch.Generator:
+        """Fused RL's draws of the round, on the engine's device."""
+        return torch.Generator(device=self.device).manual_seed(stream_seed(
+            self.seed, int(round_idx), SERVER_SLOT, SERVER_TAG,
+            RL_DRAW_SALT))
+
     def _host_inputs(self, round_idx: int, batch: RoundBatch,
                      chaos: Optional[Dict[str, np.ndarray]]
                      ) -> Dict[str, Any]:
@@ -323,6 +364,16 @@ class RoundEngine:
                 tree[key] = chaos[key]
         if self.strategy.stale_prob > 0.0:
             tree["stale"] = self.stale_coins(round_idx, batch.client_ids)
+        if self.strategy.device_carry:
+            # the carry tables' row ids, and each slot's source for the
+            # scatter: itself, or for a padding slot the first real one
+            # (see strategies/base.py::scatter_rows)
+            ids = np.asarray(batch.client_ids, np.int64)
+            src = np.arange(len(ids), dtype=np.int64)
+            real = np.flatnonzero(ids >= 0)
+            if real.size:
+                src[ids < 0] = real[0]
+            tree["carry_ids"], tree["carry_src"] = ids, src
         return tree
 
     def stage_inputs(self, round0: int, batches: List[RoundBatch],
@@ -365,24 +416,36 @@ class RoundEngine:
                      masks: Optional[Tuple[torch.Tensor,
                                            torch.Tensor]] = None):
         """The strategy's client step on the round's staged ``inputs`` ->
-        ``(parts, train_loss, num_samples, stats, client_mask)``.
-        ``masks`` replaces the inputs' ``(sample_mask, client_mask)`` (the
-        round's chaos faults folded in)."""
+        ``(parts, train_loss, num_samples, stats, client_mask, carry)``,
+        ``carry`` the carry rows of a ``device_carry`` strategy (else
+        None).  ``masks`` replaces the inputs' ``(sample_mask,
+        client_mask)`` (the round's chaos faults folded in)."""
         r = state.round
+        strategy = self.strategy
         if masks is None:
             masks = (inputs["sample_mask"], inputs["client_mask"])
         sample_mask, cm = masks
         gens = (self.client_generators(r, batch.client_ids)
                 if self.random else None)
-        self.local_steps += self.hparams.num_epochs * sample_mask.shape[1]
-        parts, tl, ns, stats = self.strategy.client_step(
+        self.local_steps += (self.hparams.num_epochs * sample_mask.shape[1]
+                             * strategy.client_passes)
+        kw = dict(quant_threshold=quant_threshold,
+                  client_rngs=lambda tag: self.client_generators(
+                      r, batch.client_ids, tag), bounds=self.bounds,
+                  round_idx=r, leakage_threshold=leakage_threshold)
+        if strategy.device_carry:
+            # the live mask: sampled, less chaos's dropped clients
+            # (``round.py:853-866``)
+            parts, tl, ns, stats, carry = strategy.client_step_carry(
+                self.client_update, global_flat, inputs["arrays"],
+                sample_mask, client_lr, gens, client_ids=inputs["carry_ids"],
+                live_mask=cm, strategy_state=state.strategy_state, **kw)
+            return parts, tl, ns, stats, cm, carry
+        parts, tl, ns, stats = strategy.client_step(
             self.client_update, global_flat, inputs["arrays"], sample_mask,
-            client_lr, gens, quant_threshold=quant_threshold,
-            client_rngs=lambda tag: self.client_generators(
-                r, batch.client_ids, tag), bounds=self.bounds, round_idx=r,
-            leakage_threshold=leakage_threshold,
-            strategy_state=state.strategy_state, grad_offset=grad_offsets)
-        return parts, tl, ns, stats, cm
+            client_lr, gens, strategy_state=state.strategy_state,
+            grad_offset=grad_offsets, **kw)
+        return parts, tl, ns, stats, cm, None
 
     def _server_clip(self, agg: torch.Tensor) -> torch.Tensor:
         if self.server_max_grad_norm is None:
@@ -402,7 +465,7 @@ class RoundEngine:
         (``[K, P]`` on the engine's device, zero rows for padding clients)
         goes to every local step's gradient (SCAFFOLD's ``c - c_i``)."""
         inputs = self.stage_inputs(state.round, [batch])[0]
-        parts, tl, _, stats, cm = self._client_step(
+        parts, tl, _, stats, cm, _ = self._client_step(
             state, batch, inputs, state.params, client_lr, None,
             leakage_threshold, grad_offsets)
         pg, w = parts["default"]
@@ -552,7 +615,7 @@ class RoundEngine:
                               ("chaos_scaled", CORRUPT_SCALE),
                               ("chaos_sign_flipped", CORRUPT_SIGN_FLIP)):
                 extra[key] = torch.sum((mode == code).to(torch.float32))
-        parts, tl, ns, stats, cm = self._client_step(
+        parts, tl, ns, stats, cm, carry = self._client_step(
             state, batch, inputs, bcast, client_lr, quant_threshold,
             leakage_threshold, masks=masks)
         if mode is not None:
@@ -626,11 +689,29 @@ class RoundEngine:
             # state passes through
             agg = strategy.combine_stack(parts["default"][0], cm)
             strategy_state = state.strategy_state
+        elif self.fused_rl is not None:
+            # fused RL replaces the combine (``round.py:1378-1392``): the
+            # tuner re-weights the payload stack
+            pg, w = parts["default"]
+            cur_loss = (tl * cm).sum() / torch.clamp(cm.sum(), min=1.0)
+            agg, strategy_state, rl_stats = self.fused_rl.combine(
+                state.strategy_state,
+                {"w": w, "mag": stats["mag"], "mean": stats["mean"],
+                 "var": stats["var_corrected"]}, pg, cur_loss,
+                gen=self.rl_generator(r))
+            extra.update(rl_stats)
         else:
             agg, strategy_state = strategy.combine_parts(
                 part_sums, deferred, state.strategy_state,
                 self.server_seed(r), float(live_host.sum()),
                 global_params=bcast)
+        if carry is not None and (batch.client_ids >= 0).any():
+            # the carry rows scattered after the combine, before the
+            # server step (``round.py:1397-1405``)
+            strategy_state = strategy.apply_carry(
+                strategy_state, inputs["carry_ids"], inputs["carry_src"],
+                carry)
+            extra.update(strategy.carry_stats(strategy_state))
         agg = self._server_clip(agg)
         if strategy.owns_server_update:
             new_params, strategy_state = strategy.apply_server_update(

@@ -49,6 +49,14 @@ DGA's RL hook, SCAFFOLD and EF's host rounds, server replay, the adaptive
 leakage threshold and a hooked ``_sample`` (personalization).
 ``checkpoint_async`` defaults on when the loop is pipelined.
 
+``server_config.fused_carry`` (``server.py:75-95, 179-191, 323-335,
+439-445``) moves four of them onto the ring: SCAFFOLD's controls, EF's
+residuals and personalization's local models ride ``strategy_state`` as
+``[N, ...]`` tables that the round gathers and scatters
+(``RoundEngine``'s carry), and fused RL's tuner re-weights the payloads
+in the round (:mod:`..rl.fused`); no host store or RL aggregator is
+built, and durability rides the model checkpoint.
+
 Host-orchestrated rounds (``server.py:1410``): with ``wantRL`` (DGA's RL
 weight hook), ``strategy: scaffold`` or ``strategy: ef_quant`` each round
 runs through :meth:`_host_round_setup` and the engine's
@@ -128,13 +136,20 @@ class OptimizationServer:
         self.device = resolve_device(device)
         self.metrics = metrics if metrics is not None else MetricsLog()
         sc, cc = config.server_config, config.client_config
-        strategy_cls = select_strategy(config.strategy)
+        #: device-resident carry (``server.py:75-95``): SCAFFOLD's and EF's
+        #: tables, personalization's and fused RL's state ride
+        #: ``strategy_state`` and the round, so their rounds use the ring
+        self._fused_carry = bool(sc.get("fused_carry", False))
+        strategy_cls = self._select_strategy(config)
         if sc.get("robust"):
             # a stack aggregator swaps in RobustFedAvg; a strategy the
             # screening cannot see into is refused (server.py:76-86)
             self.strategy = select_robust_strategy(config, strategy_cls)
         else:
             self.strategy = strategy_cls(config)
+        if self._fused_carry:
+            # the carry tables' rows: the client pool
+            self.strategy.carry_clients = len(train_dataset)
         self.engine = RoundEngine(task, config, self.strategy, self.device,
                                   seed=seed)
         #: fluteshield's policy (None without a robust block) and the
@@ -142,8 +157,13 @@ class OptimizationServer:
         #: each round's fault vectors and logs the counters
         self.shield = self.engine.shield
         self.chaos = make_chaos(sc)
-        self._sample_hooked = \
-            type(self)._sample is not OptimizationServer._sample
+        # a subclass whose ``_sample`` hook falls back to the base sampler
+        # under fused_carry says so with ``fused_carry_sample``
+        # (personalization)
+        self._sample_hooked = (
+            type(self)._sample is not OptimizationServer._sample and
+            not (self._fused_carry and
+                 getattr(type(self), "fused_carry_sample", False)))
         self._check_host_rounds(sc)
 
         # the dispatch/drain ring (server.py:314-352): paths whose host
@@ -155,7 +175,7 @@ class OptimizationServer:
             pm_cfg is not None and pm_cfg.get("apply_metrics", False)
             and pm_cfg.get("adaptive_leakage_threshold"))
         self._pipeline_capable = (
-            not sc.get("wantRL", False) and
+            not self._host_rl(sc) and
             not getattr(self.strategy, "host_rounds", False) and
             not (sc.get("server_replay_config") is not None and
                  server_train_dataset is not None) and
@@ -256,11 +276,12 @@ class OptimizationServer:
         resumed = bool(sc.get("resume_from_checkpoint", False)) and \
             self._resume()
 
-        # DGA's RL weight hook (server.py:437-451)
+        # DGA's RL weight hook (server.py:437-451); under fused_carry the
+        # engine's FusedRL takes its place and no host aggregator is built
         self.rl = None
         #: per RL round, whether candidate B (the RL weights) was kept
         self.rl_kept: List[bool] = []
-        if sc.get("wantRL", False):
+        if self._host_rl(sc):
             from ..rl import RLAggregator
             self.rl = RLAggregator(
                 sc.get("RL") or RLConfig(),
@@ -270,14 +291,15 @@ class OptimizationServer:
         # decision so that they pair with the checkpoint's trajectory
         self.scaffold_store = self.ef_store = None
         self.scaffold_device = self.ef_device = None
-        if isinstance(self.strategy, Scaffold):
+        host_rounds = getattr(self.strategy, "host_rounds", False)
+        if isinstance(self.strategy, Scaffold) and host_rounds:
             self.scaffold_store = self._paired_store(
                 ControlStore, model_dir, "scaffold", "SCAFFOLD controls",
                 resumed)
             if sc.get("scaffold_device_controls", False):
                 self.scaffold_device = DeviceControlTable(
                     self.scaffold_store, len(train_dataset), self.device)
-        if isinstance(self.strategy, EFQuant):
+        if isinstance(self.strategy, EFQuant) and host_rounds:
             self.ef_store = self._paired_store(
                 ResidualStore, model_dir, "ef_residuals", "EF residuals",
                 resumed)
@@ -295,7 +317,7 @@ class OptimizationServer:
         personalization server's hooked sampling) build their payloads
         outside :meth:`RoundEngine.run_round`: a ``robust`` block or chaos
         client faults there are refused, as in ``server.py:195-222``."""
-        host = (bool(sc.get("wantRL", False)) or
+        host = (self._host_rl(sc) or
                 getattr(self.strategy, "host_rounds", False) or
                 self._sample_hooked)
         if not host:
@@ -316,6 +338,17 @@ class OptimizationServer:
                 "personalization orchestrate rounds host-side and "
                 "would ignore the injected faults; zero those rates "
                 "or drop the feature")
+
+    def _host_rl(self, sc) -> bool:
+        """Whether DGA's RL hook runs host-side (``wantRL`` without
+        ``fused_carry``)."""
+        return bool(sc.get("wantRL", False)) and not self._fused_carry
+
+    def _select_strategy(self, config) -> type:
+        """The strategy class the server builds; the personalization
+        server swaps in its carry strategy under ``fused_carry``
+        (``server.py:927-932``)."""
+        return select_strategy(config.strategy)
 
     def chaos_vectors(self, round_no: int, batch) -> Optional[dict]:
         """The round's fault vectors from the schedule, keyed on the round
@@ -647,6 +680,7 @@ class OptimizationServer:
             self.metrics.log("Client learning rate", client_lr, step=r)
             self.metrics.log("Agg. grad norm", st["agg_grad_norm"], step=r)
             self._log_defense(st, r)
+            self._log_carry(st, r)
             if self.server_replay is not None:
                 self._run_server_replay(r)
         if "dp_clip" in stats[-1]:
@@ -659,6 +693,17 @@ class OptimizationServer:
             latest=chunk["snapshot"],
             rng_snapshot=chunk["rng_snapshot"],
             ckpt_secs=chunk["secs"]["ckpt"], rounds=R)
+
+    def _log_carry(self, stats: Dict[str, float], r: int) -> None:
+        """The carry paths' round scalars, from the packed stats: fused
+        SCAFFOLD's ``|c|`` and fused RL's reward, Q loss and epsilon."""
+        log = self.metrics.log
+        if "scaffold_c_norm" in stats:
+            log("Control norm (server c)", stats["scaffold_c_norm"], step=r)
+        if "rl_reward" in stats:
+            log("RL Rewards", stats["rl_reward"], step=r)
+            log("RL Q loss", stats["rl_qloss"], step=r)
+            log("RL epsilon", stats["rl_epsilon"], step=r)
 
     def _run_server_replay(self, round_idx: int) -> None:
         """``server_iterations`` epochs of the replay optimizer over the

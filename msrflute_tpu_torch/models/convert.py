@@ -33,7 +33,8 @@ too: ``Dense_<i>.kernel [in, out]`` and ``bias``, and with ``wantLSTM``
 per-gate kernels ``ii`` ... ``io`` and ``hi`` ... ``ho`` (biases on the
 hidden ones), which the cell stacks in the order ``i, f, g, o`` when it
 runs.  :func:`qnet_from_flax` carries a flax ``_QNet``'s parameters across
-by name.
+by name, and :func:`fused_rl_from_jax` a JAX ``FusedRL`` state (the net,
+its optax moments, the replay ring) into the port's flat ``rl.`` entries.
 """
 
 from __future__ import annotations
@@ -131,3 +132,61 @@ def qnet_from_flax(module: torch.nn.Module, params_np: Dict[str, Any]
     if got != want:
         raise ValueError(f"QNet parameter shapes {got} do not match {want}")
     return out
+
+
+def _optax_moments(opt_state: Any) -> Dict[str, Any]:
+    """The moment entries of an optax state (numpy, after
+    ``jax.device_get``), by the port's optimizer-state names: a
+    ``ScaleByAdamState``'s ``mu``, ``nu`` and ``count``, a ``TraceState``'s
+    ``trace``.  Wrappers (``InjectHyperparamsState``, chains) are walked;
+    their own step counts and hyperparameters are not state the port
+    keeps."""
+    found: Dict[str, Any] = {}
+
+    def walk(node):
+        fields = getattr(node, "_fields", None)
+        if fields is not None:
+            if "mu" in fields and "nu" in fields:
+                found.update(mu=node.mu, nu=node.nu, count=node.count)
+                return
+            if "trace" in fields:
+                found["trace"] = node.trace
+                return
+            if "inner_state" in fields:
+                walk(node.inner_state)
+                return
+            for value in node:
+                walk(value)
+        elif isinstance(node, (tuple, list)):
+            for value in node:
+                walk(value)
+
+    walk(opt_state)
+    return found
+
+
+def fused_rl_from_jax(fused, state_np: Dict[str, Any],
+                      device: torch.device = torch.device("cpu")
+                      ) -> Dict[str, torch.Tensor]:
+    """A JAX ``FusedRL`` state (``init_state`` or a later round's, as
+    numpy) -> the ``rl.`` entries of the port's ``strategy_state`` for the
+    port's :class:`..rl.fused.FusedRL` ``fused``: the flax net's and its
+    optax moments' leaves by name into flat vectors (:func:`qnet_from_flax`
+    and the port's parameter order), the ring's entries as they are."""
+    net = fused.flatten(qnet_from_flax(fused.net, state_np["net"]))
+    template = fused.opt.init(net)
+    opt = {}
+    moments = _optax_moments(state_np["opt"])
+    if set(moments) != set(template):
+        raise ValueError(f"optimizer state {sorted(moments)} does not match "
+                         f"the port's {sorted(template)}")
+    for key, value in moments.items():
+        if key == "count":
+            opt[key] = torch.as_tensor(np.array(value)).to(
+                template[key].dtype)
+        else:
+            opt[key] = fused.flatten(qnet_from_flax(fused.net, value))
+    rest = {k: torch.from_numpy(np.array(state_np[k]))
+            for k in ("replay_s", "replay_a", "replay_r", "count", "ptr",
+                      "eps", "prev_s", "prev_a", "prev_loss", "have_prev")}
+    return fused.state_from(net, opt, device, **rest)

@@ -74,13 +74,14 @@ class BaseStrategy:
     #: :meth:`combine` separate now and deferred sums
     stale_prob: float = 0.0
     #: class flags of ``msrflute_tpu/strategies/base.py:51-117``: whether
-    #: the strategy composes with the RL weight hook, and whether it
-    #: replaces the server optimizer (``stateful`` and
-    #: ``supports_staleness`` have no reader here: the JAX package reads
-    #: them in its fused RL and for ``stale_prob``, which the port's config
-    #: allows under DGA alone)
+    #: the strategy composes with the RL weight hook, whether it replaces
+    #: the server optimizer, and whether its combine keeps cross-round
+    #: state (which fused RL refuses; ``supports_staleness`` has no reader
+    #: here: the JAX package reads it for ``stale_prob``, which the port's
+    #: config allows under DGA alone)
     supports_rl: bool = True
     owns_server_update: bool = False
+    stateful: bool = False
     #: the server runs the strategy's rounds host-side, one at a time
     #: (SCAFFOLD's controls, EF quantization's residuals)
     host_rounds: bool = False
@@ -101,6 +102,21 @@ class BaseStrategy:
     wants_client_stack: bool = False
     #: the round engine's task
     task = None
+    #: device-resident carry (``server_config.fused_carry``,
+    #: ``msrflute_tpu/strategies/base.py:88-130``): the strategy's
+    #: per-client tables (SCAFFOLD's controls, EF's residuals,
+    #: personalization's local models and alphas) live in
+    #: ``strategy_state``, rows keyed by client id; the round calls
+    #: :meth:`client_step_carry` (the rows gathered, the carry rows
+    #: returned) and, after the combine, :meth:`apply_carry`
+    device_carry: bool = False
+    #: the client pool's size, the tables' row count; the server sets it
+    #: from ``len(train_dataset)`` before ``init_state``
+    carry_clients: int = 0
+    #: ``client_update`` calls a client step makes (the personalization
+    #: carry trains the global and the local model): kernel B1's launches
+    #: a local step
+    client_passes: int = 1
 
     def __init__(self, config):
         self.config = config
@@ -185,6 +201,41 @@ class BaseStrategy:
         stats["privacy_dropped"] = dropped
         return weight * (1.0 - dropped)
 
+    def _carry_table_rows(self) -> int:
+        """The carry tables' row count (no fleet paging: the client
+        pool)."""
+        if not self.carry_clients:
+            raise ValueError(
+                f"fused_carry {type(self).__name__} needs carry_clients (the "
+                "client pool's size) set before init_state — the server sets "
+                "it from len(train_dataset)")
+        return int(self.carry_clients)
+
+    def client_step_carry(self, client_update, global_flat, arrays,
+                          sample_mask, client_lr, gens=None, *, client_ids,
+                          live_mask, strategy_state, **kw):
+        """The carry-mode client step: :meth:`client_step`'s ``(parts,
+        train_loss, num_samples, stats)`` and a ``carry`` dict of ``[K,
+        ...]`` rows with its ``keep`` gate, which :meth:`apply_carry`
+        scatters.  ``client_ids`` (``[K]`` int64 on the device, -1 for
+        padding) index the tables; ``live_mask`` is the clients' 0/1
+        presence after chaos's dropout; ``kw`` are :meth:`client_step`'s
+        keywords."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement device-carry mode")
+
+    def apply_carry(self, state: State, client_ids: torch.Tensor,
+                    src: torch.Tensor, carry: Dict[str, torch.Tensor]
+                    ) -> State:
+        """The round's carry rows scattered into new tables (see
+        :func:`scatter_rows`); runs once a round after the combine."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement device-carry mode")
+
+    def carry_stats(self, state: State) -> Dict[str, torch.Tensor]:
+        """Scalars of the new carry state for the round's packed stats."""
+        return {}
+
     def client_weight(self, *, num_samples: torch.Tensor,
                       train_loss: torch.Tensor,
                       stats: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -237,3 +288,24 @@ class BaseStrategy:
         return self.combine(part_sums["default"]["grad_sum"],
                             part_sums["default"]["weight_sum"], deferred,
                             state, seed, num_clients)
+
+
+def gather_rows(table: torch.Tensor, client_ids: torch.Tensor
+                ) -> torch.Tensor:
+    """``table``'s rows of ``client_ids`` (``[K]`` on the table's device),
+    zero rows for padding ids (< 0)."""
+    rows = table.index_select(0, torch.clamp(client_ids, min=0))
+    valid = (client_ids >= 0).to(rows.dtype)
+    return rows * valid.reshape((-1,) + (1,) * (rows.ndim - 1))
+
+
+def scatter_rows(table: torch.Tensor, client_ids: torch.Tensor,
+                 src: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """A new table: ``table`` with row ``client_ids[src[k]]`` set to
+    ``rows[src[k]]`` (the JAX package's ``.at[idx].set(mode="drop")``
+    without a host read).  ``src`` maps each slot to itself, and a padding
+    slot to a real one, so a padding slot writes a real client's row
+    again, byte for byte: no id < 0 is written, and the duplicate writes
+    agree.  A row whose ``keep`` gate is 0 carries the table's own row."""
+    return table.index_copy(0, client_ids.index_select(0, src),
+                            rows.index_select(0, src))

@@ -37,6 +37,8 @@ from .base import BaseStrategy, filter_weight
 
 
 class DGA(BaseStrategy):
+    #: its combine keeps the staleness sums across rounds
+    stateful = True
 
     def __init__(self, config):
         super().__init__(config)

@@ -1,6 +1,6 @@
 """Error-feedback quantized aggregation (EF-SGD) — the port's counterpart
-of ``msrflute_tpu/strategies/ef_quant.py`` on its host path (the
-fused-carry mode is not ported).
+of ``msrflute_tpu/strategies/ef_quant.py``, on its host path and in its
+carry mode (``server_config.fused_carry``, ``ef_quant.py:304-380``).
 
 Each client keeps the residual of its last compression and folds it into
 the next payload before compressing:
@@ -21,6 +21,13 @@ numpy rows written through to ``model_dir/ef_residuals``) and
 :class:`DeviceResidualTable` (``ef_quant.py:174-288``,
 ``server_config.ef_device_residuals``: the ``[N, P]`` table on the device,
 flushed to the store every ``ef_flush_freq`` checkpoints).
+
+In carry mode ``res [N, P]`` rides ``strategy_state``: the round's client
+step corrects each payload with its client's row, quantizes the ``[K,
+P]`` stack (kernel B3, one leaf a row) at the round's annealed threshold
+(the server's ``quant_threshold`` operand, as on DGA's path) and returns
+``corrected - q`` gated on ``valid * live * (w > 0)``;
+:meth:`EFQuant.apply_carry` scatters the rows into a new table.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import numpy as np
 import torch
 
 from ..ops.quantization import quantize_pytree
+from .base import gather_rows, scatter_rows
 from .fedavg import FedAvg
 from .scaffold import _gather, _np_save, _persisted_ids, _scatter, _valid_rows
 
@@ -175,12 +183,46 @@ class EFQuant(FedAvg):
 
     def __init__(self, config):
         super().__init__(config)
+        if config.server_config.get("fused_carry", False):
+            self.host_rounds = False
+            self.device_carry = True
         cc = config.client_config
         self.quant_bits = int(cc.get("quant_bits", 4))
         self.quant_thresh = float(cc.get("quant_thresh", 0.0))
         self.quant_anneal = float(cc.get("quant_anneal", 1.0) or 1.0)
         self.quant_approx = bool(cc.get("quant_approx", False))
         self._one_leaf: Dict[tuple, torch.Tensor] = {}
+
+    # ---- carry mode (server_config.fused_carry) ----------------------
+    def init_state(self, params):
+        if not self.device_carry:
+            return super().init_state(params)
+        return {"res": torch.zeros((self._carry_table_rows(),
+                                    params.shape[-1]), dtype=torch.float32,
+                                   device=params.device)}
+
+    def client_step_carry(self, client_update, global_flat, arrays,
+                          sample_mask, client_lr, gens=None, *, client_ids,
+                          live_mask, strategy_state, quant_threshold=None,
+                          **kw):
+        # the payload after the client step's own transforms, which the
+        # host EF round also compresses; no quantization there
+        parts, tl, ns, stats = self.client_step(
+            client_update, global_flat, arrays, sample_mask, client_lr, gens,
+            quant_threshold=None, **kw)
+        pg, w = parts["default"]
+        res = gather_rows(strategy_state["res"], client_ids)
+        q, new_res = self.ef_step(pg, res, quant_threshold)
+        keep = ((client_ids >= 0).to(torch.float32) * live_mask
+                * (w > 0).to(torch.float32))
+        row = torch.where(keep[:, None] > 0, new_res, res)
+        parts = dict(parts)
+        parts["default"] = (q, w)
+        return parts, tl, ns, stats, {"row": row, "keep": keep}
+
+    def apply_carry(self, state, client_ids, src, carry):
+        return {"res": scatter_rows(state["res"], client_ids, src,
+                                    carry["row"])}
 
     def next_threshold(self) -> float:
         """The round's threshold: annealed before its use."""

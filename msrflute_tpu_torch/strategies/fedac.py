@@ -27,6 +27,7 @@ class FedAC(FedAvg):
 
     owns_server_update = True
     supports_rl = False
+    stateful = True
 
     def __init__(self, config):
         super().__init__(config)

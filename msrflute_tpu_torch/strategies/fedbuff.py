@@ -36,6 +36,7 @@ FEDBUFF_TAG = 23
 class FedBuff(FedAvg):
 
     supports_rl = False
+    stateful = True
     owns_server_update = True
 
     def __init__(self, config):

@@ -1,6 +1,7 @@
 """SCAFFOLD, stochastic controlled averaging (arXiv:1910.06378), option II
-— the port's counterpart of ``msrflute_tpu/strategies/scaffold.py`` on its
-host path (``host_rounds``; the fused-carry mode is not ported).
+— the port's counterpart of ``msrflute_tpu/strategies/scaffold.py``, on
+its host path (``host_rounds``) and in its carry mode
+(``server_config.fused_carry``, ``scaffold.py:363-520``).
 
 Per sampled client:
 
@@ -31,6 +32,16 @@ Padded client slots (id < 0) read a zero offset and write no row: the
 JAX package scatters them out of range with ``mode="drop"``; in torch a
 -1 would wrap to row N - 1, so the rows are masked before
 ``index_copy_``.
+
+In carry mode ``c [P]`` and ``ci [N, P]`` ride ``strategy_state``: the
+round gathers the cohort's rows, feeds ``c - c_i`` to every local step,
+counts each client's real steps from its sample mask (a straggler's
+truncated mask included) and returns ``c_i+`` gated on ``valid * live *
+(w > 0)``; :meth:`Scaffold.apply_carry` adds the kept rows' change over
+``carry_clients`` to ``c`` and scatters them into a new table
+(:func:`.base.scatter_rows`), with no host read, so the round rides the
+dispatch ring.  ``|c|`` crosses in the round's packed stats.  Durability
+rides the model checkpoint: no store, no files.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .base import gather_rows, scatter_rows
 from .fedavg import FedAvg
 
 
@@ -169,11 +181,10 @@ def _valid_rows(client_ids, device, weights=None) -> torch.Tensor:
 
 
 def _gather(table: torch.Tensor, client_ids) -> torch.Tensor:
-    """``table``'s rows of ``client_ids``, zero rows for padding ids."""
-    ids = torch.as_tensor(np.asarray(client_ids), dtype=torch.int64,
-                          device=table.device)
-    rows = table[torch.clamp(ids, 0, table.shape[0] - 1)]
-    return rows * (ids >= 0).to(rows.dtype)[:, None]
+    """``table``'s rows of the host's ``client_ids``, zero rows for padding
+    ids."""
+    return gather_rows(table, torch.as_tensor(
+        np.asarray(client_ids), dtype=torch.int64, device=table.device))
 
 
 def _scatter(table: torch.Tensor, client_ids, rows: torch.Tensor,
@@ -260,6 +271,61 @@ class Scaffold(FedAvg):
 
     host_rounds = True
     supports_rl = False
+
+    def __init__(self, config):
+        super().__init__(config)
+        sc, cc = config.server_config, config.client_config
+        if sc.get("fused_carry", False):
+            # instance flags shadow the class's: the engine sees a carry
+            # strategy, the server no host rounds
+            self.host_rounds = False
+            self.device_carry = True
+        self._epochs = int(cc.get("num_epochs", 1) or 1)
+
+    # ---- carry mode (server_config.fused_carry) ----------------------
+    def init_state(self, params):
+        if not self.device_carry:
+            return super().init_state(params)
+        P = params.shape[-1]
+        return {"c": torch.zeros(P, dtype=torch.float32,
+                                 device=params.device),
+                "ci": torch.zeros((self._carry_table_rows(), P),
+                                  dtype=torch.float32, device=params.device)}
+
+    def client_step_carry(self, client_update, global_flat, arrays,
+                          sample_mask, client_lr, gens=None, *, client_ids,
+                          live_mask, strategy_state, **kw):
+        c = strategy_state["c"]
+        valid = (client_ids >= 0).to(torch.float32)
+        ci = gather_rows(strategy_state["ci"], client_ids)
+        # c - c_i, zero rows for padding so their masked steps stay no-ops
+        offset = (c[None, :] - ci) * valid[:, None]
+        parts, tl, ns, stats = self.client_step(
+            client_update, global_flat, arrays, sample_mask, client_lr, gens,
+            grad_offset=offset, **kw)
+        pg, w = parts["default"]
+        # real local steps K_i: steps with a real sample, per epoch
+        steps = torch.sum((torch.sum(sample_mask, dim=-1) > 0).to(
+            torch.float32), dim=-1) * float(self._epochs)
+        k_i = torch.clamp(steps, min=1.0)
+        lr = torch.tensor(client_lr, dtype=torch.float32)
+        ci_new = ci - c[None, :] + pg / (k_i * lr)[:, None]
+        # privacy-dropped and chaos-dropped clients leave their row alone
+        keep = valid * live_mask * (w > 0).to(torch.float32)
+        row = torch.where(keep[:, None] > 0, ci_new, ci)
+        return parts, tl, ns, stats, {"row": row, "old": ci, "keep": keep}
+
+    def apply_carry(self, state, client_ids, src, carry):
+        keep = carry["keep"] > 0
+        delta = torch.where(keep[:, None], carry["row"] - carry["old"], 0.0)
+        c = state["c"] + delta.sum(dim=0) / max(float(self.carry_clients),
+                                                1.0)
+        return {"c": c, "ci": scatter_rows(state["ci"], client_ids, src,
+                                           carry["row"])}
+
+    def carry_stats(self, state):
+        """``|c|``, published in the round's packed stats."""
+        return {"scaffold_c_norm": torch.linalg.vector_norm(state["c"])}
 
     def update_controls(self, store: ControlStore, client_ids,
                         steps_per_client, pgs_flat: np.ndarray,

@@ -5,6 +5,7 @@ instead of running as something else."""
 
 import copy
 import os
+import re
 
 import pytest
 import yaml
@@ -120,7 +121,6 @@ def _with(path, value):
     ("client_config.optimizer_config.dampening", 0.1),
     ("client_config.ss_config", {"mode": "fixmatch"}),
     ("dp_config", {"enable_prod": True}),
-    ("server_config.fused_carry", True),
 ])
 def test_unported_features_raise(path, value):
     with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -272,16 +272,15 @@ def _semisup():
      NotImplementedError),
     ("client_config.data_config.train.augment.ops", 2, ValueError),
     ("dp_config", {"enable_local_dp": True}, NotImplementedError),
-    ("server_config.fused_carry", True, NotImplementedError),
     ("server_config.personalization_init", "zeros", ValueError),
     ("server_config.personalization_interp", "logits", ValueError),
     ("client_config.convex_model_interp", 1.5, ValueError),
     ("server_config.type", "replay", NotImplementedError),
 ])
 def test_slice_seven_keys_outside_the_slice_raise(path, value, error):
-    """FedLabels with DP, fused_carry, a pseudo-label comparison other
-    than ``var``, another augmentation, and out-of-range personalization
-    keys still fail loudly."""
+    """FedLabels with DP, a pseudo-label comparison other than ``var``,
+    another augmentation, and out-of-range personalization keys still fail
+    loudly."""
     raw = _semisup()
     node = raw
     keys = path.split(".")
@@ -290,6 +289,69 @@ def test_slice_seven_keys_outside_the_slice_raise(path, value, error):
     node[keys[-1]] = value
     with pytest.raises(error):
         FLUTEConfig.from_dict(raw)
+
+
+def _build_both(raw, tmp_path):
+    """The JAX package's server and the port's on ``raw`` (four users of
+    arrays the constructors never read): each outcome, None when the
+    server is built, else the exception's type."""
+    import numpy as np
+    from msrflute_tpu.config import FLUTEConfig as JaxFLUTEConfig
+    from msrflute_tpu.data import ArraysDataset as JaxArraysDataset
+    from msrflute_tpu.engine.server import select_server as jax_select
+    from msrflute_tpu.models import make_task as jax_make_task
+    from msrflute_tpu.parallel import make_mesh
+    from msrflute_tpu_torch.data.dataset import ArraysDataset
+    from msrflute_tpu_torch.engine.server import select_server
+    from msrflute_tpu_torch.models import make_task
+
+    def data(cls, seed):
+        rng = np.random.default_rng(seed)
+        return cls([f"u{i}" for i in range(4)],
+                   [{"x": rng.random((6, 4), dtype=np.float32),
+                     "y": rng.integers(0, 4, 6).astype(np.int32)}
+                    for _ in range(4)])
+
+    def jax_server():
+        cfg = JaxFLUTEConfig.from_dict(copy.deepcopy(raw))
+        jax_select(cfg.server_config.get("type"))(
+            jax_make_task(cfg.model_config), cfg, data(JaxArraysDataset, 0),
+            val_dataset=data(JaxArraysDataset, 1),
+            model_dir=str(tmp_path / "jax"), mesh=make_mesh(num_devices=1),
+            seed=0)
+
+    def port_server():
+        cfg = FLUTEConfig.from_dict(copy.deepcopy(raw))
+        server = select_server(cfg.server_config.get("type"))(
+            make_task(cfg.model_config), cfg, data(ArraysDataset, 0),
+            val_dataset=data(ArraysDataset, 1),
+            model_dir=str(tmp_path / "port"), device="cpu", seed=0)
+        # no carry on these strategies: the plain round, on the ring
+        assert not server.strategy.device_carry and server._pipeline_ok()
+
+    outcomes = []
+    for build in (jax_server, port_server):
+        try:
+            build()
+            outcomes.append(None)
+        except Exception as exc:   # the type is what is compared
+            outcomes.append(type(exc))
+    return outcomes
+
+
+@pytest.mark.parametrize("config", ["fedavg_cnn", "fedlabels"])
+def test_fused_carry_does_what_the_jax_package_does(config, tmp_path):
+    """``server_config.fused_carry: true`` on a strategy without carry
+    state (the FedAvg CNN of :data:`BASE`, the shipped FedLabels config):
+    the JAX package builds its server and runs the plain round; so does
+    the port."""
+    raw = copy.deepcopy(BASE) if config == "fedavg_cnn" else _semisup()
+    raw["server_config"]["fused_carry"] = True
+    # the JAX round refuses megakernel.pallas_apply on the CPU backend
+    raw["server_config"].pop("megakernel", None)
+    jax_outcome, port_outcome = _build_both(raw, tmp_path)
+    assert jax_outcome is None and port_outcome is None, \
+        (jax_outcome, port_outcome)
 
 
 def _shipped(name):
@@ -317,7 +379,8 @@ def test_slice_eight_shipped_configs_load(name, client_opt):
 def test_mlm_bert_model_axis_raises_naming_multi_gpu(size):
     raw = _shipped("mlm_bert")
     raw["mesh_config"]["model_axis_size"] = size
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
+    with pytest.raises(NotImplementedError,
+                       match=r"multi-GPU.*ROADMAP\.md §A"):
         FLUTEConfig.from_dict(raw)
 
 
@@ -450,3 +513,35 @@ def test_client_updatable_layers_is_accepted_and_ignored():
                          torch.device("cpu"))
     assert engine.hparams.updatable_layers is None
     assert engine.hparams.freeze_layers == ()
+
+
+def _bert(**model):
+    raw = _shipped("mlm_bert")
+    raw["mesh_config"]["model_axis_size"] = 1
+    raw["model_config"]["BERT"]["model"].update(model)
+    return raw
+
+
+def _chaos(**chaos):
+    return _with("server_config.chaos", {"enable": True, "seed": 0,
+                                         "dropout_rate": 0.1, **chaos})
+
+
+@pytest.mark.parametrize("feature,raw", [
+    ("checkpoint-IO", lambda: _chaos(ckpt_io_error_rate=0.1)),
+    ("preemption", lambda: _chaos(preempt_at_round=2)),
+    ("infra services", lambda: _chaos(infra={"writer_error_rate": 0.1})),
+    ("multi-GPU", lambda: _shipped("mlm_bert")),
+    ("Hugging Face weights", lambda: _bert(model_name_or_path="/ckpt")),
+    ("BERT's dtype", lambda: _bert(dtype="bfloat16")),
+    ("gathered MLM head", lambda: _bert(mlm_head="gathered")),
+])
+def test_refusal_messages_name_the_feature_and_the_roadmap_section(feature,
+                                                                   raw):
+    """Each refusal names its feature and ``ROADMAP.md §A``, and no item
+    number, which goes stale as the queue moves."""
+    with pytest.raises(NotImplementedError) as info:
+        FLUTEConfig.from_dict(raw())
+    message = str(info.value)
+    assert feature in message and "ROADMAP.md §A" in message, message
+    assert not re.search(r"item\s*\d", message), message

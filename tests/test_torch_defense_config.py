@@ -8,9 +8,9 @@
   server.
 - What this slice leaves out raises ``NotImplementedError`` naming the key:
   chaos's checkpoint-IO faults, preemption and infra services,
-  ``dump_norm_stats``, ``fused_carry``, ``cohort_bucketing``,
-  ``clients_per_chunk``, and DP under FedAC, FedBuff, EF quantization and
-  FedLabels.
+  ``dump_norm_stats``, ``cohort_bucketing``, ``clients_per_chunk``, and DP
+  under FedAC, FedBuff, EF quantization and FedLabels.  ``fused_carry``
+  under FedAvg builds, as in the JAX package.
 - The slice's keys parse: ``strategy: secure_agg`` and its aliases, a
   ``robust`` block with each aggregator, chaos client faults and
   corruption, local DP with adaptive clipping under FedAvg and FedProx, and
@@ -147,8 +147,6 @@ NOT_PORTED = {
                     {"infra": {"store_write_error_rate": 0.1}}, "infra"),
     "dump_norm_stats": ("fedavg", "server_config.dump_norm_stats", True,
                         "dump_norm_stats"),
-    "fused_carry": ("fedavg", "server_config.fused_carry", True,
-                    "fused_carry"),
     "cohort_bucketing": ("secure_agg", "server_config.cohort_bucketing",
                          {"enable": True}, "cohort_bucketing"),
     "clients_per_chunk": ("fedavg", "server_config.clients_per_chunk", 2,
@@ -165,6 +163,27 @@ def test_left_out_raises_not_implemented_naming_the_key(name):
     strategy, path, value, key = NOT_PORTED[name]
     with pytest.raises(NotImplementedError, match=key):
         FLUTEConfig.from_dict(_with(strategy, (path, value)))
+
+
+@pytest.mark.parametrize("name", ["fused_carry"])
+def test_fused_carry_under_fedavg_builds_as_in_the_jax_package(name,
+                                                              tmp_path):
+    """``fused_carry: true`` under FedAvg: no carry state, the plain round
+    on the ring, in the JAX package and in the port."""
+    raw = _with("fedavg", (f"server_config.{name}", True))
+    from msrflute_tpu_torch.data.dataset import ArraysDataset
+    data = _dataset()
+    server = OptimizationServer(
+        make_task(FLUTEConfig.from_dict(copy.deepcopy(raw)).model_config),
+        FLUTEConfig.from_dict(copy.deepcopy(raw)),
+        ArraysDataset(data.user_list, [data.user_arrays(i)
+                                       for i in range(4)]),
+        model_dir=str(tmp_path), device="cpu")
+    assert type(server.strategy) is FedAvg and server._pipeline_ok()
+    assert not server.strategy.device_carry and \
+        server.state.strategy_state == {}
+    jax_server = _jax_server(raw, tmp_path / "jax")
+    assert not getattr(jax_server.strategy, "device_carry", False)
 
 
 ADMITTED = {

@@ -73,7 +73,8 @@ def test_no_source_imports_jax(path):
 #: DGA's RL hook and the hdf5 reader (B3 on EF quantization's path; the
 #: reader imports ``h5py`` only when it reads), and the defense slice's
 #: chaos schedule, shield, robust aggregators, secure aggregation, FedAvg's
-#: local DP and the RDP accountant
+#: local DP and the RDP accountant, and the carry slice's personalization
+#: strategy and fused RL (B1 and B3 on their paths)
 SLICE_MODULES = [(m, None) for m in (
     "msrflute_tpu_torch.models.nlp", "msrflute_tpu_torch.privacy",
     "msrflute_tpu_torch.ops.quantization", "msrflute_tpu_torch.ops.quant_bin",
@@ -115,7 +116,10 @@ SLICE_MODULES = [(m, None) for m in (
         "msrflute_tpu_torch.privacy.accountant",
         "msrflute_tpu_torch.strategies.robust",
         "msrflute_tpu_torch.strategies.secure_agg",
-        "msrflute_tpu_torch.strategies.fedavg")]
+        "msrflute_tpu_torch.strategies.fedavg")] + [
+    (m, "quant_bin") for m in (
+        "msrflute_tpu_torch.strategies.personalized",
+        "msrflute_tpu_torch.rl.fused")]
 
 
 @pytest.mark.parametrize("module,kernel", SLICE_MODULES,

@@ -137,7 +137,6 @@ def test_refused_combination_raises_value_error_in_both(name, tmp_path):
     ("server_config.dump_norm_stats", True),
     ("server_config.clients_per_chunk", 2),
     ("server_config.chaos", {"infra": {"writer_error_rate": 0.1}}),
-    ("server_config.fused_carry", True),
     ("server_config.traffic", {"mode": "buffered"}),
     ("server_config.cohort_bucketing", {"enable": True}),
 ])
@@ -146,6 +145,28 @@ def test_later_slices_stay_refused(path, value):
     edits = () if path == "strategy" else ((path, value),)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         FLUTEConfig.from_dict(_with(strategy, *edits))
+
+
+@pytest.mark.parametrize("path,value", [("server_config.fused_carry", True)])
+def test_fused_carry_builds_as_in_the_jax_package(path, value, tmp_path):
+    """SCAFFOLD under ``fused_carry``: the JAX package builds its carry
+    server (no host rounds), and so does the port, its controls in
+    ``strategy_state``."""
+    from msrflute_tpu_torch.data.dataset import ArraysDataset as PortDataset
+    from msrflute_tpu_torch.engine.server import OptimizationServer
+    from msrflute_tpu_torch.models import make_task
+    raw = _with("scaffold", (path, value))
+    jax_server = _jax_server(raw, tmp_path / "jax")
+    assert not jax_server.strategy.host_rounds
+    cfg = FLUTEConfig.from_dict(copy.deepcopy(raw))
+    jds = _dataset()
+    server = OptimizationServer(
+        make_task(cfg.model_config), cfg,
+        PortDataset(jds.user_list, [jds.user_arrays(i) for i in range(4)]),
+        model_dir=str(tmp_path / "port"), device="cpu", seed=0)
+    assert server.strategy.device_carry and server.scaffold_store is None
+    assert sorted(server.state.strategy_state) == ["c", "ci"]
+    assert server.state.strategy_state["ci"].shape[0] == 4
 
 
 @pytest.mark.parametrize("strategy,edits", [
