@@ -5238,6 +5238,375 @@ def phase_fused_carry(torch, work, kernel_rows):
               for leg in legs}})
 
 
+#: the resilience phase: ``main``'s CNN_FEMNIST config (P = 1,206,590, 10
+#: clients at batch 20, the 350 writers, ``pallas_apply``) with a server
+#: SGD with momentum (so the server optimizer has state to hold bitwise),
+#: one-round chunks at depth 1, no eval (a best model is one more write)
+RESILIENCE_ROUNDS = 6
+RESILIENCE_DP = {"enable_local_dp": True, "eps": 1000.0, "delta": 1e-5,
+                 "max_grad": 1.0, "max_weight": 1000.0}
+#: ``dp_strategies``: ``(strategy leg, fused_carry)`` of STRATEGY_LEGS (EF's
+#: host round with its device table, whose rows reach the disk once, at
+#: the last round)
+RESILIENCE_DP_LEGS = {"fedac": ("fedac", False), "fedbuff": ("fedbuff", False),
+                      "ef_host": ("ef_quant_device", False),
+                      "ef_carry": ("ef_quant", True)}
+#: the writers of the EF carry leg: its ``latest`` holds their ``[N, P]``
+#: residual table (48 MB)
+RESILIENCE_CARRY_WRITERS = 10
+#: ``client_chunks``: Fed-CIFAR-100's ResNet-18-GN at K clients, chunked
+CHUNK_K, CHUNK_C = 20, 5
+
+
+def resilience_config(rounds=RESILIENCE_ROUNDS, **server):
+    raw = json.loads(json.dumps(CNN_CONFIG))
+    raw["server_config"].update(
+        max_iteration=rounds, val_freq=1000, rec_freq=1000,
+        initial_val=False, rounds_per_step=1, pipeline_depth=1,
+        model_backup_freq=1000,
+        optimizer_config={"type": "sgd", "lr": 1.0, "momentum": 0.9},
+        **server)
+    return raw
+
+
+def _full_state(state):
+    """Params, the server optimizer's state and ``strategy_state`` in one
+    dict, where they are."""
+    return {"params": state.params,
+            **{f"opt.{k}": v for k, v in state.opt_state.items()},
+            **state.strategy_state}
+
+
+def _run_preempted(work, name, raw):
+    """The CLI on ``raw``, which must exit 75 (``EX_TEMPFAIL``): the
+    status log it leaves."""
+    try:
+        _run_cli(work, name, raw, "cuda")
+    except SystemExit as exc:
+        check(exc.code == 75, f"resilience {name}: exit code {exc.code}")
+    else:
+        check(False, f"resilience {name}: the run was not preempted")
+    with open(os.path.join(work, f"out_{name}", "models",
+                           "status_log.json")) as fh:
+        return json.load(fh)
+
+
+def _resume_to_ref(torch, work, name, raw, ref):
+    """``raw`` resumed in ``name``'s directory: its params and server
+    optimizer state bitwise ``ref``'s."""
+    raw = json.loads(json.dumps(raw))
+    raw["server_config"]["resume_from_checkpoint"] = True
+    resumed, _, _ = _run_cli(work, name, raw, "cuda")
+    check(resumed.state.round == RESILIENCE_ROUNDS and not resumed.preempted,
+          f"resilience {name}: the resume ended at {resumed.state.round}")
+    got = _full_state(resumed.state)
+    check(sorted(got) == sorted(ref) and
+          all(torch.equal(got[k], ref[k]) for k in ref),
+          f"resilience {name}: the resumed state differs from the "
+          "reference: " + str({k: _max_abs_diff(torch, got[k], ref[k])
+                               for k in ref if k in got}))
+    del resumed
+    return True
+
+
+def _leg_preempt(torch, work, ref):
+    raw = resilience_config(chaos={"preempt_at_round": 3})
+    status = _run_preempted(work, "res_preempt", raw)
+    check(status["i"] == 3 and
+          status.get("preempted") == "chaos preempt_at_round=3",
+          f"resilience preempt: status {status.get('i')}, "
+          f"{status.get('preempted')}")
+    return {"stopped_at": status["i"], "exit_code": 75,
+            "resume_bitwise": _resume_to_ref(torch, work, "res_preempt", raw,
+                                             ref)}
+
+
+def _leg_sigterm(torch, work, ref):
+    """A real SIGTERM to this process from a timer thread once round 2's
+    status is on disk; a guard handler outside ``train`` (the server
+    installs its own for the loop) turns a signal that misses the loop
+    into a failed check instead of the script's death."""
+    import signal
+    import threading
+    name = "res_sigterm"
+    status_path = os.path.join(work, f"out_{name}", "models",
+                               "status_log.json")
+    late = []
+    guard = signal.signal(signal.SIGTERM, lambda s, f: late.append(s))
+    stop = threading.Event()
+
+    def timer():
+        while not stop.wait(0.002):
+            try:
+                with open(status_path) as fh:
+                    if json.load(fh)["i"] >= 2:
+                        os.kill(os.getpid(), signal.SIGTERM)
+                        return
+            except (OSError, ValueError, KeyError):
+                pass
+
+    thread = threading.Thread(target=timer, daemon=True)
+    thread.start()
+    try:
+        status = _run_preempted(work, name, resilience_config())
+    finally:
+        stop.set()
+        thread.join(timeout=10)
+        signal.signal(signal.SIGTERM, guard)
+    check(not late, "resilience sigterm: the signal missed the loop")
+    check(status.get("preempted") == "signal SIGTERM" and
+          2 <= status["i"] < RESILIENCE_ROUNDS,
+          f"resilience sigterm: status {status.get('i')}, "
+          f"{status.get('preempted')}")
+    return {"stopped_at": status["i"], "exit_code": 75,
+            "resume_bitwise": _resume_to_ref(torch, work, name,
+                                             resilience_config(), ref)}
+
+
+def _leg_ckpt_io(torch, work, ref):
+    from msrflute_tpu_torch.resilience.chaos import ChaosSchedule
+    from msrflute_tpu_torch.resilience.integrity import \
+        CheckpointEscalationError
+    chaos = {"seed": 3, "ckpt_io_error_rate": 0.3}
+    raw = resilience_config(chaos=chaos, checkpoint_retry={
+        "retries": 6, "backoff_base_s": 0, "jitter": 0})
+    server, _, secs = _run_cli(work, "res_ckpt_io", raw, "cuda")
+    got = _full_state(server.state)
+    check(all(torch.equal(got[k], ref[k]) for k in ref),
+          "resilience ckpt_io: the faulty run's state differs from the "
+          "clean reference")
+    calls = server.chaos._io_calls
+    faults = server.chaos.counters["ckpt_io_faults"]
+    replay = ChaosSchedule(**chaos)
+    replayed = sum(replay.io_fault() for _ in range(calls))
+    check(faults == replayed > 0 and server.ckpt.escalator.total == 0,
+          f"resilience ckpt_io: {faults} faults, the replay of {calls} "
+          f"attempts {replayed}, {server.ckpt.escalator.total} failed saves")
+    del server
+    name = "res_escalation"
+    raw = resilience_config(chaos={"seed": 3, "ckpt_io_error_rate": 1.0},
+                            checkpoint_retry={
+                                "retries": 1, "backoff_base_s": 0,
+                                "jitter": 0, "escalation_threshold": 2})
+    raised = None
+    try:
+        _run_cli(work, name, raw, "cuda")
+    except CheckpointEscalationError as exc:
+        raised = str(exc)
+    with open(os.path.join(work, f"out_{name}", "models",
+                           "status_log.json")) as fh:
+        at = json.load(fh)["i"]
+    # depth 1: the saves of rounds 1 and 2 fail on the writer thread, the
+    # submit of round 3's raises
+    check(raised is not None and "2 consecutive" in raised and at == 3,
+          f"resilience escalation: raised {raised!r} at round {at}")
+    return {"io_attempts": calls, "io_faults": faults,
+            "faults_equal_replay": True, "params_bitwise_clean": True,
+            "run_seconds": round(secs, 3),
+            "escalation": {"raised": "CheckpointEscalationError",
+                           "at_round": at, "threshold": 2}}
+
+
+def _leg_dp_strategies(torch, work, kernel_rows):
+    """FedAC, FedBuff, EF's host round and EF under ``fused_carry``
+    (:data:`RESILIENCE_CARRY_WRITERS` writers) with local DP (clip and
+    noise), 2 rounds at depth 1 with no eval (a best model would copy the
+    carry table again), twice each on cuda."""
+    small = f"femnist_{RESILIENCE_CARRY_WRITERS}"
+    if not os.path.isdir(os.path.join(work, small)):
+        os.makedirs(os.path.join(work, small))
+        for split, users, seed in (("train", RESILIENCE_CARRY_WRITERS, 8),
+                                   ("val", 4, 9), ("test", 4, 10)):
+            write_femnist_blob(os.path.join(work, small, f"{split}.json"),
+                               users, 50, 300, seed)
+    legs = {}
+    for leg, (strategy_leg, fused) in RESILIENCE_DP_LEGS.items():
+        raw = strategy_config(strategy_leg, rounds=2,
+                              data_dir=small if fused else "femnist")
+        raw["dp_config"] = dict(RESILIENCE_DP)
+        raw["server_config"].update(pipeline_depth=1, fused_carry=fused,
+                                    val_freq=1000)
+        runs = []
+        for run in range(2):
+            _reset_counts()
+            server, out, secs = _run_cli(work, f"res_dp_{leg}_{run}", raw,
+                                         "cuda")
+            launches = _read_counts()
+            steps = server.engine.local_steps
+            want = {k: 0 for k in launches}
+            want["fused_sgd_apply"] = steps
+            want["quant_bin_sparsify"] = 2 if leg.startswith("ef") else 0
+            check(steps > 0 and launches == want,
+                  f"resilience dp {leg}: launches {launches}, want {want}")
+            train_loss = [r["value"] for r in _records(out, "Training loss")]
+            val = [h["loss"] for h in server.history if h["split"] == "val"]
+            check(len(train_loss) == 2 and
+                  all(map(math.isfinite, train_loss + val)),
+                  f"resilience dp {leg}: losses {train_loss} val {val}")
+            check(server.strategy.local_dp and
+                  ("res" in server.state.strategy_state) == fused,
+                  f"resilience dp {leg}: not the leg's path")
+            runs.append((_full_state(server.state), launches, train_loss,
+                         secs))
+            del server
+        (a, launches, train_loss, secs), (b, *_rest) = runs
+        check(sorted(a) == sorted(b) and all(torch.equal(a[k], b[k])
+                                             for k in a),
+              f"resilience dp {leg}: two cuda runs differ")
+        for row in kernel_rows:
+            row.setdefault("launches_by_path", {})[f"resilience_dp_{leg}"] = \
+                launches[row["name"]]
+        legs[leg] = {"launches": launches,
+                     "b1_per_round": launches["fused_sgd_apply"] / 2,
+                     "b3_per_round": launches["quant_bin_sparsify"] / 2,
+                     "train_loss": train_loss, "cuda_bitwise": True,
+                     "writers": RESILIENCE_CARRY_WRITERS if fused else 350,
+                     "run_seconds": round(secs, 3)}
+        del runs, a, b
+        torch.cuda.empty_cache()
+    return legs
+
+
+def _leg_client_chunks(torch, work, kernel_rows):
+    """Fed-CIFAR-100's ResNet-18-GN at K = 20 for one round, all K clients
+    at once and 5 at a time: params within 1e-5 (relative L2), B1 four
+    times as often, and each run's peak of allocated device memory."""
+    out = {}
+    for name, chunk in (("unchunked", None), ("chunked", CHUNK_C)):
+        raw = fedavg_path_config("cv_resnet_fedcifar100", "fedcifar100",
+                                 rounds=1)
+        raw["server_config"].update(num_clients_per_iteration=CHUNK_K,
+                                    initial_val=False, val_freq=1000,
+                                    rec_freq=1000, model_backup_freq=1000)
+        if chunk:
+            raw["server_config"]["clients_per_chunk"] = chunk
+        _reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        server, _, secs = _run_cli(work, f"res_chunks_{name}", raw, "cuda",
+                                   task="cv_resnet_fedcifar100")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = _read_counts()
+        check(server.engine.layout.numel == RESNET_P and
+              server.engine.clients_per_chunk == chunk,
+              f"resilience chunks {name}: not the ResNet run asked for")
+        out[name] = {"params": server.state.params.double().cpu(),
+                     "launches": launches,
+                     "local_steps": server.engine.local_steps,
+                     "peak_allocated_gb": peak / 1e9,
+                     "run_seconds": round(secs, 3)}
+        for row in kernel_rows:
+            row.setdefault("launches_by_path", {})[
+                f"resilience_chunks_{name}"] = launches[row["name"]]
+        del server
+        torch.cuda.empty_cache()
+    a, b = out["chunked"], out["unchunked"]
+    rel = float((a["params"] - b["params"]).norm() / b["params"].norm())
+    check(rel <= 1e-5, f"resilience chunks: rel L2 {rel} > 1e-5")
+    b1 = (a["launches"]["fused_sgd_apply"], b["launches"]["fused_sgd_apply"])
+    check(b1[0] == CHUNK_K // CHUNK_C * b1[1] > 0 and
+          b1[0] == a["local_steps"],
+          f"resilience chunks: B1 launched {b1} times")
+    for r in out.values():
+        r.pop("params")
+    return {"clients": CHUNK_K, "clients_per_chunk": CHUNK_C,
+            "rel_l2": rel, "b1_per_local_step_chunked":
+                b1[0] / (b1[1] or 1), **out}
+
+
+def _leg_norm_dump(torch, work):
+    """``main``'s config with ``dump_norm_stats`` for 2 rounds (on 40
+    writers, dropout off, as ``cross_device``): one line a round with an
+    entry a sampled client, finite, cosines in [-1, 1]; twice on cuda
+    (bitwise) and once on cpu: round 1's dumps, whose payloads start from
+    the same params on both devices, within ``CROSS_TOL[1]``.  Round 2's
+    start from params that already differ (by ``CROSS_TOL[1]`` at most),
+    and 15 local steps on random labels grow that about fortyfold: its
+    relative L2 is reported beside the params' bound, not held to it."""
+    raw = _set_data(json.loads(json.dumps(CNN_CONFIG)), _small_femnist(work))
+    raw["model_config"].update(dropout1=0.0, dropout2=0.0)
+    raw["server_config"].update(max_iteration=2, val_freq=100, rec_freq=100,
+                                initial_val=False, rounds_per_step=1,
+                                dump_norm_stats=True)
+    dumps = {}
+    for tag, device in (("cuda", "cuda"), ("cuda_again", "cuda"),
+                        ("cpu", "cpu")):
+        server, out, _ = _run_cli(work, f"res_norm_{tag}", raw, device)
+        del server
+        lines = {}
+        for name in ("norm_stats.txt", "cosines.txt"):
+            with open(os.path.join(out, "models", name)) as fh:
+                lines[name] = [json.loads(line) for line in fh]
+        dumps[tag] = lines
+    for name, rows in dumps["cuda"].items():
+        check(len(rows) == 2 and all(len(r) == MAIN_K for r in rows) and
+              all(math.isfinite(v) for r in rows for v in r),
+              f"resilience norm_dump {name}: {rows}")
+        check(rows == dumps["cuda_again"][name],
+              f"resilience norm_dump {name}: two cuda runs differ")
+    check(all(-1.0 <= c <= 1.0 for r in dumps["cuda"]["cosines.txt"]
+              for c in r), "resilience norm_dump: a cosine outside [-1, 1]")
+    rel = {}
+    for name in dumps["cuda"]:
+        for r, (a, b) in enumerate(zip(dumps["cuda"][name],
+                                       dumps["cpu"][name])):
+            a, b = torch.tensor(a).double(), torch.tensor(b).double()
+            rel[f"{name}:{r + 1}"] = float((a - b).norm() / b.norm())
+        check(rel[f"{name}:1"] <= CROSS_TOL[1],
+              f"resilience norm_dump {name} round 1: cuda vs cpu rel L2 "
+              f"{rel[f'{name}:1']} > {CROSS_TOL[1]}")
+    return {"rounds": 2, "entries_per_round": MAIN_K,
+            "cuda_bitwise": True, "rel_l2_cuda_vs_cpu": rel,
+            "tolerance_round1": CROSS_TOL[1],
+            "norms_round1": dumps["cuda"]["norm_stats.txt"][0],
+            "cosines_round1": dumps["cuda"]["cosines.txt"][0]}
+
+
+def phase_resilience(torch, work, kernel_rows):
+    """The resilience slice on one card, through ``e2e_trainer.main``:
+    ``preempt`` (the drill at round 3 of a 6-round run, exit 75, the
+    resume bitwise the uninterrupted reference), ``sigterm`` (a real
+    SIGTERM once round 2 is logged, exit 75, the resume bitwise),
+    ``ckpt_io`` (IO faults at 0.3 with six attempts a save: bitwise the
+    reference, the fault counter the host replay's; then every save
+    failing, escalation at 2), ``dp_strategies``, ``client_chunks`` and
+    ``norm_dump``; a line a leg, then the phase's."""
+    restore = _shared_parse()
+    legs = {}
+    tic = time.time()
+    try:
+        server, _, secs = _run_cli(work, "res_ref", resilience_config(),
+                                   "cuda")
+        check(server.state.round == RESILIENCE_ROUNDS and
+              not server.preempted and server.state.opt_state,
+              "resilience: the reference run")
+        ref = _full_state(server.state)
+        del server
+        legs["reference"] = {"rounds": RESILIENCE_ROUNDS,
+                             "run_seconds": round(secs, 3)}
+        for leg, fn in (("preempt", lambda: _leg_preempt(torch, work, ref)),
+                        ("sigterm", lambda: _leg_sigterm(torch, work, ref)),
+                        ("ckpt_io", lambda: _leg_ckpt_io(torch, work, ref)),
+                        ("dp_strategies", lambda: _leg_dp_strategies(
+                            torch, work, kernel_rows)),
+                        ("client_chunks", lambda: _leg_client_chunks(
+                            torch, work, kernel_rows)),
+                        ("norm_dump", lambda: _leg_norm_dump(torch, work))):
+            lap = time.time()
+            legs[leg] = fn()
+            legs[leg]["seconds"] = round(time.time() - lap, 3)
+            emit({"phase": f"resilience_{leg}", "ok": True, **legs[leg]})
+            torch.cuda.empty_cache()
+    finally:
+        restore()
+    emit({"phase": "resilience", "ok": True, "params": MAIN_P,
+          "clients_per_round": MAIN_K, "writers": 350,
+          "rounds": RESILIENCE_ROUNDS, "legs": list(legs),
+          "seconds": round(time.time() - tic, 3)})
+
+
 def main() -> int:
     argv = sys.argv[1:]
     if argv not in ([], ["--kernels"]):
@@ -5377,6 +5746,8 @@ def main() -> int:
             phase_cross_device_defense(torch, work)
             phase = "fused_carry"
             phase_fused_carry(torch, work, rows)
+            phase = "resilience"
+            phase_resilience(torch, work, rows)
     except Exception as exc:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})

@@ -21,10 +21,15 @@ FedAC, FedBuff (drawn staleness), SCAFFOLD and error-feedback quantization
 ``RL`` block), and FedAvg's defenses and privacy: chaos client faults and
 corruption (``server_config.chaos``), fluteshield (``robust``), secure
 aggregation (``strategy: secure_agg``, ``server_config.secure_agg``) and
-local DP with adaptive clipping under FedAvg / FedProx, checked by
-:func:`check_defense`, and the round loop's dispatch plane:
+local DP with adaptive clipping under FedAvg / FedProx, local DP under
+FedAC, FedBuff and EF quantization (``dp_config`` and
+``privacy_metrics_config`` under FedLabels are accepted and change
+nothing, as in the JAX package), chaos's checkpoint-IO faults and
+``preempt_at_round``, checked by :func:`check_defense`, and the round
+loop's dispatch plane:
 ``rounds_per_step``, ``pipeline_depth`` (the ring of dispatched chunks, 0
-to ``MAX_PIPELINE_DEPTH``), ``input_staging`` and ``checkpoint_async``,
+to ``MAX_PIPELINE_DEPTH``), ``input_staging``, ``checkpoint_async``,
+``checkpoint_retry``, ``clients_per_chunk`` and ``dump_norm_stats``,
 checked by :func:`check_dispatch` with the JAX schema's messages.  The
 combinations that the JAX constructors and round engine refuse are refused
 here, by :func:`check_strategy`, with ``ValueError`` and the JAX package's
@@ -432,7 +437,17 @@ _SERVER = {"type", "max_iteration", "num_clients_per_iteration",
            "annealing_config", "personalization_init",
            "personalization_interp", "semisupervision", "precision",
            "server_replay_config", "pipeline_depth", "input_staging",
-           "checkpoint_async"}
+           "checkpoint_async", "checkpoint_retry", "clients_per_chunk",
+           "dump_norm_stats"}
+#: ``server_config.checkpoint_retry`` (``msrflute_tpu/schema.py``
+#: ``CHECKPOINT_RETRY_FIELD_SPECS``): ``(kind, min, max)`` a key
+CHECKPOINT_RETRY_SPECS = {
+    "retries": ("int", 1, None),
+    "backoff_base_s": ("num", 0, None),
+    "backoff_max_s": ("num", 0, None),
+    "jitter": ("num", 0, 1.0),
+    "escalation_threshold": ("int", 1, None),
+}
 _CLIENT = {"type", "desired_max_samples", "max_grad_norm", "fedprox_mu",
            "num_epochs", "step_bucketing", "data_config", "optimizer_config",
            "convex_model_interp", "semisupervision", "freeze_layer"}
@@ -516,13 +531,17 @@ _DP = {"enable_local_dp", "enable_global_dp", "eps", "delta", "max_grad",
 #: ``ADAPTIVE_CLIP_KEYS``)
 _ADAPTIVE_CLIP = {"target_quantile", "clip_lr", "initial_clip",
                   "count_sigma"}
-#: the strategies that run dp_config (DGA's DP; FedAvg / FedProx's local DP
-#: and adaptive clipping; secure_agg, which refuses both DP modes)
-_DP_STRATEGIES = {"dga", "fedavg", "fedprox", "secure_agg", "secagg",
+#: the strategies that read dp_config (DGA's DP; FedAvg / FedProx's local
+#: DP and adaptive clipping; FedAC, FedBuff and EF's local DP through
+#: FedAvg's client step; FedLabels, whose client step reads none of it;
+#: secure_agg, which refuses both DP modes); q-FFL and SCAFFOLD refuse it
+#: with ``ValueError`` (:func:`check_strategy`)
+_DP_STRATEGIES = {"dga", "fedavg", "fedprox", "fedac", "fedbuff",
+                  "ef_quant", "efquant", "fedlabels", "secure_agg", "secagg",
                   "secureagg"}
 _SECURE_AGG_NAMES = ("secure_agg", "secagg", "secureagg")
-#: ``server_config.chaos`` (``CHAOS_KEYS``); of them, the checkpoint-IO
-#: faults, preemption and the infra services are not ported
+#: ``server_config.chaos`` (``CHAOS_KEYS``); of them, the infra services
+#: are not ported (they need fleet paged carry)
 _CHAOS = {"enable", "seed", "dropout_rate", "straggler_rate",
           "straggler_inflation", "ckpt_io_error_rate", "preempt_at_round",
           "corrupt_nan_rate", "corrupt_scale_rate", "corrupt_sign_flip_rate",
@@ -564,10 +583,8 @@ _OFF_OK = {
         "send_dicts", "do_profiling", "initial_lr",
         "num_skip_decoding",
         "nbest_task_scheduler", "best_model_metric",
-        "clients_per_chunk", "checkpoint_backend",
-        "dump_norm_stats", "checkpoint_retry",
-        "traffic", "telemetry", "cohort_bucketing", "megabatch",
-        "fleet", "updatable_names"} | _DGA_SERVER,
+        "checkpoint_backend", "traffic", "telemetry", "cohort_bucketing",
+        "megabatch", "fleet", "updatable_names"} | _DGA_SERVER,
     "client_config": {
         "meta_learning", "copying_train_data", "ignore_subtask",
         "num_skip_decoding", "meta_optimizer_config",
@@ -655,9 +672,6 @@ def validate(raw: Dict[str, Any]) -> None:
     pm = raw.get("privacy_metrics_config")
     _check_keys(pm, "privacy_metrics_config", _PRIVACY_METRICS)
     if pm and pm.get("apply_metrics"):
-        if strategy == "fedlabels":
-            raise NotImplementedError(
-                f"privacy_metrics_config under fedlabels is {NOT_PORTED}")
         _check_optimizer(pm.get("attacker_optimizer_config"),
                          "privacy_metrics_config.attacker_optimizer_config")
     if dp_ok:
@@ -709,6 +723,8 @@ def validate(raw: Dict[str, Any]) -> None:
                 off_ok=_OFF_OK["server_config"],
                 ignored=_DISPATCH_ONLY["server_config"])
     check_dispatch(sc)
+    _check_keys(sc.get("checkpoint_retry"), "server_config.checkpoint_retry",
+                set(CHECKPOINT_RETRY_SPECS))
     rl = sc.get("RL")
     _check_keys(rl, "server_config.RL", _RL)
     if rl:
@@ -803,13 +819,53 @@ class SchemaError(ValueError):
                          + "\n  ".join(errors))
 
 
+def _check_fields(errors: List[str], raw: Any, path: str,
+                  specs: Dict[str, tuple]) -> None:
+    """Type and inclusive-range checks of ``raw``'s keys, in the JAX
+    schema's words (``schema.py:713-745``); a ``None`` value skips."""
+    if not isinstance(raw, dict):
+        return
+    for key, (kind, lo, hi) in specs.items():
+        val = raw.get(key)
+        if val is None:
+            continue
+        if kind == "bool":
+            if not isinstance(val, bool):
+                errors.append(f"{path}.{key}: must be a boolean, got "
+                              f"{type(val).__name__}")
+            continue
+        if isinstance(val, bool) or not isinstance(
+                val, int if kind == "int" else (int, float)):
+            want = "an integer" if kind == "int" else "a number"
+            errors.append(f"{path}.{key}: must be {want}, got "
+                          f"{type(val).__name__}")
+            continue
+        if val != val:
+            errors.append(f"{path}.{key}: must be a finite number, got NaN")
+            continue
+        if lo is not None and val < lo:
+            errors.append(f"{path}.{key}: must be >= {lo}, got {val}")
+        if hi is not None and val > hi:
+            errors.append(f"{path}.{key}: must be <= {hi}, got {val}")
+
+
 def check_dispatch(sc: Dict[str, Any]) -> None:
     """The round loop's knobs, with the JAX schema's messages
-    (``schema.py:598-602, 713-745, 1181-1192``): ``pipeline_depth`` an
-    integer in ``[0, MAX_PIPELINE_DEPTH]``, ``rounds_per_step`` one >= 1,
-    ``input_staging``, ``checkpoint_async`` and ``fused_carry``
-    booleans."""
+    (``schema.py:443-448, 598-603, 713-745, 1130-1135, 1181-1192``):
+    ``pipeline_depth`` an integer in ``[0, MAX_PIPELINE_DEPTH]``,
+    ``rounds_per_step`` and ``clients_per_chunk`` ones >= 1,
+    ``input_staging``, ``checkpoint_async``, ``fused_carry`` and
+    ``dump_norm_stats`` booleans, ``checkpoint_retry``'s fields and chaos's
+    ``preempt_at_round`` and ``ckpt_io_error_rate``."""
     errors = []
+    _check_fields(errors, sc, "server_config", {
+        "clients_per_chunk": ("int", 1, None),
+        "dump_norm_stats": ("bool", None, None)})
+    _check_fields(errors, sc.get("checkpoint_retry"),
+                  "server_config.checkpoint_retry", CHECKPOINT_RETRY_SPECS)
+    _check_fields(errors, sc.get("chaos"), "server_config.chaos", {
+        "ckpt_io_error_rate": ("num", 0.0, 1.0),
+        "preempt_at_round": ("int", 0, None)})
     for key, lo in (("pipeline_depth", 0), ("rounds_per_step", 1)):
         val = sc.get(key)
         if val is None:
@@ -897,8 +953,10 @@ def check_strategy(raw: Dict[str, Any], strategy: str) -> None:
         _refuse(float(sc.get("qffl_q", 1.0)) < 0,
                 f"server_config.qffl_q must be >= 0, got {sc.get('qffl_q')}")
     if strategy == "fedac":
-        _refuse(adaptive, "FedAC and dp_config.adaptive_clipping are not "
-                          "supported together; use strategy: fedavg")
+        _refuse(adaptive, "FedAC and dp_config.adaptive_clipping both need "
+                          "the strategy-state slot (w_ag vs dp_clip) — not "
+                          "supported together; use strategy: fedavg for "
+                          "adaptive clipping")
     if strategy == "fedbuff":
         fb = sc.get("fedbuff", True)
         _refuse(not isinstance(fb, (dict, bool)),
@@ -1041,7 +1099,9 @@ def check_defense(raw: Dict[str, Any], strategy: str) -> None:
     (``strategies/robust.py``, ``engine/round.py:411-467``,
     ``engine/server.py:172-230``), with ``ValueError``; and the parts of
     chaos this slice leaves out (checkpoint-IO faults, preemption, the
-    infra services), with ``NotImplementedError``."""
+    infra services), with ``NotImplementedError``; and
+    ``clients_per_chunk`` beside ``dump_norm_stats`` or a ``robust``
+    block (``engine/round.py:233-240, 442-447``), with ``ValueError``."""
     from .resilience.chaos import make_chaos
     from .robust import make_shield
     from .strategies import STRATEGIES
@@ -1086,12 +1146,6 @@ def check_defense(raw: Dict[str, Any], strategy: str) -> None:
                              f"got {seed!r}")
         schedule = make_chaos(sc)   # the constructor's range checks
         if schedule is not None:
-            for key in ("ckpt_io_error_rate", "preempt_at_round"):
-                if chaos.get(key):
-                    raise NotImplementedError(
-                        f"server_config.chaos.{key}={chaos[key]!r} "
-                        f"(chaos's checkpoint-IO and preemption half) is "
-                        f"{NOT_PORTED} §A")
             if infra and any(float(v or 0.0) > 0.0 for k, v in infra.items()
                              if k.endswith("_rate")):
                 raise NotImplementedError(
@@ -1110,6 +1164,19 @@ def check_defense(raw: Dict[str, Any], strategy: str) -> None:
                     "default payload part, and fedlabels sends its "
                     "sup / unsup parts instead — zero those rates")
 
+    chunked = bool(sc.get("clients_per_chunk"))
+    _refuse(chunked and bool(raw.get("dump_norm_stats",
+                                     sc.get("dump_norm_stats", False))),
+            "clients_per_chunk is incompatible with dump_norm_stats: "
+            "per-client cosines need every payload against the final "
+            "aggregate, which chunked accumulation never materializes — "
+            "disable one of them")
+    _refuse(chunked and make_shield(sc) is not None,
+            "server_config.robust is incompatible with clients_per_chunk: "
+            "median-of-norms screening (and the trimmed-mean/median payload "
+            "stack) needs every client's payload against the full cohort, "
+            "which chunked accumulation never materializes — disable one "
+            "of them")
     robust = sc.get("robust")
     if robust is not None:
         _check_keys(robust, "server_config.robust", _ROBUST)

@@ -12,7 +12,15 @@ card it stops with an error instead of running on the CPU.  Outputs:
 ``<out>/<config file>``, ``<out>/log/log.out``, ``<out>/log/metrics.jsonl``
 and ``<out>/models/`` (``latest_model.pt``, ``best_val_<metric>_model.pt``,
 ``epoch<N>.pt``, ``status_log.json``; under ``server_config.type:
-personalization`` also ``personalization/user<N>_model.pt``, one per user).
+personalization`` also ``personalization/user<N>_model.pt``, one per user;
+with ``server_config.dump_norm_stats``, ``norm_stats.txt`` and
+``cosines.txt``).
+
+A run stopped by SIGTERM or SIGINT, or by the drill
+``server_config.chaos.preempt_at_round``, drains its rounds in flight,
+writes a durable checkpoint and exits with ``os.EX_TEMPFAIL`` (75):
+relaunch the same command with ``server_config.resume_from_checkpoint:
+true`` to continue, bit for bit.
 """
 
 from __future__ import annotations
@@ -76,6 +84,11 @@ def main(argv: Optional[Sequence[str]] = None) -> OptimizationServer:
         server.train()
     finally:
         metrics.close()
+    if server.preempted:
+        # ``e2e_trainer.py:130-140``: schedulers re-queue on 75
+        print_rank("exiting preempted (EX_TEMPFAIL); resume with "
+                   "server_config.resume_from_checkpoint: true")
+        raise SystemExit(os.EX_TEMPFAIL)
     return server
 
 

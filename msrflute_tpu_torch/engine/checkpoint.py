@@ -47,9 +47,27 @@ over; the thread waits for the event, serializes and writes with the same
 verified blob and two-slot rotation.  At most one save is in flight, so
 the on-disk ``latest`` lags the status log by at most one chunk (two
 when ``latest`` is torn and ``.prev`` loads); the status ring pairs them
-again at resume.  A failed
-write is raised on the training thread at its next save or :meth:`wait`;
-:meth:`load` and :meth:`backup` wait for the save in flight first.
+again at resume.  :meth:`load` and :meth:`backup` wait for the save in
+flight first.
+
+Every blob goes through one write recipe, :meth:`CheckpointManager.
+_write_blob` (``checkpoint.py:484-530``): under the bounded retry of
+``server_config.checkpoint_retry`` (:class:`..resilience.integrity.
+RetryPolicy`), each physical attempt runs the chaos IO probe first (one
+draw of ``chaos.ckpt_io_error_rate``'s stream), then writes the temporary
+file, rotates ``latest`` to ``.prev`` by link, renames the file into
+place and writes its sidecar.  The logical writes are those of the JAX
+package's msgpack backend: ``latest`` once a chunk and a best model on
+each improvement (epoch copies are plain file copies, with no probe), so
+the fault stream advances alike in both packages.  A save whose attempts
+all fail warns and the run goes on; ``escalation_threshold`` consecutive
+failed saves raise :class:`..resilience.integrity.
+CheckpointEscalationError` on the training thread: at a save, at the
+async submit or at :meth:`wait` (``checkpoint.py:337-392``).  The writer
+thread never raises: a failure there is counted, and a
+``BaseException`` that is not an ``Exception`` (an interrupt, a kill) is
+handed to the training thread, which raises it at its next submit or
+wait.
 """
 
 from __future__ import annotations
@@ -61,12 +79,15 @@ import os
 import shutil
 import threading
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from ..resilience.integrity import (SIDECAR_SUFFIX, CheckpointCorruptionError,
-                                    blob_checksum, verify_blob, write_sidecar)
+                                    FailureEscalator, RetryPolicy,
+                                    blob_checksum, run_with_retry,
+                                    verify_blob, write_sidecar)
+from ..utils.logging import print_rank
 from .round import ServerState
 
 LATEST = "latest_model.pt"
@@ -77,12 +98,17 @@ STATUS_LOG = "status_log.json"
 _LOGGER = logging.getLogger("msrflute_tpu_torch")
 
 
+def serialize(payload: Dict[str, Any]) -> bytes:
+    """``torch.save`` of ``payload`` into bytes."""
+    buf = io.BytesIO()
+    torch.save(payload, buf)
+    return buf.getvalue()
+
+
 def write_verified(path: str, payload: Dict[str, Any]) -> None:
     """``torch.save`` of ``payload`` to a temporary file renamed into
     place, then its crc32 sidecar."""
-    buf = io.BytesIO()
-    torch.save(payload, buf)
-    blob = buf.getvalue()
+    blob = serialize(payload)
     tmp = path + ".tmp"
     with open(tmp, "wb") as fh:
         fh.write(blob)
@@ -144,10 +170,19 @@ def _host_copy(t: torch.Tensor) -> torch.Tensor:
 
 class CheckpointManager:
     def __init__(self, model_dir: str, layout, backup_freq: int = 100,
-                 async_latest: bool = False):
+                 async_latest: bool = False,
+                 retry: Optional[RetryPolicy] = None,
+                 io_fault: Optional[Callable[[], None]] = None):
         self.model_dir = model_dir
         self.layout = layout
         self.backup_freq = max(int(backup_freq), 1)
+        #: bounded retry of each write, and the consecutive-failure count
+        #: that aborts the run at its threshold
+        self.retry = retry or RetryPolicy()
+        self.escalator = FailureEscalator(self.retry.escalation_threshold)
+        #: run before each physical write attempt (the chaos IO probe);
+        #: raises to fail the attempt
+        self._io_fault = io_fault or (lambda: None)
         #: ``{"event", "path"}`` of each slot a load skipped or fell back to
         self.recovery_events = []
         #: ``latest`` through the single-slot writer thread
@@ -156,7 +191,9 @@ class CheckpointManager:
         self._mailbox: Optional[Snapshot] = None
         self._busy = False
         self._worker: Optional[threading.Thread] = None
-        self._error: Optional[BaseException] = None
+        #: a kill or interrupt on the writer thread, raised on the training
+        #: thread
+        self._fatal: Optional[BaseException] = None
         os.makedirs(model_dir, exist_ok=True)
 
     def _path(self, name: str) -> str:
@@ -192,19 +229,47 @@ class CheckpointManager:
             state.round,
             {k: v.detach().cpu() for k, v in state.strategy_state.items()})
 
-    def _write(self, name: str, state: ServerState) -> None:
-        write_verified(self._path(name), self._payload(self._to_host(state)))
+    def _write_blob(self, path: str, blob: bytes,
+                    keep_prev: bool = False) -> bool:
+        """The write recipe under the retry policy: the IO probe, the
+        temporary file, for ``latest`` (``keep_prev``) the link rotation
+        to ``.prev``, the rename into place, the sidecar.  True on
+        success; a failed save is counted toward escalation, which the
+        caller checks on the training thread."""
+        checksum = blob_checksum(blob)
+        prev = path + ".prev"
 
-    def _write_latest(self, payload: Dict[str, Any]) -> None:
-        path, prev = self._path(LATEST), self._path(LATEST_PREV)
-        if os.path.exists(path):
-            # blob, then sidecar: a crash between the two leaves a sidecar
-            # one generation stale, which the load's check refuses, and
-            # ``latest`` stays the loadable slot until it is replaced
-            self._rotate(path, prev)
-            if os.path.exists(path + SIDECAR_SUFFIX):
-                self._rotate(path + SIDECAR_SUFFIX, prev + SIDECAR_SUFFIX)
-        write_verified(path, payload)
+        def save() -> None:
+            self._io_fault()
+            tmp = path + ".tmp"
+            with open(tmp, "wb") as fh:
+                fh.write(blob)
+            if keep_prev and os.path.exists(path):
+                # blob, then sidecar: a crash between the two leaves a
+                # sidecar one generation stale, which the load's check
+                # refuses, and ``latest`` stays loadable until replaced
+                self._rotate(path, prev)
+                if os.path.exists(path + SIDECAR_SUFFIX):
+                    self._rotate(path + SIDECAR_SUFFIX,
+                                 prev + SIDECAR_SUFFIX)
+            os.replace(tmp, path)
+            write_sidecar(path, checksum, len(blob))
+
+        if run_with_retry(save, self.retry, what="checkpoint save "
+                          f"{os.path.basename(path)}"):
+            self.escalator.record_success()
+            return True
+        self.escalator.record_failure(f"save {path}")
+        return False
+
+    def _write(self, name: str, state: ServerState) -> None:
+        self._write_blob(self._path(name),
+                         serialize(self._payload(self._to_host(state))))
+        self.escalator.check()
+
+    def _write_latest(self, payload: Dict[str, Any]) -> bool:
+        return self._write_blob(self._path(LATEST), serialize(payload),
+                                keep_prev=True)
 
     @staticmethod
     def snapshot(state: ServerState) -> Snapshot:
@@ -228,9 +293,12 @@ class CheckpointManager:
             self.snapshot(state)
         if not self.async_latest:
             self._write_latest(self._payload(snap.wait()))
+            self.escalator.check()
             return
-        # single slot, not latest-wins: wait for the save in flight
-        self._raise_error()
+        # single slot, not latest-wins: wait for the save in flight; the
+        # writer's failures surface here, on the training thread
+        self._raise_fatal()
+        self.escalator.check()
         if self._worker is None:
             self._worker = threading.Thread(
                 target=self._loop, name="ckpt-latest-writer", daemon=True)
@@ -238,6 +306,7 @@ class CheckpointManager:
         with self._cond:
             while self._mailbox is not None or self._busy:
                 self._cond.wait()
+            self._raise_fatal()
             self._mailbox = snap
             self._cond.notify_all()
 
@@ -250,29 +319,41 @@ class CheckpointManager:
                 snap = self._mailbox
                 self._mailbox = None
                 self._busy = True
+            fatal = None
             try:
+                # a failed save is already counted by the write recipe
                 self._write_latest(self._payload(snap.wait()))
-            except Exception as exc:  # raised on the training thread
-                self._error = exc
+            except Exception as exc:  # never ends the run from here
+                print_rank(f"async latest save failed: {exc!r}",
+                           loglevel=logging.WARNING)
+                self.escalator.record_failure("async latest serialize")
+            except BaseException as exc:  # a kill: the training thread's
+                fatal = exc
             finally:
                 del snap
                 with self._cond:
                     self._busy = False
+                    if fatal is not None:
+                        self._fatal, self._worker = fatal, None
                     self._cond.notify_all()
+            if fatal is not None:
+                return
 
-    def _raise_error(self) -> None:
-        if self._error is not None:
-            exc, self._error = self._error, None
-            raise RuntimeError(f"async latest save failed: {exc!r}") from exc
+    def _raise_fatal(self) -> None:
+        if self._fatal is not None:
+            exc, self._fatal = self._fatal, None
+            raise exc
 
     def wait(self) -> None:
-        """Block until the save in flight is on disk; raise its failure,
-        if it failed."""
+        """Block until the save in flight is on disk; raise escalation
+        when the consecutive failures reached the threshold, and a kill
+        that ended the writer thread."""
         if self._worker is not None:
             with self._cond:
                 while self._mailbox is not None or self._busy:
                     self._cond.wait()
-        self._raise_error()
+        self._raise_fatal()
+        self.escalator.check()
 
     def save_best(self, state: ServerState, metric_name: str) -> None:
         self._write(f"best_val_{metric_name}_model.pt", state)

@@ -33,6 +33,21 @@ under weights the caller picks), ``round.py:1554-1660``.  The server
 optimizers are functional, so two calls of ``apply_custom_weights`` from
 one state (the RL hook's candidates) both start from that state.
 
+Chunked clients (``server_config.clients_per_chunk``, ``round.py:
+233-240, 1050-1083``): with a chunk C smaller than the round's K clients
+(C dividing K), the clients run C at a time: each chunk's slice of the
+staged inputs goes through the client step, corruption and secure
+aggregation's masks, and its part sums are added into the round's, so
+the ``[K, P]`` stacks (payloads, the clients' copies and optimizer state)
+exist at ``[C, P]`` only; kernel B1 launches once a chunk a local step.
+The per-client ``[K]`` stats come back in client order.  The sums differ
+from the unchunked round's in f32 reassociation only (secure
+aggregation's int32 sums are exact).  The JAX package's refusals hold:
+beside a carry path, fused RL, a ``robust`` block or ``dump_norm_stats``.
+``dump_norm_stats`` (``round.py:1094-1115``) adds each client's default
+payload norm and its cosine against the weighted sum of the payloads to
+the round's stats, as ``[K]`` vectors (``dump_norm``, ``dump_cosine``).
+
 Device-resident carry (``server_config.fused_carry``, ``round.py:786-1410``):
 a ``device_carry`` strategy's client step gathers the cohort's rows of its
 tables from ``strategy_state`` by the staged client ids and returns the
@@ -161,18 +176,47 @@ class PackedStats:
         return [_decode_stats(r) for r in rounds]
 
 
+#: the per-client ``[K]`` norm dumps among the round's stats
+DUMP_KEYS = ("dump_norm", "dump_cosine")
+
+
 def _decode_stats(stats: Dict[str, np.ndarray]) -> Dict[str, Any]:
     """Scalars to floats; each ``privacy_*`` key's ``[K]`` values and the
-    client mask under ``"privacy"``."""
+    client mask under ``"privacy"``; the norm dumps' ``[K]`` values as
+    arrays."""
     out: Dict[str, Any] = {}
     privacy = {k: np.array(v) for k, v in stats.items()
                if k.startswith("privacy_")}
     if privacy:
         privacy["client_mask"] = np.array(stats["client_mask"])
         out["privacy"] = privacy
+    out.update((k, np.array(v)) for k, v in stats.items() if k in DUMP_KEYS)
     out.update((k, float(v)) for k, v in stats.items()
-               if not k.startswith("privacy_") and k != "client_mask")
+               if not k.startswith("privacy_") and k != "client_mask"
+               and k not in DUMP_KEYS)
     return out
+
+
+def _add_part_sums(acc: Dict[str, dict], new: Dict[str, dict],
+                   unit_parts) -> Dict[str, dict]:
+    """A chunk's part sums added into the round's; a unit-weight part's
+    int32 sum wraps in the group."""
+    if not acc:
+        return {name: dict(d) for name, d in new.items()}
+    for name, d in new.items():
+        for key, v in d.items():
+            if key == "grad_sum" and name in unit_parts:
+                acc[name][key] = wrap_int32(acc[name][key].to(torch.int64)
+                                            + v.to(torch.int64))
+            else:
+                acc[name][key] = acc[name][key] + v
+    return acc
+
+
+def _rows(tree: Dict[str, Any], lo: int, hi: int) -> Dict[str, Any]:
+    """Clients ``lo:hi`` of a round's staged inputs (views, no copy)."""
+    return {k: (_rows(v, lo, hi) if isinstance(v, dict) else v[lo:hi])
+            for k, v in tree.items()}
 
 
 def pallas_apply_flag(server_config) -> bool:
@@ -270,6 +314,42 @@ class RoundEngine:
             self.fused_rl = FusedRL(
                 sc.get("RL") or RLConfig(),
                 int(sc.get("num_clients_per_iteration", 10)))
+        #: per-client payload norms and cosines in the round's stats
+        self.dump_norm_stats = bool(config.get(
+            "dump_norm_stats", sc.get("dump_norm_stats", False)))
+        #: clients a chunk of the client phase (None: all K at once)
+        cpc = sc.get("clients_per_chunk")
+        self.clients_per_chunk = int(cpc) if cpc else None
+        self._check_chunks(strategy)
+
+    def _check_chunks(self, strategy: BaseStrategy) -> None:
+        """The JAX engine's refusals of ``clients_per_chunk``
+        (``round.py:235-255, 318-322, 442-447``)."""
+        if not self.clients_per_chunk:
+            return
+        if self.dump_norm_stats:
+            raise ValueError(
+                "clients_per_chunk is incompatible with dump_norm_stats: "
+                "per-client cosines need every payload against the final "
+                "aggregate, which chunked accumulation never materializes "
+                "— disable one of them")
+        if strategy.device_carry:
+            raise ValueError(
+                "fused_carry is incompatible with clients_per_chunk: the "
+                "carry scatter needs every client's update row, which "
+                "chunked accumulation never materializes — disable one")
+        if self.fused_rl is not None:
+            raise ValueError(
+                "fused RL is incompatible with clients_per_chunk: "
+                "re-weighting needs the full payload stack")
+        if self.shield is not None:
+            raise ValueError(
+                "server_config.robust is incompatible with "
+                "clients_per_chunk: median-of-norms screening (and "
+                "the trimmed-mean/median payload stack) needs every "
+                "client's payload against the full cohort, which "
+                "chunked accumulation never materializes — disable "
+                "one of them")
 
     def _check_shield(self, strategy: BaseStrategy) -> None:
         """The JAX engine's refusals of a ``robust`` block."""
@@ -414,24 +494,27 @@ class RoundEngine:
                      leakage_threshold: Optional[float],
                      grad_offsets: Optional[torch.Tensor] = None,
                      masks: Optional[Tuple[torch.Tensor,
-                                           torch.Tensor]] = None):
+                                           torch.Tensor]] = None,
+                     ids: Optional[np.ndarray] = None):
         """The strategy's client step on the round's staged ``inputs`` ->
         ``(parts, train_loss, num_samples, stats, client_mask, carry)``,
         ``carry`` the carry rows of a ``device_carry`` strategy (else
         None).  ``masks`` replaces the inputs' ``(sample_mask,
-        client_mask)`` (the round's chaos faults folded in)."""
+        client_mask)`` (the round's chaos faults folded in); ``ids`` are
+        the clients' ids when ``inputs`` hold a chunk of the round's."""
         r = state.round
         strategy = self.strategy
         if masks is None:
             masks = (inputs["sample_mask"], inputs["client_mask"])
+        if ids is None:
+            ids = batch.client_ids
         sample_mask, cm = masks
-        gens = (self.client_generators(r, batch.client_ids)
-                if self.random else None)
+        gens = self.client_generators(r, ids) if self.random else None
         self.local_steps += (self.hparams.num_epochs * sample_mask.shape[1]
                              * strategy.client_passes)
         kw = dict(quant_threshold=quant_threshold,
                   client_rngs=lambda tag: self.client_generators(
-                      r, batch.client_ids, tag), bounds=self.bounds,
+                      r, ids, tag), bounds=self.bounds,
                   round_idx=r, leakage_threshold=leakage_threshold)
         if strategy.device_carry:
             # the live mask: sampled, less chaos's dropped clients
@@ -615,19 +698,24 @@ class RoundEngine:
                               ("chaos_scaled", CORRUPT_SCALE),
                               ("chaos_sign_flipped", CORRUPT_SIGN_FLIP)):
                 extra[key] = torch.sum((mode == code).to(torch.float32))
-        parts, tl, ns, stats, cm, carry = self._client_step(
-            state, batch, inputs, bcast, client_lr, quant_threshold,
-            leakage_threshold, masks=masks)
-        if mode is not None:
-            pg, w = parts["default"]
-            parts = dict(parts)
-            parts["default"] = (self._corrupt(pg, mode), w)
-        sub_norm = None
-        if strategy.wants_cohort:
-            parts, sub_norm = strategy.mask_parts(
-                parts, batch.client_ids, batch.client_mask, cm, r)
-        parts = {name: (pg, w * cm) for name, (pg, w) in parts.items()}
-        if self.shield is not None:
+        K = masks[1].shape[0]
+        cpc = self.clients_per_chunk
+        if cpc and cpc < K:
+            if K % cpc:
+                raise ValueError(
+                    f"clients_per_chunk={cpc} must divide the per-shard "
+                    f"client grid ({K}); pad num_clients_per_iteration or "
+                    "pick a divisor")
+            part_sums, tl, ns, stats, cm = self._chunked_clients(
+                state, batch, inputs, bcast, client_lr, quant_threshold,
+                leakage_threshold, masks, mode, cpc)
+            parts = carry = None
+        else:
+            parts, tl, ns, stats, cm, carry, sub_norm = self._client_phase(
+                state, batch, inputs, bcast, client_lr, quant_threshold,
+                leakage_threshold, masks, mode)
+            part_sums = None
+        if parts is not None and self.shield is not None:
             # quarantine from the payloads that would aggregate; zeroed
             # with torch.where, which a NaN row cannot survive
             pg, w = parts["default"]
@@ -649,29 +737,11 @@ class RoundEngine:
             cm = cm * keep
             extra["shield_nonfinite"] = torch.sum(q_nonfinite)
             extra["shield_norm_outlier"] = torch.sum(q_norm)
-        stale = None
-        if strategy.stale_prob > 0.0:
-            stale = inputs["stale"] * cm
-        part_sums = {}
-        for name, (pg, w) in parts.items():
-            if name in strategy.unit_weight_parts:
-                # every present row enters with coefficient 1, summed in
-                # the int32 group (an int64 sum wrapped back)
-                live = (cm > 0).to(torch.int64)[:, None]
-                part_sums[name] = {
-                    "grad_sum": wrap_int32((pg.to(torch.int64) * live).sum(0)),
-                    "weight_sum": w.sum(), "weight_sum_raw": w.sum()}
-                continue
-            if stale is None:
-                part_sums[name] = {"grad_sum": w @ pg, "weight_sum": w.sum(),
-                                   "weight_sum_raw": w.sum()}
-                continue
-            w_now, w_def = w * (1.0 - stale), w * stale
-            part_sums[name] = {"grad_sum": w_now @ pg,
-                               "weight_sum": w_now.sum(),
-                               "grad_sum_def": w_def @ pg,
-                               "weight_sum_def": w_def.sum(),
-                               "weight_sum_raw": w.sum()}
+        if part_sums is None:
+            part_sums = self._part_sums(parts, cm, inputs)
+            if self.dump_norm_stats and "default" in parts:
+                self._norm_dump(parts["default"][0],
+                                part_sums["default"]["grad_sum"], extra)
         # the live cohort on the host: sampled, less the dropped
         live_host = batch.client_mask
         if chaos is not None and "drop" in chaos:
@@ -681,7 +751,7 @@ class RoundEngine:
                 part_sums["default"]["grad_sum"], batch, live_host,
                 cm if self.shield is not None else None, r, extra)
         deferred = None
-        if stale is not None:
+        if strategy.stale_prob > 0.0:
             deferred = {"grad_sum": part_sums["default"]["grad_sum_def"],
                         "weight_sum": part_sums["default"]["weight_sum_def"]}
         if strategy.wants_client_stack:
@@ -749,6 +819,104 @@ class RoundEngine:
         round_stats = {k: v.to(torch.float32) for k, v in round_stats.items()}
         return (ServerState(new_params, opt_state, r + 1, strategy_state),
                 round_stats)
+
+    def _client_phase(self, state: ServerState, batch: RoundBatch,
+                      inputs: Dict[str, Any], bcast: torch.Tensor,
+                      client_lr: float, quant_threshold: Optional[float],
+                      leakage_threshold: Optional[float], masks, mode,
+                      lo: int = 0, ids: Optional[np.ndarray] = None):
+        """The client step of the clients in ``inputs`` (the round's, or
+        the chunk at row ``lo``), then the corruption of the live clients'
+        default payloads and secure aggregation's masks; each part's
+        weight times the client mask.  Returns ``(parts, train_loss,
+        num_samples, stats, client_mask, carry, sub_norm)``."""
+        strategy = self.strategy
+        parts, tl, ns, stats, cm, carry = self._client_step(
+            state, batch, inputs, bcast, client_lr, quant_threshold,
+            leakage_threshold, masks=masks, ids=ids)
+        if mode is not None:
+            pg, w = parts["default"]
+            parts = dict(parts)
+            parts["default"] = (self._corrupt(pg, mode), w)
+        sub_norm = None
+        if strategy.wants_cohort:
+            parts, sub_norm = strategy.mask_parts(
+                parts, batch.client_ids, batch.client_mask, cm, state.round,
+                row0=lo)
+        parts = {name: (pg, w * cm) for name, (pg, w) in parts.items()}
+        return parts, tl, ns, stats, cm, carry, sub_norm
+
+    def _part_sums(self, parts: Dict[str, tuple], cm: torch.Tensor,
+                   inputs: Dict[str, Any]) -> Dict[str, dict]:
+        """Each part's weighted sum and weight sums; with staleness the
+        deferred clients' apart (``round.py:988-1019``)."""
+        strategy = self.strategy
+        stale = None
+        if strategy.stale_prob > 0.0:
+            stale = inputs["stale"] * cm
+        part_sums = {}
+        for name, (pg, w) in parts.items():
+            if name in strategy.unit_weight_parts:
+                # every present row enters with coefficient 1, summed in
+                # the int32 group (an int64 sum wrapped back)
+                live = (cm > 0).to(torch.int64)[:, None]
+                part_sums[name] = {
+                    "grad_sum": wrap_int32((pg.to(torch.int64) * live).sum(0)),
+                    "weight_sum": w.sum(), "weight_sum_raw": w.sum()}
+                continue
+            if stale is None:
+                part_sums[name] = {"grad_sum": w @ pg, "weight_sum": w.sum(),
+                                   "weight_sum_raw": w.sum()}
+                continue
+            w_now, w_def = w * (1.0 - stale), w * stale
+            part_sums[name] = {"grad_sum": w_now @ pg,
+                               "weight_sum": w_now.sum(),
+                               "grad_sum_def": w_def @ pg,
+                               "weight_sum_def": w_def.sum(),
+                               "weight_sum_raw": w.sum()}
+        return part_sums
+
+    def _chunked_clients(self, state: ServerState, batch: RoundBatch,
+                         inputs: Dict[str, Any], bcast: torch.Tensor,
+                         client_lr: float, quant_threshold: Optional[float],
+                         leakage_threshold: Optional[float], masks, mode,
+                         chunk: int):
+        """The client phase ``chunk`` clients at a time
+        (``round.py:1050-1083``): each chunk's part sums added into the
+        round's, its ``[chunk]`` losses, sample counts, stats and client
+        mask put back in client order.  No ``[K, P]`` stack is built."""
+        sums: Dict[str, dict] = {}
+        tls, nss, cms, stats_list = [], [], [], []
+        for lo in range(0, masks[1].shape[0], chunk):
+            hi = lo + chunk
+            rows = _rows(inputs, lo, hi)
+            parts, tl, ns, stats, cm, _, _ = self._client_phase(
+                state, batch, rows, bcast, client_lr, quant_threshold,
+                leakage_threshold, (masks[0][lo:hi], masks[1][lo:hi]),
+                None if mode is None else mode[lo:hi], lo=lo,
+                ids=batch.client_ids[lo:hi])
+            sums = _add_part_sums(sums, self._part_sums(parts, cm, rows),
+                                  self.strategy.unit_weight_parts)
+            del parts
+            tls.append(tl)
+            nss.append(ns)
+            cms.append(cm)
+            stats_list.append(stats)
+        stats = {k: torch.cat([st[k] for st in stats_list])
+                 for k in stats_list[0]}
+        return (sums, torch.cat(tls), torch.cat(nss), stats,
+                torch.cat(cms))
+
+    @staticmethod
+    def _norm_dump(pg: torch.Tensor, grad_sum: torch.Tensor,
+                   stats: Dict[str, torch.Tensor]) -> None:
+        """Each client's payload norm and its cosine against the weighted
+        payload sum, which has the aggregate's direction
+        (``round.py:1094-1115``)."""
+        norm = torch.sqrt(torch.sum(pg * pg, dim=1))
+        stats["dump_norm"] = norm
+        stats["dump_cosine"] = (pg @ grad_sum) / torch.clamp(
+            norm * torch.linalg.vector_norm(grad_sum), min=1e-12)
 
     def _recover_masks(self, grad_sum: torch.Tensor, batch: RoundBatch,
                        live: np.ndarray, screened: Optional[torch.Tensor],

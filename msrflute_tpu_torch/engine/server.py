@@ -49,6 +49,22 @@ DGA's RL hook, SCAFFOLD and EF's host rounds, server replay, the adaptive
 leakage threshold and a hooked ``_sample`` (personalization).
 ``checkpoint_async`` defaults on when the loop is pipelined.
 
+Resilience (``server.py:204-311, 351-358, 1178-1254, 1378-1397,
+1633-1668``): the checkpoint manager retries every write under
+``server_config.checkpoint_retry`` and runs the chaos IO probe before
+each attempt; a :class:`~..resilience.preemption.PreemptionHandler` is
+installed around :meth:`train` (SIGTERM and SIGINT set a flag).  The loop
+polls the flag at each chunk boundary, before any dispatch; chaos's
+``preempt_at_round`` requests it there when the run crosses that round
+from below (a run resumed past it trains on).  A preempted loop drains the
+ring's chunks in dispatch order through their housekeeping, so each
+writes its ``latest``, waits for the async writer, sets
+:attr:`preempted` and writes ``{"preempted": reason}`` into the status
+log; a resumed run that completes clears it.  ``dump_norm_stats``
+(``server.py:1970-1971, 2411-2427``) appends each round's per-client
+payload norms and cosines against the aggregate, the sampled clients'
+alone, to ``norm_stats.txt`` and ``cosines.txt`` in the model directory.
+
 ``server_config.fused_carry`` (``server.py:75-95, 179-191, 323-335,
 439-445``) moves four of them onto the ring: SCAFFOLD's controls, EF's
 residuals and personalization's local models ride ``strategy_state`` as
@@ -78,6 +94,7 @@ rows first, every ``scaffold_flush_freq`` / ``ef_flush_freq`` rounds,
 from __future__ import annotations
 
 import copy
+import json
 import logging
 import os
 import time
@@ -95,6 +112,8 @@ from ..device import DeviceLike, resolve_device
 from ..models.base import BaseTask, Metric, Params
 from ..optim import PlateauTracker, make_lr_schedule
 from ..resilience.chaos import make_chaos
+from ..resilience.integrity import RetryPolicy
+from ..resilience.preemption import PreemptionHandler
 from ..strategies import select_strategy
 from ..strategies.ef_quant import (DeviceResidualTable, EFQuant,
                                    ResidualStore)
@@ -183,9 +202,16 @@ class OptimizationServer:
         ckpt_async = sc.get("checkpoint_async")
         if ckpt_async is None:
             ckpt_async = self.pipeline_depth > 0 and self._pipeline_capable
-        self.ckpt = CheckpointManager(model_dir, self.engine.layout,
-                                      sc.get("model_backup_freq", 100),
-                                      async_latest=bool(ckpt_async))
+        self.ckpt = CheckpointManager(
+            model_dir, self.engine.layout, sc.get("model_backup_freq", 100),
+            async_latest=bool(ckpt_async),
+            retry=RetryPolicy.from_config(sc.get("checkpoint_retry")),
+            io_fault=(self.chaos.io_fault_hook if self.chaos is not None
+                      else None))
+        #: SIGTERM / SIGINT -> drain -> checkpoint -> return; the run's
+        #: exit says it was preempted (:attr:`preempted`)
+        self.preemption = PreemptionHandler()
+        self.preempted = False
         #: chunks drained while a later chunk was in flight
         self.pipelined_chunks = 0
 
@@ -510,6 +536,25 @@ class OptimizationServer:
             for sampled in samples]
 
     def train(self):
+        """The round loop inside the preemption window: the handlers are
+        installed (main thread only), a request latched by an earlier run
+        is cleared, and the previous dispositions come back on the way
+        out; an exception first waits for the async save in flight."""
+        self.preempted = False
+        self.preemption.reset()
+        self.preemption.install()
+        try:
+            return self._train_loop()
+        except BaseException:
+            try:
+                self.ckpt.wait()
+            except Exception:  # never masks the original abort
+                pass
+            raise
+        finally:
+            self.preemption.uninstall()
+
+    def _train_loop(self):
         sc = self.config.server_config
         max_iteration = int(sc.get("max_iteration", 100))
         val_freq = int(sc.get("val_freq", 20) or 20)
@@ -551,8 +596,25 @@ class OptimizationServer:
         # dispatched, undrained chunks, oldest first
         pending: deque = deque()
         self._last_fence = 0.0
-        round_no = self.state.round
+        round_no = start_round = self.state.round
+        chaos = self.chaos
         while round_no < max_iteration:
+            # the preemption poll, at a chunk boundary before any dispatch;
+            # the drill fires only when this run crosses its round
+            if (chaos is not None and chaos.preempt_at_round is not None
+                    and start_round < chaos.preempt_at_round <= round_no
+                    and not self.preemption.requested):
+                self.preemption.request(
+                    f"chaos preempt_at_round={chaos.preempt_at_round}")
+            if self.preemption.requested:
+                self.preemption.flush_now()   # outside signal context
+                if prefetched is not None:
+                    # the looked-ahead chunk is dropped: the sampling
+                    # state goes back to the last dispatch's anchor, so a
+                    # second train() draws that chunk again
+                    self._np_rng.bit_generator.state = \
+                        copy.deepcopy(anchor)
+                break
             tic = time.time()
             if host_round is not None:
                 host_round(round_no)
@@ -599,6 +661,7 @@ class OptimizationServer:
             dispatch_secs = time.time() - tac
             chunk = {
                 "round0": round_no, "R": R, "state": self.state,
+                "masks": [b.client_mask for b in batches],
                 "stats": packed, "client_lr": client_lr,
                 "server_lrs": server_lrs, "tic": tic, "snapshot": None,
                 # with lookahead packing the next chunk samples before
@@ -612,6 +675,7 @@ class OptimizationServer:
                          - self.engine.last_stage_secs,
                          "ckpt": snap_secs}}
             round_no += R
+            anchor = chunk["rng_snapshot"]
             if prefetch_ok and round_no < max_iteration:
                 prefetched = pack(chunk_R(round_no))
             while len(pending) >= self.pipeline_depth and pending:
@@ -633,7 +697,24 @@ class OptimizationServer:
                     self._drain_chunk(pending.popleft(), val_freq, rec_freq)
                     self.pipelined_chunks += 1
                 self._drain_chunk(chunk, val_freq, rec_freq)
+        while pending:
+            # preempted with chunks in flight: their device work is done,
+            # so each drains and writes its `latest`
+            self._drain_chunk(pending.popleft(), val_freq, rec_freq)
+            self.pipelined_chunks += 1
         self.ckpt.wait()   # the async `latest` is on disk on return
+        if self.preemption.requested and round_no < max_iteration:
+            self.preempted = True
+            self.preemption.flush_now()
+            reason = self.preemption.reason or "requested"
+            self.ckpt.update_status({"preempted": reason})
+            print_rank(f"preempted at round {round_no}/{max_iteration} "
+                       f"({reason}); checkpoint durable — resume with "
+                       "server_config.resume_from_checkpoint: true",
+                       logging.WARNING)
+        elif "preempted" in self.ckpt.read_status():
+            # a resumed run that completed
+            self.ckpt.update_status({"preempted": None})
         self._log_timing()
         self.metrics.flush()
         return self.state
@@ -688,11 +769,26 @@ class OptimizationServer:
             # chunk (server.py:1962-1968)
             self.metrics.log("DP clip norm", stats[-1]["dp_clip"],
                              step=round0 + R)
+        if "dump_norm" in stats[0]:
+            self._dump_norm_stats(stats, chunk["masks"])
         self._round_housekeeping(
             round0 + R, val_freq, rec_freq,
             latest=chunk["snapshot"],
             rng_snapshot=chunk["rng_snapshot"],
             ckpt_secs=chunk["secs"]["ckpt"], rounds=R)
+
+    def _dump_norm_stats(self, stats: List[dict], masks: list) -> None:
+        """Each round's client payload norms and their cosines against the
+        aggregate, the sampled clients' alone, one JSON list a line
+        (``server.py:2411-2427``)."""
+        for key, name in (("dump_norm", "norm_stats.txt"),
+                          ("dump_cosine", "cosines.txt")):
+            with open(os.path.join(self.ckpt.model_dir, name), "a",
+                      encoding="utf-8") as fh:
+                for st, mask in zip(stats, masks):
+                    fh.write(json.dumps(
+                        np.asarray(st[key])[np.asarray(mask) > 0].tolist())
+                        + "\n")
 
     def _log_carry(self, stats: Dict[str, float], r: int) -> None:
         """The carry paths' round scalars, from the packed stats: fused

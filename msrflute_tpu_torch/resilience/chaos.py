@@ -1,6 +1,7 @@
-"""Deterministic client faults and update corruption (``server_config.chaos``)
-— the port's copy of the client half of ``msrflute_tpu/resilience/chaos.py``
-(``:202-356``, ``:402-443``).
+"""Deterministic client faults, update corruption, checkpoint-IO faults and
+the preemption drill (``server_config.chaos``) — the port's copy of
+``msrflute_tpu/resilience/chaos.py`` (``:202-402``, ``:402-443``) less its
+infra services.
 
 A seeded schedule that makes the cohort unreliable: clients that drop out
 mid-round, stragglers that reach the round barrier with only part of their
@@ -18,15 +19,20 @@ straggler's partial work still aggregates), and a live client's corruption
 mode transforms the default payload it would transmit.  The counters come
 back with the round's stats.
 
-Not ported (``config.validate`` refuses them): the checkpoint-IO fault
-stream (``ckpt_io_error_rate``), ``preempt_at_round`` and the ``infra``
-service faults, which need the checkpoint retry loop, preemption and fleet
-paging.
+Checkpoint IO (``ckpt_io_error_rate``): :meth:`ChaosSchedule.io_fault_hook`
+runs before every physical checkpoint write attempt (retries included) and
+raises ``OSError`` when the call-indexed stream ``[seed, _IO_STREAM,
+call]`` says so, which the checkpoint manager's retry loop absorbs or
+counts toward escalation.  ``preempt_at_round`` is read by the server's
+round loop (:mod:`.preemption`).
+
+Not ported (``config.validate`` refuses them): the ``infra`` service
+faults, which need fleet paging.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -35,6 +41,8 @@ _CLIENT_STREAM = 0xC7A05C11
 #: the corruption stream has its own tag, so enabling corruption never
 #: moves the dropout / straggler schedule a seed produces
 _CORRUPT_STREAM = 0xC7A0C0DE
+#: the checkpoint-IO stream, indexed by call rather than by round
+_IO_STREAM = 0xC7A051F0
 
 #: corruption modes of the per-round ``[K]`` int32 vector; 0 = clean
 CORRUPT_NONE = 0
@@ -96,10 +104,13 @@ class ChaosSchedule:
         self.corrupt_sign_flip_rate = float(corrupt_sign_flip_rate)
         self.corrupt_scale_factor = float(corrupt_scale_factor)
         self.corrupt_sign_flip_scale = float(corrupt_sign_flip_scale)
+        #: IO-fault decisions drawn so far (the IO stream's index)
+        self._io_calls = 0
         #: injected-fault totals, accumulated by the server from the
-        #: round stats
+        #: round stats and by :meth:`io_fault`
         self.counters: Dict[str, float] = {
             "dropped": 0.0, "straggled": 0.0, "steps_lost": 0.0,
+            "ckpt_io_faults": 0.0,
             "nan_injected": 0.0, "scaled": 0.0, "sign_flipped": 0.0,
         }
 
@@ -150,6 +161,46 @@ class ChaosSchedule:
             CORRUPT_SCALE
         mode[u < self.corrupt_nan_rate] = CORRUPT_NAN
         return mode
+
+    def io_fault(self) -> bool:
+        """One checkpoint-IO decision: True fails this physical write
+        attempt.  The index advances on every call, so a retry of the same
+        save draws afresh."""
+        rng = np.random.default_rng(np.random.SeedSequence(
+            [self.seed, _IO_STREAM, self._io_calls]))
+        self._io_calls += 1
+        if rng.random() < self.ckpt_io_error_rate:
+            self.counters["ckpt_io_faults"] += 1
+            return True
+        return False
+
+    def io_fault_hook(self) -> None:
+        """The checkpoint manager's write probe: raises a synthetic
+        ``OSError`` when the stream says so."""
+        if self.io_fault():
+            raise OSError(
+                f"chaos: injected checkpoint IO fault "
+                f"#{int(self.counters['ckpt_io_faults'])} "
+                f"(ckpt_io_error_rate={self.ckpt_io_error_rate})")
+
+    def describe(self) -> Dict[str, Any]:
+        """The schedule's record, as the JAX package writes it (``infra``
+        is never on in the port)."""
+        return {
+            "enabled": True,
+            "seed": self.seed,
+            "dropout_rate": self.dropout_rate,
+            "straggler_rate": self.straggler_rate,
+            "straggler_inflation": self.straggler_inflation,
+            "ckpt_io_error_rate": self.ckpt_io_error_rate,
+            "preempt_at_round": self.preempt_at_round,
+            "corrupt_nan_rate": self.corrupt_nan_rate,
+            "corrupt_scale_rate": self.corrupt_scale_rate,
+            "corrupt_sign_flip_rate": self.corrupt_sign_flip_rate,
+            "corrupt_scale_factor": self.corrupt_scale_factor,
+            "corrupt_sign_flip_scale": self.corrupt_sign_flip_scale,
+            "infra": None,
+        }
 
 
 def make_chaos(server_config) -> Optional[ChaosSchedule]:

@@ -13,7 +13,9 @@ state).  Per round:
 ``alpha = beta = gamma = 1`` is FedAvg with a plain SGD server step.  Unset
 couplings take FedAC-I's ``alpha = gamma / eta``, ``beta = alpha + 1``.
 The server optimizer's state passes through untouched (the engine calls
-:meth:`FedAC.apply_server_update` instead of it).
+:meth:`FedAC.apply_server_update` instead of it).  Local DP is FedAvg's
+client step (clip, weight, noise at ``eps >= 0``); adaptive clipping is
+refused, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,6 +32,14 @@ class FedAC(FedAvg):
     stateful = True
 
     def __init__(self, config):
+        # refused before FedAvg's own checks, whose advice would mislead
+        # (``fedac.py:44-53``)
+        dp = getattr(config, "dp_config", None) or {}
+        if dp.get("adaptive_clipping"):
+            raise ValueError(
+                "FedAC and dp_config.adaptive_clipping both need the "
+                "strategy-state slot (w_ag vs dp_clip) — not supported "
+                "together; use strategy: fedavg for adaptive clipping")
         super().__init__(config)
         sc = config.server_config
         self.eta = float(sc.get("fedac_eta", 1.0))

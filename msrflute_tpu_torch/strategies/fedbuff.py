@@ -38,6 +38,9 @@ class FedBuff(FedAvg):
     supports_rl = False
     stateful = True
     owns_server_update = True
+    #: the state is the version history, which FedAvg's ``dp_clip`` cannot
+    #: share; local DP runs through FedAvg's client step
+    supports_adaptive_clipping = False
 
     def __init__(self, config):
         super().__init__(config)

@@ -186,41 +186,45 @@ class SecureAgg(FedAvg):
 
     def mask_rows(self, enc: torch.Tensor, cohort_ids: np.ndarray,
                   sampled_mask: np.ndarray, live_mask: torch.Tensor,
-                  round_idx: int) -> torch.Tensor:
-        """Every client's int32 row ``enc [K, P]`` plus its signed pairwise
+                  round_idx: int, row0: int = 0) -> torch.Tensor:
+        """Every client's int32 row ``enc [k, P]`` plus its signed pairwise
         masks toward the sampled cohort (``cohort_ids [K]``, ``sampled_mask
-        [K]``, host arrays), in the int32 group; ``live_mask [K]`` zeroes
-        an absent client's submission."""
+        [K]``, host arrays), in the int32 group; ``live_mask [k]`` zeroes
+        an absent client's submission.  The rows are the cohort's
+        ``row0 .. row0 + k`` (a chunk of the clients, or all K)."""
         masked = torch.zeros_like(enc)
-        k, n = enc.shape
+        n = enc.shape[1]
         ids = [int(i) for i in np.asarray(cohort_ids)]
+        k = len(ids)
         sampled = np.asarray(sampled_mask) > 0
-        for p in range(k):
+        for row in range(enc.shape[0]):
+            p = row0 + row
             if ids[p] < 0:
                 continue   # padding never enters the protocol
-            acc = enc[p].to(torch.int64)
+            acc = enc[row].to(torch.int64)
             for q in self._partners(p, k):
                 if not sampled[q] or ids[q] < 0 or ids[q] == ids[p]:
                     continue
                 sign = 1 if ids[q] > ids[p] else -1
                 acc = acc + sign * self.pair_mask(round_idx, ids[p], ids[q],
                                                   n, enc.device)
-            masked[p] = wrap_int32(acc)
+            masked[row] = wrap_int32(acc)
         return masked * (live_mask > 0).to(torch.int32)[:, None]
 
     def mask_parts(self, parts, cohort_ids: np.ndarray,
                    sampled_mask: np.ndarray, live_mask: torch.Tensor,
-                   round_idx: int) -> Tuple[dict, torch.Tensor]:
+                   round_idx: int, row0: int = 0) -> Tuple[dict, torch.Tensor]:
         """Encode and pairwise-mask the default part of every client
         (:meth:`encode`, :meth:`mask_rows`): after the strategy's client
         step and the corruption, before the sums.  Returns the parts with
-        the default part's rows masked int32 and ``sub_norm [K]``, the L2
+        the default part's rows masked int32 and ``sub_norm [k]``, the L2
         norm of each submitted (corrupted, unmasked) float payload, which
-        the masked screening votes on."""
+        the masked screening votes on.  ``row0``: the cohort row of the
+        first client in ``parts`` (a chunk of the round's clients)."""
         pg, w = parts["default"]
         sub_norm = torch.sqrt(torch.sum(pg * pg, dim=1))
         masked = self.mask_rows(self.encode(pg, w), cohort_ids,
-                                sampled_mask, live_mask, round_idx)
+                                sampled_mask, live_mask, round_idx, row0)
         out = dict(parts)
         out["default"] = (masked, w)
         return out, sub_norm

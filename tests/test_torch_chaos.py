@@ -174,9 +174,13 @@ def test_make_chaos_reads_the_block():
     assert sched.seed == 4 and sched.has_client_faults and \
         sched.has_corruption
     assert sched.dropout_rate == 0.5 and sched.corrupt_scale_rate == 0.1
+    # the client half's counters and, since the checkpoint-IO stream is
+    # ported, its fault count: the JAX schedule's keys
     assert set(sched.counters) == {"dropped", "straggled", "steps_lost",
-                                   "nan_injected", "scaled",
-                                   "sign_flipped"}
+                                   "ckpt_io_faults", "nan_injected",
+                                   "scaled", "sign_flipped"}
+    from msrflute_tpu.resilience.chaos import ChaosSchedule as JaxSchedule
+    assert set(sched.counters) == set(JaxSchedule().counters)
 
 
 # ----------------------------------------------------------------------

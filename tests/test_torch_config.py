@@ -62,9 +62,26 @@ def test_nlg_gru_config_with_dp_and_quantization_parses():
 
 @pytest.mark.parametrize("path,value", [
     ("server_config.dump_norm_stats", True),
+    ("server_config.chaos", {"preempt_at_round": 2}),
+])
+def test_dga_config_takes_the_round_options_and_the_drill(path, value):
+    """``dump_norm_stats`` and chaos's ``preempt_at_round`` on the DGA
+    config parse in the port, as in the JAX package."""
+    raw = _nlg_gru()
+    node = raw
+    keys = path.split(".")
+    for k in keys[:-1]:
+        node = node.setdefault(k, {})
+    node[keys[-1]] = value
+    cfg = FLUTEConfig.from_dict(copy.deepcopy(raw))
+    assert cfg.server_config.get(keys[1]) == value
+    from msrflute_tpu.config import FLUTEConfig as JaxFLUTEConfig
+    JaxFLUTEConfig.from_dict(copy.deepcopy(raw))
+
+
+@pytest.mark.parametrize("path,value", [
     ("mesh_config.model_axis_size", 4),
     ("strategy", "secure_agg"),
-    ("server_config.chaos", {"preempt_at_round": 2}),
 ])
 def test_keys_outside_the_dga_slice_still_raise(path, value):
     raw = _nlg_gru()
@@ -107,15 +124,12 @@ def _with(path, value):
     ("server_config.checkpoint_backend", "orbax"),
     ("strategy", "robust"),
     ("mesh_config.model_axis_size", 2),
-    ("server_config.checkpoint_retry", {"retries": 3}),
-    ("server_config.clients_per_chunk", 2),
     ("client_config.meta_learning", "maml"),
     ("server_config.telemetry", {"enable": True}),
     ("server_config.cohort_bucketing", {"enable": True}),
     ("server_config.megabatch", {"enable": True}),
     ("server_config.traffic", {"mode": "buffered"}),
     ("server_config.fleet", {"enable": True}),
-    ("server_config.chaos", {"enable": True, "ckpt_io_error_rate": 0.1}),
     ("client_config.quant_bits", 8),
     ("client_config.data_config.train.lazy", True),
     ("client_config.optimizer_config.dampening", 0.1),
@@ -125,6 +139,27 @@ def _with(path, value):
 def test_unported_features_raise(path, value):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         FLUTEConfig.from_dict(_with(path, value))
+
+
+@pytest.mark.parametrize("path,value", [
+    ("server_config.checkpoint_retry", {"retries": 3}),
+    ("server_config.clients_per_chunk", 2),
+    ("server_config.chaos", {"enable": True, "ckpt_io_error_rate": 0.1}),
+    ("server_config.chaos", {"enable": True, "seed": 0, "dropout_rate": 0.1,
+                             "ckpt_io_error_rate": 0.1}),
+    ("server_config.chaos", {"enable": True, "seed": 0, "dropout_rate": 0.1,
+                             "preempt_at_round": 2}),
+], ids=["checkpoint_retry", "clients_per_chunk", "ckpt_io",
+        "checkpoint-IO", "preemption"])
+def test_resilience_and_round_options_parse_as_in_the_jax_package(path,
+                                                                  value):
+    """Checkpoint retry, chaos's checkpoint-IO faults and preemption drill
+    and ``clients_per_chunk`` parse in the port and in the JAX package."""
+    raw = _with(path, value)
+    cfg = FLUTEConfig.from_dict(copy.deepcopy(raw))
+    assert cfg.server_config.get(path.split(".")[1]) == value
+    from msrflute_tpu.config import FLUTEConfig as JaxFLUTEConfig
+    JaxFLUTEConfig.from_dict(copy.deepcopy(raw))
 
 
 @pytest.mark.parametrize("path", ["server_config.initial_lr_clients",
@@ -271,16 +306,19 @@ def _semisup():
     ("client_config.data_config.train.augment.type", "autoaugment",
      NotImplementedError),
     ("client_config.data_config.train.augment.ops", 2, ValueError),
-    ("dp_config", {"enable_local_dp": True}, NotImplementedError),
+    ("dp_config", {"enable_local_dp": True,
+                   "adaptive_clipping": {"target_quantile": 0.5}},
+     ValueError),
     ("server_config.personalization_init", "zeros", ValueError),
     ("server_config.personalization_interp", "logits", ValueError),
     ("client_config.convex_model_interp", 1.5, ValueError),
     ("server_config.type", "replay", NotImplementedError),
 ])
 def test_slice_seven_keys_outside_the_slice_raise(path, value, error):
-    """FedLabels with DP, a pseudo-label comparison other than ``var``,
-    another augmentation, and out-of-range personalization keys still fail
-    loudly."""
+    """FedLabels with adaptive clipping (its local DP is accepted and reads
+    nothing, ``tests/test_torch_dp_strategies.py``), a pseudo-label
+    comparison other than ``var``, another augmentation, and out-of-range
+    personalization keys still fail loudly."""
     raw = _semisup()
     node = raw
     keys = path.split(".")
@@ -528,8 +566,6 @@ def _chaos(**chaos):
 
 
 @pytest.mark.parametrize("feature,raw", [
-    ("checkpoint-IO", lambda: _chaos(ckpt_io_error_rate=0.1)),
-    ("preemption", lambda: _chaos(preempt_at_round=2)),
     ("infra services", lambda: _chaos(infra={"writer_error_rate": 0.1})),
     ("multi-GPU", lambda: _shipped("mlm_bert")),
     ("Hugging Face weights", lambda: _bert(model_name_or_path="/ckpt")),

@@ -6,11 +6,11 @@
   engine and its server) raises ``ValueError`` from the port's config gate,
   and the same config raises ``ValueError`` when the JAX package builds its
   server.
-- What this slice leaves out raises ``NotImplementedError`` naming the key:
-  chaos's checkpoint-IO faults, preemption and infra services,
-  ``dump_norm_stats``, ``cohort_bucketing``, ``clients_per_chunk``, and DP
-  under FedAC, FedBuff, EF quantization and FedLabels.  ``fused_carry``
-  under FedAvg builds, as in the JAX package.
+- What is left out raises ``NotImplementedError`` naming the key: chaos's
+  infra services and ``cohort_bucketing``.  ``fused_carry`` under FedAvg
+  builds, as in the JAX package, and so do chaos's checkpoint-IO faults
+  and preemption drill, ``dump_norm_stats``, ``clients_per_chunk``, and DP
+  under FedAC, FedBuff, EF quantization and FedLabels.
 - The slice's keys parse: ``strategy: secure_agg`` and its aliases, a
   ``robust`` block with each aggregator, chaos client faults and
   corruption, local DP with adaptive clipping under FedAvg and FedProx, and
@@ -138,23 +138,10 @@ def test_personalization_refuses_robust_and_chaos(block):
 
 
 NOT_PORTED = {
-    "chaos_ckpt_io": ("fedavg", "server_config.chaos",
-                      {"ckpt_io_error_rate": 0.1}, "ckpt_io_error_rate"),
-    "chaos_preempt": ("fedavg", "server_config.chaos",
-                      {"dropout_rate": 0.1, "preempt_at_round": 3},
-                      "preempt_at_round"),
     "chaos_infra": ("fedavg", "server_config.chaos",
                     {"infra": {"store_write_error_rate": 0.1}}, "infra"),
-    "dump_norm_stats": ("fedavg", "server_config.dump_norm_stats", True,
-                        "dump_norm_stats"),
     "cohort_bucketing": ("secure_agg", "server_config.cohort_bucketing",
                          {"enable": True}, "cohort_bucketing"),
-    "clients_per_chunk": ("fedavg", "server_config.clients_per_chunk", 2,
-                          "clients_per_chunk"),
-    "dp_under_fedac": ("fedac", "dp_config", LOCAL_DP, "dp_config"),
-    "dp_under_fedbuff": ("fedbuff", "dp_config", LOCAL_DP, "dp_config"),
-    "dp_under_ef_quant": ("ef_quant", "dp_config", LOCAL_DP, "dp_config"),
-    "dp_under_fedlabels": ("fedlabels", "dp_config", LOCAL_DP, "dp_config"),
 }
 
 
@@ -163,6 +150,42 @@ def test_left_out_raises_not_implemented_naming_the_key(name):
     strategy, path, value, key = NOT_PORTED[name]
     with pytest.raises(NotImplementedError, match=key):
         FLUTEConfig.from_dict(_with(strategy, (path, value)))
+
+
+LIFTED = {
+    "chaos_ckpt_io": ("fedavg", "server_config.chaos",
+                      {"ckpt_io_error_rate": 0.1}),
+    "chaos_preempt": ("fedavg", "server_config.chaos",
+                      {"dropout_rate": 0.1, "preempt_at_round": 3}),
+    "dump_norm_stats": ("fedavg", "server_config.dump_norm_stats", True),
+    "clients_per_chunk": ("fedavg", "server_config.clients_per_chunk", 2),
+    "dp_under_fedac": ("fedac", "dp_config", LOCAL_DP),
+    "dp_under_fedbuff": ("fedbuff", "dp_config", LOCAL_DP),
+    "dp_under_ef_quant": ("ef_quant", "dp_config", LOCAL_DP),
+    "dp_under_fedlabels": ("fedlabels", "dp_config", LOCAL_DP),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LIFTED))
+def test_lifted_keys_build_as_in_the_jax_package(name, tmp_path):
+    """Each key that the port once refused builds its server in the port
+    and in the JAX package, with the same strategy and chaos schedule."""
+    strategy, path, value = LIFTED[name]
+    raw = _with(strategy, (path, value))
+    from msrflute_tpu_torch.data.dataset import ArraysDataset
+    data = _dataset()
+    cfg = FLUTEConfig.from_dict(copy.deepcopy(raw))
+    server = OptimizationServer(
+        make_task(cfg.model_config), cfg,
+        ArraysDataset(data.user_list, [data.user_arrays(i)
+                                       for i in range(4)]),
+        model_dir=str(tmp_path / "port"), device="cpu")
+    jax_server = _jax_server(raw, tmp_path / "jax")
+    assert type(server.strategy).__name__ == \
+        type(jax_server.strategy).__name__
+    assert (server.chaos is None) == (jax_server.chaos is None)
+    if server.chaos is not None:
+        assert server.chaos.describe() == jax_server.chaos.describe()
 
 
 @pytest.mark.parametrize("name", ["fused_carry"])

@@ -242,12 +242,21 @@ def test_async_latest_snapshot_is_not_an_alias(tmp_path):
 
 def test_async_writer_failure_is_raised_on_the_training_thread(
         tmp_path, monkeypatch):
-    mgr = CheckpointManager(str(tmp_path), _layout(), async_latest=True)
+    """The writer thread only counts a failed save; below
+    ``escalation_threshold`` the run goes on, at it the training thread
+    raises :class:`CheckpointEscalationError` at its next wait."""
+    from msrflute_tpu_torch.resilience.integrity import (
+        CheckpointEscalationError, RetryPolicy)
+    mgr = CheckpointManager(str(tmp_path), _layout(), async_latest=True,
+                            retry=RetryPolicy(escalation_threshold=2))
 
     def broken(self, payload):
         raise OSError("disk full")
 
     monkeypatch.setattr(CheckpointManager, "_write_latest", broken)
     mgr.save_latest(_state(1))
-    with pytest.raises(RuntimeError, match="disk full"):
+    mgr.wait()                              # one failure: warned, not fatal
+    assert mgr.escalator.consecutive == 1
+    mgr.save_latest(_state(2))
+    with pytest.raises(CheckpointEscalationError):
         mgr.wait()

@@ -74,7 +74,9 @@ def test_no_source_imports_jax(path):
 #: reader imports ``h5py`` only when it reads), and the defense slice's
 #: chaos schedule, shield, robust aggregators, secure aggregation, FedAvg's
 #: local DP and the RDP accountant, and the carry slice's personalization
-#: strategy and fused RL (B1 and B3 on their paths)
+#: strategy and fused RL (B1 and B3 on their paths), and the resilience
+#: slice's retry and escalation, preemption handler and the package that
+#: gathers them (B1 on their paths)
 SLICE_MODULES = [(m, None) for m in (
     "msrflute_tpu_torch.models.nlp", "msrflute_tpu_torch.privacy",
     "msrflute_tpu_torch.ops.quantization", "msrflute_tpu_torch.ops.quant_bin",
@@ -119,7 +121,11 @@ SLICE_MODULES = [(m, None) for m in (
         "msrflute_tpu_torch.strategies.fedavg")] + [
     (m, "quant_bin") for m in (
         "msrflute_tpu_torch.strategies.personalized",
-        "msrflute_tpu_torch.rl.fused")]
+        "msrflute_tpu_torch.rl.fused")] + [
+    (m, "fused_sgd") for m in (
+        "msrflute_tpu_torch.resilience",
+        "msrflute_tpu_torch.resilience.integrity",
+        "msrflute_tpu_torch.resilience.preemption")]
 
 
 @pytest.mark.parametrize("module,kernel", SLICE_MODULES,

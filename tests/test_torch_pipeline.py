@@ -30,6 +30,7 @@ import copy
 import json
 import os
 import shutil
+import threading
 
 import jax
 import numpy as np
@@ -556,13 +557,28 @@ def test_resume_pairs_the_status_ring_with_the_loaded_slot(crash, runs,
     if crash == "save_in_flight":
         crashed = str(tmp_path / "crashed")
         real = CheckpointManager._write_latest
+        real_status = CheckpointManager.update_status
+        copied = threading.Event()
 
         def stopping(ckpt, payload):
             if payload["round"] == 5 and not os.path.exists(crashed):
-                shutil.copytree(ckpt.model_dir, crashed)
-            real(ckpt, payload)
+                # the training thread's own temporary files may come and
+                # go during the copy
+                shutil.copytree(ckpt.model_dir, crashed,
+                                ignore=shutil.ignore_patterns("*.tmp"))
+                copied.set()
+            return real(ckpt, payload)
+
+        def status_after_copy(ckpt, update):
+            # round 6's status waits for the copy: the crash is the
+            # moment round 5's status is on disk and its save is not
+            if update.get("i") == 6:
+                assert copied.wait(timeout=60), "the copy never ran"
+            return real_status(ckpt, update)
 
         monkeypatch.setattr(CheckpointManager, "_write_latest", stopping)
+        monkeypatch.setattr(CheckpointManager, "update_status",
+                            status_after_copy)
         server = _server(_raw(1, 1), blob, model_dir)
         assert server.ckpt.async_latest
         server.train()

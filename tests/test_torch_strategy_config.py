@@ -136,6 +136,32 @@ def test_refused_combination_raises_value_error_in_both(name, tmp_path):
 @pytest.mark.parametrize("path,value", [
     ("server_config.dump_norm_stats", True),
     ("server_config.clients_per_chunk", 2),
+])
+def test_round_options_build_under_scaffold_as_in_the_jax_package(
+        path, value, tmp_path):
+    """``dump_norm_stats`` and ``clients_per_chunk`` beside SCAFFOLD's host
+    rounds: both packages build the server, the host rounds stay (their
+    payload program reads neither), and the port's engine holds the
+    option."""
+    from msrflute_tpu_torch.data.dataset import ArraysDataset as PortDataset
+    from msrflute_tpu_torch.engine.server import OptimizationServer
+    from msrflute_tpu_torch.models import make_task
+    raw = _with("scaffold", (path, value))
+    jax_server = _jax_server(raw, tmp_path / "jax")
+    cfg = FLUTEConfig.from_dict(copy.deepcopy(raw))
+    jds = _dataset()
+    server = OptimizationServer(
+        make_task(cfg.model_config), cfg,
+        PortDataset(jds.user_list, [jds.user_arrays(i) for i in range(4)]),
+        model_dir=str(tmp_path / "port"), device="cpu", seed=0)
+    assert server.scaffold_store is not None and \
+        jax_server.scaffold_store is not None
+    key = path.split(".")[-1]
+    assert getattr(server.engine, key) == getattr(jax_server.engine, key) \
+        == value
+
+
+@pytest.mark.parametrize("path,value", [
     ("server_config.chaos", {"infra": {"writer_error_rate": 0.1}}),
     ("server_config.traffic", {"mode": "buffered"}),
     ("server_config.cohort_bucketing", {"enable": True}),
