@@ -273,6 +273,34 @@ non-zero and prints no result):
    (the tables ride it), the pinned snapshots' peak, the disk writes.
    Every phase line carries ``io_write_gb``, the run's writes so far.
 
+11. ``resilience`` — ``main``'s config through the CLI: the preemption
+   drill and a real SIGTERM (exit 75, each resumed bitwise), checkpoint
+   IO faults and escalation, local DP under FedAC / FedBuff / EF,
+   chunked clients and the norm dumps.
+
+12. ``model_options`` — last, a line a leg (``model_options_<leg>``):
+   ``ringlm_remat`` (``experiments/ringlm`` at its widths, K = 10, one
+   round with ``remat`` on and one off from one state and cohort: params
+   bitwise, or within ``CROSS_TOL[1]`` with the gap reported; B4 twice a
+   layer a local step under remat, once without, B5 and B6 once; each
+   way's peak allocated memory), ``ringlm_moe`` (4 experts, 2 rounds twice
+   on cuda, bitwise; B4-B6 once a layer a step; cuda against cpu at one
+   layer and K = 2 within ``CROSS_TOL[1]``), ``flash_auto`` (one layer,
+   K = 2, batch 1, one step: B4-B6 at 4,096 tokens, none at 1,023),
+   ``bert_gathered`` (BERT-base under DGA with local DP and quantization,
+   one round with the full head and one with the gathered head from one
+   state and cohort: train losses within ``CROSS_TOL[1]``, B3 once a round,
+   device busy ms and peak allocated memory each way), ``bert_bf16`` (one
+   round in bfloat16: a finite loss, B3 once), ``fednewsrec_ref``
+   (``experiments/fednewsrec`` with ``arch: fednewsrec`` through the CLI,
+   one round: finite, no kernel, the frozen table bitwise its numpy
+   draw), ``pretrained`` (``main``'s config warm-started from ``main``'s
+   ``latest_model.pt``: the warm params bitwise, the round-0 val bitwise
+   ``main``'s final model's, B1 once a local step) and ``eval_outputs``
+   (``wantLogits`` and ``per_user_stats`` on ``main``'s val: a row a real
+   sample, the six per-user metrics).  The RingLM and BERT legs drive
+   ``engine.run_round`` and write no checkpoint.
+
 The line before the last is the ``kernels`` table (launches on each path,
 ``max_abs_err``, ``ms``, ``plain_ms``, ``bound_ms``, ``library_ms``), the
 16-bit arms' rows after the float32 ones (each launched on a path of the
@@ -1610,6 +1638,12 @@ def phase_main(torch, work, kernel_rows):
             row["launches"] = launches[row["name"]]
     rounds = server.run_stats["secsPerRound"]
     MAIN_SECS["after_first"] = float(np.mean(rounds[1:]))
+    # main's final model on its val split (its last val eval is at round
+    # 4 of 5), for the warm start of phase model_options
+    from msrflute_tpu_torch.engine.evaluation import evaluate
+    final = evaluate(server.task, server.engine.params_dict(server.state),
+                     server._staged_eval("val"))
+    MAIN_FINAL_VAL.update({k: m.value for k, m in final.items()})
     val = [h for h in evals if h["split"] == "val"]
     emit({"phase": "main", "ok": True, "device": "cuda",
           "users": {"train": 350, "val": 35, "test": 35},
@@ -5607,6 +5641,448 @@ def phase_resilience(torch, work, kernel_rows):
           "seconds": round(time.time() - tic, 3)})
 
 
+# ----------------------------------------------------------------------
+#: the model-options phase: RingLM's rounds at experiments/ringlm's widths
+#: (4 layers of embed 128, 4 heads of 32, mlp 512, seq_len 1024, batch 4,
+#: K = 10), flash on; the MoE FFN's experts; the sequence lengths of the
+#: "auto" gate's two sides (``seq_len - 1`` tokens against
+#: ``FLASH_AUTO_MIN_LEN`` = 4096)
+MOE_EXPERTS = 4
+MOE_ROUNDS = 2
+AUTO_SEQ_LENS = (4097, 1024)
+#: main's final model on its val split (``phase_main``): what a warm start
+#: from main's ``latest_model.pt`` must evaluate to at its round 0
+MAIN_FINAL_VAL = {}
+
+
+def _build_server(work, name, raw, device, task):
+    """The CLI's server for ``raw`` (config, task, datasets, model
+    directory), built as ``e2e_trainer.main`` builds it, without its
+    training loop: legs that drive one round of the round engine from a
+    state and cohort they choose, and write no checkpoint."""
+    from msrflute_tpu_torch import e2e_trainer
+    from msrflute_tpu_torch.config import FLUTEConfig
+    from msrflute_tpu_torch.engine import select_server
+    from msrflute_tpu_torch.models import make_task
+    cfg = FLUTEConfig.from_dict(json.loads(json.dumps(raw)))
+    cfg.task, cfg.data_path = task, work
+    cfg.validate(work)
+    t = make_task(cfg.model_config)
+    train, val, test = e2e_trainer.build_task_datasets(cfg, t)
+    return select_server(cfg.server_config.get("type"))(
+        t, cfg, train, val_dataset=val, test_dataset=test,
+        model_dir=os.path.join(work, f"out_{name}", "models"),
+        device=device)
+
+
+def _cohort(server):
+    """One round's cohort and grid, drawn as the server draws them."""
+    from msrflute_tpu_torch.data.batching import pack_round_batches
+    sampled = server._sample()
+    return pack_round_batches(
+        server.train_dataset, sampled, server.batch_size,
+        server._chunk_steps([sampled]), rng=server._np_rng,
+        desired_max_samples=server.desired_max_samples)
+
+
+def _lrs(raw):
+    sc = raw["server_config"]
+    return (float(sc.get("initial_lr_client", 0.01)),
+            float(sc["optimizer_config"].get("lr", 1.0)),
+            raw["model_config"].get("quant_threshold"))
+
+
+def _one_round(torch, server, state, batch, raw):
+    """``(state, train loss, launches, peak GB, seconds)`` of one round of
+    ``server``'s engine from ``state`` on ``batch``, the counts set to 0
+    just before."""
+    client_lr, server_lr, quant = _lrs(raw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    tic = time.time()
+    state, st = server.engine.run_round(state, batch, client_lr, server_lr,
+                                        quant_threshold=quant)
+    torch.cuda.synchronize()
+    secs = time.time() - tic
+    launches = _read_counts()
+    loss = st["train_loss_sum"] / max(st["client_count"], 1.0)
+    return (state, loss, launches, torch.cuda.max_memory_allocated() / 1e9,
+            secs)
+
+
+def _rel_l2(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+def _ensure_blob(work, data_dir, writer, splits):
+    if not os.path.exists(os.path.join(work, data_dir, "train.json")):
+        _write_splits(work, data_dir, writer, splits)
+
+
+def _leg_ringlm_remat(torch, work, kernel_rows):
+    """One round with remat on, then one with it off, from one state and
+    cohort: B4 twice a layer a local step under remat (forward and
+    recompute), once without; B5 and B6 once either way; the params
+    bitwise (or, failing that, within ``CROSS_TOL[1]``, with the gap
+    reported)."""
+    _ensure_blob(work, "longtext", write_longtext_blob, RINGLM_SPLITS)
+    raw = ringlm_config(rounds=1)
+    raw["server_config"].update(initial_val=False, val_freq=100,
+                                rec_freq=100)
+    out, params = {}, {}
+    batch = state = None
+    for remat in (True, False):
+        raw["model_config"]["remat"] = remat
+        server = _build_server(work, f"remat_{remat}", raw, "cuda", "ringlm")
+        check(server.task.module.block_0.remat is remat,
+              "ringlm_remat: the task's remat flag")
+        if batch is None:
+            batch, state = _cohort(server), server.state
+        new, loss, launches, peak, secs = _one_round(torch, server, state,
+                                                     batch, raw)
+        layers = server.task.module.num_layers
+        steps = int(batch.sample_mask.shape[1])
+        want = {"fused_sgd_apply": steps,
+                "flash_attention_fwd": layers * steps * (2 if remat else 1),
+                "flash_attention_dq": layers * steps,
+                "flash_attention_dkv": layers * steps,
+                "fused_gaussian_noise": 0, "quant_bin_sparsify": 0}
+        check(launches == want,
+              f"ringlm_remat (remat {remat}) launches {launches}, want "
+              f"{want}")
+        check(math.isfinite(loss), f"ringlm_remat: train loss {loss}")
+        params[remat] = new.params
+        out["remat" if remat else "plain"] = {
+            "train_loss": loss, "launches": launches,
+            "b4_per_layer_step": launches["flash_attention_fwd"]
+            / (layers * steps),
+            "peak_allocated_gb": peak, "round_seconds": round(secs, 3)}
+        for row in kernel_rows:
+            row.setdefault("launches_by_path", {})[
+                f"model_options_ringlm_{'remat' if remat else 'plain'}"] = \
+                launches[row["name"]]
+        del server
+    bitwise = bool(torch.equal(params[True], params[False]))
+    rel = _rel_l2(params[True], params[False])
+    check(bitwise or rel <= CROSS_TOL[1],
+          f"ringlm_remat: remat vs plain params rel L2 {rel}")
+    return {"layers": layers, "local_steps": steps,
+            "clients": int(batch.sample_mask.shape[0]),
+            "bitwise": bitwise, "rel_l2_params": rel, **out,
+            "peak_saved_gb": out["plain"]["peak_allocated_gb"]
+            - out["remat"]["peak_allocated_gb"]}
+
+
+def _leg_ringlm_moe(torch, work, kernel_rows):
+    """``MOE_EXPERTS`` experts at the same widths for ``MOE_ROUNDS`` rounds,
+    twice on cuda from one state and cohorts (bitwise), B4-B6 once a
+    layer a local step; then cuda against cpu after one round at one
+    layer and K = 2 (:func:`_cross_device`, ``CROSS_TOL[1]``)."""
+    _ensure_blob(work, "longtext", write_longtext_blob, RINGLM_SPLITS)
+    raw = ringlm_config(rounds=MOE_ROUNDS)
+    raw["model_config"]["moe_experts"] = MOE_EXPERTS
+    raw["server_config"].update(initial_val=False, val_freq=100,
+                                rec_freq=100)
+    runs, batches, losses = [], None, []
+    for run in range(2):
+        server = _build_server(work, f"moe_{run}", raw, "cuda", "ringlm")
+        check("block_0.moe_ffn.w_in" in server.engine.layout.names,
+              "ringlm_moe: no moe_ffn in the task")
+        if batches is None:
+            batches = [_cohort(server) for _ in range(MOE_ROUNDS)]
+        state, run_loss, counts, peak = server.state, [], [], 0.0
+        for batch in batches:
+            state, loss, launches, peak_r, _ = _one_round(
+                torch, server, state, batch, raw)
+            run_loss.append(loss)
+            peak = max(peak, peak_r)
+            layers = server.task.module.num_layers
+            steps = int(batch.sample_mask.shape[1])
+            check(all(v == layers * steps for v in
+                      _flash_launch_counts(launches).values()),
+                  f"ringlm_moe launches {launches} for {layers} layers x "
+                  f"{steps} steps")
+            counts.append(launches)
+        check(all(map(math.isfinite, run_loss)),
+              f"ringlm_moe train losses {run_loss}")
+        runs.append(state.params)
+        losses.append(run_loss)
+        del server
+    check(bool(torch.equal(runs[0], runs[1])),
+          "ringlm_moe: two cuda runs differ")
+    for row in kernel_rows:
+        row.setdefault("launches_by_path", {})["model_options_ringlm_moe"] \
+            = counts[0][row["name"]]
+    cross = ringlm_config(rounds=1)
+    cross["model_config"].update(moe_experts=MOE_EXPERTS, num_layers=1)
+    cross["server_config"].update(num_clients_per_iteration=2, val_freq=100,
+                                  rec_freq=100, initial_val=False,
+                                  rounds_per_step=1, model_backup_freq=1)
+    cross["client_config"]["desired_max_samples"] = 4
+    _cross_device(torch, work, "model_options_ringlm_moe_cross_device",
+                  cross, "ringlm", {1: CROSS_TOL[1]})
+    return {"experts": MOE_EXPERTS, "rounds": MOE_ROUNDS,
+            "train_loss": losses[0], "cuda_reproducible": True,
+            "launches_round_1": counts[0],
+            "peak_allocated_gb": peak}
+
+
+def _leg_flash_auto(torch, work, kernel_rows):
+    """``flash_attention: "auto"`` at one layer, K = 2, batch 1, one local
+    step: at ``seq_len`` 4097 (4,096 tokens) B4-B6 run, at 1024 none
+    does."""
+    _ensure_blob(work, "longtext", write_longtext_blob, RINGLM_SPLITS)
+    out = {}
+    for seq_len in AUTO_SEQ_LENS:
+        raw = ringlm_config(rounds=1, flash="auto")
+        raw["model_config"].update(num_layers=1, seq_len=seq_len)
+        raw["server_config"].update(num_clients_per_iteration=2,
+                                    initial_val=False, val_freq=100,
+                                    rec_freq=100)
+        raw["client_config"]["desired_max_samples"] = 1
+        raw["client_config"]["data_config"]["train"]["batch_size"] = 1
+        server = _build_server(work, f"auto_{seq_len}", raw, "cuda",
+                               "ringlm")
+        batch = _cohort(server)
+        _, loss, launches, peak, secs = _one_round(torch, server,
+                                                   server.state, batch, raw)
+        flash = server.task.module.block_0._MHA_0.use_flash
+        counts = _flash_launch_counts(launches)
+        want = {k: (1 if seq_len - 1 >= 4096 else 0) for k in counts}
+        check(flash is (seq_len - 1 >= 4096) and counts == want and
+              batch.sample_mask.shape[1] == 1,
+              f"flash_auto at seq_len {seq_len}: flash {flash}, launches "
+              f"{counts}, want {want}")
+        check(math.isfinite(loss), f"flash_auto: train loss {loss}")
+        out[f"seq_len_{seq_len}"] = {"tokens": seq_len - 1, "flash": flash,
+                                     "launches": counts, "train_loss": loss,
+                                     "peak_allocated_gb": peak,
+                                     "round_seconds": round(secs, 3)}
+        del server
+    for row in kernel_rows:
+        if row["name"].startswith("flash_attention"):
+            row.setdefault("launches_by_path", {})[
+                "model_options_flash_auto"] = \
+                out[f"seq_len_{AUTO_SEQ_LENS[0]}"]["launches"][row["name"]]
+    return out
+
+
+def _bert_raw():
+    raw = shipped_config("mlm_bert", "reddit_tokens", 1, backup_freq=1000)
+    raw["server_config"].update(initial_val=False, val_freq=100,
+                                rec_freq=100)
+    return raw
+
+
+def _leg_bert_gathered(torch, work, kernel_rows):
+    """BERT-base under DGA with local DP and quantization: one round with
+    the full MLM head, then one with the gathered head (40 slots), from
+    one state and cohort (the MLM draws and dropout come from the same
+    client streams): train losses within ``CROSS_TOL[1]``, B3 once a round
+    either way, and each way's device busy ms (``_trace_rounds``: one
+    warm-up, one timed and one traced round more) and peak allocated
+    memory."""
+    _ensure_blob(work, "reddit_tokens", write_bert_blob, BERT_SPLITS)
+    raw = _bert_raw()
+    out, batch, state = {}, None, None
+    for head in ("full", "gathered"):
+        raw["model_config"]["BERT"]["model"]["mlm_head"] = head
+        server = _build_server(work, f"bert_{head}", raw, "cuda", "mlm_bert")
+        check(server.task.mlm_head == head and
+              server.engine.layout.numel == BERT_P,
+              f"bert_gathered: the {head} head's task")
+        if batch is None:
+            batch, state = _cohort(server), server.state
+        _, loss, launches, peak, secs = _one_round(torch, server, state,
+                                                   batch, raw)
+        want = {k: 0 for k in launches}
+        want["quant_bin_sparsify"] = 1
+        check(launches == want, f"bert_gathered ({head}) launches "
+                                f"{launches}, want {want}")
+        check(math.isfinite(loss), f"bert_gathered ({head}) loss {loss}")
+        client_lr, server_lr, quant = _lrs(raw)
+        traced_state = state
+
+        def step():
+            nonlocal traced_state
+            traced_state = server.engine.run_round(
+                traced_state, batch, client_lr, server_lr,
+                quant_threshold=quant)[0]
+
+        traced = _trace_rounds(torch, step, 1, f"bert_{head}")
+        out[head] = {"train_loss": loss, "launches": launches,
+                     "peak_allocated_gb": peak,
+                     "round_seconds": round(secs, 3),
+                     "slots": server.task.gathered_slots
+                     if head == "gathered" else server.task.seq_len,
+                     **{k: traced[k] for k in (
+                         "wall_ms_per_round", "device_busy_ms_per_round",
+                         "device_idle_share")}}
+        for row in kernel_rows:
+            row.setdefault("launches_by_path", {})[
+                f"model_options_bert_{head}"] = launches[row["name"]]
+        del server, traced_state
+        torch.cuda.empty_cache()
+    rel = abs(out["gathered"]["train_loss"] - out["full"]["train_loss"]) \
+        / abs(out["full"]["train_loss"])
+    check(rel <= CROSS_TOL[1],
+          f"bert_gathered: gathered vs full train loss rel {rel}")
+    return {"params": BERT_P, "rel_train_loss": rel,
+            "tolerance": CROSS_TOL[1], **out}
+
+
+def _leg_bert_bf16(torch, work, kernel_rows):
+    """The same config in bfloat16 (``BERT.model.dtype``), one round:
+    finite loss, B3 once."""
+    raw = _bert_raw()
+    raw["model_config"]["BERT"]["model"]["dtype"] = "bfloat16"
+    server = _build_server(work, "bert_bf16", raw, "cuda", "mlm_bert")
+    check(server.task.compute_dtype == torch.bfloat16,
+          "bert_bf16: the task's dtype")
+    _, loss, launches, peak, secs = _one_round(
+        torch, server, server.state, _cohort(server), raw)
+    check(math.isfinite(loss) and launches["quant_bin_sparsify"] == 1 and
+          sum(launches.values()) == 1,
+          f"bert_bf16: loss {loss}, launches {launches}")
+    for row in kernel_rows:
+        row.setdefault("launches_by_path", {})["model_options_bert_bf16"] = \
+            launches[row["name"]]
+    return {"train_loss": loss, "launches": launches,
+            "peak_allocated_gb": peak, "round_seconds": round(secs, 3)}
+
+
+def _leg_fednewsrec_ref(torch, work, kernel_rows):
+    """``experiments/fednewsrec`` with ``arch: fednewsrec`` through the
+    CLI, one round: finite losses, ranking metrics in [0, 1], no port
+    kernel, and the frozen table on the card bitwise its numpy draw."""
+    import numpy as np
+    _ensure_blob(work, "mind", write_mind_blob, MIND_SPLITS)
+    raw = shipped_config("fednewsrec", "mind", 1)
+    raw["model_config"]["arch"] = "fednewsrec"
+    _reset_counts()
+    server, out, secs = _run_cli(work, "fednewsrec_ref", raw, "cuda",
+                                 task="fednewsrec")
+    launches = _read_counts()
+    _no_kernel("fednewsrec_ref", launches)
+    mc = raw["model_config"]
+    draw = np.random.default_rng(0).normal(
+        scale=0.1, size=(int(mc["vocab_size"]), int(mc["embed_dim"])))
+    table = server.task.word_table(server.device)
+    check(table.is_cuda and np.array_equal(table.cpu().numpy(),
+                                           draw.astype(np.float32)),
+          "fednewsrec_ref: the frozen table is not its numpy draw")
+    train_loss = [r["value"] for r in _records(out, "Training loss")]
+    last = server.history[-1]
+    check(len(train_loss) == 1 and all(map(math.isfinite, train_loss)) and
+          all(0.0 <= last[k] <= 1.0 for k in ("auc", "mrr", "ndcg@5",
+                                               "ndcg@10")),
+          f"fednewsrec_ref: losses {train_loss}, metrics {last}")
+    return {"params": server.engine.layout.numel,
+            "table": list(table.shape), "train_loss": train_loss,
+            "launches": launches, "evals": server.history,
+            "run_seconds": round(secs, 3)}
+
+
+def _leg_pretrained(torch, work, kernel_rows):
+    """``main``'s CNN config warm-started from ``main``'s
+    ``latest_model.pt``, one round through the CLI: its round-0 params
+    bitwise ``latest``'s, its initial val bitwise ``main``'s final model's
+    (:data:`MAIN_FINAL_VAL`), B1 once a local step."""
+    src = os.path.join(work, "out_main", "models", "latest_model.pt")
+    check(os.path.exists(src) and bool(MAIN_FINAL_VAL),
+          "pretrained: main's latest_model.pt and final val")
+    raw = _set_data(json.loads(json.dumps(CNN_CONFIG)), "femnist")
+    raw["model_config"]["pretrained_model_path"] = src
+    raw["server_config"].update(max_iteration=1, val_freq=1, rec_freq=100)
+    warm = _build_server(work, "pretrained_check", raw, "cuda",
+                         "cv_cnn_femnist")
+    from msrflute_tpu_torch.engine.checkpoint import read_verified
+    want = warm.engine.layout.flatten(read_verified(src)["params"])
+    check(torch.equal(warm.state.params.cpu(), want) and
+          warm.state.round == 0,
+          "pretrained: the warm state is not main's latest params")
+    del warm
+    _reset_counts()
+    server, _, secs = _run_cli(work, "pretrained", raw, "cuda")
+    launches = _read_counts()
+    _b1_alone("pretrained", launches, server.engine.local_steps)
+    first = server.history[0]
+    check(first["round"] == 0 and
+          all(first[k] == MAIN_FINAL_VAL[k] for k in MAIN_FINAL_VAL),
+          f"pretrained: initial val {first} is not main's final val "
+          f"{MAIN_FINAL_VAL}")
+    for row in kernel_rows:
+        row.setdefault("launches_by_path", {})["model_options_pretrained"] \
+            = launches[row["name"]]
+    return {"source": "out_main/models/latest_model.pt",
+            "initial_val": {k: first[k] for k in MAIN_FINAL_VAL},
+            "main_final_val": dict(MAIN_FINAL_VAL),
+            "b1_per_round": launches["fused_sgd_apply"],
+            "launches": launches, "run_seconds": round(secs, 3)}
+
+
+def _leg_eval_outputs(torch, work, kernel_rows):
+    """``main``'s CNN config with ``wantLogits`` and ``per_user_stats`` on
+    val, one round and one val eval through the CLI: a prediction row a
+    real val sample, the six per-user metrics logged."""
+    raw = _set_data(json.loads(json.dumps(CNN_CONFIG)), "femnist")
+    raw["server_config"].update(max_iteration=1, val_freq=1, rec_freq=100,
+                                initial_val=False)
+    raw["server_config"]["data_config"]["val"].update(wantLogits=True,
+                                                      per_user_stats=True)
+    _reset_counts()
+    server, out, secs = _run_cli(work, "eval_outputs", raw, "cuda")
+    launches = _read_counts()
+    _b1_alone("eval_outputs", launches, server.engine.local_steps)
+    path = os.path.join(out, "models", "predictions_val_r1.jsonl")
+    with open(path) as fh:
+        rows = [json.loads(line) for line in fh]
+    real = int(sum(server.val_dataset.num_samples))
+    check(len(rows) == real and set(rows[0]) == {"user", "pred", "label",
+                                                 "logits"},
+          f"eval_outputs: {len(rows)} rows for {real} val samples")
+    names = ["worst user", "user p10", "user p50", "user p90", "user std",
+             "users evaluated"]
+    per_user = {n: [r["value"] for r in _records(out, f"Val acc ({n})")]
+                for n in names}
+    check(all(len(v) == 1 for v in per_user.values()) and
+          per_user["users evaluated"][0] == len(server.val_dataset),
+          f"eval_outputs: per-user metrics {per_user}")
+    return {"rows": len(rows), "real_val_samples": real,
+            "per_user": {k: v[0] for k, v in per_user.items()},
+            "run_seconds": round(secs, 3)}
+
+
+def phase_model_options(torch, work, kernel_rows):
+    """The model-options slice on one card, a line a leg
+    (``model_options_<leg>``), then the phase's: RingLM's ``remat``, MoE
+    FFN and ``"auto"`` flash gate, BERT's gathered head and bfloat16,
+    NRMS's reference net, a warm start and the eval outputs."""
+    restore = _shared_parse()
+    legs = {}
+    tic = time.time()
+    try:
+        for leg, fn in (("ringlm_remat", _leg_ringlm_remat),
+                        ("ringlm_moe", _leg_ringlm_moe),
+                        ("flash_auto", _leg_flash_auto),
+                        ("bert_gathered", _leg_bert_gathered),
+                        ("bert_bf16", _leg_bert_bf16),
+                        ("fednewsrec_ref", _leg_fednewsrec_ref),
+                        ("pretrained", _leg_pretrained),
+                        ("eval_outputs", _leg_eval_outputs)):
+            lap = time.time()
+            legs[leg] = fn(torch, work, kernel_rows)
+            legs[leg]["seconds"] = round(time.time() - lap, 3)
+            emit({"phase": f"model_options_{leg}", "ok": True, **legs[leg]})
+            torch.cuda.empty_cache()
+    finally:
+        restore()
+    emit({"phase": "model_options", "ok": True, "legs": list(legs),
+          "seconds": round(time.time() - tic, 3)})
+
+
 def main() -> int:
     argv = sys.argv[1:]
     if argv not in ([], ["--kernels"]):
@@ -5748,6 +6224,8 @@ def main() -> int:
             phase_fused_carry(torch, work, rows)
             phase = "resilience"
             phase_resilience(torch, work, rows)
+            phase = "model_options"
+            phase_model_options(torch, work, rows)
     except Exception as exc:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})

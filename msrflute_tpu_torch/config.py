@@ -30,7 +30,13 @@ loop's dispatch plane:
 ``rounds_per_step``, ``pipeline_depth`` (the ring of dispatched chunks, 0
 to ``MAX_PIPELINE_DEPTH``), ``input_staging``, ``checkpoint_async``,
 ``checkpoint_retry``, ``clients_per_chunk`` and ``dump_norm_stats``,
-checked by :func:`check_dispatch` with the JAX schema's messages.  The
+checked by :func:`check_dispatch` with the JAX schema's messages, every
+model option of the one-chip paths (RingLM's ``remat``, ``moe_experts``
+and ``flash_attention: "auto"``, BERT's ``mlm_head`` and ``dtype``, NRMS's
+``arch``, ``pretrained_model_path``), the eval outputs ``wantLogits`` and
+``per_user_stats``, and the keys nothing in the JAX package reads
+(:data:`_INERT`, accepted and ignored once :func:`check_inert` passes
+their types).  The
 combinations that the JAX constructors and round engine refuse are refused
 here, by :func:`check_strategy`, with ``ValueError`` and the JAX package's
 meaning.
@@ -455,7 +461,9 @@ _CLIENT = {"type", "desired_max_samples", "max_grad_norm", "fedprox_mu",
 #: from ``model_config.max_num_words``, as in the JAX package
 _DATASET = {"batch_size", "list_of_train_data", "test_data", "val_data",
             "train_data", "desired_max_samples", "vocab_dict",
-            "max_num_words", "augment", "train_data_server"}
+            "max_num_words", "augment", "train_data_server",
+            # the eval outputs of a val / test split (engine/server.py)
+            "wantLogits", "per_user_stats"}
 #: each optimizer type's keys (``msrflute_tpu/optim/factory.py`` reads no
 #: other).  adam's ``amsgrad`` is accepted and not applied, as the JAX
 #: package builds ``optax.adam`` whatever it says; the JAX package gives
@@ -572,6 +580,29 @@ _DISPATCH_ONLY = {
                       "updatable_layers"},
 }
 
+#: keys that the JAX config parses and nothing in the JAX package reads
+#: (``msrflute_tpu/config.py:200-201, 450-453, 497-503``): accepted and
+#: ignored, as there, once their types pass the JAX schema's checks
+#: (:data:`_INERT_SPECS`)
+_INERT = {
+    "server_config": {"send_dicts", "initial_lr", "num_skip_decoding",
+                      "nbest_task_scheduler"},
+    "client_config": {"meta_learning", "copying_train_data",
+                      "ignore_subtask", "num_skip_decoding",
+                      "meta_optimizer_config"},
+    "dataset": {"max_batch_size", "min_words_per_utt"},
+}
+#: the JAX schema's type rules of the inert keys and the eval outputs
+#: (``msrflute_tpu/schema.py:583-645``)
+_INERT_SPECS = {
+    "server_config": {"send_dicts": ("bool", None, None),
+                      "initial_lr": ("num", 0, None)},
+    "client_config": {"copying_train_data": ("bool", None, None),
+                      "ignore_subtask": ("bool", None, None)},
+    "dataset": {"wantLogits": ("bool", None, None),
+                "per_user_stats": ("bool", None, None)},
+}
+
 #: every other key the JAX package's schema knows (``msrflute_tpu/schema.py``
 #: ``SERVER_KEYS``, ``CLIENT_KEYS``, ``DATASET_KEYS``, ``OPTIMIZER_KEYS``,
 #: ``ANNEALING_KEYS``, ``DP_KEYS``, ``TOP_KEYS``): a feature the port does
@@ -580,20 +611,14 @@ _DISPATCH_ONLY = {
 #: ``NotImplementedError``
 _OFF_OK = {
     "server_config": {
-        "send_dicts", "do_profiling", "initial_lr",
-        "num_skip_decoding",
-        "nbest_task_scheduler", "best_model_metric",
+        "do_profiling", "best_model_metric",
         "checkpoint_backend", "traffic", "telemetry", "cohort_bucketing",
         "megabatch", "fleet", "updatable_names"} | _DGA_SERVER,
-    "client_config": {
-        "meta_learning", "copying_train_data", "ignore_subtask",
-        "num_skip_decoding", "meta_optimizer_config",
-        "ss_config"} | _DGA_CLIENT,
+    "client_config": {"ss_config"} | _DGA_CLIENT,
     "dataset": {
-        "max_batch_size",
-        "max_seq_length", "min_words_per_utt", "num_frames",
+        "max_seq_length", "num_frames",
         "max_samples_per_user", "max_grad_norm", "utterance_mvn",
-        "unsorted_batch", "lazy", "lazy_cache_users", "wantLogits", "step_bucketing", "per_user_stats"},
+        "unsorted_batch", "lazy", "lazy_cache_users", "step_bucketing"},
     "optimizer": {"amsgrad", "eps", "betas", "dampening", "momentum",
                   "nesterov", "weight_decay"},
     "replay": {"data_config"},
@@ -616,8 +641,6 @@ def _off(key: str, value: Any) -> bool:
     off (the port's behavior)."""
     if key == "checkpoint_backend":
         return value in (None, "msgpack")
-    if key == "meta_learning":
-        return value in (None, "basic")
     if key == "aggregate_median":
         return value in (None, "softmax")   # FedAvg never reads it
     if key == "dp_config" and isinstance(value, dict):
@@ -689,20 +712,13 @@ def validate(raw: Dict[str, Any]) -> None:
     # finds the port's twin of it or raises
     if not folder and mtype not in _MODELS_PORTED:
         raise NotImplementedError(f"model_type {mtype!r} is {NOT_PORTED}")
-    if model.get("pretrained_model_path"):
-        raise NotImplementedError(
-            f"model_config.pretrained_model_path is {NOT_PORTED}")
     model_dtype(model)   # a known spelling, else ValueError
     if mtype == "RINGLM":
         check_ringlm_model(model)
     if mtype == "BERT":
         check_bert_model(model)
     if mtype in ("NRMS", "FEDNEWSREC") and \
-            str(model.get("arch", "nrms")) != "nrms":
-        if str(model["arch"]) == "fednewsrec":
-            raise NotImplementedError(
-                f"model_config.arch='fednewsrec' (the frozen-GloVe net) is "
-                f"{NOT_PORTED}")
+            str(model.get("arch", "nrms")) not in ("nrms", "fednewsrec"):
         raise ValueError("model_config.arch must be 'nrms' or 'fednewsrec', "
                          f"got {model['arch']!r}")
     if mtype in ("RESNET", "ResNet") and \
@@ -721,8 +737,10 @@ def validate(raw: Dict[str, Any]) -> None:
                 _SERVER | _STRATEGY_SERVER | _DEFENSE_SERVER
                 | (_DGA_SERVER if dga else set()),
                 off_ok=_OFF_OK["server_config"],
-                ignored=_DISPATCH_ONLY["server_config"])
+                ignored=_DISPATCH_ONLY["server_config"]
+                | _INERT["server_config"])
     check_dispatch(sc)
+    check_inert(raw)
     _check_keys(sc.get("checkpoint_retry"), "server_config.checkpoint_retry",
                 set(CHECKPOINT_RETRY_SPECS))
     rl = sc.get("RL")
@@ -763,7 +781,8 @@ def validate(raw: Dict[str, Any]) -> None:
                 _CLIENT | (_DGA_CLIENT if dga else _EF_CLIENT if ef
                            else set()),
                 off_ok=_OFF_OK["client_config"],
-                ignored=_DISPATCH_ONLY["client_config"])
+                ignored=_DISPATCH_ONLY["client_config"]
+                | _INERT["client_config"])
     freeze = cc.get("freeze_layer")
     if freeze is not None and not isinstance(freeze, str) and not (
             isinstance(freeze, (list, tuple)) and
@@ -790,7 +809,8 @@ def validate(raw: Dict[str, Any]) -> None:
         for split in ("train", "val", "test"):
             _check_keys(dc.get(split), f"{path}.data_config.{split}",
                         _DATASET, off_ok=_OFF_OK["dataset"],
-                        ignored=_DISPATCH_ONLY["dataset"])
+                        ignored=_DISPATCH_ONLY["dataset"]
+                        | _INERT["dataset"])
             aug = (dc.get(split) or {}).get("augment")
             _check_keys(aug, f"{path}.data_config.{split}.augment", _AUGMENT)
             if aug and str(aug.get("type", "randaugment")) != "randaugment":
@@ -847,6 +867,26 @@ def _check_fields(errors: List[str], raw: Any, path: str,
             errors.append(f"{path}.{key}: must be >= {lo}, got {val}")
         if hi is not None and val > hi:
             errors.append(f"{path}.{key}: must be <= {hi}, got {val}")
+
+
+def check_inert(raw: Dict[str, Any]) -> None:
+    """The types of the inert keys and of the eval outputs, with the JAX
+    schema's messages (:data:`_INERT_SPECS`)."""
+    errors: List[str] = []
+    sc = raw.get("server_config") or {}
+    cc = raw.get("client_config") or {}
+    _check_fields(errors, sc, "server_config",
+                  _INERT_SPECS["server_config"])
+    _check_fields(errors, cc, "client_config",
+                  _INERT_SPECS["client_config"])
+    for path, section in (("server_config", sc), ("client_config", cc)):
+        dc = section.get("data_config") or {}
+        for split in ("train", "val", "test"):
+            _check_fields(errors, dc.get(split),
+                          f"{path}.data_config.{split}",
+                          _INERT_SPECS["dataset"])
+    if errors:
+        raise SchemaError(errors)
 
 
 def check_dispatch(sc: Dict[str, Any]) -> None:
@@ -1250,20 +1290,25 @@ def check_precision(prec: Any, model_type: Optional[str]) -> None:
 
 
 def check_ringlm_model(model: Dict[str, Any]) -> None:
-    """RingLM's local mode is ported with ``flash_attention`` a bool; the
-    TPU tile knobs ``flash_block_q``/``flash_block_k`` change no result and
-    are ignored."""
+    """RingLM's local mode is ported whole: ``flash_attention`` a bool or
+    ``"auto"``, ``remat`` and ``moe_experts``; the TPU tile knobs
+    ``flash_block_q``/``flash_block_k`` change no result and are ignored.
+    The expert-parallel MoE dispatch (``moe_ep_axis``) is multi-GPU and
+    raises."""
     flash = model.get("flash_attention", False)
-    if isinstance(flash, str):
-        if flash.lower() == "auto":
-            raise NotImplementedError(
-                f"model_config.flash_attention='auto' is {NOT_PORTED}")
+    if isinstance(flash, str) and flash.lower() != "auto":
         raise ValueError("model_config.flash_attention must be bool or "
                          f"'auto', got {flash!r}")
-    for key in ("remat", "moe_experts"):
-        if model.get(key):
-            raise NotImplementedError(
-                f"model_config.{key}={model[key]!r} is {NOT_PORTED}")
+    if model.get("moe_ep_axis") is not None:
+        raise NotImplementedError(
+            f"model_config.moe_ep_axis={model['moe_ep_axis']!r}: the "
+            "expert-parallel MoE dispatch (multi-GPU) is "
+            f"{NOT_PORTED} §A")
+    experts = model.get("moe_experts", 0) or 0
+    if isinstance(experts, bool) or not isinstance(experts, int) or \
+            experts < 0:
+        raise ValueError("model_config.moe_experts must be an integer >= 0, "
+                         f"got {experts!r}")
 
 
 def check_mesh(mesh: Any) -> None:
@@ -1278,25 +1323,18 @@ def check_mesh(mesh: Any) -> None:
 
 
 def check_bert_model(model: Dict[str, Any]) -> None:
-    """The BERT masked LM is ported from a fresh init in float32 with the
-    full MLM head; a checkpoint path, another dtype and the gathered head
-    raise."""
+    """The BERT masked LM is ported from a fresh init, in any
+    ``model_config.dtype`` spelling (``BERT.model.dtype`` first), with the
+    full or the gathered MLM head; a checkpoint path raises (it loads
+    Hugging Face weights, a download)."""
     bert = dict((model.get("BERT") or {}).get("model") or {})
     if bert.get("model_name_or_path"):
         raise NotImplementedError(
             "BERT.model.model_name_or_path (Hugging Face weights) is "
             f"{NOT_PORTED} §A")
-    dtype = str(bert.get("dtype", model.get("dtype", "float32"))
-                or "float32").lower()
-    if dtype not in ("float32", "f32"):
-        raise NotImplementedError(
-            f"BERT dtype={dtype!r} (BERT's dtype) is {NOT_PORTED} §A")
+    model_dtype(bert if "dtype" in bert else model)
     head = str(bert.get("mlm_head", "full")).lower()
-    if head == "gathered":
-        raise NotImplementedError(
-            "BERT.model.mlm_head='gathered' (BERT's gathered MLM head) is "
-            f"{NOT_PORTED} §A")
-    if head != "full":
+    if head not in ("full", "gathered"):
         raise ValueError("BERT.model.mlm_head must be 'full' or "
                          f"'gathered', got {head!r}")
 

@@ -168,6 +168,50 @@ def _host_copy(t: torch.Tensor) -> torch.Tensor:
     return out.copy_(t, non_blocking=True)
 
 
+#: the first bytes of a ``torch.save`` file (a zip archive)
+_TORCH_MAGIC = b"PK\x03\x04"
+
+
+def load_pretrained_params(path: str, layout,
+                           data_path: Optional[str] = None
+                           ) -> Dict[str, torch.Tensor]:
+    """``model_config.pretrained_model_path`` -> ``{name: float32 CPU
+    tensor}`` for a warm start (``msrflute_tpu/engine/checkpoint.py:81-106``).
+    A relative path that does not exist as given resolves against
+    ``data_path``.  Any checkpoint the port's manager writes (``latest``,
+    ``epoch<N>``, ``best_val_*``; its crc sidecar is checked when present)
+    or a bare ``{name: tensor}`` ``.pt``; only the params are taken, and
+    their names and shapes must be ``layout``'s.  The JAX package's flax
+    msgpack files and orbax directories raise ``ValueError`` naming the
+    format: the port reads torch files only (carry JAX weights across with
+    :func:`..models.convert.from_jax_params`)."""
+    if not os.path.isabs(path) and not os.path.exists(path) and data_path:
+        path = os.path.join(data_path, path)
+    if os.path.isdir(path):
+        raise ValueError(
+            f"pretrained_model_path {path!r} is a directory, as an orbax "
+            "checkpoint is: the port reads torch .pt files only")
+    with open(path, "rb") as fh:
+        head = fh.read(len(_TORCH_MAGIC))
+    if head != _TORCH_MAGIC:
+        raise ValueError(
+            f"pretrained_model_path {path!r} is not a torch .pt file (a flax "
+            "msgpack checkpoint of the JAX package, for one): the port "
+            "reads torch .pt files only")
+    if os.path.exists(path + SIDECAR_SUFFIX):
+        payload = read_verified(path)
+    else:
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(payload, dict) and isinstance(payload.get("params"), dict):
+        payload = payload["params"]
+    want = dict(zip(layout.names, layout.shapes))
+    got = {k: tuple(v.shape) for k, v in payload.items()}
+    if got != want:
+        raise ValueError(f"pretrained params {path!r}: shapes {got} do not "
+                         f"match the model's {want}")
+    return {n: payload[n].to(torch.float32) for n in layout.names}
+
+
 class CheckpointManager:
     def __init__(self, model_dir: str, layout, backup_freq: int = 100,
                  async_latest: bool = False,

@@ -13,8 +13,9 @@ package; if every step is excluded the metrics are NaN.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -94,3 +95,62 @@ def personalized_eval_sums(task: BaseTask, layout: ParamLayout,
     ce_g = (softmax_xent(logits_g, y) * mask).sum(-1) / denom
     ce_l = (softmax_xent(logits_l, y) * mask).sum(-1) / denom
     return correct, n.sum(), (0.5 * (ce_g + ce_l) * n).sum()
+
+
+@torch.no_grad()
+def per_user_accuracy(task: BaseTask, params: Params,
+                      batches: Dict[str, torch.Tensor],
+                      user_idx: torch.Tensor, n_users: int) -> np.ndarray:
+    """Each eval user's accuracy (NaN for a user without samples), from
+    ``argmax(apply(x)) == y`` over the packed grid; ``user_idx [T, B]`` on
+    the grid's device, -1 on padding rows.  The per-user sums are counts,
+    so their order of addition cannot change them."""
+    device = batches["sample_mask"].device
+    correct = torch.zeros(n_users + 1, device=device)
+    count = torch.zeros(n_users + 1, device=device)
+    for t in range(batches["sample_mask"].shape[0]):
+        mask = batches["sample_mask"][t]
+        with cpu16_guard(device, task.compute_dtype):
+            pred = torch.argmax(task.apply(params, batches["x"][t]), dim=-1)
+        uid = torch.where(user_idx[t] >= 0, user_idx[t].long(),
+                          torch.full_like(user_idx[t].long(), n_users))
+        correct.index_add_(0, uid, (pred == batches["y"][t].long()).to(
+            mask.dtype) * mask)
+        count.index_add_(0, uid, mask)
+    c = correct[:n_users].double().cpu().numpy()
+    n = count[:n_users].double().cpu().numpy()
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return np.where(n > 0, c / np.maximum(n, 1.0), np.nan)
+
+
+@torch.no_grad()
+def prediction_rows(task: BaseTask, params: Params,
+                    batches: Dict[str, torch.Tensor], user_idx: np.ndarray,
+                    topk: int = 3) -> Iterator[dict]:
+    """The ``wantLogits`` dump's rows, one per real sample, with the JAX
+    server's keys and 6-digit rounding: ``user``, ``topk_ids``,
+    ``topk_probs``, ``labels`` for a task with ``topk_predictions``, else
+    ``user``, ``pred``, ``label``, ``logits`` (``predict``).  The sample
+    mask is read back once; a step without a real sample is skipped."""
+    seq_fn = getattr(task, "topk_predictions", None)
+    mask = batches["sample_mask"].cpu().numpy() > 0
+    for t in range(mask.shape[0]):
+        if not mask[t].any():
+            continue
+        batch = {k: v[t] for k, v in batches.items()}
+        with cpu16_guard(batch["sample_mask"].device, task.compute_dtype):
+            out = (seq_fn(params, batch, topk) if seq_fn is not None
+                   else task.predict(params, batch))
+        out = [o.cpu().numpy() for o in out]
+        for i in np.flatnonzero(mask[t]):
+            if seq_fn is not None:
+                top_p, top_ids, labels = out
+                yield {"user": int(user_idx[t, i]),
+                       "topk_ids": top_ids[i].tolist(),
+                       "topk_probs": np.round(top_p[i], 6).tolist(),
+                       "labels": labels[i].tolist()}
+            else:
+                logits, pred, labels = out
+                yield {"user": int(user_idx[t, i]), "pred": int(pred[i]),
+                       "label": int(labels[i]),
+                       "logits": np.round(logits[i], 6).tolist()}

@@ -120,9 +120,10 @@ from ..strategies.ef_quant import (DeviceResidualTable, EFQuant,
 from ..strategies.robust import select_robust_strategy
 from ..strategies.scaffold import ControlStore, DeviceControlTable, Scaffold
 from ..utils.logging import MetricsLog, print_rank
-from .checkpoint import CheckpointManager
+from .checkpoint import CheckpointManager, load_pretrained_params
 from .client_update import ClientHParams, build_client_update
-from .evaluation import evaluate, stage_eval_batches
+from .evaluation import (evaluate, per_user_accuracy, prediction_rows,
+                         stage_eval_batches)
 from .round import SERVER_SLOT, RoundEngine, ServerState
 
 #: the replay's dropout stream: ``[seed, r, SERVER_SLOT, REPLAY_TAG]``
@@ -276,6 +277,7 @@ class OptimizationServer:
 
         self._np_rng = np.random.default_rng(seed)
         self._eval_batches: Dict[str, dict] = {}
+        self._eval_users: Dict[str, np.ndarray] = {}
         #: host seconds a round, one entry a round (a chunk's R rounds
         #: share its value; housekeeping: one entry a chunk, in seconds):
         #: ``secsPerRound`` from
@@ -296,6 +298,14 @@ class OptimizationServer:
         self.state = self.engine.init_state(
             init_params if init_params is not None
             else task.init_params(seed))
+        pretrained = config.model_config.get("pretrained_model_path")
+        if pretrained:
+            # warm params, a fresh optimizer and strategy state (FedAC's
+            # w_ag starts at the warm point) and round 0
+            # (server.py:698-716); a resume below wins
+            self.state = self.engine.init_state(load_pretrained_params(
+                pretrained, self.engine.layout, config.data_path))
+            print_rank(f"warm-started from pretrained model {pretrained}")
         #: ``[round, status]`` of the last few chunks, written into the
         #: status log (``server.py:2487-2495``)
         self._status_ring: list = []
@@ -1114,9 +1124,68 @@ class OptimizationServer:
                        else self.test_dataset)
             bs = int(self._split_cfg(split).get("batch_size",
                                                 self.batch_size))
-            self._eval_batches[split] = stage_eval_batches(
-                pack_eval_batches(dataset, bs), self.device)
+            packed = pack_eval_batches(dataset, bs)
+            #: the grid's user of each row (-1 on padding), for the eval
+            #: outputs
+            self._eval_users[split] = packed["user_idx"]
+            self._eval_batches[split] = stage_eval_batches(packed,
+                                                           self.device)
         return self._eval_batches[split]
+
+    def _dump_predictions(self, split: str, round_no: int) -> None:
+        """``wantLogits``: one JSON row per real sample into
+        ``predictions_<split>_r<N>.jsonl`` in the model directory, written
+        to a temporary file renamed into place (``server.py:3040-3100``)."""
+        task = self.task
+        if getattr(task, "topk_predictions", None) is None and \
+                getattr(task, "predict", None) is None:
+            print_rank(f"wantLogits set for {split} but task "
+                       f"{type(task).__name__} exposes neither "
+                       "topk_predictions nor predict — no dump written",
+                       loglevel=logging.WARNING)
+            return
+        path = os.path.join(self.ckpt.model_dir,
+                            f"predictions_{split}_r{round_no}.jsonl")
+        tmp = path + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as fh:
+            for row in prediction_rows(
+                    task, self.engine.params_dict(self.state),
+                    self._staged_eval(split), self._eval_users[split]):
+                fh.write(json.dumps(row) + "\n")
+        os.replace(tmp, path)
+        print_rank(f"wrote {split} predictions to {path}")
+
+    def _log_per_user_stats(self, split: str, round_no: int,
+                            dataset) -> None:
+        """``per_user_stats``: the worst user's accuracy, its 10th, 50th and
+        90th percentiles, its spread and the users evaluated
+        (``server.py:2989-3038``); a task that is not a classification
+        with labels ``y`` warns and skips."""
+        batches = self._staged_eval(split)
+        if getattr(self.task, "predict", None) is None or \
+                "y" not in batches:
+            print_rank(f"per_user_stats set for {split} but task "
+                       f"{type(self.task).__name__} is not "
+                       "classification-style (needs apply() + y labels); "
+                       "skipping", loglevel=logging.WARNING)
+            return
+        users = torch.from_numpy(self._eval_users[split]).to(self.device)
+        accs = per_user_accuracy(self.task,
+                                 self.engine.params_dict(self.state),
+                                 batches, users, len(dataset))
+        accs = accs[~np.isnan(accs)]
+        if accs.size == 0:
+            return
+        cap = split.capitalize()
+        self.metrics.log(f"{cap} acc (worst user)", float(accs.min()),
+                         step=round_no)
+        for pct in (10, 50, 90):
+            self.metrics.log(f"{cap} acc (user p{pct})",
+                             float(np.percentile(accs, pct)), step=round_no)
+        self.metrics.log(f"{cap} acc (user std)", float(accs.std()),
+                         step=round_no)
+        self.metrics.log(f"{cap} acc (users evaluated)", int(accs.size),
+                         step=round_no)
 
     def _maybe_eval(self, split: str, round_no: int) -> bool:
         dataset = self.val_dataset if split == "val" else self.test_dataset
@@ -1127,6 +1196,10 @@ class OptimizationServer:
         for name, metric in metrics.items():
             self.metrics.log(f"{split.capitalize()} {name}", metric.value,
                              step=round_no)
+        if self._split_cfg(split).get("wantLogits", False):
+            self._dump_predictions(split, round_no)
+        if self._split_cfg(split).get("per_user_stats", False):
+            self._log_per_user_stats(split, round_no, dataset)
         self.history.append({"split": split, "round": round_no,
                              **{k: m.value for k, m in metrics.items()}})
         improved = False

@@ -22,6 +22,31 @@ Dense attention is ``torch.matmul`` and a softmax: the JAX package
 computes it outside any Pallas kernel.  The word lookup is
 :func:`.embed.embed_gather` (a deterministic backward on the card).
 
+``dtype`` (``BERT.model.dtype``, else ``model_config.dtype``, as
+``msrflute_tpu/models/bert.py:78-106`` reads it): parameters stay float32
+and every layer computes in the dtype at HF Flax's cast points
+(``transformers``' ``modeling_flax_bert.py`` with flax's layers): the
+three tables are cast before the lookups and summed in the dtype; every
+``Dense`` casts its input, kernel and bias; LayerNorm takes its statistics
+in float32 (``E[x^2] - E[x]^2``, clipped at 0) and its affine in float32,
+and returns the dtype; the attention bias is 0 or the dtype's lowest, the
+query is divided by ``sqrt(d)`` in the dtype, and the softmax runs in the
+dtype as ``jax.nn.softmax`` does (``exp(x - max)`` over its sum); the MLM
+head's decoder and bias run in the dtype and the logits are cast to
+float32 for the loss.  In float32 every cast is the identity.
+
+``mlm_head: gathered`` (``msrflute_tpu/models/bert.py:55-77, 146-220``)
+projects only the masked positions into the vocabulary: each sequence's
+positions with a label are packed, in order, into ``gathered_slots``
+slots (a stable argsort; default ``min(max(ceil8(2 L p), 8), L)``, 40 at
+``L = 128``, ``p = 0.15``), the slots left over take label -100, and
+masked positions beyond the slots are dropped from the loss, the JAX
+package's documented deviation.  The head follows ``_mlm_head_logits``:
+dense and GELU in the dtype, LayerNorm's normalization in float32 (the
+two-pass variance) with its affine in the dtype, the tied decoder in the
+dtype and the bias added in float32.  So the ``[B, L, V]`` logits shrink
+to ``[B, gathered_slots, V]``.
+
 The task ports the JAX task's logic: ``_mlm_mask`` (the HF collator's
 80/10/10 rule, drawn from the client's generator, so the streams differ
 from JAX's), ``premasked`` mode, ``_masked_xent`` in logsumexp form with
@@ -47,7 +72,7 @@ from torch.func import functional_call
 
 from ..data.dataset import ArraysDataset
 from ..data.user_blob import UserBlob
-from .base import BaseTask, Batch, Metric, Params, dropout
+from .base import BaseTask, Batch, Metric, Params, dropout, parse_dtype
 from .embed import embed_gather
 from .nlp import _Dense, _Embed
 
@@ -60,13 +85,34 @@ IGNORE = -100
 
 
 class _LayerNorm(nn.Module):
+    """In float32 ``F.layer_norm``; in a 16-bit ``x`` flax's
+    ``nn.LayerNorm(dtype=...)``: the fast variance in float32, the affine
+    in float32, the result in the dtype of ``x``."""
+
     def __init__(self, dim: int):
         super().__init__()
         self.bias = nn.Parameter(torch.zeros(dim))
         self.scale = nn.Parameter(torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, x.shape[-1:], self.scale, self.bias, LN_EPS)
+        if x.dtype == torch.float32:
+            return F.layer_norm(x, x.shape[-1:], self.scale, self.bias,
+                                LN_EPS)
+        dt, x = x.dtype, x.float()
+        mean = x.mean(dim=-1, keepdim=True)
+        var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        return ((x - mean) * (torch.rsqrt(var + LN_EPS) * self.scale)
+                + self.bias).to(dt)
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """Over the last axis: ``torch.softmax`` in float32; in a 16-bit dtype
+    ``jax.nn.softmax``'s steps, each rounded to the dtype."""
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim=-1)
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
 
 
 class _Embeddings(nn.Module):
@@ -96,7 +142,7 @@ class _Output(nn.Module):
 
     def forward(self, h, residual, keep: Optional[torch.Tensor],
                 rate: float):
-        h = self.dense(h)
+        h = self.dense(h, h.dtype)
         if keep is not None:
             h = dropout(h, keep, rate)
         return self.LayerNorm(h + residual)
@@ -159,67 +205,93 @@ class _Cls(nn.Module):
 
 class BertMLMModule(nn.Module):
     """``(input_ids [B, L], attention_mask [B, L])`` -> MLM logits
-    ``[B, L, V]``.  ``masks`` are the dropout keep masks in forward order
-    (the embeddings' ``[B, L, H]``, then per layer the attention map's
-    ``[L, L]`` and the two ``[B, L, H]`` of its outputs), or ``()`` for no
+    ``[B, L, V]`` in float32, or ``[B, m, V]`` at the ``m`` positions of
+    each row that ``gather_idx [B, m]`` names (the gathered head).
+    ``masks`` are the dropout keep masks in forward order (the
+    embeddings' ``[B, L, H]``, then per layer the attention map's ``[L,
+    L]`` and the two ``[B, L, H]`` of its outputs), or ``()`` for no
     dropout.  The attribute names are HF Flax's."""
 
     def __init__(self, vocab: int = 30522, hidden: int = 768,
                  layers: int = 12, heads: int = 12, inter: int = 3072,
-                 positions: int = 512):
+                 positions: int = 512, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.heads = heads
+        self.dtype = dtype
         self.hidden_dropout = HIDDEN_DROPOUT
         self.attention_dropout = ATTENTION_DROPOUT
         self.bert = _Bert(vocab, hidden, layers, inter, positions)
         self.cls = _Cls(vocab, hidden)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                masks: Tuple[torch.Tensor, ...] = ()) -> torch.Tensor:
+                masks: Tuple[torch.Tensor, ...] = (),
+                gather_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
         live = iter(masks)
 
         def keep(rate):
             return next(live) if masks and rate > 0 else None
 
+        dt = self.dtype
         emb = self.bert.embeddings
         L = input_ids.shape[-1]
-        word = emb.word_embeddings.embedding
+        word = emb.word_embeddings.embedding.to(dt)
         h = (embed_gather(word, input_ids)
-             + emb.token_type_embeddings.embedding[0]) \
-            + emb.position_embeddings.embedding[:L]
+             + emb.token_type_embeddings.embedding[0].to(dt)) \
+            + emb.position_embeddings.embedding[:L].to(dt)
         h = emb.LayerNorm(h)
         k = keep(self.hidden_dropout)
         if k is not None:
             h = dropout(h, k, self.hidden_dropout)
         bias = torch.where(attention_mask[:, None, None, :] > 0,
-                           torch.zeros((), device=h.device),
-                           torch.full((), torch.finfo(h.dtype).min,
+                           torch.zeros((), dtype=dt, device=h.device),
+                           torch.full((), torch.finfo(dt).min, dtype=dt,
                                       device=h.device))
         for layer in self.bert.encoder.layer:
             h = self._layer(layer, h, bias, keep)
-        head = self.cls.predictions
-        t = F.gelu(head.transform.dense(h))
-        t = head.transform.LayerNorm(t)
-        return t @ word.T + head.bias
+        if gather_idx is None:
+            return self._full_head(h, word)
+        h = torch.gather(h, 1, gather_idx[..., None].expand(
+            -1, -1, h.shape[-1]))
+        return self._gathered_head(h, word)
+
+    def _full_head(self, h, word):
+        """HF's ``FlaxBertLMPredictionHead``: the decoder's product and the
+        bias in the dtype, then float32."""
+        head, dt = self.cls.predictions, self.dtype
+        t = head.transform.LayerNorm(F.gelu(head.transform.dense(h, dt)))
+        return (t @ word.T + head.bias.to(dt)).to(torch.float32)
+
+    def _gathered_head(self, h, word):
+        """The JAX task's ``_mlm_head_logits``: LayerNorm's normalization in
+        float32 (``jnp.var``'s two-pass variance), its affine and the
+        decoder in the dtype, the bias added to the float32 logits."""
+        head, dt = self.cls.predictions, self.dtype
+        ln = head.transform.LayerNorm
+        t = F.gelu(head.transform.dense(h, dt)).float()
+        mean = t.mean(dim=-1, keepdim=True)
+        var = ((t - mean) ** 2).mean(dim=-1, keepdim=True)
+        t = ((t - mean) * torch.rsqrt(var + LN_EPS)).to(dt) \
+            * ln.scale.to(dt) + ln.bias.to(dt)
+        return (t @ word.T).to(torch.float32) + head.bias
 
     def _layer(self, layer: _Layer, h, bias, keep):
         sa = getattr(layer.attention, "self")
         B, L, H = h.shape
         d = H // self.heads
+        dt = h.dtype
 
         def heads(x):
             return x.unflatten(-1, (self.heads, d)).transpose(1, 2)
 
-        q = heads(sa.query(h)) / math.sqrt(d)
-        w = torch.softmax(q @ heads(sa.key(h)).transpose(-1, -2) + bias,
-                          dim=-1)
+        q = heads(sa.query(h, dt)) / torch.tensor(math.sqrt(d), dtype=dt)
+        w = _softmax(q @ heads(sa.key(h, dt)).transpose(-1, -2) + bias)
         k = keep(self.attention_dropout)
         if k is not None:
             w = w * (k.to(w.dtype) / (1.0 - self.attention_dropout))
-        a = (w @ heads(sa.value(h))).transpose(1, 2).flatten(-2)
+        a = (w @ heads(sa.value(h, dt))).transpose(1, 2).flatten(-2)
         a = layer.attention.output(a, h, keep(self.hidden_dropout),
                                    self.hidden_dropout)
-        f = F.gelu(layer.intermediate.dense(a))
+        f = F.gelu(layer.intermediate.dense(a, dt))
         return layer.output(f, a, keep(self.hidden_dropout),
                             self.hidden_dropout)
 
@@ -239,12 +311,27 @@ class BertMLMTask(BaseTask):
                                                0.0))
         self.mask_token_id = int(bert.get("mask_token_id", 103))
         self.premasked = bool(bert.get("premasked", False))
+        self.mlm_head = str(bert.get("mlm_head", "full")).lower()
+        if self.mlm_head not in ("full", "gathered"):
+            raise ValueError("BERT.model.mlm_head must be 'full' or "
+                             f"'gathered', got {self.mlm_head!r}")
+        # twice the expected masked count, rounded up to a multiple of 8
+        default_slots = int(
+            -(-(self.seq_len * self.mlm_probability * 2.0) // 8) * 8)
+        self.gathered_slots = int(bert.get(
+            "gathered_slots", min(max(default_slots, 8), self.seq_len)))
+        if not 1 <= self.gathered_slots <= self.seq_len:
+            raise ValueError(
+                f"BERT.model.gathered_slots must be in [1, {self.seq_len}] "
+                f"(seq_len), got {self.gathered_slots} — 0 slots would "
+                "silently train on an empty loss")
         self.module = BertMLMModule(
             vocab=self.vocab_size, hidden=hidden,
             layers=int(bert.get("num_hidden_layers", 2)),
             heads=int(bert.get("num_attention_heads", 2)),
             inter=int(bert.get("intermediate_size", 4 * hidden)),
-            positions=max(self.seq_len, 512))
+            positions=max(self.seq_len, 512),
+            dtype=parse_dtype(bert if "dtype" in bert else model_config))
 
     # -- parameters ------------------------------------------------------
     def param_spec(self) -> List[Tuple[str, Tuple[int, ...]]]:
@@ -361,10 +448,33 @@ class BertMLMTask(BaseTask):
         return masked, attention_mask, labels
 
     def logits(self, params: Params, input_ids, attention_mask,
-               masks: Sequence[torch.Tensor] = ()) -> torch.Tensor:
+               masks: Sequence[torch.Tensor] = (),
+               gather_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
         return functional_call(self.module, params,
                                (input_ids, attention_mask),
-                               {"masks": tuple(masks)})
+                               {"masks": tuple(masks),
+                                "gather_idx": gather_idx})
+
+    def gather_masked(self, labels: torch.Tensor):
+        """``(idx [B, m], labels [B, m])`` of the gathered head: each row's
+        labelled positions first, in order (a stable argsort of the
+        unlabelled flag), cut to ``m = gathered_slots``; a slot past the
+        row's labels takes -100."""
+        sel = labels != IGNORE
+        idx = torch.argsort((~sel).to(torch.int8), dim=-1,
+                            stable=True)[:, :self.gathered_slots]
+        g_labels = torch.where(torch.gather(sel, 1, idx),
+                               torch.gather(labels, 1, idx),
+                               torch.full_like(idx, IGNORE))
+        return idx, g_labels
+
+    def _head_logits(self, params: Params, ids, am, labels,
+                     masks: Sequence[torch.Tensor] = ()):
+        """``(logits, labels)`` of the configured head."""
+        if self.mlm_head == "gathered":
+            idx, labels = self.gather_masked(labels)
+            return self.logits(params, ids, am, masks, idx), labels
+        return self.logits(params, ids, am, masks), labels
 
     def loss_and_aux(self, params: Params, batch: Batch,
                      masks: Sequence[torch.Tensor] = ()
@@ -375,7 +485,8 @@ class BertMLMTask(BaseTask):
             raise ValueError("mlm_bert: the dynamic MLM mask needs the "
                              "client's draws (a generator)")
         ids, am, labels = self._inputs(batch, masks[:n_mlm])
-        logits = self.logits(params, ids, am, masks[n_mlm:])
+        logits, labels = self._head_logits(params, ids, am, labels,
+                                           masks[n_mlm:])
         nll, valid = self._masked_xent(logits, labels)
         loss = torch.sum(nll * valid) / torch.clamp(torch.sum(valid),
                                                     min=1.0)
@@ -395,7 +506,7 @@ class BertMLMTask(BaseTask):
             draws = self._mlm_draws(gen, tuple(batch["x"].shape),
                                     batch["x"].device)
         ids, am, labels = self._inputs(batch, draws)
-        logits = self.logits(params, ids, am)
+        logits, labels = self._head_logits(params, ids, am, labels)
         nll, valid = self._masked_xent(logits, labels)
         pred = torch.argmax(logits, dim=-1)
         correct = (pred == torch.where(labels == IGNORE,

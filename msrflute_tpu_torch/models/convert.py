@@ -23,9 +23,13 @@ nested ``Scan_ConvexGRUCell_0.w_hh.kernel``; the LSTM's gate kernels
 the hidden ones, ``Embed_0.embedding``; ECG's 1-D ``Conv_*.kernel`` ``[k,
 in, out]``; NRMS's ``SelfAttention_0.query.kernel`` ``[in, heads,
 head_dim]``; HF Flax ``FlaxBertForMaskedLM``'s
-``bert.encoder.layer.0.attention.self.query.kernel``): a flax path that
-the task names as it is carries across unchanged, and the task lists its
-leaves in ``ravel_pytree`` order.
+``bert.encoder.layer.0.attention.self.query.kernel``; RingLM's MoE FFN
+``block_<i>.moe_ffn.router [D, E]``, ``w_in [E, D, H]``, ``w_out [E, H,
+D]``; the reference FedNewsRec net's ``_RefDocEncoder_0.conv.kernel [3,
+in, out]`` and ``_RefUserEncoder_0.GRUCell_0.ir.kernel``): a flax path
+that the task names as it is carries across unchanged, and the task lists
+its leaves in ``ravel_pytree`` order.  The reference net's frozen word
+table is no parameter and is not carried.
 
 DGA's RL weight hook (:class:`..rl.QNet`) keeps flax's names and layouts
 too: ``Dense_<i>.kernel [in, out]`` and ``bias``, and with ``wantLSTM``

@@ -141,6 +141,15 @@ class ClassificationTask(BaseTask):
             out[name] = t
         return out
 
+    def predict(self, params: Params, batch: Batch):
+        """The ``wantLogits`` payload (``msrflute_tpu/models/cv.py:125``):
+        ``(logits [B, C], pred [B], labels [B])``, padded rows labelled
+        -1."""
+        logits = self.apply(params, batch["x"])
+        labels = torch.where(batch["sample_mask"] > 0, batch["y"].long(),
+                             torch.full_like(batch["y"].long(), -1))
+        return logits, torch.argmax(logits, dim=-1), labels
+
     def loss_masked(self, params: Params, batch: Batch,
                     masks: Sequence[torch.Tensor] = ()) -> torch.Tensor:
         logits = self.apply(params, batch["x"], masks)

@@ -21,9 +21,23 @@ its ``np.random.default_rng``, so both packages pack the same slates.
 Parameters keep flax's names and layouts (``SelfAttention_0.query.kernel``
 ``[in, heads, head_dim]``, ``out.kernel`` ``[heads, head_dim, out]``, Dense
 kernels ``[in, out]``) in ``ravel_pytree`` order.  The word lookup is
-:func:`.embed.embed_gather` (a deterministic backward on the card).  The
-frozen-GloVe variant (``arch: fednewsrec``) is not ported
-(``config.validate`` raises).
+:func:`.embed.embed_gather` (a deterministic backward on the card).
+
+``arch: fednewsrec`` (:class:`FedNewsRecRefTask`) is the reference's own
+net (``msrflute_tpu/models/fednewsrec.py:101-270``): a frozen word table
+(``np.random.default_rng(0).normal(scale=0.1)`` of ``[vocab, embed_dim]``
+in float32, or the config's ``embedding_matrix``) looked up outside the
+module and never trained; a document encoder of a valid width-3
+convolution (``conv``, ``embed_dim -> conv_filters``), relu, the
+projection-less multi-head attention (``WQ``, ``WK``, ``WV``), relu and
+attentive pooling, with dropout 0.2 on its input, after each relu and on
+the pooling's input (the pooled sum runs over the dropped vectors, the
+reference's quirk); a user encoder whose attention path (attention,
+dropout, pooling) sits beside a flax ``GRUCell`` run over the last
+``gru_tail`` clicks from a zero carry, the two vectors stacked and pooled
+once more.  Dropout streams are the port's own (drawn per client, as
+everywhere), so a trained run matches the JAX package in law; with no
+dropout it matches pass for pass.
 """
 
 from __future__ import annotations
@@ -40,7 +54,7 @@ from torch.func import functional_call
 from ..data.dataset import ArraysDataset
 from ..data.user_blob import UserBlob
 from ..utils.logging import print_rank
-from .base import BaseTask, Batch, Metric, Params, lecun_normal_
+from .base import BaseTask, Batch, Metric, Params, dropout, lecun_normal_
 from .embed import embed_gather
 from .nlp import _Dense, _Embed
 
@@ -146,7 +160,10 @@ class NRMSTask(BaseTask):
         self.history = int(model_config.get("max_history", 50))
         self.npratio = int(model_config.get("npratio", 4))
         self.max_candidates = int(model_config.get("max_candidates", 20))
-        self.module = NRMSModule(
+        self.module = self.build_module(model_config)
+
+    def build_module(self, model_config) -> nn.Module:
+        return NRMSModule(
             self.vocab_size, int(model_config.get("embed_dim", 300)),
             int(model_config.get("num_heads", 20)),
             int(model_config.get("head_dim", 20)))
@@ -350,5 +367,238 @@ class NRMSTask(BaseTask):
         return ArraysDataset(users, per_user, counts)
 
 
+# ----------------------------------------------------------------------
+# arch: fednewsrec, the reference's net on a frozen word table
+# ----------------------------------------------------------------------
+#: the reference net's dropout rate (every site)
+REF_DROPOUT = 0.2
+
+
+class _RefAttention(nn.Module):
+    """The reference's projection-less multi-head self-attention: per-head
+    ``WQ``, ``WK``, ``WV`` (no bias), heads concatenated, no output
+    projection."""
+
+    def __init__(self, d_in: int, heads: int, head_dim: int):
+        super().__init__()
+        self.heads, self.head_dim = heads, head_dim
+        od = heads * head_dim
+        self.WK = _Dense(d_in, od, use_bias=False)
+        self.WQ = _Dense(d_in, od, use_bias=False)
+        self.WV = _Dense(d_in, od, use_bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:   # [N, T, d_in]
+        def split(m):
+            return m(x).unflatten(-1, (self.heads, self.head_dim)) \
+                .transpose(-3, -2)                       # [N, h, T, d]
+
+        q, k, v = split(self.WQ), split(self.WK), split(self.WV)
+        a = torch.softmax((q @ k.transpose(-1, -2))
+                          / math.sqrt(self.head_dim), dim=-1)
+        return (a @ v).transpose(-3, -2).flatten(-2)
+
+
+def _drop(x: torch.Tensor, keep) -> torch.Tensor:
+    return x if keep is None else dropout(x, keep, REF_DROPOUT)
+
+
+class _RefPooling(_AttentivePooling):
+    """Attentive pooling with the reference's input dropout: the weights
+    and the weighted sum both read the dropped vectors."""
+
+    def forward(self, x: torch.Tensor, keep=None) -> torch.Tensor:
+        return super().forward(_drop(x, keep))
+
+
+class _Conv1d(nn.Module):
+    """flax ``nn.Conv(features, (k,), padding="VALID")`` over ``[N, T,
+    in]``: ``kernel [k, in, out]`` and ``bias``; the sum over the window
+    is ``k`` products of the sliding slices."""
+
+    def __init__(self, d_in: int, d_out: int, width: int = 3):
+        super().__init__()
+        self.bias = nn.Parameter(torch.zeros(d_out))
+        self.kernel = nn.Parameter(torch.zeros(width, d_in, d_out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.kernel.shape[0]
+        T = x.shape[-2] - k + 1
+        out = x[..., 0:T, :] @ self.kernel[0]
+        for i in range(1, k):
+            out = out + x[..., i:i + T, :] @ self.kernel[i]
+        return out + self.bias
+
+
+class _RefDocEncoder(nn.Module):
+    def __init__(self, embed_dim: int, heads: int, head_dim: int,
+                 conv_filters: int):
+        super().__init__()
+        self._AttentivePooling_0 = _RefPooling(heads * head_dim)
+        self._RefAttention_0 = _RefAttention(conv_filters, heads, head_dim)
+        self.conv = _Conv1d(embed_dim, conv_filters)
+
+    def forward(self, wv: torch.Tensor, keeps) -> torch.Tensor:
+        k1, k2, k3, k4 = keeps
+        h = F.relu(self.conv(_drop(wv, k1)))
+        h = F.relu(self._RefAttention_0(_drop(h, k2)))
+        return self._AttentivePooling_0(_drop(h, k3), k4)
+
+
+class _GRUCell(nn.Module):
+    """flax ``nn.GRUCell``: ``r = sigmoid(ir x + hr h)``, ``z = sigmoid(iz x
+    + hz h)``, ``n = tanh(in x + r * hn h)``, ``h' = (1 - z) n + z h``; the
+    input kernels and ``hn`` carry the biases."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        for name in ("hn", "hr", "hz"):
+            self.add_module(name, _Dense(dim, dim, use_bias=name == "hn"))
+        for name in ("in", "ir", "iz"):
+            self.add_module(name, _Dense(dim, dim))
+
+    def forward(self, xs: torch.Tensor) -> torch.Tensor:
+        """``xs [B, T, D]`` from a zero carry -> the last state ``[B, D]``."""
+        g = dict(self.named_children())
+        h = torch.zeros_like(xs[:, 0])
+        for t in range(xs.shape[1]):
+            x = xs[:, t]
+            r = torch.sigmoid(g["ir"](x) + g["hr"](h))
+            z = torch.sigmoid(g["iz"](x) + g["hz"](h))
+            n = torch.tanh(g["in"](x) + r * g["hn"](h))
+            h = (1.0 - z) * n + z * h
+        return h
+
+
+class _RefUserEncoder(nn.Module):
+    def __init__(self, dim: int, heads: int, head_dim: int, gru_tail: int):
+        super().__init__()
+        self.gru_tail = gru_tail
+        self.GRUCell_0 = _GRUCell(dim)
+        self._AttentivePooling_0 = _RefPooling(heads * head_dim)
+        self._AttentivePooling_1 = _RefPooling(heads * head_dim)
+        self._RefAttention_0 = _RefAttention(dim, heads, head_dim)
+
+    def forward(self, news_vecs: torch.Tensor, keeps) -> torch.Tensor:
+        k5, k6, k7 = keeps
+        u2 = _drop(self._RefAttention_0(news_vecs), k5)
+        u2 = self._AttentivePooling_0(u2, k6)
+        # the GRU reads the raw tail (the reference leaves its dropout out)
+        u1 = self.GRUCell_0(news_vecs[:, -self.gru_tail:])
+        return self._AttentivePooling_1(torch.stack([u1, u2], dim=1), k7)
+
+
+class FedNewsRecRefModule(nn.Module):
+    """``(clicked_wv [B, H, L, E], cand_wv [B, C, L, E])`` word vectors ->
+    scores ``[B, C]``.  Clicked and candidate titles run through the
+    document encoder in one pass.  ``masks`` are the seven keep masks of
+    :attr:`FedNewsRecRefTask.dropout_sites`, or ``()``."""
+
+    def __init__(self, embed_dim: int, heads: int = 20, head_dim: int = 20,
+                 gru_tail: int = 20, conv_filters: int = 400):
+        super().__init__()
+        self._RefDocEncoder_0 = _RefDocEncoder(embed_dim, heads, head_dim,
+                                               conv_filters)
+        self._RefUserEncoder_0 = _RefUserEncoder(heads * head_dim, heads,
+                                                 head_dim, gru_tail)
+
+    def forward(self, clicked: torch.Tensor, cands: torch.Tensor,
+                masks: Tuple[torch.Tensor, ...] = ()) -> torch.Tensor:
+        B, H, L, E = clicked.shape
+        docs = torch.cat([clicked, cands], dim=1)
+        N = docs.shape[1]
+        keeps = ([m.flatten(0, 1) for m in masks[:4]] if masks
+                 else [None] * 4)
+        vecs = self._RefDocEncoder_0(docs.reshape(B * N, L, E),
+                                     keeps).reshape(B, N, -1)
+        user = self._RefUserEncoder_0(vecs[:, :H],
+                                      masks[4:] if masks else [None] * 3)
+        return (vecs[:, H:] * user[:, None, :]).sum(-1)
+
+
+def frozen_word_table(model_config) -> np.ndarray:
+    """The reference net's frozen ``[vocab, embed_dim]`` float32 table: the
+    config's ``embedding_matrix``, else the JAX package's fixed-seed
+    stand-in for GloVe, ``default_rng(0).normal(scale=0.1)``."""
+    emb = model_config.get("embedding_matrix")
+    if emb is None:
+        emb = np.random.default_rng(0).normal(
+            scale=0.1, size=(int(model_config.get("vocab_size", 40000)),
+                             int(model_config.get("embed_dim", 300))))
+    return np.asarray(emb, np.float32)
+
+
+class FedNewsRecRefTask(NRMSTask):
+    """``arch: fednewsrec``: :class:`FedNewsRecRefModule` over the frozen
+    table, which is no parameter: it stays out of the ``[K, P]`` vector and
+    is copied once to each device it is used on.  The featurizer, the
+    ranking metrics and the npratio loss are :class:`NRMSTask`'s."""
+
+    def build_module(self, model_config) -> nn.Module:
+        self.table = torch.from_numpy(frozen_word_table(model_config))
+        self._tables: Dict[torch.device, torch.Tensor] = {}
+        heads = int(model_config.get("num_heads", 20))
+        head_dim = int(model_config.get("head_dim", 20))
+        conv = int(model_config.get("conv_filters", 400))
+        docs = self.history + self.npratio + 1
+        L, od, E = self.seq_len, heads * head_dim, self.table.shape[1]
+        self.dropout_sites = (
+            (REF_DROPOUT, (docs, L, E)),
+            (REF_DROPOUT, (docs, L - 2, conv)),
+            (REF_DROPOUT, (docs, L - 2, od)),
+            (REF_DROPOUT, (docs, L - 2, od)),
+            (REF_DROPOUT, (self.history, od)),
+            (REF_DROPOUT, (self.history, od)),
+            (REF_DROPOUT, (2, od)))
+        return FedNewsRecRefModule(E, heads, head_dim,
+                                   int(model_config.get("gru_tail", 20)),
+                                   conv)
+
+    def init_params(self, seed: int) -> Params:
+        """flax's initializers: Dense kernels and the GRU's input kernels
+        lecun-normal over their input axis, the convolution's over its
+        window times its input, the GRU's recurrent kernels orthogonal,
+        biases 0; drawn on the CPU so every device starts from the same
+        bits."""
+        gen = torch.Generator().manual_seed(int(seed))
+        out = {}
+        for name, shape in self.param_spec():
+            t = torch.zeros(shape, dtype=torch.float32)
+            path = name.split(".")
+            if path[-1] == "kernel" and path[-2] in ("hn", "hr", "hz"):
+                nn.init.orthogonal_(t, generator=gen)
+            elif path[-1] == "kernel":
+                lecun_normal_(t, int(np.prod(shape[:-1])), gen)
+            out[name] = t
+        return out
+
+    def word_table(self, device: torch.device) -> torch.Tensor:
+        device = torch.device(device)
+        if device not in self._tables:
+            self._tables[device] = self.table.to(device)
+        return self._tables[device]
+
+    def _scores(self, params: Params, batch: Batch,
+                masks: Sequence[torch.Tensor] = ()) -> torch.Tensor:
+        table = self.word_table(batch["clicked"].device)
+        return functional_call(self.module, params,
+                               (table[batch["clicked"].long()],
+                                table[batch["cands"].long()]),
+                               {"masks": tuple(masks)})
+
+    def loss_masked(self, params: Params, batch: Batch,
+                    masks: Sequence[torch.Tensor] = ()) -> torch.Tensor:
+        logp = F.log_softmax(self._scores(params, batch, masks), dim=-1)
+        nll = -torch.gather(logp, -1, batch["y"].long()[:, None])[:, 0]
+        mask = batch["sample_mask"]
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
 def make_nrms_task(model_config) -> NRMSTask:
+    """``arch: nrms`` (the default) or ``fednewsrec``."""
+    arch = str(model_config.get("arch", "nrms"))
+    if arch == "fednewsrec":
+        return FedNewsRecRefTask(model_config)
+    if arch != "nrms":
+        raise ValueError("model_config.arch must be 'nrms' or 'fednewsrec', "
+                         f"got {arch!r}")
     return NRMSTask(model_config)

@@ -271,6 +271,17 @@ class SequenceLMTask(BaseTask):
                     masks: Sequence[torch.Tensor] = ()) -> torch.Tensor:
         return self.loss_and_aux(params, batch, masks)[0]
 
+    def topk_predictions(self, params: Params, batch: Batch, k: int = 1):
+        """The ``wantLogits`` payload (``msrflute_tpu/models/nlp.py:207``):
+        ``(probabilities [..., k], ids [..., k], labels [...])`` of each
+        target position, padded positions labelled -1."""
+        logits, targets, tok_mask = self._logits_targets(params, batch)
+        top_p, top_ids = torch.topk(torch.softmax(logits, dim=-1), k,
+                                    dim=-1)
+        labels = torch.where(tok_mask > 0, targets,
+                             torch.full_like(targets, -1))
+        return top_p, top_ids, labels
+
     def token_logprobs(self, params: Params, batch: Batch
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Each target's log-probability and the validity mask (the

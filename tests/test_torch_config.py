@@ -124,7 +124,6 @@ def _with(path, value):
     ("server_config.checkpoint_backend", "orbax"),
     ("strategy", "robust"),
     ("mesh_config.model_axis_size", 2),
-    ("client_config.meta_learning", "maml"),
     ("server_config.telemetry", {"enable": True}),
     ("server_config.cohort_bucketing", {"enable": True}),
     ("server_config.megabatch", {"enable": True}),
@@ -214,17 +213,37 @@ def test_ringlm_config_parses_and_ignores_the_tile_knobs():
     ("moe_experts", 2),
 ])
 def test_ringlm_features_outside_the_slice_raise(key, value):
+    """RingLM's last three options were refused until the model-options
+    slice; now each parses and builds its task
+    (``tests/test_torch_ringlm_options.py`` holds them to the JAX
+    package): ``"auto"`` at the shipped ``seq_len`` (1,023 tokens) takes
+    the dense arm, ``remat`` keeps the parameter tree, and the MoE FFN
+    replaces each block's MLP."""
+    from msrflute_tpu_torch.models import make_task
     raw = _ringlm()
+    plain = make_task(FLUTEConfig.from_dict(_ringlm()).model_config)
     raw["model_config"][key] = value
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        FLUTEConfig.from_dict(raw)
+    task = make_task(FLUTEConfig.from_dict(raw).model_config)
+    block = task.module.block_0
+    if key == "moe_experts":
+        assert [n for n, _ in task.param_spec() if n.startswith(
+            "block_0.")][-3:] == ["block_0.moe_ffn.router",
+                                  "block_0.moe_ffn.w_in",
+                                  "block_0.moe_ffn.w_out"]
+        assert not hasattr(block, "Dense_0")
+    else:
+        assert task.param_spec() == plain.param_spec()
+        assert block.remat == (key == "remat")
+        assert not block._MHA_0.use_flash
 
 
 def test_ringlm_task_refuses_what_the_config_refuses():
     from msrflute_tpu_torch.models import make_task
-    mc = dict(_ringlm()["model_config"], remat=True)
+    mc = dict(_ringlm()["model_config"], moe_experts=4, moe_ep_axis="expert")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make_task(mc)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        FLUTEConfig.from_dict(dict(_ringlm(), model_config=mc))
     with pytest.raises(ValueError, match="bool or 'auto'"):
         FLUTEConfig.from_dict(dict(_ringlm(), model_config=dict(
             _ringlm()["model_config"], flash_attention="sometimes")))
@@ -258,8 +277,6 @@ def test_model_type_aliases_build_the_same_task(model_type):
 
 
 @pytest.mark.parametrize("model_type,key,value", [
-    ("RINGLM", "remat", True),
-    ("RESNET", "pretrained_model_path", "resnet.msgpack"),
     ("RNN", "quant_threshold", 0.7),
 ])
 def test_keys_the_new_models_do_not_port_still_raise(model_type, key, value):
@@ -267,6 +284,20 @@ def test_keys_the_new_models_do_not_port_still_raise(model_type, key, value):
     raw["model_config"][key] = value
     with pytest.raises(NotImplementedError, match="not yet ported"):
         FLUTEConfig.from_dict(raw)
+
+
+@pytest.mark.parametrize("model_type,key,value", [
+    ("RINGLM", "remat", True),
+    ("RESNET", "pretrained_model_path", "resnet.msgpack"),
+])
+def test_keys_the_model_options_slice_ports_parse(model_type, key, value):
+    """``remat`` and ``pretrained_model_path``, refused until the
+    model-options slice, parse now (the warm start reads its file when
+    the server is built: ``tests/test_torch_pretrained.py``)."""
+    raw = _with("model_config.model_type", model_type)
+    raw["model_config"][key] = value
+    cfg = FLUTEConfig.from_dict(raw)
+    assert cfg.model_config[key] == value
 
 
 def test_classif_cnn_hdf5_blobs_are_refused_at_load(tmp_path):
@@ -422,14 +453,7 @@ def test_mlm_bert_model_axis_raises_naming_multi_gpu(size):
         FLUTEConfig.from_dict(raw)
 
 
-@pytest.mark.parametrize("path,value", [
-    ("model_config.arch", "fednewsrec"),
-    ("model_config.BERT.model.mlm_head", "gathered"),
-    ("model_config.BERT.model.model_name_or_path", "/ckpt"),
-    ("model_config.BERT.model.dtype", "bfloat16"),
-    ("model_config.dtype", "bfloat16"),
-])
-def test_slice_eight_options_not_ported_raise(path, value):
+def _shipped_with(path, value):
     raw = _shipped("fednewsrec" if path == "model_config.arch"
                    else "mlm_bert")
     raw.setdefault("mesh_config", {})["model_axis_size"] = 1
@@ -438,8 +462,41 @@ def test_slice_eight_options_not_ported_raise(path, value):
     for k in keys[:-1]:
         node = node.setdefault(k, {})
     node[keys[-1]] = value
+    return raw
+
+
+@pytest.mark.parametrize("path,value", [
+    ("model_config.BERT.model.model_name_or_path", "/ckpt"),
+])
+def test_slice_eight_options_not_ported_raise(path, value):
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        FLUTEConfig.from_dict(raw)
+        FLUTEConfig.from_dict(_shipped_with(path, value))
+
+
+@pytest.mark.parametrize("path,value", [
+    ("model_config.arch", "fednewsrec"),
+    ("model_config.BERT.model.mlm_head", "gathered"),
+    ("model_config.BERT.model.dtype", "bfloat16"),
+    ("model_config.dtype", "bfloat16"),
+])
+def test_slice_eight_options_ported_since_parse(path, value):
+    """NRMS's reference net and BERT's gathered head and dtype, refused
+    until the model-options slice, parse and build their task."""
+    import torch
+    from msrflute_tpu_torch.models import make_task
+    raw = _shipped_with(path, value)
+    if path != "model_config.arch":
+        # BERT-base would take seconds to build on the CPU
+        raw["model_config"]["BERT"]["model"].update(
+            hidden_size=32, num_hidden_layers=1, num_attention_heads=2,
+            intermediate_size=64, vocab_size=100)
+    task = make_task(FLUTEConfig.from_dict(raw).model_config)
+    if path == "model_config.arch":
+        assert type(task).__name__ == "FedNewsRecRefTask"
+    elif path.endswith("mlm_head"):
+        assert task.mlm_head == "gathered" and task.gathered_slots == 40
+    else:
+        assert task.compute_dtype == torch.bfloat16
 
 
 # ----------------------------------------------------------------------
@@ -569,8 +626,8 @@ def _chaos(**chaos):
     ("infra services", lambda: _chaos(infra={"writer_error_rate": 0.1})),
     ("multi-GPU", lambda: _shipped("mlm_bert")),
     ("Hugging Face weights", lambda: _bert(model_name_or_path="/ckpt")),
-    ("BERT's dtype", lambda: _bert(dtype="bfloat16")),
-    ("gathered MLM head", lambda: _bert(mlm_head="gathered")),
+    ("expert-parallel MoE dispatch", lambda: dict(_ringlm(), model_config=dict(
+        _ringlm()["model_config"], moe_experts=4, moe_ep_axis="expert"))),
 ])
 def test_refusal_messages_name_the_feature_and_the_roadmap_section(feature,
                                                                    raw):
@@ -581,3 +638,42 @@ def test_refusal_messages_name_the_feature_and_the_roadmap_section(feature,
     message = str(info.value)
     assert feature in message and "ROADMAP.md §A" in message, message
     assert not re.search(r"item\s*\d", message), message
+
+
+@pytest.mark.parametrize("path,value", [
+    ("server_config.send_dicts", "yes"),
+    ("server_config.initial_lr", -1),
+    ("client_config.copying_train_data", 1),
+    ("client_config.ignore_subtask", "no"),
+    ("server_config.data_config.val.wantLogits", "true"),
+    ("server_config.data_config.test.per_user_stats", 1),
+])
+def test_inert_keys_and_eval_outputs_check_types_as_the_jax_schema(path,
+                                                                   value):
+    """The inert keys and the eval outputs are accepted with the JAX
+    schema's types only: a wrong type raises its ``SchemaError`` message
+    in both packages."""
+    from msrflute_tpu.config import FLUTEConfig as JaxFLUTEConfig
+    from msrflute_tpu_torch.config import SchemaError
+    with pytest.raises(SchemaError, match=re.escape(path)):
+        FLUTEConfig.from_dict(_with(path, value))
+    with pytest.raises(ValueError, match=re.escape(path)):
+        JaxFLUTEConfig.from_dict(_with(path, value))
+
+
+@pytest.mark.parametrize("path,value", [
+    ("client_config.meta_learning", "maml"),
+    ("client_config.meta_optimizer_config", {"type": "adam", "lr": 0.1}),
+    ("server_config.nbest_task_scheduler", {"num_tasks": [1, 2]}),
+    ("client_config.data_config.train.min_words_per_utt", 3),
+    ("server_config.data_config.val.wantLogits", True),
+    ("server_config.data_config.test.per_user_stats", True),
+])
+def test_inert_keys_and_eval_outputs_are_accepted_as_in_the_jax_package(
+        path, value):
+    """Any value of a key nothing in the JAX package reads is accepted
+    (``client_config.meta_learning: maml`` was refused before), and the eval
+    outputs parse, in both packages."""
+    from msrflute_tpu.config import FLUTEConfig as JaxFLUTEConfig
+    FLUTEConfig.from_dict(_with(path, value))
+    JaxFLUTEConfig.from_dict(_with(path, value))
