@@ -6083,6 +6083,491 @@ def phase_model_options(torch, work, kernel_rows):
           "seconds": round(time.time() - tic, 3)})
 
 
+# ----------------------------------------------------------------------
+#: the throughput phase (cohort bucketing, megabatching): rounds an arm
+THROUGHPUT_ROUNDS = 3
+#: bucketed against monolithic final params, the JAX package's bar on its
+#: own LR config and pool (``tests/test_cohort_bucketing.py:53-99,
+#: 237-254``, ``JAX_LR_*`` below).  CNN_FEMNIST is not held to a bar: a
+#: client's update there depends on the vmap width it trains at (cuDNN's
+#: grouped convolution and cuBLAS pick kernels by the batch count), and
+#: its local steps amplify a last-place difference into another
+#: trajectory (a 1e-7 change of the start moves a 15-step client's payload
+#: by 23 % in relative L2 on the H100, ``msrflute_tpu_torch/csrc/probes/
+#: vmap_width.py``), so its payloads are held bitwise at
+#: the monolithic grid's width and its params' distance is reported
+BUCKET_RTOL, BUCKET_ATOL = 2e-4, 1e-6
+#: the JAX test's pool sizes (16 users, 3-80 samples) and its LR
+JAX_LR_SIZES = [3, 4, 5, 5, 6, 6, 7, 8, 9, 10, 12, 14, 30, 34, 70, 80]
+JAX_LR_MODEL = {"model_type": "LR", "num_classes": 4, "input_dim": 8}
+
+
+def _image_pool(sizes, seed):
+    """A FEMNIST-shaped writer pool generated in memory: ``sizes[i]``
+    28x28x1 uint8 images of 62 classes for writer i."""
+    import numpy as np
+    from msrflute_tpu_torch.data.dataset import ArraysDataset
+    rng = np.random.default_rng(seed)
+    per = [{"x": rng.integers(0, 256, size=(int(n), 28, 28, 1),
+                              dtype=np.uint8),
+            "y": rng.integers(0, 62, size=int(n)).astype(np.int32)}
+           for n in sizes]
+    return ArraysDataset([f"w{seed}_{i:04d}" for i in range(len(sizes))],
+                         per)
+
+
+def _jax_lr_pool():
+    """``tests/test_cohort_bucketing.py::_hetero_dataset``: 16 users of 8
+    features and 4 separable classes."""
+    import numpy as np
+    from msrflute_tpu_torch.data.dataset import ArraysDataset
+    rng = np.random.default_rng(0)
+    w = rng.normal(size=(8, 4))
+    per = []
+    for n in JAX_LR_SIZES:
+        x = rng.normal(size=(n, 8)).astype(np.float32)
+        per.append({"x": x, "y": np.argmax(x @ w, -1).astype(np.int32)})
+    return ArraysDataset([f"u{u:03d}" for u in range(len(per))], per)
+
+
+def _jax_lr_config(**server):
+    """That test's ``_cfg``: LR, 6 clients a round at batch 4, client SGD
+    lr 0.2, server SGD lr 1.0, six rounds."""
+    raw = _throughput_config(**server)
+    raw["model_config"] = dict(JAX_LR_MODEL)
+    raw["server_config"].update(max_iteration=6, num_clients_per_iteration=6,
+                                initial_lr_client=0.2,
+                                megakernel={"pallas_apply": False})
+    raw["client_config"] = {"optimizer_config": {"type": "sgd", "lr": 0.2},
+                            "data_config": {"train": {"batch_size": 4}}}
+    return raw
+
+
+def _throughput_config(**server):
+    """``main``'s CNN_FEMNIST config (P = 1,206,590, 10 clients at batch
+    20) for an in-memory pool: ``THROUGHPUT_ROUNDS`` rounds of one a
+    chunk, serial (``pipeline_depth`` 0: each round's ``secsPerRound`` is
+    its own, prep to fence; the ring drains its last chunks back to back),
+    no evals, ``server`` keys on top."""
+    import copy
+    raw = copy.deepcopy(CNN_CONFIG)
+    sc = raw["server_config"]
+    del sc["data_config"]
+    sc.update({"max_iteration": THROUGHPUT_ROUNDS, "initial_val": False,
+               "val_freq": 100, "rec_freq": 100, "rounds_per_step": 1,
+               "pipeline_depth": 0, **server})
+    return raw
+
+
+def _tp_run(raw, pool, work, name, device="cuda", record=None):
+    """``raw`` on ``pool`` through ``OptimizationServer.train`` from seed 7:
+    ``(server, seconds)``; ``record`` gets each round's bucket grids."""
+    import copy
+    from msrflute_tpu_torch.config import FLUTEConfig
+    from msrflute_tpu_torch.engine.server import OptimizationServer
+    from msrflute_tpu_torch.models import make_task
+    cfg = FLUTEConfig.from_dict(copy.deepcopy(raw))
+    server = OptimizationServer(make_task(cfg.model_config), cfg, pool,
+                                model_dir=os.path.join(work, f"tp_{name}"),
+                                device=device, seed=7)
+    if record is not None:
+        pack = server._pack_bucketed_round
+
+        def recording(sampled):
+            grids = pack(sampled)
+            record.append(grids)
+            return grids
+
+        server._pack_bucketed_round = recording
+    tic = time.time()
+    server.train()
+    return server, time.time() - tic
+
+
+def _secs(server):
+    """``(secs/round, mean after the first)``."""
+    rounds = server.run_stats["secsPerRound"]
+    return rounds, _mean(rounds[1:])
+
+
+def _bucket_payloads(torch, server, pool):
+    """One cohort's payloads, from one state and the same sample orders,
+    on its bucket grids against the same clients' rows of the monolithic
+    grid: each bucket's ``S_b`` steps at the monolithic grid's width (K
+    rows) bitwise, and at the bucket's capacity (its own width) the rows
+    bitwise and the largest relative L2 of a client's difference."""
+    import numpy as np
+    from msrflute_tpu_torch.data.batching import (assign_step_buckets,
+                                                  pack_round_batches,
+                                                  pow2_ceil)
+    rng = np.random.default_rng(5)
+    sampled = [int(c) for c in rng.choice(len(pool), MAIN_K, replace=False)]
+    needs = [int(server._step_needs[c]) for c in sampled]
+    orders = {c: rng.permutation(int(pool.num_samples[c])) for c in sampled}
+    B, state = server.batch_size, server.state
+    mono = pack_round_batches(pool, sampled, B, min(
+        server.max_steps, pow2_ceil(max(needs))), orders=orders)
+    pg_m = server.engine.client_payloads(state, mono, 0.1)[0]
+    cb = server.cohort_bucketing
+    at_width, at_cap, worst, shapes = 0, 0, 0.0, []
+    for (s_b, pos), cap in zip(assign_step_buckets(
+            needs, cb["boundaries"], capacities=cb["capacities"]).items(),
+            cb["capacities"]):
+        if not pos:
+            continue
+        ids = [sampled[p] for p in pos]
+        for width in (MAIN_K, max(cap, len(pos))):
+            grid = pack_round_batches(pool, ids, B, s_b, orders=orders,
+                                      pad_clients_to=width)
+            pg_b = server.engine.client_payloads(state, grid, 0.1)[0]
+            same = [torch.equal(pg_b[r], pg_m[p]) for r, p in enumerate(pos)]
+            if width == MAIN_K:
+                at_width += sum(same)
+                continue
+            shapes.append(list(grid.sample_mask.shape[:2]))
+            at_cap += sum(same)
+            worst = max([worst] + [float((pg_b[r] - pg_m[p]).norm()
+                                         / pg_m[p].norm())
+                                   for r, p in enumerate(pos)])
+    check(at_width == MAIN_K,
+          f"throughput: {MAIN_K - at_width} clients' payloads on S_b-step "
+          "grids of the monolithic width differ from their monolithic rows")
+    return {"clients": MAIN_K,
+            "monolithic_grid": list(mono.sample_mask.shape[:2]),
+            "bitwise_at_monolithic_width": at_width,
+            "bucket_grids": shapes, "bitwise_at_bucket_width": at_cap,
+            "max_rel_l2_at_bucket_width": worst}
+
+
+def _rel_by_round(torch, a, b, rounds):
+    """Relative L2 of two runs' params after each of ``rounds`` (their
+    ``epoch<r>.pt``)."""
+    cpu = torch.device("cpu")
+    out = {}
+    for r in rounds:
+        x = a.ckpt.load(cpu, f"epoch{r}.pt").params.double()
+        y = b.ckpt.load(cpu, f"epoch{r}.pt").params.double()
+        out[r] = float((x - y).norm() / y.norm())
+    return out
+
+
+def _hold_b1(torch, shapes):
+    """B1 against its plain version at the bucket grids' ``[K_b, P]``:
+    bitwise, with a zero gate on one row."""
+    from msrflute_tpu_torch.ops.fused_sgd import (fused_sgd_apply,
+                                                  fused_sgd_plain)
+    worst = 0.0
+    for K in sorted(shapes):
+        gate = [1.0] * K
+        gate[-1] = 0.0
+        p, g, m, gt, _ = _sgd_inputs(torch, K, MAIN_P, gate, seed=K)
+        p2, m2 = p.clone(), m.clone()
+        fused_sgd_apply(p, g, m, 0.1, 0.0, gt)
+        fused_sgd_plain(p2, g, m2, 0.1, 0.0, gt)
+        torch.cuda.synchronize()
+        worst = max(worst, float((p - p2).abs().max()))
+        check(torch.equal(p, p2) and torch.equal(m, m2),
+              f"B1 at [{K}, {MAIN_P}]: kernel != plain")
+    return worst
+
+
+def _leg_bucketing(torch, work, kernel_rows):
+    """CNN_FEMNIST with ``pallas_apply`` on a heterogeneous pool (200
+    writers, log-uniform 20-1,200 samples), ``max_buckets: 4``: three
+    rounds bucketed (twice) and three monolithic from one state and seed;
+    then LR on the same pool both ways."""
+    import numpy as np
+    rng = np.random.default_rng(21)
+    sizes = np.rint(np.exp(rng.uniform(np.log(20), np.log(1200), 200)))
+    pool = _image_pool(sizes, 21)
+    keep = dict(model_backup_freq=1)
+    buckets = dict(cohort_bucketing={"enable": True, "max_buckets": 4})
+    mono, mono_s = _tp_run(_throughput_config(**keep), pool, work, "mono")
+    grids = []
+    _reset_counts()
+    buck, buck_s = _tp_run(_throughput_config(**keep, **buckets), pool, work,
+                           "bucketed", record=grids)
+    launches = _read_counts()
+    steps = buck.engine.local_steps
+    again, _ = _tp_run(_throughput_config(**buckets), pool, work,
+                       "bucketed_again")
+    want = sum(g.sample_mask.shape[1] for row in grids for g in row)
+    check(launches["fused_sgd_apply"] == steps == want > 0,
+          f"throughput: B1 launched {launches['fused_sgd_apply']} times, "
+          f"{steps} local steps, sum_b E*S_b = {want}")
+    check(not any(n for k, n in launches.items() if k != "fused_sgd_apply"),
+          f"throughput: another path's kernel on the CNN path: {launches}")
+    check(torch.equal(buck.state.params, again.state.params),
+          "throughput: two bucketed runs of one config differ")
+    rel = _rel_by_round(torch, buck, mono, range(1, THROUGHPUT_ROUNDS + 1))
+    check(torch.isfinite(buck.state.params).all(),
+          "throughput: bucketed params are not finite")
+    diff = float((buck.state.params - mono.state.params).abs().max())
+    payloads = _bucket_payloads(torch, buck, pool)
+    b1_err = _hold_b1(torch, {g.sample_mask.shape[0]
+                              for row in grids for g in row})
+    for row in kernel_rows:
+        row.setdefault("launches_by_path", {})["throughput_bucketing"] = \
+            launches[row["name"]]
+    # the JAX test's LR config and pool: its bar
+    lr = {}
+    for name, extra in (("monolithic", {}),
+                        ("bucketed", {"cohort_bucketing": {
+                            "enable": True, "max_buckets": 3}})):
+        raw = _jax_lr_config(**extra)
+        lr[name] = _tp_run(raw, _jax_lr_pool(), work, f"lr_{name}")[0]
+    lr_diff = float((lr["bucketed"].state.params
+                     - lr["monolithic"].state.params).abs().max())
+    check(bool(torch.allclose(lr["bucketed"].state.params,
+                              lr["monolithic"].state.params,
+                              rtol=BUCKET_RTOL, atol=BUCKET_ATOL)),
+          f"throughput: LR bucketed vs monolithic max abs {lr_diff}")
+    out = {"writers": len(sizes), "samples": int(sizes.sum()),
+           "boundaries": buck.cohort_bucketing["boundaries"],
+           "capacities": buck.cohort_bucketing["capacities"],
+           "grids_per_round": [[list(g.sample_mask.shape[:2]) for g in row]
+                               for row in grids],
+           "launches": launches, "local_steps": steps,
+           "b1_plain_max_abs_err": b1_err, "bucketed_repeat_bitwise": True,
+           "rel_l2_vs_monolithic_by_round": rel,
+           "params_vs_monolithic_max_abs_diff": diff,
+           "within_rtol_atol": bool(torch.allclose(
+               buck.state.params, mono.state.params, rtol=BUCKET_RTOL,
+               atol=BUCKET_ATOL)),
+           "payloads": payloads,
+           "lr_vs_monolithic_max_abs_diff": lr_diff,
+           "lr_bitwise": bool(torch.equal(lr["bucketed"].state.params,
+                                          lr["monolithic"].state.params)),
+           "lr_tolerance": {"rtol": BUCKET_RTOL, "atol": BUCKET_ATOL}}
+    for name, server, secs in (("monolithic", mono, mono_s),
+                               ("bucketed", buck, buck_s)):
+        rounds, after = _secs(server)
+        out[name] = {"paddingEfficiency": server.padding_efficiency,
+                     "paddingEfficiency_per_round":
+                         server.run_stats["paddingEfficiency"],
+                     "secs_per_round": rounds,
+                     "secs_per_round_after_first": after,
+                     "run_seconds": round(secs, 3)}
+    out["padding_efficiency_ratio"] = (buck.padding_efficiency
+                                       / mono.padding_efficiency)
+    return out
+
+
+def _bimodal_pool():
+    """``bench.py::_bimodal_image_dataset``'s shape: 48 writers, 45 of
+    them with 30-60 samples, three with 1,500."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    sizes = [1500 if u >= 45 else int(rng.integers(30, 61))
+             for u in range(48)]
+    return _image_pool(sizes, 7), sizes
+
+
+def _leg_megabatch(torch, work):
+    """The bimodal pool in one bucket (``max_buckets: 1``),
+    ``pallas_apply`` off: the vmap arm, the tape at the grid's width (its
+    lanes pinned to the capacity, ``min_gain`` 0: the same vmap width,
+    so bitwise) and the tape at its own lane count."""
+    pool, sizes = _bimodal_pool()
+    base = dict(megakernel={"pallas_apply": False}, model_backup_freq=1,
+                cohort_bucketing={"enable": True, "max_buckets": 1})
+    vmap, vs = _tp_run(_throughput_config(**base), pool, work, "mega_vmap")
+    pinned, ps = _tp_run(_throughput_config(
+        megabatch={"enable": True, "lanes": MAIN_K, "min_gain": 0.0},
+        **base), pool, work, "mega_pinned")
+    auto, auto_s = _tp_run(_throughput_config(
+        megabatch={"enable": True}, **base), pool, work, "mega_auto")
+    for name, server in (("pinned", pinned), ("auto", auto)):
+        util = server.megabatch_utilization
+        check("mega" in server.engine.mega_gate.values() and
+              util is not None and 0.0 < util <= 1.0,
+              f"throughput: the tape arm ({name}) did not run: gate "
+              f"{server.engine.mega_gate}, utilization {util}")
+    check(torch.equal(pinned.state.params, vmap.state.params),
+          "throughput: megabatch at the grid's width != vmap at E = 1")
+    diff = float((auto.state.params - vmap.state.params).abs().max())
+    rel = _rel_by_round(torch, auto, vmap, range(1, THROUGHPUT_ROUNDS + 1))
+    check(torch.isfinite(auto.state.params).all(),
+          "throughput: megabatch params are not finite")
+    out = {"writers": len(sizes), "samples": int(sum(sizes)),
+           "pinned_bitwise_vmap": True, "auto_vs_vmap_max_abs_diff": diff,
+           "auto_rel_l2_by_round": rel,
+           "auto_bitwise_vmap": bool(torch.equal(auto.state.params,
+                                                 vmap.state.params))}
+    for name, server, secs in (("vmap", vmap, vs), ("pinned", pinned, ps),
+                               ("auto", auto, auto_s)):
+        rounds, after = _secs(server)
+        out[name] = {"lanes": (server.megabatch or {}).get("lanes"),
+                     "gate": {f"K{k}_S{s}": a for (k, s), a in
+                              sorted(server.engine.mega_gate.items())},
+                     "megabatch_utilization": server.megabatch_utilization,
+                     "megabatch_fallbacks": server.megabatch_fallbacks,
+                     "paddingEfficiency": server.padding_efficiency,
+                     "secs_per_round": rounds,
+                     "secs_per_round_after_first": after,
+                     "run_seconds": round(secs, 3)}
+    return out
+
+
+def _hold_dga_kernels(torch, shapes):
+    """B3 against its plain version at each bucket grid's ``[K_b, P]`` of
+    the GRU (bitwise) and B2 at ``[P]`` (within 4 ulp of the magnitude, as
+    phase ``kernel`` holds it); B2's largest difference."""
+    from msrflute_tpu_torch.ops.gaussian_noise import (fused_gaussian_noise,
+                                                       gaussian_noise_plain)
+    from msrflute_tpu_torch.ops.quant_bin import (quant_bin_plain,
+                                                  quant_bin_sparsify)
+    bounds = _gru_bounds()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for K in shapes:
+        x = torch.randn((K, DGA_P), device="cuda", generator=gen)
+        off, lo, hi, th = _quant_case(torch, x, bounds, 0.7)
+        k = quant_bin_sparsify(x, off, lo, hi, th, 1024)
+        pl = quant_bin_plain(x, off.cpu(), lo, hi, th, 1024)
+        torch.cuda.synchronize()
+        check(torch.equal(k, pl), f"B3 at [{K}, {DGA_P}]: kernel != plain")
+    x = torch.randn(DGA_P, device="cuda", generator=gen) * 1e-3
+    k = fused_gaussian_noise(x, 1.0, 1.0, 99)
+    pz = gaussian_noise_plain(x, 1.0, 1.0, 99)
+    torch.cuda.synchronize()
+    err = float((k - pz).abs().max())
+    check(bool(((k - pz).abs() <= 4 * 2.0 ** -23 * (x.abs() + 8.0)).all()),
+          f"B2 at [{DGA_P}]: max abs err {err}")
+    return err
+
+
+def _leg_dga_bucketed(torch, work, kernel_rows):
+    """``experiments/nlg_gru``'s DGA with global DP and quantization
+    (local DP off: ``torch.randn`` draws other numbers on the two
+    devices), 4 clients, ``max_buckets: 3``, two rounds on cuda and on
+    cpu: B2 once a round, B3 once a bucket grid, B1 once a grid a local
+    step; cuda vs cpu within ``DGA_CROSS_TOL``; B3 and B2 held to their
+    plain versions at the leg's shapes."""
+    from msrflute_tpu_torch.engine.server import OptimizationServer
+    if not os.path.exists(os.path.join(work, "reddit", "train.json")):
+        os.makedirs(os.path.join(work, "reddit"), exist_ok=True)
+        words = write_reddit_vocab(os.path.join(work, "reddit",
+                                                "vocab_reddit.vocab"))
+        for split, users, lo, hi, seed in REDDIT_SPLITS:
+            write_reddit_blob(os.path.join(work, "reddit", f"{split}.json"),
+                              words, users, lo, hi, seed)
+    raw = dga_config(rounds=2)
+    raw["dp_config"]["enable_local_dp"] = False
+    raw["server_config"].update(
+        val_freq=100, rec_freq=100, initial_val=False, model_backup_freq=1,
+        num_clients_per_iteration=4,
+        cohort_bucketing={"enable": True, "max_buckets": 3})
+    grids = []
+    pack = OptimizationServer._pack_bucketed_round
+
+    def recording(self, sampled):
+        out = pack(self, sampled)
+        grids.append(out)
+        return out
+
+    restore = _shared_parse()
+    OptimizationServer._pack_bucketed_round = recording
+    try:
+        _reset_counts()
+        server, _, cuda_s = _run_cli(work, "tp_dga_cuda", raw, "cuda",
+                                     task="nlg_gru")
+        launches = _read_counts()
+        n_grids = sum(len(row) for row in grids)
+        steps = server.engine.local_steps
+        params = {"cuda": [server.ckpt.load(torch.device("cpu"),
+                                            f"epoch{r}.pt").params.double()
+                           for r in DGA_CROSS_TOL]}
+        del server
+        cpu_server, _, cpu_s = _run_cli(work, "tp_dga_cpu", raw, "cpu",
+                                        task="nlg_gru")
+        params["cpu"] = [cpu_server.ckpt.load(torch.device("cpu"),
+                                              f"epoch{r}.pt").params.double()
+                         for r in DGA_CROSS_TOL]
+        del cpu_server
+    finally:
+        OptimizationServer._pack_bucketed_round = pack
+        restore()
+    check(launches["fused_gaussian_noise"] == 2,
+          f"throughput dga: B2 launched {launches['fused_gaussian_noise']} "
+          "times in 2 rounds")
+    check(launches["quant_bin_sparsify"] == n_grids > 0,
+          f"throughput dga: B3 launched {launches['quant_bin_sparsify']} "
+          f"times for {n_grids} bucket grids")
+    check(launches["fused_sgd_apply"] == steps > 0,
+          f"throughput dga: B1 launched {launches['fused_sgd_apply']} times "
+          f"for {steps} local steps")
+    rel = {r: float((a - b).norm() / b.norm()) for r, a, b in
+           zip(DGA_CROSS_TOL, params["cuda"], params["cpu"])}
+    for r, v in rel.items():
+        check(v <= DGA_CROSS_TOL[r], f"throughput dga: cuda vs cpu params "
+                                     f"after round {r}: rel L2 {v}")
+    shapes = sorted({g.sample_mask.shape[0] for row in grids for g in row})
+    b2_err = _hold_dga_kernels(torch, shapes)
+    for row in kernel_rows:
+        row.setdefault("launches_by_path", {})["throughput_dga"] = \
+            launches[row["name"]]
+    return {"clients_per_round": 4, "rounds": 2, "grids": n_grids,
+            "grid_shapes": [[list(g.sample_mask.shape[:2]) for g in row]
+                            for row in grids[:2]],
+            "launches": launches, "local_steps": steps,
+            "rel_l2_by_round": rel, "tolerance_rel_l2_by_round":
+                DGA_CROSS_TOL, "b3_held_at_rows": shapes,
+            "b2_plain_max_abs_err": b2_err,
+            "seconds": {"cuda": round(cuda_s, 3), "cpu": round(cpu_s, 3)}}
+
+
+def _leg_scaffold_carry(torch, work):
+    """SCAFFOLD with ``fused_carry`` on the bimodal pool, ``max_buckets:
+    2``, two rounds: the vmap arm against the tape at the grids' width,
+    bitwise in params and in the ``c`` / ``ci`` tables."""
+    pool, _ = _bimodal_pool()
+    base = dict(megakernel={"pallas_apply": False}, fused_carry=True,
+                max_iteration=2, rounds_per_step=2, pipeline_depth=1,
+                cohort_bucketing={"enable": True, "max_buckets": 2})
+    runs = {}
+    for name, extra in (("vmap", {}), ("mega", {"megabatch": {
+            "enable": True, "lanes": MAIN_K, "min_gain": 0.0}})):
+        raw = _throughput_config(**base, **extra)
+        raw["strategy"] = "scaffold"
+        runs[name] = _tp_run(raw, pool, work, f"scaffold_{name}")
+    vmap, mega = runs["vmap"][0], runs["mega"][0]
+    check("mega" in mega.engine.mega_gate.values(),
+          f"throughput scaffold: the tape arm did not run: "
+          f"{mega.engine.mega_gate}")
+    same = torch.equal(mega.state.params, vmap.state.params) and all(
+        torch.equal(v, vmap.state.strategy_state[k])
+        for k, v in mega.state.strategy_state.items())
+    check(same, "throughput scaffold: megabatch != vmap (params or tables)")
+    return {"tables": sorted(mega.state.strategy_state),
+            "bitwise": True,
+            "gate": {f"K{k}_S{s}": a for (k, s), a in
+                     sorted(mega.engine.mega_gate.items())},
+            "megabatch_utilization": mega.megabatch_utilization,
+            "seconds": {k: round(v[1], 3) for k, v in runs.items()}}
+
+
+def phase_throughput(torch, work, kernel_rows):
+    """Cohort bucketing and megabatching on one card, a line a leg
+    (``throughput_<leg>``), then the phase's."""
+    legs = {}
+    tic = time.time()
+    for leg, fn in (("bucketing", lambda: _leg_bucketing(torch, work,
+                                                         kernel_rows)),
+                    ("megabatch", lambda: _leg_megabatch(torch, work)),
+                    ("dga", lambda: _leg_dga_bucketed(torch, work,
+                                                      kernel_rows)),
+                    ("scaffold_carry", lambda: _leg_scaffold_carry(torch,
+                                                                   work))):
+        lap = time.time()
+        legs[leg] = fn()
+        legs[leg]["seconds_leg"] = round(time.time() - lap, 3)
+        emit({"phase": f"throughput_{leg}", "ok": True, **legs[leg]})
+        torch.cuda.empty_cache()
+    emit({"phase": "throughput", "ok": True, "params": MAIN_P,
+          "clients_per_round": MAIN_K, "legs": list(legs),
+          "seconds": round(time.time() - tic, 3)})
+
+
 def main() -> int:
     argv = sys.argv[1:]
     if argv not in ([], ["--kernels"]):
@@ -6226,6 +6711,8 @@ def main() -> int:
             phase_resilience(torch, work, rows)
             phase = "model_options"
             phase_model_options(torch, work, rows)
+            phase = "throughput"
+            phase_throughput(torch, work, rows)
     except Exception as exc:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})

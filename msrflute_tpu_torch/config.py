@@ -428,6 +428,15 @@ def parse_clients_per_round(spec: Any, rng) -> int:
     return int(spec)
 
 
+def cohort_upper_bound(spec: Any) -> int:
+    """The largest cohort ``num_clients_per_iteration`` can draw: the
+    rng-free companion of :func:`parse_clients_per_round`, which sizes the
+    bucket capacities (``msrflute_tpu/config.py:591-598``)."""
+    if isinstance(spec, str) and ":" in spec:
+        return int(spec.split(":")[1])
+    return int(spec)
+
+
 # ----------------------------------------------------------------------
 # validation of the ported slices
 # ----------------------------------------------------------------------
@@ -444,7 +453,7 @@ _SERVER = {"type", "max_iteration", "num_clients_per_iteration",
            "personalization_interp", "semisupervision", "precision",
            "server_replay_config", "pipeline_depth", "input_staging",
            "checkpoint_async", "checkpoint_retry", "clients_per_chunk",
-           "dump_norm_stats"}
+           "dump_norm_stats", "cohort_bucketing", "megabatch"}
 #: ``server_config.checkpoint_retry`` (``msrflute_tpu/schema.py``
 #: ``CHECKPOINT_RETRY_FIELD_SPECS``): ``(kind, min, max)`` a key
 CHECKPOINT_RETRY_SPECS = {
@@ -612,8 +621,8 @@ _INERT_SPECS = {
 _OFF_OK = {
     "server_config": {
         "do_profiling", "best_model_metric",
-        "checkpoint_backend", "traffic", "telemetry", "cohort_bucketing",
-        "megabatch", "fleet", "updatable_names"} | _DGA_SERVER,
+        "checkpoint_backend", "traffic", "telemetry", "fleet",
+        "updatable_names"} | _DGA_SERVER,
     "client_config": {"ss_config"} | _DGA_CLIENT,
     "dataset": {
         "max_seq_length", "num_frames",
@@ -740,6 +749,7 @@ def validate(raw: Dict[str, Any]) -> None:
                 ignored=_DISPATCH_ONLY["server_config"]
                 | _INERT["server_config"])
     check_dispatch(sc)
+    check_throughput(sc, strategy)
     check_inert(raw)
     _check_keys(sc.get("checkpoint_retry"), "server_config.checkpoint_retry",
                 set(CHECKPOINT_RETRY_SPECS))
@@ -930,6 +940,79 @@ def check_dispatch(sc: Dict[str, Any]) -> None:
             "device memory, and depth past the host-tail/device-round "
             "ratio buys nothing; lower it (see docs/RUNBOOK.md pipeline "
             "tuning)")
+    if errors:
+        raise SchemaError(errors)
+
+
+#: ``server_config.cohort_bucketing`` and ``megabatch``, with the JAX
+#: schema's field rules (``msrflute_tpu/schema.py:160-205``)
+COHORT_BUCKETING_SPECS = {"enable": ("bool", None, None),
+                          "max_buckets": ("int", 1, None),
+                          "slack": ("num", 1.0, None)}
+MEGABATCH_SPECS = {"enable": ("bool", None, None),
+                   "lanes": ("int", 1, None),
+                   "slack": ("num", 1.0, None),
+                   "min_gain": ("num", 0.0, None),
+                   "autotune": ("bool", None, None)}
+
+
+def check_throughput(sc: Dict[str, Any], strategy: str) -> None:
+    """The cohort-bucketing and megabatch blocks as the JAX schema checks
+    them (``schema.py:968-1053``): their keys and field types, a strictly
+    increasing list of positive ``boundaries`` no longer than
+    ``max_buckets``, and ``megabatch`` only beside an enabled
+    ``cohort_bucketing`` and never under FedLabels.  The combinations the
+    JAX server and engine refuse raise there, in the port too."""
+    errors: List[str] = []
+    cb, mgb = sc.get("cohort_bucketing"), sc.get("megabatch")
+    for name, blk, keys in (
+            ("cohort_bucketing", cb, set(COHORT_BUCKETING_SPECS)
+             | {"boundaries"}),
+            ("megabatch", mgb, set(MEGABATCH_SPECS))):
+        if blk is not None and not isinstance(blk, dict):
+            errors.append(f"server_config.{name}: must be a mapping, got "
+                          f"{type(blk).__name__}")
+        elif blk:
+            _check_keys(blk, f"server_config.{name}", keys)
+    if isinstance(cb, dict):
+        _check_fields(errors, cb, "server_config.cohort_bucketing",
+                      COHORT_BUCKETING_SPECS)
+        bounds = cb.get("boundaries")
+        path = "server_config.cohort_bucketing.boundaries"
+        if bounds is not None:
+            if not isinstance(bounds, (list, tuple)) or not bounds:
+                errors.append(f"{path}: must be a non-empty list of step "
+                              "counts")
+            elif any(isinstance(b, bool) or not isinstance(b, int) or b < 1
+                     for b in bounds):
+                errors.append(f"{path}: every boundary must be a positive "
+                              f"integer, got {list(bounds)!r}")
+            elif any(y <= x for x, y in zip(bounds, bounds[1:])):
+                errors.append(f"{path}: must be strictly increasing, got "
+                              f"{list(bounds)!r}")
+            mb = cb.get("max_buckets")
+            if isinstance(mb, int) and not isinstance(mb, bool) and \
+                    isinstance(bounds, (list, tuple)) and len(bounds) > mb:
+                errors.append(f"server_config.cohort_bucketing: "
+                              f"{len(bounds)} boundaries exceed "
+                              f"max_buckets={mb}")
+    if isinstance(mgb, dict):
+        _check_fields(errors, mgb, "server_config.megabatch",
+                      MEGABATCH_SPECS)
+        cb_on = bool(cb) and (not isinstance(cb, dict)
+                              or cb.get("enable", True))
+        if mgb.get("enable", True) and not cb_on:
+            errors.append(
+                "server_config.megabatch requires "
+                "server_config.cohort_bucketing — the super-batch tape "
+                "repacks per-bucket grids; add the cohort_bucketing block "
+                "or drop megabatch")
+        if mgb.get("enable", True) and strategy == "fedlabels":
+            errors.append(
+                "server_config.megabatch is set but strategy is "
+                "'fedlabels' — its dual sup/unsup loop steps outside the "
+                "client_update contract the lane scan reproduces; drop "
+                "megabatch or change strategy")
     if errors:
         raise SchemaError(errors)
 

@@ -1,6 +1,8 @@
 """Static-shape round batching — the port's own copy of ``steps_for``,
 ``pack_round_batches`` and ``pack_eval_batches`` from
-``msrflute_tpu/data/batching.py``.
+``msrflute_tpu/data/batching.py``, and of its host planning for cohort
+bucketing and cross-client megabatching (``batching.py:362-683``,
+``data/fleet.py::steps_for_array``).
 
 The numpy code is the JAX package's, draw for draw: the same cohort and the
 same ``np.random.Generator`` state give the same ``[K, S, B]`` grids and
@@ -29,6 +31,8 @@ class RoundBatch:
     num_samples:  ``[K]`` — real (capped) per-client sample counts
     client_mask:  ``[K]`` — 1.0 for real clients, 0.0 for padding
     client_ids:   ``[K]`` — dataset user indices (-1 for padding)
+    mega:         the bucket's super-batch tape (:class:`MegaTape`) when
+                  the server planned one for this grid, else None
     """
 
     arrays: Dict[str, np.ndarray]
@@ -36,6 +40,7 @@ class RoundBatch:
     num_samples: np.ndarray
     client_mask: np.ndarray
     client_ids: np.ndarray
+    mega: Optional["MegaTape"] = None
 
 
 def ceil_div(n: int, d: int) -> int:
@@ -72,16 +77,28 @@ def pack_round_batches(
     rng: Optional[np.random.Generator] = None,
     desired_max_samples: Optional[int] = None,
     shuffle: bool = True,
+    pad_clients_to: Optional[int] = None,
+    orders: Optional[Dict[int, np.ndarray]] = None,
 ) -> RoundBatch:
     """Assemble ``[K, S, B, ...]`` arrays for the sampled clients: per
     client, shuffle its samples with ``rng`` (one ``permutation`` draw per
     client, in cohort order; in order and with no draw when ``shuffle`` is
-    false, as an eval packs them), truncate to the cap, and zero-pad."""
+    false, as an eval packs them), truncate to the cap, and zero-pad.
+
+    ``pad_clients_to`` pads K with all-padding rows (mask 0, id -1); a
+    ``-1`` in ``client_indices`` is such a row in place (megabatch's
+    planned row order).  ``orders`` (client id -> permutation) replaces the
+    shuffle draw: cohort bucketing draws every sampled client's
+    permutation in cohort order before it packs the bucket grids, so each
+    client trains on the samples, and every later round samples from the
+    ``rng`` state, of the monolithic pack."""
     rng = rng or np.random.default_rng(0)
-    K = len(client_indices)
+    K = max(pad_clients_to or len(client_indices), len(client_indices))
     S, B = max_steps, batch_size
     spec = dataset.element_spec
-    ref = dataset.user_arrays(int(client_indices[0]) if K else 0)
+    # an empty or all-hole list still packs a valid all-padding grid
+    first = next((int(c) for c in client_indices if int(c) >= 0), 0)
+    ref = dataset.user_arrays(first)
     arrays = {k: np.zeros((K, S, B) + shape, dtype=ref[k].dtype)
               for k, shape in spec.items()}
     sample_mask = np.zeros((K, S, B), dtype=np.float32)
@@ -91,9 +108,16 @@ def pack_round_batches(
 
     cap = _sample_cap(S, B, desired_max_samples)
     for j, ci in enumerate(client_indices):
-        user = dataset.user_arrays(int(ci))
+        ci = int(ci)
+        if ci < 0:
+            continue
+        user = dataset.user_arrays(ci)
         n = len(next(iter(user.values())))
-        take = (rng.permutation(n) if shuffle else np.arange(n))[:cap]
+        if orders is not None:
+            order = orders[ci]
+        else:
+            order = rng.permutation(n) if shuffle else np.arange(n)
+        take = order[:cap]
         t = len(take)
         for k in spec:
             arrays[k][j].reshape((S * B,) + spec[k])[:t] = user[k][take]
@@ -132,3 +156,240 @@ def pack_eval_batches(dataset: BaseDataset,
     batched["sample_mask"] = mask.reshape(T, B)
     batched["user_idx"] = user_idx.reshape(T, B)
     return batched
+
+
+def steps_for_array(num_samples, batch_size: int,
+                    desired_max_samples: Optional[int] = None
+                    ) -> np.ndarray:
+    """:func:`steps_for` over a whole population's ``num_samples``, in
+    int64 (``msrflute_tpu/data/fleet.py::steps_for_array``)."""
+    ns = np.asarray(num_samples, dtype=np.int64)
+    if desired_max_samples is not None:
+        ns = np.minimum(ns, np.int64(desired_max_samples))
+    b = np.int64(max(int(batch_size), 1))
+    return np.maximum(-(-ns // b), 1)
+
+
+# ----------------------------------------------------------------------
+# cohort bucketing (``server_config.cohort_bucketing``): a round's cohort
+# split into power-of-two step buckets, each packed on its own compact
+# ``[K_b, S_b, B]`` grid
+# ----------------------------------------------------------------------
+def bucket_boundaries(needs: Sequence[int], max_buckets: int,
+                      max_steps: int) -> list:
+    """The step buckets of a population: the distinct power-of-two
+    ceilings of its step needs (capped at ``max_steps``), greedily merged
+    down to ``max_buckets`` by the smallest added padded-step cost.
+    Strictly increasing; the last covers every need."""
+    if max_buckets < 1:
+        raise ValueError("cohort_bucketing.max_buckets must be >= 1")
+    arr = np.maximum(np.asarray(needs, dtype=np.int64), 1)
+    pow_table = np.int64(1) << np.arange(63, dtype=np.int64)
+    ceils = np.minimum(pow_table[np.searchsorted(pow_table, arr)],
+                       np.int64(max_steps))
+    uniq, counts = np.unique(ceils, return_counts=True)
+    pops = {int(s): int(c) for s, c in zip(uniq, counts)}
+    bounds = sorted(pops)
+    while len(bounds) > max_buckets:
+        costs = [(pops[bounds[i]] * (bounds[i + 1] - bounds[i]), i)
+                 for i in range(len(bounds) - 1)]
+        _, i = min(costs)
+        pops[bounds[i + 1]] += pops.pop(bounds[i])
+        del bounds[i]
+    return bounds
+
+
+def assign_step_buckets(needs: Sequence[int], boundaries: Sequence[int],
+                        capacities: Optional[Sequence[int]] = None
+                        ) -> Dict[int, list]:
+    """``{S: [cohort positions]}``, keys ascending, positions in cohort
+    order: each client in the smallest bucket that covers its step need.
+    With ``capacities`` every bucket appears (maybe empty) and a full
+    bucket spills its overflow up; the top bucket takes all that is left.
+    A pure function of its arguments."""
+    bounds = list(boundaries)
+    if any(b <= a for a, b in zip(bounds, bounds[1:])):
+        raise ValueError(
+            f"bucket boundaries must be strictly increasing, got {bounds}")
+    arr = np.maximum(np.asarray(needs, dtype=np.int64), 1)
+    b_arr = np.asarray(bounds, dtype=np.int64)
+    if arr.size and int(arr.max()) > int(b_arr[-1]):
+        raise ValueError(
+            f"client step need {int(arr.max())} exceeds the largest bucket "
+            f"boundary {bounds[-1]} — boundaries must cover max_steps")
+    first_fit = np.searchsorted(b_arr, arr)
+    out: Dict[int, list] = ({s: [] for s in bounds}
+                            if capacities is not None else {})
+    placed = np.zeros(arr.shape, dtype=bool)
+    for i, s in enumerate(bounds):
+        elig = np.flatnonzero((first_fit <= i) & ~placed)
+        if capacities is not None and i < len(bounds) - 1:
+            elig = elig[:int(capacities[i])]
+        if elig.size:
+            out.setdefault(s, []).extend(int(j) for j in elig)
+            placed[elig] = True
+    return {s: out[s] for s in sorted(out)}
+
+
+def bucket_capacities(needs: Sequence[int], boundaries: Sequence[int],
+                      cohort_size: int, quantum: int = 1,
+                      slack: float = 1.5) -> list:
+    """Each bucket's client capacity ``K_b``: the expected occupancy of a
+    ``cohort_size`` draw from the population, times ``slack``, clamped to
+    the cohort and the bucket's population, rounded up to ``quantum``."""
+    bounds = list(boundaries)
+    arr = np.maximum(np.asarray(needs, dtype=np.int64), 1)
+    b_arr = np.asarray(bounds, dtype=np.int64)
+    fit = np.searchsorted(b_arr, arr)
+    fit = fit[fit < len(bounds)]
+    hist = np.bincount(fit, minlength=len(bounds))
+    total = max(int(hist.sum()), 1)
+    caps = []
+    for i in range(len(bounds)):
+        pop_b = int(hist[i])
+        want = ceil_div(int(math.ceil(slack * cohort_size * pop_b)), total) \
+            if pop_b else 1
+        cap = max(min(want, int(cohort_size), max(pop_b, 1)), 1)
+        caps.append(ceil_div(cap, quantum) * quantum)
+    return caps
+
+
+# ----------------------------------------------------------------------
+# cross-client megabatching (``server_config.megabatch``): inside a
+# bucket, a ``[lanes, depth]`` pointer tape strings many small clients'
+# steps back to back, so one step of the lane scan trains ``lanes``
+# clients at once
+# ----------------------------------------------------------------------
+@dataclass
+class MegaTape:
+    """The super-batch tape of one bucket grid.
+
+    ``ptr``: ``[lanes, depth]`` int32, the flat grid step ``row * S +
+    step`` each slot trains on (0 on idle slots); ``seg``: ``[lanes,
+    depth]`` int32, the grid row owning the slot, -1 on idle slots.  A
+    client holds ``num_epochs * need`` consecutive slots of one lane."""
+
+    ptr: np.ndarray
+    seg: np.ndarray
+    lanes: int
+    depth: int
+    shards: int
+    #: real (non-idle) slots: the utilization meter's numerator
+    entries: int
+
+
+def megabatch_lanes(needs: Sequence[int], boundaries: Sequence[int],
+                    cohort_size: int, num_epochs: int, quantum: int = 1,
+                    slack: float = 1.25, lanes: Optional[int] = None,
+                    caps: Optional[Sequence[int]] = None) -> list:
+    """Each bucket's lane count: the expected tape entries of a
+    ``cohort_size`` draw landing in it, times ``slack``, over its depth
+    ``num_epochs * S_b``, rounded up to ``quantum``; an explicit ``lanes``
+    sets every bucket; ``caps`` (the client capacities) bound it."""
+    bounds = list(boundaries)
+    E = max(int(num_epochs), 1)
+    quantum = max(int(quantum), 1)
+    if lanes is not None:
+        out = [ceil_div(int(lanes), quantum) * quantum for _ in bounds]
+    else:
+        arr = np.maximum(np.asarray(needs, dtype=np.int64), 1)
+        b_arr = np.asarray(bounds, dtype=np.int64)
+        fit = np.searchsorted(b_arr, arr)
+        keep = fit < len(bounds)
+        fit_k, arr_k = fit[keep], arr[keep]
+        total = max(int(keep.sum()), 1)
+        out = []
+        for i, s in enumerate(bounds):
+            need_sum = float(arr_k[fit_k == i].sum())
+            exp_entries = slack * cohort_size * need_sum * E / total
+            want = max(int(math.ceil(exp_entries / float(E * int(s)))), 1)
+            out.append(ceil_div(want, quantum) * quantum)
+    if caps is not None:
+        out = [min(n, ceil_div(int(c), quantum) * quantum)
+               for n, c in zip(out, caps)]
+    return [max(n, quantum) for n in out]
+
+
+def plan_megabatch(needs: Sequence[int], num_epochs: int, lanes: int,
+                   step_grid: int, shards: int, capacity: int) -> list:
+    """First-fit tape planning for one bucket's cohort (positions in
+    cohort order): a list of ``(rows, tape)`` groups, ``rows`` the
+    ``capacity`` grid rows as cohort positions with ``-1`` holes, ``tape``
+    their :class:`MegaTape`.  Row block ``m`` and lane block ``m`` belong
+    to shard ``m`` (one shard on one card); a cohort that fills a group
+    spills into more groups of the same shape."""
+    M = max(int(shards), 1)
+    L, S, E = int(lanes), int(step_grid), max(int(num_epochs), 1)
+    cap = int(capacity)
+    if L % M or cap % M:
+        raise ValueError(
+            f"megabatch geometry must be mesh-divisible: lanes={L}, "
+            f"capacity={cap}, shards={M}")
+    depth = E * S
+    L_loc, K_loc = L // M, cap // M
+    groups: list = []
+
+    def new_group():
+        groups.append({"rows": [[] for _ in range(M)],
+                       "fill": np.zeros((L,), dtype=np.int64),
+                       "ptr": np.zeros((L, depth), dtype=np.int32),
+                       "seg": np.full((L, depth), -1, dtype=np.int32),
+                       "entries": 0})
+
+    for pos, need in enumerate(needs):
+        need = max(int(need), 1)
+        e = E * need
+        if e > depth:
+            raise ValueError(
+                f"megabatch: client step need {need} exceeds the bucket "
+                f"grid S={S} — bucket assignment must cover every need")
+        placed = False
+        for g in groups:
+            for m in range(M):
+                if len(g["rows"][m]) >= K_loc:
+                    continue
+                lane = next((n for n in range(m * L_loc, (m + 1) * L_loc)
+                             if int(g["fill"][n]) + e <= depth), None)
+                if lane is None:
+                    continue
+                r = len(g["rows"][m])
+                o = int(g["fill"][lane])
+                g["ptr"][lane, o:o + e] = r * S + (np.arange(e) % need)
+                g["seg"][lane, o:o + e] = r
+                g["fill"][lane] += e
+                g["rows"][m].append(pos)
+                g["entries"] += e
+                placed = True
+                break
+            if placed:
+                break
+        if not placed:
+            new_group()
+            g = groups[-1]
+            g["ptr"][0, :e] = np.arange(e) % need
+            g["seg"][0, :e] = 0
+            g["fill"][0] = e
+            g["rows"][0].append(pos)
+            g["entries"] = e
+    if not groups:
+        new_group()
+    out = []
+    for g in groups:
+        rows: list = []
+        for block in g["rows"]:
+            rows.extend(list(block) + [-1] * (K_loc - len(block)))
+        out.append((rows, MegaTape(g["ptr"], g["seg"], L, depth, M,
+                                   int(g["entries"]))))
+    return out
+
+
+def grid_slots(batches: Sequence[RoundBatch]) -> int:
+    """Padded sample slots of a chunk's grids, ``K*S*B`` summed."""
+    return sum(int(np.prod(b.sample_mask.shape)) for b in batches)
+
+
+def padding_efficiency(batches: Sequence[RoundBatch]) -> float:
+    """Real (capped) samples over padded grid slots (1.0: no padding)."""
+    slots = grid_slots(batches)
+    real = sum(float(np.sum(b.num_samples)) for b in batches)
+    return real / slots if slots else 0.0

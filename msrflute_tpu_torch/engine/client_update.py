@@ -30,6 +30,10 @@ arithmetic with a fresh state a round, the client learning rate injected;
 it has no kernel, and ``pallas_apply`` with it raises ``ValueError``, as
 in the JAX package (``client_update.py:182-187``).
 
+:func:`build_mega_update` is the megabatch lane scan over the same step
+(:class:`_LocalSGD`): lanes that train one small client after another
+from a pointer tape, with each client's outputs in its grid row.
+
 Layer controls and precision (``client_update.py:129-216``, ``:312-314``,
 ``:587-622``), each leaf named by its flax path
 (:func:`..models.convert.flax_path`):
@@ -55,6 +59,7 @@ import re
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
 
@@ -146,6 +151,128 @@ def _derive_stats(s, s2, n) -> Dict[str, torch.Tensor]:
             "norm": torch.sqrt(s2)}
 
 
+class _LocalSGD:
+    """The client optimizer's set-up and its local step over a ``[N, P]``
+    stack of rows (N clients in the grid's vmap arm, N lanes in the
+    megabatch lane scan), shared by :func:`build_client_update` and
+    :func:`build_mega_update` so both run the same step, op for op."""
+
+    def __init__(self, task: BaseTask, client_opt_cfg,
+                 hparams: ClientHParams):
+        opt = make_optimizer(client_opt_cfg)
+        sgd = isinstance(opt, SGD) and opt.plain
+        if hparams.pallas_apply and not sgd:
+            raise ValueError(
+                "megakernel.pallas_apply requires a plain SGD client "
+                "optimizer (momentum ok; no nesterov/weight_decay) — got "
+                f"type={client_opt_cfg.get('type', 'sgd')!r}")
+        if hparams.pallas_apply and hparams.updatable_layers is not None:
+            raise ValueError(
+                "megakernel.pallas_apply does not compose with "
+                "updatable_layers: the flat fused kernel has no per-leaf "
+                "freeze mask — drop one of them")
+        self.task, self.hparams, self.opt, self.sgd = task, hparams, opt, sgd
+        self.layout = task.layout()
+        self.mu = opt.momentum if sgd else 0.0
+        self.epochs = max(int(hparams.num_epochs), 1)
+        self.pdt = resolve_dtype(hparams.param_dtype)
+        cdt = resolve_dtype(hparams.compute_dtype)
+        self.cdt = cdt
+        self.sdt = resolve_dtype(hparams.stats_dtype)
+        #: the leaves' bounds, for the optimizers that scale by leaf
+        self.bounds = (list(self.layout.offsets) + [self.layout.numel]
+                       if isinstance(opt, (Lamb, Lars)) else None)
+        self.frozen = frozen_ranges(self.layout,
+                                    tuple(hparams.freeze_layers))
+        self._masks_by_device: Dict[torch.device, torch.Tensor] = {}
+        loss_fn = task.loss_and_aux
+        if cdt is not None:
+            def loss_fn(params, batch, masks):  # noqa: F811 - the cast wrap
+                return task.loss_and_aux(
+                    {k: v.to(cdt) for k, v in params.items()},
+                    _cast_floats(batch, cdt), masks)
+        self.grad_fn = vmap(grad_and_value(loss_fn, has_aux=True))
+
+    def acc(self, value: torch.Tensor) -> torch.Tensor:
+        return value if self.sdt is None else value.to(self.sdt)
+
+    def update_mask(self, device) -> Optional[torch.Tensor]:
+        if self.hparams.updatable_layers is None:
+            return None
+        if device not in self._masks_by_device:
+            self._masks_by_device[device] = updatable_columns(
+                self.layout, tuple(self.hparams.updatable_layers), device)
+        return self._masks_by_device[device]
+
+    def init(self, start: torch.Tensor, n: int):
+        """``(params [n, P], momentum trace, optimizer state)`` from
+        ``start`` (``[P]`` or ``[n, P]``), a copy in every case: the
+        steps update params in place."""
+        if self.pdt is not None:
+            start = start.to(self.pdt)
+        params = start.expand(n, -1).clone(
+            memory_format=torch.contiguous_format)
+        trace = (torch.zeros_like(params)
+                 if self.sgd and (self.hparams.pallas_apply or self.mu)
+                 else None)
+        opt_state = None if self.sgd else self.opt.init(params)
+        return params, trace, opt_state
+
+    def zeros(self, n: int, device) -> torch.Tensor:
+        return torch.zeros((n,), dtype=self.sdt or torch.float32,
+                           device=device)
+
+    def step(self, params, views, trace, opt_state, batch, gens, lr,
+             anchor, offset, update_mask, accs):
+        """One local step of the ``[N]`` rows on ``batch`` (``[N, B, ...]``
+        with its ``sample_mask``): loss -> grad -> ``combine_grad_terms``
+        (``offset``, the proximal term against ``anchor``, the clip) ->
+        the accumulators ``(loss_sum, wloss, ns)`` -> the optimizer tail,
+        params, trace and state in place.  Returns ``(opt_state, accs)``."""
+        hp, task = self.hparams, self.task
+        mask = batch["sample_mask"]
+        B = mask.shape[-1]
+        masks = (task.draw_masks(gens, B, mask.device)
+                 if gens is not None else ())
+        with cpu16_guard(mask.device, task.compute_dtype, self.cdt):
+            grads, (loss, aux) = self.grad_fn(views, batch, masks)
+        grads = combine_grad_terms(
+            self.layout.flatten(grads, batch_dims=1), offset=offset,
+            prox_mu=hp.fedprox_mu, params=params, global_params=anchor,
+            max_norm=hp.max_grad_norm)
+        rows = mask.sum(-1)
+        has_data = (rows > 0).to(torch.float32)
+        loss_sum, wloss_acc, ns_acc = accs
+        loss_sum = self.acc(loss_sum + has_data * loss)
+        # sample-weighted loss sum (loss is the batch's masked MEAN)
+        wloss_acc = self.acc(wloss_acc + loss * rows)
+        ns_acc = self.acc(ns_acc + has_data * aux.get("train_sample_count",
+                                                      rows))
+        if not self.sgd:
+            opt_state = fused_opt_apply(self.opt, params, grads, opt_state,
+                                        lr, has_data, self.bounds,
+                                        update_mask)
+        elif hp.pallas_apply:
+            fused_sgd_apply(params, grads, trace, lr, self.mu, has_data)
+        else:
+            fused_apply(params, grads, trace, lr, self.mu, has_data,
+                        update_mask)
+        return opt_state, (loss_sum, wloss_acc, ns_acc)
+
+    def finish(self, global_flat, params, sample_mask, accs):
+        """``(pseudo_grad, train_loss, num_samples, stats)`` of the trained
+        ``[K, P]`` rows against their starts."""
+        loss_sum, wloss_acc, ns_acc = accs
+        pseudo_grad = global_flat - params
+        for a, b in self.frozen:
+            pseudo_grad[:, a:b] = 0.0
+        stats = _derive_stats(*_suff_stats_of(pseudo_grad))
+        rows_total = sample_mask.sum(dim=(1, 2))
+        stats["mean_sample_loss"] = wloss_acc / torch.clamp(
+            rows_total * self.epochs, min=1.0)
+        return pseudo_grad, loss_sum, ns_acc / self.epochs, stats
+
+
 def build_client_update(task: BaseTask, client_opt_cfg,
                         hparams: ClientHParams) -> Callable:
     """Returns ``client_update(global_flat, arrays, sample_mask, lr, gens,
@@ -164,103 +291,155 @@ def build_client_update(task: BaseTask, client_opt_cfg,
     before the proximal term and the clip (SCAFFOLD's ``c - c_i``,
     ``msrflute_tpu/engine/client_update.py:197-231``), so it enters kernel
     B1 with the gradient."""
-    opt = make_optimizer(client_opt_cfg)
-    sgd = isinstance(opt, SGD) and opt.plain
-    if hparams.pallas_apply and not sgd:
-        raise ValueError(
-            "megakernel.pallas_apply requires a plain SGD client "
-            "optimizer (momentum ok; no nesterov/weight_decay) — got "
-            f"type={client_opt_cfg.get('type', 'sgd')!r}")
-    if hparams.pallas_apply and hparams.updatable_layers is not None:
-        raise ValueError(
-            "megakernel.pallas_apply does not compose with "
-            "updatable_layers: the flat fused kernel has no per-leaf "
-            "freeze mask — drop one of them")
-    layout = task.layout()
-    mu = opt.momentum if sgd else 0.0
-    epochs = max(int(hparams.num_epochs), 1)
-    pdt = resolve_dtype(hparams.param_dtype)
-    cdt = resolve_dtype(hparams.compute_dtype)
-    sdt = resolve_dtype(hparams.stats_dtype)
-    #: the leaves' bounds, for the optimizers that scale by leaf
-    bounds = (list(layout.offsets) + [layout.numel]
-              if isinstance(opt, (Lamb, Lars)) else None)
-    frozen = frozen_ranges(layout, tuple(hparams.freeze_layers))
-    masks_by_device: Dict[torch.device, torch.Tensor] = {}
-    loss_fn = task.loss_and_aux
-    if cdt is not None:
-        def loss_fn(params, batch, masks):  # noqa: F811 - the cast wrap
-            return task.loss_and_aux(
-                {k: v.to(cdt) for k, v in params.items()},
-                _cast_floats(batch, cdt), masks)
-    grad_fn = vmap(grad_and_value(loss_fn, has_aux=True))
-
-    def acc(value: torch.Tensor) -> torch.Tensor:
-        return value if sdt is None else value.to(sdt)
+    sgd = _LocalSGD(task, client_opt_cfg, hparams)
 
     def client_update(global_flat: torch.Tensor,
                       arrays: Dict[str, torch.Tensor],
                       sample_mask: torch.Tensor, lr: float,
                       gens: Optional[List[torch.Generator]] = None,
                       grad_offset: Optional[torch.Tensor] = None):
-        K, S, B = sample_mask.shape
-        # a copy in every case: a [K, P] start is the caller's, and the
-        # steps below update params in place
-        start = global_flat if pdt is None else global_flat.to(pdt)
-        params = start.expand(K, -1).clone(
-            memory_format=torch.contiguous_format)
-        trace = (torch.zeros_like(params)
-                 if sgd and (hparams.pallas_apply or mu) else None)
-        opt_state = None if sgd else opt.init(params)
-        views = layout.views(params)
-        update_mask = None
-        if hparams.updatable_layers is not None:
-            dev = params.device
-            if dev not in masks_by_device:
-                masks_by_device[dev] = updatable_columns(
-                    layout, tuple(hparams.updatable_layers), dev)
-            update_mask = masks_by_device[dev]
-        zero = torch.zeros((K,), dtype=sdt or torch.float32,
-                           device=sample_mask.device)
-        loss_sum = wloss_acc = ns_acc = zero
-        for t in range(epochs * S):
+        K, S, _ = sample_mask.shape
+        params, trace, opt_state = sgd.init(global_flat, K)
+        views = sgd.layout.views(params)
+        update_mask = sgd.update_mask(params.device)
+        zero = sgd.zeros(K, sample_mask.device)
+        accs = (zero, zero, zero)
+        for t in range(sgd.epochs * S):
             step = t % S
-            mask = sample_mask[:, step]
             batch = {k: a[:, step] for k, a in arrays.items()}
-            batch["sample_mask"] = mask
-            masks = (task.draw_masks(gens, B, mask.device)
-                     if gens is not None else ())
-            with cpu16_guard(mask.device, task.compute_dtype, cdt):
-                grads, (loss, aux) = grad_fn(views, batch, masks)
-            grads = combine_grad_terms(
-                layout.flatten(grads, batch_dims=1), offset=grad_offset,
-                prox_mu=hparams.fedprox_mu, params=params,
-                global_params=global_flat, max_norm=hparams.max_grad_norm)
-            rows = mask.sum(-1)
-            has_data = (rows > 0).to(torch.float32)
-            loss_sum = acc(loss_sum + has_data * loss)
-            # sample-weighted loss sum (loss is the batch's masked MEAN)
-            wloss_acc = acc(wloss_acc + loss * rows)
-            ns_acc = acc(ns_acc + has_data * aux.get("train_sample_count",
-                                                     rows))
-            if not sgd:
-                opt_state = fused_opt_apply(opt, params, grads, opt_state,
-                                            lr, has_data, bounds,
-                                            update_mask)
-            elif hparams.pallas_apply:
-                fused_sgd_apply(params, grads, trace, lr, mu, has_data)
-            else:
-                fused_apply(params, grads, trace, lr, mu, has_data,
-                            update_mask)
-            del grads
-
-        pseudo_grad = global_flat - params
-        for a, b in frozen:
-            pseudo_grad[:, a:b] = 0.0
-        stats = _derive_stats(*_suff_stats_of(pseudo_grad))
-        rows_total = sample_mask.sum(dim=(1, 2))
-        stats["mean_sample_loss"] = wloss_acc / torch.clamp(
-            rows_total * epochs, min=1.0)
-        return pseudo_grad, loss_sum, ns_acc / epochs, stats
+            batch["sample_mask"] = sample_mask[:, step]
+            opt_state, accs = sgd.step(params, views, trace, opt_state,
+                                       batch, gens, lr, global_flat,
+                                       grad_offset, update_mask, accs)
+        return sgd.finish(global_flat, params, sample_mask, accs)
 
     return client_update
+
+
+def build_mega_update(task: BaseTask, client_opt_cfg,
+                      hparams: ClientHParams) -> Callable:
+    """The megabatch lane scan (``server_config.megabatch``,
+    ``msrflute_tpu/engine/client_update.py:340-586``).  Returns
+    ``mega_update(global_flat, arrays, sample_mask, lr, gens,
+    grad_offset=None, *, tape, tape_dev)`` with :func:`build_client_update`'s
+    outputs for the grid's ``[K]`` rows.
+
+    ``tape`` is the grid's :class:`~..data.batching.MegaTape` (host) and
+    ``tape_dev`` its ``(ptr, seg)`` on the device.  Instead of K rows for
+    ``num_epochs * S`` steps, ``L`` lanes run the tape's ``T`` slots, and a
+    lane trains one client after another: at a slot that starts a client
+    (its segment id changes) the lane takes the client's start row, a
+    fresh optimizer state and zero accumulators (JAX
+    ``optim/fused.py::segment_select``); each slot gathers its batch from
+    the flat ``[K*S, B, ...]`` grid by ``ptr``; at the client's last slot
+    the lane's params and accumulators are written into the client's grid
+    row.  The step is :class:`_LocalSGD`'s, the vmap arm's, so a client's
+    update comes from its own samples only, and the pseudo-gradient and
+    stats are then taken over the ``[K, P]`` rows as there.  The start
+    (``[P]`` or ``[K, P]``: FedBuff's stale versions, personalization's
+    local models), ``grad_offset`` (SCAFFOLD's ``c - c_i``) and ``gens``
+    are the strategy's, per grid row, as it hands them to the vmap arm.
+
+    A client's generator draws on its real slots only: at ``num_epochs``
+    1 the prefix the vmap arm draws, so dropout matches bitwise; at more
+    epochs the vmap arm draws on its padded steps too and the streams
+    part, as in the JAX package.  Kernel B1 has no segment reset, so
+    ``pallas_apply`` is refused (``client_update.py:393-401``)."""
+    if hparams.pallas_apply:
+        raise ValueError(
+            "server_config.megabatch is incompatible with "
+            "megakernel.pallas_apply: the flat fused kernel has no "
+            "segment-reset lane — drop one of them")
+    sgd = _LocalSGD(task, client_opt_cfg, hparams)
+    #: the idle lanes' dropout draws, which touch no client
+    idle_gens: Dict[torch.device, torch.Generator] = {}
+
+    def mega_update(global_flat: torch.Tensor,
+                    arrays: Dict[str, torch.Tensor],
+                    sample_mask: torch.Tensor, lr: float,
+                    gens: Optional[List[torch.Generator]] = None,
+                    grad_offset: Optional[torch.Tensor] = None, *,
+                    tape, tape_dev):
+        K, S, B = sample_mask.shape
+        dev = sample_mask.device
+        seg_h = np.asarray(tape.seg)
+        L, T = seg_h.shape
+        fence = np.full((L, 1), -2, seg_h.dtype)
+        live_h = seg_h >= 0
+        start_h = live_h & (seg_h != np.concatenate([fence, seg_h[:, :-1]],
+                                                    1))
+        end_h = live_h & (seg_h != np.concatenate([seg_h[:, 1:], fence], 1))
+        ptr_d, seg_d = tape_dev
+        live_d = seg_d >= 0
+        row_d = torch.clamp(seg_d, min=0).to(torch.int64)
+        fence_d = torch.full((L, 1), -2, dtype=seg_d.dtype, device=dev)
+        start_d = live_d & (seg_d != torch.cat([fence_d, seg_d[:, :-1]], 1))
+        # idle and non-final slots write into a spare row K
+        out_d = torch.where(
+            live_d & (seg_d != torch.cat([seg_d[:, 1:], fence_d], 1)),
+            row_d, K)
+        per_row = global_flat.ndim == 2
+
+        def rows_of(idx):
+            """The start rows of the grid rows ``idx`` (``[L]``)."""
+            if not per_row:
+                return global_flat
+            return global_flat.index_select(0, idx)
+
+        params, trace, opt_state = sgd.init(rows_of(row_d[:, 0]), L)
+        fresh = None if opt_state is None else sgd.opt.init(params)
+        views = sgd.layout.views(params)
+        update_mask = sgd.update_mask(dev)
+        zero = sgd.zeros(L, dev)
+        accs = (zero, zero, zero)
+        # the trained rows: padding rows, which no segment writes, keep
+        # their start, as in the vmap arm
+        starts = sgd.init(global_flat, K)[0]
+        out_params = torch.cat([starts, starts[:1]])
+        out_accs = [sgd.zeros(K + 1, dev) for _ in range(3)]
+        flat = {k: a.reshape((K * S,) + a.shape[2:])
+                for k, a in arrays.items()}
+        mask_flat = sample_mask.reshape(K * S, B)
+        if gens is not None and dev not in idle_gens:
+            idle_gens[dev] = torch.Generator(device=dev)
+        for t in range(T):
+            if not live_h[:, t].any():
+                continue
+            if start_h[:, t].any():
+                st = start_d[:, t]
+                row = rows_of(row_d[:, t])
+                if sgd.pdt is not None:
+                    row = row.to(sgd.pdt)
+                params.copy_(torch.where(st[:, None], row, params))
+                if trace is not None:
+                    trace.copy_(torch.where(st[:, None], 0.0, trace))
+                if opt_state is not None:
+                    for key, v in opt_state.items():
+                        v.copy_(torch.where(
+                            st.reshape((-1,) + (1,) * (v.ndim - 1)),
+                            fresh[key], v))
+                accs = tuple(torch.where(st, 0.0, a) for a in accs)
+            ptr = ptr_d[:, t].to(torch.int64)
+            batch = {k: a.index_select(0, ptr) for k, a in flat.items()}
+            batch["sample_mask"] = torch.where(
+                live_d[:, t, None], mask_flat.index_select(0, ptr), 0.0)
+            lane_gens = None
+            if gens is not None:
+                lane_gens = [gens[int(r)] if r >= 0 else idle_gens[dev]
+                             for r in seg_h[:, t]]
+            row = row_d[:, t]
+            offset = (None if grad_offset is None
+                      else grad_offset.index_select(0, row))
+            anchor = rows_of(row) if per_row else global_flat
+            opt_state, accs = sgd.step(params, views, trace, opt_state,
+                                       batch, lane_gens, lr, anchor, offset,
+                                       update_mask, accs)
+            if end_h[:, t].any():
+                out = out_d[:, t]
+                out_params.index_copy_(0, out, params)
+                for o, a in zip(out_accs, accs):
+                    o.index_copy_(0, out, a)
+        return sgd.finish(global_flat, out_params[:K], sample_mask,
+                          tuple(o[:K] for o in out_accs))
+
+    return mega_update

@@ -80,6 +80,19 @@ place (the optimizers are functional, B1 writes only the clients' ``[K,
 P]`` copy), so a dispatched chunk's state stays valid while later chunks
 run.
 
+Cohort bucketing (``server_config.cohort_bucketing``, ``round.py:
+469-519, 2031-2940``): :meth:`RoundEngine.dispatch_bucketed_rounds` takes
+each round as a list of bucket grids ``[K_b, S_b, B]``; every grid runs
+the client phase on its own (its chaos faults, corruption, and secure
+aggregation's masks toward its own clients), its part sums are added in
+ascending bucket order, the lost clients' masks are recovered a grid at a
+time, and under a ``robust`` block the grids' stacks are concatenated and
+screened against the whole cohort.  A grid that carries a megabatch tape
+(``server_config.megabatch``) trains through the lane scan
+(:func:`.client_update.build_mega_update`), handed to the strategy's
+unchanged client step in place of the client update.  A client's streams
+are keyed on its id, so its update does not depend on its grid.
+
 Randomness, all from ``np.random.SeedSequence`` entropy, so a resumed run
 needs only the round number and the numpy sampling state to replay every
 stream:
@@ -98,6 +111,7 @@ stream:
 
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
@@ -113,7 +127,8 @@ from ..robust import make_shield
 from ..strategies.base import BaseStrategy
 from ..strategies.secure_agg import wrap_int32
 from ..utils.flatpack import AxisPacker, FlatPacker
-from .client_update import ClientHParams, build_client_update
+from .client_update import (ClientHParams, build_client_update,
+                            build_mega_update)
 
 
 #: stream tags (the fourth entropy word) and the server's client slot
@@ -321,6 +336,25 @@ class RoundEngine:
         cpc = sc.get("clients_per_chunk")
         self.clients_per_chunk = int(cpc) if cpc else None
         self._check_chunks(strategy)
+        #: cohort bucketing (``round.py:469-519``): the round's clients on
+        #: per-bucket grids, :meth:`dispatch_bucketed_rounds`
+        cb = sc.get("cohort_bucketing") or {}
+        self.cohort_bucketing = bool(cb) and bool(cb.get("enable", True))
+        mb = cb.get("max_buckets")
+        self.bucket_max = 4 if mb is None else int(mb)
+        #: cross-client megabatching (``round.py:520-566``): a bucket grid
+        #: with a tape trains through the lane scan
+        mgb = sc.get("megabatch") or {}
+        self.megabatch = bool(mgb) and bool(mgb.get("enable", True))
+        self.mega_update = None
+        self._check_throughput(strategy, config)
+        if self.megabatch:
+            self.mega_update = build_mega_update(
+                task, cc.optimizer_config, self.hparams)
+        #: the arm each ``(K_b, S_b)`` grid ran ("mega" or "vmap")
+        self.mega_gate: Dict[Tuple[int, int], str] = {}
+        #: buffered ``megabatch_fallback`` records, drained by the server
+        self._mega_events: List[Dict[str, Any]] = []
 
     def _check_chunks(self, strategy: BaseStrategy) -> None:
         """The JAX engine's refusals of ``clients_per_chunk``
@@ -350,6 +384,75 @@ class RoundEngine:
                 "client's payload against the full cohort, which "
                 "chunked accumulation never materializes — disable "
                 "one of them")
+
+    def _check_throughput(self, strategy: BaseStrategy, config) -> None:
+        """The JAX engine's refusals of ``cohort_bucketing``
+        (``round.py:485-519``) and ``megabatch`` (``:538-566``)."""
+        if self.cohort_bucketing:
+            if self.bucket_max < 1:
+                raise ValueError("cohort_bucketing.max_buckets must be >= 1")
+            if self.clients_per_chunk:
+                raise ValueError(
+                    "cohort_bucketing is incompatible with "
+                    "clients_per_chunk: the chunk scan assumes one grid "
+                    "shape per round — pick one HBM/FLOP bounding scheme")
+            if self.dump_norm_stats:
+                raise ValueError(
+                    "cohort_bucketing is incompatible with "
+                    "dump_norm_stats: per-client cosines need every "
+                    "payload against the final aggregate inside ONE "
+                    "program — disable one of them")
+            if self.fused_rl is not None:
+                raise ValueError(
+                    "cohort_bucketing does not compose with fused RL: "
+                    "the DQN re-weighting assumes the single-grid payload "
+                    "stack — drop wantRL or cohort_bucketing")
+            if not self.input_staging:
+                raise ValueError(
+                    "cohort_bucketing requires input_staging (the "
+                    "legacy per-leaf dispatch path is kept only for the "
+                    "staging A/B) — drop `input_staging: false`")
+            if self.shield is not None and strategy.stale_prob > 0:
+                raise ValueError(
+                    "cohort_bucketing + robust screening does not "
+                    "support stale_prob > 0")
+        if not self.megabatch:
+            return
+        if not self.cohort_bucketing:
+            raise ValueError(
+                "megabatch requires cohort_bucketing: the super-"
+                "batch tape repacks the per-bucket step grids — add "
+                "the cohort_bucketing block or drop megabatch")
+        pm = getattr(config, "privacy_metrics_config", None)
+        if pm is not None and pm.get("apply_metrics", False):
+            raise ValueError(
+                "megabatch is incompatible with privacy_metrics_"
+                "config.apply_metrics: the attack metrics replay "
+                "each client's own batches against its payload, "
+                "which the fused lane scan no longer materializes "
+                "per client — disable one of them")
+        if not strategy.supports_megabatch:
+            raise ValueError(
+                f"megabatch does not compose with "
+                f"{type(strategy).__name__}: its training loop "
+                "steps outside the client_update contract the lane "
+                "scan reproduces (fedlabels' dual sup/unsup "
+                "passes) — drop megabatch")
+        if self.hparams.pallas_apply:
+            raise ValueError(
+                "megabatch is incompatible with megakernel."
+                "pallas_apply: the flat fused kernel has no "
+                "segment-reset lane — drop one of them")
+
+    def push_megabatch_event(self, rec: Dict[str, Any]) -> None:
+        """Buffer one ``megabatch_fallback`` record (at most 64 undrained,
+        ``round.py:646-653``)."""
+        if len(self._mega_events) < 64:
+            self._mega_events.append(dict(rec))
+
+    def drain_megabatch_events(self) -> List[Dict[str, Any]]:
+        out, self._mega_events = self._mega_events, []
+        return out
 
     def _check_shield(self, strategy: BaseStrategy) -> None:
         """The JAX engine's refusals of a ``robust`` block."""
@@ -462,10 +565,14 @@ class RoundEngine:
         """The chunk's host operands on the device, one dict a round.
         Staged: one pinned buffer per dtype group, filled in place and
         copied once (``round.py:1713-1843``); else one copy a leaf."""
-        dev = self.device
         chaos_vecs = chaos_vecs or [None] * len(batches)
-        host = [self._host_inputs(round0 + j, b, c)
-                for j, (b, c) in enumerate(zip(batches, chaos_vecs))]
+        return self._stage([self._host_inputs(round0 + j, b, c)
+                            for j, (b, c) in enumerate(zip(batches,
+                                                           chaos_vecs))])
+
+    def _stage(self, host: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+        """Host trees to device trees, staged or a copy a leaf."""
+        dev = self.device
         if not self.input_staging:
             return [{k: ({a: to_device(torch.from_numpy(x), dev)
                           for a, x in v.items()} if k == "arrays"
@@ -495,19 +602,23 @@ class RoundEngine:
                      grad_offsets: Optional[torch.Tensor] = None,
                      masks: Optional[Tuple[torch.Tensor,
                                            torch.Tensor]] = None,
-                     ids: Optional[np.ndarray] = None):
+                     ids: Optional[np.ndarray] = None,
+                     update=None):
         """The strategy's client step on the round's staged ``inputs`` ->
         ``(parts, train_loss, num_samples, stats, client_mask, carry)``,
         ``carry`` the carry rows of a ``device_carry`` strategy (else
         None).  ``masks`` replaces the inputs' ``(sample_mask,
         client_mask)`` (the round's chaos faults folded in); ``ids`` are
-        the clients' ids when ``inputs`` hold a chunk of the round's."""
+        the clients' ids when ``inputs`` hold a chunk of the round's;
+        ``update`` replaces the client update (the megabatch lane scan)."""
         r = state.round
         strategy = self.strategy
         if masks is None:
             masks = (inputs["sample_mask"], inputs["client_mask"])
         if ids is None:
             ids = batch.client_ids
+        if update is None:
+            update = self.client_update
         sample_mask, cm = masks
         gens = self.client_generators(r, ids) if self.random else None
         self.local_steps += (self.hparams.num_epochs * sample_mask.shape[1]
@@ -520,12 +631,12 @@ class RoundEngine:
             # the live mask: sampled, less chaos's dropped clients
             # (``round.py:853-866``)
             parts, tl, ns, stats, carry = strategy.client_step_carry(
-                self.client_update, global_flat, inputs["arrays"],
+                update, global_flat, inputs["arrays"],
                 sample_mask, client_lr, gens, client_ids=inputs["carry_ids"],
                 live_mask=cm, strategy_state=state.strategy_state, **kw)
             return parts, tl, ns, stats, cm, carry
         parts, tl, ns, stats = strategy.client_step(
-            self.client_update, global_flat, inputs["arrays"], sample_mask,
+            update, global_flat, inputs["arrays"], sample_mask,
             client_lr, gens, strategy_state=state.strategy_state,
             grad_offset=grad_offsets, **kw)
         return parts, tl, ns, stats, cm, None
@@ -670,6 +781,116 @@ class RoundEngine:
             [quant_threshold], [chaos])
         return state, packed.fetch()[0]
 
+    def dispatch_bucketed_rounds(
+            self, state: ServerState, rounds_buckets: List[List[RoundBatch]],
+            client_lrs: List[float], server_lrs: List[float],
+            leakage_threshold: Optional[float] = None,
+            quant_thresholds: Optional[List[Optional[float]]] = None,
+            chaos_vecs: Optional[list] = None
+            ) -> Tuple[ServerState, PackedStats]:
+        """:meth:`dispatch_rounds` under cohort bucketing
+        (``round.py:2761-2940``): ``rounds_buckets[j]`` is round j's list of
+        bucket grids in ascending bucket order, ``chaos_vecs[j][b]`` its
+        grids' fault vectors.  Every grid of the chunk (with its megabatch
+        tape) is staged in one copy per dtype group, each round enqueued
+        with :meth:`_bucketed_round`, and the stats packed as ever: a
+        round's per-client vectors are its grids' rows concatenated in
+        bucket order."""
+        R = len(rounds_buckets)
+        tic = time.perf_counter()
+        chaos_vecs = [
+            (chaos_vecs[j] if chaos_vecs is not None and chaos_vecs[j]
+             is not None else [None] * len(buckets))
+            for j, buckets in enumerate(rounds_buckets)]
+        host, where = [], []
+        for j, buckets in enumerate(rounds_buckets):
+            for batch, chaos in zip(buckets, chaos_vecs[j]):
+                tree = self._host_inputs(state.round + j, batch, chaos)
+                if batch.mega is not None and self.megabatch:
+                    tree["tape_ptr"] = batch.mega.ptr
+                    tree["tape_seg"] = batch.mega.seg
+                host.append(tree)
+                where.append(j)
+        staged = self._stage(host)
+        self.last_stage_secs = time.perf_counter() - tic
+        inputs: List[list] = [[] for _ in range(R)]
+        for j, tree in zip(where, staged):
+            inputs[j].append(tree)
+        thresholds = quant_thresholds or [None] * R
+        stats = []
+        for j, buckets in enumerate(rounds_buckets):
+            state, round_stats = self._bucketed_round(
+                state, buckets, inputs[j], client_lrs[j], server_lrs[j],
+                thresholds[j], leakage_threshold, chaos_vecs[j])
+            stats.append(round_stats)
+        return state, self._pack_stats(stats)
+
+    def _bucketed_round(self, state: ServerState,
+                        buckets: List[RoundBatch], inputs: List[dict],
+                        client_lr: float, server_lr: float,
+                        quant_threshold: Optional[float],
+                        leakage_threshold: Optional[float], chaos: list
+                        ) -> Tuple[ServerState, Dict[str, torch.Tensor]]:
+        """One bucketed round enqueued (the collects of
+        ``round.py:2031-2462`` and the finalize of ``:2513-2759``): each
+        grid's faults, client phase (the lane scan where it carries a
+        tape), corruption and secure aggregation's masks toward its own
+        grid; its part sums added in ascending bucket order, or under a
+        ``robust`` block the cohort's stacks concatenated and screened
+        together; mask recovery a grid at a time; then the round's tail
+        as :meth:`_round`'s."""
+        strategy = self.strategy
+        bcast = strategy.broadcast_params(state.params,
+                                          state.strategy_state)
+        extra: Dict[str, torch.Tensor] = {}
+        sums: Dict[str, dict] = {}
+        cols, carries, groups = [], [], []
+        for batch, tree, vecs in zip(buckets, inputs, chaos):
+            found: Dict[str, torch.Tensor] = {}
+            masks, mode = self._faults(tree, found)
+            for key, v in found.items():
+                extra[key] = extra[key] + v if key in extra else v
+            update = None
+            K, S = batch.sample_mask.shape[:2]
+            if "tape_ptr" in tree:
+                update = functools.partial(
+                    self.mega_update, tape=batch.mega,
+                    tape_dev=(tree["tape_ptr"], tree["tape_seg"]))
+            if self.megabatch:
+                self.mega_gate[(K, S)] = "mega" if update else "vmap"
+            parts, tl, ns, stats, cm, carry, sub_norm = self._client_phase(
+                state, batch, tree, bcast, client_lr, quant_threshold,
+                leakage_threshold, masks, mode, update=update)
+            if carry is not None and (batch.client_ids >= 0).any():
+                carries.append((tree, carry))
+            if self.shield is None:
+                sums = _add_part_sums(sums, self._part_sums(parts, cm, tree),
+                                      strategy.unit_weight_parts)
+                parts = None
+            cols.append((parts, tl, ns, stats, cm, sub_norm))
+            groups.append((batch, _live_host(batch, vecs)))
+        parts = None
+        tl, ns, cm = (torch.cat([c[i] for c in cols]) for i in (1, 2, 4))
+        stats = {k: torch.cat([c[3][k] for c in cols]) for k in cols[0][3]}
+        if self.shield is not None:
+            # the cohort's stacks in bucket order, screened against the
+            # whole cohort (JAX's defer_screen)
+            parts = {name: tuple(torch.cat([c[0][name][i] for c in cols])
+                                 for i in (0, 1))
+                     for name in cols[0][0]}
+            sub_norm = (None if cols[0][5] is None
+                        else torch.cat([c[5] for c in cols]))
+            parts, tl, ns, stats, cm = self._screen(parts, tl, ns, stats, cm,
+                                                    sub_norm, extra)
+            sums = self._part_sums(parts, cm, {})
+        if strategy.wants_cohort:
+            sums["default"]["grad_sum"] = self._recover_masks(
+                sums["default"]["grad_sum"], groups,
+                cm if self.shield is not None else None, state.round, extra)
+        n_live = float(sum(live.sum() for _, live in groups))
+        return self._finish_round(state, bcast, sums, parts, tl, ns, stats,
+                                  cm, carries, extra, n_live, server_lr)
+
     def _round(self, state: ServerState, batch: RoundBatch,
                inputs: Dict[str, Any], client_lr: float, server_lr: float,
                quant_threshold: Optional[float],
@@ -680,24 +901,11 @@ class RoundEngine:
         round keeps the JAX package's order: faults, client step,
         corruption, masking (secure aggregation), screening, the part
         sums, mask recovery, the combine."""
-        dev = self.device
-        r = state.round
         strategy = self.strategy
         bcast = strategy.broadcast_params(state.params,
                                           state.strategy_state)
         extra: Dict[str, torch.Tensor] = {}
-        masks = self._chaos_masks(inputs, extra)
-        live_cm = masks[1]
-        mode = None
-        if self.chaos_corruption:
-            # gated on the live mask: a dropped client never transmits,
-            # and a padding slot's zero row must not become NaN
-            mode = inputs["corrupt"]
-            mode = torch.where(live_cm > 0, mode, torch.zeros_like(mode))
-            for key, code in (("chaos_nan_injected", CORRUPT_NAN),
-                              ("chaos_scaled", CORRUPT_SCALE),
-                              ("chaos_sign_flipped", CORRUPT_SIGN_FLIP)):
-                extra[key] = torch.sum((mode == code).to(torch.float32))
+        masks, mode = self._faults(inputs, extra)
         K = masks[1].shape[0]
         cpc = self.clients_per_chunk
         if cpc and cpc < K:
@@ -716,40 +924,79 @@ class RoundEngine:
                 leakage_threshold, masks, mode)
             part_sums = None
         if parts is not None and self.shield is not None:
-            # quarantine from the payloads that would aggregate; zeroed
-            # with torch.where, which a NaN row cannot survive
-            pg, w = parts["default"]
-            if sub_norm is not None:
-                keep, q_nonfinite, q_norm = self.shield.screen_masked(
-                    sub_norm, tl * cm, w, cm)
-            else:
-                keep, q_nonfinite, q_norm = self.shield.screen(
-                    pg, tl * cm, w, cm)
-            kb = keep > 0
-            zero = torch.zeros((), dtype=pg.dtype, device=dev)
-            parts["default"] = (torch.where(kb[:, None], pg, zero),
-                                torch.where(kb, w, 0.0))
-            tl = torch.where(kb, tl * cm, 0.0)
-            ns = torch.where(kb, ns * cm, 0.0)
-            stats = {k: (v if k.startswith("privacy_")
-                         else torch.where(kb, v, 0.0))
-                     for k, v in stats.items()}
-            cm = cm * keep
-            extra["shield_nonfinite"] = torch.sum(q_nonfinite)
-            extra["shield_norm_outlier"] = torch.sum(q_norm)
+            parts, tl, ns, stats, cm = self._screen(parts, tl, ns, stats, cm,
+                                                    sub_norm, extra)
         if part_sums is None:
             part_sums = self._part_sums(parts, cm, inputs)
             if self.dump_norm_stats and "default" in parts:
                 self._norm_dump(parts["default"][0],
                                 part_sums["default"]["grad_sum"], extra)
-        # the live cohort on the host: sampled, less the dropped
-        live_host = batch.client_mask
-        if chaos is not None and "drop" in chaos:
-            live_host = live_host * (1.0 - chaos["drop"])
+        live_host = _live_host(batch, chaos)
         if strategy.wants_cohort:
             part_sums["default"]["grad_sum"] = self._recover_masks(
-                part_sums["default"]["grad_sum"], batch, live_host,
-                cm if self.shield is not None else None, r, extra)
+                part_sums["default"]["grad_sum"], [(batch, live_host)],
+                cm if self.shield is not None else None, state.round, extra)
+        carries = ([(inputs, carry)] if carry is not None and
+                   (batch.client_ids >= 0).any() else [])
+        return self._finish_round(
+            state, bcast, part_sums, parts, tl, ns, stats, cm, carries,
+            extra, float(live_host.sum()), server_lr)
+
+    def _faults(self, inputs: Dict[str, Any],
+                extra: Dict[str, torch.Tensor]):
+        """``((sample_mask, client_mask), corruption mode or None)`` of a
+        grid, chaos's faults folded in and counted into ``extra``."""
+        masks = self._chaos_masks(inputs, extra)
+        mode = None
+        if self.chaos_corruption:
+            # gated on the live mask: a dropped client never transmits,
+            # and a padding slot's zero row must not become NaN
+            mode = inputs["corrupt"]
+            mode = torch.where(masks[1] > 0, mode, torch.zeros_like(mode))
+            for key, code in (("chaos_nan_injected", CORRUPT_NAN),
+                              ("chaos_scaled", CORRUPT_SCALE),
+                              ("chaos_sign_flipped", CORRUPT_SIGN_FLIP)):
+                extra[key] = torch.sum((mode == code).to(torch.float32))
+        return masks, mode
+
+    def _screen(self, parts, tl, ns, stats, cm, sub_norm, extra):
+        """fluteshield's screen of the round's default payloads: the
+        quarantined clients zeroed with ``torch.where``, which a NaN row
+        cannot survive, and the quarantine counts into ``extra``."""
+        pg, w = parts["default"]
+        if sub_norm is not None:
+            keep, q_nonfinite, q_norm = self.shield.screen_masked(
+                sub_norm, tl * cm, w, cm)
+        else:
+            keep, q_nonfinite, q_norm = self.shield.screen(
+                pg, tl * cm, w, cm)
+        kb = keep > 0
+        zero = torch.zeros((), dtype=pg.dtype, device=self.device)
+        parts = dict(parts)
+        parts["default"] = (torch.where(kb[:, None], pg, zero),
+                            torch.where(kb, w, 0.0))
+        tl = torch.where(kb, tl * cm, 0.0)
+        ns = torch.where(kb, ns * cm, 0.0)
+        stats = {k: (v if k.startswith("privacy_")
+                     else torch.where(kb, v, 0.0))
+                 for k, v in stats.items()}
+        extra["shield_nonfinite"] = torch.sum(q_nonfinite)
+        extra["shield_norm_outlier"] = torch.sum(q_norm)
+        return parts, tl, ns, stats, cm * keep
+
+    def _finish_round(self, state: ServerState, bcast: torch.Tensor,
+                      part_sums: Dict[str, dict], parts: Optional[dict],
+                      tl, ns, stats, cm, carries: list,
+                      extra: Dict[str, torch.Tensor], n_live: float,
+                      server_lr: float
+                      ) -> Tuple[ServerState, Dict[str, torch.Tensor]]:
+        """Everything after the client phase: the combine (or the robust
+        stack's, or fused RL's), the carry scatters (``carries``: one
+        ``(inputs, carry rows)`` a grid), the server step and the round's
+        stats.  ``parts`` are the round's payload stacks where a stack
+        combine reads them, ``n_live`` the live clients on the host."""
+        r = state.round
+        strategy = self.strategy
         deferred = None
         if strategy.stale_prob > 0.0:
             deferred = {"grad_sum": part_sums["default"]["grad_sum_def"],
@@ -773,14 +1020,15 @@ class RoundEngine:
         else:
             agg, strategy_state = strategy.combine_parts(
                 part_sums, deferred, state.strategy_state,
-                self.server_seed(r), float(live_host.sum()),
-                global_params=bcast)
-        if carry is not None and (batch.client_ids >= 0).any():
+                self.server_seed(r), n_live, global_params=bcast)
+        for inputs, carry in carries:
             # the carry rows scattered after the combine, before the
-            # server step (``round.py:1397-1405``)
+            # server step (``round.py:1397-1405``); a grid at a time under
+            # cohort bucketing, whose grids hold disjoint clients
             strategy_state = strategy.apply_carry(
                 strategy_state, inputs["carry_ids"], inputs["carry_src"],
                 carry)
+        if carries:
             extra.update(strategy.carry_stats(strategy_state))
         agg = self._server_clip(agg)
         if strategy.owns_server_update:
@@ -824,16 +1072,19 @@ class RoundEngine:
                       inputs: Dict[str, Any], bcast: torch.Tensor,
                       client_lr: float, quant_threshold: Optional[float],
                       leakage_threshold: Optional[float], masks, mode,
-                      lo: int = 0, ids: Optional[np.ndarray] = None):
-        """The client step of the clients in ``inputs`` (the round's, or
-        the chunk at row ``lo``), then the corruption of the live clients'
-        default payloads and secure aggregation's masks; each part's
-        weight times the client mask.  Returns ``(parts, train_loss,
-        num_samples, stats, client_mask, carry, sub_norm)``."""
+                      lo: int = 0, ids: Optional[np.ndarray] = None,
+                      update=None):
+        """The client step of the clients in ``inputs`` (the round's, a
+        bucket grid, or the chunk at row ``lo``), then the corruption of
+        the live clients' default payloads and secure aggregation's masks
+        (toward ``batch``'s cohort); each part's weight times the client
+        mask.  ``update`` replaces the client update (the lane scan).
+        Returns ``(parts, train_loss, num_samples, stats, client_mask,
+        carry, sub_norm)``."""
         strategy = self.strategy
         parts, tl, ns, stats, cm, carry = self._client_step(
             state, batch, inputs, bcast, client_lr, quant_threshold,
-            leakage_threshold, masks=masks, ids=ids)
+            leakage_threshold, masks=masks, ids=ids, update=update)
         if mode is not None:
             pg, w = parts["default"]
             parts = dict(parts)
@@ -918,35 +1169,55 @@ class RoundEngine:
         stats["dump_cosine"] = (pg @ grad_sum) / torch.clamp(
             norm * torch.linalg.vector_norm(grad_sum), min=1e-12)
 
-    def _recover_masks(self, grad_sum: torch.Tensor, batch: RoundBatch,
-                       live: np.ndarray, screened: Optional[torch.Tensor],
-                       round_idx: int, stats: Dict[str, torch.Tensor]
-                       ) -> torch.Tensor:
-        """Secure aggregation's mask recovery (``round.py:1329-1367``):
-        the residual masks of every (survivor, lost) edge leave the int32
-        sum, the recovery counts go into ``stats``, and a round with fewer
-        than ``min_survivors`` survivors aborts (a zero sum).  The sampled
-        and live masks are known on the host; the survivors after a
-        screen (``screened``, the client mask after it) are read back once
-        (``K`` values), since the edges to re-derive are picked on the
-        host."""
-        sampled = batch.client_mask
-        survivors = live if screened is None else screened.cpu().numpy()
+    def _recover_masks(self, grad_sum: torch.Tensor, groups: list,
+                       screened: Optional[torch.Tensor], round_idx: int,
+                       stats: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Secure aggregation's mask recovery (``round.py:1329-1367``;
+        ``cancel_buckets``, ``:2531-2558``): for each mask graph in
+        ``groups`` (``(batch, live)``: the round's grid, or each bucket
+        grid, whose clients mask toward their own grid), the residual
+        masks of every (survivor, lost) edge leave the int32 sum; the
+        recovery counts go into ``stats``, and a round with fewer than
+        ``min_survivors`` survivors aborts (a zero sum).  The sampled and
+        live masks are known on the host; the survivors after a screen
+        (``screened``, the client mask after it, the groups' rows in
+        order) are read back once, since the edges to re-derive are picked
+        on the host."""
         strategy = self.strategy
-        grad_sum = strategy.cancel_masks(grad_sum, batch.client_ids,
-                                         sampled, survivors, round_idx)
+        screened_host = None if screened is None else \
+            screened.cpu().numpy()
+        recovered = [0, 0]
+        n_survivors, row = 0.0, 0
+        for batch, live in groups:
+            sampled = batch.client_mask
+            k = len(sampled)
+            survivors = (live if screened_host is None
+                         else screened_host[row:row + k])
+            row += k
+            grad_sum = strategy.cancel_masks(grad_sum, batch.client_ids,
+                                             sampled, survivors, round_idx)
+            recovered[0] += int(((sampled > 0) & (live <= 0)).sum())
+            recovered[1] += int(((live > 0) & (survivors <= 0)).sum())
+            n_survivors += float(np.sum(survivors))
+
         # host counts filled on the device: no copy
         def count(value) -> torch.Tensor:
             return torch.full((), float(value), dtype=torch.float32,
                               device=self.device)
 
-        stats["secagg_recovered_dropout"] = count(
-            ((sampled > 0) & (live <= 0)).sum())
-        stats["secagg_recovered_quarantine"] = count(
-            ((live > 0) & (survivors <= 0)).sum())
+        stats["secagg_recovered_dropout"] = count(recovered[0])
+        stats["secagg_recovered_quarantine"] = count(recovered[1])
         if strategy.min_survivors > 0:
-            abort = float(np.sum(survivors)) < strategy.min_survivors
+            abort = n_survivors < strategy.min_survivors
             if abort:
                 grad_sum = torch.zeros_like(grad_sum)
             stats["secagg_abort"] = count(abort)
         return grad_sum
+
+
+def _live_host(batch: RoundBatch,
+               chaos: Optional[Dict[str, np.ndarray]]) -> np.ndarray:
+    """A grid's live clients on the host: sampled, less chaos's dropped."""
+    if chaos is not None and "drop" in chaos:
+        return batch.client_mask * (1.0 - chaos["drop"])
+    return batch.client_mask

@@ -73,6 +73,19 @@ residuals and personalization's local models ride ``strategy_state`` as
 in the round (:mod:`..rl.fused`); no host store or RL aggregator is
 built, and durability rides the model checkpoint.
 
+Cohort bucketing and megabatching (``server.py:492-603, 2213-2343``):
+the population's step needs give the step buckets (or the explicit
+``boundaries``, the top clamped to the largest need) and each bucket's
+client capacity once at start; each round's cohort is packed on one grid
+a bucket (:meth:`_pack_bucketed_round`, every permutation drawn first in
+cohort order, so the numpy stream is the monolithic pack's) and the chunk
+goes to :meth:`~.round.RoundEngine.dispatch_bucketed_rounds`.  Under
+``megabatch`` a bucket whose tape would save ``min_gain`` of its grid's
+slots is packed in the tape's row order with the tape attached; else a
+``megabatch_fallback`` record is buffered and logged at the drain.
+``paddingEfficiency`` (real samples over padded slots, a megabatch
+grid's counted on its tape) is logged on every run.
+
 Host-orchestrated rounds (``server.py:1410``): with ``wantRL`` (DGA's RL
 weight hook), ``strategy: scaffold`` or ``strategy: ef_quant`` each round
 runs through :meth:`_host_round_setup` and the engine's
@@ -104,9 +117,13 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..config import OptimizerConfig, RLConfig, parse_clients_per_round
-from ..data.batching import (pack_eval_batches, pack_round_batches,
-                             pow2_ceil, steps_for)
+from ..config import (OptimizerConfig, RLConfig, cohort_upper_bound,
+                      parse_clients_per_round)
+from ..data.batching import (assign_step_buckets, bucket_boundaries,
+                             bucket_capacities, grid_slots, megabatch_lanes,
+                             pack_eval_batches, pack_round_batches,
+                             plan_megabatch, pow2_ceil, steps_for,
+                             steps_for_array)
 from ..data.dataset import ArraysDataset
 from ..device import DeviceLike, resolve_device
 from ..models.base import BaseTask, Metric, Params
@@ -274,6 +291,7 @@ class OptimizationServer:
         self.max_steps = steps_for(int(np.max(train_dataset.num_samples)),
                                    self.batch_size, self.desired_max_samples)
         self.step_bucketing = bool(cc.get("step_bucketing", True))
+        self._setup_throughput(sc, cc, train_dataset)
 
         self._np_rng = np.random.default_rng(seed)
         self._eval_batches: Dict[str, dict] = {}
@@ -291,7 +309,16 @@ class OptimizationServer:
                 "secsPerRound", "secsPerRoundPack", "secsPerRoundStage",
                 "secsPerRoundDispatch", "secsPerRoundDrainWait",
                 "secsPerRoundHostTail", "secsPerRoundCkptSubmit",
-                "secsPerRoundHousekeeping")}
+                "secsPerRoundHousekeeping",
+                # real samples over padded grid slots, a chunk each
+                # (``server.py:2298-2343``), on every run
+                "paddingEfficiency")}
+        #: run totals of the padding-efficiency meter (slot-weighted) and
+        #: of the megabatch tape's real slots over its slots
+        self._pad_real = self._pad_slots = 0.0
+        self._mega_real = self._mega_slots = 0.0
+        #: megabatch buckets that fell back to the vmap arm
+        self.megabatch_fallbacks = 0
         #: one record per evaluation: split, round and metric values
         self.history: List[Dict[str, float]] = []
 
@@ -348,6 +375,155 @@ class OptimizationServer:
                     self.quant_anneal ** self.state.round
         self._max_iteration = int(sc.get("max_iteration", 100))
 
+    def _setup_throughput(self, sc, cc, train_dataset) -> None:
+        """Cohort bucketing's step buckets and client capacities, and the
+        megabatch lanes, from the population's step needs
+        (``server.py:492-603``); None when off."""
+        self.cohort_bucketing: Optional[dict] = None
+        self.megabatch: Optional[dict] = None
+        cb = sc.get("cohort_bucketing") or {}
+        if not (cb and cb.get("enable", True)):
+            return
+        if (self._host_rl(sc) or getattr(self.strategy, "host_rounds", False)
+                or self._sample_hooked):
+            raise ValueError(
+                "server_config.cohort_bucketing requires the fused "
+                "round path — wantRL (host), strategy: scaffold / "
+                "ef_quant (host rounds), and personalization's "
+                "overridden sampling orchestrate rounds host-side "
+                "and would silently run unbucketed; drop the block "
+                "or lift the strategy with fused_carry")
+        needs = steps_for_array(train_dataset.num_samples, self.batch_size,
+                                self.desired_max_samples)
+        max_need = int(needs.max()) if needs.size else 1
+        mb = cb.get("max_buckets")
+        max_buckets = 4 if mb is None else int(mb)
+        user_bounds = cb.get("boundaries")
+        if user_bounds:
+            bounds = [int(b) for b in user_bounds]
+            if any(b < 1 for b in bounds) or \
+                    any(y <= x for x, y in zip(bounds, bounds[1:])):
+                raise ValueError(
+                    "cohort_bucketing.boundaries must be strictly "
+                    f"increasing positive ints, got {bounds}")
+            # the top bucket covers the largest need, clamped to max_steps
+            covering = [b for b in bounds if b >= max_need]
+            top = max(min(covering[0] if covering else max_need,
+                          self.max_steps), max_need)
+            bounds = [b for b in bounds if b < top] + [top]
+        else:
+            bounds = bucket_boundaries(needs, max_buckets, self.max_steps)
+        if len(bounds) > max_buckets:
+            raise ValueError(
+                f"cohort_bucketing: {len(bounds)} boundaries exceed "
+                f"max_buckets={max_buckets} — raise max_buckets or "
+                "shorten the boundaries list")
+        cohort_hi = min(cohort_upper_bound(
+            sc.get("num_clients_per_iteration", 10)), len(train_dataset))
+        caps = bucket_capacities(needs, bounds, cohort_hi,
+                                 slack=float(cb.get("slack", 1.5) or 1.5))
+        self.cohort_bucketing = {"boundaries": bounds, "capacities": caps,
+                                 "max_buckets": max_buckets}
+        #: each client's step need
+        self._step_needs = needs
+        print_rank(f"cohort bucketing on: step buckets {bounds} with client "
+                   f"capacities {caps} (population max need {max_need}, "
+                   f"monolithic S {self.max_steps})")
+        mgb = sc.get("megabatch") or {}
+        if not (mgb and mgb.get("enable", True)):
+            return
+        epochs = max(int(cc.get("num_epochs", 1) or 1), 1)
+        lanes = megabatch_lanes(needs, bounds, cohort_hi, epochs,
+                                slack=float(mgb.get("slack", 1.25) or 1.25),
+                                lanes=mgb.get("lanes"), caps=caps)
+        self.megabatch = {"lanes": lanes, "epochs": epochs,
+                          "min_gain": float(mgb.get("min_gain", 0.1) or 0.0)}
+        print_rank(f"megabatch on: per-bucket lanes {lanes} over step "
+                   f"buckets {bounds} (tape depth = {epochs} x S_b, "
+                   f"min_gain {self.megabatch['min_gain']})")
+
+    def _pack_bucketed_round(self, sampled: list) -> List:
+        """One round's cohort on its bucket grids (``server.py:2213-2297``):
+        each client in the smallest step bucket that covers it, one
+        ``[K_b, S_b, B]`` grid a bucket at its capacity (empty ones too),
+        a top bucket's overflow in more grids of its shape.  Every
+        client's permutation is drawn first, in cohort order, as the
+        monolithic pack draws them.  Under megabatch a bucket whose tape
+        prices below its grids by ``min_gain`` (the analytic slots gate)
+        is packed in the tape's row order, with the tape attached; else it
+        falls back to the vmap arm with a ``megabatch_fallback`` event."""
+        needs = [int(self._step_needs[i]) for i in sampled]
+        caps = self.cohort_bucketing["capacities"]
+        assignment = assign_step_buckets(
+            needs, self.cohort_bucketing["boundaries"], capacities=caps)
+        orders = {int(ci): self._np_rng.permutation(
+            int(self.train_dataset.num_samples[ci])) for ci in sampled}
+        out = []
+        for bi, ((s_b, positions), cap) in enumerate(zip(assignment.items(),
+                                                         caps)):
+            ids = [sampled[p] for p in positions]
+            cap = int(cap)
+            groups = ([ids] if len(ids) <= cap else
+                      [ids[i:i + cap] for i in range(0, len(ids), cap)])
+            tapes = None
+            if self.megabatch is not None and ids:
+                lanes = int(self.megabatch["lanes"][bi])
+                plan = plan_megabatch([needs[p] for p in positions],
+                                      self.megabatch["epochs"], lanes,
+                                      int(s_b), 1, cap)
+                # per scan step the tape trains L lanes for E*S steps
+                # against the grid's cap rows: the compute ratio is
+                # groups*L against groups*cap
+                gain = 1.0 + float(self.megabatch["min_gain"])
+                if len(plan) * lanes * gain <= len(groups) * cap:
+                    groups = [[ids[j] if j >= 0 else -1 for j in rows]
+                              for rows, _ in plan]
+                    tapes = [t for _, t in plan]
+                else:
+                    self.engine.push_megabatch_event({
+                        "kind": "megabatch_fallback", "reason": "slots",
+                        "bucket_steps": int(s_b), "clients": len(ids),
+                        "lanes": lanes, "tape_groups": len(plan),
+                        "grid_groups": len(groups)})
+            for gi, g in enumerate(groups):
+                b = pack_round_batches(
+                    self.train_dataset, g, self.batch_size, int(s_b),
+                    rng=self._np_rng, pad_clients_to=cap, orders=orders,
+                    desired_max_samples=self.desired_max_samples)
+                if tapes is not None:
+                    t = b.mega = tapes[gi]
+                    self._mega_slots += float(t.lanes * t.depth
+                                              * self.batch_size)
+                    self._mega_real += float(t.entries * self.batch_size)
+                out.append(b)
+        return out
+
+    def _record_padding_efficiency(self, grids: list) -> None:
+        """Real samples over padded slots of a chunk's grids; a megabatch
+        grid counts its tape's slots (``lanes * depth * B`` per epoch), the
+        compute the round pays for (``server.py:2298-2333``)."""
+        E = self.megabatch["epochs"] if self.megabatch is not None else 1
+        slots = sum(float(grid_slots([b])) if b.mega is None else
+                    float(b.mega.lanes * b.mega.depth)
+                    * b.sample_mask.shape[2] / E for b in grids)
+        real = float(sum(np.sum(b.num_samples) for b in grids))
+        self.run_stats["paddingEfficiency"].append(real / max(slots, 1.0))
+        self._pad_slots += slots
+        self._pad_real += real
+
+    @property
+    def padding_efficiency(self) -> Optional[float]:
+        """Run-total real samples over padded grid slots (1.0: no padding);
+        None before a chunk was packed."""
+        return self._pad_real / self._pad_slots if self._pad_slots else None
+
+    @property
+    def megabatch_utilization(self) -> Optional[float]:
+        """Run-total real tape slots over tape slots; None before any
+        bucket carried a tape."""
+        return (self._mega_real / self._mega_slots if self._mega_slots
+                else None)
+
     def _check_host_rounds(self, sc) -> None:
         """The host-orchestrated rounds (RL, SCAFFOLD, EF, the
         personalization server's hooked sampling) build their payloads
@@ -386,20 +562,28 @@ class OptimizationServer:
         (``server.py:927-932``)."""
         return select_strategy(config.strategy)
 
-    def chaos_vectors(self, round_no: int, batch) -> Optional[dict]:
+    def chaos_vectors(self, round_no: int, batch):
         """The round's fault vectors from the schedule, keyed on the round
         index (so a resumed run draws the same ones): what
-        :meth:`RoundEngine.run_round` takes as ``chaos``."""
+        :meth:`RoundEngine.run_round` takes as ``chaos``.  For a bucketed
+        round (a list of grids) one dict a grid, each drawn from its own
+        sub-stream (``salt`` = bucket index + 1, ``server.py:1489-1517``)."""
         engine = self.engine
         if not (engine.chaos_client_faults or engine.chaos_corruption):
             return None
-        vecs = {}
+        if isinstance(batch, list):
+            return [self._chaos_vecs(round_no, b, bi + 1)
+                    for bi, b in enumerate(batch)]
+        return self._chaos_vecs(round_no, batch, 0)
+
+    def _chaos_vecs(self, round_no: int, batch, salt: int) -> dict:
+        engine, vecs = self.engine, {}
         if engine.chaos_client_faults:
             vecs["drop"], vecs["keep"] = self.chaos.client_faults(
-                round_no, batch.sample_mask)
+                round_no, batch.sample_mask, salt=salt)
         if engine.chaos_corruption:
             vecs["corrupt"] = self.chaos.corrupt_modes(
-                round_no, batch.sample_mask.shape[0])
+                round_no, batch.sample_mask.shape[0], salt=salt)
         return vecs
 
     def _log_defense(self, stats: Dict[str, float], r: int) -> None:
@@ -537,13 +721,22 @@ class OptimizationServer:
 
     def _pack_chunk(self, R: int) -> list:
         """The chunk's R cohorts, sampled first, then packed on one step
-        count."""
+        count, or under cohort bucketing each round on its bucket grids
+        (a list of grids a round)."""
         samples = [self._sample() for _ in range(R)]
+        if self.cohort_bucketing is not None:
+            batches = [self._pack_bucketed_round(sampled)
+                       for sampled in samples]
+            self._record_padding_efficiency(
+                [b for row in batches for b in row])
+            return batches
         steps = self._chunk_steps(samples)
-        return [pack_round_batches(
+        batches = [pack_round_batches(
             self.train_dataset, sampled, self.batch_size, steps,
             rng=self._np_rng, desired_max_samples=self.desired_max_samples)
             for sampled in samples]
+        self._record_padding_efficiency(batches)
+        return batches
 
     def train(self):
         """The round loop inside the preemption window: the handlers are
@@ -664,14 +857,18 @@ class OptimizationServer:
             chaos_vecs = [self.chaos_vectors(round_no + j, b)
                           for j, b in enumerate(batches)]
             tac = time.time()
-            self.state, packed = self.engine.dispatch_rounds(
+            dispatch = (self.engine.dispatch_bucketed_rounds
+                        if self.cohort_bucketing is not None
+                        else self.engine.dispatch_rounds)
+            self.state, packed = dispatch(
                 self.state, batches, [client_lr] * R, server_lrs,
                 leakage_threshold=self.max_allowed_leakage,
                 quant_thresholds=thresholds, chaos_vecs=chaos_vecs)
             dispatch_secs = time.time() - tac
             chunk = {
                 "round0": round_no, "R": R, "state": self.state,
-                "masks": [b.client_mask for b in batches],
+                "masks": [b.client_mask for b in batches
+                          if not isinstance(b, list)],
                 "stats": packed, "client_lr": client_lr,
                 "server_lrs": server_lrs, "tic": tic, "snapshot": None,
                 # with lookahead packing the next chunk samples before
@@ -781,6 +978,10 @@ class OptimizationServer:
                              step=round0 + R)
         if "dump_norm" in stats[0]:
             self._dump_norm_stats(stats, chunk["masks"])
+        for ev in self.engine.drain_megabatch_events():
+            # a bucket the analytic gate sent to the vmap arm
+            self.megabatch_fallbacks += 1
+            print_rank(f"megabatch_fallback: {ev}", logging.WARNING)
         self._round_housekeeping(
             round0 + R, val_freq, rec_freq,
             latest=chunk["snapshot"],
@@ -862,6 +1063,7 @@ class OptimizationServer:
             self.train_dataset, sampled, self.batch_size,
             self._chunk_steps([sampled]), rng=self._np_rng,
             desired_max_samples=self.desired_max_samples)
+        self._record_padding_efficiency([batch])
         return client_lr, server_lr, batch
 
     def _host_round_tail(self, round_no: int, batch, stats, tls, ws_np

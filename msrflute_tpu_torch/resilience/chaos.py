@@ -124,20 +124,25 @@ class ChaosSchedule:
                 self.corrupt_scale_rate > 0.0 or
                 self.corrupt_sign_flip_rate > 0.0)
 
-    def _rng(self, stream: int, round_no: int) -> np.random.Generator:
-        return np.random.default_rng(np.random.SeedSequence(
-            [self.seed, stream, int(round_no)]))
+    def _rng(self, stream: int, round_no: int,
+             salt: int = 0) -> np.random.Generator:
+        """The round's stream; a non-zero ``salt`` (a bucket grid's index
+        + 1 under cohort bucketing) keys a sub-stream of its own, and 0
+        keeps the three-word key (``chaos.py:280-296``)."""
+        key = [self.seed, stream, int(round_no)] + ([int(salt)] if salt
+                                                    else [])
+        return np.random.default_rng(np.random.SeedSequence(key))
 
-    def client_faults(self, round_no: int, sample_mask: np.ndarray
-                      ) -> Tuple[np.ndarray, np.ndarray]:
+    def client_faults(self, round_no: int, sample_mask: np.ndarray,
+                      salt: int = 0) -> Tuple[np.ndarray, np.ndarray]:
         """``(drop [K] f32 in {0, 1}, keep_steps [K] f32)`` for the round's
         packed ``[K, S, B]`` sample mask (padding slots included).
         ``keep_steps`` is a straggler's step budget,
         ``max(ceil(real_steps / straggler_inflation), 1)``, and
-        :data:`NO_BOUND` for everyone else.  Keyed on (seed, round, client
-        slot); the draw order is drop, then straggle."""
+        :data:`NO_BOUND` for everyone else.  Keyed on (seed, round, bucket
+        ``salt``, client slot); the draw order is drop, then straggle."""
         k = int(sample_mask.shape[0])
-        rng = self._rng(_CLIENT_STREAM, round_no)
+        rng = self._rng(_CLIENT_STREAM, round_no, salt)
         drop = (rng.random(k) < self.dropout_rate).astype(np.float32)
         straggle = rng.random(k) < self.straggler_rate
         real_steps = (np.asarray(sample_mask).sum(axis=2) > 0).sum(axis=1)
@@ -147,12 +152,13 @@ class ChaosSchedule:
             NO_BOUND).astype(np.float32)
         return drop, keep
 
-    def corrupt_modes(self, round_no: int, k: int) -> np.ndarray:
+    def corrupt_modes(self, round_no: int, k: int,
+                      salt: int = 0) -> np.ndarray:
         """``[K] int32`` corruption modes for the round: one uniform draw a
         client slot, partitioned into NaN, scale and sign-flip (at most one
         mode a client).  Padding and dropped slots draw too; the round
         applies a mode only to a live client."""
-        u = self._rng(_CORRUPT_STREAM, round_no).random(int(k))
+        u = self._rng(_CORRUPT_STREAM, round_no, salt).random(int(k))
         mode = np.full(int(k), CORRUPT_NONE, np.int32)
         hi = self.corrupt_nan_rate + self.corrupt_scale_rate + \
             self.corrupt_sign_flip_rate

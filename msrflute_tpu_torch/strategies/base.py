@@ -117,6 +117,15 @@ class BaseStrategy:
     #: carry trains the global and the local model): kernel B1's launches
     #: a local step
     client_passes: int = 1
+    #: cross-client megabatching (``server_config.megabatch``,
+    #: ``msrflute_tpu/strategies/base.py:115-117``): every training the
+    #: client step does goes through the ``client_update`` it is handed,
+    #: so the engine can hand it the lane scan (FedLabels' unsupervised
+    #: pass trains outside it and opts out).  The lane scan takes the
+    #: start rows, the gradient offset and the generators each call hands
+    #: it, so no strategy declares its passes ahead, as the JAX package's
+    #: ``megabatch_passes`` does for its per-client vmap
+    supports_megabatch: bool = True
 
     def __init__(self, config):
         self.config = config

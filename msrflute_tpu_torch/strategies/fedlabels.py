@@ -50,6 +50,9 @@ class FedLabels(BaseStrategy):
 
     #: its two payload parts do not take the RL hook
     supports_rl = False
+    #: the unsupervised pass trains outside the client update the
+    #: megabatch lane scan stands in for (``fedlabels.py:56``)
+    supports_megabatch = False
 
     def __init__(self, config):
         super().__init__(config)

@@ -125,8 +125,10 @@ def _with(path, value):
     ("strategy", "robust"),
     ("mesh_config.model_axis_size", 2),
     ("server_config.telemetry", {"enable": True}),
-    ("server_config.cohort_bucketing", {"enable": True}),
-    ("server_config.megabatch", {"enable": True}),
+    ("server_config.chaos", {"enable": True, "infra": {
+        "writer_error_rate": 0.1}}),
+    ("server_config.chaos", {"enable": True, "infra": {
+        "store_read_error_rate": 0.2}}),
     ("server_config.traffic", {"mode": "buffered"}),
     ("server_config.fleet", {"enable": True}),
     ("client_config.quant_bits", 8),
@@ -138,6 +140,29 @@ def _with(path, value):
 def test_unported_features_raise(path, value):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         FLUTEConfig.from_dict(_with(path, value))
+
+
+@pytest.mark.parametrize("path,value", [
+    ("server_config.cohort_bucketing", {"enable": True}),
+    ("server_config.megabatch", {"enable": True}),
+])
+def test_throughput_blocks_parse_as_in_the_jax_package(path, value):
+    """``cohort_bucketing`` and ``megabatch``, once refused as not ported:
+    the bucketing block parses in both packages, and megabatch without it
+    is the JAX schema's error in both (``schema.py:1032-1043``)."""
+    from msrflute_tpu.config import FLUTEConfig as JaxFLUTEConfig
+    from msrflute_tpu_torch.config import SchemaError
+    raw = _with(path, value)
+    if path.endswith("megabatch"):
+        with pytest.raises(ValueError) as want:
+            JaxFLUTEConfig.from_dict(copy.deepcopy(raw))
+        with pytest.raises(SchemaError) as got:
+            FLUTEConfig.from_dict(copy.deepcopy(raw))
+        assert got.value.errors == want.value.errors
+        return
+    cfg = FLUTEConfig.from_dict(copy.deepcopy(raw))
+    assert cfg.server_config.get("cohort_bucketing") == value
+    JaxFLUTEConfig.from_dict(copy.deepcopy(raw))
 
 
 @pytest.mark.parametrize("path,value", [

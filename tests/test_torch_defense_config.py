@@ -140,8 +140,8 @@ def test_personalization_refuses_robust_and_chaos(block):
 NOT_PORTED = {
     "chaos_infra": ("fedavg", "server_config.chaos",
                     {"infra": {"store_write_error_rate": 0.1}}, "infra"),
-    "cohort_bucketing": ("secure_agg", "server_config.cohort_bucketing",
-                         {"enable": True}, "cohort_bucketing"),
+    "traffic": ("secure_agg", "server_config.traffic",
+                {"mode": "buffered"}, "traffic"),
 }
 
 
@@ -163,6 +163,9 @@ LIFTED = {
     "dp_under_fedbuff": ("fedbuff", "dp_config", LOCAL_DP),
     "dp_under_ef_quant": ("ef_quant", "dp_config", LOCAL_DP),
     "dp_under_fedlabels": ("fedlabels", "dp_config", LOCAL_DP),
+    "secure_agg_cohort_bucketing": ("secure_agg",
+                                    "server_config.cohort_bucketing",
+                                    {"enable": True}),
 }
 
 

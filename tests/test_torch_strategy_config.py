@@ -164,13 +164,37 @@ def test_round_options_build_under_scaffold_as_in_the_jax_package(
 @pytest.mark.parametrize("path,value", [
     ("server_config.chaos", {"infra": {"writer_error_rate": 0.1}}),
     ("server_config.traffic", {"mode": "buffered"}),
-    ("server_config.cohort_bucketing", {"enable": True}),
+    ("server_config.fleet", {"enable": True}),
 ])
 def test_later_slices_stay_refused(path, value):
     strategy = value if path == "strategy" else "scaffold"
     edits = () if path == "strategy" else ((path, value),)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         FLUTEConfig.from_dict(_with(strategy, *edits))
+
+
+@pytest.mark.parametrize("path,value", [
+    ("server_config.cohort_bucketing", {"enable": True})])
+def test_bucketing_refuses_scaffold_host_rounds_as_the_jax_server(
+        path, value, tmp_path):
+    """``cohort_bucketing`` beside SCAFFOLD's host rounds (no
+    ``fused_carry``): the config parses and both servers raise the JAX
+    server's ``ValueError`` (``server.py:505-514``)."""
+    from msrflute_tpu_torch.data.dataset import ArraysDataset as PortDataset
+    from msrflute_tpu_torch.engine.server import OptimizationServer
+    from msrflute_tpu_torch.models import make_task
+    raw = _with("scaffold", (path, value))
+    with pytest.raises(ValueError, match="host-side") as want:
+        _jax_server(raw, tmp_path / "jax")
+    cfg = FLUTEConfig.from_dict(copy.deepcopy(raw))
+    jds = _dataset()
+    with pytest.raises(ValueError) as got:
+        OptimizationServer(
+            make_task(cfg.model_config), cfg,
+            PortDataset(jds.user_list, [jds.user_arrays(i)
+                                        for i in range(4)]),
+            model_dir=str(tmp_path / "port"), device="cpu", seed=0)
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("path,value", [("server_config.fused_carry", True)])
