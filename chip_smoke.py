@@ -300,6 +300,26 @@ non-zero and prints no result):
    (``wantLogits`` and ``per_user_stats`` on ``main``'s val: a row a real
    sample, the six per-user metrics).  The RingLM and BERT legs drive
    ``engine.run_round`` and write no checkpoint.
+13. ``throughput`` — cohort bucketing and megabatching through
+   ``OptimizationServer.train`` (``throughput_<leg>`` lines).
+14. ``data_planes`` — last, through ``OptimizationServer.train``, a line a
+   leg (``data_planes_<leg>``): ``pool`` (``main``'s config, 3 rounds at
+   depth 1 on an in-memory pool of 350 writers of 50-300 samples,
+   host-packed and then with ``device_resident: true``: params bitwise, B1
+   launches equal and B1 bitwise its plain version at ``[10, P]``, each
+   arm's ``hostToDeviceBytesPerRound`` equal to the count of a CPU server
+   packing the same chunks, ``secsPerRoundPack`` / ``Stage`` /
+   ``secsPerRound``, the pool's bytes and upload seconds, peak allocated
+   memory), ``pool_chunked`` (``rounds_per_step: 3``, ``clients_per_chunk:
+   5``: bitwise, B1 once a chunk a local step), ``pool_bucketed``
+   (``throughput``'s 200-writer log-uniform pool at ``max_buckets: 4``:
+   bitwise, the grids' widths equal in both arms) and ``length``
+   (``experiments/nlg_gru``'s DGA with global DP and quantization on 1,000
+   users of 3-12-word sentences against ``max_num_words: 25``, 3 serial
+   rounds with ``length_bucketing`` on and off: the bucket, the padding
+   efficiency before and after, the params' relative L2 under
+   ``LENGTH_REL_L2``, B2 and B3 once a round, held to their plain
+   versions, secs/round each way).
 
 The line before the last is the ``kernels`` table (launches on each path,
 ``max_abs_err``, ``ms``, ``plain_ms``, ``bound_ms``, ``library_ms``), the
@@ -6568,6 +6588,258 @@ def phase_throughput(torch, work, kernel_rows):
           "seconds": round(time.time() - tic, 3)})
 
 
+#: the data planes phase: rounds a pool arm, the writers of ``main``'s
+#: pool, and the length leg's users, words a sentence and rounds
+DATA_PLANE_ROUNDS = 3
+DATA_PLANE_WRITERS = 350
+LENGTH_USERS, LENGTH_WORDS, LENGTH_ROUNDS = 1000, (3, 12), 3
+#: the length leg's bar: the params after the DGA rounds on the cropped
+#: grids against the full ones, in relative L2 (the GRU's causal outputs
+#: are the same; the loss sums over fewer padded positions, and a last
+#: place may move a value across one of B3's bins)
+LENGTH_REL_L2 = 1e-3
+
+
+def _femnist_sizes(n, seed):
+    """``write_femnist_blob``'s sample counts: 50-300 a writer."""
+    import numpy as np
+    return np.random.default_rng(seed).integers(50, 301, size=n)
+
+
+def _pool_arm(torch, raw, pool, work, name):
+    """One arm on ``pool``: ``(server, seconds, B1 launches, peak bytes)``
+    with the counts zeroed just before it."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    server, secs = _tp_run(raw, pool, work, name)
+    torch.cuda.synchronize()
+    return (server, secs, _read_counts()["fused_sgd_apply"],
+            torch.cuda.max_memory_allocated())
+
+
+def _cpu_bytes(raw, pool, work, name, chunks):
+    """``hostToDeviceBytesPerRound`` of a CPU server packing the same
+    chunks from the same seed (host numpy, no round run)."""
+    import copy
+    from msrflute_tpu_torch.config import FLUTEConfig
+    from msrflute_tpu_torch.engine.server import OptimizationServer
+    from msrflute_tpu_torch.models import make_task
+    cfg = FLUTEConfig.from_dict(copy.deepcopy(raw))
+    server = OptimizationServer(make_task(cfg.model_config), cfg, pool,
+                                model_dir=os.path.join(work, f"dp_{name}"),
+                                device="cpu", seed=7)
+    for R in chunks:
+        server._record_staged_bytes(server._pack_chunk(R), R)
+    return server.run_stats["hostToDeviceBytesPerRound"]
+
+
+def _pool_legs(torch, raw, pool, work, name, kernel_rows, chunks):
+    """Host-packed then pooled on ``raw``: params bitwise, B1 launches
+    equal (the local steps), each arm's bytes a round equal to the CPU
+    count; the arms' timing split and memory."""
+    import copy
+    arms, out = {}, {}
+    for arm, on in (("host", False), ("pool", True)):
+        r = copy.deepcopy(raw)
+        r["client_config"]["data_config"]["train"]["device_resident"] = on
+        server, secs, b1, peak = _pool_arm(torch, r, pool, work,
+                                           f"{name}_{arm}")
+        check(server.engine.pool_mode == on,
+              f"data_planes {name}: {arm} arm pool mode "
+              f"{server.engine.pool_mode}")
+        check(b1 == server.engine.local_steps > 0,
+              f"data_planes {name}: B1 launched {b1} times for "
+              f"{server.engine.local_steps} local steps ({arm})")
+        cpu = _cpu_bytes(r, pool, work, f"{name}_{arm}_cpu", chunks)
+        got = server.run_stats["hostToDeviceBytesPerRound"]
+        check(got == cpu, f"data_planes {name}: {arm} bytes a round {got} "
+                          f"against the CPU count {cpu}")
+        rs = server.run_stats
+        out[arm] = {
+            "hostToDeviceBytesPerRound": got,
+            "secsPerRoundPack": _mean(rs["secsPerRoundPack"]),
+            "secsPerRoundStage": _mean(rs["secsPerRoundStage"]),
+            "secsPerRound": rs["secsPerRound"],
+            "secs_per_round_after_first": _mean(rs["secsPerRound"][1:]),
+            "b1_launches": b1, "peak_allocated_bytes": peak,
+            "run_seconds": round(secs, 3)}
+        if on:
+            out[arm].update(pool_bytes=server.engine.pool_bytes,
+                            pool_upload_seconds=server.engine.pool_upload_secs)
+        arms[arm] = server
+    check(torch.equal(arms["host"].state.params, arms["pool"].state.params),
+          f"data_planes {name}: pool params != host-packed params")
+    check(out["host"]["b1_launches"] == out["pool"]["b1_launches"],
+          f"data_planes {name}: B1 launches differ between the arms")
+    for row in kernel_rows:
+        if row["name"] == "fused_sgd_apply":
+            row.setdefault("launches_by_path", {})[f"data_planes_{name}"] = \
+                out["pool"]["b1_launches"]
+    out["params_bitwise"] = True
+    out["bytes_ratio_host_over_pool"] = (
+        out["host"]["hostToDeviceBytesPerRound"][0]
+        / out["pool"]["hostToDeviceBytesPerRound"][0])
+    return arms, out
+
+
+def _leg_pool(torch, work, kernel_rows):
+    sizes = _femnist_sizes(DATA_PLANE_WRITERS, 0)
+    pool = _image_pool(sizes, 0)
+    raw = _throughput_config(max_iteration=DATA_PLANE_ROUNDS,
+                             pipeline_depth=1)
+    _, out = _pool_legs(torch, raw, pool, work, "pool", kernel_rows,
+                        [1] * DATA_PLANE_ROUNDS)
+    out["b1_plain_max_abs_err"] = _hold_b1(torch, {MAIN_K})
+    out.update(writers=len(sizes), samples=int(sizes.sum()))
+    return out
+
+
+def _leg_pool_chunked(torch, work, kernel_rows):
+    sizes = _femnist_sizes(DATA_PLANE_WRITERS, 0)
+    raw = _throughput_config(max_iteration=DATA_PLANE_ROUNDS,
+                             rounds_per_step=3, clients_per_chunk=5)
+    _, out = _pool_legs(torch, raw, _image_pool(sizes, 0), work,
+                        "pool_chunked", kernel_rows, [DATA_PLANE_ROUNDS])
+    out["clients_per_chunk"] = 5
+    return out
+
+
+def _leg_pool_bucketed(torch, work, kernel_rows):
+    import numpy as np
+    rng = np.random.default_rng(21)
+    sizes = np.rint(np.exp(rng.uniform(np.log(20), np.log(1200), 200)))
+    raw = _throughput_config(max_iteration=DATA_PLANE_ROUNDS,
+                             cohort_bucketing={"enable": True,
+                                               "max_buckets": 4})
+    arms, out = _pool_legs(torch, raw, _image_pool(sizes, 21), work,
+                           "pool_bucketed", kernel_rows,
+                           [1] * DATA_PLANE_ROUNDS)
+    out["capacities"] = arms["pool"].cohort_bucketing["capacities"]
+    check(arms["pool"].cohort_bucketing == arms["host"].cohort_bucketing,
+          "data_planes pool_bucketed: the arms' grids differ")
+    return out
+
+
+def write_short_reddit_blob(path, words, num_users, seed):
+    """Reddit-shaped users of 20-200 sentences (1-4 local steps at batch
+    64) of ``LENGTH_WORDS`` words, Zipf frequencies over the vocabulary, 2%
+    outside it."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(20, 201, size=num_users)
+    lo, hi = LENGTH_WORDS
+    lens = rng.integers(lo, hi + 1, size=int(counts.sum()))
+    ranks = np.arange(1, len(words))
+    p = 1.0 / ranks
+    ids = rng.choice(ranks, size=int(lens.sum()), p=p / p.sum())
+    vocab = np.asarray(words + ["zzoov"], dtype=object)
+    ids[rng.random(ids.shape[0]) < 0.02] = len(words)
+    tokens = vocab[ids]
+    ends = np.cumsum(lens)
+    utts = [" ".join(tokens[e - n:e]) for e, n in zip(ends, lens)]
+    users = [f"l{seed}_{i:04d}" for i in range(num_users)]
+    data, pos = {}, 0
+    for u, n in zip(users, counts.tolist()):
+        data[u] = {"x": utts[pos:pos + n]}
+        pos += n
+    with open(path, "w") as fh:
+        json.dump({"users": users, "num_samples": counts.tolist(),
+                   "user_data": data}, fh)
+
+
+def _leg_length(torch, work, kernel_rows):
+    """``experiments/nlg_gru``'s DGA (global DP, quantization, local DP)
+    through the CLI on the short-sentence blob, ``LENGTH_ROUNDS`` serial
+    rounds (each ``secsPerRound`` its own, prep to fence) with
+    ``length_bucketing`` on and off."""
+    d = os.path.join(work, "reddit_short")
+    os.makedirs(d, exist_ok=True)
+    words = write_reddit_vocab(os.path.join(d, "vocab_reddit.vocab"))
+    for split, users, seed in (("train", LENGTH_USERS, 40),
+                               ("val", 20, 41), ("test", 20, 42)):
+        write_short_reddit_blob(os.path.join(d, f"{split}.json"), words,
+                                users, seed)
+    raw = dga_config(rounds=LENGTH_ROUNDS)
+    text = json.dumps(raw).replace("reddit/", "reddit_short/")
+    raw = json.loads(text)
+    raw["server_config"].update(val_freq=100, rec_freq=100,
+                                initial_val=False, pipeline_depth=0,
+                                rounds_per_step=1,
+                                model_backup_freq=LENGTH_ROUNDS)
+    out, params, runs = {}, {}, {}
+    for arm, on in (("on", True), ("off", False)):
+        raw["client_config"]["data_config"]["train"]["length_bucketing"] = on
+        torch.cuda.empty_cache()
+        _reset_counts()
+        server, _, secs = _run_cli(work, f"dp_length_{arm}", raw, "cuda",
+                                   task="nlg_gru")
+        launches = _read_counts()
+        check(launches["fused_gaussian_noise"] == LENGTH_ROUNDS and
+              launches["quant_bin_sparsify"] == LENGTH_ROUNDS,
+              f"data_planes length ({arm}): B2 / B3 launched "
+              f"{launches['fused_gaussian_noise']} / "
+              f"{launches['quant_bin_sparsify']} times in "
+              f"{LENGTH_ROUNDS} rounds")
+        check(launches["fused_sgd_apply"] == server.engine.local_steps > 0,
+              f"data_planes length ({arm}): B1 {launches['fused_sgd_apply']}"
+              f" for {server.engine.local_steps} local steps")
+        check(bool(torch.isfinite(server.state.params).all()),
+              f"data_planes length ({arm}): params are not finite")
+        stats = server._length_bucket_stats
+        rs = server.run_stats
+        out[arm] = {"launches": {k: launches[k] for k in (
+            "fused_sgd_apply", "fused_gaussian_noise", "quant_bin_sparsify")},
+            "length_bucket": stats,
+            "hostToDeviceBytesPerRound": rs["hostToDeviceBytesPerRound"],
+            "secsPerRound": rs["secsPerRound"],
+            "secs_per_round_after_first": _mean(rs["secsPerRound"][1:]),
+            "run_seconds": round(secs, 3)}
+        params[arm] = server.state.params.double()
+        runs[arm] = launches
+        del server
+    stats = out["on"]["length_bucket"]
+    check(stats is not None and stats["bucket"] == 16 and
+          stats["full_len"] == 25,
+          f"data_planes length: the chunk bucketed to {stats}")
+    check(out["off"]["length_bucket"] is None,
+          "data_planes length: cropped with length_bucketing off")
+    rel = float((params["on"] - params["off"]).norm() / params["off"].norm())
+    check(rel <= LENGTH_REL_L2,
+          f"data_planes length: on vs off params rel L2 {rel}")
+    b2_err = _hold_dga_kernels(torch, [DGA_K])
+    for row in kernel_rows:
+        row.setdefault("launches_by_path", {})["data_planes_length"] = \
+            runs["on"][row["name"]]
+    out.update(
+        users=LENGTH_USERS, words=list(LENGTH_WORDS),
+        bucket=stats["bucket"], full_len=stats["full_len"],
+        padding_efficiency_before=stats["tokens_real"]
+        / stats["tokens_grid_before"],
+        padding_efficiency_after=stats["tokens_real"]
+        / stats["tokens_grid_after"],
+        rel_l2_on_vs_off=rel, rel_l2_bar=LENGTH_REL_L2,
+        b3_b2_held_at_rows=[DGA_K], b2_plain_max_abs_err=b2_err)
+    return out
+
+
+def phase_data_planes(torch, work, kernel_rows):
+    """The device-resident pool and length bucketing on one card, a line a
+    leg (``data_planes_<leg>``), then the phase's."""
+    legs = {}
+    tic = time.time()
+    for leg, fn in (("pool", _leg_pool), ("pool_chunked", _leg_pool_chunked),
+                    ("pool_bucketed", _leg_pool_bucketed),
+                    ("length", _leg_length)):
+        lap = time.time()
+        legs[leg] = fn(torch, work, kernel_rows)
+        legs[leg]["seconds_leg"] = round(time.time() - lap, 3)
+        emit({"phase": f"data_planes_{leg}", "ok": True, **legs[leg]})
+        torch.cuda.empty_cache()
+    emit({"phase": "data_planes", "ok": True, "legs": list(legs),
+          "seconds": round(time.time() - tic, 3)})
+
+
 def main() -> int:
     argv = sys.argv[1:]
     if argv not in ([], ["--kernels"]):
@@ -6713,6 +6985,8 @@ def main() -> int:
             phase_model_options(torch, work, rows)
             phase = "throughput"
             phase_throughput(torch, work, rows)
+            phase = "data_planes"
+            phase_data_planes(torch, work, rows)
     except Exception as exc:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})

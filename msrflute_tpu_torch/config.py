@@ -472,7 +472,11 @@ _DATASET = {"batch_size", "list_of_train_data", "test_data", "val_data",
             "train_data", "desired_max_samples", "vocab_dict",
             "max_num_words", "augment", "train_data_server",
             # the eval outputs of a val / test split (engine/server.py)
-            "wantLogits", "per_user_stats"}
+            "wantLogits", "per_user_stats",
+            # the data planes, read from client_config.data_config.train
+            # (engine/server.py): the device-resident sample pool and
+            # length bucketing
+            "device_resident", "length_bucketing"}
 #: each optimizer type's keys (``msrflute_tpu/optim/factory.py`` reads no
 #: other).  adam's ``amsgrad`` is accepted and not applied, as the JAX
 #: package builds ``optax.adam`` whatever it says; the JAX package gives
@@ -584,7 +588,7 @@ _DEFENSE_SERVER = {"chaos", "robust", "secure_agg"}
 _DISPATCH_ONLY = {
     "server_config": {"compilation_cache_dir"},
     "dataset": {"loader_type", "pin_memory", "num_workers",
-                "prefetch_factor", "length_bucketing", "device_resident"},
+                "prefetch_factor"},
     "client_config": {"do_profiling", "annealing_config",
                       "updatable_layers"},
 }
@@ -601,15 +605,18 @@ _INERT = {
                       "meta_optimizer_config"},
     "dataset": {"max_batch_size", "min_words_per_utt"},
 }
-#: the JAX schema's type rules of the inert keys and the eval outputs
-#: (``msrflute_tpu/schema.py:583-645``)
+#: the JAX schema's type rules of the inert keys, the eval outputs and the
+#: data planes' keys (``msrflute_tpu/schema.py:583-645``)
 _INERT_SPECS = {
     "server_config": {"send_dicts": ("bool", None, None),
                       "initial_lr": ("num", 0, None)},
     "client_config": {"copying_train_data": ("bool", None, None),
                       "ignore_subtask": ("bool", None, None)},
     "dataset": {"wantLogits": ("bool", None, None),
-                "per_user_stats": ("bool", None, None)},
+                "per_user_stats": ("bool", None, None),
+                # the data planes (``schema.py:637, 643``)
+                "device_resident": ("bool", None, None),
+                "length_bucketing": ("bool", None, None)},
 }
 
 #: every other key the JAX package's schema knows (``msrflute_tpu/schema.py``
@@ -880,8 +887,8 @@ def _check_fields(errors: List[str], raw: Any, path: str,
 
 
 def check_inert(raw: Dict[str, Any]) -> None:
-    """The types of the inert keys and of the eval outputs, with the JAX
-    schema's messages (:data:`_INERT_SPECS`)."""
+    """The types of the inert keys, of the eval outputs and of the data
+    planes' keys, with the JAX schema's messages (:data:`_INERT_SPECS`)."""
     errors: List[str] = []
     sc = raw.get("server_config") or {}
     cc = raw.get("client_config") or {}

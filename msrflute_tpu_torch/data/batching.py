@@ -1,8 +1,10 @@
 """Static-shape round batching — the port's own copy of ``steps_for``,
 ``pack_round_batches`` and ``pack_eval_batches`` from
-``msrflute_tpu/data/batching.py``, and of its host planning for cohort
+``msrflute_tpu/data/batching.py``, of its host planning for cohort
 bucketing and cross-client megabatching (``batching.py:362-683``,
-``data/fleet.py::steps_for_array``).
+``data/fleet.py::steps_for_array``), of the device-resident sample pool
+(``build_sample_pool``, ``pack_round_indices``, ``batching.py:191-296``)
+and of length bucketing (``seq_length_bucket``, ``batching.py:685-744``).
 
 The numpy code is the JAX package's, draw for draw: the same cohort and the
 same ``np.random.Generator`` state give the same ``[K, S, B]`` grids and
@@ -127,6 +129,96 @@ def pack_round_batches(
         client_ids[j] = ci
     return RoundBatch(arrays, sample_mask, num_samples, client_mask,
                       client_ids)
+
+
+@dataclass
+class IndexRoundBatch:
+    """One round's client data as indices into the flat sample pool (the
+    device-resident mode, ``data_config.train.device_resident``).
+
+    ``indices``: ``[K, S, B]`` int32 rows of the pool that
+    :func:`build_sample_pool` builds (0 on padding slots, which the round
+    zeroes).  The masks and counts are :class:`RoundBatch`'s; there is no
+    ``arrays`` field: the feature rows exist on the device alone, gathered
+    by the round engine."""
+
+    indices: np.ndarray
+    sample_mask: np.ndarray
+    num_samples: np.ndarray
+    client_mask: np.ndarray
+    client_ids: np.ndarray
+    mega: Optional["MegaTape"] = None
+
+
+def build_sample_pool(dataset: BaseDataset):
+    """Every user's samples concatenated into flat per-key arrays:
+    ``(pool, offsets)``, ``pool[k]`` ``[total_samples, *feat]`` in user
+    order with its dtype kept (uint8 pixels stay uint8, so the one upload
+    is as small as the dataset), ``offsets`` ``[N + 1]`` int64 with user
+    ``i``'s rows at ``offsets[i]:offsets[i + 1]``."""
+    spec = dataset.element_spec
+    n_users = len(dataset)
+    counts = [int(dataset.num_samples[i]) for i in range(n_users)]
+    offsets = np.zeros((n_users + 1,), np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    total = int(offsets[-1])
+    first = dataset.user_arrays(0)
+    pool = {k: np.empty((total,) + shape, dtype=np.asarray(first[k]).dtype)
+            for k, shape in spec.items()}
+    for i in range(n_users):
+        user = dataset.user_arrays(i)
+        lo, hi = int(offsets[i]), int(offsets[i + 1])
+        for k in pool:
+            pool[k][lo:hi] = np.asarray(user[k])
+    return pool, offsets
+
+
+def pack_round_indices(
+    dataset: BaseDataset,
+    offsets: np.ndarray,
+    client_indices: Sequence[int],
+    batch_size: int,
+    max_steps: int,
+    rng: Optional[np.random.Generator] = None,
+    shuffle: bool = True,
+    pad_clients_to: Optional[int] = None,
+    desired_max_samples: Optional[int] = None,
+    orders: Optional[Dict[int, np.ndarray]] = None,
+) -> IndexRoundBatch:
+    """:func:`pack_round_batches` with the row gather left to the device:
+    the same draws (one ``permutation`` a real client, in cohort order,
+    none for a ``-1`` hole), cap and masks, so a pool-mode round trains
+    on the samples of the host-packed one; the output is ``[K, S, B]``
+    int32 indices into the :func:`build_sample_pool` pool."""
+    rng = rng or np.random.default_rng(0)
+    K = len(client_indices)
+    K_pad = max(pad_clients_to or K, K)
+    S, B = max_steps, batch_size
+
+    indices = np.zeros((K_pad, S, B), dtype=np.int32)
+    sample_mask = np.zeros((K_pad, S, B), dtype=np.float32)
+    num_samples = np.zeros((K_pad,), dtype=np.float32)
+    client_mask = np.zeros((K_pad,), dtype=np.float32)
+    client_ids = np.full((K_pad,), -1, dtype=np.int32)
+
+    cap = _sample_cap(S, B, desired_max_samples)
+    for j, ci in enumerate(client_indices):
+        if int(ci) < 0:
+            continue
+        n = int(dataset.num_samples[ci])
+        if orders is not None:
+            order = orders[ci]
+        else:
+            order = rng.permutation(n) if shuffle else np.arange(n)
+        take = order[:cap]
+        t = len(take)
+        indices[j].reshape(-1)[:t] = offsets[ci] + take
+        sample_mask[j].reshape(-1)[:t] = 1.0
+        num_samples[j] = t
+        client_mask[j] = 1.0
+        client_ids[j] = ci
+    return IndexRoundBatch(indices, sample_mask, num_samples, client_mask,
+                           client_ids)
 
 
 def pack_eval_batches(dataset: BaseDataset,
@@ -393,3 +485,58 @@ def padding_efficiency(batches: Sequence[RoundBatch]) -> float:
     slots = grid_slots(batches)
     real = sum(float(np.sum(b.num_samples)) for b in batches)
     return real / slots if slots else 0.0
+
+
+def seq_length_bucket(batches: Sequence[RoundBatch],
+                      seq_keys: Sequence[str],
+                      min_len: int = 8) -> Optional[dict]:
+    """Crop a chunk's token grids to the power-of-two bucket of its longest
+    real sequence (floored at ``min_len``): the JAX package's answer to the
+    reference ``DynamicBatchSampler``'s padding packing
+    (``utils/data_utils.py:42-119``).
+
+    ``seq_keys`` name 0-padded ``[K, S, B, L]`` arrays (the task's
+    ``seq_pad_keys``).  Every grid of the chunk, across its rounds and
+    bucket grids, is cropped to one bucket; a crop removes all-zero tail
+    columns only, and the models derive their position masks from the ids,
+    so the math is the uncropped grid's up to the order of the sums.
+    Returns the stats (``bucket``, ``full_len``, ``tokens_real``,
+    ``tokens_grid_before`` / ``_after``, ``cropped``) when the grids hold a
+    sequence key, else None."""
+    keys = [k for k in seq_keys if batches and k in batches[0].arrays]
+    if not keys:
+        return None
+    L = max(b.arrays[k].shape[-1] for b in batches for k in keys)
+    # real tokens are counted once, from one key: tok_mask when present
+    # (it marks real positions where x holds the unk id 0), else the first
+    canon = "tok_mask" if "tok_mask" in keys else keys[0]
+    # the longest real extent over every key: the crop must cover each
+    need = 1
+    tokens_real = 0
+    for b in batches:
+        for k in keys:
+            arr = b.arrays[k]
+            nz = arr.reshape(-1, arr.shape[-1]) != 0
+            if k == canon:
+                tokens_real += int(nz.sum())
+            cols = nz.any(axis=0)
+            if cols.any():
+                need = max(need, int(np.max(np.nonzero(cols)[0])) + 1)
+    bucket = max(min_len, 1 << max(need - 1, 0).bit_length())
+    stats = {
+        "bucket": int(min(bucket, L)),
+        "full_len": int(L),
+        "tokens_real": int(tokens_real),
+        "tokens_grid_before": int(sum(
+            b.arrays[canon].reshape(-1, b.arrays[canon].shape[-1]).shape[0]
+            * L for b in batches)),
+    }
+    stats["cropped"] = bucket < L
+    if bucket < L:
+        for b in batches:
+            for k in keys:
+                b.arrays[k] = np.ascontiguousarray(b.arrays[k][..., :bucket])
+    stats["tokens_grid_after"] = int(sum(
+        b.arrays[canon].reshape(-1, b.arrays[canon].shape[-1]).shape[0]
+        * b.arrays[canon].shape[-1] for b in batches))
+    return stats

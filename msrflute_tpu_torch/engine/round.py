@@ -93,6 +93,20 @@ screened against the whole cohort.  A grid that carries a megabatch tape
 unchanged client step in place of the client update.  A client's streams
 are keyed on its id, so its update does not depend on its grid.
 
+The device-resident sample pool (``data_config.train.device_resident``,
+``round.py:743-757, 826-840, 1910-1944, 2094-2102``):
+:meth:`RoundEngine.attach_pool` uploads the flat pool
+(``data.batching.build_sample_pool``) to the engine's device once; a round
+then stages each grid's ``[K, S, B]`` int32 pool indices (the ``idx`` leaf
+of the pinned int32 group) in place of its feature rows, and the client
+step gathers the rows on the device, where it runs: a chunk at a time
+under ``clients_per_chunk``, a bucket grid at a time under cohort
+bucketing, before the lane scan under megabatching.  The gather zeroes
+padding slots with ``torch.where`` by the grid's packed sample mask, so
+the rows are the host packer's bit for bit (a masked product would give
+-0.0 for a negative feature and NaN for a NaN one).  A batch of the other
+kind raises "round engine pool mode mismatch".
+
 Randomness, all from ``np.random.SeedSequence`` entropy, so a resumed run
 needs only the round number and the numpy sampling state to replay every
 stream:
@@ -119,7 +133,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..data.batching import RoundBatch
+from ..data.batching import IndexRoundBatch, RoundBatch
 from ..models.base import BaseTask, Params
 from ..optim import make_optimizer
 from ..resilience.chaos import CORRUPT_NAN, CORRUPT_SCALE, CORRUPT_SIGN_FLIP
@@ -351,6 +365,12 @@ class RoundEngine:
         if self.megabatch:
             self.mega_update = build_mega_update(
                 task, cc.optimizer_config, self.hparams)
+        #: the device-resident sample pool (:meth:`attach_pool`): ``{key:
+        #: [total_samples, *feat]}`` on the engine's device, or None
+        self._pool: Optional[Dict[str, torch.Tensor]] = None
+        #: the pool's bytes on the device and the upload's host seconds
+        self.pool_bytes = 0
+        self.pool_upload_secs = 0.0
         #: the arm each ``(K_b, S_b)`` grid ran ("mega" or "vmap")
         self.mega_gate: Dict[Tuple[int, int], str] = {}
         #: buffered ``megabatch_fallback`` records, drained by the server
@@ -534,14 +554,56 @@ class RoundEngine:
             self.seed, int(round_idx), SERVER_SLOT, SERVER_TAG,
             RL_DRAW_SALT))
 
-    def _host_inputs(self, round_idx: int, batch: RoundBatch,
+    def attach_pool(self, pool_arrays: Dict[str, np.ndarray]) -> None:
+        """Upload the flat sample pool (``data.batching.build_sample_pool``)
+        to the engine's device once and switch the rounds to pool mode:
+        their inputs become ``[K, S, B]`` int32 indices, gathered on the
+        device (``round.py:743-757``)."""
+        tic = time.perf_counter()
+        self._pool = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+            self.device) for k, v in pool_arrays.items()}
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.pool_upload_secs = time.perf_counter() - tic
+        self.pool_bytes = sum(t.numel() * t.element_size()
+                              for t in self._pool.values())
+
+    @property
+    def pool_mode(self) -> bool:
+        return self._pool is not None
+
+    def _gather_pool(self, idx: torch.Tensor,
+                     sample_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The feature rows of a staged index grid, gathered from the pool
+        on the device; padding slots (``sample_mask`` 0, index 0) hold
+        +0.0 as host packing writes them."""
+        flat = idx.reshape(-1).to(torch.int64)
+        live = sample_mask.reshape(-1) > 0
+        out = {}
+        for k, pool in self._pool.items():
+            rows = pool.index_select(0, flat)
+            keep = live.reshape((-1,) + (1,) * (pool.dim() - 1))
+            rows = torch.where(keep, rows, torch.zeros(
+                (), dtype=rows.dtype, device=rows.device))
+            out[k] = rows.reshape(tuple(idx.shape) + tuple(pool.shape[1:]))
+        return out
+
+    def _host_inputs(self, round_idx: int, batch,
                      chaos: Optional[Dict[str, np.ndarray]]
                      ) -> Dict[str, Any]:
-        """A round's host operands: the feature grids, the masks, the chaos
-        vectors and the staleness coins."""
-        tree: Dict[str, Any] = {"arrays": dict(batch.arrays),
-                                "sample_mask": batch.sample_mask,
-                                "client_mask": batch.client_mask}
+        """A round's host operands: the feature grids (in pool mode the
+        index grid ``idx``), the masks, the chaos vectors and the
+        staleness coins."""
+        is_idx = isinstance(batch, IndexRoundBatch)
+        if is_idx != self.pool_mode:
+            raise ValueError(
+                "round engine pool mode mismatch: "
+                f"batch={'indices' if is_idx else 'arrays'} but pool "
+                f"{'attached' if self.pool_mode else 'absent'}")
+        tree: Dict[str, Any] = ({"idx": batch.indices} if is_idx
+                                else {"arrays": dict(batch.arrays)})
+        tree.update(sample_mask=batch.sample_mask,
+                    client_mask=batch.client_mask)
         for key in ("drop", "keep", "corrupt"):
             if chaos is not None and key in chaos:
                 tree[key] = chaos[key]
@@ -620,6 +682,8 @@ class RoundEngine:
         if update is None:
             update = self.client_update
         sample_mask, cm = masks
+        arrays = (self._gather_pool(inputs["idx"], inputs["sample_mask"])
+                  if "idx" in inputs else inputs["arrays"])
         gens = self.client_generators(r, ids) if self.random else None
         self.local_steps += (self.hparams.num_epochs * sample_mask.shape[1]
                              * strategy.client_passes)
@@ -631,12 +695,12 @@ class RoundEngine:
             # the live mask: sampled, less chaos's dropped clients
             # (``round.py:853-866``)
             parts, tl, ns, stats, carry = strategy.client_step_carry(
-                update, global_flat, inputs["arrays"],
+                update, global_flat, arrays,
                 sample_mask, client_lr, gens, client_ids=inputs["carry_ids"],
                 live_mask=cm, strategy_state=state.strategy_state, **kw)
             return parts, tl, ns, stats, cm, carry
         parts, tl, ns, stats = strategy.client_step(
-            update, global_flat, inputs["arrays"], sample_mask,
+            update, global_flat, arrays, sample_mask,
             client_lr, gens, strategy_state=state.strategy_state,
             grad_offset=grad_offsets, **kw)
         return parts, tl, ns, stats, cm, None

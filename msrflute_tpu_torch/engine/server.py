@@ -86,6 +86,24 @@ slots is packed in the tape's row order with the tape attached; else a
 ``paddingEfficiency`` (real samples over padded slots, a megabatch
 grid's counted on its tape) is logged on every run.
 
+The data planes (``server.py:483-491, 604-626, 1308-1336, 2175-2210``).
+With ``data_config.train.device_resident`` the whole sample pool is
+built and uploaded to the engine's device at construction
+(``RoundEngine.attach_pool``; refused beside the host-orchestrated
+rounds, as in the JAX package), and every round packs ``[K, S, B]``
+int32 indices (``pack_round_indices``, the same draws as host packing)
+in place of feature rows, monolithic and on bucket grids alike.
+``length_bucketing`` (default on) crops a host-packed chunk's token grids
+(the task's ``seq_pad_keys``) to the power-of-two bucket of its longest
+real sequence, one bucket over all its rounds and grids, before the
+padding meter and before staging; the last crop's stats are
+:attr:`_length_bucket_stats`.  Pool mode ships full-length index rows
+and is never cropped (the JAX package skips the crop on its monolithic
+pool path and fails on its bucketed one).  ``hostToDeviceBytesPerRound``
+(a chunk's feature or index grids plus its sample masks, over its R
+rounds) is recorded once a chunk and once a host round, and logged with
+the other ``run_stats``.
+
 Host-orchestrated rounds (``server.py:1410``): with ``wantRL`` (DGA's RL
 weight hook), ``strategy: scaffold`` or ``strategy: ef_quant`` each round
 runs through :meth:`_host_round_setup` and the engine's
@@ -120,10 +138,11 @@ import torch
 from ..config import (OptimizerConfig, RLConfig, cohort_upper_bound,
                       parse_clients_per_round)
 from ..data.batching import (assign_step_buckets, bucket_boundaries,
-                             bucket_capacities, grid_slots, megabatch_lanes,
-                             pack_eval_batches, pack_round_batches,
-                             plan_megabatch, pow2_ceil, steps_for,
-                             steps_for_array)
+                             bucket_capacities, build_sample_pool,
+                             grid_slots, megabatch_lanes, pack_eval_batches,
+                             pack_round_batches, pack_round_indices,
+                             plan_megabatch, pow2_ceil, seq_length_bucket,
+                             steps_for, steps_for_array)
 from ..data.dataset import ArraysDataset
 from ..device import DeviceLike, resolve_device
 from ..models.base import BaseTask, Metric, Params
@@ -291,7 +310,13 @@ class OptimizationServer:
         self.max_steps = steps_for(int(np.max(train_dataset.num_samples)),
                                    self.batch_size, self.desired_max_samples)
         self.step_bucketing = bool(cc.get("step_bucketing", True))
+        #: length bucketing of token grids (``server.py:483-491``): on by
+        #: default; the stats of the last chunk it cropped
+        self.length_bucketing = bool(
+            cc.data_config.train.get("length_bucketing", True))
+        self._length_bucket_stats: Optional[dict] = None
         self._setup_throughput(sc, cc, train_dataset)
+        self._setup_pool(sc, cc, train_dataset)
 
         self._np_rng = np.random.default_rng(seed)
         self._eval_batches: Dict[str, dict] = {}
@@ -312,7 +337,10 @@ class OptimizationServer:
                 "secsPerRoundHousekeeping",
                 # real samples over padded grid slots, a chunk each
                 # (``server.py:2298-2343``), on every run
-                "paddingEfficiency")}
+                "paddingEfficiency",
+                # host-to-device bytes of the data inputs, a chunk or a
+                # host round each (``server.py:2175-2193``)
+                "hostToDeviceBytesPerRound")}
         #: run totals of the padding-efficiency meter (slot-weighted) and
         #: of the megabatch tape's real slots over its slots
         self._pad_real = self._pad_slots = 0.0
@@ -442,6 +470,71 @@ class OptimizationServer:
                    f"buckets {bounds} (tape depth = {epochs} x S_b, "
                    f"min_gain {self.megabatch['min_gain']})")
 
+    def _setup_pool(self, sc, cc, train_dataset) -> None:
+        """The device-resident sample pool (``server.py:604-626``): built
+        from every user's samples and uploaded once; :attr:`_pool_offsets`
+        is None when off."""
+        self._pool_offsets: Optional[np.ndarray] = None
+        if not bool(cc.data_config.train.get("device_resident", False)):
+            return
+        if self._host_rl(sc) or getattr(self.strategy, "host_rounds", False):
+            # their rounds pack host rows for the payload program and would
+            # never read the pool
+            raise ValueError(
+                "data_config.train.device_resident does not apply to "
+                "host-orchestrated rounds (wantRL / strategy: "
+                "scaffold / strategy: ef_quant) — drop the flag for "
+                "this configuration")
+        pool, self._pool_offsets = build_sample_pool(train_dataset)
+        self.engine.attach_pool(pool)
+        print_rank(f"device-resident pool: {len(self._pool_offsets) - 1} "
+                   f"users, {self.engine.pool_bytes} bytes on "
+                   f"{self.device}")
+
+    def _pack_grid(self, ids: list, steps: int, **kw):
+        """One grid of ``ids``: pool indices in pool mode, else feature
+        rows (``server.py:1321-1330, 2275-2284``)."""
+        if self._pool_offsets is not None:
+            return pack_round_indices(
+                self.train_dataset, self._pool_offsets, ids,
+                self.batch_size, steps, rng=self._np_rng,
+                desired_max_samples=self.desired_max_samples, **kw)
+        return pack_round_batches(
+            self.train_dataset, ids, self.batch_size, steps,
+            rng=self._np_rng, desired_max_samples=self.desired_max_samples,
+            **kw)
+
+    def _maybe_length_bucket(self, batches: list) -> None:
+        """Crop a host-packed chunk's token grids to their real-length
+        bucket (``server.py:2195-2210``), all of them to one; a no-op off,
+        for a task without ``seq_pad_keys`` and in pool mode."""
+        keys = getattr(self.task, "seq_pad_keys", ())
+        if (not self.length_bucketing or not keys
+                or self._pool_offsets is not None):
+            return
+        stats = seq_length_bucket(batches, keys)
+        if stats is not None and stats["cropped"]:
+            self._length_bucket_stats = stats
+            after, before = (stats["tokens_real"] / max(stats[k], 1) for k in
+                             ("tokens_grid_after", "tokens_grid_before"))
+            print_rank(f"length bucket L={stats['bucket']}/"
+                       f"{stats['full_len']} pad-eff {after:.3f} (was "
+                       f"{before:.3f})", loglevel=logging.DEBUG)
+
+    def _record_staged_bytes(self, batches: list, rounds: int) -> None:
+        """The bytes a chunk's data inputs move to the device, over its
+        rounds (``server.py:2175-2193``): each grid's feature arrays, or in
+        pool mode its index grid, plus its sample mask; a bucketed chunk's
+        nested grids summed."""
+        flat = [b for entry in batches
+                for b in (entry if isinstance(entry, list) else [entry])]
+        chunk_bytes = sum(
+            sum(a.nbytes for a in (getattr(b, "arrays", None)
+                                   or {"idx": b.indices}).values())
+            + b.sample_mask.nbytes for b in flat)
+        self.run_stats["hostToDeviceBytesPerRound"].append(
+            chunk_bytes / max(rounds, 1))
+
     def _pack_bucketed_round(self, sampled: list) -> List:
         """One round's cohort on its bucket grids (``server.py:2213-2297``):
         each client in the smallest step bucket that covers it, one
@@ -486,10 +579,8 @@ class OptimizationServer:
                         "lanes": lanes, "tape_groups": len(plan),
                         "grid_groups": len(groups)})
             for gi, g in enumerate(groups):
-                b = pack_round_batches(
-                    self.train_dataset, g, self.batch_size, int(s_b),
-                    rng=self._np_rng, pad_clients_to=cap, orders=orders,
-                    desired_max_samples=self.desired_max_samples)
+                b = self._pack_grid(g, int(s_b), pad_clients_to=cap,
+                                    orders=orders)
                 if tapes is not None:
                     t = b.mega = tapes[gi]
                     self._mega_slots += float(t.lanes * t.depth
@@ -727,14 +818,13 @@ class OptimizationServer:
         if self.cohort_bucketing is not None:
             batches = [self._pack_bucketed_round(sampled)
                        for sampled in samples]
-            self._record_padding_efficiency(
-                [b for row in batches for b in row])
+            flat = [b for row in batches for b in row]
+            self._maybe_length_bucket(flat)
+            self._record_padding_efficiency(flat)
             return batches
         steps = self._chunk_steps(samples)
-        batches = [pack_round_batches(
-            self.train_dataset, sampled, self.batch_size, steps,
-            rng=self._np_rng, desired_max_samples=self.desired_max_samples)
-            for sampled in samples]
+        batches = [self._pack_grid(sampled, steps) for sampled in samples]
+        self._maybe_length_bucket(batches)
         self._record_padding_efficiency(batches)
         return batches
 
@@ -836,6 +926,7 @@ class OptimizationServer:
                 prefetched = pack(R)
             _, batches, pack_secs = prefetched
             prefetched = None
+            self._record_staged_bytes(batches, R)
             thresholds = [None] * R
             if self.quant_thresh is not None:
                 # multiplied by quant_anneal BEFORE its first use, each
@@ -1063,6 +1154,8 @@ class OptimizationServer:
             self.train_dataset, sampled, self.batch_size,
             self._chunk_steps([sampled]), rng=self._np_rng,
             desired_max_samples=self.desired_max_samples)
+        self._maybe_length_bucket([batch])
+        self._record_staged_bytes([batch], 1)
         self._record_padding_efficiency([batch])
         return client_lr, server_lr, batch
 

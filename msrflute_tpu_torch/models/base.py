@@ -153,6 +153,9 @@ class BaseTask:
     module: nn.Module
     #: ``(rate, per-sample shape)`` of each dropout site, in forward order
     dropout_sites: Sequence[Tuple[float, Tuple[int, ...]]] = ()
+    #: 0-padded ``[n, L]`` keys whose common all-padding tail length
+    #: bucketing may crop (``data.batching.seq_length_bucket``)
+    seq_pad_keys: Tuple[str, ...] = ()
 
     def param_spec(self) -> List[Tuple[str, Tuple[int, ...]]]:
         return [(n, tuple(p.shape)) for n, p in self.module.named_parameters()]

@@ -216,6 +216,10 @@ class SequenceLMTask(BaseTask):
     vocab, ``"chars"`` through the Shakespeare char table.
     """
 
+    #: x, y and tok_mask are 0-padded rows that length bucketing crops
+    #: together (``msrflute_tpu/models/nlp.py:118-123``); tok_mask marks
+    #: real positions where x holds the unk id 0, so the bucket counts them
+    seq_pad_keys = ("x", "y", "tok_mask")
     ref_initial_prediction: bool = False
     count_frames: bool = False
     tokenizer: str = "words"

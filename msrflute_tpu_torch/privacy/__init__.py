@@ -21,8 +21,10 @@ of ``msrflute_tpu/privacy/__init__.py`` (reference
   the JAX package's numpy / scipy accountant.  Neither server calls it: it
   is a library function in both packages.
 
-The attack metrics live in :mod:`.attacks`.  PRV accounting (``prv.py``)
-and DP k-means (``dp_kmeans.py``) are not ported yet (ROADMAP.md).
+The attack metrics live in :mod:`.attacks`.  PRV accounting (:mod:`.prv`)
+and DP k-means (:mod:`.dp_kmeans`) are library functions off every path;
+as in the JAX package, neither is imported here (the PRV accountant is
+offline accounting, and importing it would load ``scipy.stats``).
 """
 
 from __future__ import annotations
