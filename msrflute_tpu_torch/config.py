@@ -35,8 +35,11 @@ model option of the one-chip paths (RingLM's ``remat``, ``moe_experts``
 and ``flash_attention: "auto"``, BERT's ``mlm_head`` and ``dtype``, NRMS's
 ``arch``, ``pretrained_model_path``), the eval outputs ``wantLogits`` and
 ``per_user_stats``, and the keys nothing in the JAX package reads
-(:data:`_INERT`, accepted and ignored once :func:`check_inert` passes
-their types).  The
+(:data:`_INERT`, the thirteen schema-only keys among them, accepted and
+ignored once :func:`check_inert` passes their types), ``do_profiling``,
+``fleet.sampling``, the lazy train split (``lazy``,
+``lazy_cache_users``) and the arrival plane (``traffic``), checked by
+:func:`check_parity` with the JAX schema's messages.  The
 combinations that the JAX constructors and round engine refuse are refused
 here, by :func:`check_strategy`, with ``ValueError`` and the JAX package's
 meaning.
@@ -453,7 +456,10 @@ _SERVER = {"type", "max_iteration", "num_clients_per_iteration",
            "personalization_interp", "semisupervision", "precision",
            "server_replay_config", "pipeline_depth", "input_staging",
            "checkpoint_async", "checkpoint_retry", "clients_per_chunk",
-           "dump_norm_stats", "cohort_bucketing", "megabatch"}
+           "dump_norm_stats", "cohort_bucketing", "megabatch",
+           # a torch.profiler trace of one chunk (engine/server.py), the
+           # arrival plane and fleet sampling, checked by check_parity
+           "do_profiling", "traffic", "fleet"}
 #: ``server_config.checkpoint_retry`` (``msrflute_tpu/schema.py``
 #: ``CHECKPOINT_RETRY_FIELD_SPECS``): ``(kind, min, max)`` a key
 CHECKPOINT_RETRY_SPECS = {
@@ -465,7 +471,8 @@ CHECKPOINT_RETRY_SPECS = {
 }
 _CLIENT = {"type", "desired_max_samples", "max_grad_norm", "fedprox_mu",
            "num_epochs", "step_bucketing", "data_config", "optimizer_config",
-           "convex_model_interp", "semisupervision", "freeze_layer"}
+           "convex_model_interp", "semisupervision", "freeze_layer",
+           "do_profiling"}
 #: ``max_num_words`` of a data split is inert: the sequence length comes
 #: from ``model_config.max_num_words``, as in the JAX package
 _DATASET = {"batch_size", "list_of_train_data", "test_data", "val_data",
@@ -475,8 +482,9 @@ _DATASET = {"batch_size", "list_of_train_data", "test_data", "val_data",
             "wantLogits", "per_user_stats",
             # the data planes, read from client_config.data_config.train
             # (engine/server.py): the device-resident sample pool and
-            # length bucketing
-            "device_resident", "length_bucketing"}
+            # length bucketing; lazy users (tasks.py)
+            "device_resident", "length_bucketing", "lazy",
+            "lazy_cache_users"}
 #: each optimizer type's keys (``msrflute_tpu/optim/factory.py`` reads no
 #: other).  adam's ``amsgrad`` is accepted and not applied, as the JAX
 #: package builds ``optax.adam`` whatever it says; the JAX package gives
@@ -589,24 +597,30 @@ _DISPATCH_ONLY = {
     "server_config": {"compilation_cache_dir"},
     "dataset": {"loader_type", "pin_memory", "num_workers",
                 "prefetch_factor"},
-    "client_config": {"do_profiling", "annealing_config",
-                      "updatable_layers"},
+    "client_config": {"annealing_config", "updatable_layers"},
 }
 
-#: keys that the JAX config parses and nothing in the JAX package reads
-#: (``msrflute_tpu/config.py:200-201, 450-453, 497-503``): accepted and
+#: keys that the JAX config parses, or its schema accepts, and nothing in
+#: the JAX package reads (``msrflute_tpu/config.py:200-201, 450-453,
+#: 497-503``; ``schema.py:75, 89-91, 103, 466, 547, 558``): accepted and
 #: ignored, as there, once their types pass the JAX schema's checks
-#: (:data:`_INERT_SPECS`)
+#: (:data:`_INERT_SPECS`).  The dataset's ``max_grad_norm`` is read only
+#: at the server and client level.
 _INERT = {
     "server_config": {"send_dicts", "initial_lr", "num_skip_decoding",
-                      "nbest_task_scheduler"},
+                      "nbest_task_scheduler", "best_model_metric",
+                      "updatable_names"},
     "client_config": {"meta_learning", "copying_train_data",
                       "ignore_subtask", "num_skip_decoding",
-                      "meta_optimizer_config"},
-    "dataset": {"max_batch_size", "min_words_per_utt"},
+                      "meta_optimizer_config", "ss_config"},
+    "dataset": {"max_batch_size", "min_words_per_utt", "max_seq_length",
+                "num_frames", "max_samples_per_user", "max_grad_norm",
+                "utterance_mvn", "unsorted_batch"},
+    "optimizer": {"dampening"},
+    "dp": {"enable_prod", "max_bound", "min_bound"},
 }
 #: the JAX schema's type rules of the inert keys, the eval outputs and the
-#: data planes' keys (``msrflute_tpu/schema.py:583-645``)
+#: data planes' keys (``msrflute_tpu/schema.py:583-681``)
 _INERT_SPECS = {
     "server_config": {"send_dicts": ("bool", None, None),
                       "initial_lr": ("num", 0, None)},
@@ -616,7 +630,14 @@ _INERT_SPECS = {
                 "per_user_stats": ("bool", None, None),
                 # the data planes (``schema.py:637, 643``)
                 "device_resident": ("bool", None, None),
-                "length_bucketing": ("bool", None, None)},
+                "length_bucketing": ("bool", None, None),
+                "lazy": ("bool", None, None),
+                "lazy_cache_users": ("int", 1, None),
+                "max_seq_length": ("int", 1, None),
+                "max_samples_per_user": ("int", 1, None),
+                "unsorted_batch": ("bool", None, None)},
+    "optimizer": {"dampening": ("num", 0, 1.0)},
+    "dp": {"enable_prod": ("bool", None, None)},
 }
 
 #: every other key the JAX package's schema knows (``msrflute_tpu/schema.py``
@@ -626,19 +647,13 @@ _INERT_SPECS = {
 #: a block with ``enable: false``); any other value raises
 #: ``NotImplementedError``
 _OFF_OK = {
-    "server_config": {
-        "do_profiling", "best_model_metric",
-        "checkpoint_backend", "traffic", "telemetry", "fleet",
-        "updatable_names"} | _DGA_SERVER,
-    "client_config": {"ss_config"} | _DGA_CLIENT,
-    "dataset": {
-        "max_seq_length", "num_frames",
-        "max_samples_per_user", "max_grad_norm", "utterance_mvn",
-        "unsorted_batch", "lazy", "lazy_cache_users", "step_bucketing"},
-    "optimizer": {"amsgrad", "eps", "betas", "dampening", "momentum",
-                  "nesterov", "weight_decay"},
+    "server_config": {"checkpoint_backend", "telemetry"} | _DGA_SERVER,
+    "client_config": _DGA_CLIENT,
+    "dataset": {"step_bucketing"},
+    "optimizer": {"amsgrad", "eps", "betas", "momentum", "nesterov",
+                  "weight_decay"},
     "replay": {"data_config"},
-    "dp": {"enable_prod", "max_bound", "min_bound"},
+    "dp": set(),
     "top": {"dp_config", "mesh_config", "experiment"},
 }
 
@@ -715,7 +730,8 @@ def validate(raw: Dict[str, Any]) -> None:
                          "privacy_metrics_config.attacker_optimizer_config")
     if dp_ok:
         dp = raw.get("dp_config")
-        _check_keys(dp, "dp_config", _DP, off_ok=_OFF_OK["dp"])
+        _check_keys(dp, "dp_config", _DP, off_ok=_OFF_OK["dp"],
+                    ignored=_INERT["dp"])
         _check_keys((dp or {}).get("adaptive_clipping"),
                     "dp_config.adaptive_clipping", _ADAPTIVE_CLIP)
     model = dict(raw.get("model_config") or {})
@@ -758,6 +774,7 @@ def validate(raw: Dict[str, Any]) -> None:
     check_dispatch(sc)
     check_throughput(sc, strategy)
     check_inert(raw)
+    check_parity(raw, strategy)
     _check_keys(sc.get("checkpoint_retry"), "server_config.checkpoint_retry",
                 set(CHECKPOINT_RETRY_SPECS))
     rl = sc.get("RL")
@@ -896,6 +913,8 @@ def check_inert(raw: Dict[str, Any]) -> None:
                   _INERT_SPECS["server_config"])
     _check_fields(errors, cc, "client_config",
                   _INERT_SPECS["client_config"])
+    _check_fields(errors, raw.get("dp_config"), "dp_config",
+                  _INERT_SPECS["dp"])
     for path, section in (("server_config", sc), ("client_config", cc)):
         dc = section.get("data_config") or {}
         for split in ("train", "val", "test"):
@@ -961,6 +980,100 @@ MEGABATCH_SPECS = {"enable": ("bool", None, None),
                    "slack": ("num", 1.0, None),
                    "min_gain": ("num", 0.0, None),
                    "autotune": ("bool", None, None)}
+
+
+#: ``server_config.fleet`` and ``traffic``, with the JAX schema's field
+#: rules (``msrflute_tpu/schema.py:205-303``)
+FLEET_SPECS = {"enable": ("bool", None, None),
+               "page_pool_slots": ("int", 1, None),
+               "host_cache_rows": ("int", 1, None),
+               "spill_freq": ("int", 1, None),
+               "prefetch": ("bool", None, None)}
+FLEET_SAMPLING = ("uniform", "floyd", "by_samples")
+TRAFFIC_SPECS = {"enable": ("bool", None, None),
+                 "seed": ("int", None, None),
+                 "buffer_size": ("int", 1, None),
+                 "duration_lo": ("int", 1, None),
+                 "duration_hi": ("int", 1, None),
+                 "max_idle_ticks": ("int", 1, None),
+                 "target_accuracy": ("num", 0.0, 1.0),
+                 "rate": ("num", 0.0, None),
+                 "period": ("int", 1, None),
+                 "depth": ("num", 0.0, None),
+                 "burst_rate": ("num", 0.0, None),
+                 "burst_every": ("int", 1, None),
+                 "burst_len": ("int", 1, None)}
+TRAFFIC_MODES = ("sync", "buffered")
+TRAFFIC_TRACES = ("poisson", "diurnal", "bursty", "device_classes")
+
+
+def check_parity(raw: Dict[str, Any], strategy: str) -> None:
+    """``do_profiling``, ``fleet`` and ``traffic`` as the JAX schema checks
+    them (``schema.py:1008-1111``): booleans, the blocks' keys, field
+    types and enums, ``duration_hi >= duration_lo``, ``classes`` a list of
+    mappings, and secure aggregation's ``min_survivors`` no larger than the
+    buffer.  ``fleet`` beside a device-carry strategy is the paged carry,
+    which the port does not have yet."""
+    errors: List[str] = []
+    sc = raw.get("server_config") or {}
+    cc = raw.get("client_config") or {}
+    _check_fields(errors, sc, "server_config",
+                  {"do_profiling": ("bool", None, None)})
+    _check_fields(errors, cc, "client_config",
+                  {"do_profiling": ("bool", None, None)})
+    for name, specs in (("fleet", FLEET_SPECS), ("traffic", TRAFFIC_SPECS)):
+        blk = sc.get(name)
+        if blk is not None and not isinstance(blk, dict):
+            errors.append(f"server_config.{name}: must be a mapping (see "
+                          "docs/config_extensions.md), got "
+                          f"{type(blk).__name__}")
+        elif blk:
+            keys = set(specs) | ({"sampling"} if name == "fleet" else
+                                 {"mode", "trace", "classes"})
+            _check_keys(blk, f"server_config.{name}", keys)
+            _check_fields(errors, blk, f"server_config.{name}", specs)
+    fl, tr = sc.get("fleet"), sc.get("traffic")
+    for blk, name, key, allowed in (
+            (fl, "fleet", "sampling", FLEET_SAMPLING),
+            (tr, "traffic", "mode", TRAFFIC_MODES),
+            (tr, "traffic", "trace", TRAFFIC_TRACES)):
+        val = blk.get(key) if isinstance(blk, dict) else None
+        if val is not None and val not in allowed:
+            errors.append(f"server_config.{name}.{key}: {val!r} not in "
+                          f"{list(allowed)}")
+    if isinstance(tr, dict):
+        lo, hi = tr.get("duration_lo"), tr.get("duration_hi")
+        if isinstance(lo, int) and isinstance(hi, int) and hi < lo:
+            errors.append(f"server_config.traffic: duration_hi ({hi}) < "
+                          f"duration_lo ({lo})")
+        classes = tr.get("classes")
+        if classes is not None and (
+                not isinstance(classes, (list, tuple)) or
+                not all(isinstance(c, dict) for c in classes)):
+            errors.append(
+                "server_config.traffic.classes: expected a list of "
+                "per-class mappings (fraction/rate/window/phase/"
+                f"duration_scale), got {classes!r}")
+        sa = sc.get("secure_agg") or {}
+        if tr.get("enable", True) and isinstance(sa, dict) and \
+                sa.get("enable", True):
+            ms = sa.get("min_survivors")
+            bs = tr.get("buffer_size", sc.get("num_clients_per_iteration"))
+            if isinstance(ms, int) and isinstance(bs, int) and ms > bs:
+                errors.append(
+                    "server_config.secure_agg.min_survivors "
+                    f"({ms}) exceeds traffic.buffer_size ({bs}) "
+                    "— a buffered fire delivers exactly "
+                    "buffer_size clients, so every round would "
+                    "abort below the liveness floor")
+    if errors:
+        raise SchemaError(errors)
+    if isinstance(fl, dict) and fl and fl.get("enable", True) and \
+            fused_paths(raw, strategy)["carry"]:
+        raise NotImplementedError(
+            "server_config.fleet beside a device-carry strategy (fused_carry "
+            "with scaffold / ef_quant / personalization) is the fleet paged "
+            f"carry, {NOT_PORTED} §A")
 
 
 def check_throughput(sc: Dict[str, Any], strategy: str) -> None:
@@ -1437,4 +1550,8 @@ def _check_optimizer(raw: Any, path: str) -> None:
         raise ValueError(f"{path}.type={raw.get('type')!r}: one of "
                          f"{sorted(_OPTIMIZER_KEYS)}")
     _check_keys(raw, path, _OPTIMIZER_KEYS[kind],
-                off_ok=_OFF_OK["optimizer"])
+                off_ok=_OFF_OK["optimizer"], ignored=_INERT["optimizer"])
+    errors: List[str] = []
+    _check_fields(errors, raw, path, _INERT_SPECS["optimizer"])
+    if errors:
+        raise SchemaError(errors)

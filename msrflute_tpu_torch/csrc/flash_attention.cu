@@ -214,6 +214,17 @@
 
 #include <type_traits>
 
+// The build may compile this file once a storage type, in parallel, and
+// link the three objects into one library: KERNEL_PART 0, 1 or 2 keeps the
+// float32, bfloat16 or float16 launchers (and their kernels' instances)
+// alone, part 0 the entry points common to all three.  Undefined (-1),
+// one object holds everything.
+#ifndef KERNEL_PART
+#define KERNEL_PART -1
+#endif
+// whether this object serves storage s (0 float32, 1 bfloat16, 2 float16)
+#define SERVES(s) (KERNEL_PART < 0 || KERNEL_PART == (s))
+
 namespace {
 
 constexpr int kTile = 64;        // rows of a tile, both axes
@@ -1825,15 +1836,48 @@ int dispatch(int which, const void* const* ptr, int B, int Lq, int Lk,
   const Dims p{B, Lq, Lk, H, D, causal != 0, q_off, k_off, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (storage) {
+#if SERVES(0)
     case kF32:
       return static_cast<int>(
           FLASH_BY_WIDTH(D, launch, float, which, ptr, p, s));
+#endif
+#if SERVES(1)
     case kBf16:
       return static_cast<int>(
           FLASH_BY_WIDTH(D, launch, __nv_bfloat16, which, ptr, p, s));
+#endif
+#if SERVES(2)
     case kF16:
       return static_cast<int>(
           FLASH_BY_WIDTH(D, launch, __half, which, ptr, p, s));
+#endif
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// info<DT, S> of pass `which` % 3 at storage `which` / 3, for the storages
+// this object serves
+int kernel_info(int which, int D, int* regs, int* local_bytes,
+                int* blocks_per_sm) {
+  const int pass = which % 3;
+  switch (which / 3) {
+#if SERVES(0)
+    case kF32:
+      return static_cast<int>(FLASH_BY_WIDTH(D, info, float, pass, D, regs,
+                                             local_bytes, blocks_per_sm));
+#endif
+#if SERVES(1)
+    case kBf16:
+      return static_cast<int>(FLASH_BY_WIDTH(D, info, __nv_bfloat16, pass, D,
+                                             regs, local_bytes,
+                                             blocks_per_sm));
+#endif
+#if SERVES(2)
+    case kF16:
+      return static_cast<int>(FLASH_BY_WIDTH(D, info, __half, pass, D, regs,
+                                             local_bytes, blocks_per_sm));
+#endif
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1841,12 +1885,33 @@ int dispatch(int which, const void* const* ptr, int B, int Lq, int Lk,
 
 }  // namespace
 
+// the objects' bridges: flash_kernel_info (part 0) reaches the 16-bit
+// storages' kernel_info through these
+namespace flash_parts {
+int info_bf16(int which, int D, int* regs, int* local_bytes,
+              int* blocks_per_sm);
+int info_f16(int which, int D, int* regs, int* local_bytes,
+             int* blocks_per_sm);
+#if KERNEL_PART == 1
+int info_bf16(int which, int D, int* regs, int* local_bytes,
+              int* blocks_per_sm) {
+  return kernel_info(which, D, regs, local_bytes, blocks_per_sm);
+}
+#elif KERNEL_PART == 2
+int info_f16(int which, int D, int* regs, int* local_bytes,
+             int* blocks_per_sm) {
+  return kernel_info(which, D, regs, local_bytes, blocks_per_sm);
+}
+#endif
+}  // namespace flash_parts
+
 // Each launcher runs on `stream`, does not synchronise, and returns
 // cudaGetLastError() (0 on success).  Offsets are global positions.  The
 // unsuffixed launchers take float32 q, k, v, dO and outputs; the _bf16 and
 // _f16 ones take them in bfloat16 or float16 (lse, delta and glse are
 // float32 in every case).
 
+#if SERVES(0)
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, void* lse, int B, int Lq, int Lk,
                                 int H, int D, int causal, int q_off, int k_off,
@@ -1877,7 +1942,9 @@ extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v,
   return dispatch(kDkv, ptr, B, Lq, Lk, H, D, causal, q_off, k_off, scale,
                   kF32, stream);
 }
+#endif
 
+#if SERVES(1)
 extern "C" int flash_fwd_launch_bf16(const void* q, const void* k,
                                      const void* v, void* out, void* lse, int B,
                                      int Lq, int Lk, int H, int D, int causal,
@@ -1910,7 +1977,9 @@ extern "C" int flash_dkv_launch_bf16(const void* q, const void* k,
   return dispatch(kDkv, ptr, B, Lq, Lk, H, D, causal, q_off, k_off, scale,
                   kBf16, stream);
 }
+#endif
 
+#if SERVES(2)
 extern "C" int flash_fwd_launch_f16(const void* q, const void* k, const void* v,
                                     void* out, void* lse, int B, int Lq, int Lk,
                                     int H, int D, int causal, int q_off,
@@ -1941,10 +2010,12 @@ extern "C" int flash_dkv_launch_f16(const void* q, const void* k, const void* v,
   return dispatch(kDkv, ptr, B, Lq, Lk, H, D, causal, q_off, k_off, scale,
                   kF16, stream);
 }
+#endif
 
 // shared memory a block of pass `which` uses at D: `which` is the pass (0
 // B4, 1 B5, 2 B6) plus 3 times the storage (0 float32, 1 bfloat16, 2
 // float16), as for flash_kernel_info; -1 for a `which` or D out of range
+#if SERVES(0)
 extern "C" long long flash_smem_bytes(int which, int D) {
   if (which < 0 || which > 8 || D < 1 || D > 128) return -1;
   return static_cast<long long>(smem_bytes(which % 3, D, which / 3));
@@ -1958,21 +2029,16 @@ extern "C" int flash_kernel_info(int which, int D, int* regs,
                                  int* local_bytes, int* blocks_per_sm) {
   if (which < 0 || which > 8 || D < 1 || D > 128)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int pass = which % 3;
-  switch (which / 3) {
-    case kF32:
-      return static_cast<int>(FLASH_BY_WIDTH(D, info, float, pass, D, regs,
-                                             local_bytes, blocks_per_sm));
-    case kBf16:
-      return static_cast<int>(FLASH_BY_WIDTH(D, info, __nv_bfloat16, pass, D,
-                                             regs, local_bytes,
-                                             blocks_per_sm));
-    default:
-      return static_cast<int>(FLASH_BY_WIDTH(D, info, __half, pass, D, regs,
-                                             local_bytes, blocks_per_sm));
-  }
+#if KERNEL_PART == 0
+  if (which / 3 == kBf16)
+    return flash_parts::info_bf16(which, D, regs, local_bytes, blocks_per_sm);
+  if (which / 3 == kF16)
+    return flash_parts::info_f16(which, D, regs, local_bytes, blocks_per_sm);
+#endif
+  return kernel_info(which, D, regs, local_bytes, blocks_per_sm);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+#endif

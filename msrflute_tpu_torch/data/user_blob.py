@@ -2,9 +2,9 @@
 copy of ``msrflute_tpu/data/user_blob.py``: the JSON layout and the hdf5
 layout of reference ``utils/preprocessing/create-hdf5.py``
 (``_hdf5_decode``, ``_read_hdf5_user``, ``_read_hdf5_header``,
-``_load_hdf5`` and the writer :func:`save_user_blob_hdf5`,
-``user_blob.py:111-186, 225``).  ``h5py`` is imported where an hdf5 blob
-is read or written, never at import.
+``_load_hdf5``, the per-user reader :class:`LazyHDF5Users` and the writer
+:func:`save_user_blob_hdf5`, ``user_blob.py:111-272``).  ``h5py`` is
+imported where an hdf5 blob is read or written, never at import.
 
 A blob holds ``users`` (or ``user_list``), ``num_samples``, ``user_data``
 (user id -> ``{'x': [...]}`` or a bare list) and optionally
@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
@@ -152,6 +153,30 @@ def _load_hdf5(path: str) -> UserBlob:
         user_list=users, num_samples=num_samples, user_data=data,
         user_labels=(labels if any(lab is not None for lab in labels)
                      else None))
+
+
+class LazyHDF5Users:
+    """Per-user on-demand reader over an hdf5 blob
+    (``msrflute_tpu/data/user_blob.py:189-222``): ``users`` and
+    ``num_samples`` are read at construction, a user's samples by
+    :meth:`read`.  The file is opened on the first read and reads are
+    serialized with a lock (h5py is not thread-safe)."""
+
+    def __init__(self, path: str):
+        import h5py
+        self.path = path
+        self._fh = None
+        self._lock = threading.Lock()
+        with h5py.File(path, "r") as fh:
+            self.user_list, self.num_samples = _read_hdf5_header(fh)
+
+    def read(self, user: str):
+        """``(data_entry, label or None)`` of one user."""
+        import h5py
+        with self._lock:
+            if self._fh is None:
+                self._fh = h5py.File(self.path, "r")
+            return _read_hdf5_user(self._fh, user)
 
 
 def save_user_blob_hdf5(path: str, blob: UserBlob) -> None:

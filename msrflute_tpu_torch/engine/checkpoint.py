@@ -216,7 +216,8 @@ class CheckpointManager:
     def __init__(self, model_dir: str, layout, backup_freq: int = 100,
                  async_latest: bool = False,
                  retry: Optional[RetryPolicy] = None,
-                 io_fault: Optional[Callable[[], None]] = None):
+                 io_fault: Optional[Callable[[], None]] = None,
+                 events: Optional[Callable[..., None]] = None):
         self.model_dir = model_dir
         self.layout = layout
         self.backup_freq = max(int(backup_freq), 1)
@@ -224,10 +225,24 @@ class CheckpointManager:
         #: that aborts the run at its threshold
         self.retry = retry or RetryPolicy()
         self.escalator = FailureEscalator(self.retry.escalation_threshold)
-        #: run before each physical write attempt (the chaos IO probe);
-        #: raises to fail the attempt
-        self._io_fault = io_fault or (lambda: None)
-        #: ``{"event", "path"}`` of each slot a load skipped or fell back to
+        #: the structured-event sink (``MetricsLog.event``; a no-op when
+        #: None): ``ckpt_io_fault``, ``checkpoint_recovery`` and
+        #: ``checkpoint_save_failed`` (``checkpoint.py:163, 207, 533``)
+        self._event = events or (lambda kind, **fields: None)
+        base_fault = io_fault or (lambda: None)
+
+        def fault_probe() -> None:
+            # run before each physical write attempt (the chaos IO probe);
+            # raises to fail the attempt, and every fault leaves a record
+            try:
+                base_fault()
+            except Exception:
+                self._event("ckpt_io_fault")
+                raise
+
+        self._io_fault = fault_probe
+        #: ``{"event", "path"}`` of each slot a load skipped or fell back
+        #: to, each also a ``checkpoint_recovery`` record
         self.recovery_events = []
         #: ``latest`` through the single-slot writer thread
         self.async_latest = bool(async_latest)
@@ -304,6 +319,8 @@ class CheckpointManager:
             self.escalator.record_success()
             return True
         self.escalator.record_failure(f"save {path}")
+        self._event("checkpoint_save_failed", path=os.path.basename(path),
+                    consecutive=self.escalator.consecutive)
         return False
 
     def _write(self, name: str, state: ServerState) -> None:
@@ -417,6 +434,7 @@ class CheckpointManager:
 
     def _recover(self, event: str, path: str) -> None:
         self.recovery_events.append({"event": event, "path": path})
+        self._event("checkpoint_recovery", detail=event, path=path)
         _LOGGER.warning("checkpoint recovery: %s (%s)", event, path)
 
     def load(self, device: torch.device,

@@ -13,7 +13,7 @@ package; if every step is excluded the metrics are NaN.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,9 +31,16 @@ def stage_eval_batches(batches, device: torch.device) -> Dict[str, torch.Tensor]
 
 @torch.no_grad()
 def evaluate(task: BaseTask, params: Params,
-             batches: Dict[str, torch.Tensor]) -> Dict[str, Metric]:
+             batches: Dict[str, torch.Tensor],
+             events: Optional[Callable[..., None]] = None
+             ) -> Dict[str, Metric]:
+    """The split's metrics over its staged batch steps.  A step with a
+    non-finite stat is left out of the sums and counted; ``events``
+    receives an ``eval_nonfinite_skipped`` record with that count
+    (``evaluation.py:172-185``)."""
     T = batches["sample_mask"].shape[0]
     sums = None
+    skipped = None
     for t in range(T):
         with cpu16_guard(batches["sample_mask"].device, task.compute_dtype):
             step = task.eval_stats(params,
@@ -43,14 +50,19 @@ def evaluate(task: BaseTask, params: Params,
         step = {k: torch.where(finite, v, torch.zeros_like(v))
                 for k, v in step.items()}
         sums = step if sums is None else {k: sums[k] + step[k] for k in sums}
+        bad = (~finite).to(torch.float32)
+        skipped = bad if skipped is None else skipped + bad
     # one device->host transfer; a per-class stat (CIFAR_CNN's tp, fp, fn)
     # comes back as a list
     flat = torch.cat([v.reshape(-1).to(torch.float32)
-                      for v in sums.values()]).cpu().tolist()
+                      for v in sums.values()]
+                     + [skipped.reshape(1)]).cpu().tolist()
     host, at = {}, 0
     for name, v in sums.items():
         host[name] = flat[at] if v.ndim == 0 else flat[at:at + v.numel()]
         at += v.numel()
+    if flat[-1] and events is not None:
+        events("eval_nonfinite_skipped", steps=int(flat[-1]))
     metrics = task.finalize_metrics(host)
     if host["sample_count"] <= 0.0:
         metrics = {name: Metric(float("nan"), m.higher_is_better)

@@ -140,6 +140,7 @@ from ..resilience.chaos import CORRUPT_NAN, CORRUPT_SCALE, CORRUPT_SIGN_FLIP
 from ..robust import make_shield
 from ..strategies.base import BaseStrategy
 from ..strategies.secure_agg import wrap_int32
+from ..traffic import STALE_HIST_BINS
 from ..utils.flatpack import AxisPacker, FlatPacker
 from .client_update import (ClientHParams, build_client_update,
                             build_mega_update)
@@ -350,6 +351,20 @@ class RoundEngine:
         cpc = sc.get("clients_per_chunk")
         self.clients_per_chunk = int(cpc) if cpc else None
         self._check_chunks(strategy)
+        #: the arrival plane's traced staleness (``round.py:395-409``): with
+        #: ``traffic.mode: buffered`` and a strategy that takes it, each
+        #: round stages a per-client int32 operand beside the chaos
+        #: vectors, and its histogram and sum come back with the stats
+        tr = sc.get("traffic") or {}
+        self.traffic_staleness = bool(
+            tr and tr.get("enable", True) and
+            str(tr.get("mode", "buffered")) == "buffered" and
+            strategy.supports_traced_staleness)
+        if self.traffic_staleness and self.clients_per_chunk:
+            raise ValueError(
+                "server_config.traffic traced staleness cannot compose "
+                "with clients_per_chunk: the chunk scan's operand tuple "
+                "is fixed per chunk — disable one of them")
         #: cohort bucketing (``round.py:469-519``): the round's clients on
         #: per-bucket grids, :meth:`dispatch_bucketed_rounds`
         cb = sc.get("cohort_bucketing") or {}
@@ -604,7 +619,7 @@ class RoundEngine:
                                 else {"arrays": dict(batch.arrays)})
         tree.update(sample_mask=batch.sample_mask,
                     client_mask=batch.client_mask)
-        for key in ("drop", "keep", "corrupt"):
+        for key in ("drop", "keep", "corrupt", "traffic_stale"):
             if chaos is not None and key in chaos:
                 tree[key] = chaos[key]
         if self.strategy.stale_prob > 0.0:
@@ -691,6 +706,10 @@ class RoundEngine:
                   client_rngs=lambda tag: self.client_generators(
                       r, ids, tag), bounds=self.bounds,
                   round_idx=r, leakage_threshold=leakage_threshold)
+        if self.traffic_staleness:
+            # the live clients' true staleness (padding and dropped: 0)
+            kw["staleness"] = torch.where(
+                cm > 0, inputs["traffic_stale"].to(torch.int64), 0)
         if strategy.device_carry:
             # the live mask: sampled, less chaos's dropped clients
             # (``round.py:853-866``)
@@ -1011,6 +1030,17 @@ class RoundEngine:
         """``((sample_mask, client_mask), corruption mode or None)`` of a
         grid, chaos's faults folded in and counted into ``extra``."""
         masks = self._chaos_masks(inputs, extra)
+        if self.traffic_staleness:
+            # the staleness histogram over the live clients
+            # (``round.py:1270-1290``), its last bin open-ended
+            live = (masks[1] > 0).to(torch.float32)
+            stale = torch.where(masks[1] > 0, inputs["traffic_stale"], 0)
+            binned = torch.clamp(stale, max=STALE_HIST_BINS - 1)
+            for b in range(STALE_HIST_BINS):
+                extra[f"traffic_stale_{b}"] = torch.sum(
+                    (binned == b).to(torch.float32) * live)
+            extra["traffic_stale_sum"] = torch.sum(
+                stale.to(torch.float32) * live)
         mode = None
         if self.chaos_corruption:
             # gated on the live mask: a dropped client never transmits,

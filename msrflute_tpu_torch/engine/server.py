@@ -104,6 +104,24 @@ pool path and fails on its bucketed one).  ``hostToDeviceBytesPerRound``
 rounds) is recorded once a chunk and once a host round, and logged with
 the other ``run_stats``.
 
+Default-run parity and the arrival plane.  Every structured event of the
+JAX server's paths that the port runs is a record in ``metrics.jsonl``
+(:meth:`..utils.logging.MetricsLog.event`), at the JAX call sites' points
+and with their fields: the defense counters' events once a chunk drains
+(:meth:`_defense_events`), ``preempted_exit``, ``eval_nonfinite_skipped``,
+and through the checkpoint manager and the preemption handler theirs.
+``do_profiling`` (server or client) writes a ``torch.profiler`` Chrome
+trace of one chunk into ``<model_dir>/profile``.  ``server_config.fleet``
+draws the cohort with :func:`..data.fleet.sample_cohort` under
+``sampling: floyd`` or ``by_samples`` (``uniform`` keeps the numpy trail).
+``server_config.traffic`` (``server.py:236-306, 1127-1190``) serves each
+round's cohort from a seeded :class:`~..traffic.TrafficSchedule` fire
+(``buffer_fired``), re-anchored at :meth:`train` so a resumed run replays
+the same fires; in ``buffered`` mode with FedBuff each grid stages the
+fire's per-client staleness beside the chaos vectors, the round returns
+its histogram (``traffic_staleness``), and ``traffic.target_accuracy``
+records :attr:`rounds_to_target_accuracy` (:meth:`traffic_summary`).
+
 Host-orchestrated rounds (``server.py:1410``): with ``wantRL`` (DGA's RL
 weight hook), ``strategy: scaffold`` or ``strategy: ef_quant`` each round
 runs through :meth:`_host_round_setup` and the engine's
@@ -144,6 +162,7 @@ from ..data.batching import (assign_step_buckets, bucket_boundaries,
                              plan_megabatch, pow2_ceil, seq_length_bucket,
                              steps_for, steps_for_array)
 from ..data.dataset import ArraysDataset
+from ..data.fleet import sample_cohort
 from ..device import DeviceLike, resolve_device
 from ..models.base import BaseTask, Metric, Params
 from ..optim import PlateauTracker, make_lr_schedule
@@ -155,6 +174,7 @@ from ..strategies.ef_quant import (DeviceResidualTable, EFQuant,
                                    ResidualStore)
 from ..strategies.robust import select_robust_strategy
 from ..strategies.scaffold import ControlStore, DeviceControlTable, Scaffold
+from ..traffic import STALE_HIST_BINS, make_traffic
 from ..utils.logging import MetricsLog, print_rank
 from .checkpoint import CheckpointManager, load_pretrained_params
 from .client_update import ClientHParams, build_client_update
@@ -213,6 +233,9 @@ class OptimizationServer:
         #: each round's fault vectors and logs the counters
         self.shield = self.engine.shield
         self.chaos = make_chaos(sc)
+        #: the structured-event sink (``telemetry/__init__.py::
+        #: emit_event`` with telemetry off): records in ``metrics.jsonl``
+        self.event = self.metrics.event
         # a subclass whose ``_sample`` hook falls back to the base sampler
         # under fused_carry says so with ``fused_carry_sample``
         # (personalization)
@@ -221,6 +244,7 @@ class OptimizationServer:
             not (self._fused_carry and
                  getattr(type(self), "fused_carry_sample", False)))
         self._check_host_rounds(sc)
+        self._setup_fleet(sc)
 
         # the dispatch/drain ring (server.py:314-352): paths whose host
         # tail feeds the next dispatch run serial, decided up front
@@ -244,10 +268,10 @@ class OptimizationServer:
             async_latest=bool(ckpt_async),
             retry=RetryPolicy.from_config(sc.get("checkpoint_retry")),
             io_fault=(self.chaos.io_fault_hook if self.chaos is not None
-                      else None))
+                      else None), events=self.event)
         #: SIGTERM / SIGINT -> drain -> checkpoint -> return; the run's
         #: exit says it was preempted (:attr:`preempted`)
-        self.preemption = PreemptionHandler()
+        self.preemption = PreemptionHandler(events=self.event)
         self.preempted = False
         #: chunks drained while a later chunk was in flight
         self.pipelined_chunks = 0
@@ -303,6 +327,13 @@ class OptimizationServer:
             config.model_config.get("quant_threshold")
         self.quant_anneal = float(cc.get("quant_anneal", 1.0) or 1.0)
 
+        # do_profiling (server.py:652-657): a torch.profiler trace of one
+        # chunk into <model_dir>/profile
+        self._profile_dir: Optional[str] = None
+        self._chunks_run = 0
+        if sc.get("do_profiling", False) or cc.get("do_profiling", False):
+            self._profile_dir = os.path.join(model_dir, "profile")
+
         # static round geometry
         self.batch_size = int(cc.data_config.train.get("batch_size", 32))
         self.desired_max_samples = cc.get("desired_max_samples") or \
@@ -317,6 +348,7 @@ class OptimizationServer:
         self._length_bucket_stats: Optional[dict] = None
         self._setup_throughput(sc, cc, train_dataset)
         self._setup_pool(sc, cc, train_dataset)
+        self._setup_traffic(sc, train_dataset)
 
         self._np_rng = np.random.default_rng(seed)
         self._eval_batches: Dict[str, dict] = {}
@@ -402,6 +434,103 @@ class OptimizationServer:
                 self.strategy.quant_thresh *= \
                     self.quant_anneal ** self.state.round
         self._max_iteration = int(sc.get("max_iteration", 100))
+
+    def _setup_fleet(self, sc) -> None:
+        """``server_config.fleet`` (``server.py:96-116``): the cohort draw
+        of :func:`..data.fleet.sample_cohort` (``config.validate`` refuses
+        it beside a device-carry strategy: the paged carry)."""
+        fl = sc.get("fleet") or {}
+        self._fleet_cfg = fl if (fl and fl.get("enable", True)) else None
+        if self._fleet_cfg is None:
+            return
+        if sc.get("scaffold_device_controls") or \
+                sc.get("ef_device_residuals"):
+            raise ValueError(
+                "server_config.fleet does not compose with "
+                "scaffold_device_controls / ef_device_residuals — "
+                "those keep a FULL [N, n_params] table in HBM, the "
+                "exact residency fleet paging exists to replace; "
+                "use fused_carry + fleet instead")
+
+    def _setup_traffic(self, sc, train_dataset) -> None:
+        """The arrival plane (``server.py:236-306``): the seeded
+        :class:`~..traffic.TrafficSchedule` that serves each round's cohort
+        (None without an enabled ``traffic`` block), with the JAX server's
+        refusals, and ``traffic.target_accuracy``'s crossing."""
+        self.traffic = make_traffic(sc, len(train_dataset))
+        #: the next fire :meth:`_sample` serves; re-anchored at train()
+        self._traffic_round = 0
+        #: the first round whose val accuracy reached the target
+        self.rounds_to_target_accuracy: Optional[int] = None
+        tgt = (sc.get("traffic") or {}).get("target_accuracy")
+        self.target_accuracy = float(tgt) if tgt is not None else None
+        if self.traffic is None:
+            return
+        if (self._host_rl(sc) or getattr(self.strategy, "host_rounds", False)
+                or self._sample_hooked):
+            raise ValueError(
+                "server_config.traffic requires the fused round "
+                "path — wantRL, strategy: scaffold / ef_quant, and "
+                "personalization orchestrate rounds host-side and "
+                "would keep boundary sampling, silently ignoring "
+                "the arrival plane; drop the traffic block for "
+                "this configuration")
+        ncpi = sc.get("num_clients_per_iteration", 10)
+        if not isinstance(ncpi, int) or \
+                self.traffic.buffer_size != int(ncpi):
+            raise ValueError(
+                f"server_config.traffic.buffer_size "
+                f"({self.traffic.buffer_size}) must equal a FIXED "
+                f"num_clients_per_iteration (got {ncpi!r}) — the "
+                "fused program's [K, S, B] grid is compiled for "
+                "exactly K client slots, so the buffer IS the "
+                "cohort (the FedBuff buffer == K mapping)")
+        if (self._fleet_cfg is not None and
+                str(self._fleet_cfg.get("sampling", "uniform"))
+                != "uniform"):
+            raise ValueError(
+                "server_config.traffic and fleet.sampling != "
+                "'uniform' are two cohort-selection planes — the "
+                "arrival schedule decides WHO trains, so a "
+                "weighted/floyd fleet draw would be silently "
+                "ignored; use fleet.sampling: uniform or drop the "
+                "traffic block")
+        sa = sc.get("secure_agg") or {}
+        if sa and sa.get("enable", True):
+            min_surv = int(sa.get("min_survivors", 0) or 0)
+            if min_surv > self.traffic.buffer_size:
+                raise ValueError(
+                    f"secure_agg.min_survivors ({min_surv}) "
+                    f"exceeds traffic.buffer_size "
+                    f"({self.traffic.buffer_size}) — a buffered "
+                    "fire delivers exactly buffer_size clients, so "
+                    "every round would abort below the liveness "
+                    "floor; lower min_survivors or raise "
+                    "buffer_size")
+        if self.engine.traffic_staleness and self.megabatch is not None:
+            raise ValueError(
+                "server_config.megabatch cannot compose with "
+                "traced staleness (traffic.mode: buffered + a "
+                "staleness-aware strategy): megabatch_passes "
+                "replays the strategy's in-jit staleness draw "
+                "per lane and would diverge from the trace's "
+                "true per-client staleness; drop megabatch or "
+                "run traffic.mode: sync")
+
+    def traffic_summary(self) -> Optional[Dict[str, Any]]:
+        """The run's arrival-plane summary (``server.py:2135-2149``): the
+        trace's identity, the host replay oracle's rollups and the
+        target-accuracy crossing; None without traffic."""
+        if self.traffic is None:
+            return None
+        t = self.traffic
+        return {**t.describe(),
+                "arrival_rate": round(t.arrival_rate(), 6),
+                "mean_buffer_occupancy": round(t.mean_buffer_occupancy(), 6),
+                "stale_hist": [int(c) for c in t.stale_hist],
+                "counters": {k: float(v) for k, v in t.counters.items()},
+                "target_accuracy": self.target_accuracy,
+                "rounds_to_target_accuracy": self.rounds_to_target_accuracy}
 
     def _setup_throughput(self, sc, cc, train_dataset) -> None:
         """Cohort bucketing's step buckets and client capacities, and the
@@ -656,11 +785,14 @@ class OptimizationServer:
     def chaos_vectors(self, round_no: int, batch):
         """The round's fault vectors from the schedule, keyed on the round
         index (so a resumed run draws the same ones): what
-        :meth:`RoundEngine.run_round` takes as ``chaos``.  For a bucketed
-        round (a list of grids) one dict a grid, each drawn from its own
-        sub-stream (``salt`` = bucket index + 1, ``server.py:1489-1517``)."""
+        :meth:`RoundEngine.run_round` takes as ``chaos``, with the arrival
+        plane's ``traffic_stale`` vector under traced staleness.  For a
+        bucketed round (a list of grids) one dict a grid, each drawn from
+        its own sub-stream (``salt`` = bucket index + 1,
+        ``server.py:1478-1530``)."""
         engine = self.engine
-        if not (engine.chaos_client_faults or engine.chaos_corruption):
+        if not (engine.chaos_client_faults or engine.chaos_corruption
+                or engine.traffic_staleness):
             return None
         if isinstance(batch, list):
             return [self._chaos_vecs(round_no, b, bi + 1)
@@ -675,6 +807,11 @@ class OptimizationServer:
         if engine.chaos_corruption:
             vecs["corrupt"] = self.chaos.corrupt_modes(
                 round_no, batch.sample_mask.shape[0], salt=salt)
+        if engine.traffic_staleness:
+            # keyed on the client id, so it realigns to whatever grid the
+            # packer put the client on (padding slots read 0)
+            vecs["traffic_stale"] = self.traffic.staleness_vector(
+                round_no, batch.client_ids)
         return vecs
 
     def _log_defense(self, stats: Dict[str, float], r: int) -> None:
@@ -705,6 +842,51 @@ class OptimizationServer:
             if stats.get("secagg_abort"):
                 c["aborted_rounds"] += stats["secagg_abort"]
                 log("SecAgg aborted round", stats["secagg_abort"], step=r)
+        if "traffic_stale_sum" in stats:
+            log("Traffic staleness sum", stats["traffic_stale_sum"], step=r)
+
+    def _defense_events(self, stats: List[dict], round0: int) -> None:
+        """A chunk's event records, kind by kind in the JAX server's order
+        (``server.py:1858-1960``), each a round with something to say:
+        ``chaos_faults``, ``chaos_corruption``, ``traffic_staleness``
+        (every round), ``quarantine``, then ``secagg_recovered`` and
+        ``secagg_abort`` a round at a time."""
+        rounds = list(enumerate(stats, start=round0))
+        for kind, keys in (
+                ("chaos_faults", (("dropped", "chaos_dropped"),
+                                  ("straggled", "chaos_straggled"),
+                                  ("steps_lost", "chaos_steps_lost"))),
+                ("chaos_corruption", (
+                    ("nan_injected", "chaos_nan_injected"),
+                    ("scaled", "chaos_scaled"),
+                    ("sign_flipped", "chaos_sign_flipped")))):
+            for r, st in rounds:
+                if keys[0][1] in st and any(st[k] for _, k in keys):
+                    self.event(kind, round=r,
+                               **{name: st[k] for name, k in keys})
+        for r, st in rounds:
+            if "traffic_stale_sum" in st:
+                self.event("traffic_staleness", round=r,
+                           stale_sum=st["traffic_stale_sum"],
+                           hist=[st[f"traffic_stale_{b}"]
+                                 for b in range(STALE_HIST_BINS)])
+        for r, st in rounds:
+            if "shield_nonfinite" in st and (st["shield_nonfinite"] or
+                                             st["shield_norm_outlier"]):
+                self.event("quarantine", round=r,
+                           nonfinite=st["shield_nonfinite"],
+                           norm_outlier=st["shield_norm_outlier"])
+        for r, st in rounds:
+            if "secagg_recovered_dropout" not in st:
+                continue
+            rec_drop = st["secagg_recovered_dropout"]
+            rec_quar = st["secagg_recovered_quarantine"]
+            if rec_drop or rec_quar:
+                self.event("secagg_recovered", round=r, dropout=rec_drop,
+                           quarantine=rec_quar)
+            if st.get("secagg_abort"):
+                self.event("secagg_abort", round=r,
+                           aborted=st["secagg_abort"])
 
     def _paired_store(self, cls, model_dir: str, subdir: str, what: str,
                       resumed: bool):
@@ -781,11 +963,30 @@ class OptimizationServer:
         """The round's cohort (a subclass may hook work onto the draw, as
         the personalization server does: anything it draws from
         ``_np_rng`` comes after the cohort and before the round's own
-        packing, as in the JAX package)."""
+        packing, as in the JAX package).  Under ``traffic`` it is the next
+        fire's buffer, with a ``buffer_fired`` record, and the numpy trail
+        is untouched; under ``fleet.sampling`` ``floyd`` or ``by_samples``
+        it is :func:`~..data.fleet.sample_cohort`'s draw
+        (``server.py:1127-1170``)."""
+        if self.traffic is not None:
+            r = self._traffic_round
+            self._traffic_round = r + 1
+            fire = self.traffic.fire(r)
+            self.event("buffer_fired", round=r, tick=int(fire["tick"]),
+                       wait_ticks=int(fire["wait_ticks"]),
+                       stale_max=int(fire["staleness"].max(initial=0)),
+                       stale_sum=int(fire["staleness"].sum()))
+            return [int(c) for c in fire["cohort"]]
         sc = self.config.server_config
         n = parse_clients_per_round(sc.get("num_clients_per_iteration", 10),
                                     self._np_rng)
         n = min(n, len(self.train_dataset))
+        mode = (str(self._fleet_cfg.get("sampling", "uniform"))
+                if self._fleet_cfg is not None else "uniform")
+        if mode != "uniform":
+            return sample_cohort(self._np_rng, len(self.train_dataset), n,
+                                 mode=mode,
+                                 num_samples=self.train_dataset.num_samples)
         return list(self._np_rng.choice(len(self.train_dataset), size=n,
                                         replace=False))
 
@@ -836,6 +1037,11 @@ class OptimizationServer:
         self.preempted = False
         self.preemption.reset()
         self.preemption.install()
+        if self.traffic is not None:
+            # the timeline is a pure function of the seed: a resumed run
+            # replays the same fires (a cache warm-up, not a restore)
+            self._traffic_round = int(self.state.round)
+            self.traffic.fast_forward(self._traffic_round)
         try:
             return self._train_loop()
         except BaseException:
@@ -869,6 +1075,11 @@ class OptimizationServer:
                          if self.test_dataset is not None else max_iteration)
             return min(rounds_per_step, max_iteration - r0, until_val,
                        until_rec)
+
+        # do_profiling's chunk: the second when there will be more than
+        # one (the first builds the kernels), else the only one
+        profile_chunk = (0 if max_iteration - self.state.round <=
+                         rounds_per_step else 1)
 
         def pack(R: int):
             tic = time.time()
@@ -927,6 +1138,9 @@ class OptimizationServer:
             _, batches, pack_secs = prefetched
             prefetched = None
             self._record_staged_bytes(batches, R)
+            prof = (self._start_profile()
+                    if self._profile_dir is not None and
+                    self._chunks_run == profile_chunk else None)
             thresholds = [None] * R
             if self.quant_thresh is not None:
                 # multiplied by quant_anneal BEFORE its first use, each
@@ -976,6 +1190,9 @@ class OptimizationServer:
             anchor = chunk["rng_snapshot"]
             if prefetch_ok and round_no < max_iteration:
                 prefetched = pack(chunk_R(round_no))
+            if prof is not None:
+                self._stop_profile(prof, chunk["round0"])
+            self._chunks_run += 1
             while len(pending) >= self.pipeline_depth and pending:
                 # ring full: drain the oldest while the device runs the
                 # newer ones
@@ -1006,6 +1223,7 @@ class OptimizationServer:
             self.preemption.flush_now()
             reason = self.preemption.reason or "requested"
             self.ckpt.update_status({"preempted": reason})
+            self.event("preempted_exit", round=round_no, reason=reason)
             print_rank(f"preempted at round {round_no}/{max_iteration} "
                        f"({reason}); checkpoint durable — resume with "
                        "server_config.resume_from_checkpoint: true",
@@ -1016,6 +1234,31 @@ class OptimizationServer:
         self._log_timing()
         self.metrics.flush()
         return self.state
+
+    def _start_profile(self):
+        """A ``torch.profiler`` window over one chunk's dispatch
+        (``server.py:1439-1443``; the twin of ``jax.profiler``): the host's
+        ops and, on a card, its kernels."""
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, round0: int) -> None:
+        """Close the window once the chunk's device work is done, and write
+        its Chrome trace into ``<model_dir>/profile``
+        (``server.py:1604-1607``)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(self._profile_dir, exist_ok=True)
+        path = os.path.join(self._profile_dir,
+                            f"chunk_r{round0}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        print_rank(f"wrote profiler trace to {path}")
 
     def _drain_chunk(self, chunk: Dict[str, Any], val_freq: int,
                      rec_freq: int) -> None:
@@ -1062,6 +1305,7 @@ class OptimizationServer:
             self._log_carry(st, r)
             if self.server_replay is not None:
                 self._run_server_replay(r)
+        self._defense_events(stats, round0)
         if "dp_clip" in stats[-1]:
             # the clip the next round applies, logged at that round once a
             # chunk (server.py:1962-1968)
@@ -1487,7 +1731,7 @@ class OptimizationServer:
         if dataset is None or len(dataset) == 0:
             return False
         metrics = evaluate(self.task, self.engine.params_dict(self.state),
-                           self._staged_eval(split))
+                           self._staged_eval(split), events=self.event)
         for name, metric in metrics.items():
             self.metrics.log(f"{split.capitalize()} {name}", metric.value,
                              step=round_no)
@@ -1502,13 +1746,27 @@ class OptimizationServer:
             self._last_val = metrics
             for name, metric in metrics.items():
                 if not np.isfinite(metric.value):
-                    continue   # a NaN must never become the best value
+                    # a NaN must never become the best value
+                    self.event("eval_nonfinite_skipped", split=split,
+                               metric=name, round=round_no,
+                               value=str(metric.value))
+                    continue
                 prev = self.best_val.get(name)
                 if prev is None or metric.is_better_than(prev):
                     self.best_val[name] = metric
                     self.ckpt.save_best(self.state, name)
                     if name == self.best_model_criterion:
                         improved = True
+            # traffic.target_accuracy: the first val eval at or above the
+            # target pins the round (server.py:2974-2987)
+            acc = metrics.get("acc")
+            if self.target_accuracy is not None and \
+                    self.rounds_to_target_accuracy is None and \
+                    acc is not None and np.isfinite(acc.value) and \
+                    float(acc.value) >= self.target_accuracy:
+                self.rounds_to_target_accuracy = int(round_no)
+                self.event("target_accuracy_reached", round=round_no,
+                           acc=float(acc.value), target=self.target_accuracy)
         return improved
 
     def _fall_back(self) -> None:

@@ -207,12 +207,17 @@ class ClassificationTask(BaseTask):
         for i in range(len(blob)):
             label = (blob.user_labels[i] if blob.user_labels is not None
                      else None)
-            per_user.append(self._featurize_user(blob.user_data[i], label,
-                                                 aug_cfg, aug_rng))
+            per_user.append(self.featurize_user(blob.user_data[i], label,
+                                                aug_cfg, aug_rng))
         return ArraysDataset(blob.user_list, per_user, blob.num_samples)
 
-    def _featurize_user(self, data, label, aug_cfg, aug_rng
-                        ) -> Dict[str, np.ndarray]:
+    def featurize_user(self, data, label, aug_cfg=None, aug_rng=None
+                       ) -> Dict[str, np.ndarray]:
+        """One user's raw blob entry featurized, the per-user unit of
+        :meth:`make_dataset` that a lazy dataset calls on access
+        (``msrflute_tpu/models/cv.py:218``); lazy callers pass no
+        ``aug_cfg``, as augmentation needs the shared stream."""
+        aug_cfg = aug_cfg or {}
         raw_x = data["x"] if isinstance(data, dict) else data
         x = to_image(np.asarray(raw_x), self.example_shape)
         y = (np.asarray(label).astype(np.int32) if label is not None

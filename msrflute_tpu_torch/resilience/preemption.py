@@ -7,7 +7,8 @@ at chunk boundaries.  On seeing it the loop dispatches nothing more,
 drains the chunks already in flight through their normal housekeeping
 (which writes each one's ``latest`` checkpoint), waits for the async
 writer, writes ``{"preempted": reason}`` into ``status_log.json`` and
-returns.  ``e2e_trainer`` then exits with ``os.EX_TEMPFAIL`` (75), so a
+returns; the request is a ``preemption`` event record.  ``e2e_trainer``
+then exits with ``os.EX_TEMPFAIL`` (75), so a
 scheduler can tell "preempted, resume me" from success and from a crash.
 
 Signal handlers install from the main thread only (a CPython rule);
@@ -36,8 +37,12 @@ class PreemptionHandler:
 
     SIGNALS = (signal.SIGTERM, signal.SIGINT)
 
-    def __init__(self, escalate_after: int = 2):
+    def __init__(self, escalate_after: int = 2,
+                 events: Optional[Callable[..., None]] = None):
         self.escalate_after = max(int(escalate_after), 1)
+        #: the structured-event sink: one ``preemption`` record a request,
+        #: written by :meth:`flush_now` (``preemption.py:150-151``)
+        self.events = events
         self._event = threading.Event()
         self._reason: Optional[str] = None
         self._prev: dict = {}
@@ -92,6 +97,11 @@ class PreemptionHandler:
         self._flush_pending = False
         print_rank(f"preemption requested ({self._reason}); draining and "
                    "checkpointing", loglevel=logging.WARNING)
+        if self.events is not None:
+            try:
+                self.events("preemption", reason=self._reason or "requested")
+            except Exception:  # a flush may never block the drain
+                pass
         for hook in self._flush_hooks:
             try:
                 hook()

@@ -80,6 +80,10 @@ class BaseStrategy:
     #: here: the JAX package reads it for ``stale_prob``, which the port's
     #: config allows under DGA alone)
     supports_rl: bool = True
+    #: whether ``client_step`` takes the arrival plane's traced staleness
+    #: (``staleness``, ``[K]`` ints) in place of a drawn one: the round
+    #: stages the operand only then (``strategies/fedbuff.py:85-89``)
+    supports_traced_staleness: bool = False
     owns_server_update: bool = False
     stateful: bool = False
     #: the server runs the strategy's rounds host-side, one at a time

@@ -1,7 +1,8 @@
 """FedBuff, buffered asynchronous aggregation (arXiv:2106.06639) — the
 port's counterpart of ``msrflute_tpu/strategies/fedbuff.py:74-185``, with
-drawn staleness (the traced mode needs the JAX package's ``traffic/``
-arrival plane, which is not ported).
+drawn staleness, or under ``server_config.traffic`` in ``buffered`` mode
+the arrival plane's traced staleness (:attr:`supports_traced_staleness`:
+the round hands ``client_step`` each update's true version gap).
 
 - ``strategy_state["history"]`` is ``[S, P]``, the last
   ``S = max_staleness`` broadcast versions, index 0 the current one
@@ -36,6 +37,7 @@ FEDBUFF_TAG = 23
 class FedBuff(FedAvg):
 
     supports_rl = False
+    supports_traced_staleness = True
     stateful = True
     owns_server_update = True
     #: the state is the version history, which FedAvg's ``dp_clip`` cannot

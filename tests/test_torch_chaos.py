@@ -75,7 +75,7 @@ def defense_histories(raw, data_dir, tmp_path, monkeypatch):
     with open(tmp_path / "port" / "run" / "log" / "metrics.jsonl") as fh:
         records = [json.loads(line) for line in fh]
     port = {name: [(r["step"], r["value"]) for r in records
-                   if r["name"] == name] for name in DEFENSE_METRICS}
+                   if r.get("name") == name] for name in DEFENSE_METRICS}
     jax_m = {name: [(s, float(v)) for n, s, v in recorded if n == name]
              for name in DEFENSE_METRICS}
     return got, want, n_val, port, jax_m, server
@@ -266,7 +266,7 @@ def port_cli(raw, data_dir, out):
     with open(out / "run" / "log" / "metrics.jsonl") as fh:
         records = [json.loads(line) for line in fh]
     return server, [(r["name"], r.get("step"), r["value"]) for r in records
-                    if "secsPerRound" not in r["name"]]
+                    if "name" in r and "secsPerRound" not in r["name"]]
 
 
 def test_zero_rate_chaos_block_is_bitwise_no_block(lr_blob, tmp_path):

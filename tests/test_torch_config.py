@@ -129,13 +129,7 @@ def _with(path, value):
         "writer_error_rate": 0.1}}),
     ("server_config.chaos", {"enable": True, "infra": {
         "store_read_error_rate": 0.2}}),
-    ("server_config.traffic", {"mode": "buffered"}),
-    ("server_config.fleet", {"enable": True}),
     ("client_config.quant_bits", 8),
-    ("client_config.data_config.train.lazy", True),
-    ("client_config.optimizer_config.dampening", 0.1),
-    ("client_config.ss_config", {"mode": "fixmatch"}),
-    ("dp_config", {"enable_prod": True}),
 ])
 def test_unported_features_raise(path, value):
     with pytest.raises(NotImplementedError, match="not yet ported"):

@@ -140,8 +140,6 @@ def test_personalization_refuses_robust_and_chaos(block):
 NOT_PORTED = {
     "chaos_infra": ("fedavg", "server_config.chaos",
                     {"infra": {"store_write_error_rate": 0.1}}, "infra"),
-    "traffic": ("secure_agg", "server_config.traffic",
-                {"mode": "buffered"}, "traffic"),
 }
 
 
@@ -166,6 +164,7 @@ LIFTED = {
     "secure_agg_cohort_bucketing": ("secure_agg",
                                     "server_config.cohort_bucketing",
                                     {"enable": True}),
+    "traffic": ("secure_agg", "server_config.traffic", {"mode": "buffered"}),
 }
 
 

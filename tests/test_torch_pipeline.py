@@ -140,7 +140,7 @@ def _records(out):
     with open(os.path.join(out, "run", "log", "metrics.jsonl")) as fh:
         recs = [json.loads(line) for line in fh]
     return [{k: v for k, v in r.items() if k != "ts"} for r in recs
-            if not r["name"].startswith("secs")]
+            if "name" in r and not r["name"].startswith("secs")]
 
 
 def _files(out):

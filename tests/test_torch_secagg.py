@@ -199,6 +199,6 @@ def test_resumed_run_is_bitwise_the_uninterrupted_one(lr_blob, tmp_path):
 
     def tail(records):
         return [(r["name"], r["value"]) for r in records
-                if r.get("step", -1) >= 2 and r["name"].startswith(
+                if r.get("step", -1) >= 2 and r.get("name", "").startswith(
                     ("SecAgg", "Chaos", "Quarantined"))]
     assert tail(got) == tail(want)

@@ -163,8 +163,6 @@ def test_round_options_build_under_scaffold_as_in_the_jax_package(
 
 @pytest.mark.parametrize("path,value", [
     ("server_config.chaos", {"infra": {"writer_error_rate": 0.1}}),
-    ("server_config.traffic", {"mode": "buffered"}),
-    ("server_config.fleet", {"enable": True}),
 ])
 def test_later_slices_stay_refused(path, value):
     strategy = value if path == "strategy" else "scaffold"
