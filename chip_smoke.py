@@ -4978,6 +4978,10 @@ FUSED_HOST_LEGS = {"scaffold_device": "scaffold",
                    "ef_quant_device": "ef_quant"}
 #: the host legs' final params and tables, from the strategies phase
 HOST_FINAL = {}
+#: the carry legs' results the fleet_paged phase holds its paged legs to:
+#: each one's written ``latest`` (bytes, seconds) and the personalization
+#: leg's params and personalized eval
+FUSED_FINAL = {}
 
 
 def _host_leg_state(server):
@@ -5198,6 +5202,10 @@ def _fused_leg(torch, work, kernel_rows, leg, meter):
     server, rec = _fused_run(torch, work, kernel_rows, leg,
                              f"fused_{leg}_d2", fused_config(leg, 2), meter,
                              FUSED_ROUNDS)
+    # the resident tables' written `latest`, which the fleet_paged phase
+    # reports beside its paged ones
+    FUSED_FINAL[leg] = {"latest_written": [
+        s for s in rec["latest_saves"] if s["written"]]}
     check(server._pipeline_ok() and server.pipelined_chunks > 0,
           f"fused {leg}: the depth-2 ring did not overlap")
     check(server.rl is None and server.scaffold_store is None and
@@ -5247,6 +5255,11 @@ def _fused_leg(torch, work, kernel_rows, leg, meter):
               f"fused personalization: personalized eval {first}")
         record["personalized_val"] = {"acc": first[0], "loss": first[1]}
         record["users_seen"] = int((seen > 0).sum())
+        # the fleet_paged phase's resident yardstick
+        FUSED_FINAL[leg].update(
+            round=server.state.round,
+            params=server.state.params.detach().clone(),
+            personalized_val=first)
     # held on the card for the comparisons below
     whole = _flat_state(server.state)
     host_leg = {v: k for k, v in FUSED_HOST_LEGS.items()}.get(leg)
@@ -7148,6 +7161,458 @@ def phase_fleet_traffic(torch, work, kernel_rows):
           "seconds": round(time.time() - tic, 3)})
 
 
+# ----------------------------------------------------------------------
+#: the fleet_paged phase (the fleet paged carry): the fused_carry phase's
+#: CNN_FEMNIST SCAFFOLD and EF configs (P = 1,206,590, K = 10,
+#: ``pallas_apply``) at depth 2 on ``main``'s 350 writers' sample counts,
+#: generated in memory; the pool at the in-flight floor (10 clients x 1
+#: round a chunk x (depth 2 + 1) = 30 slots) and a 2-row host cache.
+#: Five rounds: the pool fills in three, and the same cohorts replayed on
+#: the CPU read stored rows back in rounds 3 and 4
+FLEET_PAGED_ROUNDS = 5
+FLEET_PAGED_DEPTH = 2
+FLEET_PAGED_FLEET = {"page_pool_slots": MAIN_K * (FLEET_PAGED_DEPTH + 1),
+                     "host_cache_rows": 2}
+#: FEMNIST's published writer count, on the default pool
+FLEET_SCALE_WRITERS, FLEET_SCALE_ROUNDS = 3400, 3
+#: every infra surface faulted (the rollup writer's stream has no user
+#: before telemetry), with retries enough that no operation exhausts them
+FLEET_PAGED_INFRA = {"seed": 52, "infra": {
+    "store_write_error_rate": 0.2, "store_read_error_rate": 0.2,
+    "prefetch_error_rate": 0.05, "prefetch_delay_rate": 0.3,
+    "prefetch_delay_s": 0.001, "writer_error_rate": 0.1,
+    "writeback_error_rate": 0.2}}
+FLEET_PAGED_RETRY = {"retries": 8, "backoff_base_s": 0.0, "jitter": 0.0}
+
+
+def _paged_config(leg, rounds=FLEET_PAGED_ROUNDS, fleet=None, **server):
+    """``fused_config(leg, 2, rounds)``, with ``fleet`` (None: resident)
+    and ``server`` keys on top."""
+    raw = fused_config(leg, FLEET_PAGED_DEPTH, rounds)
+    if fleet is not None:
+        raw["server_config"]["fleet"] = dict(fleet)
+    raw["server_config"].update(server)
+    return raw
+
+
+class _Operands:
+    """The first call's operands of B1 and B3 on a run (cloned at the
+    call, in stream order), through the names the round calls them by."""
+
+    def __init__(self):
+        from msrflute_tpu_torch.engine import client_update
+        from msrflute_tpu_torch.ops import quantization
+        self.names = ((client_update, "fused_sgd_apply"),
+                      (quantization, "quant_bin_sparsify"))
+        self.ops, self.real = {}, {}
+
+    def __enter__(self):
+        for mod, name in self.names:
+            real = self.real[name] = getattr(mod, name)
+
+            def shim(*args, _real=real, _name=name):
+                if _name not in self.ops:
+                    self.ops[_name] = tuple(
+                        a.clone() if hasattr(a, "clone") else a
+                        for a in args)
+                return _real(*args)
+            setattr(mod, name, shim)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name in self.names:
+            setattr(mod, name, self.real[name])
+
+
+def _hold_operands(torch, ops):
+    """Each captured kernel against its plain version on its captured
+    operands, bitwise (after the run's counts were read)."""
+    from msrflute_tpu_torch.ops.fused_sgd import (fused_sgd_apply,
+                                                  fused_sgd_plain)
+    from msrflute_tpu_torch.ops.quant_bin import (quant_bin_plain,
+                                                  quant_bin_sparsify)
+    out = {}
+    if "fused_sgd_apply" in ops:
+        p, g, m, lr, mu, gate = ops["fused_sgd_apply"]
+        p2, m2 = p.clone(), m.clone()
+        fused_sgd_apply(p, g, m, lr, mu, gate)
+        fused_sgd_plain(p2, g, m2, lr, mu, gate)
+        torch.cuda.synchronize()
+        out["fused_sgd_apply"] = {"shape": list(p.shape),
+                                  "max_abs_err": _max_abs_diff(torch, p, p2)}
+        check(torch.equal(p, p2) and torch.equal(m, m2),
+              f"B1 on the paged path's operands {list(p.shape)}: kernel "
+              "!= plain")
+    if "quant_bin_sparsify" in ops:
+        x, off, lo, hi, th, n_bins = ops["quant_bin_sparsify"]
+        k = quant_bin_sparsify(x, off, lo, hi, th, n_bins)
+        pl = quant_bin_plain(x, off.cpu(), lo, hi, th, n_bins)
+        torch.cuda.synchronize()
+        out["quant_bin_sparsify"] = {"shape": list(x.shape),
+                                     "max_abs_err": _max_abs_diff(torch, k,
+                                                                  pl)}
+        check(torch.equal(k, pl), f"B3 on the paged path's operands "
+                                  f"{list(x.shape)}: kernel != plain")
+    return out
+
+
+def _fp_run(torch, raw, pool, work, name, meter, leg, kernel_rows=None):
+    """``raw`` on ``pool`` through ``OptimizationServer.train`` (seed 7),
+    the counts zeroed just before: B1 once a local step, B3 once a round
+    on EF, no other kernel; the rows read back from the store's disk.
+    ``(server, record, captured operands)``."""
+    import copy
+    from msrflute_tpu_torch.config import FLUTEConfig
+    from msrflute_tpu_torch.engine.server import OptimizationServer
+    from msrflute_tpu_torch.models import make_task
+    cfg = FLUTEConfig.from_dict(copy.deepcopy(raw))
+    server = OptimizationServer(make_task(cfg.model_config), cfg, pool,
+                                model_dir=os.path.join(work, f"fp_{name}"),
+                                device="cuda", seed=7)
+    reads = [0]
+    pager = server.fleet_pager
+    if pager is not None:
+        read_file = pager.store._read_file
+
+        def counted(cid):
+            row = read_file(cid)
+            reads[0] += row is not None
+            return row
+        pager.store._read_file = counted
+    io0 = io_write_bytes()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    with _Operands() as cap:
+        server.train()
+    server.ckpt.wait()
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    rounds = server.state.round
+    steps = server.engine.local_steps
+    want = {k: 0 for k in launches}
+    want["fused_sgd_apply"] = steps
+    want["quant_bin_sparsify"] = rounds if leg == "ef_quant" else 0
+    check(steps > 0 and launches == want,
+          f"fleet_paged {name}: launches {launches}, want {want}")
+    for row in kernel_rows or ():
+        row.setdefault("launches_by_path", {})[f"fleet_paged_{name}"] = \
+            launches[row["name"]]
+    saves, _ = meter.take()
+    per_round = server.run_stats["secsPerRound"]
+    rec = {"rounds": rounds, "pipelined_chunks": server.pipelined_chunks,
+           "secs_per_round": per_round,
+           "secs_per_round_after_first": _mean(per_round[1:]),
+           "loop_secs_per_round": meter.train_secs / rounds,
+           "launches": launches, "local_steps": steps,
+           "latest_saves": saves,
+           "strategy_state_bytes": sum(
+               t.numel() * t.element_size()
+               for t in server.state.strategy_state.values()),
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "disk_write_gb": (io_write_bytes() - io0) / 1e9}
+    if pager is not None:
+        rec["pager"] = pager.describe()
+        rec["store_reads"] = reads[0]
+    return server, rec, cap.ops
+
+
+def _rows_equal(torch, paged, resident):
+    """Each client's row in the paged run's store against the resident
+    run's tables (a client never seen: the row defaults there):
+    ``(clients whose rows differ, the rows read)``."""
+    import numpy as np
+    pager, tables = paged.fleet_pager, resident.state.strategy_state
+    defaults = paged.strategy.carry_row_defaults()
+    bad, rows = [], {}
+    for u in range(len(paged.train_dataset)):
+        row = rows[u] = pager.user_row(u)
+        for k in paged.strategy.carry_tables:
+            want = tables[k][u]
+            got = (torch.full_like(want, defaults[k]) if row is None else
+                   torch.from_numpy(np.asarray(row[k])).to(want.device))
+            if not torch.equal(got, want):
+                bad.append((u, k))
+    return bad, rows
+
+
+def _paged_dispatch_half(torch, server):
+    """One round's dispatch half on the paged path: the page-in, the
+    round, the writeback's start and the ``latest`` snapshot, under
+    :func:`_sync_points`; the writebacks completed after."""
+    from msrflute_tpu_torch.data.batching import pack_round_batches
+    sampled = server._sample()
+    batch = pack_round_batches(
+        server.train_dataset, sampled, server.batch_size,
+        server._chunk_steps([sampled]), rng=server._np_rng,
+        desired_max_samples=server.desired_max_samples)
+    state, pager, handles, out = server.state, server.fleet_pager, [], []
+
+    def dispatch():
+        pager.prepare_chunk([batch], state.strategy_state)
+        new, packed = server.engine.dispatch_rounds(
+            state, [batch], [0.1], [1.0], quant_thresholds=[None],
+            chaos_vecs=[server.chaos_vectors(state.round, batch)])
+        handles.append(pager.queue_writeback(new.strategy_state,
+                                             round_no=state.round + 1))
+        server.ckpt.snapshot(new)
+        out.append(packed)
+
+    torch.cuda.synchronize()
+    places = _sync_points(torch, dispatch)
+    for h in handles:
+        pager.complete_writeback(h)
+    stats = [p.fetch()[0]["train_loss_sum"] for p in out]
+    check(len(stats) == 2 and stats[0] == stats[1] and
+          math.isfinite(stats[0]), f"paged dispatch half: {stats}")
+    return places
+
+
+def _leg_paged(torch, work, pool, kernel_rows, leg, meter, keep):
+    """SCAFFOLD or EF resident and paged at the in-flight floor: params,
+    ``c`` and every client's row bitwise; each kernel on its captured
+    operands; the dispatch half's sync scan.  The resident run's saves
+    are counted, not written (the fused_carry phase wrote one of the same
+    ``[350, P]`` tables in this call, reported beside them), the paged
+    run's all written: the machine allows 45 GiB of writes a command."""
+    meter.real_saves = 0
+    resident, res_rec, _ = _fp_run(torch, _paged_config(leg), pool, work,
+                                   f"{leg}_resident", meter, leg)
+    res_rec["fused_carry_written_latest"] = FUSED_FINAL.get(
+        leg, {}).get("latest_written")
+    meter.real_saves = 10 ** 6
+    paged, rec, ops = _fp_run(
+        torch, _paged_config(leg, fleet=FLEET_PAGED_FLEET), pool, work,
+        leg, meter, leg, kernel_rows)
+    pager = paged.fleet_pager
+    check(paged.pipelined_chunks > 0 and rec["pager"]["evictions"] > 0 and
+          rec["store_reads"] > 0,
+          f"fleet_paged {leg}: chunks {paged.pipelined_chunks}, pager "
+          f"{rec['pager']}, store reads {rec['store_reads']}")
+    whole = _flat_state(resident.state)
+    diffs = {"params": _max_abs_diff(torch, paged.state.params,
+                                     resident.state.params)}
+    if "c" in whole:
+        diffs["c"] = _max_abs_diff(torch, paged.state.strategy_state["c"],
+                                   whole["c"])
+    bad, rows = _rows_equal(torch, paged, resident)
+    check(not any(diffs.values()) and not bad,
+          f"fleet_paged {leg}: paged != resident, {diffs}, rows {bad[:5]}")
+    held = _hold_operands(torch, ops)
+    row_bytes = pager.row_bytes()
+    rec.update({
+        "bitwise_resident": True, "clients": len(paged.train_dataset),
+        "kernels_held": held, "pool_slots": pager.n_slots,
+        "pool_bytes": pager.n_slots * row_bytes,
+        "resident_table_bytes": len(paged.train_dataset) * row_bytes,
+        "resident": res_rec, "card": CARD.get("name_power")})
+    # the clean run's result, before the dispatch half below trains on
+    keep[leg] = {"params": paged.state.params.clone(),
+                 "c": whole.get("c"), "rows": rows}
+    del resident, whole
+    torch.cuda.empty_cache()
+    rec["dispatch_sync_points"] = _paged_dispatch_half(torch, paged)
+    return rec
+
+
+def _leg_paged_personalization(torch, work, kernel_rows, meter):
+    """``experiments/cv`` (ResNet-18-GN, 100 users) 2 rounds paged at the
+    in-flight floor through the CLI: params and the personalized eval
+    bitwise fused_carry's resident leg (or, alone, a resident run here);
+    B1 twice a local step, held on its captured operands."""
+    rounds = FUSED_ROUNDS
+    if FUSED_FINAL.get("personalization", {}).get("round") != rounds:
+        meter.real_saves = 0
+        server, _, _ = _run_cli(work, "fp_personalization_resident",
+                                fused_config("personalization", 2), "cuda",
+                                task="cv")
+        FUSED_FINAL["personalization"] = {
+            "round": server.state.round,
+            "params": server.state.params.detach().clone(),
+            "personalized_val": server.personalized_eval(
+                server.val_dataset)}
+        del server
+        meter.take()
+    want = FUSED_FINAL["personalization"]
+    raw = _paged_config("personalization", rounds=rounds, fleet={
+        "page_pool_slots": FLEET_PAGED_FLEET["page_pool_slots"]})
+    # the saves (1.4 GB each at the floor) counted, not written: the
+    # machine allows 45 GiB of writes a command
+    meter.real_saves = 0
+    io0 = io_write_bytes()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    with _Operands() as cap:
+        server, _, secs = _run_cli(work, "fp_personalization", raw, "cuda",
+                                   task="cv")
+    server.ckpt.wait()
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    steps = server.engine.local_steps
+    expect = {k: 0 for k in launches}
+    expect["fused_sgd_apply"] = steps
+    check(steps > 0 and launches == expect and
+          server.strategy.client_passes == 2,
+          f"fleet_paged personalization: launches {launches}, want "
+          f"{expect}")
+    for row in kernel_rows:
+        row.setdefault("launches_by_path", {})[
+            "fleet_paged_personalization"] = launches[row["name"]]
+    saves, _ = meter.take()
+    disk = (io_write_bytes() - io0) / 1e9
+    tic = time.time()
+    got = server.personalized_eval(server.val_dataset)
+    eval_secs = time.time() - tic
+    diff = _max_abs_diff(torch, server.state.params, want["params"])
+    check(diff == 0.0 and got == want["personalized_val"],
+          f"fleet_paged personalization: params differ by {diff}, eval "
+          f"{got} against {want['personalized_val']}")
+    held = _hold_operands(torch, cap.ops)
+    pager = server.fleet_pager
+    rec = {"rounds": rounds, "bitwise_resident": True,
+           "personalized_val": {"acc": got[0], "loss": got[1]},
+           "personalized_eval_seconds": round(eval_secs, 3),
+           "secs_per_round": server.run_stats["secsPerRound"],
+           "loop_secs_per_round": meter.train_secs / rounds,
+           "launches": launches, "local_steps": steps,
+           "kernels_held": held, "pager": pager.describe(),
+           "pool_slots": pager.n_slots,
+           "pool_bytes": pager.n_slots * pager.row_bytes(),
+           "resident_table_bytes": len(server.train_dataset)
+           * pager.row_bytes(), "latest_saves": saves,
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "disk_write_gb": disk, "run_seconds": round(secs, 3),
+           "card": CARD.get("name_power")}
+    del server
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _leg_fleet_scale(torch, work, meter):
+    """SCAFFOLD at FEMNIST's 3,400 writers on the default pool, 3 rounds
+    at depth 2: the pool's bytes on the card against the ``[3400, P]``
+    table it replaces (not allocated)."""
+    tic = time.time()
+    pool = _image_pool(_femnist_sizes(FLEET_SCALE_WRITERS, 0), 0)
+    data_secs = time.time() - tic
+    meter.real_saves = 1
+    server, rec, _ = _fp_run(
+        torch, _paged_config("scaffold", rounds=FLEET_SCALE_ROUNDS,
+                             fleet={"enable": True}),
+        pool, work, "fleet_scale", meter, "scaffold")
+    pager = server.fleet_pager
+    check(server.state.round == FLEET_SCALE_ROUNDS and
+          bool(torch.isfinite(server.state.params).all()),
+          f"fleet_paged fleet_scale: round {server.state.round}")
+    rec.update({"writers": FLEET_SCALE_WRITERS,
+                "dataset_seconds": round(data_secs, 3),
+                "pool_slots": pager.n_slots,
+                "pool_bytes": pager.n_slots * pager.row_bytes(),
+                "resident_table_bytes_not_allocated":
+                    FLEET_SCALE_WRITERS * pager.row_bytes(),
+                "card": CARD.get("name_power")})
+    del server, pool
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _replay_infra(server):
+    """The infra counters recomputed on the host from the streams'
+    seeds and each surface's draws, and the ``store_io_fault`` records
+    they must match."""
+    from msrflute_tpu_torch.resilience.chaos import InfraFaults
+    infra = server.chaos.infra
+    replay = InfraFaults(seed=infra.seed, prefetch_delay_s=0.0,
+                         **infra.rates)
+    for surface, n in infra._calls.items():
+        for _ in range(n):
+            if surface == "prefetch_delay":
+                replay.prefetch_delay()
+            else:
+                replay.fault(surface)
+    return replay.counters
+
+
+def _leg_paged_infra(torch, work, pool, meter, clean):
+    """The scaffold leg under ``chaos.infra`` on every surface: bitwise
+    the clean paged run (``clean``: its params, ``c`` and rows); the
+    counters the host replay's, one ``store_io_fault`` record a failed
+    attempt.  One ``latest`` written, the others counted."""
+    meter.real_saves = 1
+    raw = _paged_config("scaffold", fleet=FLEET_PAGED_FLEET,
+                        chaos=FLEET_PAGED_INFRA,
+                        checkpoint_retry=FLEET_PAGED_RETRY)
+    server, rec, _ = _fp_run(torch, raw, pool, work, "infra", meter,
+                             "scaffold")
+    counters = dict(server.chaos.infra.counters)
+    replay = _replay_infra(server)
+    records = sum(e["event"] == "store_io_fault"
+                  for e in server.metrics.events)
+    failed = counters["store_write_faults"] + \
+        counters["store_read_faults"] + counters["writeback_faults"]
+    diffs = {"params": _max_abs_diff(torch, server.state.params,
+                                     clean["params"]),
+             "c": _max_abs_diff(torch, server.state.strategy_state["c"],
+                                clean["c"])}
+    bad = []
+    for u in range(len(server.train_dataset)):
+        a, b = server.fleet_pager.user_row(u), clean["rows"][u]
+        if (a is None) != (b is None) or (
+                a is not None and not all((a[k] == b[k]).all()
+                                          for k in a)):
+            bad.append(u)
+    check(not any(diffs.values()) and not bad and counters == replay and
+          records == failed and failed > 0,
+          f"fleet_paged infra: diffs {diffs}, rows {bad[:5]}, counters "
+          f"{counters} against the replay's {replay}, {records} records "
+          f"for {failed} failed attempts")
+    rec.update({"bitwise_clean": True, "infra_counters": counters,
+                "store_io_fault_records": records,
+                "calls": dict(server.chaos.infra._calls),
+                "prefetch_degradations":
+                    server.fleet_pager.prefetch_degradations,
+                "card": CARD.get("name_power")})
+    del server
+    return rec
+
+
+def phase_fleet_paged(torch, work, kernel_rows):
+    """The fleet paged carry on one card through
+    ``OptimizationServer.train``, a line a leg (``fleet_paged_<leg>``):
+    ``scaffold`` and ``ef_quant`` (each against its resident run),
+    ``personalization``, ``fleet_scale`` and ``infra``; then the
+    phase's."""
+    meter = _CheckpointMeter()
+    legs, keep = {}, {}
+    tic = time.time()
+    try:
+        pool = _image_pool(_femnist_sizes(350, 0), 0)
+        for leg in ("scaffold", "ef_quant"):
+            legs[leg] = _leg_paged(torch, work, pool, kernel_rows, leg,
+                                   meter, keep)
+            emit({"phase": f"fleet_paged_{leg}", "ok": True, **legs[leg]})
+        del keep["ef_quant"]
+        torch.cuda.empty_cache()
+        legs["infra"] = _leg_paged_infra(torch, work, pool, meter,
+                                         keep.pop("scaffold"))
+        emit({"phase": "fleet_paged_infra", "ok": True, **legs["infra"]})
+        del pool
+        torch.cuda.empty_cache()
+        legs["personalization"] = _leg_paged_personalization(
+            torch, work, kernel_rows, meter)
+        emit({"phase": "fleet_paged_personalization", "ok": True,
+              **legs["personalization"]})
+        legs["fleet_scale"] = _leg_fleet_scale(torch, work, meter)
+        emit({"phase": "fleet_paged_fleet_scale", "ok": True,
+              **legs["fleet_scale"]})
+    finally:
+        meter.restore()
+    emit({"phase": "fleet_paged", "ok": True, "legs": list(legs),
+          "rounds": FLEET_PAGED_ROUNDS, "depth": FLEET_PAGED_DEPTH,
+          "pool_slots": FLEET_PAGED_FLEET["page_pool_slots"],
+          "seconds": round(time.time() - tic, 3),
+          "card": CARD.get("name_power")})
+
+
 def main() -> int:
     argv = sys.argv[1:]
     if argv not in ([], ["--kernels"]):
@@ -7299,6 +7764,8 @@ def main() -> int:
             phase_data_planes(torch, work, rows)
             phase = "fleet_traffic"
             phase_fleet_traffic(torch, work, rows)
+            phase = "fleet_paged"
+            phase_fleet_paged(torch, work, rows)
         restore_parse()
     except Exception as exc:  # report the failing phase, then fail
         emit({"phase": phase, "ok": False,

@@ -62,6 +62,16 @@ from typing import Any, Dict, List, Optional
 import yaml
 
 NOT_PORTED = "not yet ported; see ROADMAP.md"
+#: ``server.py:224-233``'s refusal of ``chaos.infra`` without the paged carry
+INFRA_NEEDS_PAGING = (
+    "server_config.chaos.infra requires fleet paged carry — "
+    "the infra fault streams target the fleet host services "
+    "(row-store spill/read, the fleet-prefetch daemon, the "
+    "writeback fetch, the round marker), which only exist "
+    "under server_config.fleet with a fused_carry "
+    "device-carry strategy (scaffold / ef_quant / "
+    "personalized); zero the infra rates or enable fleet "
+    "paging")
 
 
 class Config(MutableMapping):
@@ -569,8 +579,7 @@ _DP_STRATEGIES = {"dga", "fedavg", "fedprox", "fedac", "fedbuff",
                   "ef_quant", "efquant", "fedlabels", "secure_agg", "secagg",
                   "secureagg"}
 _SECURE_AGG_NAMES = ("secure_agg", "secagg", "secureagg")
-#: ``server_config.chaos`` (``CHAOS_KEYS``); of them, the infra services
-#: are not ported (they need fleet paged carry)
+#: ``server_config.chaos`` (``CHAOS_KEYS``)
 _CHAOS = {"enable", "seed", "dropout_rate", "straggler_rate",
           "straggler_inflation", "ckpt_io_error_rate", "preempt_at_round",
           "corrupt_nan_rate", "corrupt_scale_rate", "corrupt_sign_flip_rate",
@@ -1012,8 +1021,8 @@ def check_parity(raw: Dict[str, Any], strategy: str) -> None:
     them (``schema.py:1008-1111``): booleans, the blocks' keys, field
     types and enums, ``duration_hi >= duration_lo``, ``classes`` a list of
     mappings, and secure aggregation's ``min_survivors`` no larger than the
-    buffer.  ``fleet`` beside a device-carry strategy is the paged carry,
-    which the port does not have yet."""
+    buffer.  ``fleet`` beside a device-carry strategy is the paged carry
+    (:mod:`.engine.paging`)."""
     errors: List[str] = []
     sc = raw.get("server_config") or {}
     cc = raw.get("client_config") or {}
@@ -1068,12 +1077,6 @@ def check_parity(raw: Dict[str, Any], strategy: str) -> None:
                     "abort below the liveness floor")
     if errors:
         raise SchemaError(errors)
-    if isinstance(fl, dict) and fl and fl.get("enable", True) and \
-            fused_paths(raw, strategy)["carry"]:
-        raise NotImplementedError(
-            "server_config.fleet beside a device-carry strategy (fused_carry "
-            "with scaffold / ef_quant / personalization) is the fleet paged "
-            f"carry, {NOT_PORTED} §A")
 
 
 def check_throughput(sc: Dict[str, Any], strategy: str) -> None:
@@ -1263,6 +1266,14 @@ def fused_paths(raw: Dict[str, Any], strategy: str) -> Dict[str, bool]:
     }
 
 
+def paged_carry(raw: Dict[str, Any], strategy: str) -> bool:
+    """Whether the run is the fleet paged carry: an enabled ``fleet``
+    block beside a device-carry strategy (``server.py:103-107``)."""
+    fl = (raw.get("server_config") or {}).get("fleet")
+    return bool(isinstance(fl, dict) and fl and fl.get("enable", True)
+                and fused_paths(raw, strategy)["carry"])
+
+
 def check_fused_carry(raw: Dict[str, Any], strategy: str) -> None:
     """The refusals of ``fused_carry`` that the JAX package makes, each a
     ``ValueError`` as there: chunked clients under a carry strategy or
@@ -1340,9 +1351,8 @@ def check_defense(raw: Dict[str, Any], strategy: str) -> None:
     (``msrflute_tpu/schema.py:816-830, 864-968``), with ``ValueError``; the
     combinations that the JAX strategies, engine and server refuse
     (``strategies/robust.py``, ``engine/round.py:411-467``,
-    ``engine/server.py:172-230``), with ``ValueError``; and the parts of
-    chaos this slice leaves out (checkpoint-IO faults, preemption, the
-    infra services), with ``NotImplementedError``; and
+    ``engine/server.py:172-233``; the infra services without the fleet
+    paged carry among them), with ``ValueError``; and
     ``clients_per_chunk`` beside ``dump_norm_stats`` or a ``robust``
     block (``engine/round.py:233-240, 442-447``), with ``ValueError``."""
     from .resilience.chaos import make_chaos
@@ -1389,11 +1399,9 @@ def check_defense(raw: Dict[str, Any], strategy: str) -> None:
                              f"got {seed!r}")
         schedule = make_chaos(sc)   # the constructor's range checks
         if schedule is not None:
-            if infra and any(float(v or 0.0) > 0.0 for k, v in infra.items()
-                             if k.endswith("_rate")):
-                raise NotImplementedError(
-                    "server_config.chaos.infra (chaos's infra services) "
-                    f"is {NOT_PORTED} §A")
+            _refuse(schedule.has_infra_faults and not paged_carry(raw,
+                                                                  strategy),
+                    INFRA_NEEDS_PAGING)
             faults = schedule.has_client_faults or schedule.has_corruption
             _refuse(faults and host,
                     "server_config.chaos dropout_rate/straggler_rate/"

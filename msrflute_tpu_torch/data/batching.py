@@ -35,6 +35,9 @@ class RoundBatch:
     client_ids:   ``[K]`` — dataset user indices (-1 for padding)
     mega:         the bucket's super-batch tape (:class:`MegaTape`) when
                   the server planned one for this grid, else None
+    carry_slots:  ``[K]`` int32 page-pool slot of each client under the
+                  fleet paged carry (-1 for padding), set by
+                  :meth:`..engine.paging.CarryPager.prepare_chunk`
     """
 
     arrays: Dict[str, np.ndarray]
@@ -43,6 +46,7 @@ class RoundBatch:
     client_mask: np.ndarray
     client_ids: np.ndarray
     mega: Optional["MegaTape"] = None
+    carry_slots: Optional[np.ndarray] = None
 
 
 def ceil_div(n: int, d: int) -> int:
@@ -148,6 +152,8 @@ class IndexRoundBatch:
     client_mask: np.ndarray
     client_ids: np.ndarray
     mega: Optional["MegaTape"] = None
+    #: see :class:`RoundBatch`
+    carry_slots: Optional[np.ndarray] = None
 
 
 def build_sample_pool(dataset: BaseDataset):

@@ -35,7 +35,9 @@ PersonalizedFedAvg` instead: the local models, alphas and ``seen`` gate
 ride ``strategy_state`` and the round's own client step, ``_sample`` is
 the base sampler, no store is kept (durability rides the model
 checkpoint), the round rides the dispatch ring, and the personalized eval
-reads the tables at the eval boundary: the ``[N]`` ``seen`` gate first.
+reads the tables at the eval boundary: the ``[N]`` ``seen`` gate first;
+under the fleet paged carry it reads each user's row from the pager's host
+store instead.
 """
 
 from __future__ import annotations
@@ -339,6 +341,29 @@ class PersonalizationServer(OptimizationServer):
 
         return stage
 
+    def _paged_locals(self):
+        """The paged carry's reader for the personalized eval
+        (``personalization.py:390-425``): an eval boundary has drained the
+        ring, so the pager's host store holds every user's current row;
+        each user's row is read for its local model, then for its alpha,
+        in the JAX eval's order, and staged on the device."""
+        pager, dev = self.fleet_pager, self.device
+
+        def stage(users):
+            local = self.state.params[None, :].repeat(len(users), 1)
+            alpha = torch.full((len(users),), self.alpha0,
+                               dtype=torch.float32, device=dev)
+            for j, u in enumerate(users):
+                row = pager.user_row(u)
+                if row is not None and float(row["seen"]) > 0:
+                    local[j].copy_(torch.from_numpy(row["local"]))
+                row = pager.user_row(u)
+                if row is not None and float(row["seen"]) > 0:
+                    alpha[j] = float(row["alpha"])
+            return local, alpha
+
+        return stage
+
     def personalized_eval(self, dataset) -> Optional[Tuple[float, float]]:
         """``(accuracy, loss)`` of the interpolated models over all of the
         split's users; a user without local state scores the global model
@@ -347,7 +372,11 @@ class PersonalizationServer(OptimizationServer):
         tables' rows are gathered on the device."""
         if len(dataset) == 0:
             return None
-        if self.store is None:
+        if self.store is None and self.fleet_pager is not None:
+            if not self.fleet_pager.has_rows():
+                return None
+            stage = self._paged_locals()
+        elif self.store is None:
             seen = self.state.strategy_state["seen"].cpu().tolist()
             if not any(v > 0 for v in seen):
                 return None

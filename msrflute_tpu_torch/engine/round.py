@@ -54,8 +54,12 @@ tables from ``strategy_state`` by the staged client ids and returns the
 round's carry rows with their ``keep`` gate (``valid * live``, chaos's
 dropped clients out; the shield does not gate them, as in the JAX
 round); :meth:`~..strategies.base.BaseStrategy.apply_carry` scatters them
-after the combine, before the server step, into new tables: the state is
-never written in place.  Fused RL (``wantRL`` with ``fused_carry``,
+after the combine, before the server step, into new tables: the round
+never writes the state in place.  Under the fleet paged carry
+(``round.py:259-273``) the tables are the page pool's ``[slots, ...]``
+and the staged row ids are the pager's ``carry_slots`` (the clients'
+generators keep their true ids, so a client's math is the same whichever
+slot holds its row).  Fused RL (``wantRL`` with ``fused_carry``,
 ``round.py:287-338, 1378-1392``) replaces the combine with the DQN tuner
 of :mod:`..rl.fused` on the payload stack.
 
@@ -627,14 +631,29 @@ class RoundEngine:
         if self.strategy.device_carry:
             # the carry tables' row ids, and each slot's source for the
             # scatter: itself, or for a padding slot the first real one
-            # (see strategies/base.py::scatter_rows)
-            ids = np.asarray(batch.client_ids, np.int64)
+            # (see strategies/base.py::scatter_rows).  Under the fleet
+            # paged carry the rows are the pager's slots; the generators
+            # keep the true client ids
+            ids = np.asarray(self._carry_rows_of(batch), np.int64)
             src = np.arange(len(ids), dtype=np.int64)
             real = np.flatnonzero(ids >= 0)
             if real.size:
                 src[ids < 0] = real[0]
             tree["carry_ids"], tree["carry_src"] = ids, src
         return tree
+
+    def _carry_rows_of(self, batch) -> np.ndarray:
+        """The batch's carry table rows: its page-pool slots under the
+        fleet paged carry (a batch the pager did not prepare raises, as
+        ``round.py:1900-1910`` does), else its client ids."""
+        if not self.strategy.carry_rows:
+            return batch.client_ids
+        slots = getattr(batch, "carry_slots", None)
+        if slots is None:
+            raise ValueError(
+                "fleet paged carry: batch has no carry_slots — the "
+                "CarryPager must prepare every chunk before dispatch")
+        return slots
 
     def stage_inputs(self, round0: int, batches: List[RoundBatch],
                      chaos_vecs: Optional[list] = None

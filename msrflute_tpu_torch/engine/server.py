@@ -122,6 +122,22 @@ fire's per-client staleness beside the chaos vectors, the round returns
 its histogram (``traffic_staleness``), and ``traffic.target_accuracy``
 records :attr:`rounds_to_target_accuracy` (:meth:`traffic_summary`).
 
+The fleet paged carry (``server.py:96-170, 360-380, 860-1030,
+1357-1367, 1464-1472, 1586-1603, 1718-1726, 2553-2578``): ``fleet``
+beside a device-carry strategy sizes its tables to a page pool
+(``strategy.carry_rows``) behind a :class:`~.paging.CarryPager`, built
+after the resume decision: each chunk's cohorts map onto slots before its
+dispatch (the misses paged in), its rows start home right after it, and
+the drain writes them to the host row store before the host tail; the
+ring packs the next chunk ahead so the pager's worker can stage its rows.
+Every ``spill_freq`` rounds and at the last, once the checkpoint is on
+disk, the store spills its dirty rows and commits the drained round as its
+marker; a resume takes the checkpoint slot the marker pairs with
+(:meth:`_paired_fleet_anchor`).  One :class:`~..resilience.integrity.
+DurableIOLadder` (the ``checkpoint_retry`` policy) runs the store's and the
+writeback's IO, with ``chaos.infra``'s probes on its surfaces
+(:meth:`fleet_summary`).
+
 Host-orchestrated rounds (``server.py:1410``): with ``wantRL`` (DGA's RL
 weight hook), ``strategy: scaffold`` or ``strategy: ef_quant`` each round
 runs through :meth:`_host_round_setup` and the engine's
@@ -153,8 +169,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..config import (OptimizerConfig, RLConfig, cohort_upper_bound,
-                      parse_clients_per_round)
+from ..config import (INFRA_NEEDS_PAGING, OptimizerConfig, RLConfig,
+                      cohort_upper_bound, parse_clients_per_round)
 from ..data.batching import (assign_step_buckets, bucket_boundaries,
                              bucket_capacities, build_sample_pool,
                              grid_slots, megabatch_lanes, pack_eval_batches,
@@ -167,7 +183,7 @@ from ..device import DeviceLike, resolve_device
 from ..models.base import BaseTask, Metric, Params
 from ..optim import PlateauTracker, make_lr_schedule
 from ..resilience.chaos import make_chaos
-from ..resilience.integrity import RetryPolicy
+from ..resilience.integrity import DurableIOLadder, RetryPolicy
 from ..resilience.preemption import PreemptionHandler
 from ..strategies import select_strategy
 from ..strategies.ef_quant import (DeviceResidualTable, EFQuant,
@@ -176,10 +192,12 @@ from ..strategies.robust import select_robust_strategy
 from ..strategies.scaffold import ControlStore, DeviceControlTable, Scaffold
 from ..traffic import STALE_HIST_BINS, make_traffic
 from ..utils.logging import MetricsLog, print_rank
-from .checkpoint import CheckpointManager, load_pretrained_params
+from .checkpoint import (LATEST_PREV, CheckpointManager,
+                         load_pretrained_params)
 from .client_update import ClientHParams, build_client_update
 from .evaluation import (evaluate, per_user_accuracy, prediction_rows,
                          stage_eval_batches)
+from .paging import CarryPager, read_marker
 from .round import SERVER_SLOT, RoundEngine, ServerState
 
 #: the replay's dropout stream: ``[seed, r, SERVER_SLOT, REPLAY_TAG]``
@@ -244,7 +262,10 @@ class OptimizationServer:
             not (self._fused_carry and
                  getattr(type(self), "fused_carry_sample", False)))
         self._check_host_rounds(sc)
-        self._setup_fleet(sc)
+        self._setup_fleet(sc, len(train_dataset))
+        if self.chaos is not None and self.chaos.has_infra_faults and \
+                not self._fleet_paged:
+            raise ValueError(INFRA_NEEDS_PAGING)
 
         # the dispatch/drain ring (server.py:314-352): paths whose host
         # tail feeds the next dispatch run serial, decided up front
@@ -398,6 +419,7 @@ class OptimizationServer:
         self._status_ring: list = []
         resumed = bool(sc.get("resume_from_checkpoint", False)) and \
             self._resume()
+        self._setup_pager(sc, model_dir, resumed, len(train_dataset))
 
         # DGA's RL weight hook (server.py:437-451); under fused_carry the
         # engine's FusedRL takes its place and no host aggregator is built
@@ -435,12 +457,19 @@ class OptimizationServer:
                     self.quant_anneal ** self.state.round
         self._max_iteration = int(sc.get("max_iteration", 100))
 
-    def _setup_fleet(self, sc) -> None:
-        """``server_config.fleet`` (``server.py:96-116``): the cohort draw
-        of :func:`..data.fleet.sample_cohort` (``config.validate`` refuses
-        it beside a device-carry strategy: the paged carry)."""
+    def _setup_fleet(self, sc, population: int) -> None:
+        """``server_config.fleet`` (``server.py:96-170``): the cohort draw
+        of :func:`..data.fleet.sample_cohort`, and beside a device-carry
+        strategy the paged carry: the page pool's slots
+        (``strategy.carry_rows``, set before ``init_state`` sizes the
+        tables), by default ``pow2_ceil(2 * pad * rounds_per_step *
+        (pipeline_depth + 1))`` capped at the population, refused below
+        the in-flight floor ``pad * rounds_per_step * (pipeline_depth +
+        1)``."""
         fl = sc.get("fleet") or {}
         self._fleet_cfg = fl if (fl and fl.get("enable", True)) else None
+        self._fleet_paged = bool(self._fleet_cfg is not None and
+                                 self.strategy.device_carry)
         if self._fleet_cfg is None:
             return
         if sc.get("scaffold_device_controls") or \
@@ -451,6 +480,119 @@ class OptimizationServer:
                 "those keep a FULL [N, n_params] table in HBM, the "
                 "exact residency fleet paging exists to replace; "
                 "use fused_carry + fleet instead")
+        if not self._fleet_paged:
+            return
+        # one device: the padded cohort is the cohort
+        pad = min(cohort_upper_bound(sc.get("num_clients_per_iteration",
+                                            10)), population)
+        depth = max(int(sc.get("pipeline_depth", 1) or 0), 0)
+        rps = max(int(sc.get("rounds_per_step", 1) or 1), 1)
+        auto = pow2_ceil(max(pad * rps * (depth + 1) * 2, pad + 1))
+        slots = int(self._fleet_cfg.get("page_pool_slots") or auto)
+        slots = min(max(slots, pad), population)
+        required = min(pad * rps * (depth + 1), population)
+        if slots < required:
+            raise ValueError(
+                f"server_config.fleet.page_pool_slots={slots} is "
+                f"below the in-flight floor {required} "
+                f"(= padded cohort {pad} x rounds_per_step {rps} x "
+                f"(pipeline_depth {depth} + 1), capped at the "
+                "population) — raise page_pool_slots or lower "
+                "pipeline_depth")
+        self.strategy.carry_rows = slots
+
+    def _setup_pager(self, sc, model_dir: str, resumed: bool,
+                     population: int) -> None:
+        """The paged carry's :class:`~.paging.CarryPager` and its row store
+        under ``<model_dir>/fleet_carry`` (``server.py:860-923``), built
+        after the resume decision so that the rows and the restored params
+        are one trajectory: a resumed run adopts the marker's round (the
+        dead trajectory's newer row generations go) or, with a marker
+        behind the checkpoint, resets the rows."""
+        self.fleet_pager: Optional[CarryPager] = None
+        if not self._fleet_paged:
+            return
+        # one retry ladder over the store's and the writeback's IO
+        # (server.py:360-380), chaos's infra probes on its surfaces (the
+        # round marker shares the spill stream)
+        infra = self.chaos.infra if self.chaos is not None else None
+        hooks = {}
+        if infra is not None:
+            hooks = {"store_write": infra.hook("store_write"),
+                     "store_read": infra.hook("store_read"),
+                     "marker": infra.hook("store_write"),
+                     "writeback": infra.hook("writeback"),
+                     "writer": infra.hook("writer")}
+        ladder = DurableIOLadder(
+            policy=RetryPolicy.from_config(sc.get("checkpoint_retry")),
+            fault_hooks=hooks)
+        ladder.event = self.event
+        fl = self._fleet_cfg
+        self.fleet_pager = pager = CarryPager(
+            self.strategy, self.state.strategy_state,
+            slots=int(self.strategy.carry_rows),
+            store_dir=os.path.join(model_dir, "fleet_carry"),
+            host_cache_rows=int(fl.get("host_cache_rows", 8192) or 8192),
+            resume=resumed, prefetch=bool(fl.get("prefetch", True)),
+            ladder=ladder, faults=infra, events=self.event)
+        if resumed:
+            marker = pager.round()
+            if marker is None or int(marker) < int(self.state.round):
+                print_rank(
+                    f"fleet carry rows were at round {marker} but "
+                    f"the checkpoint resumed at {self.state.round}; "
+                    "resetting carry rows (one-trajectory rule)")
+                pager.reset()
+            else:
+                pager.adopt_round(int(self.state.round))
+                pager.mark_durable(int(self.state.round) - 1)
+        mb = pager.n_slots * pager.row_bytes() / 2**20
+        print_rank(f"fleet paged carry: {pager.n_slots} pool slots x "
+                   f"{sorted(self.strategy.carry_tables)} ({mb:.1f} MiB on "
+                   f"{self.device}) over {population} clients")
+
+    def _paired_fleet_anchor(self, restored: ServerState
+                             ) -> Optional[ServerState]:
+        """The resume anchor under the paged carry (``server.py:993-1030``):
+        the round marker commits after the checkpoint, so a kill inside a
+        round's commit window can leave ``latest`` ahead of the durable
+        rows.  Params and rows must come from one round: ``latest`` when
+        the marker reaches it, else the ``.prev`` slot when it is the
+        marker's round, else a cold start (the seeded run replays to the
+        same bits)."""
+        marker = read_marker(os.path.join(self.ckpt.model_dir,
+                                          "fleet_carry"))
+        durable = int(marker) if marker is not None else 0
+        latest_round = int(restored.round)
+        if durable >= latest_round:
+            return restored
+        prev = self.ckpt.load(self.device, LATEST_PREV)
+        if prev is not None and int(prev.round) == durable:
+            print_rank(
+                f"fleet carry rows are durable through round {durable} "
+                f"but latest_model is at {latest_round} (hard stop "
+                "inside the commit window); resuming from the previous "
+                "slot so params and carry stay on one trajectory")
+            return prev
+        print_rank(
+            f"fleet carry rows are durable through round {durable} with "
+            f"no matching checkpoint slot (latest {latest_round}); "
+            "cold-starting — the seeded replay reproduces the run "
+            "bit-for-bit")
+        return None
+
+    def fleet_summary(self) -> Optional[Dict[str, Any]]:
+        """The paged carry's record (the JAX scorecard's ``fleet`` and
+        ``infra_faults`` blocks, ``server.py:2080-2105``): the pager's
+        :meth:`~.paging.CarryPager.describe` and the infra counters; None
+        without the paged carry."""
+        if self.fleet_pager is None:
+            return None
+        infra = self.chaos.infra if self.chaos is not None else None
+        return {"fleet": self.fleet_pager.describe(),
+                "infra_faults": (
+                    None if infra is None else
+                    {k: float(v) for k, v in sorted(infra.counters.items())})}
 
     def _setup_traffic(self, sc, train_dataset) -> None:
         """The arrival plane (``server.py:236-306``): the seeded
@@ -908,6 +1050,8 @@ class OptimizationServer:
         """Reload the latest checkpoint and the status log; False when
         there is no checkpoint to resume from."""
         restored = self.ckpt.load(self.device)
+        if restored is not None and self._fleet_paged:
+            restored = self._paired_fleet_anchor(restored)
         if restored is None:
             return False
         self.state = restored
@@ -1096,6 +1240,15 @@ class OptimizationServer:
         prefetch_ok = (rounds_per_step > 1 and not pipelined and
                        host_round is None and self.server_replay is None
                        and not self._sample_hooked)
+        # the paged carry's row prefetch (server.py:1357-1367): the ring
+        # packs the next chunk right after a dispatch too, and hands its
+        # cohorts to the pager's worker (the draws' order is the same)
+        pager = self.fleet_pager
+        fleet_prefetch = (pager is not None and pager.prefetch_enabled
+                          and self.rl is None and
+                          self.server_replay is None and
+                          not self._sample_hooked)
+        lookahead = prefetch_ok or (pipelined and fleet_prefetch)
         prefetched = None
         # dispatched, undrained chunks, oldest first
         pending: deque = deque()
@@ -1159,6 +1312,11 @@ class OptimizationServer:
                 if ch["snapshot"] is None:
                     ch["snapshot"] = self.ckpt.snapshot(ch["state"])
             snap_secs = time.time() - tac
+            if pager is not None:
+                # the chunk's cohorts onto pool slots, the misses paged in
+                # on the stream after the snapshots above and before the
+                # dispatch (server.py:1464-1472)
+                pager.prepare_chunk(batches, self.state.strategy_state)
             chaos_vecs = [self.chaos_vectors(round_no + j, b)
                           for j, b in enumerate(batches)]
             tac = time.time()
@@ -1186,10 +1344,17 @@ class OptimizationServer:
                          "dispatch": dispatch_secs
                          - self.engine.last_stage_secs,
                          "ckpt": snap_secs}}
+            if pager is not None:
+                # the chunk's rows start home now, before a later page-in
+                # writes the tables (server.py:1586-1591)
+                chunk["fleet_wb"] = pager.queue_writeback(
+                    self.state.strategy_state, round_no=round_no + R)
             round_no += R
             anchor = chunk["rng_snapshot"]
-            if prefetch_ok and round_no < max_iteration:
+            if lookahead and round_no < max_iteration:
                 prefetched = pack(chunk_R(round_no))
+                if fleet_prefetch:
+                    pager.prefetch_chunk(prefetched[1])
             if prof is not None:
                 self._stop_profile(prof, chunk["round0"])
             self._chunks_run += 1
@@ -1268,6 +1433,10 @@ class OptimizationServer:
         tic = time.time()
         stats = chunk["stats"].fetch()
         toc = time.time()
+        if chunk.get("fleet_wb") is not None:
+            # the chunk's rows into the host store, its slots unpinned,
+            # before the host tail reads them (server.py:1718-1726)
+            self.fleet_pager.complete_writeback(chunk["fleet_wb"])
         rs = self.run_stats
         # serial: prep to fence; pipelined: fence to fence, since this
         # chunk's prep began before the previous fence
@@ -1650,6 +1819,17 @@ class OptimizationServer:
                     round_no >= self._max_iteration:
                 table.flush()
                 store.set_round(self.state.round)
+        spill_freq = int((self._fleet_cfg or {}).get("spill_freq", 1) or 1)
+        if self.fleet_pager is not None and (
+                spill_freq <= 1 or round_no % spill_freq == 0 or
+                round_no >= self._max_iteration):
+            # the rows' durability (server.py:2553-2578): spilled, then
+            # the marker commits the drained round once its checkpoint is
+            # on disk; generations at or below the round before it may go
+            self.ckpt.wait()
+            self.fleet_pager.flush()
+            self.fleet_pager.set_round(int(round_no))
+            self.fleet_pager.mark_durable(int(round_no) - 1)
         self.metrics.flush()
         self.run_stats["secsPerRoundHousekeeping"].append(time.time() - tic)
 

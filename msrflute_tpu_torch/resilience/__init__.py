@@ -1,10 +1,12 @@
 """Fault injection, checkpoint integrity and retry, graceful preemption."""
 
-from .chaos import ChaosSchedule, make_chaos
+from .chaos import ChaosSchedule, InfraFaults, make_chaos
 from .integrity import (CheckpointCorruptionError, CheckpointEscalationError,
-                        FailureEscalator, RetryPolicy, run_with_retry)
+                        DurableIOError, DurableIOLadder, FailureEscalator,
+                        RetryPolicy, run_with_retry)
 from .preemption import PreemptionHandler
 
-__all__ = ["ChaosSchedule", "make_chaos", "CheckpointCorruptionError",
-           "CheckpointEscalationError", "FailureEscalator", "RetryPolicy",
-           "run_with_retry", "PreemptionHandler"]
+__all__ = ["ChaosSchedule", "InfraFaults", "make_chaos",
+           "CheckpointCorruptionError", "CheckpointEscalationError",
+           "DurableIOError", "DurableIOLadder", "FailureEscalator",
+           "RetryPolicy", "run_with_retry", "PreemptionHandler"]

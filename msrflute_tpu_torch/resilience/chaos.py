@@ -1,7 +1,8 @@
 """Deterministic client faults, update corruption, checkpoint-IO faults and
-the preemption drill (``server_config.chaos``) — the port's copy of
-``msrflute_tpu/resilience/chaos.py`` (``:202-402``, ``:402-443``) less its
-infra services.
+the preemption drill and the infrastructure faults
+(``server_config.chaos``) — the port's copy of
+``msrflute_tpu/resilience/chaos.py`` (``:66-200``, ``:202-402``,
+``:402-443``).
 
 A seeded schedule that makes the cohort unreliable: clients that drop out
 mid-round, stragglers that reach the round barrier with only part of their
@@ -26,8 +27,12 @@ call]`` says so, which the checkpoint manager's retry loop absorbs or
 counts toward escalation.  ``preempt_at_round`` is read by the server's
 round loop (:mod:`.preemption`).
 
-Not ported (``config.validate`` refuses them): the ``infra`` service
-faults, which need fleet paging.
+Infrastructure faults (``chaos.infra``, :class:`InfraFaults`): the fleet
+paged carry's host services (the row store's spill and read, the round
+marker, the ``fleet-prefetch`` worker, the writeback fetch, the rollup
+writer) fail on their own call-indexed streams, with the JAX package's
+stream tags, so both packages fail the same attempts.  The server refuses
+them without the paged carry.
 """
 
 from __future__ import annotations
@@ -43,6 +48,13 @@ _CLIENT_STREAM = 0xC7A05C11
 _CORRUPT_STREAM = 0xC7A0C0DE
 #: the checkpoint-IO stream, indexed by call rather than by round
 _IO_STREAM = 0xC7A051F0
+#: the infrastructure services' streams, one tag a service, so raising one
+#: service's rate never moves another's schedule
+_INFRA_STORE_WRITE_STREAM = 0xC7A05701
+_INFRA_STORE_READ_STREAM = 0xC7A05702
+_INFRA_PREFETCH_STREAM = 0xC7A0F7EC
+_INFRA_WRITER_STREAM = 0xC7A03217
+_INFRA_WRITEBACK_STREAM = 0xC7A03B0A
 
 #: corruption modes of the per-round ``[K]`` int32 vector; 0 = clean
 CORRUPT_NONE = 0
@@ -52,6 +64,104 @@ CORRUPT_SIGN_FLIP = 3  # payload x -corrupt_sign_flip_scale (sign flip)
 
 #: "no straggler bound": far above any step grid
 NO_BOUND = 1e9
+
+
+class InfraFaults:
+    """Seeded infrastructure faults (``server_config.chaos.infra``).  Each
+    surface draws from its own stream ``[seed, stream, call]``, its index
+    advancing on every physical attempt (so a retry draws afresh); the
+    prefetch delay draws on the prefetch tag with a fourth word 1.  The
+    call indices restart at 0 in a resumed process: the faults exercise the
+    retry ladder and never touch model state."""
+
+    _STREAMS = {
+        "store_write": _INFRA_STORE_WRITE_STREAM,
+        "store_read": _INFRA_STORE_READ_STREAM,
+        "prefetch": _INFRA_PREFETCH_STREAM,
+        "writer": _INFRA_WRITER_STREAM,
+        "writeback": _INFRA_WRITEBACK_STREAM,
+    }
+
+    def __init__(self, seed: int = 0,
+                 store_write_error_rate: float = 0.0,
+                 store_read_error_rate: float = 0.0,
+                 prefetch_error_rate: float = 0.0,
+                 prefetch_delay_rate: float = 0.0,
+                 prefetch_delay_s: float = 0.05,
+                 writer_error_rate: float = 0.0,
+                 writeback_error_rate: float = 0.0):
+        rates = {"store_write_error_rate": store_write_error_rate,
+                 "store_read_error_rate": store_read_error_rate,
+                 "prefetch_error_rate": prefetch_error_rate,
+                 "prefetch_delay_rate": prefetch_delay_rate,
+                 "writer_error_rate": writer_error_rate,
+                 "writeback_error_rate": writeback_error_rate}
+        for key, val in rates.items():
+            if not 0.0 <= float(val) <= 1.0:
+                raise ValueError(f"chaos.infra.{key} must be in [0, 1]")
+        if float(prefetch_delay_s) < 0.0:
+            raise ValueError("chaos.infra.prefetch_delay_s must be >= 0")
+        self.seed = int(seed)
+        self.rates = {k: float(v) for k, v in rates.items()}
+        self.prefetch_delay_s = float(prefetch_delay_s)
+        self._calls = {name: 0 for name in self._STREAMS}
+        self._calls["prefetch_delay"] = 0
+        #: injected faults a surface
+        self.counters: Dict[str, float] = {
+            "store_write_faults": 0.0, "store_read_faults": 0.0,
+            "prefetch_faults": 0.0, "prefetch_delays": 0.0,
+            "writer_faults": 0.0, "writeback_faults": 0.0,
+        }
+
+    @property
+    def enabled(self) -> bool:
+        return any(v > 0.0 for v in self.rates.values())
+
+    def _draw(self, surface: str, rate: float) -> bool:
+        if surface == "prefetch_delay":
+            key = [self.seed, _INFRA_PREFETCH_STREAM,
+                   self._calls[surface], 1]
+        else:
+            key = [self.seed, self._STREAMS[surface], self._calls[surface]]
+        self._calls[surface] += 1
+        rng = np.random.default_rng(np.random.SeedSequence(key))
+        return bool(rng.random() < rate)
+
+    def fault(self, surface: str) -> bool:
+        """Whether ``surface``'s next physical operation fails."""
+        if self._draw(surface, self.rates[f"{surface}_error_rate"]):
+            self.counters[f"{surface}_faults"] += 1
+            return True
+        return False
+
+    def hook(self, surface: str):
+        """A probe that raises ``OSError`` on a drawn fault (the ladder's
+        ``fault_hooks``), or None when the surface's rate is 0."""
+        if self.rates[f"{surface}_error_rate"] <= 0.0:
+            return None
+
+        def _probe() -> None:
+            if self.fault(surface):
+                raise OSError(
+                    f"chaos: injected {surface} infra fault "
+                    f"#{int(self.counters[f'{surface}_faults'])} "
+                    f"({surface}_error_rate="
+                    f"{self.rates[f'{surface}_error_rate']})")
+        return _probe
+
+    def prefetch_delay(self) -> float:
+        """The seconds the prefetch worker stalls before staging a chunk
+        (0.0 unless the delay stream draws one)."""
+        if self._draw("prefetch_delay", self.rates["prefetch_delay_rate"]):
+            self.counters["prefetch_delays"] += 1
+            return self.prefetch_delay_s
+        return 0.0
+
+    def describe(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {"enabled": self.enabled, "seed": self.seed}
+        out.update(self.rates)
+        out["prefetch_delay_s"] = self.prefetch_delay_s
+        return out
 
 
 class ChaosSchedule:
@@ -67,7 +177,8 @@ class ChaosSchedule:
                  corrupt_scale_rate: float = 0.0,
                  corrupt_sign_flip_rate: float = 0.0,
                  corrupt_scale_factor: float = 10.0,
-                 corrupt_sign_flip_scale: float = 1.0):
+                 corrupt_sign_flip_scale: float = 1.0,
+                 infra: Optional[InfraFaults] = None):
         if not 0.0 <= float(dropout_rate) <= 1.0:
             raise ValueError("chaos.dropout_rate must be in [0, 1]")
         if not 0.0 <= float(straggler_rate) <= 1.0:
@@ -104,6 +215,8 @@ class ChaosSchedule:
         self.corrupt_sign_flip_rate = float(corrupt_sign_flip_rate)
         self.corrupt_scale_factor = float(corrupt_scale_factor)
         self.corrupt_sign_flip_scale = float(corrupt_sign_flip_scale)
+        #: the infrastructure faults (None without ``infra``)
+        self.infra = infra
         #: IO-fault decisions drawn so far (the IO stream's index)
         self._io_calls = 0
         #: injected-fault totals, accumulated by the server from the
@@ -117,6 +230,10 @@ class ChaosSchedule:
     @property
     def has_client_faults(self) -> bool:
         return self.dropout_rate > 0.0 or self.straggler_rate > 0.0
+
+    @property
+    def has_infra_faults(self) -> bool:
+        return self.infra is not None and self.infra.enabled
 
     @property
     def has_corruption(self) -> bool:
@@ -190,8 +307,7 @@ class ChaosSchedule:
                 f"(ckpt_io_error_rate={self.ckpt_io_error_rate})")
 
     def describe(self) -> Dict[str, Any]:
-        """The schedule's record, as the JAX package writes it (``infra``
-        is never on in the port)."""
+        """The schedule's record, as the JAX package writes it."""
         return {
             "enabled": True,
             "seed": self.seed,
@@ -205,7 +321,8 @@ class ChaosSchedule:
             "corrupt_sign_flip_rate": self.corrupt_sign_flip_rate,
             "corrupt_scale_factor": self.corrupt_scale_factor,
             "corrupt_sign_flip_scale": self.corrupt_sign_flip_scale,
-            "infra": None,
+            "infra": (self.infra.describe()
+                      if self.infra is not None else None),
         }
 
 
@@ -218,6 +335,24 @@ def make_chaos(server_config) -> Optional[ChaosSchedule]:
     raw = dict(raw)
     if not raw.pop("enable", True):
         return None
+    infra_raw = raw.get("infra")
+    infra = None
+    if infra_raw:
+        if not isinstance(infra_raw, dict):
+            raise ValueError("chaos.infra must be a mapping of "
+                             "infrastructure fault rates")
+        infra = InfraFaults(
+            seed=raw.get("seed", 0),
+            store_write_error_rate=infra_raw.get(
+                "store_write_error_rate", 0.0),
+            store_read_error_rate=infra_raw.get(
+                "store_read_error_rate", 0.0),
+            prefetch_error_rate=infra_raw.get("prefetch_error_rate", 0.0),
+            prefetch_delay_rate=infra_raw.get("prefetch_delay_rate", 0.0),
+            prefetch_delay_s=infra_raw.get("prefetch_delay_s", 0.05),
+            writer_error_rate=infra_raw.get("writer_error_rate", 0.0),
+            writeback_error_rate=infra_raw.get(
+                "writeback_error_rate", 0.0))
     return ChaosSchedule(
         seed=raw.get("seed", 0),
         dropout_rate=raw.get("dropout_rate", 0.0),
@@ -230,4 +365,5 @@ def make_chaos(server_config) -> Optional[ChaosSchedule]:
         corrupt_sign_flip_rate=raw.get("corrupt_sign_flip_rate", 0.0),
         corrupt_scale_factor=raw.get("corrupt_scale_factor", 10.0),
         corrupt_sign_flip_scale=raw.get("corrupt_sign_flip_scale", 1.0),
+        infra=infra,
     )

@@ -13,9 +13,13 @@
   :class:`CheckpointEscalationError` instead of training on
   uncheckpointed behind warnings.
 
+- **DurableIOLadder** (``integrity.py:184-278``): the same retry policy
+  over every durable host IO surface of the fleet paged carry (the row
+  store's spills and reads, its round marker, the writeback fetch, and
+  the rollup writer), each surface with its own exhaustion mode.
+
 Not copied: ``tree_checksum`` (orbax slots, which the port does not
-write) and ``DurableIOLadder``, whose surfaces are the fleet's host stores
-and telemetry writers (ROADMAP.md §A, fleet and traffic).
+write).
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import random
 import time
 import zlib
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 from ..utils.logging import print_rank
 
@@ -173,3 +177,82 @@ class FailureEscalator:
                 "resumable — aborting instead of running uncheckpointed. "
                 "Fix the storage path or raise "
                 "server_config.checkpoint_retry.escalation_threshold.")
+
+
+class DurableIOError(RuntimeError):
+    """A durable IO operation whose loss would corrupt training state (a
+    row-store read, the writeback fetch) exhausted its retries; raised on
+    the training thread."""
+
+
+class DurableIOLadder:
+    """One retry policy (``server_config.checkpoint_retry``) over every
+    durable host IO surface, each with its own exhaustion mode
+    (:attr:`MODES`):
+
+    - ``escalate`` (row-store spill, round marker): the caller keeps the
+      data host-visible, so a lost write costs capacity, not correctness;
+      ``escalation_threshold`` consecutive exhausted writes on the surface
+      raise :class:`CheckpointEscalationError`;
+    - ``raise`` (row-store read, writeback fetch): exhaustion raises
+      :class:`DurableIOError`, since losing a carry row corrupts training;
+    - ``drop`` (the rollup writer): exhaustion returns False.
+
+    ``fault_hooks`` maps a surface to chaos's probe
+    (:meth:`..chaos.InfraFaults.hook`), run before every attempt so a
+    retry draws afresh.  Every failed attempt on a surface but ``writer``
+    goes to :attr:`event` as a ``store_io_fault`` record.  A
+    ``BaseException`` that is not an ``Exception`` (a kill) passes
+    through untouched."""
+
+    MODES = {
+        "store_write": "escalate",
+        "store_read": "raise",
+        "marker": "escalate",
+        "writeback": "raise",
+        "writer": "drop",
+    }
+
+    def __init__(self, policy: Optional[RetryPolicy] = None,
+                 fault_hooks: Optional[Dict[str, Callable[[], None]]] = None):
+        self.policy = policy if policy is not None else RetryPolicy()
+        self.fault_hooks = dict(fault_hooks or {})
+        #: ``event(kind, **fields)``: the server's record sink
+        self.event: Optional[Callable[..., None]] = None
+        self.escalators = {
+            name: FailureEscalator(self.policy.escalation_threshold)
+            for name, mode in self.MODES.items() if mode == "escalate"}
+
+    def run(self, fn: Callable[[], None], surface: str,
+            what: str = "") -> bool:
+        """``fn`` on ``surface`` under the ladder: True on success, else
+        the surface's exhaustion mode."""
+        mode = self.MODES[surface]
+        hook = self.fault_hooks.get(surface)
+
+        def attempt() -> None:
+            try:
+                if hook is not None:
+                    hook()
+                fn()
+            except Exception as exc:
+                if self.event is not None and surface != "writer":
+                    self.event("store_io_fault", surface=surface,
+                               what=what, error=repr(exc))
+                raise
+
+        if run_with_retry(attempt, self.policy, what=what or f"{surface} io"):
+            if mode == "escalate":
+                self.escalators[surface].record_success()
+            return True
+        if mode == "raise":
+            raise DurableIOError(
+                f"{surface} IO exhausted its retry budget "
+                f"({self.policy.retries} attempts)"
+                f"{': ' + what if what else ''}"
+                " — losing this data would corrupt training state")
+        if mode == "escalate":
+            esc = self.escalators[surface]
+            esc.record_failure(what or surface)
+            esc.check()
+        return False

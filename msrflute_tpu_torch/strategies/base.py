@@ -117,6 +117,15 @@ class BaseStrategy:
     #: the client pool's size, the tables' row count; the server sets it
     #: from ``len(train_dataset)`` before ``init_state``
     carry_clients: int = 0
+    #: the fleet paged carry (``server_config.fleet``,
+    #: ``msrflute_tpu/strategies/base.py:100-111``): when non-zero, the
+    #: tables hold this many page-pool slots instead of ``carry_clients``
+    #: rows, the round indexes them by slot, and population-level math
+    #: (SCAFFOLD's ``c``) keeps normalizing by ``carry_clients``
+    carry_rows: int = 0
+    #: the ``strategy_state`` keys that are per-client tables (what the
+    #: pager pages); the others (SCAFFOLD's ``c``) stay resident
+    carry_tables: tuple = ()
     #: ``client_update`` calls a client step makes (the personalization
     #: carry trains the global and the local model): kernel B1's launches
     #: a local step
@@ -214,15 +223,21 @@ class BaseStrategy:
         stats["privacy_dropped"] = dropped
         return weight * (1.0 - dropped)
 
+    def carry_row_defaults(self) -> Dict[str, float]:
+        """The fill of each carry table's row for a client never seen (the
+        paged twin of ``init_state``'s fill): 0 unless a strategy says
+        otherwise."""
+        return {k: 0.0 for k in self.carry_tables}
+
     def _carry_table_rows(self) -> int:
-        """The carry tables' row count (no fleet paging: the client
-        pool)."""
+        """The carry tables' row count: the page pool's slots under fleet
+        paging, else the client pool."""
         if not self.carry_clients:
             raise ValueError(
                 f"fused_carry {type(self).__name__} needs carry_clients (the "
                 "client pool's size) set before init_state — the server sets "
                 "it from len(train_dataset)")
-        return int(self.carry_clients)
+        return int(self.carry_rows or self.carry_clients)
 
     def client_step_carry(self, client_update, global_flat, arrays,
                           sample_mask, client_lr, gens=None, *, client_ids,

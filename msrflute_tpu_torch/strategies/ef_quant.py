@@ -180,6 +180,7 @@ class EFQuant(FedAvg):
 
     host_rounds = True
     supports_rl = False
+    carry_tables = ("res",)
 
     def __init__(self, config):
         super().__init__(config)

@@ -46,6 +46,12 @@ class PersonalizedFedAvg(FedAvg):
     device_carry = True
     supports_rl = False
     client_passes = 2
+    carry_tables = ("local", "alpha", "seen")
+
+    def carry_row_defaults(self):
+        # a user never seen starts at alpha0 with seen 0 (the local model
+        # is then the live global one, whatever the row holds)
+        return {"local": 0.0, "alpha": self.alpha0, "seen": 0.0}
 
     def __init__(self, config):
         super().__init__(config)

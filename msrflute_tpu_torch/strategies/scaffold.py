@@ -271,6 +271,8 @@ class Scaffold(FedAvg):
 
     host_rounds = True
     supports_rl = False
+    #: the paged table; ``c`` stays resident
+    carry_tables = ("ci",)
 
     def __init__(self, config):
         super().__init__(config)

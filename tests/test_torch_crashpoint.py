@@ -12,6 +12,14 @@ Both loops: depth 0 (synchronous saves, one thread) and depth 1, where
 ``latest`` goes through the async writer thread and the status ring
 pairs the loaded slot with its round; a kill on the writer thread is
 raised on the training thread at its next submit or wait.
+
+The fleet paged carry's slice (``tests/test_crashpoint.py:24-80`` on
+``tools/crashpoint.py:119-130``'s config: SCAFFOLD with a 16-slot pool and
+a 2-row host cache, synchronous saves): the census holds the row spills
+and the round marker, and a kill at each named point (before the first
+commit, inside a row spill, at the marker, inside the ``latest`` rotation,
+and after the last commit) resumes to the uninterrupted run's params and
+``c``, bitwise, at depth 0 and 3.
 """
 
 import os
@@ -53,11 +61,11 @@ class KillSwitch:
         for name, orig in self._orig.items():
             setattr(os, name, orig)
 
-    def arm(self, scope, kill_at=None):
-        """Count (and with ``kill_at`` kill) under ``scope``; None
-        disarms."""
+    def arm(self, scope, kill_at=None, phase="pre"):
+        """Count (and with ``kill_at`` kill, before the commit or with
+        ``phase`` "post" after it) under ``scope``; None disarms."""
         self.scope = None if scope is None else os.path.abspath(scope)
-        self.kill_at, self.log = kill_at, []
+        self.kill_at, self.log, self.phase = kill_at, [], phase
 
     def _wrap(self, name):
         orig = self._orig[name]
@@ -71,10 +79,14 @@ class KillSwitch:
                 k = len(self.log)
                 self.log.append((name, os.path.relpath(
                     os.path.abspath(str(dst)), scope)))
-            if self.kill_at == k:
+            if self.kill_at == k and self.phase == "pre":
                 raise CrashPoint(f"killed before durable op #{k}: "
                                  f"{name} -> {dst}")
-            return orig(src, dst, *args, **kwargs)
+            out = orig(src, dst, *args, **kwargs)
+            if self.kill_at == k and self.phase == "post":
+                raise CrashPoint(f"killed after durable op #{k}: "
+                                 f"{name} -> {dst}")
+            return out
         return wrapped
 
 
@@ -171,3 +183,72 @@ def test_a_kill_in_a_save_ends_the_run(async_latest, tmp_path):
         mgr.save_latest(_state(1))
         mgr.wait()
     assert calls == [1] and mgr.escalator.total == 0
+
+
+# ------------------------------------------------- the fleet paged carry
+def _fleet_raw(depth, resume=False):
+    raw = raw_config("scaffold", depth=depth, rounds=ROUNDS, val_freq=10_000,
+                     checkpoint_async=False,
+                     checkpoint_retry={"retries": 2, "backoff_base_s": 0.0,
+                                       "jitter": 0.0},
+                     fleet={"page_pool_slots": 16, "host_cache_rows": 2,
+                            "spill_freq": 1},
+                     resume_from_checkpoint=resume)
+    raw["server_config"]["data_config"] = {}
+    return raw
+
+
+def _fleet_run(depth, model_dir, resume=False):
+    server = port_server(_fleet_raw(depth, resume), model_dir)
+    server.train()
+    return server
+
+
+def _named_points(census):
+    """The kill points of the slice: (index, phase) by name."""
+    last = len(census) - 1
+
+    def first(pred):
+        return next(i for i, (op, rel) in enumerate(census) if pred(op, rel))
+
+    return {"first_commit": (0, "pre"),
+            "row_spill": (first(lambda op, rel: "fleet_carry/row_" in rel),
+                          "pre"),
+            "marker": (first(lambda op, rel: rel.endswith("fleet_round.npy")),
+                       "pre"),
+            "latest_rotation": (first(lambda op, rel: rel.endswith(
+                "latest_model.pt.prev.lnk")), "pre"),
+            "last_commit_post": (last, "post")}
+
+
+@pytest.mark.parametrize("depth", [0, 3])
+def test_paged_carry_kill_points_resume_bitwise(depth, tmp_path):
+    base = _fleet_run(depth, str(tmp_path / "base"))
+    assert base.fleet_pager.describe()["spilled_rows"] > 0
+    switch = KillSwitch()
+    switch.install()
+    try:
+        switch.arm(str(tmp_path / "census"))
+        _fleet_run(depth, str(tmp_path / "census"))
+        census = list(switch.log)
+        switch.arm(None)
+        joined = "\n".join(f"{op}:{rel}" for op, rel in census)
+        for needle in ("fleet_carry/row_", "fleet_carry/fleet_round.npy",
+                       "latest_model.pt", "latest_model.pt.sum",
+                       "link:latest_model.pt.prev.lnk", "status_log.json"):
+            assert needle in joined, (needle, joined)
+        for name, (k, phase) in _named_points(census).items():
+            run_dir = str(tmp_path / name)
+            switch.arm(run_dir, kill_at=k, phase=phase)
+            with pytest.raises(CrashPoint):
+                _fleet_run(depth, run_dir)
+            switch.arm(None)
+            resumed = _fleet_run(depth, run_dir, resume=True)
+            what = f"depth {depth}, {name}: op {k} {census[k]} ({phase})"
+            assert resumed.state.round == ROUNDS, what
+            assert torch.equal(resumed.state.params, base.state.params), \
+                what
+            assert torch.equal(resumed.state.strategy_state["c"],
+                               base.state.strategy_state["c"]), what
+    finally:
+        switch.uninstall()

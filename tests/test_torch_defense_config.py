@@ -144,10 +144,16 @@ NOT_PORTED = {
 
 
 @pytest.mark.parametrize("name", sorted(NOT_PORTED))
-def test_left_out_raises_not_implemented_naming_the_key(name):
+def test_left_out_raises_not_implemented_naming_the_key(name, tmp_path):
+    """Chaos's infra services run since the fleet paged carry: without it
+    they raise the JAX server's ValueError, naming the key."""
     strategy, path, value, key = NOT_PORTED[name]
-    with pytest.raises(NotImplementedError, match=key):
-        FLUTEConfig.from_dict(_with(strategy, (path, value)))
+    raw = _with(strategy, (path, value))
+    with pytest.raises(ValueError, match=key) as got:
+        FLUTEConfig.from_dict(copy.deepcopy(raw))
+    with pytest.raises(ValueError) as want:
+        _jax_server(raw, tmp_path / "jax")
+    assert str(got.value) == str(want.value)
 
 
 LIFTED = {

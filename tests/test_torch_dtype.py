@@ -98,6 +98,19 @@ def _batch(raw, n=6, seed=0):
     return {"x": x, "y": y, "sample_mask": mask}
 
 
+#: each model's JAX initial params, drawn once for both dtypes: flax draws
+#: them in float32 whatever the module's dtype (the same arrays, bitwise,
+#: from the bfloat16, float16 and float32 tasks)
+_jax_init = {}
+
+
+def _init(name, jt):
+    if name not in _jax_init:
+        _jax_init[name] = jax.device_get(
+            jt.init_params(jax.random.PRNGKey(3)))
+    return _jax_init[name]
+
+
 def _rel(got, want):
     return float(np.linalg.norm(got - want) / max(np.linalg.norm(want),
                                                    1e-30))
@@ -108,7 +121,7 @@ def _rel(got, want):
 def test_loss_and_grad_match_jax(name, dtype):
     raw = MODELS[name]
     jt, pt = _tasks(raw, dtype)
-    jp = jax.device_get(jt.init_params(jax.random.PRNGKey(3)))
+    jp = _init(name, jt)
     tp = from_jax_params(pt, jp)
     assert all(v.dtype == torch.float32 for v in tp.values())
     b = _batch(raw)

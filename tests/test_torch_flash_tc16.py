@@ -170,6 +170,30 @@ def _jax_f32(x):
     return np.array(jnp.asarray(x).astype(jnp.float32))
 
 
+#: each case's JAX ``_fwd`` and ``_bwd`` in interpret mode, on the inputs
+#: both tests draw for it (the same seed, the same lse cotangent): run
+#: once, read by both
+_jax_refs = {}
+
+
+def _jax_ref(name, dtype, jq, jk, jv, jg, g_lse):
+    """``(out, lse, dead rows, lse cotangent, (dq, dk, dv))`` of JAX's
+    kernels for the case."""
+    if (name, dtype) not in _jax_refs:
+        B, Lq, Lk, H, D, causal, qo, ko = CASES[name]
+        scale = 1.0 / np.sqrt(D)
+        j_out, j_lse = jax_pa._fwd(jq, jk, jv, qo, ko, causal, scale, TILE,
+                                   TILE, True)
+        j_lse = np.asarray(j_lse)
+        dead = j_lse == NEG
+        glse = np.where(dead, 0.0, g_lse).astype(np.float32)
+        grads = jax_pa._bwd(jq, jk, jv, j_out, jnp.asarray(j_lse), qo, ko,
+                            jg, jnp.asarray(glse), causal, scale, TILE,
+                            TILE, True)
+        _jax_refs[(name, dtype)] = (j_out, j_lse, dead, glse, grads)
+    return _jax_refs[(name, dtype)]
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_tensor_core_rounding_holds_flash16_tol(name, dtype):
@@ -177,16 +201,13 @@ def test_tensor_core_rounding_holds_flash16_tol(name, dtype):
     tol = FLASH16_TOL[dtype]
     (jq, jk, jv, jg), (q, k, v, g), g_lse = _inputs(CASES[name], dtype,
                                                     len(name))
-    scale = 1.0 / np.sqrt(D)
 
     # B4 against JAX's _fwd and the port's plain version
     out, lse = fwd_tc(q, k, v, causal, qo, ko)
     assert out.dtype == q.dtype
-    j_out, j_lse = jax_pa._fwd(jq, jk, jv, qo, ko, causal, scale, TILE,
-                               TILE, True)
-    j_lse = np.asarray(j_lse)
+    j_out, j_lse, dead, glse, (_, j_dk, j_dv) = _jax_ref(
+        name, dtype, jq, jk, jv, jg, g_lse)
     p_out, p_lse = fa.attention_lse_plain(q, k, v, causal, qo, ko)
-    dead = j_lse == NEG
     np.testing.assert_array_equal(lse.numpy() == NEG, dead)
     np.testing.assert_array_equal(p_lse.numpy() == NEG, dead)
     assert bool((out.transpose(1, 2)[torch.from_numpy(dead)] == 0).all())
@@ -200,7 +221,6 @@ def test_tensor_core_rounding_holds_flash16_tol(name, dtype):
             assert e_lse <= FLASH_FWD_TOL, (who, "lse", e_lse)
 
     # B6 on JAX's out and lse, a nonzero lse cotangent on the live rows
-    glse = np.where(dead, 0.0, g_lse).astype(np.float32)
     t_out = torch.from_numpy(_jax_f32(j_out)).to(q.dtype)
     t_lse = torch.from_numpy(j_lse)
     delta = fa.attention_delta(t_out, g)
@@ -208,9 +228,6 @@ def test_tensor_core_rounding_holds_flash16_tol(name, dtype):
             ko)
     dk, dv = dkv_tc(*args)
     assert dk.dtype == dv.dtype == q.dtype
-    _, j_dk, j_dv = jax_pa._bwd(jq, jk, jv, j_out, jnp.asarray(j_lse), qo,
-                                ko, jg, jnp.asarray(glse), causal, scale,
-                                TILE, TILE, True)
     p_dk, p_dv = fa.attention_dkv_plain(*args)
     for (ref_dk, ref_dv), who in (((_jax_f32(j_dk), _jax_f32(j_dv)), "jax"),
                                   ((p_dk, p_dv), "plain")):
@@ -228,12 +245,8 @@ def test_dq_tensor_core_rounding_holds_flash16_tol(name, dtype):
     tol = FLASH16_TOL[dtype]
     (jq, jk, jv, jg), (q, k, v, g), g_lse = _inputs(CASES[name], dtype,
                                                     len(name))
-    scale = 1.0 / np.sqrt(D)
-    j_out, j_lse = jax_pa._fwd(jq, jk, jv, qo, ko, causal, scale, TILE,
-                               TILE, True)
-    j_lse = np.asarray(j_lse)
-    dead = j_lse == NEG
-    glse = np.where(dead, 0.0, g_lse).astype(np.float32)
+    j_out, j_lse, dead, glse, (j_dq, _, _) = _jax_ref(
+        name, dtype, jq, jk, jv, jg, g_lse)
     t_out = torch.from_numpy(_jax_f32(j_out)).to(q.dtype)
     delta = fa.attention_delta(t_out, g)
     args = (q, k, v, g, torch.from_numpy(j_lse), delta,
@@ -241,9 +254,6 @@ def test_dq_tensor_core_rounding_holds_flash16_tol(name, dtype):
     dq = dq_tc(*args)
     assert dq.dtype == q.dtype
     assert bool((dq.transpose(1, 2)[torch.from_numpy(dead)] == 0).all())
-    j_dq, _, _ = jax_pa._bwd(jq, jk, jv, j_out, jnp.asarray(j_lse), qo, ko,
-                             jg, jnp.asarray(glse), causal, scale, TILE,
-                             TILE, True)
     for ref, who in ((_jax_f32(j_dq), "jax"),
                      (fa.attention_dq_plain(*args), "plain")):
         e_dq = _rel(dq, ref)

@@ -9,8 +9,8 @@ JAX package's ``msrflute_tpu/data/fleet.py`` and server:
 - each sampling mode's server cohorts, draw for draw the JAX server's; a
   ``floyd`` LR run trains;
 - ``fleet`` beside ``scaffold_device_controls`` raises the JAX server's
-  ``ValueError``; beside a device-carry strategy (the paged carry) it
-  raises ``NotImplementedError`` naming ``ROADMAP.md §A``.
+  ``ValueError``; beside a device-carry strategy it is the paged carry
+  (``tests/test_torch_paged_carry.py``).
 """
 
 import copy
@@ -151,11 +151,14 @@ def test_fleet_refusals(tmp_path):
     with pytest.raises(ValueError) as got:
         _server(raw, tmp_path / "port")
     assert str(got.value) == str(want.value)
+    # beside a device-carry strategy it is the paged carry
+    # (tests/test_torch_paged_carry.py): accepted, and the pool built
     paged = _with("scaffold", ("server_config.fleet", {"enable": True}),
                   ("server_config.fused_carry", True))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A") as info:
-        FLUTEConfig.from_dict(paged)
-    assert "fleet paged carry" in str(info.value)
+    FLUTEConfig.from_dict(copy.deepcopy(paged))
+    server = _server(paged, tmp_path / "paged")
+    assert server.fleet_pager is not None
+    assert server.strategy.carry_rows == server.fleet_pager.n_slots
     # beside a strategy without carry tables, fused_carry or not, it runs
     for strategy in ("fedavg", "scaffold"):
         server = _server(_with(strategy, (
