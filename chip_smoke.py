@@ -108,7 +108,17 @@ non-zero and prints no result):
    the stats' copy, the ``latest`` snapshot) under
    ``torch.cuda.set_sync_debug_mode``, "warn" to name any synchronizing
    call and "error" to prove there is none (``dga`` does the same for the
-   DGA round).  ``pipeline_profile``: busy and idle share through the
+   DGA round).  ``telemetry``: the ``pipeline_d2_r1`` config again with
+   the whole ``server_config.telemetry`` block on (``profile_rounds:
+   "2:3"``) under ``MSRFLUTE_STRICT_TRANSFERS=1``: params bitwise that
+   run's, every span in ``trace.json``, two rounds in flight, each
+   round's ``devbus/update_ratio`` finite, B1 15 times in the profiled
+   round and bitwise its plain version on the path's first operands, no
+   synchronizing call in the dispatch half; the counted FLOPs a round,
+   the live MFU and the peak allocation beside secs/round on and off;
+   then a two-round ``nan_loss: abort`` drill that must leave
+   ``flight.json`` and the scorecard.  ``pipeline_profile``: busy and
+   idle share through the
    server's own loop (``LOOP_SETTINGS``: depth 0 with per-leaf and with
    staged inputs, depths 1 and 2), windows of ``LOOP_ROUNDS`` rounds
    timed in turns, beside ``profile``.  Every other phase runs through
@@ -1994,28 +2004,16 @@ def _host_split(server):
 
 def _sync_points(torch, fn):
     """``fn()`` under ``torch.cuda.set_sync_debug_mode``: first "warn",
-    recording where a synchronizing call was made (file:line), then
-    "error".  Returns the recorded places; the phase fails on any."""
-    import warnings
-    prev = torch.cuda.get_sync_debug_mode()
-    places = []
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(prev)
-    for w in caught:
-        if "called a synchronizing CUDA operation" in str(w.message):
-            places.append(f"{os.path.relpath(w.filename, HERE)}:{w.lineno}")
+    recording where a synchronizing call was made (file:line,
+    ``msrflute_tpu_torch/utils/strict.py::sync_points``, the check strict
+    transfer mode makes), then "error".  Returns the recorded places; the
+    phase fails on any."""
+    from msrflute_tpu_torch.utils.strict import sync_debug_mode, sync_points
+    places = sync_points(fn, HERE)
     check(not places, f"synchronizing calls in the dispatch half: {places}")
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with sync_debug_mode("error"):
         fn()
-    finally:
-        torch.cuda.set_sync_debug_mode(prev)
     return places
 
 
@@ -2083,6 +2081,7 @@ def phase_pipeline(torch, work, kernel_rows):
             "pipeline_depth": depth, "rounds_per_step": rps,
             "secs_per_round": _mean(rounds),
             "secs_per_round_after_first": _mean(rounds[1:]),
+            "secs_per_round_series": rounds,
             "host_split": _host_split(server),
             "housekeeping_secs": _mean(
                 server.run_stats["secsPerRoundHousekeeping"]),
@@ -2118,6 +2117,157 @@ def phase_pipeline(torch, work, kernel_rows):
           "settings": settings, "bitwise_across_depths": True,
           "resume_bitwise": True, "dispatch_sync_points": places,
           "main_secs_per_round_after_first": MAIN_SECS.get("after_first")})
+    return params[(2, 1)], settings["pipeline_d2_r1"]
+
+
+#: the telemetry phase's block: every part on, rollups every 2 rounds, the
+#: watchdog's defaults and a profiled window over round 2
+TELEMETRY_BLOCK = {"enable": True, "trace": True, "devbus": True,
+                   "xla": True, "scorecard": True, "rollup": True,
+                   "rollup_window": 2, "flight": True,
+                   "profile_rounds": "2:3"}
+#: the spans the telemetry path's trace holds
+TELEMETRY_SPANS = ("pack", "dispatch", "round_device", "stats_fetch",
+                   "host_tail", "housekeeping", "ckpt_submit",
+                   "ckpt_async_write", "eval", "eval_device")
+
+
+def _kernel_events(torch, path, name):
+    """Kernel events named ``name`` in a ``torch.profiler`` Chrome trace."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    return sum(1 for e in events if e.get("cat") == "kernel"
+               and name in str(e.get("name", "")))
+
+
+def phase_telemetry(torch, work, kernel_rows, pipeline):
+    """``pipeline_config(2, 1)`` of the ``pipeline`` phase again through
+    the CLI with the whole ``server_config.telemetry`` block on and
+    ``MSRFLUTE_STRICT_TRANSFERS=1`` (the dispatch half of every chunk under
+    ``set_sync_debug_mode("error")``): params bitwise that phase's depth-2
+    run; ``trace.json`` with every span; ``summarize``'s overlap at two
+    rounds in flight; every round's ``devbus/update_ratio`` finite and
+    positive; the profiled window (round 2) holding B1's kernel 15 times;
+    B1 once a local step, bitwise its plain version on the path's first
+    operands; no synchronizing call in a dispatch half with telemetry on;
+    the counted FLOPs a round, the live MFU and the peak allocation beside
+    secs/round with telemetry on and off; then a two-round ``nan_loss:
+    abort`` drill (every payload NaN from round 0) that leaves
+    ``flight.json`` and the scorecard."""
+    from msrflute_tpu_torch.telemetry import WatchdogAbort
+    from msrflute_tpu_torch.telemetry.scope_cli import summarize
+    from msrflute_tpu_torch.utils.strict import ENV_FLAG
+    off_params, off = pipeline
+    raw = pipeline_config(2, 1)
+    raw["server_config"]["telemetry"] = dict(TELEMETRY_BLOCK)
+    os.environ[ENV_FLAG] = "1"
+    _reset_counts()
+    try:
+        with _Operands() as cap:
+            server, out, secs = _run_cli(work, "telemetry", raw, "cuda")
+    finally:
+        os.environ.pop(ENV_FLAG, None)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    steps = server.engine.local_steps
+    want = {k: 0 for k in launches}
+    want["fused_sgd_apply"] = steps
+    check(steps == PIPELINE_ROUNDS * 15 and launches == want,
+          f"telemetry: launches {launches}, want {want}")
+    for row in kernel_rows:
+        row.setdefault("launches_by_path", {})["telemetry"] = \
+            launches[row["name"]]
+    check(torch.equal(server.state.params.cpu(), off_params),
+          "telemetry: params differ from the pipeline phase's depth-2 run")
+    # the async writer ran beside the strict scope: every save landed
+    check(server.ckpt.escalator.total == 0,
+          f"telemetry: {server.ckpt.escalator.total} failed saves")
+    tdir = os.path.join(out, "models", "telemetry")
+    with open(os.path.join(tdir, "trace.json")) as fh:
+        spans = {e["name"] for e in json.load(fh)["traceEvents"]
+                 if e.get("ph") == "X"}
+    missing = [s for s in TELEMETRY_SPANS if s not in spans]
+    check(not missing, f"telemetry: spans {missing} not in trace.json")
+    overlap = summarize(os.path.join(out, "models")).get("overlap") or {}
+    check(overlap.get("max_rounds_in_flight", 0) >= 2,
+          f"telemetry: overlap {overlap}")
+    ratios = []
+    with open(os.path.join(tdir, "events.jsonl")) as fh:
+        for line in fh:
+            rec = json.loads(line)
+            if rec.get("kind") == "counter" and \
+                    rec["name"] == "devbus/update_ratio":
+                ratios.append(rec["value"])
+    check(len(ratios) == PIPELINE_ROUNDS and
+          all(math.isfinite(r) and r > 0 for r in ratios),
+          f"telemetry: update_ratio {ratios}")
+    prof = server.scope.profiler
+    check(prof.captured and prof.path is not None,
+          "telemetry: the profile_rounds window was not written")
+    b1_in_window = _kernel_events(torch, prof.path, "fused_sgd_kernel")
+    check(b1_in_window == 15,
+          f"telemetry: {b1_in_window} B1 kernels in the profiled round")
+    held = _hold_operands(torch, cap.ops)
+    places = _dispatch_half(torch, server)
+    with open(os.path.join(tdir, "scorecard.json")) as fh:
+        card = json.load(fh)
+    entry = card["entry_points"]["staged_r1"]
+    mfu_p50 = card["mfu_p50"]
+    check(mfu_p50 is not None and 0 < mfu_p50 <= 1.05,
+          f"telemetry: mfu_p50 {mfu_p50}")
+    on_rounds = server.run_stats["secsPerRound"]
+    # the rounds after the profiled window: before it, round 0's counted
+    # dispatch (every op through the cost mode) lands on the fence-to-fence
+    # times of rounds 0 and 1, and the window's edges wait for the card
+    hi = prof.window[1]
+    on_plain = on_rounds[hi:]
+    off_plain = off["secs_per_round_series"][hi:]
+    hand = server.engine.xla.entries["staged_r1"].get("hand_kernels")
+    del server
+    # the abort drill: every payload NaN from round 0, so round 1's loss
+    # is the first NaN and its drain raises
+    drill = pipeline_config(2, 1, rounds=2)
+    drill["server_config"]["telemetry"] = dict(TELEMETRY_BLOCK,
+                                               profile_rounds=None)
+    drill["server_config"]["chaos"] = {"seed": 1, "corrupt_nan_rate": 1.0}
+    aborted = None
+    try:
+        _run_cli(work, "telemetry_abort", drill, "cuda")
+    except WatchdogAbort as exc:
+        aborted = str(exc)
+    ddir = os.path.join(work, "out_telemetry_abort", "models", "telemetry")
+    with open(os.path.join(ddir, "flight.json")) as fh:
+        flight = json.load(fh)
+    check(aborted is not None and "nan_loss" in aborted and
+          os.path.exists(os.path.join(ddir, "scorecard.json")) and
+          flight["reasons"][0]["reason"] == "exception: WatchdogAbort",
+          f"telemetry: the nan_loss drill left {flight.get('reasons')}, "
+          f"raised {aborted}")
+    torch.cuda.empty_cache()
+    emit({"phase": "telemetry", "ok": True, "card": CARD.get("name_power"),
+          "rounds": PIPELINE_ROUNDS, "b1_launches": steps,
+          "b1_in_profiled_round": b1_in_window, "b1_held": held,
+          "spans": sorted(spans), "max_rounds_in_flight":
+              overlap["max_rounds_in_flight"],
+          "overlap_efficiency_pct": overlap.get("efficiency_pct"),
+          "update_ratio": ratios, "dispatch_sync_points": places,
+          "strict_transfers_run": True,
+          "flops_per_round": entry["flops"] / entry["rounds"],
+          "bytes_per_round": entry["bytes_accessed"] / entry["rounds"],
+          "hand_kernels_counted": hand,
+          "mfu_p50": mfu_p50, "hbm_peak_bytes": card["hbm_peak_bytes"],
+          "chip": card.get("chip"), "compiles": card["compiles"],
+          "recompiles": card["recompiles"],
+          "secs_per_round": {"telemetry_on": on_rounds,
+                             "telemetry_off": off["secs_per_round_series"]},
+          "secs_per_round_after_window": {
+              "telemetry_on": _mean(on_plain),
+              "telemetry_off": _mean(off_plain)},
+          "rollup_windows": card["rollup_windows"],
+          "watchdog_fires": card["watchdog_fires"],
+          "abort_drill": {"raised": aborted[:200],
+                          "flight_events": len(flight["events"])},
+          "run_seconds": round(secs, 3)})
 
 
 def _rescaled(traced, n):
@@ -7652,7 +7802,10 @@ def main() -> int:
             phase_profile(torch, server)
             del server
             phase = "pipeline"
-            phase_pipeline(torch, work, rows)
+            pipeline = phase_pipeline(torch, work, rows)
+            phase = "telemetry"
+            phase_telemetry(torch, work, rows, pipeline)
+            del pipeline
             phase = "pipeline_profile"
             phase_pipeline_profile(torch, work)
             phase = "cross_device"

@@ -593,7 +593,7 @@ _ROBUST = {"enable", "screen_nonfinite", "norm_multiplier", "aggregator",
            "trim_fraction"}
 #: the server keys of this slice's defenses, checked by
 #: :func:`check_defense`
-_DEFENSE_SERVER = {"chaos", "robust", "secure_agg"}
+_DEFENSE_SERVER = {"chaos", "robust", "secure_agg", "telemetry"}
 
 #: keys that tune how the JAX package dispatches its TPU program and change
 #: no result, which the port ignores.
@@ -656,7 +656,7 @@ _INERT_SPECS = {
 #: a block with ``enable: false``); any other value raises
 #: ``NotImplementedError``
 _OFF_OK = {
-    "server_config": {"checkpoint_backend", "telemetry"} | _DGA_SERVER,
+    "server_config": {"checkpoint_backend"} | _DGA_SERVER,
     "client_config": _DGA_CLIENT,
     "dataset": {"step_bucketing"},
     "optimizer": {"amsgrad", "eps", "betas", "momentum", "nesterov",
@@ -784,6 +784,7 @@ def validate(raw: Dict[str, Any]) -> None:
     check_throughput(sc, strategy)
     check_inert(raw)
     check_parity(raw, strategy)
+    check_telemetry(sc.get("telemetry"))
     _check_keys(sc.get("checkpoint_retry"), "server_config.checkpoint_retry",
                 set(CHECKPOINT_RETRY_SPECS))
     rl = sc.get("RL")
@@ -1075,6 +1076,111 @@ def check_parity(raw: Dict[str, Any], strategy: str) -> None:
                     "— a buffered fire delivers exactly "
                     "buffer_size clients, so every round would "
                     "abort below the liveness floor")
+    if errors:
+        raise SchemaError(errors)
+
+
+#: ``server_config.telemetry`` and its ``watchdog`` block, with the JAX
+#: schema's keys and field rules (``msrflute_tpu/schema.py:334-403``)
+TELEMETRY_KEYS = {
+    "enable", "trace", "devbus", "profile_rounds", "watchdog", "xla",
+    "scorecard", "rollup", "rollup_window", "flight", "flight_events",
+    "max_log_mb",
+}
+WATCHDOG_KEYS = {
+    "nan_loss", "round_time_action", "round_time_factor",
+    "round_time_window", "ckpt_failure_action", "ckpt_failure_streak",
+    "quarantine_rate_action", "quarantine_rate_threshold",
+    "recompile_storm_action", "recompile_storm_threshold",
+    "recompile_storm_warmup_rounds", "stall_action", "stall_factor",
+    "stall_poll_secs", "stall_grace_secs", "rss_leak_action",
+    "rss_leak_window", "rss_leak_mb_per_round", "throughput_drift_action",
+    "throughput_drift_window", "throughput_drift_factor",
+}
+TELEMETRY_FIELD_SPECS = {
+    "enable": ("bool", None, None), "trace": ("bool", None, None),
+    "devbus": ("bool", None, None), "xla": ("bool", None, None),
+    "scorecard": ("bool", None, None), "rollup": ("bool", None, None),
+    "rollup_window": ("int", 1, None), "flight": ("bool", None, None),
+    "flight_events": ("int", 8, None), "max_log_mb": ("num", 0, None),
+}
+WATCHDOG_FIELD_SPECS = {
+    "round_time_factor": ("num", 1.0, None),
+    "round_time_window": ("int", 4, None),
+    "ckpt_failure_streak": ("int", 1, None),
+    "quarantine_rate_threshold": ("num", 0.0, 1.0),
+    "recompile_storm_threshold": ("int", 1, None),
+    "recompile_storm_warmup_rounds": ("int", 0, None),
+    "stall_factor": ("num", 1.0, None),
+    "stall_poll_secs": ("num", 0.01, None),
+    "stall_grace_secs": ("num", 0.0, None),
+    "rss_leak_window": ("int", 4, None),
+    "rss_leak_mb_per_round": ("num", 0.0, None),
+    "throughput_drift_window": ("int", 4, None),
+    "throughput_drift_factor": ("num", 1.0, None),
+}
+#: the watchdog's actions (``telemetry/watchdog.py::ACTIONS``)
+ALLOWED_WATCHDOG_ACTIONS = ["off", "log", "mark", "abort"]
+#: the watchdog keys that hold an action
+WATCHDOG_ACTION_KEYS = (
+    "nan_loss", "round_time_action", "ckpt_failure_action",
+    "quarantine_rate_action", "recompile_storm_action", "stall_action",
+    "rss_leak_action", "throughput_drift_action")
+
+
+def _unknown_keys(unknown: List[str], raw: Dict[str, Any], path: str,
+                  known: set) -> None:
+    """Keys outside ``known``, in the JAX schema's words, with its
+    did-you-mean hint (``schema.py:698-710``)."""
+    import difflib
+    for key in raw:
+        if key in known:
+            continue
+        hint = difflib.get_close_matches(str(key), known, n=1, cutoff=0.6)
+        suggest = f" (did you mean {hint[0]!r}?)" if hint else ""
+        unknown.append(f"{path}.{key}: unknown key{suggest}")
+
+
+def check_telemetry(telemetry: Any) -> None:
+    """``server_config.telemetry`` as the JAX schema checks it
+    (``schema.py:1136-1181``): a mapping of known keys and typed fields,
+    ``profile_rounds`` through the profiler's own parser, and a
+    ``watchdog`` mapping with known keys, typed fields and the four
+    actions; every violation in its message, the unknown keys last."""
+    from .telemetry.profiling import parse_profile_rounds
+    if telemetry is None:
+        return
+    errors: List[str] = []
+    unknown: List[str] = []
+    if not isinstance(telemetry, dict):
+        errors.append("server_config.telemetry: must be a mapping "
+                      "(see docs/observability.md), got "
+                      f"{type(telemetry).__name__}")
+        raise SchemaError(errors)
+    _unknown_keys(unknown, telemetry, "server_config.telemetry",
+                  TELEMETRY_KEYS)
+    _check_fields(errors, telemetry, "server_config.telemetry",
+                  TELEMETRY_FIELD_SPECS)
+    if telemetry.get("profile_rounds") is not None:
+        try:
+            parse_profile_rounds(telemetry["profile_rounds"])
+        except (ValueError, TypeError) as exc:
+            errors.append(f"server_config.telemetry.profile_rounds: {exc}")
+    wd = telemetry.get("watchdog")
+    if wd is not None and not isinstance(wd, dict):
+        errors.append("server_config.telemetry.watchdog: must be a mapping "
+                      f"of detector knobs, got {type(wd).__name__}")
+    if isinstance(wd, dict):
+        _unknown_keys(unknown, wd, "server_config.telemetry.watchdog",
+                      WATCHDOG_KEYS)
+        _check_fields(errors, wd, "server_config.telemetry.watchdog",
+                      WATCHDOG_FIELD_SPECS)
+        for key in WATCHDOG_ACTION_KEYS:
+            val = wd.get(key)
+            if val is not None and val not in ALLOWED_WATCHDOG_ACTIONS:
+                errors.append(f"server_config.telemetry.watchdog.{key}: "
+                              f"{val!r} not in {ALLOWED_WATCHDOG_ACTIONS}")
+    errors.extend(unknown)
     if errors:
         raise SchemaError(errors)
 

@@ -79,3 +79,38 @@ def cpu16_guard(device: DeviceLike,
         yield
     finally:
         torch.backends.mkldnn.enabled = prev
+
+
+#: the cards whose rates the device-truth layer knows (NVIDIA's data
+#: sheet, SXM part, dense): peak FLOP/s by compute dtype (float32 outside
+#: the tensor cores, as the port runs with TF32 off; bfloat16 and float16
+#: on them) and the memory's bytes a second, keyed on
+#: ``torch.cuda.get_device_name``
+CARD_PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"float32": 67e12, "bfloat16": 989e12,
+                              "float16": 989e12, "bytes_per_s": 3.35e12},
+}
+
+#: the JAX package's nominal CPU rates (``utils/compat.py``): CPU MFU
+#: values compare across CPU runs, never against a card's
+CPU_NOMINAL_PEAK_FLOPS = 1e11
+CPU_NOMINAL_BYTES_PER_SEC = 5e10
+
+
+def chip_peak_flops(device: torch.device, compute_dtype: str = "float32"
+                    ) -> tuple:
+    """``(kind, peak FLOP/s)`` of ``device`` in ``compute_dtype``: a card
+    of :data:`CARD_PEAKS` by its name, the CPU's nominal peak, and for any
+    other card its name and None (no peak is guessed; its MFU is None)."""
+    if device.type != "cuda":
+        return "cpu", CPU_NOMINAL_PEAK_FLOPS
+    name = torch.cuda.get_device_name(device)
+    return name, CARD_PEAKS.get(name, {}).get(str(compute_dtype))
+
+
+def chip_bytes_per_sec(device: torch.device) -> tuple:
+    """``(kind, memory bytes a second)``, as :func:`chip_peak_flops`."""
+    if device.type != "cuda":
+        return "cpu", CPU_NOMINAL_BYTES_PER_SEC
+    name = torch.cuda.get_device_name(device)
+    return name, CARD_PEAKS.get(name, {}).get("bytes_per_s")

@@ -87,6 +87,7 @@ from ..resilience.integrity import (SIDECAR_SUFFIX, CheckpointCorruptionError,
                                     FailureEscalator, RetryPolicy,
                                     blob_checksum, run_with_retry,
                                     verify_blob, write_sidecar)
+from ..telemetry import NULL_SPAN
 from ..utils.logging import print_rank
 from .round import ServerState
 
@@ -253,6 +254,8 @@ class CheckpointManager:
         #: a kill or interrupt on the writer thread, raised on the training
         #: thread
         self._fatal: Optional[BaseException] = None
+        #: ``span(name)``: the telemetry scope's span, or None
+        self.span: Optional[Callable[..., Any]] = None
         os.makedirs(model_dir, exist_ok=True)
 
     def _path(self, name: str) -> str:
@@ -382,8 +385,12 @@ class CheckpointManager:
                 self._busy = True
             fatal = None
             try:
-                # a failed save is already counted by the write recipe
-                self._write_latest(self._payload(snap.wait()))
+                # the writer's wait, serialize and write on its own thread's
+                # track of the trace (``checkpoint.py:358-371``)
+                with (self.span("ckpt_async_write") if self.span is not None
+                      else NULL_SPAN):
+                    # a failed save is already counted by the write recipe
+                    self._write_latest(self._payload(snap.wait()))
             except Exception as exc:  # never ends the run from here
                 print_rank(f"async latest save failed: {exc!r}",
                            loglevel=logging.WARNING)

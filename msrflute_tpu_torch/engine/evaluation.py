@@ -13,7 +13,7 @@ package; if every step is excluded the metrics are NaN.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from ..device import cpu16_guard
 from ..models.base import BaseTask, Metric, ParamLayout, Params, softmax_xent
+from ..telemetry import NULL_SPAN
 
 
 def stage_eval_batches(batches, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -32,12 +33,33 @@ def stage_eval_batches(batches, device: torch.device) -> Dict[str, torch.Tensor]
 @torch.no_grad()
 def evaluate(task: BaseTask, params: Params,
              batches: Dict[str, torch.Tensor],
-             events: Optional[Callable[..., None]] = None
+             events: Optional[Callable[..., None]] = None,
+             span: Optional[Callable[..., Any]] = None
              ) -> Dict[str, Metric]:
     """The split's metrics over its staged batch steps.  A step with a
     non-finite stat is left out of the sums and counted; ``events``
     receives an ``eval_nonfinite_skipped`` record with that count
-    (``evaluation.py:172-185``)."""
+    (``evaluation.py:172-185``).  ``span`` (the telemetry scope's) times
+    the device steps and the sums' readback as ``eval_device``."""
+    with (span("eval_device") if span is not None else NULL_SPAN):
+        flat, sums = _eval_sums(task, params, batches)
+    host, at = {}, 0
+    for name, v in sums.items():
+        host[name] = flat[at] if v.ndim == 0 else flat[at:at + v.numel()]
+        at += v.numel()
+    if flat[-1] and events is not None:
+        events("eval_nonfinite_skipped", steps=int(flat[-1]))
+    metrics = task.finalize_metrics(host)
+    if host["sample_count"] <= 0.0:
+        metrics = {name: Metric(float("nan"), m.higher_is_better)
+                   for name, m in metrics.items()}
+    return metrics
+
+
+def _eval_sums(task: BaseTask, params: Params,
+               batches: Dict[str, torch.Tensor]):
+    """The steps' summed stats read back in one transfer: ``(flat host
+    values, the last one the skipped steps; the device sums)``."""
     T = batches["sample_mask"].shape[0]
     sums = None
     skipped = None
@@ -57,17 +79,7 @@ def evaluate(task: BaseTask, params: Params,
     flat = torch.cat([v.reshape(-1).to(torch.float32)
                       for v in sums.values()]
                      + [skipped.reshape(1)]).cpu().tolist()
-    host, at = {}, 0
-    for name, v in sums.items():
-        host[name] = flat[at] if v.ndim == 0 else flat[at:at + v.numel()]
-        at += v.numel()
-    if flat[-1] and events is not None:
-        events("eval_nonfinite_skipped", steps=int(flat[-1]))
-    metrics = task.finalize_metrics(host)
-    if host["sample_count"] <= 0.0:
-        metrics = {name: Metric(float("nan"), m.higher_is_better)
-                   for name, m in metrics.items()}
-    return metrics
+    return flat, sums
 
 
 @torch.no_grad()

@@ -431,6 +431,9 @@ class CarryPager:
                                 if faults is not None else None)
         #: ``event(kind, **fields)``: the server's record sink
         self.events = events
+        #: ``span(name, **args)``: the telemetry scope's span (the worker's
+        #: ``fleet_prefetch`` lands on its own thread's track), or None
+        self.span = None
         self.store = FleetRowStore(store_dir, ladder,
                                    cache_rows=host_cache_rows, resume=resume)
 
@@ -594,7 +597,12 @@ class CarryPager:
 
     def _prefetch_worker(self, cids: List[int], staging: dict) -> None:
         try:
-            self._prefetch_rows(cids, staging)
+            span = self.span
+            if span is not None:
+                with span("fleet_prefetch", rows=len(cids)):
+                    self._prefetch_rows(cids, staging)
+            else:
+                self._prefetch_rows(cids, staging)
         except Exception as exc:  # noqa: BLE001 - any death degrades
             self._degrade_prefetch(exc)
 

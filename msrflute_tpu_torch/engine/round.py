@@ -138,14 +138,19 @@ import numpy as np
 import torch
 
 from ..data.batching import IndexRoundBatch, RoundBatch
+from ..device import chip_bytes_per_sec, chip_peak_flops
 from ..models.base import BaseTask, Params
 from ..optim import make_optimizer
 from ..resilience.chaos import CORRUPT_NAN, CORRUPT_SCALE, CORRUPT_SIGN_FLIP
 from ..robust import make_shield
 from ..strategies.base import BaseStrategy
 from ..strategies.secure_agg import wrap_int32
+from ..telemetry import devbus_config_enabled, xla_config_enabled
+from ..telemetry.devbus import DeviceMetricBus
+from ..telemetry.xla import XlaIntrospector, roofline_secs, structural_key
 from ..traffic import STALE_HIST_BINS
 from ..utils.flatpack import AxisPacker, FlatPacker
+from ..utils.strict import allow_sync
 from .client_update import (ClientHParams, build_client_update,
                             build_mega_update)
 
@@ -392,8 +397,29 @@ class RoundEngine:
         self.pool_upload_secs = 0.0
         #: the arm each ``(K_b, S_b)`` grid ran ("mega" or "vmap")
         self.mega_gate: Dict[Tuple[int, int], str] = {}
+        #: ``megabatch.autotune`` (``round.py:536``): under
+        #: ``telemetry.xla`` a tape grid's first geometry runs both arms,
+        #: counted, and keeps the one with the smaller roofline time
+        self.megabatch_autotune = bool(mgb.get("autotune", True))
+        self._autotuned: Dict[Tuple[int, int], str] = {}
         #: buffered ``megabatch_fallback`` records, drained by the server
         self._mega_events: List[Dict[str, Any]] = []
+        #: the ``(K_b, S_b)`` geometries of the bucket grids dispatched
+        self.bucket_shapes_seen: set = set()
+        #: host-to-device copies of the last dispatch, a round
+        self.last_dispatch_puts = 0
+        tel = sc.get("telemetry")
+        #: the device-metric bus (``telemetry.devbus``): the engine's
+        #: ``update_ratio`` and the strategies' scalars ride the stats
+        self.devbus = DeviceMetricBus(devbus_config_enabled(tel))
+        strategy.devbus = self.devbus
+        #: the device-truth layer (``telemetry.xla``); None when off
+        self.xla = (XlaIntrospector(device) if xla_config_enabled(tel)
+                    else None)
+        #: entry-point names, one a new operand signature — always on
+        #: (the sentinel's events, with their diffs, need ``xla``)
+        self.compile_log: List[str] = []
+        self._signatures: Dict[str, set] = {}
 
     def _check_chunks(self, strategy: BaseStrategy) -> None:
         """The JAX engine's refusals of ``clients_per_chunk``
@@ -482,6 +508,32 @@ class RoundEngine:
                 "megabatch is incompatible with megakernel."
                 "pallas_apply: the flat fused kernel has no "
                 "segment-reset lane — drop one of them")
+
+    def _entry(self, name: str, operands: Any, fn, rounds: int = 1):
+        """``fn()`` as a dispatch of entry point ``name``: its first
+        call with a new operand signature is a compile (counted by the
+        device-truth layer when it is on, ``round.py:629-636``)."""
+        key = structural_key(operands)
+        seen = self._signatures.setdefault(name, set())
+        fresh = key not in seen
+        if fresh:
+            seen.add(key)
+            self.compile_log.append(name)
+        if self.xla is None:
+            return fn()
+        return self.xla.dispatch(name, key, operands, fn, rounds=rounds,
+                                 fresh=fresh)
+
+    @property
+    def recompile_count(self) -> int:
+        """New signatures beyond the first an entry point (the always-on
+        counter, ``round.py:681-687``)."""
+        return len(self.compile_log) - len(set(self.compile_log))
+
+    @staticmethod
+    def _state_operands(state: ServerState) -> Dict[str, Any]:
+        return {"params": state.params, "opt_state": state.opt_state,
+                "strategy_state": state.strategy_state}
 
     def push_megabatch_event(self, rec: Dict[str, Any]) -> None:
         """Buffer one ``megabatch_fallback`` record (at most 64 undrained,
@@ -670,12 +722,16 @@ class RoundEngine:
         """Host trees to device trees, staged or a copy a leaf."""
         dev = self.device
         if not self.input_staging:
+            self.last_dispatch_puts = sum(
+                len(v) if k == "arrays" else 1
+                for tree in host for k, v in tree.items())
             return [{k: ({a: to_device(torch.from_numpy(x), dev)
                           for a, x in v.items()} if k == "arrays"
                          else to_device(torch.from_numpy(v), dev))
                      for k, v in tree.items()} for tree in host]
         packer = AxisPacker(host, lead_ndim=0,
                             align_bytes=STAGE_ALIGN_BYTES)
+        self.last_dispatch_puts = len(packer.buffer_shapes())
         if dev.type == "cuda":
             # the caching host allocator records each copy's stream on its
             # block: a freed buffer is handed out again only once its copy
@@ -760,23 +816,38 @@ class RoundEngine:
         (``msrflute_tpu/engine/round.py:1554-1632``).  ``grad_offsets``
         (``[K, P]`` on the engine's device, zero rows for padding clients)
         goes to every local step's gradient (SCAFFOLD's ``c - c_i``)."""
-        inputs = self.stage_inputs(state.round, [batch])[0]
-        parts, tl, _, stats, cm, _ = self._client_step(
-            state, batch, inputs, state.params, client_lr, None,
-            leakage_threshold, grad_offsets)
-        pg, w = parts["default"]
-        return pg, w * cm, tl * cm, stats
+        host = self._host_inputs(state.round, batch, None)
+
+        def payloads():
+            inputs = self._stage([host])[0]
+            parts, tl, _, stats, cm, _ = self._client_step(
+                state, batch, inputs, state.params, client_lr, None,
+                leakage_threshold, grad_offsets)
+            pg, w = parts["default"]
+            return pg, w * cm, tl * cm, stats
+
+        name = "payload_step" if grad_offsets is None else "payload_step_off"
+        return self._entry(name, (self._state_operands(state), host,
+                                  grad_offsets), payloads)
 
     def apply_custom_weights(self, state: ServerState, pgs: torch.Tensor,
                              weights, server_lr: float) -> ServerState:
         """The server step on ``sum_k w_k pg_k / sum_k w_k`` (reference
         ``dga.py:317-332``; ``round.py:1634-1660``), round + 1, the
         strategy state passed through.  ``state`` is left as it was."""
-        w = torch.as_tensor(weights, dtype=torch.float32, device=pgs.device)
-        agg = (w @ pgs) / torch.clamp(w.sum(), min=1e-12)
-        params, opt_state = self.server_opt.step(
-            state.params, self._server_clip(agg), state.opt_state,
-            server_lr, self.bounds)
+        def agg_step():
+            w = torch.as_tensor(weights, dtype=torch.float32,
+                                device=pgs.device)
+            agg = (w @ pgs) / torch.clamp(w.sum(), min=1e-12)
+            return self.server_opt.step(
+                state.params, self._server_clip(agg), state.opt_state,
+                server_lr, self.bounds)
+
+        params, opt_state = self._entry(
+            "custom_agg", (self._state_operands(state), pgs,
+                           np.asarray(weights) if not isinstance(
+                               weights, torch.Tensor) else weights),
+            agg_step)
         return ServerState(params, opt_state, state.round + 1,
                            state.strategy_state)
 
@@ -832,17 +903,29 @@ class RoundEngine:
         each round's fault vectors (see :meth:`run_round`)."""
         R = len(batches)
         tic = time.perf_counter()
-        inputs = self.stage_inputs(state.round, batches, chaos_vecs)
-        self.last_stage_secs = time.perf_counter() - tic
-        thresholds = quant_thresholds or [None] * R
         chaos_vecs = chaos_vecs or [None] * R
-        stats = []
-        for j in range(R):
-            state, round_stats = self._round(
-                state, batches[j], inputs[j], client_lrs[j], server_lrs[j],
-                thresholds[j], leakage_threshold, chaos_vecs[j])
-            stats.append(round_stats)
-        return state, self._pack_stats(stats)
+        host = [self._host_inputs(state.round + j, b, c)
+                for j, (b, c) in enumerate(zip(batches, chaos_vecs))]
+        thresholds = quant_thresholds or [None] * R
+
+        def rounds():
+            nonlocal state
+            inputs = self._stage(host)
+            self.last_stage_secs = time.perf_counter() - tic
+            stats = []
+            for j in range(R):
+                state, round_stats = self._round(
+                    state, batches[j], inputs[j], client_lrs[j],
+                    server_lrs[j], thresholds[j], leakage_threshold,
+                    chaos_vecs[j])
+                stats.append(round_stats)
+            return state, self._pack_stats(stats)
+
+        # the JAX engine's entry points (``round.py:1483, 1543, 1814``)
+        name = (f"staged_r{R}" if self.input_staging else
+                "round_step" if R == 1 else f"multi_round_r{R}")
+        return self._entry(name, (self._state_operands(state), host),
+                           rounds, rounds=R)
 
     def _pack_stats(self, stats: List[Dict[str, torch.Tensor]]
                     ) -> PackedStats:
@@ -915,6 +998,7 @@ class RoundEngine:
                 where.append(j)
         staged = self._stage(host)
         self.last_stage_secs = time.perf_counter() - tic
+        self.last_dispatch_puts = -(-self.last_dispatch_puts // R)
         inputs: List[list] = [[] for _ in range(R)]
         for j, tree in zip(where, staged):
             inputs[j].append(tree)
@@ -947,22 +1031,54 @@ class RoundEngine:
         extra: Dict[str, torch.Tensor] = {}
         sums: Dict[str, dict] = {}
         cols, carries, groups = [], [], []
+        state_ops = self._state_operands(state)
+        # the round's counted FLOPs and peak over its collects and its
+        # finalize (``round.py:2903-2929``)
+        flops, hbm = 0.0, 0
         for batch, tree, vecs in zip(buckets, inputs, chaos):
             found: Dict[str, torch.Tensor] = {}
             masks, mode = self._faults(tree, found)
             for key, v in found.items():
                 extra[key] = extra[key] + v if key in extra else v
-            update = None
-            K, S = batch.sample_mask.shape[:2]
+            K, S = (int(n) for n in batch.sample_mask.shape[:2])
+            self.bucket_shapes_seen.add((K, S))
+
+            def collect(update, _batch=batch, _tree=tree, _masks=masks,
+                        _mode=mode):
+                return self._client_phase(
+                    state, _batch, _tree, bcast, client_lr,
+                    quant_threshold, leakage_threshold, _masks, _mode,
+                    update=update)
+
+            plain = {k: v for k, v in tree.items()
+                     if not k.startswith("tape_")}
+            mega = None
             if "tape_ptr" in tree:
-                update = functools.partial(
+                mega = functools.partial(
                     self.mega_update, tape=batch.mega,
                     tape_dev=(tree["tape_ptr"], tree["tape_seg"]))
+            if (mega is not None and self.megabatch_autotune and
+                    self.xla is not None and (K, S) not in self._autotuned):
+                arm, out = self._autotune(K, S, batch.mega, collect, mega,
+                                          (state_ops, plain),
+                                          (state_ops, tree))
+            elif mega is not None and \
+                    self._autotuned.get((K, S), "mega") == "mega":
+                arm = "mega"
+                out = self._entry(f"megabatch_collect_s{S}",
+                                  (state_ops, tree),
+                                  functools.partial(collect, mega))
+            else:
+                arm = "vmap"
+                out = self._entry(f"bucket_collect_s{S}", (state_ops, plain),
+                                  functools.partial(collect, None))
             if self.megabatch:
-                self.mega_gate[(K, S)] = "mega" if update else "vmap"
-            parts, tl, ns, stats, cm, carry, sub_norm = self._client_phase(
-                state, batch, tree, bcast, client_lr, quant_threshold,
-                leakage_threshold, masks, mode, update=update)
+                self.mega_gate[(K, S)] = arm
+            if self.xla is not None and self.xla.last_dispatch is not None:
+                flops += float(self.xla.last_dispatch.get("flops") or 0.0)
+                hbm = max(hbm, int(self.xla.last_dispatch.get("hbm_bytes")
+                                   or 0))
+            parts, tl, ns, stats, cm, carry, sub_norm = out
             if carry is not None and (batch.client_ids >= 0).any():
                 carries.append((tree, carry))
             if self.shield is None:
@@ -990,8 +1106,61 @@ class RoundEngine:
                 sums["default"]["grad_sum"], groups,
                 cm if self.shield is not None else None, state.round, extra)
         n_live = float(sum(live.sum() for _, live in groups))
-        return self._finish_round(state, bcast, sums, parts, tl, ns, stats,
-                                  cm, carries, extra, n_live, server_lr)
+        out = self._entry(
+            "bucket_finalize", (state_ops, [c[4] for c in cols]),
+            lambda: self._finish_round(state, bcast, sums, parts, tl, ns,
+                                       stats, cm, carries, extra, n_live,
+                                       server_lr))
+        if self.xla is not None and self.xla.last_dispatch is not None:
+            # the live MFU describes the whole bucketed round
+            flops += float(self.xla.last_dispatch.get("flops") or 0.0)
+            hbm = max(hbm, int(self.xla.last_dispatch.get("hbm_bytes")
+                               or 0))
+            self.xla.last_dispatch = {
+                "entry": "bucketed_round", "rounds": 1,
+                "flops": flops or None, "bytes_accessed": None,
+                "hbm_bytes": hbm or None}
+        return out
+
+    def _autotune(self, K: int, S: int, tape, collect, mega, plain_ops,
+                  mega_ops):
+        """``megabatch.autotune`` under ``telemetry.xla``
+        (``round.py:2855-2896``): a tape grid's first ``(K, S)`` runs the
+        vmap arm and the lane scan, each counted, and keeps the arm with
+        the smaller roofline time (``max(flops / peak, bytes /
+        bandwidth)``, :func:`~..telemetry.xla.roofline_secs`), a tie to
+        the tape; the vmap arm's win is a ``megabatch_fallback`` record
+        (``reason: "aot_cost"``).  A card of unknown rates prices both
+        arms at infinity, and the tape the server's analytic gate
+        attached stays.  The arm not kept trained nothing the run sees:
+        its outputs are dropped and its local steps not counted.
+        ``(arm, the kept arm's outputs)``."""
+        steps0 = self.local_steps
+        out_v = self._entry(f"bucket_collect_s{S}", plain_ops,
+                            functools.partial(collect, None))
+        cost_v = dict(self.xla.last_dispatch or {})
+        steps = self.local_steps - steps0
+        out_m = self._entry(f"megabatch_collect_s{S}", mega_ops,
+                            functools.partial(collect, mega))
+        cost_m = dict(self.xla.last_dispatch or {})
+        self.local_steps = steps0 + steps
+        dtype = self.precision.get("compute", "float32")
+        peak = chip_peak_flops(self.device, dtype)[1]
+        bw = chip_bytes_per_sec(self.device)[1]
+        secs_v = roofline_secs(cost_v, peak, bw)
+        secs_m = roofline_secs(cost_m, peak, bw)
+        if secs_m <= secs_v:
+            arm, out = "mega", out_m
+        else:
+            arm, out = "vmap", out_v
+            self.push_megabatch_event({
+                "kind": "megabatch_fallback", "reason": "aot_cost",
+                "clients": K, "steps": S, "lanes": int(tape.lanes),
+                "depth": int(tape.depth), "mega_secs_est": secs_m,
+                "vmap_secs_est": secs_v})
+        self._autotuned[(K, S)] = arm
+        self.xla.last_dispatch = cost_v if arm == "vmap" else cost_m
+        return arm, out
 
     def _round(self, state: ServerState, batch: RoundBatch,
                inputs: Dict[str, Any], client_lr: float, server_lr: float,
@@ -1172,6 +1341,14 @@ class RoundEngine:
         if "dp_clip" in strategy_state:
             # the clip the next round applies (adaptive clipping)
             round_stats["dp_clip"] = strategy_state["dp_clip"]
+        if self.devbus.enabled:
+            # the engine's publisher (``round.py:1448-1464``): the applied
+            # update's size against the new params, after the server step
+            self.devbus.publish(
+                "update_ratio",
+                torch.linalg.vector_norm(new_params - state.params)
+                / (torch.linalg.vector_norm(new_params) + 1e-12))
+            round_stats.update(self.devbus.drain())
         privacy = [k for k in stats if k.startswith("privacy_")]
         if privacy:
             round_stats.update((k, stats[k]) for k in privacy)
@@ -1297,8 +1474,9 @@ class RoundEngine:
         order) are read back once, since the edges to re-derive are picked
         on the host."""
         strategy = self.strategy
-        screened_host = None if screened is None else \
-            screened.cpu().numpy()
+        with allow_sync():   # the one read a strict dispatch half makes
+            screened_host = None if screened is None else \
+                screened.cpu().numpy()
         recovered = [0, 0]
         n_survivors, row = 0.0, 0
         for batch, live in groups:

@@ -159,6 +159,7 @@ rows first, every ``scaffold_flush_freq`` / ``ef_flush_freq`` rounds,
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import logging
 import os
@@ -179,7 +180,7 @@ from ..data.batching import (assign_step_buckets, bucket_boundaries,
                              steps_for, steps_for_array)
 from ..data.dataset import ArraysDataset
 from ..data.fleet import sample_cohort
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, chip_peak_flops, resolve_device
 from ..models.base import BaseTask, Metric, Params
 from ..optim import PlateauTracker, make_lr_schedule
 from ..resilience.chaos import make_chaos
@@ -190,8 +191,13 @@ from ..strategies.ef_quant import (DeviceResidualTable, EFQuant,
                                    ResidualStore)
 from ..strategies.robust import select_robust_strategy
 from ..strategies.scaffold import ControlStore, DeviceControlTable, Scaffold
+from ..telemetry import NULL_SPAN, emit_event, make_telemetry
+from ..telemetry.profiling import start_window, stop_window
+from ..telemetry.rollup import host_rss_bytes
+from ..telemetry.xla import mfu
 from ..traffic import STALE_HIST_BINS, make_traffic
 from ..utils.logging import MetricsLog, print_rank
+from ..utils.strict import strict_transfer_scope
 from .checkpoint import (LATEST_PREV, CheckpointManager,
                          load_pretrained_params)
 from .client_update import ClientHParams, build_client_update
@@ -230,6 +236,15 @@ class OptimizationServer:
         self.device = resolve_device(device)
         self.metrics = metrics if metrics is not None else MetricsLog()
         sc, cc = config.server_config, config.client_config
+        #: the telemetry scope (``server_config.telemetry``,
+        #: ``server.py:382-419``); None when the block is off, and then
+        #: every instrumentation point is one is-None check
+        self.scope = make_telemetry(sc.get("telemetry"), model_dir,
+                                    self.metrics, self.device)
+        #: the structured-event sink (``telemetry/__init__.py::
+        #: emit_event``): records in ``metrics.jsonl``, and with a scope
+        #: trace instants, rollup counts and the flight ring too
+        self.event = functools.partial(emit_event, self.scope, self.metrics)
         #: device-resident carry (``server.py:75-95``): SCAFFOLD's and EF's
         #: tables, personalization's and fused RL's state ride
         #: ``strategy_state`` and the round, so their rounds use the ring
@@ -251,9 +266,6 @@ class OptimizationServer:
         #: each round's fault vectors and logs the counters
         self.shield = self.engine.shield
         self.chaos = make_chaos(sc)
-        #: the structured-event sink (``telemetry/__init__.py::
-        #: emit_event`` with telemetry off): records in ``metrics.jsonl``
-        self.event = self.metrics.event
         # a subclass whose ``_sample`` hook falls back to the base sampler
         # under fused_carry says so with ``fused_carry_sample``
         # (personalization)
@@ -292,8 +304,27 @@ class OptimizationServer:
                       else None), events=self.event)
         #: SIGTERM / SIGINT -> drain -> checkpoint -> return; the run's
         #: exit says it was preempted (:attr:`preempted`)
-        self.preemption = PreemptionHandler(events=self.event)
+        self.preemption = PreemptionHandler(events=self.event,
+                                            flush=self.metrics.flush)
         self.preempted = False
+        #: ``(kind, peak FLOP/s)`` of the card, the live MFU's denominator
+        #: (``device.py::chip_peak_flops``: None for an unknown card);
+        #: None when the device-truth layer is off
+        self._chip = None
+        if self.engine.xla is not None:
+            self._chip = chip_peak_flops(
+                self.device, self.engine.precision.get("compute", "float32"))
+        if self.scope is not None:
+            self.ckpt.span = self.scope.span
+            self.scope.watchdog.on_mark = self._watchdog_mark
+            # the flight record embeds the run's scorecard, built when it
+            # is written
+            self.scope.set_flight_context(self.build_scorecard)
+            # a preemption request makes the trace, the metrics and the
+            # flight record durable before the drain starts
+            self.preemption.add_flush_hook(self.scope.flush)
+            self.preemption.add_flush_hook(self._flight_on_preempt)
+            self.engine.devbus.on_nonscalar = self.scope.devbus_nonscalar
         #: chunks drained while a later chunk was in flight
         self.pipelined_chunks = 0
 
@@ -393,7 +424,10 @@ class OptimizationServer:
                 "paddingEfficiency",
                 # host-to-device bytes of the data inputs, a chunk or a
                 # host round each (``server.py:2175-2193``)
-                "hostToDeviceBytesPerRound")}
+                "hostToDeviceBytesPerRound",
+                # live MFU, a chunk each, with ``telemetry.xla`` on
+                # (``server.py:2008-2027``)
+                "mfuPerRound")}
         #: run totals of the padding-efficiency meter (slot-weighted) and
         #: of the megabatch tape's real slots over its slots
         self._pad_real = self._pad_slots = 0.0
@@ -419,7 +453,17 @@ class OptimizationServer:
         self._status_ring: list = []
         resumed = bool(sc.get("resume_from_checkpoint", False)) and \
             self._resume()
+        self._ladder: Optional[DurableIOLadder] = None
         self._setup_pager(sc, model_dir, resumed, len(train_dataset))
+        if self.scope is not None and self.scope.rollup is not None:
+            # the rollup writer degrades through the durable-IO ladder
+            # (``server.py:411-419``): the pager's, where chaos.infra's
+            # ``writer`` probe sits, else one of the same policy
+            ladder = self._ladder or DurableIOLadder(
+                policy=RetryPolicy.from_config(sc.get("checkpoint_retry")))
+            ladder.event = self.event
+            self.scope.rollup.ladder = ladder
+            self.scope.rollup.on_drop = self._rollup_dropped
 
         # DGA's RL weight hook (server.py:437-451); under fused_carry the
         # engine's FusedRL takes its place and no host aggregator is built
@@ -523,7 +567,7 @@ class OptimizationServer:
                      "marker": infra.hook("store_write"),
                      "writeback": infra.hook("writeback"),
                      "writer": infra.hook("writer")}
-        ladder = DurableIOLadder(
+        ladder = self._ladder = DurableIOLadder(
             policy=RetryPolicy.from_config(sc.get("checkpoint_retry")),
             fault_hooks=hooks)
         ladder.event = self.event
@@ -535,6 +579,8 @@ class OptimizationServer:
             host_cache_rows=int(fl.get("host_cache_rows", 8192) or 8192),
             resume=resumed, prefetch=bool(fl.get("prefetch", True)),
             ladder=ladder, faults=infra, events=self.event)
+        if self.scope is not None:
+            pager.span = self.scope.span
         if resumed:
             marker = pager.round()
             if marker is None or int(marker) < int(self.state.round):
@@ -1186,16 +1232,48 @@ class OptimizationServer:
             # replays the same fires (a cache warm-up, not a restore)
             self._traffic_round = int(self.state.round)
             self.traffic.fast_forward(self._traffic_round)
+        if self.scope is not None:
+            # the stall monitor, a named thread, only when its action is
+            # not "off" (``server.py:1191-1195``)
+            self.scope.watchdog.start_stall_monitor()
         try:
             return self._train_loop()
-        except BaseException:
+        except BaseException as exc:
             try:
                 self.ckpt.wait()
             except Exception:  # never masks the original abort
                 pass
+            if self.scope is not None:
+                # the abnormal exit's record: the last events, the live
+                # rollup window and the scorecard (``server.py:1206-1225``)
+                try:
+                    self.scope.record_flight(
+                        f"exception: {type(exc).__name__}", detail=str(exc))
+                except Exception:  # never masks the original abort
+                    pass
             raise
         finally:
+            if self.scope is not None:
+                self._close_scope()
             self.preemption.uninstall()
+
+    def _close_scope(self) -> None:
+        """Whatever path left the loop (``server.py:1226-1252``): the
+        stall monitor stops, the partial rollup window and an open
+        profiler window are written, the buffered compile events reach
+        the streams, the trace is flushed and then the scorecard (its
+        overlap figures read the flushed trace) is written."""
+        scope = self.scope
+        scope.watchdog.stop_stall_monitor()
+        try:
+            if scope.rollup is not None:
+                scope.rollup.flush_window(partial=True)
+            scope.profiler.finish()
+            self._drain_xla_events()
+            scope.flush()
+            scope.write_scorecard(self.build_scorecard())
+        except Exception as exc:  # telemetry never ends a run
+            print_rank(f"telemetry close failed: {exc!r}", logging.WARNING)
 
     def _train_loop(self):
         sc = self.config.server_config
@@ -1227,7 +1305,9 @@ class OptimizationServer:
 
         def pack(R: int):
             tic = time.time()
-            return R, self._pack_chunk(R), time.time() - tic
+            with self._tspan("pack", rounds=R):
+                batches = self._pack_chunk(R)
+            return R, batches, time.time() - tic
 
         host_round = (self._run_rl_round if self.rl is not None else
                       self._run_scaffold_round
@@ -1273,15 +1353,20 @@ class OptimizationServer:
                         copy.deepcopy(anchor)
                 break
             tic = time.time()
+            R = chunk_R(round_no)
+            if self.scope is not None:
+                # the profile_rounds window: chunk boundaries are its only
+                # edges; the chunk's round range decides
+                self.scope.profiler.observe(round_no, rounds=R)
             if host_round is not None:
-                host_round(round_no)
+                with self._tspan("host_round", round=round_no):
+                    host_round(round_no)
                 if self.server_replay is not None:
                     self._run_server_replay(round_no)
                 round_no += 1
                 self.run_stats["secsPerRound"].append(time.time() - tic)
                 self._round_housekeeping(round_no, val_freq, rec_freq)
                 continue
-            R = chunk_R(round_no)
             client_lr = self.initial_lr_client * self.lr_weight
             server_lrs = [(self.plateau.lr if self.plateau is not None
                            else self.server_lr_schedule(r))
@@ -1291,7 +1376,7 @@ class OptimizationServer:
             _, batches, pack_secs = prefetched
             prefetched = None
             self._record_staged_bytes(batches, R)
-            prof = (self._start_profile()
+            prof = (start_window(self.device)
                     if self._profile_dir is not None and
                     self._chunks_run == profile_chunk else None)
             thresholds = [None] * R
@@ -1304,31 +1389,54 @@ class OptimizationServer:
                     thresholds[j] = self.quant_thresh
                     self.metrics.log("Quantization Thresh.",
                                      self.quant_thresh, step=round_no + j)
-            tac = time.time()
-            for ch in pending:
-                # the ring's newest chunk is copied for its `latest` save
-                # now, in stream order, before the next dispatch queues
-                # behind it
-                if ch["snapshot"] is None:
-                    ch["snapshot"] = self.ckpt.snapshot(ch["state"])
-            snap_secs = time.time() - tac
-            if pager is not None:
-                # the chunk's cohorts onto pool slots, the misses paged in
-                # on the stream after the snapshots above and before the
-                # dispatch (server.py:1464-1472)
-                pager.prepare_chunk(batches, self.state.strategy_state)
-            chaos_vecs = [self.chaos_vectors(round_no + j, b)
-                          for j, b in enumerate(batches)]
-            tac = time.time()
-            dispatch = (self.engine.dispatch_bucketed_rounds
-                        if self.cohort_bucketing is not None
-                        else self.engine.dispatch_rounds)
-            self.state, packed = dispatch(
-                self.state, batches, [client_lr] * R, server_lrs,
-                leakage_threshold=self.max_allowed_leakage,
-                quant_thresholds=thresholds, chaos_vecs=chaos_vecs)
-            dispatch_secs = time.time() - tac
+            # the dispatch half: under MSRFLUTE_STRICT_TRANSFERS=1 a call
+            # here that waits for the card raises (utils/strict.py)
+            with strict_transfer_scope(self.device):
+                tac = time.time()
+                for ch in pending:
+                    # the ring's newest chunk is copied for its `latest`
+                    # save now, in stream order, before the next dispatch
+                    # queues behind it
+                    if ch["snapshot"] is None:
+                        ch["snapshot"] = self.ckpt.snapshot(ch["state"])
+                snap_secs = time.time() - tac
+                if pager is not None:
+                    # the chunk's cohorts onto pool slots, the misses paged
+                    # in on the stream after the snapshots above and before
+                    # the dispatch (server.py:1464-1472)
+                    with self._tspan("fleet_page", round0=round_no,
+                                     rounds=R):
+                        pager.prepare_chunk(batches,
+                                            self.state.strategy_state)
+                chaos_vecs = [self.chaos_vectors(round_no + j, b)
+                              for j, b in enumerate(batches)]
+                # the device window opens at dispatch and whoever drains
+                # the chunk ends it (``server.py:1535-1538``)
+                device_span = (self.scope.begin("round_device",
+                                                round0=round_no, rounds=R)
+                               if self.scope is not None else None)
+                tac = time.time()
+                dispatch = (self.engine.dispatch_bucketed_rounds
+                            if self.cohort_bucketing is not None
+                            else self.engine.dispatch_rounds)
+                with self._tspan("dispatch", round0=round_no, rounds=R):
+                    self.state, packed = dispatch(
+                        self.state, batches, [client_lr] * R, server_lrs,
+                        leakage_threshold=self.max_allowed_leakage,
+                        quant_thresholds=thresholds, chaos_vecs=chaos_vecs)
+                dispatch_secs = time.time() - tac
+                # the chunk's rows start home now, before a later page-in
+                # writes the tables (server.py:1586-1591)
+                wb = (pager.queue_writeback(self.state.strategy_state,
+                                            round_no=round_no + R)
+                      if pager is not None else None)
             chunk = {
+                "span": device_span, "fleet_wb": wb,
+                # the dispatch's counted FLOPs, for the live MFU
+                "xla_dispatch": (dict(self.engine.xla.last_dispatch)
+                                 if self.engine.xla is not None and
+                                 self.engine.xla.last_dispatch is not None
+                                 else None),
                 "round0": round_no, "R": R, "state": self.state,
                 "masks": [b.client_mask for b in batches
                           if not isinstance(b, list)],
@@ -1344,11 +1452,6 @@ class OptimizationServer:
                          "dispatch": dispatch_secs
                          - self.engine.last_stage_secs,
                          "ckpt": snap_secs}}
-            if pager is not None:
-                # the chunk's rows start home now, before a later page-in
-                # writes the tables (server.py:1586-1591)
-                chunk["fleet_wb"] = pager.queue_writeback(
-                    self.state.strategy_state, round_no=round_no + R)
             round_no += R
             anchor = chunk["rng_snapshot"]
             if lookahead and round_no < max_iteration:
@@ -1356,7 +1459,11 @@ class OptimizationServer:
                 if fleet_prefetch:
                     pager.prefetch_chunk(prefetched[1])
             if prof is not None:
-                self._stop_profile(prof, chunk["round0"])
+                # the chunk's trace (``server.py:1604-1607``)
+                path = os.path.join(self._profile_dir,
+                                    f"chunk_r{chunk['round0']}.pt.trace.json")
+                stop_window(prof, self.device, path)
+                print_rank(f"wrote profiler trace to {path}")
             self._chunks_run += 1
             while len(pending) >= self.pipeline_depth and pending:
                 # ring full: drain the oldest while the device runs the
@@ -1380,7 +1487,10 @@ class OptimizationServer:
         while pending:
             # preempted with chunks in flight: their device work is done,
             # so each drains and writes its `latest`
-            self._drain_chunk(pending.popleft(), val_freq, rec_freq)
+            ch = pending.popleft()
+            with self._tspan("preempt_drain", round0=ch["round0"],
+                             rounds=ch["R"]):
+                self._drain_chunk(ch, val_freq, rec_freq)
             self.pipelined_chunks += 1
         self.ckpt.wait()   # the async `latest` is on disk on return
         if self.preemption.requested and round_no < max_iteration:
@@ -1400,43 +1510,24 @@ class OptimizationServer:
         self.metrics.flush()
         return self.state
 
-    def _start_profile(self):
-        """A ``torch.profiler`` window over one chunk's dispatch
-        (``server.py:1439-1443``; the twin of ``jax.profiler``): the host's
-        ops and, on a card, its kernels."""
-        from torch.profiler import ProfilerActivity, profile
-        acts = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
-        prof = profile(activities=acts)
-        prof.start()
-        return prof
-
-    def _stop_profile(self, prof, round0: int) -> None:
-        """Close the window once the chunk's device work is done, and write
-        its Chrome trace into ``<model_dir>/profile``
-        (``server.py:1604-1607``)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        prof.stop()
-        os.makedirs(self._profile_dir, exist_ok=True)
-        path = os.path.join(self._profile_dir,
-                            f"chunk_r{round0}.pt.trace.json")
-        prof.export_chrome_trace(path)
-        print_rank(f"wrote profiler trace to {path}")
-
     def _drain_chunk(self, chunk: Dict[str, Any], val_freq: int,
                      rec_freq: int) -> None:
         """Fetch one dispatched chunk's stats (the fence: one copy per
         dtype group), then its host tail (``server.py:1692-1837``)."""
         R = chunk["R"]
+        round0 = chunk["round0"]
         tic = time.time()
-        stats = chunk["stats"].fetch()
+        with self._tspan("stats_fetch", round0=round0, rounds=R):
+            stats = chunk["stats"].fetch()
+        if self.scope is not None:
+            # the fetch is the chunk's fence: its device window ends here
+            self.scope.end(chunk.get("span"))
         toc = time.time()
         if chunk.get("fleet_wb") is not None:
             # the chunk's rows into the host store, its slots unpinned,
             # before the host tail reads them (server.py:1718-1726)
-            self.fleet_pager.complete_writeback(chunk["fleet_wb"])
+            with self._tspan("fleet_writeback", round0=round0, rounds=R):
+                self.fleet_pager.complete_writeback(chunk["fleet_wb"])
         rs = self.run_stats
         # serial: prep to fence; pipelined: fence to fence, since this
         # chunk's prep began before the previous fence
@@ -1448,8 +1539,76 @@ class OptimizationServer:
                           ("stage", "secsPerRoundStage"),
                           ("dispatch", "secsPerRoundDispatch")):
             rs[name] += [chunk["secs"][key] / R] * R
-        self._drain_host_tail(chunk, stats, val_freq, rec_freq)
+        with self._tspan("host_tail", round0=round0, rounds=R):
+            self._drain_host_tail(chunk, stats, val_freq, rec_freq)
         rs["secsPerRoundHostTail"] += [(time.time() - toc) / R] * R
+        if self.scope is not None:
+            self._observe_chunk(chunk, stats)
+
+    def _observe_chunk(self, chunk: Dict[str, Any], stats: List[dict]
+                       ) -> None:
+        """The scope's per-chunk tail (``server.py:1733-1857``): the
+        compile events and the live MFU, the pager's and the lazy cache's
+        counters on the host-side bus, then the watchdog's and the
+        rollup's observations of each round — values the tail already
+        holds, no device read.  A watchdog ``abort`` raises from here, at
+        the drain of the round that tripped it."""
+        scope, round0, R = self.scope, chunk["round0"], chunk["R"]
+        step = round0 + R - 1
+        chunk_mfu = self._drain_device_truth(chunk, round0, R)
+        rss = host_rss_bytes()
+        xla = self.engine.xla
+        xla_snap = (xla.snapshot() if xla is not None else
+                    {"recompiles": int(self.engine.recompile_count)})
+        gauges: Dict[str, Any] = {}
+        if self.fleet_pager is not None:
+            pd = self.fleet_pager.describe()
+            for key in ("hits", "misses", "evictions", "resident"):
+                gauges[f"fleet_page_{key}"] = pd[key]
+                scope.devbus_host(f"fleet_page_{key}", pd[key], step=step)
+            wb = chunk.get("fleet_wb") or {}
+            for key in ("page_in_bytes", "writeback_bytes"):
+                scope.devbus_host(f"fleet_{key}", wb.get(key, 0), step=step)
+            if pd["prefetch_hit_rate"] is not None:
+                scope.devbus_host("fleet_prefetch_hit_rate",
+                                  pd["prefetch_hit_rate"], step=step)
+            for key in ("page_in_bytes", "page_in_bytes_per_device",
+                        "writeback_bytes", "writeback_bytes_per_device",
+                        "prefetch_hit_rate", "migrations", "forced_drains"):
+                if pd.get(key) is not None:
+                    gauges[f"fleet_{key}"] = pd[key]
+        cache_stats = getattr(self.train_dataset, "cache_stats", None)
+        if cache_stats is not None:
+            cs = cache_stats()
+            for key in ("hits", "misses", "evictions", "resident"):
+                gauges[f"lazy_cache_{key}"] = cs[key]
+                scope.devbus_host(f"lazy_cache_{key}", cs[key], step=step)
+        util = (self.megabatch_utilization if self.megabatch is not None
+                else None)
+        if util is not None:
+            gauges["megabatch_utilization"] = util
+            scope.devbus_host("megabatch_utilization", util, step=step)
+        if gauges and scope.rollup is not None:
+            scope.rollup.update_gauges(gauges)
+        secs = self.run_stats["secsPerRound"][-1]
+        for j, st in enumerate(stats):
+            n = max(st["client_count"], 1.0)
+            quarantine_frac = None
+            if "shield_nonfinite" in st:
+                # quarantined over the live cohort (client_count is the
+                # count after the screen)
+                q = st["shield_nonfinite"] + st["shield_norm_outlier"]
+                quarantine_frac = q / max(q + st["client_count"], 1.0)
+            scope.watchdog.observe_round(
+                round0 + j, train_loss=st["train_loss_sum"] / n,
+                round_secs=secs,
+                ckpt_failures=self.ckpt.escalator.consecutive,
+                quarantine_frac=quarantine_frac,
+                recompiles=self.engine.recompile_count,
+                host_rss_bytes=rss)
+            scope.rollup_observe(round0 + j, secs,
+                                 clients=st["client_count"], mfu=chunk_mfu,
+                                 rss_bytes=rss, xla_snapshot=xla_snap)
 
     def _drain_host_tail(self, chunk: Dict[str, Any], stats: List[dict],
                          val_freq: int, rec_freq: int) -> None:
@@ -1474,6 +1633,9 @@ class OptimizationServer:
             self._log_carry(st, r)
             if self.server_replay is not None:
                 self._run_server_replay(r)
+        if self.scope is not None:
+            # the bus's scalars, from the same packed readback
+            self.scope.consume_devbus(stats, round0)
         self._defense_events(stats, round0)
         if "dp_clip" in stats[-1]:
             # the clip the next round applies, logged at that round once a
@@ -1483,14 +1645,168 @@ class OptimizationServer:
         if "dump_norm" in stats[0]:
             self._dump_norm_stats(stats, chunk["masks"])
         for ev in self.engine.drain_megabatch_events():
-            # a bucket the analytic gate sent to the vmap arm
+            # a bucket the gate sent to the vmap arm; the record reaches
+            # the streams only through a scope (``server.py:1994-1997``)
             self.megabatch_fallbacks += 1
             print_rank(f"megabatch_fallback: {ev}", logging.WARNING)
+            if self.scope is not None:
+                fields = dict(ev)
+                self.scope.event(fields.pop("kind"), **fields)
         self._round_housekeeping(
             round0 + R, val_freq, rec_freq,
             latest=chunk["snapshot"],
             rng_snapshot=chunk["rng_snapshot"],
             ckpt_secs=chunk["secs"]["ckpt"], rounds=R)
+
+    # ------------------------------------------------------------------
+    # telemetry (``server.py:935-960, 1087-1093, 1979-2172``)
+    # ------------------------------------------------------------------
+    def _tspan(self, name: str, **args):
+        """One span of the scope, or the shared no-op context without
+        one."""
+        return (self.scope.span(name, **args) if self.scope is not None
+                else NULL_SPAN)
+
+    def _watchdog_mark(self, kind: str, fields: Dict[str, Any]) -> None:
+        """A watchdog's ``mark`` action: the finding in the status log."""
+        self.ckpt.update_status({f"watchdog_{kind}": dict(fields)})
+
+    def _rollup_dropped(self, rec: Dict[str, Any]) -> None:
+        """The rollup writer exhausted its ladder: the window is lost,
+        counted and reported; training goes on."""
+        self.event("rollup_windows_dropped",
+                   windows_dropped=int(self.scope.rollup.windows_dropped),
+                   window=rec.get("window"))
+
+    def _flight_on_preempt(self) -> None:
+        """Preemption flush hook: the flight record, before the drain."""
+        self.scope.record_flight(
+            f"preemption: {self.preemption.reason or 'requested'}")
+
+    def _drain_xla_events(self) -> None:
+        """The device-truth layer's buffered ``xla_compile`` and
+        ``recompile`` records into the streams."""
+        if self.scope is None or self.engine.xla is None:
+            return
+        for ev in self.engine.xla.drain_events():
+            self.scope.event(ev.pop("kind"), **ev)
+
+    def _drain_device_truth(self, chunk: Dict[str, Any], round0: int,
+                            R: int) -> Optional[float]:
+        """The compile events, then the chunk's live MFU: its counted
+        FLOPs a round (taken at dispatch) over its seconds a round and the
+        card's peak, with the dispatch's peak allocation, on the host-side
+        bus.  Returns the MFU, or None."""
+        self._drain_xla_events()
+        disp = chunk.get("xla_dispatch")
+        if not disp or not disp.get("flops") or self._chip is None:
+            return None
+        flops = float(disp["flops"]) / max(int(disp.get("rounds") or R), 1)
+        value = mfu(flops, self.run_stats["secsPerRound"][-1],
+                    peak_flops=self._chip[1])
+        if value is not None:
+            self.run_stats["mfuPerRound"].append(value)
+            self.scope.devbus_host("mfu", value, step=round0 + R - 1)
+        hbm = disp.get("hbm_bytes")
+        if hbm:
+            self.scope.devbus_host("hbm_program_gb", hbm / 2 ** 30,
+                                   step=round0 + R - 1)
+        return value
+
+    def build_scorecard(self) -> Dict[str, Any]:
+        """The run's compact regression surface
+        (``telemetry/scorecard.json``, ``server.py:2029-2172``): values the
+        run already measured.  Its ``fleet``, ``infra_faults`` and
+        ``traffic`` blocks are :meth:`fleet_summary`'s and
+        :meth:`traffic_summary`'s."""
+        rs = self.run_stats
+
+        def p50(values):
+            return (round(float(np.percentile(values, 50)), 6)
+                    if values else None)
+
+        eff = self.padding_efficiency
+        card: Dict[str, Any] = {
+            "rounds": int(self.state.round),
+            "pipeline_depth": int(self.pipeline_depth),
+            "pipelined_chunks": int(self.pipelined_chunks),
+            "round_secs_p50": p50(rs["secsPerRound"]),
+            "host_tail_secs_p50": p50(rs["secsPerRoundHostTail"]),
+            "staged_bytes_per_round_p50": p50(
+                rs["hostToDeviceBytesPerRound"]),
+            "padding_efficiency": (round(eff, 6) if eff is not None
+                                   else None),
+            "mfu_p50": p50(rs["mfuPerRound"]),
+            "puts_per_dispatch": int(self.engine.last_dispatch_puts),
+            "compiles": len(self.engine.compile_log),
+            "recompiles": int(self.engine.recompile_count),
+        }
+        fires: Dict[str, int] = {}
+        if self.scope is not None:
+            for finding in self.scope.watchdog.findings:
+                kind = str(finding.get("kind", "?"))
+                fires[kind] = fires.get(kind, 0) + 1
+        card["watchdog_fires"] = fires
+        if self.scope is not None and self.scope.tracer is not None:
+            card["trace_events_dropped"] = int(self.scope.tracer.dropped)
+        if self.scope is not None and self.scope.rollup is not None:
+            card["rollup_windows"] = int(self.scope.rollup.windows_flushed)
+            card["rollup_windows_dropped"] = int(
+                self.scope.rollup.windows_dropped)
+        fleet = self.fleet_summary()
+        if fleet is not None:
+            if fleet["infra_faults"] is not None:
+                card["infra_faults"] = fleet["infra_faults"]
+            card["fleet"] = fd = fleet["fleet"]
+            card["fleet_page_in_bytes_per_device"] = \
+                fd["page_in_bytes_per_device"]
+            card["fleet_writeback_bytes_per_device"] = \
+                fd["writeback_bytes_per_device"]
+            if fd["prefetch_hit_rate"] is not None:
+                card["fleet_prefetch_hit_rate"] = fd["prefetch_hit_rate"]
+        cache_stats = getattr(self.train_dataset, "cache_stats", None)
+        if cache_stats is not None:
+            card["lazy_cache"] = cache_stats()
+        if self.cohort_bucketing is not None:
+            card["cohort_bucketing"] = {
+                "boundaries": list(self.cohort_bucketing["boundaries"]),
+                "max_buckets": int(self.cohort_bucketing["max_buckets"]),
+                "bucket_grid_variants": len(self.engine.bucket_shapes_seen),
+            }
+        if self.megabatch is not None:
+            util = self.megabatch_utilization
+            card["megabatch"] = {
+                "lanes": [int(n) for n in self.megabatch["lanes"]],
+                "utilization": (round(util, 6) if util is not None
+                                else None),
+                "gate_arms": {f"K{k}_S{s}": arm for (k, s), arm in
+                              sorted(self.engine.mega_gate.items())},
+            }
+            card["megabatch_utilization"] = card["megabatch"]["utilization"]
+        traffic = self.traffic_summary()
+        if traffic is not None:
+            card["traffic"] = traffic
+        xla = self.engine.xla
+        if xla is not None:
+            card["entry_points"] = xla.summary()
+            card["hbm_peak_bytes"] = xla.hbm_peak_bytes()
+            if self._chip is not None:
+                card["chip"] = {"kind": self._chip[0],
+                                "peak_flops": self._chip[1]}
+        # the overlap geometry from the flushed trace, through the one
+        # reader (scope_cli.summarize)
+        try:
+            from ..telemetry.scope_cli import summarize
+            overlap = summarize(self.ckpt.model_dir).get("overlap") or {}
+            card["overlap_efficiency_pct"] = overlap.get("efficiency_pct")
+            if "by_depth" in overlap:
+                card["host_tail_by_depth_s"] = overlap["by_depth"]
+            if "max_rounds_in_flight" in overlap:
+                card["max_rounds_in_flight"] = \
+                    overlap["max_rounds_in_flight"]
+        except (OSError, ValueError):
+            card["overlap_efficiency_pct"] = None
+        return card
 
     def _dump_norm_stats(self, stats: List[dict], masks: list) -> None:
         """Each round's client payload norms and their cosines against the
@@ -1622,6 +1938,8 @@ class OptimizationServer:
             c_norm = float(np.linalg.norm(self.scaffold_store.c))
         self._host_round_tail(round_no, batch, stats, tls, ws_np)
         self.metrics.log("Control norm (server c)", c_norm, step=round_no)
+        if self.scope is not None:
+            self.scope.devbus_host("scaffold_c_norm", c_norm, step=round_no)
 
     def _run_ef_round(self, round_no: int) -> None:
         """One error-feedback round: the payloads plus the stored
@@ -1642,6 +1960,9 @@ class OptimizationServer:
         thresh = self.strategy.next_threshold()
         if self.strategy.quant_anneal != 1.0:
             self.metrics.log("Quantization Thresh.", thresh, step=round_no)
+        if self.scope is not None:
+            self.scope.devbus_host("ef_quant_thresh", float(thresh),
+                                   step=round_no)
         residuals = (self.ef_device.rows(ids) if self.ef_device is not None
                      else torch.from_numpy(self.ef_store.rows(ids)).to(
                          self.device))
@@ -1704,8 +2025,7 @@ class OptimizationServer:
 
     def _val_acc(self) -> float:
         """Validation accuracy (else minus the loss) for the RL reward."""
-        metrics = evaluate(self.task, self.engine.params_dict(self.state),
-                           self._staged_eval("val"))
+        metrics = self._evaluate("val", events=None)
         if "acc" in metrics:
             return float(metrics["acc"].value)
         return -float(metrics["loss"].value)
@@ -1756,6 +2076,14 @@ class OptimizationServer:
         taken at dispatch when packing looked ahead; None takes it now.
         ``ckpt_secs`` and ``rounds``: the chunk's earlier checkpoint time
         and its round count, for ``secsPerRoundCkptSubmit``."""
+        with self._tspan("housekeeping", round=round_no):
+            self._round_housekeeping_inner(round_no, val_freq, rec_freq,
+                                           latest, rng_snapshot, ckpt_secs,
+                                           rounds)
+
+    def _round_housekeeping_inner(self, round_no: int, val_freq: int,
+                                  rec_freq: int, latest, rng_snapshot,
+                                  ckpt_secs: float, rounds: int) -> None:
         tic = time.time()
         if round_no % val_freq == 0:
             improved = self._maybe_eval("val", round_no)
@@ -1796,8 +2124,9 @@ class OptimizationServer:
         status["status_ring"] = self._status_ring
         self.ckpt.update_status(status)
         tac = time.time()
-        self.ckpt.save_latest(self.state if latest is None else latest)
-        self.ckpt.backup(round_no, best_names=tuple(self.best_val))
+        with self._tspan("ckpt_submit", round=round_no):
+            self.ckpt.save_latest(self.state if latest is None else latest)
+            self.ckpt.backup(round_no, best_names=tuple(self.best_val))
         self.run_stats["secsPerRoundCkptSubmit"] += [
             (ckpt_secs + time.time() - tac) / rounds] * rounds
         sc = self.config.server_config
@@ -1831,7 +2160,22 @@ class OptimizationServer:
             self.fleet_pager.set_round(int(round_no))
             self.fleet_pager.mark_durable(int(round_no) - 1)
         self.metrics.flush()
+        if self.scope is not None:
+            # the trace rewritten at most every FLUSH_INTERVAL_SECS, and at
+            # most one rollup record a window (``server.py:2582-2592``)
+            self.scope.flush_throttled()
+            self.scope.rollup_housekeeping()
         self.run_stats["secsPerRoundHousekeeping"].append(time.time() - tic)
+
+    def _evaluate(self, split: str, events):
+        """The split's metrics at the current params, as the engine's
+        ``eval_step`` entry point (``server.py:660-666``)."""
+        batches = self._staged_eval(split)
+        span = self.scope.span if self.scope is not None else None
+        return self.engine._entry(
+            "eval_step", (self.state.params, batches),
+            lambda: evaluate(self.task, self.engine.params_dict(self.state),
+                             batches, events=events, span=span))
 
     def _split_cfg(self, split: str):
         dc = self.config.server_config.data_config
@@ -1910,8 +2254,8 @@ class OptimizationServer:
         dataset = self.val_dataset if split == "val" else self.test_dataset
         if dataset is None or len(dataset) == 0:
             return False
-        metrics = evaluate(self.task, self.engine.params_dict(self.state),
-                           self._staged_eval(split), events=self.event)
+        with self._tspan("eval", split=split, round=round_no):
+            metrics = self._evaluate(split, events=self.event)
         for name, metric in metrics.items():
             self.metrics.log(f"{split.capitalize()} {name}", metric.value,
                              step=round_no)

@@ -62,6 +62,7 @@ from typing import Tuple
 
 import torch
 
+from ..telemetry.xla import flash_work, hand_kernel
 from . import _build
 
 #: "minus infinity" that survives exp/max without NaNs (the TPU kernels')
@@ -269,6 +270,14 @@ class _FlashKernel:
                 fn, _entry_point("flash_attention_error_string"))
         return self._fns[storage]
 
+    def _counted(self, which: str, q, k, causal, q_offset, k_offset):
+        """The launch's analytic ``(flops, bytes)`` for a counted dispatch
+        of the device-truth layer (:func:`..telemetry.xla.flash_work`)."""
+        B, Lq, H, D = q.shape
+        return hand_kernel(self.symbol, lambda: flash_work(
+            which, B, Lq, k.shape[1], H, D, bool(causal), int(q_offset),
+            int(k_offset), q.element_size()))
+
     def _launch(self, tensors, q, k, causal, q_offset, k_offset) -> None:
         B, Lq, H, D = q.shape
         fn, err = self._kernel(q.dtype)
@@ -290,6 +299,11 @@ class FlashFwd(_FlashKernel):
     def __call__(self, q, k, v, causal=False, q_offset=0, k_offset=0):
         B, Lq, H, D = q.shape
         _check("flash_fwd", (q, k, v), 3, Lq, k.shape[1], B, H, D)
+        with self._counted("fwd", q, k, causal, q_offset, k_offset):
+            return self._apply(q, k, v, causal, q_offset, k_offset)
+
+    def _apply(self, q, k, v, causal, q_offset, k_offset):
+        B, Lq, H, D = q.shape
         if q.device.type == "cpu":
             return attention_lse_plain(q, k, v, causal, q_offset, k_offset)
         out = torch.empty_like(q)
@@ -306,6 +320,12 @@ class FlashDq(_FlashKernel):
         B, Lq, H, D = q.shape
         _check("flash_dq", (q, k, v, g, lse, delta, g_lse), 4, Lq,
                k.shape[1], B, H, D)
+        with self._counted("dq", q, k, causal, q_offset, k_offset):
+            return self._apply(q, k, v, g, lse, delta, g_lse, causal,
+                               q_offset, k_offset)
+
+    def _apply(self, q, k, v, g, lse, delta, g_lse, causal, q_offset,
+               k_offset):
         if q.device.type == "cpu":
             return attention_dq_plain(q, k, v, g, lse, delta, g_lse, causal,
                                       q_offset, k_offset)
@@ -323,6 +343,12 @@ class FlashDkv(_FlashKernel):
         B, Lq, H, D = q.shape
         _check("flash_dkv", (q, k, v, g, lse, delta, g_lse), 4, Lq,
                k.shape[1], B, H, D)
+        with self._counted("dkv", q, k, causal, q_offset, k_offset):
+            return self._apply(q, k, v, g, lse, delta, g_lse, causal,
+                               q_offset, k_offset)
+
+    def _apply(self, q, k, v, g, lse, delta, g_lse, causal, q_offset,
+               k_offset):
         if q.device.type == "cpu":
             return attention_dkv_plain(q, k, v, g, lse, delta, g_lse, causal,
                                        q_offset, k_offset)

@@ -24,7 +24,9 @@ Both versions update ``p`` and ``m`` IN PLACE and return them:
 - :data:`fused_sgd_apply` — the wrapper: the plain version for CPU tensors,
   the hand-written CUDA kernel (``csrc/fused_sgd.cu``) for CUDA tensors,
   anything else raises.  ``fused_sgd_apply.launches`` counts kernel
-  launches, ``launches_by_dtype`` each storage arm's.
+  launches, ``launches_by_dtype`` each storage arm's.  Inside a counted
+  dispatch of the device-truth layer each call reports its bound's bytes,
+  5 values a parameter (:func:`..telemetry.xla.hand_kernel`).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from typing import Tuple
 
 import torch
 
+from ..telemetry.xla import hand_kernel
 from . import _build
 
 
@@ -105,6 +108,11 @@ class FusedSGDApply:
                  lr: float, mu: float, gate: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         _check(p, g, m, gate)
+        with hand_kernel("fused_sgd_apply", lambda: (
+                0.0, 5.0 * p.numel() * p.element_size())):
+            return self._apply(p, g, m, lr, mu, gate)
+
+    def _apply(self, p, g, m, lr, mu, gate):
         if p.device.type == "cpu":
             return fused_sgd_plain(p, g, m, lr, mu, gate)
         if p.device.type != "cuda":

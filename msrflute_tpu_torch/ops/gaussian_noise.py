@@ -30,6 +30,7 @@ from typing import Tuple
 
 import torch
 
+from ..telemetry.xla import hand_kernel
 from . import _build
 
 PHILOX_M0, PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -143,6 +144,12 @@ class FusedGaussianNoise:
     def __call__(self, x: torch.Tensor, scale: float, sigma: float,
                  seed: int) -> torch.Tensor:
         _check(x)
+        # the bound's bytes: x read, the result written
+        with hand_kernel("fused_gaussian_noise", lambda: (
+                0.0, 2.0 * x.numel() * x.element_size())):
+            return self._apply(x, scale, sigma, seed)
+
+    def _apply(self, x, scale, sigma, seed):
         if x.device.type == "cpu":
             return gaussian_noise_plain(x, scale, sigma, seed)
         if x.device.type != "cuda":

@@ -33,6 +33,7 @@ import ctypes
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from ..telemetry.xla import hand_kernel
 from . import _build
 
 #: elements one block of the kernel covers (``kTile`` in the source)
@@ -170,6 +171,12 @@ class QuantBinSparsify:
                  lo: torch.Tensor, hi: torch.Tensor, thresh: torch.Tensor,
                  n_bins: int) -> torch.Tensor:
         _check(x, offsets, lo, hi, thresh, n_bins)
+        # the bound's bytes: x read, the result written
+        with hand_kernel("quant_bin_sparsify", lambda: (
+                0.0, 2.0 * x.numel() * x.element_size())):
+            return self._apply(x, offsets, lo, hi, thresh, n_bins)
+
+    def _apply(self, x, offsets, lo, hi, thresh, n_bins):
         if x.device.type == "cpu":
             return quant_bin_plain(x, offsets, lo, hi, thresh, n_bins)
         if x.device.type != "cuda":

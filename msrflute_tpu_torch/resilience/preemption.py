@@ -38,11 +38,14 @@ class PreemptionHandler:
     SIGNALS = (signal.SIGTERM, signal.SIGINT)
 
     def __init__(self, escalate_after: int = 2,
-                 events: Optional[Callable[..., None]] = None):
+                 events: Optional[Callable[..., None]] = None,
+                 flush: Optional[Callable[[], None]] = None):
         self.escalate_after = max(int(escalate_after), 1)
         #: the structured-event sink: one ``preemption`` record a request,
-        #: written by :meth:`flush_now` (``preemption.py:150-151``)
+        #: written by :meth:`flush_now` (``preemption.py:150-151``), then
+        #: ``flush`` (the metrics stream's) makes the records durable
         self.events = events
+        self.flush = flush
         self._event = threading.Event()
         self._reason: Optional[str] = None
         self._prev: dict = {}
@@ -97,11 +100,13 @@ class PreemptionHandler:
         self._flush_pending = False
         print_rank(f"preemption requested ({self._reason}); draining and "
                    "checkpointing", loglevel=logging.WARNING)
-        if self.events is not None:
-            try:
+        try:
+            if self.events is not None:
                 self.events("preemption", reason=self._reason or "requested")
-            except Exception:  # a flush may never block the drain
-                pass
+            if self.flush is not None:
+                self.flush()
+        except Exception:  # a flush may never block the drain
+            pass
         for hook in self._flush_hooks:
             try:
                 hook()

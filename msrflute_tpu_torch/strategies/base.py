@@ -40,7 +40,7 @@ stream (global DP's kernel seed).
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -139,6 +139,11 @@ class BaseStrategy:
     #: it, so no strategy declares its passes ahead, as the JAX package's
     #: ``megabatch_passes`` does for its per-client vmap
     supports_megabatch: bool = True
+    #: set by the round engine: the device-metric bus
+    #: (:mod:`..telemetry.devbus`); a strategy publishes 0-d device tensors
+    #: there while its round is enqueued, and they ride the round's packed
+    #: stats (a bus that is off drops them)
+    devbus: Any = None
 
     def __init__(self, config):
         self.config = config

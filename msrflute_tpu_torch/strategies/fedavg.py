@@ -142,4 +142,9 @@ class FedAvg(BaseStrategy):
         new_clip = state["dp_clip"] * torch.exp(-ac["lr"] * (b - ac["target"]))
         new_clip = torch.clamp(
             new_clip, max=float(self.dp_config.get("max_grad", 1.0)))
+        if self.devbus is not None:
+            # the noised below-clip fraction and the adapted clip
+            # (``strategies/fedavg.py:149-156``)
+            self.devbus.publish("dp_clip_frac", b)
+            self.devbus.publish("dp_clip", new_clip)
         return agg, {"dp_clip": new_clip}

@@ -322,6 +322,10 @@ class Scaffold(FedAvg):
         delta = torch.where(keep[:, None], carry["row"] - carry["old"], 0.0)
         c = state["c"] + delta.sum(dim=0) / max(float(self.carry_clients),
                                                 1.0)
+        if self.devbus is not None:
+            # |c| on the bus (``strategies/scaffold.py:530-534``)
+            self.devbus.publish("scaffold_c_norm",
+                                torch.linalg.vector_norm(c))
         return {"c": c, "ci": scatter_rows(state["ci"], client_ids, src,
                                            carry["row"])}
 

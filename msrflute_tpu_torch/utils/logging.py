@@ -9,7 +9,10 @@ faults, checkpoint recovery, arrival-plane fires) go to the same stream as
 ``{"ts", "event": kind, **fields}``, with ``thread`` set when the caller is
 off the main thread (``telemetry/metrics.py:195-210``).  It is an object the
 caller creates and hands to the server, so two runs in one process never
-share a stream.
+share a stream.  ``telemetry.max_log_mb`` caps its size
+(:meth:`MetricsLog.set_max_log_mb`): past the cap, a flush rotates the file
+to a numbered segment (:func:`..telemetry.metrics.rotate_jsonl`) and
+writes a ``log_rotated`` event into the new one.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+
+from ..telemetry.metrics import rotate_jsonl
 
 _LOGGER = logging.getLogger("msrflute_tpu_torch")
 
@@ -60,18 +65,35 @@ class MetricsLog:
 
     def __init__(self, log_dir: Optional[str] = None):
         self._fh = None
+        self.path: Optional[str] = None
         # the async checkpoint writer emits from its own thread
         self._lock = threading.Lock()
         #: the run's event records, in emission order
         self.events: List[Dict[str, Any]] = []
+        #: size cap in bytes (0: unbounded) and the bytes in the live file
+        self.max_log_bytes = 0
+        self._bytes = 0
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
-            self._fh = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+            self.path = os.path.join(log_dir, "metrics.jsonl")
+            self._fh = open(self.path, "a")
+            self._bytes = os.path.getsize(self.path)
+
+    def set_max_log_mb(self, mb: float) -> None:
+        """Arm size-capped rotation (``telemetry.max_log_mb``; 0 turns it
+        off).  Rotation happens at :meth:`flush`, never mid-line."""
+        self.max_log_bytes = int(float(mb) * 2 ** 20) if mb else 0
+
+    def _write_line(self, record: Dict[str, Any]) -> None:
+        # caller holds the lock
+        if self._fh is not None:
+            line = json.dumps(record) + "\n"
+            self._fh.write(line)
+            self._bytes += len(line)
 
     def _write(self, record: Dict[str, Any]) -> None:
         with self._lock:
-            if self._fh is not None:
-                self._fh.write(json.dumps(record) + "\n")
+            self._write_line(record)
 
     def log(self, name: str, value: Any, step: Optional[int] = None) -> None:
         record = {"ts": time.time(), "name": name, "value": value}
@@ -92,13 +114,29 @@ class MetricsLog:
             record.setdefault("thread", emitter.name)
         with self._lock:   # the list and the stream in one order
             self.events.append(record)
-            if self._fh is not None:
-                self._fh.write(json.dumps(record) + "\n")
+            self._write_line(record)
         _LOGGER.info("event %s %s", kind,
                      {k: v for k, v in record.items()
                       if k not in ("ts", "event")})
 
     def flush(self) -> None:
+        """Force the buffered lines out, then rotate the file when it is
+        past the cap (``telemetry/metrics.py::_maybe_rotate``)."""
+        with self._lock:
+            if self._fh is None:
+                return
+            self._fh.flush()
+            if not self.max_log_bytes or self._bytes < self.max_log_bytes:
+                return
+            try:
+                new_fh, seg = rotate_jsonl(self.path, self._fh)
+            except OSError:
+                return   # rotation is best effort; the stream goes on
+            old, self._fh = self._fh, new_fh
+            rotated, self._bytes = self._bytes, 0
+        old.close()
+        self.event("log_rotated", file="metrics.jsonl", segment=seg,
+                   rotated_bytes=rotated)
         with self._lock:
             if self._fh is not None:
                 self._fh.flush()

@@ -132,6 +132,14 @@ def _with(path, value):
     ("client_config.quant_bits", 8),
 ])
 def test_unported_features_raise(path, value):
+    if path == "server_config.telemetry":
+        # telemetry runs since its slice: the block is accepted, as the
+        # JAX schema accepts it
+        cfg = FLUTEConfig.from_dict(_with(path, value))
+        assert cfg.server_config.get("telemetry") == value
+        from msrflute_tpu.config import FLUTEConfig as JaxFLUTEConfig
+        JaxFLUTEConfig.from_dict(_with(path, value))
+        return
     if path == "server_config.chaos":
         # chaos's infra services run since the fleet paged carry; without
         # it they raise the JAX server's ValueError
@@ -674,6 +682,64 @@ def test_refusal_messages_name_the_feature_and_the_roadmap_section(feature,
     message = str(info.value)
     assert feature in message and "ROADMAP.md §A" in message, message
     assert not re.search(r"item\s*\d", message), message
+
+
+#: every key of the JAX schema's telemetry block (``schema.py:334-403``)
+FULL_TELEMETRY = {
+    "enable": True, "trace": True, "devbus": True, "profile_rounds": "3:5",
+    "xla": True, "scorecard": True, "rollup": True, "rollup_window": 4,
+    "flight": True, "flight_events": 32, "max_log_mb": 64,
+    "watchdog": {
+        "nan_loss": "abort", "round_time_action": "log",
+        "round_time_factor": 2.5, "round_time_window": 8,
+        "ckpt_failure_action": "mark", "ckpt_failure_streak": 3,
+        "quarantine_rate_action": "mark", "quarantine_rate_threshold": 0.5,
+        "recompile_storm_action": "log", "recompile_storm_threshold": 3,
+        "recompile_storm_warmup_rounds": 2, "stall_action": "off",
+        "stall_factor": 10.0, "stall_poll_secs": 5.0,
+        "stall_grace_secs": 30.0, "rss_leak_action": "log",
+        "rss_leak_window": 32, "rss_leak_mb_per_round": 1.0,
+        "throughput_drift_action": "log", "throughput_drift_window": 16,
+        "throughput_drift_factor": 1.5}}
+
+
+def test_full_telemetry_block_is_accepted_as_in_the_jax_package():
+    from msrflute_tpu.config import FLUTEConfig as JaxFLUTEConfig
+    from msrflute_tpu_torch.config import (TELEMETRY_KEYS, WATCHDOG_KEYS)
+    from msrflute_tpu import schema
+    assert set(FULL_TELEMETRY) == TELEMETRY_KEYS == schema.TELEMETRY_KEYS
+    assert set(FULL_TELEMETRY["watchdog"]) == WATCHDOG_KEYS == \
+        schema.WATCHDOG_KEYS
+    raw = _with("server_config.telemetry", copy.deepcopy(FULL_TELEMETRY))
+    cfg = FLUTEConfig.from_dict(copy.deepcopy(raw))
+    assert cfg.server_config.get("telemetry") == FULL_TELEMETRY
+    JaxFLUTEConfig.from_dict(raw)
+
+
+@pytest.mark.parametrize("block", [
+    {"telemetry": {"enalbe": True}},
+    {"telemetry": {"watchdog": {"nan_loss": "explode"}}},
+    {"telemetry": {"profile_rounds": "7:3"}},
+    {"telemetry": {"watchdog": {"round_time_factor": 0.5}}},
+    {"telemetry": {"watchdog": "abort"}},
+    {"telemetry": True},
+    {"telemetry": {"rollup_window": 0, "flight_events": 2,
+                   "watchdog": {"stall_action": "panic", "stal": 1}}},
+], ids=["unknown", "action", "window", "factor", "watchdog_str", "bool",
+        "several"])
+def test_bad_telemetry_blocks_raise_the_jax_message(block):
+    """Each case of ``test_telemetry.py::
+    test_schema_rejects_bad_telemetry_blocks``, and one with several
+    faults: the port's ``SchemaError`` lists the JAX schema's messages."""
+    from msrflute_tpu.config import FLUTEConfig as JaxFLUTEConfig
+    from msrflute_tpu_torch.config import SchemaError
+    raw = copy.deepcopy(BASE)
+    raw["server_config"].update(copy.deepcopy(block))
+    with pytest.raises(ValueError) as want:
+        JaxFLUTEConfig.from_dict(copy.deepcopy(raw))
+    with pytest.raises(SchemaError) as got:
+        FLUTEConfig.from_dict(copy.deepcopy(raw))
+    assert got.value.errors == want.value.errors
 
 
 @pytest.mark.parametrize("path,value", [
